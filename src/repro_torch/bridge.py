@@ -1,10 +1,13 @@
-"""Parameter bridge between the JAX package's layout and the port's.
+"""State bridge between the JAX package's layout and the port's.
 
 The JAX parameters of the dense LM are a nested dict/tuple tree (``blocks``
 is a tuple of one dict whose leaves are stacked over layers); the port's
 are a flat dict keyed by the dotted path (``"blocks.0.attn.wq"``).  The
 arrays are the same in both, so converting is a copy through numpy and
-the flat buffers of both packages compare element for element."""
+the flat buffers of both packages compare element for element.  The rest
+of the server state — the flat optimizer slots, the step counter and the
+controllable ``ctrl`` slot — has the same structure in both packages and
+crosses with :func:`server_state_to_torch`."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -54,3 +57,30 @@ def to_numpy(params: Dict[str, torch.Tensor]) -> Any:
         return {k: fix(v) for k, v in node.items()}
 
     return fix(root)
+
+
+def server_state_to_torch(opt: Dict[str, Any], ctrl: Dict[str, Any] = None,
+                          device=None) -> Dict[str, Any]:
+    """The JAX server state beside the parameters -> the port's.
+
+    ``opt`` is the flat optimizer state (``{}``, ``{"m": (buf, ...)}`` or
+    ``{"m": ..., "v": ..., "t": step}``, one ``(rows, 128)`` buffer per
+    dtype group), ``ctrl`` the through-aggregation slot (``{"w_logits":
+    (cohort,), "log_lr": ()}``), as numpy or anything ``np.asarray``
+    takes.  Returns ``{"opt": ..., "ctrl": ...}`` (``ctrl`` only when
+    given), ready to assign into a port trainer's ``state``."""
+    def tensor(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=dtype, copy=True)).to(
+            device)
+
+    out: Dict[str, Any] = {"opt": {}}
+    for slot in ("m", "v"):
+        if slot in opt:
+            out["opt"][slot] = tuple(tensor(b, np.float32)
+                                     for b in opt[slot])
+    if "t" in opt:
+        out["opt"]["t"] = tensor(opt["t"], np.int32)
+    if ctrl is not None:
+        out["ctrl"] = {k: tensor(ctrl[k], np.float32)
+                       for k in ("w_logits", "log_lr")}
+    return out

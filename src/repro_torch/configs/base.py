@@ -177,7 +177,7 @@ class FedConfig:
         unported = []
         if self.cohort_chunk is not None or self.cohort_strategy == "chunked":
             unported.append("cohort_chunk / the chunked executor "
-                            "(ROADMAP Queue 1 item 1)")
+                            "(ROADMAP Queue 1 item 9)")
         elif self.cohort_strategy not in STRATEGIES:
             raise ValueError(f"unknown cohort_strategy "
                              f"{self.cohort_strategy!r}; the port runs "
@@ -185,12 +185,9 @@ class FedConfig:
         if self.engine == "legacy_tree" or (self.engine is None
                                             and not self.fused_update):
             unported.append("the legacy_tree engine; set fused_update=True "
-                            "(ROADMAP Queue 1 item 1)")
+                            "(ROADMAP Queue 1 item 9)")
         elif self.engine not in (None, "fused_flat", "buffered_async"):
             raise ValueError(f"unknown server engine {self.engine!r}")
-        if self.meta and self.meta_mode == "through_aggregation":
-            unported.append("meta_mode='through_aggregation' "
-                            "(ROADMAP Queue 1 item 1)")
         if self.codec != "none" or self.error_feedback:
             unported.append(f"codec={self.codec!r} / error_feedback "
                             "(ROADMAP Queue 1 item 2)")
@@ -211,3 +208,20 @@ class FedConfig:
         if unported:
             raise NotImplementedError(
                 "not yet ported to repro_torch: " + "; ".join(unported))
+        if self.meta_mode == "through_aggregation":
+            # The mode is a capability the server engine declares; the
+            # round re-checks it against the resolved engine.
+            from repro_torch.core.engines import get_engine
+            eng = get_engine(self.engine or "fused_flat")
+            if "through_aggregation" not in eng.meta_capabilities:
+                raise ValueError(
+                    f"meta_mode='through_aggregation' needs a server engine "
+                    f"declaring the capability, but {eng.name!r} declares "
+                    f"{sorted(eng.meta_capabilities)}; set "
+                    "fused_update=True (the fused_flat engine) or use "
+                    "meta_mode='post'")
+            if not self.server_lr > 0:
+                raise ValueError(
+                    "meta_mode='through_aggregation' seeds the controllable "
+                    "step size as exp(log_lr) = server_lr; server_lr must "
+                    "be > 0")

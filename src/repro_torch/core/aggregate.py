@@ -12,16 +12,21 @@ runs:
     each client's flat gradient streams into the group accumulators with
     the accumulate kernel, ``acc <- acc + w_k g_k`` in place, so only one
     client's gradient exists at a time.  Weights are normalized once
-    outside the loop, as the JAX chunked core does.
+    outside the loop, as the JAX chunked core does.  It is differentiable
+    in the weights (``meta_mode='through_aggregation'``) and keeps the
+    scan's memory property there too: the backward re-runs each client's
+    update and feeds its gradient to the accumulate backward kernel, one
+    client at a time — JAX's ``jax.checkpoint`` of the scan body.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import flat as flat_mod
 from repro_torch.core.flat import LANES, FlatSpec
+from repro_torch.kernels.fused_update import kernel as K
 from repro_torch.kernels.fused_update.ops import flat_accumulate
 
 
@@ -52,26 +57,81 @@ def cohort_gradient_stacked(client_update: Callable, w_t, cohort_batch,
     return stacks, mean_loss
 
 
+class _ScanCohort(torch.autograd.Function):
+    """wn (cohort,) normalized weights -> (G_groups..., per-client losses).
+
+    The forward streams the clients (``acc <- acc + wn_k g_k`` in place)
+    and keeps no gradient.  The backward re-runs client k's update — same
+    batch, same ``lr`` — and calls the accumulate backward kernel on it,
+    ``dwn_k = sum over groups <g_k, dG>``, so one client's gradient is
+    alive at a time in both directions; the stack the vmap cohort keeps
+    (cohort x the model) never exists.  The losses are outputs without a
+    gradient: the caller weights them by the raw n_k."""
+
+    @staticmethod
+    def forward(ctx, wn, client_update, w_t, cohort_batch, lr, spec):
+        ctx.args = (client_update, w_t, cohort_batch, lr, spec)
+        ctx.save_for_backward(wn)
+        cohort = wn.shape[0]
+        accs = flat_mod.zeros_flat(spec, wn.device)
+        scratch = [torch.empty_like(a) for a in accs]
+        losses = []
+        for k in range(cohort):
+            g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k),
+                                     lr, None)
+            g_bufs = flat_mod.flatten_tree(spec, g_k, out=scratch)
+            del g_k
+            for acc, g in zip(accs, g_bufs):
+                flat_accumulate(acc, g, wn[k:k + 1], out=acc)
+            losses.append(l_k.to(torch.float32))
+        losses = torch.stack(losses)
+        ctx.mark_non_differentiable(losses)
+        return (*accs, losses)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        client_update, w_t, cohort_batch, lr, spec = ctx.args
+        (wn,) = ctx.saved_tensors
+        dGs = [d.contiguous() for d in cts[:-1]]
+        scratch = [torch.empty_like(d) for d in dGs]
+        dwn = []
+        for k in range(wn.shape[0]):
+            g_k, _ = client_update(w_t, _client_batch(cohort_batch, k), lr,
+                                   None)
+            g_bufs = flat_mod.flatten_tree(spec, g_k, out=scratch)
+            del g_k
+            dw = None
+            for g, dG in zip(g_bufs, dGs):
+                _, dw_j = K.accumulate_pass_bwd(g, wn[k:k + 1], dG)
+                dw = dw_j if dw is None else dw + dw_j
+            dwn.append(dw)
+        return torch.stack(dwn), None, None, None, None, None
+
+
 def scan_cohort_gradient_flat(client_update: Callable, w_t, cohort_batch,
                               client_weights: torch.Tensor, lr, *,
-                              spec: FlatSpec
+                              spec: FlatSpec,
+                              loss_weights: Optional[torch.Tensor] = None
                               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Client-sequential cohort fused into the flat engine.  Returns
     (G_groups, mean_loss): the Eq. (14) weighted-mean flat buffers and the
-    weighted mean client loss, accumulated in client order."""
-    cohort = client_weights.shape[0]
-    device = client_weights.device
+    weighted mean client loss, accumulated in client order.
+
+    Differentiable in ``client_weights`` (see :class:`_ScanCohort`).
+    ``loss_weights`` (default: ``client_weights``) weights the loss metric
+    apart from the aggregation: through_aggregation aggregates with the
+    controllable eff_w but reports the n_k-weighted loss, so the metric
+    means the same on every strategy."""
     w32 = client_weights.to(torch.float32)
     wn = w32 / torch.clamp(torch.sum(w32), min=1e-30)
-    accs = flat_mod.zeros_flat(spec, device)
-    scratch = [torch.empty_like(a) for a in accs]
-    l_acc = torch.zeros((), dtype=torch.float32, device=device)
-    for k in range(cohort):
-        g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k), lr,
-                                 None)
-        g_bufs = flat_mod.flatten_tree(spec, g_k, out=scratch)
-        del g_k
-        for acc, g in zip(accs, g_bufs):
-            flat_accumulate(acc, g, wn[k:k + 1], out=acc)
-        l_acc = l_acc + wn[k] * l_k
+    if loss_weights is None:
+        lwn = wn.detach()
+    else:
+        lw32 = loss_weights.to(torch.float32)
+        lwn = lw32 / torch.clamp(torch.sum(lw32), min=1e-30)
+    *accs, losses = _ScanCohort.apply(wn, client_update, w_t, cohort_batch,
+                                      lr, spec)
+    l_acc = torch.zeros((), dtype=torch.float32, device=wn.device)
+    for k in range(wn.shape[0]):
+        l_acc = l_acc + lwn[k] * losses[k]
     return accs, l_acc

@@ -2,7 +2,7 @@
 server does with an aggregate.  The port has the ``fused_flat`` engine —
 clip + optimizer + parameter write in one CUDA sweep per dtype group
 (``kernels/fused_update``).  ``legacy_tree`` (the kernel-free tree-map
-oracle) is ROADMAP Queue 1 item 1."""
+oracle) is ROADMAP Queue 1 item 9."""
 from __future__ import annotations
 
 from typing import Callable, Tuple
@@ -22,8 +22,12 @@ __all__ = ["ServerEngine", "FusedFlatEngine", "register_engine",
 
 class ServerEngine:
     """Protocol: ``init_state(params)`` and ``apply(params, handle,
-    opt_state, lr=) -> (new_params, new_opt_state, grad_norm_after_clip)``."""
+    opt_state, lr=) -> (new_params, new_opt_state, grad_norm_after_clip)``.
+    ``meta_capabilities`` names the FedMeta modes the engine supports;
+    ``through_aggregation`` needs ``apply`` differentiable in the handle's
+    weights and in ``lr``."""
     name: str = "?"
+    meta_capabilities: frozenset = frozenset({"post"})
 
     def init_state(self, params):
         raise NotImplementedError
@@ -56,8 +60,10 @@ def resolve_engine(fed) -> ServerEngine:
 @register_engine("fused_flat")
 class FusedFlatEngine(ServerEngine):
     """Flat-buffer engine: clip + sgd/sgdm/adam/yogi + param write in one
-    update-kernel sweep per dtype group."""
+    update-kernel sweep per dtype group, differentiable through the
+    backward kernels — so it declares ``through_aggregation``."""
     name = "fused_flat"
+    meta_capabilities = frozenset({"post", "through_aggregation"})
 
     def __init__(self, fed):
         self._opt = fed.server_opt

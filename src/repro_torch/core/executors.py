@@ -7,9 +7,13 @@ uniform :class:`FlatAggregate` handle the fused engine consumes.
   * ``scan`` — one client alive at a time, streamed into the accumulators
     by the accumulate kernel.
 
-The ``chunked`` and ``sharded`` executors, the tree handle of the
-``legacy_tree`` engine and the reweightable forms of
-``meta_mode='through_aggregation'`` are ROADMAP Queue 1 item 1 and 7.
+Both also give a :class:`ReweightableCohort` (``reweightable()``), the
+differentiable form ``meta_mode='through_aggregation'`` takes its
+hypergradients through: vmap runs the clients once and keeps the stack;
+scan keeps nothing and re-streams the clients under the new weights.
+
+The ``chunked`` and ``sharded`` executors and the tree handle of the
+``legacy_tree`` engine are ROADMAP Queue 1 items 9 and 7.
 """
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ from repro_torch.core.flat import FlatSpec, make_flat_spec
 from repro_torch.core.registry import Registry
 from repro_torch.kernels.fused_update.ops import flat_weighted_aggregate
 
-__all__ = ["FlatAggregate", "CohortExecutor", "register_executor",
-           "get_executor", "resolve_executor"]
+__all__ = ["FlatAggregate", "ReweightableCohort", "CohortExecutor",
+           "register_executor", "get_executor", "resolve_executor"]
 
 
 @dataclasses.dataclass
@@ -36,15 +40,36 @@ class FlatAggregate:
     sq_norm: Optional[torch.Tensor] = None   # ||G||^2 if pass 1 reduced it
 
 
+@dataclasses.dataclass
+class ReweightableCohort:
+    """A cohort whose aggregation can be re-run under other weights.
+
+    ``aggregate(weights)`` is differentiable w.r.t. ``weights`` and returns
+    ``(handle, client_loss)``; the loss is weighted by the raw n_k the
+    cohort was made with, so it reports the same number whatever weights
+    the controllable state chose."""
+    aggregate: Callable      # (weights,) -> (handle, client_loss)
+
+
 class CohortExecutor:
     """Protocol.  Subclass and register a factory ``factory(fed)``."""
     name: str = "?"
+    supports_reweight: bool = False
 
     def run(self, client_update: Callable, params, cohort_batch,
             client_weights: torch.Tensor, lr
             ) -> Tuple[FlatAggregate, torch.Tensor]:
-        """Run every client and aggregate; returns (handle, client_loss)."""
-        raise NotImplementedError
+        """Run every client and aggregate; returns (handle, client_loss).
+        By default the reweightable form aggregated under the n_k."""
+        return self.reweightable(client_update, params, cohort_batch,
+                                 client_weights, lr).aggregate(client_weights)
+
+    def reweightable(self, client_update: Callable, params, cohort_batch,
+                     client_weights: torch.Tensor, lr) -> ReweightableCohort:
+        """Run (or prepare) the cohort so its aggregation can be repeated
+        under other weights; ``client_weights`` (n_k) weight the loss."""
+        raise NotImplementedError(
+            f"cohort executor {self.name!r} has no reweightable form")
 
 
 _EXECUTORS = Registry("cohort executor",
@@ -71,17 +96,26 @@ class VmapExecutor(CohortExecutor):
     """Client-parallel: the whole cohort's gradients stacked, then one
     aggregate-kernel sweep that also reduces ||G||^2 for the clip."""
     name = "vmap"
+    supports_reweight = True
 
     def __init__(self, fed: Any):
         del fed
 
-    def run(self, client_update, params, cohort_batch, client_weights, lr):
+    def reweightable(self, client_update, params, cohort_batch,
+                     client_weights, lr):
+        # the clients run once here (the loss is already n_k-weighted);
+        # aggregate() only re-reduces the kept stack under new weights,
+        # differentiably through the aggregate kernel's backward
         spec = make_flat_spec(params)
         stacks, loss = cohort_gradient_stacked(
             client_update, params, cohort_batch, client_weights, lr,
             spec=spec)
-        Gs, ssq = flat_weighted_aggregate(spec, stacks, client_weights)
-        return FlatAggregate(Gs, spec, sq_norm=ssq), loss
+
+        def aggregate(weights):
+            Gs, ssq = flat_weighted_aggregate(spec, stacks, weights)
+            return FlatAggregate(Gs, spec, sq_norm=ssq), loss
+
+        return ReweightableCohort(aggregate=aggregate)
 
 
 @register_executor("scan")
@@ -89,13 +123,21 @@ class ScanExecutor(CohortExecutor):
     """Client-sequential: one trajectory alive at a time, each client's
     flat gradient streamed into the accumulators (chunk = 1)."""
     name = "scan"
+    supports_reweight = True
 
     def __init__(self, fed: Any):
         del fed
 
-    def run(self, client_update, params, cohort_batch, client_weights, lr):
+    def reweightable(self, client_update, params, cohort_batch,
+                     client_weights, lr):
+        # nothing is kept: each aggregate() re-streams the clients, and its
+        # backward re-runs them once more (scan_cohort_gradient_flat)
         spec = make_flat_spec(params)
-        Gs, loss = scan_cohort_gradient_flat(
-            client_update, params, cohort_batch, client_weights, lr,
-            spec=spec)
-        return FlatAggregate(Gs, spec, sq_norm=None), loss
+
+        def aggregate(weights):
+            Gs, loss = scan_cohort_gradient_flat(
+                client_update, params, cohort_batch, weights, lr, spec=spec,
+                loss_weights=client_weights)
+            return FlatAggregate(Gs, spec, sq_norm=None), loss
+
+        return ReweightableCohort(aggregate=aggregate)

@@ -4,7 +4,11 @@ fault-free arm of ``repro/core/round.py``), composed from the registries:
     local updating    (ClientAlgorithm: uga / fedavg / fedprox / fednova)
  -> aggregation       (CohortExecutor: vmap / scan -> a flat handle)
  -> server update     (ServerEngine: fused_flat)
- -> FedMeta step      (core/meta.py, Eq. 20, ``meta_mode='post'``)
+ -> FedMeta step      (core/meta.py: Eq. 20 after the server step under
+                       ``meta_mode='post'``; under ``'through_aggregation'``
+                       the aggregation and server step run inside the
+                       hypergradient objective and ``state["ctrl"]`` is
+                       stepped instead)
 
 ``make_federated_round(model, fed)`` returns ``one_round(state,
 cohort_batch, meta_batch, client_weights) -> (state, metrics)``.  The
@@ -23,7 +27,7 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core.algorithms import get_algorithm
 from repro_torch.core.engines import resolve_engine
 from repro_torch.core.executors import resolve_executor
-from repro_torch.core.meta import meta_update
+from repro_torch.core.meta import meta_update, meta_update_through_cohort
 from repro_torch.models.model import Model
 
 State = Dict[str, Any]
@@ -50,7 +54,18 @@ def init_server_state(model: Model, fed: FedConfig, *,
                              "generator=")
         params = model.init(generator)
     eng = resolve_engine(fed)
-    return {"params": params, "opt": eng.init_state(params), "round": 0}
+    state = {"params": params, "opt": eng.init_state(params), "round": 0}
+    if fed.meta and fed.meta_mode == "through_aggregation":
+        # controllable aggregation: per-client log weight multipliers and
+        # a log server step size, meta-learned through the engine's VJP
+        device = next(iter(params.values())).device
+        state["ctrl"] = {
+            "w_logits": torch.zeros((fed.cohort,), dtype=torch.float32,
+                                    device=device),
+            "log_lr": torch.log(torch.tensor(resolve_server_lr(fed),
+                                             dtype=torch.float32,
+                                             device=device))}
+    return state
 
 
 def decayed_lr(base: float, decay: float, round_idx: int) -> float:
@@ -67,6 +82,21 @@ def make_federated_round(model: Model, fed: FedConfig):
     exe = resolve_executor(fed)
     eng = resolve_engine(fed)
     server_lr = resolve_server_lr(fed)
+    through_agg = fed.meta and fed.meta_mode == "through_aggregation"
+    if through_agg and "through_aggregation" not in eng.meta_capabilities:
+        # FedConfig checks this too; re-check against the resolved engine
+        # for configs that went round __post_init__
+        raise ValueError(
+            f"meta_mode='through_aggregation' needs a server engine "
+            f"declaring the 'through_aggregation' capability, but "
+            f"{eng.name!r} declares {sorted(eng.meta_capabilities)}. Set "
+            "FedConfig(fused_update=True) (the fused_flat engine) or use "
+            "meta_mode='post'.")
+    if through_agg and not exe.supports_reweight:
+        raise ValueError(
+            f"meta_mode='through_aggregation' needs a cohort executor that "
+            f"supports reweightable aggregation, but {exe.name!r} does "
+            "not. Use the vmap or scan executor or meta_mode='post'.")
 
     def one_round(state: State, cohort_batch, meta_batch,
                   client_weights: torch.Tensor
@@ -74,18 +104,31 @@ def make_federated_round(model: Model, fed: FedConfig):
         params = state["params"]
         r = state["round"]
         lr_c = decayed_lr(fed.client_lr, fed.lr_decay, r)
-        handle, client_loss = exe.run(client_update, params, cohort_batch,
-                                      client_weights, lr_c)
-        new_params, opt_state, gn_post = eng.apply(params, handle,
-                                                   state["opt"], lr=server_lr)
-        del handle
-        metrics = {"client_loss": client_loss, "grad_norm": gn_post}
-        if fed.meta:
+        meta_metrics = {}
+        if through_agg:
+            rw = exe.reweightable(client_update, params, cohort_batch,
+                                  client_weights, lr_c)
+            (new_params, opt_state, gn_post, client_loss, new_ctrl,
+             meta_metrics) = meta_update_through_cohort(
+                model.loss, rw, client_weights, params, state["opt"],
+                meta_batch, state["ctrl"], engine=eng, ctrl_lr=fed.ctrl_lr)
+            del rw
+        else:
+            handle, client_loss = exe.run(client_update, params,
+                                          cohort_batch, client_weights, lr_c)
+            new_params, opt_state, gn_post = eng.apply(
+                params, handle, state["opt"], lr=server_lr)
+            del handle
+        metrics = {"client_loss": client_loss, "grad_norm": gn_post,
+                   **meta_metrics}
+        if fed.meta and not through_agg:
             lr_m = decayed_lr(fed.meta_lr, fed.lr_decay, r)
             new_params, meta_loss = meta_update(model.loss, new_params,
                                                 meta_batch, lr_m)
             metrics["meta_loss"] = meta_loss
-        return ({"params": new_params, "opt": opt_state, "round": r + 1},
-                metrics)
+        new_state = {"params": new_params, "opt": opt_state, "round": r + 1}
+        if through_agg:
+            new_state["ctrl"] = new_ctrl
+        return new_state, metrics
 
     return one_round

@@ -9,7 +9,10 @@ and 8).
 ``run`` samples each round on the host from a
 :class:`~repro_torch.data.pipeline.FederatedData`, moves it to the device,
 runs the round and returns one record per round (``{"round": r,
-**metrics}``), the JAX package's record format.
+**metrics}``), the JAX package's record format.  The server state carries
+from round to round whole: params, the flat optimizer state and, under
+``meta_mode='through_aggregation'``, ``ctrl``, whose round adds
+``ctrl_w_gnorm``, ``ctrl_lr_grad`` and ``server_lr_eff`` to the record.
 """
 from __future__ import annotations
 

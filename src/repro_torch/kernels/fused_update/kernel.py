@@ -1,12 +1,13 @@
 """CUDA kernels of the fused server update: build, binding and wrappers.
 
-The three forward kernels of ``repro/kernels/fused_update/kernel.py``
-(Pallas, TPU) are written by hand for Hopper in
-``csrc/fused_update.cu`` and compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with :mod:`ctypes`.  The
-build happens at first use, into ``build/`` beside this file, keyed by a
-hash of the source and flags, so a fresh checkout builds everything it
-runs and a changed source never loads a stale library.
+The six kernels of ``repro/kernels/fused_update/kernel.py`` (Pallas, TPU),
+three forward passes and their backward passes, are written by hand for
+Hopper in ``csrc/fused_update.cu`` and compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+:mod:`ctypes`.  The build happens at first use, into ``build/`` beside
+this file, keyed by a hash of the source and flags, so a fresh checkout
+builds everything it runs and a changed source never loads a stale
+library.
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 
@@ -23,9 +24,16 @@ is 1.447 GB; H100 SXM, 3.35 TB/s):
   * ``aggregate_pass`` (cohort 4): reads 5.79 GB, writes 1.45 GB;
   * ``accumulate_pass``: reads 2.89 GB, writes 1.45 GB;
   * ``update_pass``: sgd reads 2.89 GB, writes 1.45 GB; adam reads
-    5.79 GB, writes 4.34 GB.
+    5.79 GB, writes 4.34 GB;
+  * ``accumulate_pass_bwd``: reads 2.89 GB, writes 1.45 GB;
+  * ``aggregate_pass_bwd`` (cohort 4): reads 8.68 GB, writes 5.79 GB;
+  * ``update_pass_bwd``: sgd reads 2.89 GB, writes 1.45 GB; adam reads
+    8.68 GB, writes 4.34 GB.
 
-All three are bound by bytes; ``PERF.md`` holds their measured times.
+All six are bound by bytes; ``PERF.md`` holds their measured times.  The
+backward kernels' sums (``dw``, ``dscal``) are fp64 per-block partials over
+a fixed grid, added in a fixed order, so they are bitwise equal from launch
+to launch.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ from repro_torch.kernels.fused_update import ref as R
 LANES = 128
 OPT_CODES = {"sgd": 0, "sgdm": 1, "adam": 2, "yogi": 3}
 AGG_THREADS = 256
-AGG_MAX_BLOCKS = 1024        # fixed, so ssq is a function of n alone
+AGG_MAX_BLOCKS = 1024        # fixed, so every sum is a function of n alone
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "fused_update.cu")
@@ -95,7 +103,14 @@ def _load() -> ctypes.CDLL:
             lib.fu_accumulate.argtypes = [P, P, P, P, I64, P]
             lib.fu_update.argtypes = [I, P, P, P, P, P, P, P, P, I64,
                                       F, F, F, F, F, F, P]
-            for fn in (lib.fu_aggregate, lib.fu_accumulate, lib.fu_update):
+            lib.fu_accumulate_bwd.argtypes = [P, P, P, P, P, P, I64, I, P]
+            lib.fu_aggregate_bwd.argtypes = [P, P, P, P, P, P, P, P, I64, I,
+                                             I, P]
+            lib.fu_update_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P,
+                                          P, P, I64, F, F, F, F, F, F, I, P]
+            for fn in (lib.fu_aggregate, lib.fu_accumulate, lib.fu_update,
+                       lib.fu_accumulate_bwd, lib.fu_aggregate_bwd,
+                       lib.fu_update_bwd):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -136,6 +151,23 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _nblocks(n: int) -> int:
+    """The fixed grid of a kernel that sums over ``n`` floats."""
+    return max(1, min(-(-(n // 4) // AGG_THREADS), AGG_MAX_BLOCKS))
+
+
+def _check_scalar(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32 or t.numel() != 1:
+        raise ValueError(f"{name}: expected a one-element float32 tensor")
+
+
+def _check_flat(name: str, t: torch.Tensor) -> Tuple[int, ...]:
+    if t.dim() != 2 or t.shape[-1] != LANES:
+        raise ValueError(f"{name}: expected (rows, {LANES}), got "
+                         f"{tuple(t.shape)}")
+    return tuple(t.shape)
+
+
 # ---------------------------------------------------------------------------
 # Pass 1: weighted cohort reduce + global sum of squares
 # ---------------------------------------------------------------------------
@@ -156,7 +188,7 @@ def aggregate_pass(g_stack: torch.Tensor, w_norm: torch.Tensor
         return R.aggregate_ref(g_stack, w_norm)
     lib = _load()
     n = rows * LANES
-    nblocks = max(1, min(-(-(n // 4) // AGG_THREADS), AGG_MAX_BLOCKS))
+    nblocks = _nblocks(n)
     G = torch.empty((rows, LANES), dtype=torch.float32, device=dev)
     partials = torch.empty((nblocks,), dtype=torch.float64, device=dev)
     ssq = torch.empty((), dtype=torch.float32, device=dev)
@@ -184,14 +216,10 @@ def accumulate_pass(acc: torch.Tensor, g: torch.Tensor, w: torch.Tensor, *,
     which the scan executor does to keep one buffer alive).
 
     Replaces ``repro/kernels/fused_update/kernel.py::accumulate_pass``."""
-    if acc.dim() != 2 or acc.shape[-1] != LANES:
-        raise ValueError(f"acc: expected (rows, {LANES}), got "
-                         f"{tuple(acc.shape)}")
-    shape = tuple(acc.shape)
+    shape = _check_flat("acc", acc)
     _check_buf("acc", acc, shape)
     _check_buf("g", g, shape)
-    if w.dtype != torch.float32 or w.numel() != 1:
-        raise ValueError("w: expected a one-element float32 tensor")
+    _check_scalar("w", w)
     if out is not None:
         _check_buf("out", out, shape)
     dev = _device_of(acc, g, w, out)
@@ -230,19 +258,10 @@ def update_pass(G: torch.Tensor, p: torch.Tensor, m: Optional[torch.Tensor],
     Replaces ``repro/kernels/fused_update/kernel.py::update_pass``."""
     if opt not in OPT_CODES:
         raise ValueError(f"unknown optimizer {opt!r}")
-    shape = tuple(G.shape)
-    if len(shape) != 2 or shape[-1] != LANES:
-        raise ValueError(f"G: expected (rows, {LANES}), got {shape}")
+    shape = _check_flat("G", G)
     _check_buf("G", G, shape)
     _check_buf("p", p, shape)
-    need_m = opt != "sgd"
-    need_v = opt in ("adam", "yogi")
-    if need_m != (m is not None) or need_v != (v is not None):
-        raise ValueError(f"{opt}: optimizer slots m/v do not match")
-    if m is not None:
-        _check_buf("m", m, shape)
-    if v is not None:
-        _check_buf("v", v, shape)
+    need_m, need_v = _check_slots(opt, shape, m=m, v=v)
     _check_buf("scalars", scalars, (4,))
     dev = _device_of(G, p, m, v, scalars)
     if dev.type == "cpu":
@@ -265,7 +284,159 @@ def update_pass(G: torch.Tensor, p: torch.Tensor, m: Optional[torch.Tensor],
 
 update_pass.launches = 0
 
-KERNELS = (aggregate_pass, accumulate_pass, update_pass)
+
+def _check_slots(opt: str, shape, **slots) -> Tuple[bool, bool]:
+    """Optimizer-state buffers (``m``/``v`` and their cotangents) are
+    given exactly where ``opt`` has the slot, each of ``shape``."""
+    need_m = opt != "sgd"
+    need_v = opt in ("adam", "yogi")
+    for name, t in slots.items():
+        need = need_v if name.endswith("v") else need_m
+        if need != (t is not None):
+            raise ValueError(f"{opt}: optimizer slot {name} "
+                             f"{'missing' if need else 'not expected'}")
+        if t is not None:
+            _check_buf(name, t, shape)
+    return need_m, need_v
+
+
+# ---------------------------------------------------------------------------
+# Backward of the streaming pass: dg = w d_out, dw = <g, d_out>
+# ---------------------------------------------------------------------------
+def accumulate_pass_bwd(g: torch.Tensor, w: torch.Tensor,
+                        d_out: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """VJP of :func:`accumulate_pass` w.r.t. (g, w); the accumulator's
+    cotangent is ``d_out`` itself.  g/d_out: (rows, 128) fp32; w: the
+    forward's one-element weight.  Returns (dg (rows, 128), dw ()).
+
+    Replaces ``repro/kernels/fused_update/kernel.py::accumulate_pass_bwd``."""
+    shape = _check_flat("g", g)
+    _check_buf("g", g, shape)
+    _check_buf("d_out", d_out, shape)
+    _check_scalar("w", w)
+    dev = _device_of(g, w, d_out)
+    if dev.type == "cpu":
+        return R.accumulate_bwd_ref(g, w.reshape(()), d_out)
+    lib = _load()
+    n = g.numel()
+    nblocks = _nblocks(n)
+    dg = torch.empty_like(g)
+    partials = torch.empty((nblocks,), dtype=torch.float64, device=dev)
+    dw = torch.empty((), dtype=torch.float32, device=dev)
+    w = w.reshape(1).contiguous()
+    with torch.cuda.device(dev):
+        err = lib.fu_accumulate_bwd(g.data_ptr(), w.data_ptr(),
+                                    d_out.data_ptr(), dg.data_ptr(),
+                                    partials.data_ptr(), dw.data_ptr(), n,
+                                    nblocks, _stream(dev))
+    _raise_on(err, "accumulate_pass_bwd")
+    accumulate_pass_bwd.launches += 1
+    return dg, dw
+
+
+accumulate_pass_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward of pass 1: cotangent scatter + per-client weight cotangents
+# ---------------------------------------------------------------------------
+def aggregate_pass_bwd(g_stack: torch.Tensor, w_norm: torch.Tensor,
+                       G: torch.Tensor, dG: torch.Tensor, dssq: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """VJP of :func:`aggregate_pass` w.r.t. (g_stack, w_norm): the forward's
+    inputs, its saved output ``G`` and the cotangents (dG, dssq).  Returns
+    (dg_stack (cohort, rows, 128), dw (cohort,)); ``dg_stack`` is written
+    whole, as the Pallas kernel writes it.
+
+    Replaces ``repro/kernels/fused_update/kernel.py::aggregate_pass_bwd``."""
+    if g_stack.dim() != 3 or g_stack.shape[-1] != LANES:
+        raise ValueError(f"g_stack: expected (cohort, rows, {LANES}), got "
+                         f"{tuple(g_stack.shape)}")
+    cohort, rows, _ = g_stack.shape
+    _check_buf("g_stack", g_stack, (cohort, rows, LANES))
+    _check_buf("w_norm", w_norm, (cohort,))
+    _check_buf("G", G, (rows, LANES))
+    _check_buf("dG", dG, (rows, LANES))
+    _check_scalar("dssq", dssq)
+    dev = _device_of(g_stack, w_norm, G, dG, dssq)
+    if dev.type == "cpu":
+        return R.aggregate_bwd_ref(g_stack, w_norm, G, dG, dssq.reshape(()))
+    lib = _load()
+    n = rows * LANES
+    nblocks = _nblocks(n)
+    dg = torch.empty_like(g_stack)
+    partials = torch.empty((cohort, nblocks), dtype=torch.float64,
+                           device=dev)
+    dw = torch.empty((cohort,), dtype=torch.float32, device=dev)
+    dssq = dssq.reshape(1).contiguous()
+    with torch.cuda.device(dev):
+        err = lib.fu_aggregate_bwd(g_stack.data_ptr(), w_norm.data_ptr(),
+                                   dssq.data_ptr(), G.data_ptr(),
+                                   dG.data_ptr(), dg.data_ptr(),
+                                   partials.data_ptr(), dw.data_ptr(), n,
+                                   cohort, nblocks, _stream(dev))
+    _raise_on(err, "aggregate_pass_bwd")
+    aggregate_pass_bwd.launches += 1
+    return dg, dw
+
+
+aggregate_pass_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward of pass 2: cotangents through clip scale + optimizer recurrence
+# ---------------------------------------------------------------------------
+def update_pass_bwd(G: torch.Tensor, m: Optional[torch.Tensor],
+                    v: Optional[torch.Tensor], scalars: torch.Tensor,
+                    d_new_p: torch.Tensor, d_new_m: Optional[torch.Tensor],
+                    d_new_v: Optional[torch.Tensor], *, opt: str,
+                    momentum: float = 0.9, b1: float = 0.9, b2: float = 0.99,
+                    eps: float = 1e-8):
+    """VJP of :func:`update_pass` w.r.t. (G, m, v, scalars), replaying the
+    recurrence from the forward's (G, m, v, scalars); the parameter's
+    cotangent is ``d_new_p`` itself.  Returns (dG, dm, dv, dscalars (4,) =
+    [dscale, dlr, dbc1, dbc2]) with None slots per optimizer arity.
+
+    Replaces ``repro/kernels/fused_update/kernel.py::update_pass_bwd``."""
+    if opt not in OPT_CODES:
+        raise ValueError(f"unknown optimizer {opt!r}")
+    shape = _check_flat("G", G)
+    _check_buf("G", G, shape)
+    _check_buf("d_new_p", d_new_p, shape)
+    need_m, need_v = _check_slots(opt, shape, m=m, v=v, d_new_m=d_new_m,
+                                  d_new_v=d_new_v)
+    _check_buf("scalars", scalars, (4,))
+    dev = _device_of(G, m, v, scalars, d_new_p, d_new_m, d_new_v)
+    if dev.type == "cpu":
+        return R.update_bwd_ref(G, m, v, scalars, d_new_p, d_new_m, d_new_v,
+                                opt=opt, momentum=momentum, b1=b1, b2=b2,
+                                eps=eps)
+    lib = _load()
+    n = G.numel()
+    nblocks = _nblocks(n)
+    dG = torch.empty_like(G)
+    dm = torch.empty_like(G) if need_m else None
+    dv = torch.empty_like(G) if need_v else None
+    partials = torch.empty((4, nblocks), dtype=torch.float64, device=dev)
+    dscal = torch.empty((4,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fu_update_bwd(OPT_CODES[opt], G.data_ptr(), _ptr(m),
+                                _ptr(v), scalars.data_ptr(),
+                                d_new_p.data_ptr(), _ptr(d_new_m),
+                                _ptr(d_new_v), dG.data_ptr(), _ptr(dm),
+                                _ptr(dv), partials.data_ptr(),
+                                dscal.data_ptr(), n, momentum, b1, 1.0 - b1,
+                                b2, 1.0 - b2, eps, nblocks, _stream(dev))
+    _raise_on(err, "update_pass_bwd")
+    update_pass_bwd.launches += 1
+    return dG, dm, dv, dscal
+
+
+update_pass_bwd.launches = 0
+
+KERNELS = (aggregate_pass, accumulate_pass, update_pass, accumulate_pass_bwd,
+           aggregate_pass_bwd, update_pass_bwd)
 
 
 def launch_counts() -> dict:

@@ -1,5 +1,5 @@
 """Public engine for the fused server-side update (PyTorch port of
-``repro/kernels/fused_update/ops.py``, forward surface).
+``repro/kernels/fused_update/ops.py``).
 
 Two sweeps over flat per-dtype-group fp32 buffers (:mod:`repro_torch.core.
 flat`) per round:
@@ -11,8 +11,17 @@ flat`) per round:
 
 Everything between the passes — weight normalization, ||G||, the clip
 scale, bias corrections — stays on the device as 0-d tensors, so a round
-never waits on the host for them.  The backward (custom-VJP) half waits
-for ``meta_mode='through_aggregation'`` (ROADMAP Queue 1 item 1).
+never waits on the host for them.
+
+The engine is differentiable: each kernel is wrapped in a
+``torch.autograd.Function`` whose backward is the matching backward kernel
+(``_Aggregate``, ``_Accumulate``, ``_Update``: the counterparts of JAX's
+``_agg_vjp``, ``_acc_vjp`` and ``_upd_vjp``), so ``torch.autograd.grad``
+through :func:`fused_server_update` — w.r.t. the client weights, the
+learning rate, the stacked gradients and the parameters — costs the
+backward kernels' sweeps.  That is what ``meta_mode='through_aggregation'``
+(``core/meta.py``) differentiates.  When nothing requires grad (the post
+meta mode) the Functions record no graph and save nothing.
 """
 from __future__ import annotations
 
@@ -43,6 +52,91 @@ def normalize_weights(client_weights: torch.Tensor) -> torch.Tensor:
     return w / torch.clamp(torch.sum(w), min=1e-30)
 
 
+class _Aggregate(torch.autograd.Function):
+    """(g_stack, w_norm) -> (G, ssq); saves (g_stack, w_norm, G)."""
+
+    @staticmethod
+    def forward(ctx, g_stack, w_norm):
+        G, ssq = K.aggregate_pass(g_stack, w_norm)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(g_stack, w_norm, G)
+        return G, ssq
+
+    @staticmethod
+    def backward(ctx, dG, dssq):
+        g_stack, w_norm, G = ctx.saved_tensors
+        dg, dw = K.aggregate_pass_bwd(g_stack, w_norm, G, dG.contiguous(),
+                                      dssq.contiguous())
+        # the (cohort, rows, 128) dg is dropped here unless g_stack needs it
+        return (dg if ctx.needs_input_grad[0] else None), dw
+
+
+class _Accumulate(torch.autograd.Function):
+    """(acc, g, w) -> acc + w g; the accumulator's cotangent passes
+    through unchanged."""
+
+    @staticmethod
+    def forward(ctx, acc, g, w):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(g, w)
+        return K.accumulate_pass(acc, g, w)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        g, w = ctx.saved_tensors
+        d_out = d_out.contiguous()
+        dg, dw = K.accumulate_pass_bwd(g, w, d_out)
+        return (d_out, dg if ctx.needs_input_grad[1] else None,
+                dw.reshape(w.shape))
+
+
+class _Update(torch.autograd.Function):
+    """(G, p, scalars, m, v) -> (p', m', v') with None slots per optimizer
+    arity; saves (G, m, v, scalars) and the backward kernel replays the
+    recurrence from them.  dp = dp' (p' = p - lr * step)."""
+
+    @staticmethod
+    def forward(ctx, G, p, scalars, m, v, hp):
+        ctx.hp = hp
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(G, m, v, scalars)
+        return K.update_pass(G, p, m, v, scalars, **hp)
+
+    @staticmethod
+    def backward(ctx, d_new_p, d_new_m, d_new_v):
+        G, m, v, scalars = ctx.saved_tensors
+        d_new_p = d_new_p.contiguous()
+        cont = lambda t: None if t is None else t.contiguous()
+        dG, dm, dv, dscal = K.update_pass_bwd(
+            G, m, v, scalars, d_new_p, cont(d_new_m), cont(d_new_v),
+            **ctx.hp)
+        return dG, d_new_p, dscal, dm, dv, None
+
+
+class _Unflatten(torch.autograd.Function):
+    """Flat group buffers -> the parameter leaves; the backward is one
+    :func:`repro_torch.core.flat.flatten_tree` of the leaves' cotangents
+    instead of a zero-filled full-size scatter per leaf.
+
+    Each leaf is a copy that owns its storage, not a view of the buffer:
+    the new parameters become the next round's ``w_t``, and ``torch.func``
+    differentiating the client update w.r.t. leaves that share one
+    storage allocates several model-sized buffers more (``PERF.md``, the
+    through-aggregation runs' peak memory)."""
+
+    @staticmethod
+    def forward(ctx, spec, *bufs):
+        ctx.spec = spec
+        return tuple(t.clone() for t in
+                     flat_mod.unflatten_tree(spec, bufs).values())
+
+    @staticmethod
+    def backward(ctx, *d_leaves):
+        spec = ctx.spec
+        return (None, *flat_mod.flatten_tree(spec,
+                                             dict(zip(spec.names, d_leaves))))
+
+
 def flat_weighted_aggregate(spec: FlatSpec, g_stacks: Sequence[torch.Tensor],
                             client_weights: torch.Tensor
                             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
@@ -53,7 +147,7 @@ def flat_weighted_aggregate(spec: FlatSpec, g_stacks: Sequence[torch.Tensor],
     w = normalize_weights(client_weights)
     Gs, ssq = [], None
     for g_stack in g_stacks:
-        G, s = K.aggregate_pass(g_stack, w)
+        G, s = _Aggregate.apply(g_stack, w)
         Gs.append(G)
         ssq = s if ssq is None else ssq + s
     return Gs, ssq
@@ -61,7 +155,14 @@ def flat_weighted_aggregate(spec: FlatSpec, g_stacks: Sequence[torch.Tensor],
 
 def flat_accumulate(acc: torch.Tensor, g: torch.Tensor, w: torch.Tensor, *,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Streaming Eq. (14) term ``acc + w * g`` over one group buffer."""
+    """Streaming Eq. (14) term ``acc + w * g`` over one group buffer,
+    differentiable in (acc, g, w).  ``out=`` writes in place and records no
+    graph, so it refuses inputs that require grad."""
+    if out is None:
+        return _Accumulate.apply(acc, g, w)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (acc, g, w)):
+        raise ValueError("flat_accumulate(out=...) is not differentiable")
     return K.accumulate_pass(acc, g, w, out=out)
 
 
@@ -80,7 +181,9 @@ def flat_apply_groups(spec: FlatSpec, G_groups, gn: torch.Tensor,
                       ) -> Tuple[Params, Dict, torch.Tensor]:
     """Pass 2: clip scale + optimizer + param write over aggregated flat
     buffers, with the pre-clip global norm ``gn`` (a device scalar) from
-    the caller.  Returns (new_params, new_opt_state, gn_after_clip)."""
+    the caller.  Differentiable in ``G_groups``, ``gn``, ``lr`` (a tensor
+    or a number), the parameters and the optimizer state.  Returns
+    (new_params, new_opt_state, gn_after_clip)."""
     device = gn.device
     p_groups = flat_mod.flatten_tree(spec, params)
     if clip_norm > 0:
@@ -99,14 +202,14 @@ def flat_apply_groups(spec: FlatSpec, G_groups, gn: torch.Tensor,
 
     ms = opt_state.get("m", (None,) * len(spec.groups))
     vs = opt_state.get("v", (None,) * len(spec.groups))
+    hp = dict(opt=opt, momentum=momentum, b1=b1, b2=b2, eps=eps)
     new_p, new_m, new_v = [], [], []
     for G, p, m, v in zip(G_groups, p_groups, ms, vs):
-        np_, nm, nv = K.update_pass(G, p, m, v, scalars, opt=opt,
-                                    momentum=momentum, b1=b1, b2=b2, eps=eps)
+        np_, nm, nv = _Update.apply(G, p, scalars, m, v, hp)
         new_p.append(np_)
         new_m.append(nm)
         new_v.append(nv)
-    new_params = flat_mod.unflatten_tree(spec, new_p)
+    new_params = dict(zip(spec.names, _Unflatten.apply(spec, *new_p)))
     if opt == "sgd":
         new_state: Dict = {}
     elif opt == "sgdm":
@@ -131,3 +234,24 @@ def fused_apply_flat(params: Params, G_groups, opt_state: Dict, *,
     return flat_apply_groups(spec, G_groups, gn, params, opt_state, opt=opt,
                              lr=lr, clip_norm=clip_norm, momentum=momentum,
                              b1=b1, b2=b2, eps=eps)
+
+
+def fused_server_update(params: Params, grad_stack: Params,
+                        client_weights: torch.Tensor, opt_state: Dict, *,
+                        opt: str = "sgd", lr, clip_norm: float = 0.0,
+                        momentum: float = 0.9, b1: float = 0.9,
+                        b2: float = 0.99, eps: float = 1e-8,
+                        spec: Optional[FlatSpec] = None
+                        ) -> Tuple[Params, Dict, torch.Tensor]:
+    """One fused server step over stacked per-client gradients (both
+    passes).  grad_stack: ``params``' names with a leading cohort axis on
+    every leaf; client_weights: (cohort,) n_k, un-normalized; opt_state:
+    flat, from :func:`init_flat_opt_state`.  Returns (new_params,
+    new_opt_state, grad_norm_after_clip)."""
+    if spec is None:
+        spec = flat_mod.make_flat_spec(params)
+    Gs, ssq = flat_weighted_aggregate(
+        spec, flat_mod.flatten_stacked(spec, grad_stack), client_weights)
+    return flat_apply_groups(spec, Gs, torch.sqrt(ssq), params, opt_state,
+                             opt=opt, lr=lr, clip_norm=clip_norm,
+                             momentum=momentum, b1=b1, b2=b2, eps=eps)

@@ -7,7 +7,8 @@ device (``--device cpu`` runs the kernels' plain versions on the CPU).
 
   python -m repro_torch.launch.train --arch smollm-360m --fused \\
       --algorithm uga --meta --rounds 3 --cohort 4 --client-batch 8 \\
-      --seq 128 [--strategy scan] [--server-opt adam]
+      --seq 128 [--strategy scan] [--server-opt adam] \\
+      [--meta-mode through_aggregation]
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                  num_clients: int = 32, examples: int = 2048,
                  iid: bool = False, seed: int = 0, log_every: int = 10,
                  strategy: str = "vmap", fused: bool = False,
+                 meta_mode: str = "post", ctrl_lr: float = 0.01,
                  device=None, params=None,
                  on_records: Optional[Callable] = None):
     """Assemble (model, FedConfig, FederatedData) and train.  ``params``
@@ -75,8 +77,8 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
         client_lr=client_lr,
         server_lr=server_lr if server_lr is not None else client_lr,
         meta_lr=meta_lr if meta_lr is not None else client_lr,
-        server_opt=server_opt, cohort_strategy=strategy, lr_decay=0.992,
-        fused_update=fused)
+        server_opt=server_opt, meta_mode=meta_mode, ctrl_lr=ctrl_lr,
+        cohort_strategy=strategy, lr_decay=0.992, fused_update=fused)
     data = build_synthetic_fed_data(cfg, num_clients=num_clients,
                                     examples=examples, seq=seq, iid=iid,
                                     seed=seed)
@@ -116,6 +118,14 @@ def main(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="fused flat-buffer CUDA server engine (the only "
                          "engine ported so far; required)")
+    ap.add_argument("--meta-mode", default="post",
+                    choices=["post", "through_aggregation"],
+                    help="FedMeta step: post-aggregation parameter step, or "
+                         "hypergradients through the aggregation (needs an "
+                         "engine with the capability, i.e. --fused)")
+    ap.add_argument("--ctrl-lr", type=float, default=0.01,
+                    help="controllable-weights step size "
+                         "(--meta-mode through_aggregation)")
     ap.add_argument("--num-clients", type=int, default=32)
     ap.add_argument("--examples", type=int, default=2048)
     ap.add_argument("--iid", action="store_true")
@@ -135,7 +145,8 @@ def main(argv=None):
         meta_lr=args.meta_lr, server_opt=args.server_opt,
         num_clients=args.num_clients, examples=args.examples, iid=args.iid,
         seed=args.seed, log_every=args.log_every, strategy=args.strategy,
-        fused=args.fused, device=args.device)
+        fused=args.fused, meta_mode=args.meta_mode, ctrl_lr=args.ctrl_lr,
+        device=args.device)
     if args.history_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.history_out)),
                     exist_ok=True)

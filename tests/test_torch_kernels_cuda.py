@@ -4,9 +4,11 @@ imports no JAX, so it runs on a machine that has only the port:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance <= 1e-6 relative (max |a-b| over max |b|): the kernels contract
-multiply-adds into FMAs where the plain version rounds twice.  ``ssq`` is
-also checked bitwise across two launches (no atomics).
+Tolerance <= 1e-6 relative (max |a-b| over max |b|): the forward kernels
+contract multiply-adds into FMAs where the plain version rounds twice; the
+backward kernels round as the plain version does and their sums (fp64)
+agree to fp32 rounding.  ``ssq``, ``dw`` and ``dscal`` are also checked
+bitwise across two launches (no atomics).
 """
 import pytest
 import torch
@@ -74,3 +76,68 @@ def test_update_kernel_matches_plain(cuda_device, opt):
         assert (a is None) == (b is None)
         if a is not None:
             assert rel_err(a, b) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 4104])
+def test_accumulate_bwd_kernel_matches_plain(cuda_device, rows):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + 1)
+    g, d = torch.randn((2, rows, 128), generator=gen, device=cuda_device)
+    w = torch.tensor([0.37], device=cuda_device)
+    dg, dw = K.accumulate_pass_bwd(g, w, d)
+    dg2, dw2 = K.accumulate_pass_bwd(g, w, d)
+    torch.cuda.synchronize()
+    rdg, rdw = R.accumulate_bwd_ref(g, w[0], d)
+    assert rel_err(dg, rdg) <= TOL and rel_err(dw, rdw) <= TOL
+    assert torch.equal(dw, dw2) and torch.equal(dg, dg2)   # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 264, 4104])
+@pytest.mark.parametrize("cohort", [1, 4, 11])
+def test_aggregate_bwd_kernel_matches_plain(cuda_device, cohort, rows):
+    """Cohort 11 runs two launches of the 8-client kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + cohort)
+    g = torch.randn((cohort, rows, 128), generator=gen, device=cuda_device)
+    w = O.normalize_weights(torch.rand(cohort, generator=gen,
+                                       device=cuda_device) + 0.5)
+    G, dG = torch.randn((2, rows, 128), generator=gen, device=cuda_device)
+    dssq = torch.tensor(0.3, device=cuda_device)
+    dg, dw = K.aggregate_pass_bwd(g, w, G, dG, dssq)
+    dg2, dw2 = K.aggregate_pass_bwd(g, w, G, dG, dssq)
+    torch.cuda.synchronize()
+    rdg, rdw = R.aggregate_bwd_ref(g, w, G, dG, dssq)
+    assert rel_err(dg, rdg) <= TOL and rel_err(dw, rdw) <= TOL
+    assert torch.equal(dw, dw2) and torch.equal(dg, dg2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", OPTS)
+def test_update_bwd_kernel_matches_plain(cuda_device, opt):
+    """Warm state; the last 5 rows zero-padded, which must give back exact
+    zeros."""
+    rows, pad = 4104, 5
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    G, m, dp, dm, dv = torch.randn((5, rows, 128), generator=gen,
+                                   device=cuda_device)
+    v = torch.rand((rows, 128), generator=gen, device=cuda_device) * 0.01
+    v += 1e-3
+    for t in (G, m, v, dp, dm, dv):
+        t[rows - pad:] = 0.0
+    has_m, has_v = opt != "sgd", opt in ("adam", "yogi")
+    args = (G, m if has_m else None, v if has_v else None,
+            torch.tensor([0.7, 0.05, 2.1, 20.4], device=cuda_device), dp,
+            dm if has_m else None, dv if has_v else None)
+    outs = K.update_pass_bwd(*args, opt=opt)
+    again = K.update_pass_bwd(*args, opt=opt)
+    refs = R.update_bwd_ref(*args, opt=opt)
+    torch.cuda.synchronize()
+    for a, b in zip(outs[:3], refs[:3]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert rel_err(a, b) <= TOL
+            assert not a[rows - pad:].any()
+    for i in range(4):
+        assert abs(float(outs[3][i] - refs[3][i])) <= \
+            TOL * max(abs(float(refs[3][i])), 1e-30)
+    assert torch.equal(outs[3], again[3])                  # no atomics
