@@ -6,31 +6,43 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the fused-update kernels from ``src/repro_torch`` with nvcc
-     (``-Xptxas -v`` printed);
-  3. hold each of the six kernels (three forward passes, three backward
-     passes) against its plain PyTorch version, at the full-width shapes of
-     smollm-360m (rows = 2,826,728) and at ragged small shapes, for every
-     optimizer and with a nonzero ssq cotangent, to <= 1e-6 relative (max
-     |a-b| over max |b|);
+  2. build the fused-update and the codec kernels from ``src/repro_torch``,
+     one nvcc for each source, both started together (``-Xptxas -v``
+     printed);
+  3. hold each of the six fused-update kernels (three forward passes, three
+     backward passes) against its plain PyTorch version, at the full-width
+     shapes of smollm-360m (rows = 2,826,728) and at ragged small shapes,
+     for every optimizer and with a nonzero ssq cotangent, to <= 1e-6
+     relative (max |a-b| over max |b|); and each of the four codec kernels
+     bitwise, at the same shapes, with and without the residual, with the
+     pad mask equal to and below the buffer, in place, on inputs with
+     exact half-way products and signed zeros;
   4. check that the sums (the aggregate kernel's ||G||^2, the backward
      kernels' dw and dscal) are bitwise equal across two launches;
   5. time each kernel (CUDA events, warm, buffers far larger than the 50 MB
      L2) beside its byte bound, its plain version and one library call
-     where a single PyTorch call computes the same function;
+     where a single PyTorch call computes the same function; 5b: the bounds
+     of all twelve Pallas kernels and the library time of flash attention,
+     not yet ported (scaled_dot_product_attention); 5c: the device time of
+     one client's whole uplink for each lossy codec;
   6. the main path: ``repro_torch.launch.train.run_training`` on
      smollm-360m at full width (361,821,120 parameters), UGA + FedMeta,
      fused engine: 3 rounds each of vmap/sgd, scan/sgd and scan/adam with
      ``meta_mode='post'``, then 2 rounds each of the same three with
-     ``meta_mode='through_aggregation'``.  The launch counts are zeroed
+     ``meta_mode='through_aggregation'``, then 2 rounds each of six runs
+     with a lossy uplink codec (int8, sign1bit, topk; with and without
+     error feedback).  The launch counts of all ten kernels are zeroed
      just before each run and read just after, and must be exactly those
-     of its path; every metric must be finite; vmap and scan must agree
-     after round 1 to <= 1e-5 (params under post, ctrl under
-     through_aggregation).  Then one unprofiled and one profiled vmap/sgd
+     of its path; every metric must be finite; coded runs report the exact
+     ``comm_bytes`` and, with error feedback, a nonzero residual; vmap and
+     scan must agree after round 1 to <= 1e-5 (params under post, ctrl
+     under through_aggregation; int8 params under the flip-aware criterion
+     of ``flip_aware``).  Then one unprofiled and one profiled vmap/sgd
      round for the device's busy time by kernel, its idle share and the
      host's time in operators;
   7. a reference check on a small input: the same trainer at smoke size on
-     the card against the plain versions on the CPU, in both meta modes;
+     the card against the plain versions on the CPU, in both meta modes
+     and with int8 and sign1bit error feedback;
   8. one JSON line of per-kernel numbers, then the card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -53,7 +65,10 @@ FP32_FLOPS_PER_S = 67e12         # H100 SXM, fp32 outside the tensor cores
 TOL = 1e-6
 FULL_ROWS = 2_826_728            # smollm-360m flat layout (rows, 128)
 COHORT = 4
-SOURCE = "src/repro_torch/kernels/fused_update/csrc/fused_update.cu"
+FULL_N_VALID = 361_821_120      # its true element count (the pad is 64)
+SOURCES = {"fused_update": "src/repro_torch/kernels/fused_update/csrc/"
+                           "fused_update.cu",
+           "comm": "src/repro_torch/kernels/comm/csrc/comm.cu"}
 REPLACES = {
     "aggregate_pass": "src/repro/kernels/fused_update/kernel.py:111",
     "accumulate_pass": "src/repro/kernels/fused_update/kernel.py:146",
@@ -61,7 +76,13 @@ REPLACES = {
     "accumulate_pass_bwd": "src/repro/kernels/fused_update/kernel.py:180",
     "aggregate_pass_bwd": "src/repro/kernels/fused_update/kernel.py:293",
     "update_pass_bwd": "src/repro/kernels/fused_update/kernel.py:406",
+    "quantize_i8_pass": "src/repro/kernels/comm/kernel.py:62",
+    "dequant_i8_fma_pass": "src/repro/kernels/comm/kernel.py:94",
+    "sign_pack_pass": "src/repro/kernels/comm/kernel.py:147",
+    "sign_unpack_fma_pass": "src/repro/kernels/comm/kernel.py:192",
 }
+FLIP_FRACTION = 1e-3             # the flip-aware criterion (flip_aware)
+FLIP_CAP = 1e-3
 OPTS = ("sgd", "sgdm", "adam", "yogi")
 
 
@@ -103,6 +124,46 @@ def card_line() -> str:
                           "--format=csv,noheader", "--id=0"],
                          check=True, capture_output=True, text=True)
     return out.stdout.strip()
+
+
+def flip_aware(port, ref, *, ref_scale, cap, what) -> int:
+    """The flip-aware criterion of the coded paths.  The codecs are
+    discontinuous: a one-ulp difference in a client gradient moves an int8
+    code by one step, or flips a sign, where it sits on a rounding
+    boundary.  Elements off by more than 1e-5 * ``ref_scale`` are counted;
+    at most FLIP_FRACTION of the elements may be, each off by at most
+    ``cap``; every other element is held to 1e-5.  Returns the count."""
+    diff = (port.double() - ref.double()).abs().reshape(-1)
+    off = diff > 1e-5 * ref_scale
+    n_off = int(off.sum())
+    assert n_off <= FLIP_FRACTION * diff.numel(), (what, n_off)
+    if n_off:
+        worst = float(diff[off].max())
+        assert worst <= cap, (what, worst, cap)
+    return n_off
+
+
+def params_flip_aware(port, ref, what) -> int:
+    """Parameters: each leaf against its largest entry; a flip moves a
+    parameter by the server step's response to one codec step, about 1e-4
+    of the leaf's largest entry, and FLIP_CAP allows several."""
+    n = 0
+    for k in ref:
+        scale = float(ref[k].abs().max())
+        n += flip_aware(port[k], ref[k], ref_scale=scale,
+                        cap=FLIP_CAP * scale, what=f"{what} {k}")
+    return n
+
+
+def residual_flip_aware(port, ref, codec, rounds, what) -> int:
+    """Error-feedback residuals: e - decode(encode(e)) is a cancellation,
+    held against the size of e (int8: |r| <= scale / 2 = amax(e) / 254); a
+    flip moves it by one codec step (int8: scale; sign1bit: 2 mu), at most
+    once a round."""
+    r_max = float(ref.abs().max())
+    return flip_aware(port, ref,
+                      ref_scale=r_max * (254 if codec == "int8" else 1),
+                      cap=rounds * 2 * r_max * (1 + 1e-5), what=what)
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +442,224 @@ def time_bwd_kernels(K, R, dev):
     return res
 
 
+def _codec_input(rows, gen, dev):
+    """Normal values, amax = 127 / 16 (so the int8 scale 1/16 makes the
+    products g * 16 of the first entries exact half-way points), +0.0 and
+    -0.0."""
+    import torch
+    g = torch.randn((rows, 128), generator=gen, device=dev).clamp_(-7.5, 7.5)
+    g[0, :8] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.0, -0.0],
+                            device=dev) / 16
+    g[0, 8] = 127.0 / 16
+    return g
+
+
+def check_codec_kernels(CK, CR, dev, rows_list):
+    """Phase 3 for the four codec kernels: every output bitwise equal to the
+    plain version's (the kernels round each operation as it does), int8
+    scales exact and inexact, the pad mask equal to and below the buffer
+    (at full width the model's own 361,821,120), with and without the
+    residual, out of place and in place."""
+    import torch
+    errs = dict.fromkeys(CODEC_NAMES, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def same(name, what, a, b):
+        assert a.dtype == b.dtype and a.shape == b.shape, (name, what)
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{name} {what}: not bitwise equal to the plain version "
+                f"(max |a-b| {max_abs_err(a.double(), b.double()):.3e})")
+        errs[name] = max(errs[name], max_abs_err(a.double(), b.double()))
+
+    for rows in rows_list:
+        n = rows * 128
+        cuts = (n, FULL_N_VALID if rows == FULL_ROWS else n - 77)
+        g = _codec_input(rows, gen, dev)
+        s = float(g.abs().max()) * 1.37 / 127        # an inexact scale
+        for sc in ((16.0, 1 / 16), (1 / s, s)):
+            scal = torch.tensor(sc, device=dev)
+            for err in (False, True):
+                out = CK.quantize_i8_pass(g, scal, with_error=err)
+                ref = CR.quantize_i8_ref(g, scal[0], scal[1],
+                                         with_error=err)
+                for what, a, b in (zip(("q", "residual"), out, ref) if err
+                                   else [("q", out, ref)]):
+                    same("quantize_i8_pass", what, a, b)
+                del out, ref
+        flat = CK.quantize_i8_pass(
+            g, torch.tensor((16.0, 1 / 16), device=dev))[0, :8].tolist()
+        q = CK.quantize_i8_pass(g, scal)
+        acc = torch.randn((rows, 128), generator=gen, device=dev)
+        sw = scal[1:] * 0.3
+        ref = CR.dequant_i8_fma_ref(acc, q, sw[0])
+        same("dequant_i8_fma_pass", "out", CK.dequant_i8_fma_pass(acc, q, sw),
+             ref)
+        same("dequant_i8_fma_pass", "in place",
+             CK.dequant_i8_fma_pass(acc, q, sw, out=acc), ref)
+        del q, ref
+        mu = torch.tensor([0.7977], device=dev)
+        for n_valid in cuts:
+            for err in (False, True):
+                out = CK.sign_pack_pass(g, mu, n_valid, with_error=err)
+                ref = CR.sign_pack_ref(g, mu[0], n_valid, with_error=err)
+                for what, a, b in (zip(("bits", "residual"), out, ref) if err
+                                   else [("bits", out, ref)]):
+                    same("sign_pack_pass", f"{what} n_valid={n_valid}", a, b)
+                del out, ref
+            bits = CK.sign_pack_pass(g, mu, n_valid)
+            assert int(bits[0, 6]) & 1 and int(bits[0, 7]) & 1, "+-0.0"
+            acc = torch.randn((rows, 128), generator=gen, device=dev)
+            muw = mu * 0.3
+            ref = CR.sign_unpack_fma_ref(acc, bits, muw[0], n_valid)
+            same("sign_unpack_fma_pass", f"out n_valid={n_valid}",
+                 CK.sign_unpack_fma_pass(acc, bits, muw, n_valid), ref)
+            same("sign_unpack_fma_pass", f"in place n_valid={n_valid}",
+                 CK.sign_unpack_fma_pass(acc, bits, muw, n_valid, out=acc),
+                 ref)
+            del bits, ref
+        del g, acc
+        torch.cuda.empty_cache()
+        assert flat == [0, 2, 2, 0, -2, -2, 0, 0], flat   # half to even
+        log(f"  codec kernels rows={rows} (n_valid {cuts}): quantize, "
+            f"dequant-FMA, pack, unpack-FMA bitwise equal to plain, in "
+            f"place too; int8 codes of the half-way inputs {flat}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_codec_kernels(CK, CR, dev):
+    """Phase 5 for the codec kernels at full width: the quantize and the
+    pack with the residual (the error-feedback path) and without."""
+    import torch
+    rows, n = FULL_ROWS, FULL_ROWS * 128
+    buf, i8, bits = n * 4.0, n * 1.0, n / 8
+    gen = torch.Generator(device=dev).manual_seed(6)
+    none = "none: no single PyTorch call computes it"
+    res = {}
+    g = torch.randn((rows, 128), generator=gen, device=dev) * 0.01
+    g.reshape(-1)[FULL_N_VALID:] = 0.0
+    s = g.abs().max() / 127
+    scal = torch.stack([1.0 / s, s])
+    for tag, err, nbytes, ops in (("quantize_i8_pass", True, 2 * buf + i8,
+                                   6 * n),
+                                  ("quantize_i8_pass[no residual]", False,
+                                   buf + i8, 4 * n)):
+        b, by = bound_ms(nbytes, ops)
+        res[tag] = dict(
+            ms=cuda_ms(lambda: CK.quantize_i8_pass(g, scal, with_error=err)),
+            plain_ms=cuda_ms(lambda: CR.quantize_i8_ref(
+                g, scal[0], scal[1], with_error=err)),
+            library_ms=None, library=none + " (torch.quantize_per_tensor "
+            "divides by the scale and clips to [-128, 127])",
+            bound_ms=b, bound_by=by, bytes=nbytes)
+    q = CK.quantize_i8_pass(g, scal)
+    acc, out = torch.randn((2, rows, 128), generator=gen, device=dev)
+    sw = scal[1:] * 0.25
+    swf = float(sw)
+    b, by = bound_ms(2 * buf + i8, 2 * n)
+    res["dequant_i8_fma_pass"] = dict(
+        ms=cuda_ms(lambda: CK.dequant_i8_fma_pass(acc, q, sw, out=out)),
+        plain_ms=cuda_ms(lambda: CR.dequant_i8_fma_ref(acc, q, sw[0])),
+        library_ms=cuda_ms(lambda: out.add_(q, alpha=swf)),
+        library="out.add_(q, alpha=scale*w) (q promoted to fp32, in place)",
+        bound_ms=b, bound_by=by, bytes=2 * buf + i8)
+    del q
+    mu = g.abs().sum().reshape(1) / FULL_N_VALID
+    for tag, err, nbytes, ops in (("sign_pack_pass", True, 2 * buf + bits,
+                                   4 * n),
+                                  ("sign_pack_pass[no residual]", False,
+                                   buf + bits, 2 * n)):
+        b, by = bound_ms(nbytes, ops)
+        res[tag] = dict(
+            ms=cuda_ms(lambda: CK.sign_pack_pass(g, mu, FULL_N_VALID,
+                                                 with_error=err)),
+            plain_ms=cuda_ms(lambda: CR.sign_pack_ref(
+                g, mu[0], FULL_N_VALID, with_error=err)),
+            library_ms=None, library=none, bound_ms=b, bound_by=by,
+            bytes=nbytes)
+    packed = CK.sign_pack_pass(g, mu, FULL_N_VALID)
+    muw = mu * 0.25
+    b, by = bound_ms(2 * buf + bits, 3 * n)
+    res["sign_unpack_fma_pass"] = dict(
+        ms=cuda_ms(lambda: CK.sign_unpack_fma_pass(acc, packed, muw,
+                                                   FULL_N_VALID, out=out)),
+        plain_ms=cuda_ms(lambda: CR.sign_unpack_fma_ref(
+            acc, packed, muw[0], FULL_N_VALID)),
+        library_ms=None, library=none, bound_ms=b, bound_by=by,
+        bytes=2 * buf + bits)
+    del g, acc, out, packed
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        lib = ("" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms ")
+        log(f"  {name}: {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {r['bytes'] / 1e9:.3f} GB, "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound)  plain "
+            f"{r['plain_ms']:.4f} ms  library {lib}[{r['library']}]")
+    return res
+
+
+def time_codec_stage(dev):
+    """Phase 5c: the device time of one client's whole uplink at full width
+    (``repro_torch.comm.transport.client_coded_accumulate``: the scale or
+    magnitude reduction, the encode, the decode into the accumulator and,
+    with error feedback, ``g + res`` and the residual gate), for each lossy
+    codec with and without error feedback.  A coded round runs it once per
+    client.  Accumulator and residual are updated in place from launch to
+    launch, as the cohort does."""
+    import torch
+    from repro_torch.comm import client_coded_accumulate, resolve_codec
+    from repro_torch.configs import FedConfig
+    from repro_torch.core.flat import FlatSpec, GroupSpec
+
+    group = GroupSpec(dtype=torch.float32, leaves=(), size=FULL_N_VALID,
+                      rows=FULL_ROWS)
+    spec = FlatSpec(names=(), groups=(group,))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    g = torch.randn((FULL_ROWS, 128), generator=gen, device=dev) * 0.01
+    g.reshape(-1)[FULL_N_VALID:] = 0.0
+    acc = torch.zeros_like(g)
+    res = torch.zeros_like(g)
+    w = torch.tensor(0.25, device=dev)
+    out = {}
+    for codec in ("int8", "sign1bit", "topk"):
+        c = resolve_codec(FedConfig(fused_update=True, codec=codec))
+        for ef in (False, True):
+            ms = cuda_ms(lambda: client_coded_accumulate(
+                c, spec, [acc], [g], w, [res] if ef else None), iters=5)
+            out[f"{codec}{'+ef' if ef else ''}"] = ms
+            log(f"  codec stage {codec}{' + error feedback' if ef else ''}:"
+                f" {ms:.4f} ms per client, {COHORT * ms:.3f} ms per round "
+                f"of cohort {COHORT}")
+    del g, acc, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_attention_library(dev):
+    """Row 11's library time: one scaled_dot_product_attention call at
+    smollm-360m's shapes (B 8, 15 query and 5 key/value heads, S 128, D 64,
+    causal, fp32).  The key/value heads are repeated to 15 before the
+    timed call, so the call computes the grouped attention; the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+    B, H, Hkv, S, D = 8, 15, 5, 128, 64
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((B, H, S, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+            .repeat_interleave(H // Hkv, dim=1) for _ in range(2))
+    ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True),
+                 iters=200, warmup=20)
+    b, by = bound_ms(*attention_bound())
+    log(f"  11 flash_attention_fwd library: scaled_dot_product_attention "
+        f"{ms * 1e3:.3f} us per call (bound {b * 1e3:.3f} us, {by}; "
+        f"{100 * b / ms:.1f}% of bound)")
+    return ms
+
+
 def attention_bound(B=8, H=15, Hkv=5, S=128, D=64, nbytes=4):
     """One causal GQA flash-attention call (one layer) at smollm-360m's
     heads and the main path's client batch and sequence: q, k, v read once,
@@ -455,9 +734,13 @@ def print_all_bounds():
 # it.  The post-mode runs launch no backward kernel.
 ROUNDS = 3                       # post-mode runs
 TA_ROUNDS = 2                    # through-aggregation runs
-KERNEL_NAMES = ("aggregate_pass", "accumulate_pass", "update_pass",
-                "accumulate_pass_bwd", "aggregate_pass_bwd",
-                "update_pass_bwd")
+CODED_ROUNDS = 2                 # coded-uplink runs
+FUSED_NAMES = ("aggregate_pass", "accumulate_pass", "update_pass",
+               "accumulate_pass_bwd", "aggregate_pass_bwd",
+               "update_pass_bwd")
+CODEC_NAMES = ("quantize_i8_pass", "dequant_i8_fma_pass", "sign_pack_pass",
+               "sign_unpack_fma_pass")
+KERNEL_NAMES = FUSED_NAMES + CODEC_NAMES
 
 
 def _launches(**kw):
@@ -476,6 +759,19 @@ def _scan_counts(r, bwd):
                      update_pass_bwd=r if bwd else 0)
 
 
+def _coded_counts(r, codec):
+    """A lossy codec replaces pass 1 on both cohorts: per client one encode
+    and one decode-FMA launch (one dtype group), none for topk (plain
+    PyTorch, as in the JAX package); the update pass stays."""
+    enc, dec = {"int8": ("quantize_i8_pass", "dequant_i8_fma_pass"),
+                "sign1bit": ("sign_pack_pass", "sign_unpack_fma_pass"),
+                "topk": (None, None)}[codec]
+    kw = {"update_pass": r}
+    if enc:
+        kw.update({enc: r * COHORT, dec: r * COHORT})
+    return _launches(**kw)
+
+
 EXPECTED_LAUNCHES = {
     "post:vmap/sgd": _vmap_counts(ROUNDS, False),
     "post:scan/sgd": _scan_counts(ROUNDS, False),
@@ -484,9 +780,45 @@ EXPECTED_LAUNCHES = {
     "through_aggregation:scan/sgd": _scan_counts(TA_ROUNDS, True),
     "through_aggregation:scan/adam": _scan_counts(TA_ROUNDS, True),
 }
+# tag -> (codec, error feedback, strategy, server optimizer)
+CODED_RUNS = {
+    "int8:vmap/sgd": ("int8", False, "vmap", "sgd"),
+    "int8:scan/sgd": ("int8", False, "scan", "sgd"),
+    "int8+ef:scan/adam": ("int8", True, "scan", "adam"),
+    "sign1bit+ef:vmap/sgd": ("sign1bit", True, "vmap", "sgd"),
+    "sign1bit:scan/sgd": ("sign1bit", False, "scan", "sgd"),
+    "topk+ef:vmap/sgd": ("topk", True, "vmap", "sgd"),
+}
+for _tag, (_codec, *_) in CODED_RUNS.items():
+    EXPECTED_LAUNCHES[_tag] = _coded_counts(CODED_ROUNDS, _codec)
 
 
-def main_path(K, dev):
+def payload_bytes(codec, n, ratio=0.01) -> int:
+    """One client's uplink bytes for one fp32 group of n elements, from the
+    codec's definition: int8 codes and a scale; packed bits and mu;
+    (value, 4-byte index) pairs for topk."""
+    return {"int8": n + 4, "sign1bit": -(-n // 8) + 4,
+            "topk": 8 * max(1, min(n, int(round(n * ratio))))}[codec]
+
+
+class Counts:
+    """The launch counts of both kernel modules, zeroed and read together."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self):
+        for m in self.modules:
+            m.reset_launch_counts()
+
+    def read(self) -> dict:
+        out = {}
+        for m in self.modules:
+            out.update(m.launch_counts())
+        return {name: out[name] for name in KERNEL_NAMES}
+
+
+def main_path(counts_of, dev):
     """Each of the six runs is its own main path: the launch counts are
     zeroed just before its ``run_training`` call and read just after."""
     import torch
@@ -497,6 +829,8 @@ def main_path(K, dev):
     counts = {}
     runs = {}
     for tag, want in EXPECTED_LAUNCHES.items():
+        if tag in CODED_RUNS:
+            continue
         mode, path = tag.split(":")
         strategy, opt = path.split("/")
         rounds = ROUNDS if mode == "post" else TA_ROUNDS
@@ -519,13 +853,13 @@ def main_path(K, dev):
                 round1[tag] = {k: v.clone()
                                for k, v in trainer.state["ctrl"].items()}
 
-        K.reset_launch_counts()
+        counts_of.reset()
         state, hist = run_training(
             "smollm-360m", rounds=rounds, cohort=COHORT, client_batch=8,
             seq=128, algorithm="uga", meta=True, fused=True,
             strategy=strategy, server_opt=opt, meta_mode=mode, seed=0,
             log_every=1, device=dev, on_records=on_records)
-        counts[tag] = K.launch_counts()
+        counts[tag] = counts_of.read()
         log(f"kernels: {tag} {json.dumps(counts[tag])}")
         assert counts[tag] == want, (tag, counts[tag], want)
         n_params = sum(p.numel() for p in state["params"].values())
@@ -558,6 +892,80 @@ def main_path(K, dev):
         log(f"  through_aggregation: vmap vs scan ctrl.{k} after round 1: "
             f"rel {e:.3e} (tol 1e-5); vmap {ca[k].tolist()}")
         assert e <= 1e-5, (k, e)
+    return counts
+
+
+def coded_path(counts_of, dev):
+    """Phase 6 with the compressed uplink: six runs of ``run_training`` at
+    full width, 2 rounds each, each its own main path (counts zeroed just
+    before, read just after).  Each checks finite metrics, the exact
+    ``comm_bytes`` (one client's payload times the cohort, in fp32) and,
+    under error feedback, a nonzero residual after round 1; int8 vmap and
+    scan agree after round 1 under the flip-aware criterion."""
+    import numpy as np
+    import torch
+    from repro_torch.core import flat as F
+    from repro_torch.launch.train import run_training
+
+    counts, runs, round1 = {}, {}, {}
+    for tag, (codec, ef, strategy, opt) in CODED_RUNS.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [time.perf_counter()]
+
+        def on_records(recs, trainer, tag=tag, ef=ef, marks=marks):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if recs[0]["round"] != 0:
+                return
+            if ef:
+                (res,) = trainer.state["comm"]["residual"]
+                assert res.shape == (COHORT, FULL_ROWS, 128), res.shape
+                nz = [float(res[k].abs().max()) for k in range(COHORT)]
+                assert all(v > 0 for v in nz), (tag, nz)
+                log(f"  {tag}: residual max |r| per client after round 1: "
+                    f"{[f'{v:.4e}' for v in nz]}")
+            if tag.startswith("int8:"):
+                params = trainer.state["params"]
+                round1[tag] = {k: v.clone() for k, v in params.items()}
+
+        counts_of.reset()
+        state, hist = run_training(
+            "smollm-360m", rounds=CODED_ROUNDS, cohort=COHORT,
+            client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
+            strategy=strategy, server_opt=opt, codec=codec,
+            error_feedback=ef, seed=0, log_every=1, device=dev,
+            on_records=on_records)
+        counts[tag] = counts_of.read()
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        want = EXPECTED_LAUNCHES[tag]
+        assert counts[tag] == want, (tag, counts[tag], want)
+        n_params = sum(p.numel() for p in state["params"].values())
+        assert n_params == FULL_N_VALID, n_params
+        assert F.make_flat_spec(state["params"]).groups[0].size == n_params
+        comm_bytes = float(np.float32(payload_bytes(codec, FULL_N_VALID))
+                           * np.float32(COHORT))
+        for rec in hist:
+            for k, v in rec.items():
+                assert math.isfinite(v), (tag, rec)
+            assert rec["comm_bytes"] == comm_bytes, (tag, rec, comm_bytes)
+        assert ("comm" in state) == ef, tag
+        secs = [b - a for a, b in zip(marks, marks[1:])]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[tag] = dict(round_wall_s=secs, peak_gib=peak)
+        log(f"  {tag}: comm_bytes {comm_bytes:.0f} per round (exact)  round "
+            f"wall s {[round(s, 4) for s in secs]} (round 0 includes init "
+            f"and data)  max_memory_allocated {peak:.2f} GiB")
+        del state
+        torch.cuda.empty_cache()
+
+    a, b = round1["int8:vmap/sgd"], round1["int8:scan/sgd"]
+    n = params_flip_aware(b, a, "int8 vmap vs scan")
+    worst = max(max_abs_err(a[k], b[k]) for k in a)
+    log(f"  int8: vmap vs scan params after round 1: {n} elements off by "
+        f"more than 1e-5 of their leaf's largest entry (at most "
+        f"{FLIP_FRACTION:g} of the elements, each within {FLIP_CAP:g} of "
+        f"it); max |a-b| {worst:.3e}")
     return counts
 
 
@@ -714,12 +1122,69 @@ def small_reference_through(dev):
             f"rel {pe:.3e} (tol 1e-5)")
 
 
+def small_reference_coded(dev):
+    """Phase 7 with the compressed uplink: int8 with error feedback on a
+    warm scan/adam (t = 5) and sign1bit with error feedback on vmap/sgd, at
+    smoke size, the card against the CPU.  History <= 1e-4 and comm_bytes
+    exactly; parameters and residuals under the flip-aware criterion."""
+    import torch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.core import flat as F
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.launch.train import build_synthetic_fed_data
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("smollm-360m-smoke")
+    model = build_model(cfg, loss_chunk=256)
+    params = model.init(torch.Generator().manual_seed(3))
+    rows = F.make_flat_spec(params).groups[0].rows
+    gen = torch.Generator().manual_seed(4)
+    m = 0.01 * torch.randn((rows, 128), generator=gen)
+    v = 1e-3 * torch.rand((rows, 128), generator=gen) + 1e-4
+    for codec, strategy, opt in (("int8", "scan", "adam"),
+                                 ("sign1bit", "vmap", "sgd")):
+        fed = FedConfig(algorithm="uga", meta=True, cohort=2, local_steps=2,
+                        client_lr=0.01, server_lr=0.01, meta_lr=0.01,
+                        server_opt=opt, cohort_strategy=strategy,
+                        lr_decay=0.992, fused_update=True, codec=codec,
+                        error_feedback=True)
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            tr = FederatedTrainer(model, fed, device=d, params=params)
+            if opt == "adam":
+                tr.state["opt"] = {"m": (m.to(d),), "v": (v.to(d),),
+                                   "t": torch.tensor(5, dtype=torch.int32,
+                                                     device=d)}
+            data = build_synthetic_fed_data(cfg, num_clients=8, examples=64,
+                                            seq=32, iid=False)
+            hist = tr.run(data, rounds=3, cohort=2, batch=4, meta_batch=8)
+            out[d.type] = tr.state, hist
+        (sg, hg), (sc, hc) = out["cuda"], out["cpu"]
+        for rg, rc in zip(hg, hc):
+            assert rg["comm_bytes"] == rc["comm_bytes"], (rg, rc)
+            for k in ("client_loss", "grad_norm", "meta_loss"):
+                assert abs(rg[k] - rc[k]) <= 1e-4 * abs(rc[k]), (k, rg, rc)
+        n_p = params_flip_aware({k: t.cpu() for k, t in
+                                 sg["params"].items()}, sc["params"],
+                                f"smoke {codec}")
+        n_r = residual_flip_aware(sg["comm"]["residual"][0].cpu(),
+                                  sc["comm"]["residual"][0], codec, 3,
+                                  f"smoke {codec} residual")
+        log(f"  smoke {codec}+ef {strategy}/{opt}, card vs CPU plain: "
+            f"history <= 1e-4, comm_bytes exact; params: {n_p} elements "
+            f"off by more than 1e-5, residuals: {n_r} (flip-aware)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.device import strict_fp32
+    from repro_torch.kernels.comm import kernel as CK
+    from repro_torch.kernels.comm import ref as CR
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.fused_update import ops as O
     from repro_torch.kernels.fused_update import ref as R
@@ -733,26 +1198,42 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     tb = time.perf_counter()
-    K.build(force=True)
-    log(f"[2] built {os.path.relpath(K.SOURCE, HERE)} in "
-        f"{time.perf_counter() - tb:.1f} s; nvcc -Xptxas -v:")
-    log(K.build_log.strip())
+    libs = (K.LIB, CK.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:       # one nvcc per source
+        builds = [pool.submit(lib.build, True) for lib in libs]
+        for f in builds:
+            f.result()
+    names = ", ".join(os.path.relpath(lib.source, HERE) for lib in libs)
+    log(f"[2] built {names} in {time.perf_counter() - tb:.1f} s (in "
+        f"parallel); nvcc -Xptxas -v:")
+    for lib in libs:
+        log(lib.build_log.strip())
 
     log("[3,4] kernels against their plain versions (ssq, dw, dscal bitwise "
-        "across launches):")
+        "across launches; the codec kernels bitwise):")
     shapes = [8, 24, 264, 4104, FULL_ROWS]
     errs = check_kernels(K, R, O, dev, shapes)
     errs.update(check_bwd_kernels(K, R, O, dev, shapes))
+    errs.update(check_codec_kernels(CK, CR, dev, shapes))
 
     log("[5] kernel times at full width (CUDA events, 10 launches, warm):")
     times = time_kernels(K, R, dev)
     times.update(time_bwd_kernels(K, R, dev))
-    log("[5b] bounds of the twelve Pallas kernels:")
+    times.update(time_codec_kernels(CK, CR, dev))
+    log("[5c] one client's uplink at full width (CUDA events, 5 launches, "
+        "warm):")
+    time_codec_stage(dev)
+    log("[5b] bounds of the twelve Pallas kernels, and the library time of "
+        "flash attention's:")
     print_all_bounds()
+    time_attention_library(dev)
 
+    counts_of = Counts(K, CK)
     log(f"[6] main path: smollm-360m, UGA + FedMeta, fused; {ROUNDS} rounds "
-        f"each in meta_mode='post', {TA_ROUNDS} in 'through_aggregation':")
-    counts = main_path(K, dev)
+        f"each in meta_mode='post', {TA_ROUNDS} in 'through_aggregation', "
+        f"{CODED_ROUNDS} with each lossy uplink codec:")
+    counts = main_path(counts_of, dev)
+    counts.update(coded_path(counts_of, dev))
 
     log("[6b] two vmap/sgd rounds at full width, the second under "
         "torch.profiler:")
@@ -761,13 +1242,15 @@ def main() -> int:
     log("[7] small input, card against the CPU plain versions:")
     small_reference(dev)
     small_reference_through(dev)
+    small_reference_coded(dev)
 
     kernels = []
     for name in KERNEL_NAMES:
         t = times[name]
         by_path = {tag: c[name] for tag, c in counts.items()}
+        family = "comm" if name in CODEC_NAMES else "fused_update"
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[family],
             "replaces": REPLACES[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": errs[name], "ms": t["ms"],

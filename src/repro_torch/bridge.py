@@ -60,6 +60,7 @@ def to_numpy(params: Dict[str, torch.Tensor]) -> Any:
 
 
 def server_state_to_torch(opt: Dict[str, Any], ctrl: Dict[str, Any] = None,
+                          comm: Dict[str, Any] = None,
                           device=None) -> Dict[str, Any]:
     """The JAX server state beside the parameters -> the port's.
 
@@ -67,7 +68,9 @@ def server_state_to_torch(opt: Dict[str, Any], ctrl: Dict[str, Any] = None,
     ``{"m": ..., "v": ..., "t": step}``, one ``(rows, 128)`` buffer per
     dtype group), ``ctrl`` the through-aggregation slot (``{"w_logits":
     (cohort,), "log_lr": ()}``), as numpy or anything ``np.asarray``
-    takes.  Returns ``{"opt": ..., "ctrl": ...}`` (``ctrl`` only when
+    takes; ``comm`` the error-feedback slot (``{"residual": (stack, ...)}``,
+    one ``(cohort, rows, 128)`` stack per dtype group).  Returns ``{"opt":
+    ..., "ctrl": ..., "comm": ...}`` (``ctrl`` and ``comm`` only when
     given), ready to assign into a port trainer's ``state``."""
     def tensor(x, dtype):
         return torch.from_numpy(np.array(x, dtype=dtype, copy=True)).to(
@@ -83,4 +86,7 @@ def server_state_to_torch(opt: Dict[str, Any], ctrl: Dict[str, Any] = None,
     if ctrl is not None:
         out["ctrl"] = {k: tensor(ctrl[k], np.float32)
                        for k in ("w_logits", "log_lr")}
+    if comm is not None:
+        out["comm"] = {"residual": tuple(tensor(b, np.float32)
+                                         for b in comm["residual"])}
     return out

@@ -188,9 +188,6 @@ class FedConfig:
                             "(ROADMAP Queue 1 item 9)")
         elif self.engine not in (None, "fused_flat", "buffered_async"):
             raise ValueError(f"unknown server engine {self.engine!r}")
-        if self.codec != "none" or self.error_feedback:
-            unported.append(f"codec={self.codec!r} / error_feedback "
-                            "(ROADMAP Queue 1 item 2)")
         if self.participation < 1.0:
             unported.append("participation < 1 (ROADMAP Queue 1 item 3)")
         faults = (self.fault_profile != "none" or self.round_deadline > 0
@@ -225,3 +222,33 @@ class FedConfig:
                     "meta_mode='through_aggregation' seeds the controllable "
                     "step size as exp(log_lr) = server_lr; server_lr must "
                     "be > 0")
+        # the communication-compression knobs (repro_torch.comm), checked
+        # against the codec registry as the JAX package checks them
+        from repro_torch.comm.codecs import get_codec
+        if not 0.0 < self.topk_ratio <= 1.0:
+            raise ValueError(
+                f"topk_ratio={self.topk_ratio} must be in (0, 1]: it is "
+                "the fraction of elements the 'topk' codec transmits")
+        codec = get_codec(self.codec)(self)    # raises naming the registry
+        if self.error_feedback and not codec.lossy:
+            raise ValueError(
+                f"error_feedback=True with codec={self.codec!r} has no "
+                "compression residual to feed back; pick a lossy codec "
+                "(e.g. 'int8', 'sign1bit', 'topk') or drop error_feedback")
+        if codec.lossy:
+            if self.meta and self.meta_mode == "through_aggregation":
+                raise ValueError(
+                    f"codec={self.codec!r} cannot combine with meta_mode="
+                    "'through_aggregation': the hypergradient would "
+                    "differentiate through a non-differentiable quantizer. "
+                    "Lossy codecs are meta_mode='post' only.")
+            from repro_torch.core.engines import get_engine
+            eng = get_engine(self.engine or "fused_flat")
+            if "lossy" not in eng.codec_capabilities:
+                raise ValueError(
+                    f"codec={self.codec!r} needs a server engine declaring "
+                    f"the 'lossy' codec capability, but {eng.name!r} "
+                    f"declares {sorted(eng.codec_capabilities)}: lossy "
+                    "codecs decode into flat dtype-group buffers. Set "
+                    "fused_update=True (the fused_flat engine) or use "
+                    "codec='none'.")

@@ -17,6 +17,12 @@ runs:
     scan's memory property there too: the backward re-runs each client's
     update and feeds its gradient to the accumulate backward kernel, one
     client at a time — JAX's ``jax.checkpoint`` of the scan body.
+
+Each arm has a coded form for a lossy uplink codec (``meta_mode='post'``
+only): :func:`cohort_gradient_stacked_coded` runs the codec stage over the
+filled stack, :func:`scan_cohort_gradient_coded` as each client's gradient
+arrives; both accumulate with the codec's decode instead of the aggregate
+or accumulate kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.comm.transport import (client_coded_accumulate,
+                                        coded_aggregate_stacked)
 from repro_torch.core import flat as flat_mod
 from repro_torch.core.flat import LANES, FlatSpec
 from repro_torch.kernels.fused_update import kernel as K
@@ -34,14 +42,11 @@ def _client_batch(cohort_batch: Dict[str, torch.Tensor], k: int):
     return {name: x[k] for name, x in cohort_batch.items()}
 
 
-def cohort_gradient_stacked(client_update: Callable, w_t, cohort_batch,
-                            client_weights: torch.Tensor, lr, *,
-                            spec: FlatSpec
-                            ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Run every client; returns (per-group (cohort, rows, 128) gradient
-    stacks, n_k-weighted mean client loss)."""
-    cohort = client_weights.shape[0]
-    device = client_weights.device
+def _run_stacked(client_update: Callable, w_t, cohort_batch, lr,
+                 cohort: int, spec: FlatSpec, device
+                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Run every client into its slot of preallocated (cohort, rows, 128)
+    stacks; returns (the stacks, the per-client losses)."""
     stacks = [torch.empty((cohort, g.rows, LANES), dtype=torch.float32,
                           device=device) for g in spec.groups]
     losses = []
@@ -51,10 +56,53 @@ def cohort_gradient_stacked(client_update: Callable, w_t, cohort_batch,
         flat_mod.flatten_tree(spec, g_k, out=[s[k] for s in stacks])
         losses.append(l_k)
         del g_k
+    return stacks, losses
+
+
+def cohort_gradient_stacked(client_update: Callable, w_t, cohort_batch,
+                            client_weights: torch.Tensor, lr, *,
+                            spec: FlatSpec
+                            ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Run every client; returns (per-group (cohort, rows, 128) gradient
+    stacks, n_k-weighted mean client loss)."""
+    stacks, losses = _run_stacked(client_update, w_t, cohort_batch, lr,
+                                  client_weights.shape[0], spec,
+                                  client_weights.device)
     w32 = client_weights.to(torch.float32)
     wsum = torch.clamp(torch.sum(w32), min=1e-30)
     mean_loss = torch.sum(torch.stack(losses) * w32) / wsum
     return stacks, mean_loss
+
+
+def cohort_gradient_stacked_coded(client_update: Callable, w_t,
+                                  cohort_batch, client_weights: torch.Tensor,
+                                  lr, *, spec: FlatSpec, codec,
+                                  residuals: Optional[tuple] = None
+                                  ) -> Tuple[List[torch.Tensor], torch.Tensor,
+                                             Optional[tuple]]:
+    """The vmap cohort with a lossy uplink codec: every client's gradient
+    fills its stack slot, then :func:`repro_torch.comm.transport.
+    coded_aggregate_stacked` runs each client's uplink in cohort order — the
+    JAX chunked core at chunk = cohort, which also fixes the loss: weighted
+    by the normalized aggregation weights, accumulated in client order.
+    ``residuals`` (per-group (cohort, rows, 128) error-feedback stacks) are
+    updated in place.  Returns (G_groups, mean_loss, residuals)."""
+    stacks, losses = _run_stacked(client_update, w_t, cohort_batch, lr,
+                                  client_weights.shape[0], spec,
+                                  client_weights.device)
+    G, new_res = coded_aggregate_stacked(codec, spec, stacks,
+                                         client_weights, residuals)
+    del stacks
+    w32 = client_weights.to(torch.float32)
+    wn = w32 / torch.clamp(torch.sum(w32), min=1e-30)
+    return G, _loss_in_client_order(wn, losses), new_res
+
+
+def _loss_in_client_order(wn: torch.Tensor, losses) -> torch.Tensor:
+    l_acc = torch.zeros((), dtype=torch.float32, device=wn.device)
+    for k in range(wn.shape[0]):
+        l_acc = l_acc + wn[k] * losses[k]
+    return l_acc
 
 
 class _ScanCohort(torch.autograd.Function):
@@ -131,7 +179,39 @@ def scan_cohort_gradient_flat(client_update: Callable, w_t, cohort_batch,
         lwn = lw32 / torch.clamp(torch.sum(lw32), min=1e-30)
     *accs, losses = _ScanCohort.apply(wn, client_update, w_t, cohort_batch,
                                       lr, spec)
-    l_acc = torch.zeros((), dtype=torch.float32, device=wn.device)
+    return accs, _loss_in_client_order(lwn, losses)
+
+
+def scan_cohort_gradient_coded(client_update: Callable, w_t, cohort_batch,
+                               client_weights: torch.Tensor, lr, *,
+                               spec: FlatSpec, codec,
+                               residuals: Optional[tuple] = None
+                               ) -> Tuple[List[torch.Tensor], torch.Tensor,
+                                          Optional[tuple]]:
+    """:func:`scan_cohort_gradient_flat` with a lossy uplink codec
+    (:mod:`repro_torch.comm`) between each client and the accumulators:
+    client k's flat gradient is encoded (error-compensated against its
+    ``residuals`` slot, which is updated in place), decoded and folded into
+    the Eq. (14) accumulators — for ``int8`` / ``sign1bit`` the decode is
+    the accumulation itself (``kernels/comm``).  One client's gradient is
+    alive at a time; weights are normalized once; the loss is weighted by
+    the normalized weights, accumulated in client order.  Not
+    differentiable in the weights: lossy codecs are ``meta_mode='post'``
+    only.  Returns (G_groups, mean_loss, residuals)."""
+    w32 = client_weights.to(torch.float32)
+    wn = w32 / torch.clamp(torch.sum(w32), min=1e-30)
+    accs = flat_mod.zeros_flat(spec, wn.device)
+    scratch = [torch.empty_like(a) for a in accs]
+    losses = []
     for k in range(wn.shape[0]):
-        l_acc = l_acc + lwn[k] * losses[k]
-    return accs, l_acc
+        g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k), lr,
+                                 None)
+        g_bufs = flat_mod.flatten_tree(spec, g_k, out=scratch)
+        del g_k
+        res_k = (None if residuals is None
+                 else [stack[k] for stack in residuals])
+        accs, _ = client_coded_accumulate(codec, spec, accs, g_bufs, wn[k],
+                                          res_k)
+        losses.append(l_k.to(torch.float32))
+    return list(accs), _loss_in_client_order(wn, losses), (
+        None if residuals is None else tuple(residuals))

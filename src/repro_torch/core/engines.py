@@ -25,9 +25,11 @@ class ServerEngine:
     opt_state, lr=) -> (new_params, new_opt_state, grad_norm_after_clip)``.
     ``meta_capabilities`` names the FedMeta modes the engine supports;
     ``through_aggregation`` needs ``apply`` differentiable in the handle's
-    weights and in ``lr``."""
+    weights and in ``lr``.  ``codec_capabilities`` names the uplink codecs
+    it consumes: ``lossy`` needs it to take the decoded flat buffers."""
     name: str = "?"
     meta_capabilities: frozenset = frozenset({"post"})
+    codec_capabilities: frozenset = frozenset({"none"})
 
     def init_state(self, params):
         raise NotImplementedError
@@ -61,9 +63,11 @@ def resolve_engine(fed) -> ServerEngine:
 class FusedFlatEngine(ServerEngine):
     """Flat-buffer engine: clip + sgd/sgdm/adam/yogi + param write in one
     update-kernel sweep per dtype group, differentiable through the
-    backward kernels — so it declares ``through_aggregation``."""
+    backward kernels — so it declares ``through_aggregation``; it consumes
+    flat buffers, so lossy codecs' decoded aggregates too."""
     name = "fused_flat"
     meta_capabilities = frozenset({"post", "through_aggregation"})
+    codec_capabilities = frozenset({"none", "lossy"})
 
     def __init__(self, fed):
         self._opt = fed.server_opt

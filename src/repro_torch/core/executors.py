@@ -7,6 +7,12 @@ uniform :class:`FlatAggregate` handle the fused engine consumes.
   * ``scan`` — one client alive at a time, streamed into the accumulators
     by the accumulate kernel.
 
+Both run a lossy uplink codec too (``run_coded``, ``codec_capabilities``
+``{"none", "lossy"}``): vmap fills its stack and runs each client's
+encode/decode over it in cohort order (no aggregate kernel), scan streams
+each client through the codec as its gradient arrives (no accumulate
+kernel); the decode is the accumulation.
+
 Both also give a :class:`ReweightableCohort` (``reweightable()``), the
 differentiable form ``meta_mode='through_aggregation'`` takes its
 hypergradients through: vmap runs the clients once and keeps the stack;
@@ -23,6 +29,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.core.aggregate import (cohort_gradient_stacked,
+                                        cohort_gradient_stacked_coded,
+                                        scan_cohort_gradient_coded,
                                         scan_cohort_gradient_flat)
 from repro_torch.core.flat import FlatSpec, make_flat_spec
 from repro_torch.core.registry import Registry
@@ -55,6 +63,13 @@ class CohortExecutor:
     """Protocol.  Subclass and register a factory ``factory(fed)``."""
     name: str = "?"
     supports_reweight: bool = False
+    # the codecs this executor runs: {"none"} is the plain path only;
+    # {"none", "lossy"} adds run_coded, a per-client uplink (repro_torch.comm)
+    codec_capabilities: frozenset = frozenset({"none"})
+    # the coded cohort run_coded streams through: (client_update, params,
+    # cohort_batch, client_weights, lr, *, spec, codec, residuals) ->
+    # (G_groups, client_loss, residuals)
+    coded_cohort: Optional[Callable] = None
 
     def run(self, client_update: Callable, params, cohort_batch,
             client_weights: torch.Tensor, lr
@@ -63,6 +78,26 @@ class CohortExecutor:
         By default the reweightable form aggregated under the n_k."""
         return self.reweightable(client_update, params, cohort_batch,
                                  client_weights, lr).aggregate(client_weights)
+
+    def run_coded(self, client_update: Callable, params, cohort_batch,
+                  client_weights: torch.Tensor, lr, *, codec, comm
+                  ) -> Tuple[FlatAggregate, torch.Tensor, Optional[dict]]:
+        """Run every client, pass each gradient through ``codec``'s encode
+        and decode (the uplink) and aggregate the decoded gradients.
+        ``comm`` is the error-feedback state (``state["comm"]``, updated in
+        place) or None.  Returns (handle, client_loss, new_comm)."""
+        if "lossy" not in self.codec_capabilities:
+            raise NotImplementedError(
+                f"cohort executor {self.name!r} does not support lossy "
+                "gradient codecs (declares codec_capabilities="
+                f"{sorted(self.codec_capabilities)})")
+        spec = make_flat_spec(params)
+        Gs, loss, res = self.coded_cohort(
+            client_update, params, cohort_batch, client_weights, lr,
+            spec=spec, codec=codec,
+            residuals=None if comm is None else comm["residual"])
+        return (FlatAggregate(Gs, spec, sq_norm=None), loss,
+                None if comm is None else {"residual": res})
 
     def reweightable(self, client_update: Callable, params, cohort_batch,
                      client_weights: torch.Tensor, lr) -> ReweightableCohort:
@@ -97,6 +132,8 @@ class VmapExecutor(CohortExecutor):
     aggregate-kernel sweep that also reduces ||G||^2 for the clip."""
     name = "vmap"
     supports_reweight = True
+    codec_capabilities = frozenset({"none", "lossy"})
+    coded_cohort = staticmethod(cohort_gradient_stacked_coded)
 
     def __init__(self, fed: Any):
         del fed
@@ -124,6 +161,8 @@ class ScanExecutor(CohortExecutor):
     flat gradient streamed into the accumulators (chunk = 1)."""
     name = "scan"
     supports_reweight = True
+    codec_capabilities = frozenset({"none", "lossy"})
+    coded_cohort = staticmethod(scan_cohort_gradient_coded)
 
     def __init__(self, fed: Any):
         del fed

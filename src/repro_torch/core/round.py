@@ -1,7 +1,10 @@
-"""One federated round (PyTorch port of the synchronous, codec-free,
-fault-free arm of ``repro/core/round.py``), composed from the registries:
+"""One federated round (PyTorch port of the synchronous, fault-free arm of
+``repro/core/round.py``), composed from the registries:
 
     local updating    (ClientAlgorithm: uga / fedavg / fedprox / fednova)
+ -> uplink            (GradientCodec: none / int8 / sign1bit / topk; a
+                       lossy codec runs the executor's coded path, with
+                       per-client error feedback in ``state["comm"]``)
  -> aggregation       (CohortExecutor: vmap / scan -> a flat handle)
  -> server update     (ServerEngine: fused_flat)
  -> FedMeta step      (core/meta.py: Eq. 20 after the server step under
@@ -23,10 +26,13 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm import (comm_bytes_per_client, init_comm_state,
+                              resolve_codec)
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.algorithms import get_algorithm
 from repro_torch.core.engines import resolve_engine
 from repro_torch.core.executors import resolve_executor
+from repro_torch.core.flat import make_flat_spec
 from repro_torch.core.meta import meta_update, meta_update_through_cohort
 from repro_torch.models.model import Model
 
@@ -65,6 +71,10 @@ def init_server_state(model: Model, fed: FedConfig, *,
             "log_lr": torch.log(torch.tensor(resolve_server_lr(fed),
                                              dtype=torch.float32,
                                              device=device))}
+    if fed.error_feedback and resolve_codec(fed).lossy:
+        # per-client compression residuals: zero EF memory per cohort slot
+        state["comm"] = init_comm_state(
+            fed, make_flat_spec(params), next(iter(params.values())).device)
     return state
 
 
@@ -97,6 +107,32 @@ def make_federated_round(model: Model, fed: FedConfig):
             f"meta_mode='through_aggregation' needs a cohort executor that "
             f"supports reweightable aggregation, but {exe.name!r} does "
             "not. Use the vmap or scan executor or meta_mode='post'.")
+    codec = resolve_codec(fed)
+    if codec.lossy:
+        # FedConfig checks these too; re-check against the resolved plugins
+        # so a lossy codec never runs a path that drops the compression or
+        # differentiates through it
+        if through_agg:
+            raise ValueError(
+                f"codec={fed.codec!r} with "
+                "meta_mode='through_aggregation' would differentiate "
+                "through a non-differentiable quantizer. Lossy codecs are "
+                "meta_mode='post' only. Use meta_mode='post' or "
+                "codec='none'.")
+        if "lossy" not in exe.codec_capabilities:
+            raise ValueError(
+                f"codec={fed.codec!r} needs a cohort executor declaring "
+                f"the 'lossy' codec capability, but {exe.name!r} declares "
+                f"{sorted(exe.codec_capabilities)}. Use the vmap or scan "
+                "executor or codec='none'.")
+        if "lossy" not in eng.codec_capabilities:
+            raise ValueError(
+                f"codec={fed.codec!r} needs a server engine declaring the "
+                f"'lossy' codec capability, but {eng.name!r} declares "
+                f"{sorted(eng.codec_capabilities)}: lossy codecs decode "
+                "into the flat buffers the fused engine consumes. Set "
+                "FedConfig(fused_update=True) or use codec='none'.")
+    use_ef = codec.lossy and fed.error_feedback
 
     def one_round(state: State, cohort_batch, meta_batch,
                   client_weights: torch.Tensor
@@ -105,6 +141,7 @@ def make_federated_round(model: Model, fed: FedConfig):
         r = state["round"]
         lr_c = decayed_lr(fed.client_lr, fed.lr_decay, r)
         meta_metrics = {}
+        comm_metrics = {}
         if through_agg:
             rw = exe.reweightable(client_update, params, cohort_batch,
                                   client_weights, lr_c)
@@ -113,6 +150,19 @@ def make_federated_round(model: Model, fed: FedConfig):
                 model.loss, rw, client_weights, params, state["opt"],
                 meta_batch, state["ctrl"], engine=eng, ctrl_lr=fed.ctrl_lr)
             del rw
+        elif codec.lossy:
+            handle, client_loss, new_comm = exe.run_coded(
+                client_update, params, cohort_batch, client_weights, lr_c,
+                codec=codec, comm=state.get("comm"))
+            new_params, opt_state, gn_post = eng.apply(
+                params, handle, state["opt"], lr=server_lr)
+            del handle
+            # uplink bytes: one client's payload times the clients that
+            # reported (the whole cohort: participation < 1 is not ported),
+            # in fp32 as the JAX round computes it
+            bytes_pc = comm_bytes_per_client(codec, make_flat_spec(params))
+            comm_metrics["comm_bytes"] = (
+                np.float32(bytes_pc) * np.float32(client_weights.shape[0]))
         else:
             handle, client_loss = exe.run(client_update, params,
                                           cohort_batch, client_weights, lr_c)
@@ -120,7 +170,7 @@ def make_federated_round(model: Model, fed: FedConfig):
                 params, handle, state["opt"], lr=server_lr)
             del handle
         metrics = {"client_loss": client_loss, "grad_norm": gn_post,
-                   **meta_metrics}
+                   **meta_metrics, **comm_metrics}
         if fed.meta and not through_agg:
             lr_m = decayed_lr(fed.meta_lr, fed.lr_decay, r)
             new_params, meta_loss = meta_update(model.loss, new_params,
@@ -129,6 +179,8 @@ def make_federated_round(model: Model, fed: FedConfig):
         new_state = {"params": new_params, "opt": opt_state, "round": r + 1}
         if through_agg:
             new_state["ctrl"] = new_ctrl
+        if use_ef:
+            new_state["comm"] = new_comm
         return new_state, metrics
 
     return one_round

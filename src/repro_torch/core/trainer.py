@@ -10,9 +10,11 @@ and 8).
 :class:`~repro_torch.data.pipeline.FederatedData`, moves it to the device,
 runs the round and returns one record per round (``{"round": r,
 **metrics}``), the JAX package's record format.  The server state carries
-from round to round whole: params, the flat optimizer state and, under
-``meta_mode='through_aggregation'``, ``ctrl``, whose round adds
-``ctrl_w_gnorm``, ``ctrl_lr_grad`` and ``server_lr_eff`` to the record.
+from round to round whole: params, the flat optimizer state, under
+``meta_mode='through_aggregation'`` ``ctrl``, whose round adds
+``ctrl_w_gnorm``, ``ctrl_lr_grad`` and ``server_lr_eff`` to the record,
+and under a lossy codec with error feedback ``comm``; a lossy codec's
+round adds ``comm_bytes``.
 """
 from __future__ import annotations
 

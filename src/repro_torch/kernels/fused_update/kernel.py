@@ -7,7 +7,7 @@ Hopper in ``csrc/fused_update.cu`` and compiled with ``nvcc`` for
 :mod:`ctypes`.  The build happens at first use, into ``build/`` beside
 this file, keyed by a hash of the source and flags, so a fresh checkout
 builds everything it runs and a changed source never loads a stale
-library.
+library (:mod:`repro_torch.kernels._cuda`).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 
@@ -38,134 +38,49 @@ to launch.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import threading
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._cuda import (LANES, CudaLibrary, check_buf,
+                                      check_flat, check_scalar, device_of,
+                                      ptr, raise_on, stream)
 from repro_torch.kernels.fused_update import ref as R
 
-LANES = 128
 OPT_CODES = {"sgd": 0, "sgdm": 1, "adam": 2, "yogi": 3}
 AGG_THREADS = 256
 AGG_MAX_BLOCKS = 1024        # fixed, so every sum is a function of n alone
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "fused_update.cu")
-BUILD_DIR = os.path.join(_HERE, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-build_log = ""               # nvcc's output (-Xptxas -v) from the last build
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "fused_update.cu")
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found to build the fused "
-                           "update kernels (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I64, I, F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_float)
+    lib.fu_aggregate.argtypes = [P, P, P, P, P, I64, I, I, P]
+    lib.fu_accumulate.argtypes = [P, P, P, P, I64, P]
+    lib.fu_update.argtypes = [I, P, P, P, P, P, P, P, P, I64,
+                              F, F, F, F, F, F, P]
+    lib.fu_accumulate_bwd.argtypes = [P, P, P, P, P, P, I64, I, P]
+    lib.fu_aggregate_bwd.argtypes = [P, P, P, P, P, P, P, P, I64, I, I, P]
+    lib.fu_update_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P,
+                                  P, P, I64, F, F, F, F, F, F, I, P]
+    for fn in (lib.fu_aggregate, lib.fu_accumulate, lib.fu_update,
+               lib.fu_accumulate_bwd, lib.fu_aggregate_bwd,
+               lib.fu_update_bwd):
+        fn.restype = ctypes.c_int
 
 
-def build(force: bool = False) -> str:
-    """Compile the kernels' shared library if needed; returns its path."""
-    global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libfused_update_{digest}.so")
-    if os.path.exists(path) and not force:
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, path)
-    return path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            P, I64, I, F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                            ctypes.c_float)
-            lib.fu_aggregate.argtypes = [P, P, P, P, P, I64, I, I, P]
-            lib.fu_accumulate.argtypes = [P, P, P, P, I64, P]
-            lib.fu_update.argtypes = [I, P, P, P, P, P, P, P, P, I64,
-                                      F, F, F, F, F, F, P]
-            lib.fu_accumulate_bwd.argtypes = [P, P, P, P, P, P, I64, I, P]
-            lib.fu_aggregate_bwd.argtypes = [P, P, P, P, P, P, P, P, I64, I,
-                                             I, P]
-            lib.fu_update_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, P,
-                                          P, P, I64, F, F, F, F, F, F, I, P]
-            for fn in (lib.fu_aggregate, lib.fu_accumulate, lib.fu_update,
-                       lib.fu_accumulate_bwd, lib.fu_aggregate_bwd,
-                       lib.fu_update_bwd):
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
-
-
-def _check_buf(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _device_of(*ts: torch.Tensor) -> torch.device:
-    devs = {t.device for t in ts if t is not None}
-    if len(devs) != 1:
-        raise ValueError("tensors on different devices: "
-                         f"{sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
-                           f"({torch.cuda.get_device_name()})")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+LIB = CudaLibrary("fused_update", SOURCE, _bind)
+build = LIB.build
+_load = LIB.load
 
 
 def _nblocks(n: int) -> int:
     """The fixed grid of a kernel that sums over ``n`` floats."""
     return max(1, min(-(-(n // 4) // AGG_THREADS), AGG_MAX_BLOCKS))
-
-
-def _check_scalar(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.float32 or t.numel() != 1:
-        raise ValueError(f"{name}: expected a one-element float32 tensor")
-
-
-def _check_flat(name: str, t: torch.Tensor) -> Tuple[int, ...]:
-    if t.dim() != 2 or t.shape[-1] != LANES:
-        raise ValueError(f"{name}: expected (rows, {LANES}), got "
-                         f"{tuple(t.shape)}")
-    return tuple(t.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +96,9 @@ def aggregate_pass(g_stack: torch.Tensor, w_norm: torch.Tensor
         raise ValueError(f"g_stack: expected (cohort, rows, {LANES}), got "
                          f"{tuple(g_stack.shape)}")
     cohort, rows, _ = g_stack.shape
-    _check_buf("g_stack", g_stack, (cohort, rows, LANES))
-    _check_buf("w_norm", w_norm, (cohort,))
-    dev = _device_of(g_stack, w_norm)
+    check_buf("g_stack", g_stack, (cohort, rows, LANES))
+    check_buf("w_norm", w_norm, (cohort,))
+    dev = device_of(g_stack, w_norm)
     if dev.type == "cpu":
         return R.aggregate_ref(g_stack, w_norm)
     lib = _load()
@@ -196,8 +111,8 @@ def aggregate_pass(g_stack: torch.Tensor, w_norm: torch.Tensor
         err = lib.fu_aggregate(g_stack.data_ptr(), w_norm.data_ptr(),
                                G.data_ptr(), partials.data_ptr(),
                                ssq.data_ptr(), n, cohort, nblocks,
-                               _stream(dev))
-    _raise_on(err, "aggregate_pass")
+                               stream(dev))
+    raise_on(err, "aggregate_pass")
     aggregate_pass.launches += 1
     return G, ssq
 
@@ -216,13 +131,13 @@ def accumulate_pass(acc: torch.Tensor, g: torch.Tensor, w: torch.Tensor, *,
     which the scan executor does to keep one buffer alive).
 
     Replaces ``repro/kernels/fused_update/kernel.py::accumulate_pass``."""
-    shape = _check_flat("acc", acc)
-    _check_buf("acc", acc, shape)
-    _check_buf("g", g, shape)
-    _check_scalar("w", w)
+    shape = check_flat("acc", acc)
+    check_buf("acc", acc, shape)
+    check_buf("g", g, shape)
+    check_scalar("w", w)
     if out is not None:
-        _check_buf("out", out, shape)
-    dev = _device_of(acc, g, w, out)
+        check_buf("out", out, shape)
+    dev = device_of(acc, g, w, out)
     if dev.type == "cpu":
         res = R.accumulate_ref(acc, g, w.reshape(()))
         if out is None:
@@ -234,8 +149,8 @@ def accumulate_pass(acc: torch.Tensor, g: torch.Tensor, w: torch.Tensor, *,
     w = w.reshape(1).contiguous()
     with torch.cuda.device(dev):
         err = lib.fu_accumulate(acc.data_ptr(), g.data_ptr(), w.data_ptr(),
-                                out.data_ptr(), acc.numel(), _stream(dev))
-    _raise_on(err, "accumulate_pass")
+                                out.data_ptr(), acc.numel(), stream(dev))
+    raise_on(err, "accumulate_pass")
     accumulate_pass.launches += 1
     return out
 
@@ -258,12 +173,12 @@ def update_pass(G: torch.Tensor, p: torch.Tensor, m: Optional[torch.Tensor],
     Replaces ``repro/kernels/fused_update/kernel.py::update_pass``."""
     if opt not in OPT_CODES:
         raise ValueError(f"unknown optimizer {opt!r}")
-    shape = _check_flat("G", G)
-    _check_buf("G", G, shape)
-    _check_buf("p", p, shape)
+    shape = check_flat("G", G)
+    check_buf("G", G, shape)
+    check_buf("p", p, shape)
     need_m, need_v = _check_slots(opt, shape, m=m, v=v)
-    _check_buf("scalars", scalars, (4,))
-    dev = _device_of(G, p, m, v, scalars)
+    check_buf("scalars", scalars, (4,))
+    dev = device_of(G, p, m, v, scalars)
     if dev.type == "cpu":
         return R.update_ref(G, p, m, v, scalars, opt=opt, momentum=momentum,
                             b1=b1, b2=b2, eps=eps)
@@ -273,11 +188,11 @@ def update_pass(G: torch.Tensor, p: torch.Tensor, m: Optional[torch.Tensor],
     new_v = torch.empty_like(p) if need_v else None
     with torch.cuda.device(dev):
         err = lib.fu_update(OPT_CODES[opt], G.data_ptr(), p.data_ptr(),
-                            _ptr(m), _ptr(v), scalars.data_ptr(),
-                            new_p.data_ptr(), _ptr(new_m), _ptr(new_v),
+                            ptr(m), ptr(v), scalars.data_ptr(),
+                            new_p.data_ptr(), ptr(new_m), ptr(new_v),
                             G.numel(), momentum, b1, 1.0 - b1, b2, 1.0 - b2,
-                            eps, _stream(dev))
-    _raise_on(err, "update_pass")
+                            eps, stream(dev))
+    raise_on(err, "update_pass")
     update_pass.launches += 1
     return new_p, new_m, new_v
 
@@ -296,7 +211,7 @@ def _check_slots(opt: str, shape, **slots) -> Tuple[bool, bool]:
             raise ValueError(f"{opt}: optimizer slot {name} "
                              f"{'missing' if need else 'not expected'}")
         if t is not None:
-            _check_buf(name, t, shape)
+            check_buf(name, t, shape)
     return need_m, need_v
 
 
@@ -311,11 +226,11 @@ def accumulate_pass_bwd(g: torch.Tensor, w: torch.Tensor,
     forward's one-element weight.  Returns (dg (rows, 128), dw ()).
 
     Replaces ``repro/kernels/fused_update/kernel.py::accumulate_pass_bwd``."""
-    shape = _check_flat("g", g)
-    _check_buf("g", g, shape)
-    _check_buf("d_out", d_out, shape)
-    _check_scalar("w", w)
-    dev = _device_of(g, w, d_out)
+    shape = check_flat("g", g)
+    check_buf("g", g, shape)
+    check_buf("d_out", d_out, shape)
+    check_scalar("w", w)
+    dev = device_of(g, w, d_out)
     if dev.type == "cpu":
         return R.accumulate_bwd_ref(g, w.reshape(()), d_out)
     lib = _load()
@@ -329,8 +244,8 @@ def accumulate_pass_bwd(g: torch.Tensor, w: torch.Tensor,
         err = lib.fu_accumulate_bwd(g.data_ptr(), w.data_ptr(),
                                     d_out.data_ptr(), dg.data_ptr(),
                                     partials.data_ptr(), dw.data_ptr(), n,
-                                    nblocks, _stream(dev))
-    _raise_on(err, "accumulate_pass_bwd")
+                                    nblocks, stream(dev))
+    raise_on(err, "accumulate_pass_bwd")
     accumulate_pass_bwd.launches += 1
     return dg, dw
 
@@ -354,12 +269,12 @@ def aggregate_pass_bwd(g_stack: torch.Tensor, w_norm: torch.Tensor,
         raise ValueError(f"g_stack: expected (cohort, rows, {LANES}), got "
                          f"{tuple(g_stack.shape)}")
     cohort, rows, _ = g_stack.shape
-    _check_buf("g_stack", g_stack, (cohort, rows, LANES))
-    _check_buf("w_norm", w_norm, (cohort,))
-    _check_buf("G", G, (rows, LANES))
-    _check_buf("dG", dG, (rows, LANES))
-    _check_scalar("dssq", dssq)
-    dev = _device_of(g_stack, w_norm, G, dG, dssq)
+    check_buf("g_stack", g_stack, (cohort, rows, LANES))
+    check_buf("w_norm", w_norm, (cohort,))
+    check_buf("G", G, (rows, LANES))
+    check_buf("dG", dG, (rows, LANES))
+    check_scalar("dssq", dssq)
+    dev = device_of(g_stack, w_norm, G, dG, dssq)
     if dev.type == "cpu":
         return R.aggregate_bwd_ref(g_stack, w_norm, G, dG, dssq.reshape(()))
     lib = _load()
@@ -375,8 +290,8 @@ def aggregate_pass_bwd(g_stack: torch.Tensor, w_norm: torch.Tensor,
                                    dssq.data_ptr(), G.data_ptr(),
                                    dG.data_ptr(), dg.data_ptr(),
                                    partials.data_ptr(), dw.data_ptr(), n,
-                                   cohort, nblocks, _stream(dev))
-    _raise_on(err, "aggregate_pass_bwd")
+                                   cohort, nblocks, stream(dev))
+    raise_on(err, "aggregate_pass_bwd")
     aggregate_pass_bwd.launches += 1
     return dg, dw
 
@@ -401,13 +316,13 @@ def update_pass_bwd(G: torch.Tensor, m: Optional[torch.Tensor],
     Replaces ``repro/kernels/fused_update/kernel.py::update_pass_bwd``."""
     if opt not in OPT_CODES:
         raise ValueError(f"unknown optimizer {opt!r}")
-    shape = _check_flat("G", G)
-    _check_buf("G", G, shape)
-    _check_buf("d_new_p", d_new_p, shape)
+    shape = check_flat("G", G)
+    check_buf("G", G, shape)
+    check_buf("d_new_p", d_new_p, shape)
     need_m, need_v = _check_slots(opt, shape, m=m, v=v, d_new_m=d_new_m,
                                   d_new_v=d_new_v)
-    _check_buf("scalars", scalars, (4,))
-    dev = _device_of(G, m, v, scalars, d_new_p, d_new_m, d_new_v)
+    check_buf("scalars", scalars, (4,))
+    dev = device_of(G, m, v, scalars, d_new_p, d_new_m, d_new_v)
     if dev.type == "cpu":
         return R.update_bwd_ref(G, m, v, scalars, d_new_p, d_new_m, d_new_v,
                                 opt=opt, momentum=momentum, b1=b1, b2=b2,
@@ -421,14 +336,14 @@ def update_pass_bwd(G: torch.Tensor, m: Optional[torch.Tensor],
     partials = torch.empty((4, nblocks), dtype=torch.float64, device=dev)
     dscal = torch.empty((4,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.fu_update_bwd(OPT_CODES[opt], G.data_ptr(), _ptr(m),
-                                _ptr(v), scalars.data_ptr(),
-                                d_new_p.data_ptr(), _ptr(d_new_m),
-                                _ptr(d_new_v), dG.data_ptr(), _ptr(dm),
-                                _ptr(dv), partials.data_ptr(),
+        err = lib.fu_update_bwd(OPT_CODES[opt], G.data_ptr(), ptr(m),
+                                ptr(v), scalars.data_ptr(),
+                                d_new_p.data_ptr(), ptr(d_new_m),
+                                ptr(d_new_v), dG.data_ptr(), ptr(dm),
+                                ptr(dv), partials.data_ptr(),
                                 dscal.data_ptr(), n, momentum, b1, 1.0 - b1,
-                                b2, 1.0 - b2, eps, nblocks, _stream(dev))
-    _raise_on(err, "update_pass_bwd")
+                                b2, 1.0 - b2, eps, nblocks, stream(dev))
+    raise_on(err, "update_pass_bwd")
     update_pass_bwd.launches += 1
     return dG, dm, dv, dscal
 

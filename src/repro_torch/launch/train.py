@@ -8,7 +8,8 @@ device (``--device cpu`` runs the kernels' plain versions on the CPU).
   python -m repro_torch.launch.train --arch smollm-360m --fused \\
       --algorithm uga --meta --rounds 3 --cohort 4 --client-batch 8 \\
       --seq 128 [--strategy scan] [--server-opt adam] \\
-      [--meta-mode through_aggregation]
+      [--meta-mode through_aggregation] \\
+      [--codec int8|sign1bit|topk [--error-feedback] [--topk-ratio R]]
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.comm.codecs import available_codecs
 from repro_torch.configs import FedConfig, get_arch
 from repro_torch.configs.base import ALGORITHMS, SERVER_OPTS, STRATEGIES
 from repro_torch.core.trainer import FederatedTrainer
@@ -62,7 +64,8 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                  iid: bool = False, seed: int = 0, log_every: int = 10,
                  strategy: str = "vmap", fused: bool = False,
                  meta_mode: str = "post", ctrl_lr: float = 0.01,
-                 device=None, params=None,
+                 codec: str = "none", error_feedback: bool = False,
+                 topk_ratio: float = 0.01, device=None, params=None,
                  on_records: Optional[Callable] = None):
     """Assemble (model, FedConfig, FederatedData) and train.  ``params``
     starts from given parameters instead of a seeded init; ``on_records``
@@ -78,6 +81,7 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
         server_lr=server_lr if server_lr is not None else client_lr,
         meta_lr=meta_lr if meta_lr is not None else client_lr,
         server_opt=server_opt, meta_mode=meta_mode, ctrl_lr=ctrl_lr,
+        codec=codec, error_feedback=error_feedback, topk_ratio=topk_ratio,
         cohort_strategy=strategy, lr_decay=0.992, fused_update=fused)
     data = build_synthetic_fed_data(cfg, num_clients=num_clients,
                                     examples=examples, seq=seq, iid=iid,
@@ -126,6 +130,16 @@ def main(argv=None):
     ap.add_argument("--ctrl-lr", type=float, default=0.01,
                     help="controllable-weights step size "
                          "(--meta-mode through_aggregation)")
+    ap.add_argument("--codec", default="none",
+                    choices=list(available_codecs()),
+                    help="client->server uplink gradient codec "
+                         "(repro_torch.comm); lossy codecs need --fused")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="keep per-client compression residuals "
+                         "(state['comm']) and re-add them before each "
+                         "round's encode (needs a lossy --codec)")
+    ap.add_argument("--topk-ratio", type=float, default=0.01,
+                    help="fraction of elements the 'topk' codec ships")
     ap.add_argument("--num-clients", type=int, default=32)
     ap.add_argument("--examples", type=int, default=2048)
     ap.add_argument("--iid", action="store_true")
@@ -146,7 +160,8 @@ def main(argv=None):
         num_clients=args.num_clients, examples=args.examples, iid=args.iid,
         seed=args.seed, log_every=args.log_every, strategy=args.strategy,
         fused=args.fused, meta_mode=args.meta_mode, ctrl_lr=args.ctrl_lr,
-        device=args.device)
+        codec=args.codec, error_feedback=args.error_feedback,
+        topk_ratio=args.topk_ratio, device=args.device)
     if args.history_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.history_out)),
                     exist_ok=True)

@@ -68,7 +68,7 @@ def test_rng_tags_match_jax():
 @pytest.mark.parametrize("kw", [
     dict(participation=0.5), dict(fault_profile="flaky"),
     dict(fault_drop=0.1), dict(engine="buffered_async"),
-    dict(codec="int8"), pytest.param(dict(engine="legacy_tree"),
+    dict(async_buffer=2), pytest.param(dict(engine="legacy_tree"),
                                      id="legacy_tree"),
     dict(cohort_chunk=2), dict(fused_update=False),
 ], ids=lambda kw: next(iter(kw)))

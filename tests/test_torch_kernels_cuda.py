@@ -8,12 +8,17 @@ Tolerance <= 1e-6 relative (max |a-b| over max |b|): the forward kernels
 contract multiply-adds into FMAs where the plain version rounds twice; the
 backward kernels round as the plain version does and their sums (fp64)
 agree to fp32 rounding.  ``ssq``, ``dw`` and ``dscal`` are also checked
-bitwise across two launches (no atomics).
+bitwise across two launches (no atomics).  The four codec kernels round
+every operation as their plain versions do and are held to them bitwise,
+on inputs with exact half-way products and signed zeros, with the pad
+mask cutting inside a row, and in place.
 """
 import pytest
 import torch
 
 from _torch_parity import rel_err
+from repro_torch.kernels.comm import kernel as CK
+from repro_torch.kernels.comm import ref as CR
 from repro_torch.kernels.fused_update import kernel as K
 from repro_torch.kernels.fused_update import ops as O
 from repro_torch.kernels.fused_update import ref as R
@@ -141,3 +146,81 @@ def test_update_bwd_kernel_matches_plain(cuda_device, opt):
         assert abs(float(outs[3][i] - refs[3][i])) <= \
             TOL * max(abs(float(refs[3][i])), 1e-30)
     assert torch.equal(outs[3], again[3])                  # no atomics
+
+
+def _codec_input(rows, gen, dev):
+    """Normal values with amax = 127 / 16, so the int8 scale is 1/16 and the
+    products g * 16 below are exact half-way points; and +0.0, -0.0."""
+    g = torch.randn((rows, 128), generator=gen, device=dev)
+    g = g.clamp(-7.5, 7.5)
+    g[0, :8] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.0, -0.0],
+                            device=dev) / 16
+    g[0, 8] = 127.0 / 16
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_error", [False, True])
+@pytest.mark.parametrize("rows", [8, 264, 4104])
+def test_quantize_i8_kernel_matches_plain(cuda_device, rows, with_error):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    g = _codec_input(rows, gen, cuda_device)
+    for scal in ([16.0, 1 / 16], [1 / 0.0371, 0.0371]):
+        scal = torch.tensor(scal, device=cuda_device)
+        n0 = CK.quantize_i8_pass.launches
+        out = CK.quantize_i8_pass(g, scal, with_error=with_error)
+        ref = CR.quantize_i8_ref(g, scal[0], scal[1], with_error=with_error)
+        torch.cuda.synchronize()
+        assert CK.quantize_i8_pass.launches == n0 + 1
+        for a, b in zip(out, ref) if with_error else [(out, ref)]:
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 264, 4104])
+def test_dequant_i8_fma_kernel_matches_plain(cuda_device, rows):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + 1)
+    acc = torch.randn((rows, 128), generator=gen, device=cuda_device)
+    q = torch.randint(-127, 128, (rows, 128), generator=gen,
+                      device=cuda_device, dtype=torch.int8)
+    sw = torch.tensor([0.0371 * 0.3], device=cuda_device)
+    ref = CR.dequant_i8_fma_ref(acc, q, sw[0])
+    assert torch.equal(CK.dequant_i8_fma_pass(acc, q, sw), ref)
+    CK.dequant_i8_fma_pass(acc, q, sw, out=acc)             # in place
+    torch.cuda.synchronize()
+    assert torch.equal(acc, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_error", [False, True])
+@pytest.mark.parametrize("cut", [0, 77])
+@pytest.mark.parametrize("rows", [8, 264, 4104])
+def test_sign_pack_kernel_matches_plain(cuda_device, rows, cut, with_error):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + 2)
+    g = _codec_input(rows, gen, cuda_device)
+    n_valid = rows * 128 - cut
+    mu = torch.tensor([0.7977], device=cuda_device)
+    out = CK.sign_pack_pass(g, mu, n_valid, with_error=with_error)
+    ref = CR.sign_pack_ref(g, mu[0], n_valid, with_error=with_error)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref) if with_error else [(out, ref)]:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    bits = out[0] if with_error else out
+    assert int(bits[0, 6]) & 1 and int(bits[0, 7]) & 1     # +0.0, -0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [0, 77])
+@pytest.mark.parametrize("rows", [8, 264, 4104])
+def test_sign_unpack_fma_kernel_matches_plain(cuda_device, rows, cut):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + 3)
+    acc = torch.randn((rows, 128), generator=gen, device=cuda_device)
+    bits = torch.randint(0, 256, (rows // 8, 128), generator=gen,
+                         device=cuda_device, dtype=torch.uint8)
+    n_valid = rows * 128 - cut
+    muw = torch.tensor([0.7977 * 0.3], device=cuda_device)
+    ref = CR.sign_unpack_fma_ref(acc, bits, muw[0], n_valid)
+    assert torch.equal(CK.sign_unpack_fma_pass(acc, bits, muw, n_valid), ref)
+    CK.sign_unpack_fma_pass(acc, bits, muw, n_valid, out=acc)   # in place
+    torch.cuda.synchronize()
+    assert torch.equal(acc, ref)
