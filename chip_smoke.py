@@ -22,8 +22,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   5. time each kernel (CUDA events, warm, buffers far larger than the 50 MB
      L2) beside its byte bound, its plain version and one library call
      where a single PyTorch call computes the same function; 5b: the bounds
-     of all twelve Pallas kernels and the library time of flash attention,
-     not yet ported (scaled_dot_product_attention); 5c: the device time of
+     of all twelve Pallas kernels and the library time of flash attention
+     at S 128 (scaled_dot_product_attention); 5c: the device time of
      one client's whole uplink for each lossy codec;
   6. the main path: ``repro_torch.launch.train.run_training`` on
      smollm-360m at full width (361,821,120 parameters), UGA + FedMeta,
@@ -45,6 +45,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and with int8 and sign1bit error feedback;
   8. one JSON line of per-kernel numbers, then the card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
+
+The serving path (``repro_torch.launch.serve``) adds, beside these:
+
+  3b. flash attention and the SSD scan against their plain versions on the
+      card (flash at 96 shapes: S 1 to 1025, causal on and off, window 0
+      and 256, group 1 and 3, head dim 64 and 128; the SSD scan at S 128
+      to 1025, chunk 256 and 64, y and h_final, at the init's decay range
+      and at slow decays, and against the sequential recurrence at S <=
+      256), then each at the prefill's shapes (the SSD scan in both decay
+      regimes, so the state carried across chunks is held at full width);
+  5d. their times at the prefill's shapes beside bound, plain and library
+      (phase 5b keeps S 128's bounds and library time);
+  6s. the serving main path: ``serve.main`` at full width on smollm-360m
+      and mamba2-780m, batch 8, prompt 1024, 32 tokens, seed 0, greedy;
+      the launch counts zeroed just before each run and read just after
+      (flash 32 or SSD 48, none of rows 1-10); prefill wall, decode tok/s,
+      peak memory;
+  6t. at full width, the decode of token 1024 after prefill(1024) against
+      the last logits of prefill(1025) (both kernels' ragged tails), with
+      the launch counts of the prefill (one per layer) and of the decode
+      step (none), and the warm prefill's wall, operations, rate and the
+      kernel's share of it;
+  7s. at smoke size, prefill logits, cache and 4 teacher-forced decode
+      steps on the card against the CPU plain versions, both models.
 
 Exits 2 without a result when no CUDA device is present.
 """
@@ -68,7 +92,10 @@ COHORT = 4
 FULL_N_VALID = 361_821_120      # its true element count (the pad is 64)
 SOURCES = {"fused_update": "src/repro_torch/kernels/fused_update/csrc/"
                            "fused_update.cu",
-           "comm": "src/repro_torch/kernels/comm/csrc/comm.cu"}
+           "comm": "src/repro_torch/kernels/comm/csrc/comm.cu",
+           "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
+                              "flash_attention.cu",
+           "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"}
 REPLACES = {
     "aggregate_pass": "src/repro/kernels/fused_update/kernel.py:111",
     "accumulate_pass": "src/repro/kernels/fused_update/kernel.py:146",
@@ -80,6 +107,8 @@ REPLACES = {
     "dequant_i8_fma_pass": "src/repro/kernels/comm/kernel.py:94",
     "sign_pack_pass": "src/repro/kernels/comm/kernel.py:147",
     "sign_unpack_fma_pass": "src/repro/kernels/comm/kernel.py:192",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:82",
+    "ssd_scan_fwd": "src/repro/kernels/ssd_scan/kernel.py:65",
 }
 FLIP_FRACTION = 1e-3             # the flip-aware criterion (flip_aware)
 FLIP_CAP = 1e-3
@@ -638,9 +667,9 @@ def time_codec_stage(dev):
 
 
 def time_attention_library(dev):
-    """Row 11's library time: one scaled_dot_product_attention call at
-    smollm-360m's shapes (B 8, 15 query and 5 key/value heads, S 128, D 64,
-    causal, fp32).  The key/value heads are repeated to 15 before the
+    """Row 11's library time at S 128, as earlier runs printed it: one
+    scaled_dot_product_attention call at smollm-360m's shapes (B 8, 15
+    query and 5 key/value heads, S 128, D 64, causal, fp32).  The key/value heads are repeated to 15 before the
     timed call, so the call computes the grouped attention; the port never
     calls it."""
     import torch
@@ -686,13 +715,16 @@ def ssd_bound(B=8, H=48, S=128, P=64, N=128, chunk=256, nbytes=4):
 
 
 def print_all_bounds():
-    """Bounds of the twelve Pallas kernels, ported or not.  The fused-update
+    """Bounds of the twelve Pallas kernels.  The fused-update
     and codec kernels at full width (fp32 flat buffers of FULL_ROWS rows,
     cohort 4, adam for the optimizer passes, error feedback on for the
     codecs): each input read once, each output written once, over the
     card's memory rate.  Flash attention and the SSD scan at one layer of
-    the models that would run them: the larger of bytes over the memory
-    rate and operations over the fp32 rate."""
+    the models that run them, at S 128 and at the serving prefill's 1024:
+    the larger of bytes over the memory rate and operations over the fp32
+    rate (``ssd_bound`` counts B and C per head, as the Pallas kernel reads
+    them; the port's kernel reads them per group, and moves less, but the
+    bound is set by operations either way)."""
     buf = FULL_ROWS * 128 * 4.0                   # one fp32 flat buffer
     i8, bits = buf / 4, buf / 32                  # int8 payload, sign bits
     rows = [
@@ -715,8 +747,12 @@ def print_all_bounds():
     for name, (rw, ops) in (
             ("11 flash_attention_fwd (smollm-360m, B 8, 15/5 heads, S 128, "
              "D 64, fp32)", attention_bound()),
+            ("11 flash_attention_fwd (the serving prefill: S 1024)",
+             attention_bound(S=1024)),
             ("12 ssd_scan_fwd (mamba2-780m, B 8, 48 heads, S 128, P 64, "
-             "N 128, fp32)", ssd_bound())):
+             "N 128, fp32)", ssd_bound()),
+            ("12 ssd_scan_fwd (the serving prefill: S 1024, chunk 256)",
+             ssd_bound(S=1024))):
         b, by = bound_ms(rw, ops)
         log(f"  {name}: {rw / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP, bound "
             f"{b * 1e3:.3f} us ({by}) per layer call")
@@ -740,7 +776,11 @@ FUSED_NAMES = ("aggregate_pass", "accumulate_pass", "update_pass",
                "update_pass_bwd")
 CODEC_NAMES = ("quantize_i8_pass", "dequant_i8_fma_pass", "sign_pack_pass",
                "sign_unpack_fma_pass")
-KERNEL_NAMES = FUSED_NAMES + CODEC_NAMES
+SERVE_NAMES = ("flash_attention_fwd", "ssd_scan_fwd")
+KERNEL_NAMES = FUSED_NAMES + CODEC_NAMES + SERVE_NAMES
+FAMILY = {**dict.fromkeys(FUSED_NAMES, "fused_update"),
+          **dict.fromkeys(CODEC_NAMES, "comm"),
+          "flash_attention_fwd": "flash_attention", "ssd_scan_fwd": "ssd_scan"}
 
 
 def _launches(**kw):
@@ -802,7 +842,7 @@ def payload_bytes(codec, n, ratio=0.01) -> int:
 
 
 class Counts:
-    """The launch counts of both kernel modules, zeroed and read together."""
+    """The launch counts of the kernel modules, zeroed and read together."""
 
     def __init__(self, *modules):
         self.modules = modules
@@ -1175,6 +1215,327 @@ def small_reference_coded(dev):
             f"off by more than 1e-5, residuals: {n_r} (flip-aware)")
 
 
+# ---------------------------------------------------------------------------
+# the serving path: flash attention and the SSD scan (phases 3b, 5d, 6s,
+# 6t, 7s)
+# ---------------------------------------------------------------------------
+# Tolerances, max |a-b| over max |b|.  Flash attention: an online softmax
+# against a global one, fp32: a few ulps.  SSD scan against the chunked
+# plain version, in every decay regime: both take the cumsum of a
+# sequentially in index order (``torch.cumsum`` on the card sums along S in
+# order), so the decays agree and only the products' summation orders
+# differ: a few ulps.  Against the sequential recurrence, which multiplies
+# exp(a_t) step by step instead of taking exp of a cumsum difference: at
+# the init's decay range (A from -1 to -16, dt = softplus of a unit
+# normal) the cumsum reaches a few thousand within a chunk of 256, where
+# one ulp is 2.4e-4, and each decay exp(acum_t - acum_s) moves by as much
+# relatively; at slow decays (|a| about 0.01, |acum| < 15) the sums' own
+# rounding is left.  Card against CPU at smoke size, and the full-width
+# prefill against decode: the JAX suite's tolerances for those (1e-4;
+# atol 2e-4 + rtol 1e-3).
+FLASH_TOL = 1e-5
+SSD_TOL = 1e-5
+SSD_SEQ_TOL = {"init": 2e-3, "slow": 1e-5}
+SERVE_TOL = 1e-4
+SERVE_ARCHS = {"smollm-360m": ("flash_attention_fwd", 32),
+               "mamba2-780m": ("ssd_scan_fwd", 48)}
+SERVE_ARGS = ["--batch", "8", "--prompt-len", "1024", "--gen", "32",
+              "--seed", "0"]
+
+
+def ssd_inputs(gen, dev, B, S, H, G, N, regime):
+    """x, dt, A, B, C of an SSD call.  "init": A = -linspace(1, 16) (the
+    model's A_log init) and dt = softplus(unit normal) (its projection of
+    a unit-RMS input); "slow": A = -exp(0.3 normal), dt a hundredth of
+    that, so the state carries across chunks."""
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn((B, S, H, 64), generator=gen, device=dev)
+    dt = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    if regime == "init":
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        A = -torch.exp(0.3 * torch.randn(H, generator=gen, device=dev))
+        dt = dt * 0.01
+    Bm, Cm = torch.randn((2, B, S, G, N), generator=gen, device=dev)
+    return x, dt, A, Bm, Cm
+
+
+def check_serve_kernels(FK, FR, SK, SR, dev):
+    """Phase 3b: both prefill kernels against their plain versions."""
+    import itertools
+
+    import torch
+    errs = dict.fromkeys(SERVE_NAMES, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    grid = list(itertools.product((1, 63, 128, 1000, 1024, 1025),
+                                  (True, False), (0, 256), (1, 3),
+                                  (64, 128)))
+    for S, causal, window, G, D in grid:
+        q = torch.randn((2 * 2 * G, S, D), generator=gen, device=dev)
+        k, v = torch.randn((2, 2 * 2, S, D), generator=gen, device=dev)
+        out = FK.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ref = FR.attention_ref(q, k, v, causal=causal, window=window)
+        e = rel_err(out, ref)
+        assert e <= FLASH_TOL, (S, causal, window, G, D, e)
+        worst = max(worst, e)
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
+                                          max_abs_err(out, ref))
+    log(f"  flash_attention_fwd at {len(grid)} shapes (S 1, 63, 128, 1000, "
+        f"1024, 1025; causal on/off; window 0/256; group 1/3; head dim "
+        f"64/128; B 2, 2 kv heads): max rel {worst:.3e} (tol {FLASH_TOL:g})")
+    q = torch.randn((8 * 15, 1024, 64), generator=gen, device=dev)
+    k, v = torch.randn((2, 8 * 5, 1024, 64), generator=gen, device=dev)
+    out = FK.flash_attention_fwd(q, k, v, causal=True)
+    ref = FR.attention_ref(q, k, v, causal=True)
+    e = rel_err(out, ref)
+    assert e <= FLASH_TOL, e
+    errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
+                                      max_abs_err(out, ref))
+    log(f"  flash_attention_fwd at the prefill's shape (B 8, 15/5 heads, S "
+        f"1024, D 64, causal): rel {e:.3e} (tol {FLASH_TOL:g})")
+    del q, k, v, out, ref
+
+    for regime, seq_tol in SSD_SEQ_TOL.items():
+        worst = {"y": 0.0, "h": 0.0, "seq": 0.0}
+        for S in (128, 256, 1000, 1024, 1025):
+            for chunk in (256, 64):
+                x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 2, S, 4, 2, 128,
+                                              regime)
+                y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+                ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+                ey, eh = rel_err(y, ry), rel_err(h, rh)
+                assert ey <= SSD_TOL and eh <= SSD_TOL, (regime, S, chunk,
+                                                         ey, eh)
+                worst["y"], worst["h"] = max(worst["y"], ey), max(worst["h"],
+                                                                  eh)
+                errs["ssd_scan_fwd"] = max(errs["ssd_scan_fwd"],
+                                           max_abs_err(y, ry),
+                                           max_abs_err(h, rh))
+                if S <= 256:
+                    fold = lambda t: t.transpose(1, 2).reshape(
+                        8, S, t.shape[-1])
+                    a = dt * A
+                    sy = SR.ssd_ref(fold(x), fold(dt[..., None]),
+                                    fold(a[..., None]),
+                                    fold(SR.expand_groups(Bm, 4)),
+                                    fold(SR.expand_groups(Cm, 4)))
+                    es = rel_err(fold(y), sy)
+                    assert es <= seq_tol, (regime, S, chunk, es)
+                    worst["seq"] = max(worst["seq"], es)
+        log(f"  ssd_scan_fwd, {regime} decays, S 128/256/1000/1024/1025 x "
+            f"chunk 256/64 (B 2, 4 heads, 2 groups, N 128): max rel y "
+            f"{worst['y']:.3e}, h_final {worst['h']:.3e} (tol {SSD_TOL:g}); "
+            f"against the sequential ssd_ref at S <= 256 {worst['seq']:.3e} "
+            f"(tol {seq_tol:g})")
+    for regime in SSD_SEQ_TOL:
+        x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 8, 1024, 48, 1, 128, regime)
+        y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256)
+        ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 256)
+        ey, eh = rel_err(y, ry), rel_err(h, rh)
+        assert ey <= SSD_TOL and eh <= SSD_TOL, (regime, ey, eh)
+        errs["ssd_scan_fwd"] = max(errs["ssd_scan_fwd"], max_abs_err(y, ry),
+                                   max_abs_err(h, rh))
+        log(f"  ssd_scan_fwd at the prefill's shape (B 8, 48 heads, S 1024, "
+            f"N 128, 1 group, chunk 256, {regime} decays): rel y {ey:.3e}, "
+            f"h_final {eh:.3e} (tol {SSD_TOL:g})")
+        del x, dt, A, Bm, Cm, y, h, ry, rh
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_serve_kernels(FK, FR, SK, SR, dev):
+    """Phase 5d: both prefill kernels at the prefill's shapes, warm, beside
+    their operation bounds, plain versions and library calls."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(12)
+    res = {}
+    B, H, Hkv, S, D = 8, 15, 5, 1024, 64
+    q = torch.randn((B * H, S, D), generator=gen, device=dev)
+    k, v = torch.randn((2, B * Hkv, S, D), generator=gen, device=dev)
+    rep = lambda t: t.view(B, Hkv, S, D).repeat_interleave(H // Hkv, dim=1)
+    q4, k4, v4 = q.view(B, H, S, D), rep(k), rep(v)
+    rw, ops = attention_bound(S=S)
+    b, by = bound_ms(rw, ops)
+    res["flash_attention_fwd"] = dict(
+        ms=cuda_ms(lambda: FK.flash_attention_fwd(q, k, v, causal=True),
+                   iters=20, warmup=3),
+        plain_ms=cuda_ms(lambda: FR.attention_ref(q, k, v, causal=True)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), iters=20, warmup=3),
+        library="scaled_dot_product_attention (k, v repeated to 15 heads)",
+        bound_ms=b, bound_by=by, bytes=rw, flops=ops)
+    del q, k, v, q4, k4, v4
+    x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 8, 1024, 48, 1, 128, "init")
+    rw, ops = ssd_bound(S=1024)
+    b, by = bound_ms(rw, ops)
+    res["ssd_scan_fwd"] = dict(
+        ms=cuda_ms(lambda: SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256),
+                   iters=20, warmup=3),
+        plain_ms=cuda_ms(lambda: SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 256),
+                         iters=5),
+        library_ms=None, library="none: no single call",
+        bound_ms=b, bound_by=by, bytes=rw, flops=ops)
+    del x, dt, A, Bm, Cm
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        lib = ("" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms ")
+        log(f"  {name}: {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {r['flops'] / 1e9:.3f} GFLOP, "
+            f"{r['bytes'] / 1e6:.1f} MB; {100 * r['bound_ms'] / r['ms']:.1f}% "
+            f"of bound, {r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s)  plain "
+            f"{r['plain_ms']:.4f} ms  library {lib}[{r['library']}]")
+    return res
+
+
+def serve_path(counts_of, dev):
+    """Phase 6s: ``repro_torch.launch.serve.main`` at full width, each run
+    its own main path (counts zeroed just before, read just after)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+
+    counts = {}
+    for arch, (kernel, layers) in SERVE_ARCHS.items():
+        tag = f"serve:{arch}"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counts_of.reset()
+        toks, stats = serve.main(["--arch", arch] + SERVE_ARGS)
+        counts[tag] = counts_of.read()
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        want = _launches(**{kernel: layers})
+        assert counts[tag] == want, (tag, counts[tag], want)
+        vocab = get_arch(arch).vocab_size
+        assert toks.shape == (8, 32) and toks.is_cuda, toks.shape
+        assert 0 <= int(toks.min()) and int(toks.max()) < vocab
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  {tag}: prefill (B 8, S 1024) {stats['prefill_s']:.4f} s "
+            f"wall (synchronized; the process's first prefill); decode 31 "
+            f"steps {stats['decode_s']:.4f} s, {stats['tok_per_s']:.1f} "
+            f"tok/s; max_memory_allocated {peak:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB held before the run; {layers} {kernel} "
+            f"launches, none of the other kernels")
+        del toks
+    return counts
+
+
+def prefill_flops(cfg, B=8, S=1024) -> float:
+    """Operations of one prefill at batch B and prompt S: 2 per
+    multiply-add of each layer's weight matrices for every token, the
+    attention or SSD scan as their bounds count them, and the last
+    position's vocab projection (elementwise work and the convolution
+    left out)."""
+    d = cfg.d_model
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_in = s.expand * d
+        H = d_in // s.d_head
+        weights = d * (2 * d_in + 2 * s.n_groups * s.d_state + H) + d_in * d
+        mix = ssd_bound(B=B, H=H, S=S, P=s.d_head, N=s.d_state,
+                        chunk=s.chunk)[1]
+    else:
+        H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        weights = 2 * d * H * hd + 2 * d * Hkv * hd + 3 * d * cfg.d_ff
+        mix = attention_bound(B=B, H=H, Hkv=Hkv, S=S, D=hd)[1]
+    return (cfg.num_layers * (2 * B * S * weights + mix)
+            + 2 * B * d * cfg.vocab_size)
+
+
+def serve_consistency(counts_of, dev, times):
+    """Phase 6t at full width: the decode of token 1024 after
+    prefill(1024) against the last logits of prefill(1025), whose ragged
+    tails the kernels mask (flash: 1025 = 16 tiles + 1; SSD: a fifth
+    chunk of one position).  Counts: one launch per layer in a prefill,
+    none in a decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+
+    for arch, (kernel, layers) in SERVE_ARCHS.items():
+        cfg = get_arch(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (8, 1025))).to(dev)
+        counts_of.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, cache = model.prefill(params, {"tokens": toks[:, :1024]},
+                                 cache_len=1025)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t
+        pre = counts_of.read()
+        counts_of.reset()
+        dec, _ = model.decode(params, toks[:, 1024], cache)
+        torch.cuda.synchronize()
+        step = counts_of.read()
+        del cache
+        full, _ = model.prefill(params, {"tokens": toks})
+        assert pre == _launches(**{kernel: layers}), (arch, pre)
+        assert step == _launches(), (arch, step)
+        diff = (dec - full).abs()
+        bad = int((diff > 2e-4 + 1e-3 * full.abs()).sum())
+        e = rel_err(dec, full)
+        ops = prefill_flops(cfg)
+        share = layers * times[kernel]["ms"] / (warm * 1e3)
+        log(f"  {arch}: decode(token 1024 | prefill 1024) vs prefill(1025) "
+            f"last logits: max |a-b| {float(diff.max()):.3e}, rel {e:.3e}, "
+            f"{bad} elements beyond atol 2e-4 + rtol 1e-3; launches: "
+            f"prefill {layers} {kernel}, decode step none")
+        log(f"  {arch}: warm prefill (B 8, S 1024) {warm:.4f} s, "
+            f"{ops / 1e12:.3f} TFLOP, {ops / warm / 1e12:.2f} TFLOP/s; "
+            f"{layers} x {kernel} ({times[kernel]['ms']:.4f} ms, phase 5d) "
+            f"= {100 * share:.1f}% of it")
+        assert bad == 0, (arch, bad)
+        del params, dec, full
+        torch.cuda.empty_cache()
+
+
+def small_reference_serve(dev):
+    """Phase 7s: at smoke size, prefill (B 2, S 40: a ragged chunk for
+    mamba2's chunk of 32) and 4 teacher-forced decode steps, the card
+    against the CPU plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+
+    for arch in SERVE_ARCHS:
+        arch = f"{arch}-smoke"
+        model = build_model(get_arch(arch))
+        params = model.init(torch.Generator().manual_seed(3))
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, 512, (2, 44)))
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            p = {k: v.to(d) for k, v in params.items()}
+            logits, cache = model.prefill(p, {"tokens": toks[:, :40].to(d)},
+                                          cache_len=45)
+            snap = {k: t.clone() for k, t in cache["layers"][0].items()}
+            steps = []
+            for i in range(4):
+                lg, cache = model.decode(p, toks[:, 40 + i].to(d), cache)
+                steps.append(lg)
+            out[d.type] = (logits, snap, steps)
+        (lg, cg, sg), (lc, cc, sc) = out["cuda"], out["cpu"]
+        e_pre = rel_err(lg.cpu(), lc)
+        e_cache = max(rel_err(cg[k].cpu(), cc[k]) for k in cc)
+        e_dec = max(rel_err(a.cpu(), b) for a, b in zip(sg, sc))
+        log(f"  {arch}, card vs CPU plain: prefill logits rel {e_pre:.3e}, "
+            f"cache {e_cache:.3e}, 4 teacher-forced decode steps "
+            f"{e_dec:.3e} (tol {SERVE_TOL:g})")
+        assert max(e_pre, e_cache, e_dec) <= SERVE_TOL, (arch, e_pre,
+                                                         e_cache, e_dec)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1188,6 +1549,10 @@ def main() -> int:
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.fused_update import ops as O
     from repro_torch.kernels.fused_update import ref as R
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ref as SR
 
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1198,7 +1563,7 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     tb = time.perf_counter()
-    libs = (K.LIB, CK.LIB)
+    libs = (K.LIB, CK.LIB, FK.LIB, SK.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:       # one nvcc per source
         builds = [pool.submit(lib.build, True) for lib in libs]
         for f in builds:
@@ -1215,20 +1580,25 @@ def main() -> int:
     errs = check_kernels(K, R, O, dev, shapes)
     errs.update(check_bwd_kernels(K, R, O, dev, shapes))
     errs.update(check_codec_kernels(CK, CR, dev, shapes))
+    log("[3b] the serving prefill's kernels against their plain versions:")
+    errs.update(check_serve_kernels(FK, FR, SK, SR, dev))
 
     log("[5] kernel times at full width (CUDA events, 10 launches, warm):")
     times = time_kernels(K, R, dev)
     times.update(time_bwd_kernels(K, R, dev))
     times.update(time_codec_kernels(CK, CR, dev))
+    log("[5d] the prefill's kernels at the prefill's shapes (CUDA events, "
+        "warm):")
+    times.update(time_serve_kernels(FK, FR, SK, SR, dev))
     log("[5c] one client's uplink at full width (CUDA events, 5 launches, "
         "warm):")
     time_codec_stage(dev)
     log("[5b] bounds of the twelve Pallas kernels, and the library time of "
-        "flash attention's:")
+        "flash attention at S 128:")
     print_all_bounds()
     time_attention_library(dev)
 
-    counts_of = Counts(K, CK)
+    counts_of = Counts(K, CK, FK, SK)
     log(f"[6] main path: smollm-360m, UGA + FedMeta, fused; {ROUNDS} rounds "
         f"each in meta_mode='post', {TA_ROUNDS} in 'through_aggregation', "
         f"{CODED_ROUNDS} with each lossy uplink codec:")
@@ -1239,18 +1609,24 @@ def main() -> int:
         "torch.profiler:")
     profile_round(dev)
 
+    log("[6s] the serving main path at full width (serve.main, batch 8, "
+        "prompt 1024, 32 tokens, greedy):")
+    counts.update(serve_path(counts_of, dev))
+    log("[6t] full width: decode after prefill(1024) against prefill(1025):")
+    serve_consistency(counts_of, dev, times)
+
     log("[7] small input, card against the CPU plain versions:")
     small_reference(dev)
     small_reference_through(dev)
     small_reference_coded(dev)
+    small_reference_serve(dev)
 
     kernels = []
     for name in KERNEL_NAMES:
         t = times[name]
         by_path = {tag: c[name] for tag, c in counts.items()}
-        family = "comm" if name in CODEC_NAMES else "fused_update"
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[family],
+            "name": name, "route": "cuda", "source": SOURCES[FAMILY[name]],
             "replaces": REPLACES[name],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": errs[name], "ms": t["ms"],

@@ -7,7 +7,10 @@ arrays are the same in both, so converting is a copy through numpy and
 the flat buffers of both packages compare element for element.  The rest
 of the server state — the flat optimizer slots, the step counter and the
 controllable ``ctrl`` slot — has the same structure in both packages and
-crosses with :func:`server_state_to_torch`."""
+crosses with :func:`server_state_to_torch`.  The serving decode cache has
+the same tree in both packages too (``{"layers": (entry, ...), "index":
+int32}``, each entry a dict of arrays stacked over layers) and crosses
+with :func:`cache_to_torch` / :func:`cache_to_numpy`."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -90,3 +93,24 @@ def server_state_to_torch(opt: Dict[str, Any], ctrl: Dict[str, Any] = None,
         out["comm"] = {"residual": tuple(tensor(b, np.float32)
                                          for b in comm["residual"])}
     return out
+
+
+def cache_to_torch(cache: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """A JAX decode cache (numpy, or anything ``np.asarray`` takes) -> the
+    port's: ``{"layers": tuple of dicts of tensors, "index": 0-d int32}``.
+    The arrays are copied, so the port's in-place decode never writes into
+    the caller's arrays."""
+    def tensor(x):
+        return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+    return {"layers": tuple({k: tensor(v) for k, v in entry.items()}
+                            for entry in cache["layers"]),
+            "index": tensor(np.asarray(cache["index"], np.int32))}
+
+
+def cache_to_numpy(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's decode cache -> the JAX tree of numpy arrays."""
+    return {"layers": tuple({k: t.detach().cpu().numpy()
+                             for k, t in entry.items()}
+                            for entry in cache["layers"]),
+            "index": cache["index"].detach().cpu().numpy()}

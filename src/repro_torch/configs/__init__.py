@@ -1,14 +1,17 @@
 """Config registry of the port: ``get_arch(name)`` / ``get_smoke(name)``.
 
-Only the architectures the port can build are registered; the JAX
-package's other architectures wait for ROADMAP Queue 1 item 6."""
+Only the architectures the port can build are registered: smollm-360m
+(dense; trains and serves) and mamba2-780m (SSM; serves only, its
+training is ROADMAP Queue 1 item 10).  The JAX package's other
+architectures wait for ROADMAP Queue 1 item 6."""
 from __future__ import annotations
 
-from repro_torch.configs import smollm_360m
+from repro_torch.configs import mamba2_780m, smollm_360m
 from repro_torch.configs.base import ArchConfig, FedConfig
 
 _MODULES = {
     "smollm-360m": smollm_360m,
+    "mamba2-780m": mamba2_780m,
 }
 
 ARCHS = tuple(_MODULES.keys())

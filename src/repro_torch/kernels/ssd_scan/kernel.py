@@ -1,0 +1,140 @@
+"""CUDA SSD chunked-scan kernel: build, binding and wrapper.
+
+``repro/kernels/ssd_scan/kernel.py::ssd_scan_fwd`` (Pallas, TPU) is
+written by hand for Hopper in ``csrc/ssd_scan.cu`` and built and loaded as
+the other families are (:mod:`repro_torch.kernels._cuda`: ``nvcc`` for
+``sm_90a`` at first use, into ``build/`` beside this file, keyed by a hash
+of the source and flags).
+
+The wrapper checks device, dtype, shape and strides, then:
+
+  * for CPU tensors computes the plain PyTorch version
+    (``ref.ssd_chunked_ref``) — the CPU tests run that, and nothing else
+    takes it;
+  * for CUDA tensors launches the kernel on the current stream, raises on
+    the error code the launch returns, and adds one to its ``launches``
+    count.  There is no fallback: a CUDA tensor gets the kernel or an
+    error.
+
+It takes the model's (B, S, H, P) layout, so the mamba block calls it
+directly: where the JAX wrapper folds the heads and ``ssd_chunked``
+repeats B and C to heads, the kernel reads x, B and C through their
+strides (unit stride on the last axis), as views of the convolution's
+output without copies, and B and C by group (head h reads group h // (H /
+G)).  Besides y, it writes the final state it already holds: the JAX
+prefill takes ``h_final`` from ``ssd_chunked`` for the decode cache (the
+Pallas kernel writes y only).  Like both, it starts from a zero state.
+No backward: a tensor that
+requires a gradient is refused (SSM-family training is a ROADMAP item).
+P = 64, N <= 128, chunk <= 256, fp32 (bf16 inputs: ROADMAP Queue 2 row
+12).
+
+Bound at the serving prefill of mamba2-780m (B 8, 48 heads, S 1024, P 64,
+N 128, chunk 256, one layer): 32.6 GFLOP, 0.22 GB — bound by operations,
+0.486 ms at the H100's 67 fp32 TFLOP/s.  ``PERF.md`` holds the measured
+time.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels._cuda import (CudaLibrary, device_of, raise_on,
+                                      stream)
+from repro_torch.kernels.ssd_scan import ref as R
+
+HEAD_DIM = 64
+MAX_STATE = 128
+MAX_CHUNK = 256
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "ssd_scan.cu")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.ssd_forward.argtypes = ([P] * 7 + [I] * 7 + [I64] * 12 + [P])
+    lib.ssd_forward.restype = ctypes.c_int
+
+
+LIB = CudaLibrary("ssd_scan", SOURCE, _bind)
+build = LIB.build
+
+
+def _check(x, dt, A, Bm, Cm, chunk) -> Tuple[int, ...]:
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected torch.float32, got {t.dtype} "
+                            "(bf16 inputs: ROADMAP Queue 2 row 12)")
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name} requires grad: the SSD-scan kernel has no backward "
+                "(SSM-family training: ROADMAP Queue 1 item 10)")
+    if x.dim() != 4:
+        raise ValueError(f"x: expected (B, S, H, P), got {tuple(x.shape)}")
+    B, S, H, P = x.shape
+    if tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,):
+        raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if Bm.dim() != 4 or tuple(Bm.shape[:2]) != (B, S) \
+            or tuple(Cm.shape) != tuple(Bm.shape):
+        raise ValueError(f"Bm {tuple(Bm.shape)} / Cm {tuple(Cm.shape)} do "
+                         f"not match x {tuple(x.shape)} as (B, S, G, N)")
+    G, N = Bm.shape[2], Bm.shape[3]
+    if G < 1 or H % G:
+        raise ValueError(f"{H} heads are not a multiple of {G} groups")
+    if int(chunk) < 1:
+        raise ValueError(f"chunk={chunk} must be >= 1")
+    return B, S, H, P, G, N
+
+
+def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, H, P); dt: (B, S, H) (softplus'ed, >= 0); A: (H,) < 0;
+    Bm, Cm: (B, S, G, N) with G dividing H (G = H: broadcast already).
+    Returns (y (B, S, H, P) contiguous, h_final (B, H, N, P) fp32).
+
+    Replaces ``repro/kernels/ssd_scan/kernel.py::ssd_scan_fwd``."""
+    B, S, H, P, G, N = _check(x, dt, A, Bm, Cm, chunk)
+    dev = device_of(x, dt, A, Bm, Cm)
+    if dev.type == "cpu":
+        return R.ssd_chunked_ref(x, dt, A, Bm, Cm, int(chunk))
+    L = min(int(chunk), S)
+    if P != HEAD_DIM or N > MAX_STATE or L > MAX_CHUNK:
+        raise NotImplementedError(
+            f"P={P}, N={N}, chunk={L}: the CUDA kernel takes P = "
+            f"{HEAD_DIM}, N <= {MAX_STATE}, chunk <= {MAX_CHUNK} (other "
+            "shapes: ROADMAP Queue 2 row 12)")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected unit stride on the last axis")
+    lib = LIB.load()
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
+    hT = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.ssd_forward(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), hT.data_ptr(), B, S, H, G, N, P, L,
+            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+            *Cm.stride()[:3], stream(dev))
+    raise_on(code, "ssd_scan_fwd")
+    ssd_scan_fwd.launches += 1
+    return y, hT
+
+
+ssd_scan_fwd.launches = 0
+
+KERNELS = (ssd_scan_fwd,)
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,12 +1,19 @@
 """Grouped-query attention of the dense LM (PyTorch port of the GQA parts
 of ``repro/models/attention.py``).
 
-``attend`` is plain matmul -> softmax -> matmul: the fused backends of
-``scaled_dot_product_attention`` have no forward-mode derivative, and the
-UGA client update takes Hessian-vector products as jvp-of-grad.  The JAX
-package computes attention outside any Pallas kernel too (its flash
-attention kernel is reached by no model path); a hand-written Hopper
-kernel for it is ROADMAP Queue 1 item 6.
+Three forms of one function:
+
+  * ``attend`` — training.  Plain matmul -> softmax -> matmul: the UGA
+    client update takes Hessian-vector products as jvp-of-grad, and
+    neither the port's flash kernel nor the fused backends of
+    ``scaled_dot_product_attention`` have a forward-mode derivative.
+  * ``kernels.flash_attention.flash_attention`` — serving prefill, and
+    only it (``transformer._apply_layer`` calls it directly): the CUDA
+    kernel on the card, its plain version on the CPU, where the JAX
+    prefill reaches ``flash_attention`` / ``chunked_attention``, the same
+    online-softmax function.
+  * ``decode_attention`` — one new token against the cache, plain
+    PyTorch as in JAX (ring-buffer validity under a decode window).
 """
 from __future__ import annotations
 
@@ -60,3 +67,29 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s.to(torch.float32), dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return out.reshape(B, Sq, H, D)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, index: torch.Tensor, *,
+                     window: int = 0) -> torch.Tensor:
+    """q: (B, H, Dk); caches: (B, S, Hkv, Dk/Dv); index: 0-d int tensor,
+    the number of tokens already in the cache (the new token's position).
+
+    With window > 0 the cache is a ring buffer of size S and every slot
+    written so far is valid: slot < min(index + 1, S), after the caller
+    wrote the current token at index % S."""
+    B, S, Hkv, Dk = k_cache.shape
+    Dv = v_cache.shape[-1]
+    H = q.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, Dk)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).to(
+        torch.float32) / math.sqrt(Dk)
+    k_pos = torch.arange(S, device=q.device)
+    if window > 0:
+        valid = k_pos < torch.clamp(index + 1, max=S)          # ring buffer
+    else:
+        valid = k_pos <= index
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, H, Dv)

@@ -1,39 +1,62 @@
 """Unified model API of the port (``repro/models/model.py``): a
-:class:`Model` bundles ``init`` and ``loss`` so the federated runtime stays
-model-agnostic.  The dense LM family is ported; the other families wait
-for ROADMAP Queue 1 items 5 (paper CNN/GRU) and 6 (MoE, MLA, SSM,
-encoders)."""
+:class:`Model` bundles init / loss / prefill / decode for one architecture
+so the federated runtime and the launchers stay model-agnostic.
+
+The dense LM family trains and serves; the SSM family (Mamba2) serves
+only — its training needs derivatives through the SSD scan, forward mode
+included, which no kernel has yet (ROADMAP Queue 1 item 10).  The other
+families wait for ROADMAP Queue 1 items 5 (paper CNN/GRU) and 6 (MoE,
+MLA, hybrid, encoders).  Prefill and decode run under
+``torch.inference_mode()``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.func import functional_call
 
-from repro_torch.configs.base import ATTN, ArchConfig
+from repro_torch.configs.base import ATTN, CROSS, MAMBA, ArchConfig
 from repro_torch.models import transformer
 
 Batch = Dict[str, torch.Tensor]
+SSM_TRAINING = ("SSM-family training is not yet ported to repro_torch: it "
+                "needs derivatives through the SSD scan, forward mode "
+                "included (ROADMAP Queue 1 item 10)")
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     """init(generator) -> params; loss(params, batch, rng) -> (loss,
-    metrics).  ``rng`` is accepted for signature parity and unused."""
+    metrics); prefill(params, batch, cache_len) -> (last logits, cache);
+    decode(params, tokens, cache) -> (logits, cache); make_cache(batch,
+    cache_len) -> cache.  ``rng`` is accepted for signature parity and
+    unused."""
     name: str
     init: Callable[..., Dict[str, torch.Tensor]]
     loss: Callable[..., Any]
+    prefill: Optional[Callable[..., Any]] = None
+    decode: Optional[Callable[..., Any]] = None
+    make_cache: Optional[Callable[..., Any]] = None
     cfg: Any = None
 
 
 def build_model(cfg: ArchConfig, *, dtype=torch.float32,
-                loss_chunk: int = 2048) -> Model:
+                decode_window: int = 0, loss_chunk: int = 2048) -> Model:
+    """``decode_window > 0`` selects the sliding-window decode variant (a
+    ring-buffer cache of that size) for the dense family."""
+    kinds = set(cfg.layer_kinds())
+    ssm_family = kinds == {MAMBA}
     unsupported = [what for what, bad in (
         ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-        ("SSM", cfg.ssm is not None or cfg.family in ("ssm", "hybrid")),
         ("encoder", cfg.encoder is not None),
-        ("non-attention layers", set(cfg.layer_kinds()) != {ATTN}),
-        ("rope_theta <= 0 (sinusoidal positions)", cfg.rope_theta <= 0),
+        ("cross-attention layers", CROSS in kinds),
+        ("hybrid attention/SSM stack",
+         cfg.family == "hybrid" or {ATTN, MAMBA} <= kinds),
+        ("SSM layers without an SSM config",
+         MAMBA in kinds and cfg.ssm is None),
+        ("rope_theta <= 0 (sinusoidal positions)",
+         ATTN in kinds and cfg.rope_theta <= 0),
     ) if bad]
     if unsupported:
         raise NotImplementedError(
@@ -45,10 +68,32 @@ def build_model(cfg: ArchConfig, *, dtype=torch.float32,
         return transformer.init_transformer(cfg, gen, dtype)
 
     def loss(params, batch: Batch, rng=None):
+        if ssm_family:
+            raise NotImplementedError(SSM_TRAINING)
         if "mask" in batch or "enc_embeds" in batch:
             raise NotImplementedError("masked / encoder LM batches are not "
                                       "ported (ROADMAP Queue 1 item 6)")
         return transformer.lm_loss_chunked(module, params, batch["tokens"],
                                            chunk=loss_chunk)
 
-    return Model(name=cfg.name, init=init, loss=loss, cfg=cfg)
+    @torch.inference_mode()
+    def prefill(params, batch: Batch, cache_len: Optional[int] = None):
+        # only the last position goes through the vocab projection
+        h, cache = functional_call(module, params, (batch["tokens"],),
+                                   {"collect_cache": True})
+        logits_last = h[:, -1] @ transformer.head_of(cfg, params)
+        if cache_len is not None:
+            cache = transformer.pad_cache(cache, cfg, cache_len)
+        return logits_last, cache
+
+    @torch.inference_mode()
+    def decode(params, tokens, cache):
+        return transformer.decode_step(params, tokens, cache, cfg,
+                                       window=decode_window)
+
+    def make_cache(batch: int, cache_len: int, device=None):
+        return transformer.make_cache(cfg, batch, cache_len, dtype,
+                                      window=decode_window, device=device)
+
+    return Model(name=cfg.name, init=init, loss=loss, prefill=prefill,
+                 decode=decode, make_cache=make_cache, cfg=cfg)

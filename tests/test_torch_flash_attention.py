@@ -1,0 +1,145 @@
+"""The port's flash attention against the JAX package's: the plain version
+(``ref.attention_ref``) and the public op (``ops.flash_attention``, which
+takes the plain version on the CPU) against JAX's ``attention_ref``, the
+Pallas kernel in interpret mode and the model's ``attend``.
+
+Inputs are made once with numpy from a seed.  Tolerance <= 1e-5 relative
+(max |a-b| over max |b|): the same fp32 softmax attention, summed in
+another order (the online softmax of the Pallas kernel and of ``attend``
+rescales by exp of max differences block by block; a few ulps)."""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import rel_err
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro.models.attention import attend as jax_attend
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import ref as R
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import attention as TA
+
+TOL = 1e-5
+SHAPES = [(S, H, Hkv, D) for S in (8, 32, 40) for H, Hkv in ((4, 4), (6, 2))
+          for D in (16, 64)]
+MASKS = [(True, 0), (True, 8), (False, 0), (False, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs(S, H, Hkv, D, B=2):
+    rng = np.random.default_rng([S, H, Hkv, D, B])
+    q = rng.standard_normal((B, S, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, S, Hkv, D), dtype=np.float32)
+    v = rng.standard_normal((B, S, Hkv, D), dtype=np.float32)
+    return q, k, v
+
+
+def _fold(x):
+    """(B, S, H, D) -> (B * H, S, D), heads ordered (b, h)."""
+    B, S, H, D = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(B * H, S, D)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ref(S, H, Hkv, D, causal, window):
+    """JAX's oracle on the batch-2 inputs, back in (B, S, H, D)."""
+    q, k, v = _inputs(S, H, Hkv, D)
+    out = jax_ref(jnp.asarray(_fold(q)), jnp.asarray(_fold(k)),
+                  jnp.asarray(_fold(v)), causal=causal, window=window)
+    return np.asarray(out).reshape(2, H, S, D).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("causal,window", MASKS,
+                         ids=[f"causal{int(c)}-w{w}" for c, w in MASKS])
+@pytest.mark.parametrize("S,H,Hkv,D", SHAPES)
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_attention_matches_jax_ref(B, S, H, Hkv, D, causal, window):
+    """The sweep: B {1, 2} (batch 1 is the first row of JAX's batch 2),
+    S {8, 32, 40}, (H, Hkv) {(4, 4), (6, 2)}, D {16, 64}, causal on and
+    off, window {0, 8}."""
+    q, k, v = (torch.from_numpy(t[:B]) for t in _inputs(S, H, Hkv, D))
+    ref = _jax_ref(S, H, Hkv, D, causal, window)[:B]
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert out.shape == (B, S, H, D)
+    assert rel_err(out, ref) <= TOL
+    plain = R.attention_ref(torch.from_numpy(_fold(q.numpy())),
+                            torch.from_numpy(_fold(k.numpy())),
+                            torch.from_numpy(_fold(v.numpy())),
+                            causal=causal, window=window)
+    assert rel_err(plain, _fold(ref)) <= TOL
+
+
+@pytest.mark.parametrize("S,H,Hkv,D,causal,window", [
+    (40, 6, 2, 64, True, 8), (32, 4, 4, 16, False, 0),
+    (8, 6, 2, 16, True, 0), (40, 4, 4, 64, False, 8)])
+def test_flash_attention_matches_pallas_interpret_and_attend(
+        S, H, Hkv, D, causal, window):
+    q, k, v = _inputs(S, H, Hkv, D)
+    pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=causal, window=window, interpret=True)
+    att = jax_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, window=window)
+    out = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
+                          causal=causal, window=window)
+    assert rel_err(out, np.asarray(pallas)) <= TOL
+    assert rel_err(out, np.asarray(att)) <= TOL
+
+
+def test_ragged_length_matches_jax_chunked_attend():
+    """At S = 520 JAX's ``attend`` cannot block the sequence by 512 and
+    computes the same function through ``chunked_attention``, padding and
+    masking the tail; the port's op takes any length."""
+    q, k, v = _inputs(520, 2, 1, 16, B=1)
+    att = jax_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True)
+    out = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
+                          causal=True)
+    assert rel_err(out, np.asarray(att)) <= TOL
+
+
+def test_prefill_attention_equals_training_attend():
+    """Within the port: the prefill's attention (the kernel's entry
+    point, which ``transformer._apply_layer`` calls under
+    ``collect_cache``) and the training path's plain ``attend`` compute one
+    function."""
+    q, k, v = (torch.from_numpy(t) for t in _inputs(40, 6, 2, 64))
+    a = flash_attention(q, k, v, causal=True)
+    b = TA.attend(q, k, v, causal=True)
+    assert rel_err(a, b) <= TOL
+
+
+def test_decode_attention_matches_jax():
+    from repro.models.attention import decode_attention as jax_decode
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 6, 16), dtype=np.float32)
+    kc, vc = rng.standard_normal((2, 2, 12, 2, 16), dtype=np.float32)
+    for index, window in ((5, 0), (11, 0), (5, 12), (30, 12)):
+        ref = jax_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                         jnp.asarray(index, jnp.int32), window=window)
+        out = TA.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                  torch.from_numpy(vc),
+                                  torch.tensor(index, dtype=torch.int32),
+                                  window=window)
+        assert rel_err(out, np.asarray(ref)) <= TOL, (index, window)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(_fold(t)) for t in _inputs(8, 6, 2, 16))
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.flash_attention_fwd(q.clone().requires_grad_(), k, v)
+    with pytest.raises(TypeError, match="float32"):
+        K.flash_attention_fwd(q.to(torch.bfloat16), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        K.flash_attention_fwd(q[:5], k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+                              k, v)
+    with pytest.raises(ValueError, match="window"):
+        K.flash_attention_fwd(q, k, v, window=-1)
+    n0 = K.flash_attention_fwd.launches
+    K.flash_attention_fwd(q, k, v)            # the CPU: the plain version
+    assert K.flash_attention_fwd.launches == n0

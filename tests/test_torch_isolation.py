@@ -43,6 +43,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu():
+    from repro_torch.launch import serve
     from repro_torch.launch.train import run_training
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
@@ -52,6 +53,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_training("smollm-360m-smoke", rounds=1, cohort=2,
                      client_batch=4, seq=8, fused=True)
+    for arch in ("smollm-360m-smoke", "mamba2-780m-smoke"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--arch", arch, "--batch", "1", "--prompt-len", "4",
+                        "--gen", "2"])
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -11,7 +11,8 @@ agree to fp32 rounding.  ``ssq``, ``dw`` and ``dscal`` are also checked
 bitwise across two launches (no atomics).  The four codec kernels round
 every operation as their plain versions do and are held to them bitwise,
 on inputs with exact half-way products and signed zeros, with the pad
-mask cutting inside a row, and in place.
+mask cutting inside a row, and in place.  The serving prefill's flash
+attention and SSD scan have their tolerances stated beside their tests.
 """
 import pytest
 import torch
@@ -224,3 +225,116 @@ def test_sign_unpack_fma_kernel_matches_plain(cuda_device, rows, cut):
     CK.sign_unpack_fma_pass(acc, bits, muw, n_valid, out=acc)   # in place
     torch.cuda.synchronize()
     assert torch.equal(acc, ref)
+
+
+# ---------------------------------------------------------------------------
+# The serving prefill's kernels: flash attention and the SSD scan.  Flash
+# attention against its plain version at <= 1e-5 relative (an online
+# softmax against a global one, fp32, a few ulps); the SSD scan against the
+# chunked plain version at <= 1e-5 relative in every decay regime: both
+# take the cumsum of a sequentially in index order (``torch.cumsum`` on the
+# card sums along S in order), so the decays agree and only the products'
+# summation orders differ, a few ulps.  The init's decay range (|acum| up
+# to a few thousand within a chunk) leaves little state across a chunk;
+# the slow decays (|a| about 0.01) carry it, at the prefill's own shape
+# too.
+# ---------------------------------------------------------------------------
+from repro_torch.kernels.flash_attention import kernel as FK   # noqa: E402
+from repro_torch.kernels.flash_attention import ref as FR      # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as SK          # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as SR             # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,causal,window,G,D", [
+    (1, True, 0, 1, 64), (63, False, 0, 3, 64), (128, True, 0, 3, 128),
+    (1000, True, 256, 1, 64), (1025, False, 256, 3, 128),
+    (1025, True, 0, 3, 64)])
+def test_flash_attention_kernel_matches_plain(cuda_device, S, causal, window,
+                                              G, D):
+    gen = torch.Generator(device=cuda_device).manual_seed(S + D)
+    Hkv, B = 2, 2
+    q = torch.randn((B * Hkv * G, S, D), generator=gen, device=cuda_device)
+    k, v = torch.randn((2, B * Hkv, S, D), generator=gen, device=cuda_device)
+    n0 = FK.flash_attention_fwd.launches
+    out = FK.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    ref = FR.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_fwd.launches == n0 + 1
+    assert rel_err(out, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_grad(cuda_device):
+    q = torch.randn((2, 8, 64), device=cuda_device, requires_grad=True)
+    k = torch.randn((2, 8, 64), device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        FK.flash_attention_fwd(q, k, k)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        FK.flash_attention_fwd(*(torch.randn((2, 8, 32), device=cuda_device)
+                                 for _ in range(3)))
+
+
+def _ssd_inputs(gen, dev, B, S, H, G, N, regime):
+    """"init": A from -1 to -16 (the model's init), dt = softplus(normal);
+    "unit": |a| about 1; "slow": |a| about 0.01, the state carries."""
+    x = torch.randn((B, S, H, 64), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=dev))
+    A = (-torch.linspace(1.0, 16.0, H, device=dev) if regime == "init" else
+         -torch.exp(0.3 * torch.randn(H, generator=gen, device=dev)))
+    if regime == "slow":
+        dt = dt * 0.01
+    Bm, Cm = torch.randn((2, B, S, G, N), generator=gen,
+                         device=dev)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,chunk", [(128, 256), (256, 64), (1000, 256),
+                                     (1025, 256), (1025, 64)])
+@pytest.mark.parametrize("init_range", [False, True])
+def test_ssd_scan_kernel_matches_plain(cuda_device, S, chunk, init_range):
+    gen = torch.Generator(device=cuda_device).manual_seed(S + chunk)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, cuda_device, 2, S, 4, 2, 128,
+                                   "init" if init_range else "unit")
+    n0 = SK.ssd_scan_fwd.launches
+    y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert SK.ssd_scan_fwd.launches == n0 + 1
+    assert rel_err(y, ry) <= 1e-5 and rel_err(h, rh) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["init", "slow"])
+def test_ssd_scan_kernel_matches_plain_at_prefill_shape(cuda_device, regime):
+    """mamba2-780m's prefill: B 8, 48 heads, 1 group, S 1024, chunk 256."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1024)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, cuda_device, 8, 1024, 48, 1, 128,
+                                   regime)
+    y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256)
+    ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    assert rel_err(y, ry) <= 1e-5 and rel_err(h, rh) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_strided_views_and_grad(cuda_device):
+    """Views of one (B, S, C) buffer, as the mamba block hands them over,
+    and refusal of tensors that require grad."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    B, S, H, N = 2, 100, 4, 16
+    buf = torch.randn((B, S, H * 64 + 2 * N), generator=gen,
+                      device=cuda_device)
+    x = buf[..., :H * 64].reshape(B, S, H, 64)
+    Bm = buf[..., H * 64:H * 64 + N].reshape(B, S, 1, N)
+    Cm = buf[..., H * 64 + N:].reshape(B, S, 1, N)
+    dt = torch.rand((B, S, H), generator=gen, device=cuda_device)
+    A = -torch.rand(H, generator=gen, device=cuda_device) - 0.5
+    y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=32)
+    ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 32)
+    torch.cuda.synchronize()
+    assert rel_err(y, ry) <= 1e-5 and rel_err(h, rh) <= 1e-5
+    with pytest.raises(RuntimeError, match="no backward"):
+        SK.ssd_scan_fwd(x.clone().requires_grad_(), dt, A, Bm, Cm, chunk=32)
