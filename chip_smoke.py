@@ -21,7 +21,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      kernels' dw and dscal) are bitwise equal across two launches;
   5. time each kernel (CUDA events, warm, buffers far larger than the 50 MB
      L2) beside its byte bound, its plain version and one library call
-     where a single PyTorch call computes the same function; 5b: the bounds
+     where a single PyTorch call computes the same function, each kernel
+     in turns with its library call (``paired_ms``; ``accumulate_pass`` in
+     place, the main path's form, and out of place); 5b: the bounds
      of all twelve Pallas kernels and the library time of flash attention
      at S 128 (scaled_dot_product_attention); 5c: the device time of
      one client's whole uplink for each lossy codec;
@@ -56,7 +58,10 @@ The serving path (``repro_torch.launch.serve``) adds, beside these:
       256), then each at the prefill's shapes (the SSD scan in both decay
       regimes, so the state carried across chunks is held at full width);
   5d. their times at the prefill's shapes beside bound, plain and library
-      (phase 5b keeps S 128's bounds and library time);
+      (flash attention on the prefill's (B, S, H, D) tensors, in turns
+      with scaled_dot_product_attention on the same views; its bound as
+      it computes, 3xTF32 on the tensor cores, and beside it fp32's;
+      phase 5b keeps S 128's bounds and library time);
   6s. the serving main path: ``serve.main`` at full width on smollm-360m
       and mamba2-780m, batch 8, prompt 1024, 32 tokens, seed 0, greedy;
       the launch counts zeroed just before each run and read just after
@@ -86,6 +91,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM, fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12        # H100 SXM, TF32 tensor cores, dense
 TOL = 1e-6
 FULL_ROWS = 2_826_728            # smollm-360m flat layout (rows, 128)
 COHORT = 4
@@ -128,10 +134,14 @@ def max_abs_err(a, b) -> float:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device time of one call, the mean over ``iters`` calls.  The start
+    event is queued behind the warm-up calls, not after a synchronize: the
+    card is busy when the host issues the first timed call, so a wrapper's
+    host-side checks are not counted as device time where the host keeps
+    ahead of the card."""
     import torch
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -142,10 +152,24 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0) -> tuple:
+    """The larger of bytes over the memory rate and operations over their
+    peak rates: ``flops`` at fp32's, ``tf32_flops`` at the TF32 tensor
+    cores' (both kinds done, so their times add)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = (flops / FP32_FLOPS_PER_S + tf32_flops / TF32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def paired_ms(fn_a, fn_b, iters: int = 10) -> tuple:
+    """Two functions timed in turns (a, b, b, a), each the mean of its two
+    timings, after both have run a few times: a comparison within one call
+    that neither a drift of the card's clocks nor a slow first pass over
+    freshly allocated buffers favours."""
+    cuda_ms(fn_a, 20, 0), cuda_ms(fn_b, 20, 0)
+    a1, b1 = cuda_ms(fn_a, iters), cuda_ms(fn_b, iters)
+    b2, a2 = cuda_ms(fn_b, iters), cuda_ms(fn_a, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def card_line() -> str:
@@ -346,24 +370,36 @@ def time_kernels(K, R, dev):
     g = torch.randn((COHORT, rows, 128), generator=gen, device=dev)
     w = torch.full((COHORT,), 1.0 / COHORT, device=dev)
     b, by = bound_ms((COHORT + 1) * n * f4, (2 * COHORT + 2) * n)
+    ms, lib = paired_ms(lambda: K.aggregate_pass(g, w),
+                        lambda: torch.tensordot(w, g, dims=1))
     res["aggregate_pass"] = dict(
-        ms=cuda_ms(lambda: K.aggregate_pass(g, w)),
-        plain_ms=cuda_ms(lambda: R.aggregate_ref(g, w)),
-        library_ms=cuda_ms(lambda: torch.tensordot(w, g, dims=1)),
+        ms=ms, plain_ms=cuda_ms(lambda: R.aggregate_ref(g, w)),
+        library_ms=lib,
         library="torch.tensordot(w, g, dims=1) (G only, no ssq)",
         bound_ms=b, bound_by=by, bytes=(COHORT + 1) * n * f4)
     del g
     torch.cuda.empty_cache()
 
+    # accumulate_pass in place (out=acc, the scan executor's form: its
+    # "ms") and out of place, each beside the library call of the same form
     acc, g, out = torch.randn((3, rows, 128), generator=gen, device=dev)
     wk = torch.tensor([0.25], device=dev)
     b, by = bound_ms(3 * n * f4, 2 * n)
+    ms_in, lib_in = paired_ms(lambda: K.accumulate_pass(acc, g, wk, out=acc),
+                              lambda: acc.add_(g, alpha=0.25))
+    ms_out, lib_out = paired_ms(
+        lambda: K.accumulate_pass(acc, g, wk, out=out),
+        lambda: torch.add(acc, g, alpha=0.25, out=out))
     res["accumulate_pass"] = dict(
-        ms=cuda_ms(lambda: K.accumulate_pass(acc, g, wk, out=out)),
-        plain_ms=cuda_ms(lambda: R.accumulate_ref(acc, g, wk[0])),
-        library_ms=cuda_ms(lambda: torch.add(acc, g, alpha=0.25, out=out)),
-        library="torch.add(acc, g, alpha=w, out=out)",
+        ms=ms_in, plain_ms=cuda_ms(lambda: R.accumulate_ref(acc, g, wk[0])),
+        library_ms=lib_in, library="acc.add_(g, alpha=w), in place",
         bound_ms=b, bound_by=by, bytes=3 * n * f4)
+    log(f"  accumulate_pass in place (out=acc): {ms_in:.4f} ms, "
+        f"{100 * b / ms_in:.1f}% of bound, acc.add_(g, alpha=w) "
+        f"{lib_in:.4f} ms; out of place: {ms_out:.4f} ms, "
+        f"{100 * b / ms_out:.1f}% of bound, torch.add(acc, g, alpha=w, "
+        f"out=out) {lib_out:.4f} ms (turns kernel, library, library, kernel;"
+        f" bound {b:.4f} ms)")
     del acc, g, out
     torch.cuda.empty_cache()
 
@@ -372,24 +408,30 @@ def time_kernels(K, R, dev):
     scal = torch.tensor([1.0, 0.01, 1.0 / (1 - 0.9), 1.0 / (1 - 0.99)],
                         device=dev)
     b, by = bound_ms(3 * n * f4, 3 * n)
+    ms, lib = paired_ms(
+        lambda: K.update_pass(G, p, None, None, scal, opt="sgd"),
+        lambda: torch.add(p, G, alpha=-0.01))
     sgd = dict(
-        ms=cuda_ms(lambda: K.update_pass(G, p, None, None, scal, opt="sgd")),
-        plain_ms=cuda_ms(lambda: R.update_ref(G, p, None, None, scal,
-                                              opt="sgd")),
-        library_ms=cuda_ms(lambda: torch.add(p, G, alpha=-0.01)),
+        ms=ms, plain_ms=cuda_ms(lambda: R.update_ref(G, p, None, None, scal,
+                                                     opt="sgd")),
+        library_ms=lib,
         library="torch.add(p, G, alpha=-lr)", bound_ms=b, bound_by=by,
         bytes=3 * n * f4)
     b, by = bound_ms(7 * n * f4, 16 * n)
     step = torch.tensor(1.0, device=dev)
     pl, ml, vl = p.clone(), m.clone(), v.clone()
-    adam = dict(
-        ms=cuda_ms(lambda: K.update_pass(G, p, m, v, scal, opt="adam")),
-        plain_ms=cuda_ms(lambda: R.update_ref(G, p, m, v, scal,
-                                              opt="adam")),
-        library_ms=(cuda_ms(lambda: torch._fused_adam_(
+    kern = lambda: K.update_pass(G, p, m, v, scal, opt="adam")
+    if hasattr(torch, "_fused_adam_"):
+        ms, lib = paired_ms(kern, lambda: torch._fused_adam_(
             [pl], [G], [ml], [vl], [], [step], lr=0.01, beta1=0.9,
             beta2=0.99, weight_decay=0.0, eps=1e-8, amsgrad=False,
-            maximize=False)) if hasattr(torch, "_fused_adam_") else None),
+            maximize=False))
+    else:
+        ms, lib = cuda_ms(kern), None
+    adam = dict(
+        ms=ms, plain_ms=cuda_ms(lambda: R.update_ref(G, p, m, v, scal,
+                                                     opt="adam")),
+        library_ms=lib,
         library="torch._fused_adam_ (in place)", bound_ms=b, bound_by=by,
         bytes=7 * n * f4)
     res["update_pass"] = adam
@@ -587,10 +629,11 @@ def time_codec_kernels(CK, CR, dev):
     sw = scal[1:] * 0.25
     swf = float(sw)
     b, by = bound_ms(2 * buf + i8, 2 * n)
+    ms, lib = paired_ms(lambda: CK.dequant_i8_fma_pass(acc, q, sw, out=out),
+                        lambda: out.add_(q, alpha=swf))
     res["dequant_i8_fma_pass"] = dict(
-        ms=cuda_ms(lambda: CK.dequant_i8_fma_pass(acc, q, sw, out=out)),
-        plain_ms=cuda_ms(lambda: CR.dequant_i8_fma_ref(acc, q, sw[0])),
-        library_ms=cuda_ms(lambda: out.add_(q, alpha=swf)),
+        ms=ms, plain_ms=cuda_ms(lambda: CR.dequant_i8_fma_ref(acc, q, sw[0])),
+        library_ms=lib,
         library="out.add_(q, alpha=scale*w) (q promoted to fp32, in place)",
         bound_ms=b, bound_by=by, bytes=2 * buf + i8)
     del q
@@ -682,7 +725,7 @@ def time_attention_library(dev):
     ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                         is_causal=True),
                  iters=200, warmup=20)
-    b, by = bound_ms(*attention_bound())
+    b, by = bound_ms(*attention_bound_tc())
     log(f"  11 flash_attention_fwd library: scaled_dot_product_attention "
         f"{ms * 1e3:.3f} us per call (bound {b * 1e3:.3f} us, {by}; "
         f"{100 * b / ms:.1f}% of bound)")
@@ -693,11 +736,20 @@ def attention_bound(B=8, H=15, Hkv=5, S=128, D=64, nbytes=4):
     """One causal GQA flash-attention call (one layer) at smollm-360m's
     heads and the main path's client batch and sequence: q, k, v read once,
     o written once; per causal (query, key) pair 2D for q.k, 2D for p.v and
-    4 for scale, max, exp and sum, over the fp32 rate (the port keeps fp32
-    matrix products, no TF32)."""
+    4 for scale, max, exp and sum: the operations of fp32 attention."""
     rw = (2 * B * H * S * D + 2 * B * Hkv * S * D) * nbytes
     pairs = B * H * S * (S + 1) // 2
     return rw, pairs * (4 * D + 4)
+
+
+def attention_bound_tc(**kw) -> tuple:
+    """The same call as the kernel computes it: both products as three TF32
+    tensor-core products each (3xTF32), the softmax in fp32.  Returns
+    (bytes, fp32 operations, TF32 operations) for ``bound_ms``."""
+    rw, ops = attention_bound(**kw)
+    D = kw.get("D", 64)
+    products = ops // (4 * D + 4) * 4 * D
+    return rw, ops - products, 3 * products
 
 
 def ssd_bound(B=8, H=48, S=128, P=64, N=128, chunk=256, nbytes=4):
@@ -755,7 +807,12 @@ def print_all_bounds():
              ssd_bound(S=1024))):
         b, by = bound_ms(rw, ops)
         log(f"  {name}: {rw / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP, bound "
-            f"{b * 1e3:.3f} us ({by}) per layer call")
+            f"{b * 1e3:.3f} us ({by}) per layer call at fp32's rate")
+    for S in (128, 1024):
+        b, by = bound_ms(*attention_bound_tc(S=S))
+        log(f"  11 flash_attention_fwd at S {S} as the kernel computes it "
+            f"(3xTF32 products on the tensor cores, fp32 softmax): bound "
+            f"{b * 1e3:.3f} us ({by})")
 
 
 # ---------------------------------------------------------------------------
@@ -1275,7 +1332,8 @@ def check_serve_kernels(FK, FR, SK, SR, dev):
     for S, causal, window, G, D in grid:
         q = torch.randn((2 * 2 * G, S, D), generator=gen, device=dev)
         k, v = torch.randn((2, 2 * 2, S, D), generator=gen, device=dev)
-        out = FK.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        out = FK.flash_attention_fwd(q[None], k[None], v[None],
+                                     causal=causal, window=window)[0]
         ref = FR.attention_ref(q, k, v, causal=causal, window=window)
         e = rel_err(out, ref)
         assert e <= FLASH_TOL, (S, causal, window, G, D, e)
@@ -1287,7 +1345,7 @@ def check_serve_kernels(FK, FR, SK, SR, dev):
         f"64/128; B 2, 2 kv heads): max rel {worst:.3e} (tol {FLASH_TOL:g})")
     q = torch.randn((8 * 15, 1024, 64), generator=gen, device=dev)
     k, v = torch.randn((2, 8 * 5, 1024, 64), generator=gen, device=dev)
-    out = FK.flash_attention_fwd(q, k, v, causal=True)
+    out = FK.flash_attention_fwd(q[None], k[None], v[None], causal=True)[0]
     ref = FR.attention_ref(q, k, v, causal=True)
     e = rel_err(out, ref)
     assert e <= FLASH_TOL, e
@@ -1295,7 +1353,15 @@ def check_serve_kernels(FK, FR, SK, SR, dev):
                                       max_abs_err(out, ref))
     log(f"  flash_attention_fwd at the prefill's shape (B 8, 15/5 heads, S "
         f"1024, D 64, causal): rel {e:.3e} (tol {FLASH_TOL:g})")
-    del q, k, v, out, ref
+    # the main path's form: the model's (B, S, H, D) tensors as views
+    from repro_torch.kernels.flash_attention import flash_attention
+    unfold = lambda t: t.view(8, -1, 1024, 64).transpose(1, 2).contiguous()
+    viewed = flash_attention(unfold(q), unfold(k), unfold(v), causal=True)
+    assert viewed.is_contiguous() and torch.equal(
+        viewed.transpose(1, 2).reshape(out.shape), out)
+    log("  flash_attention_fwd on (B, S, H, D) views (the prefill's "
+        "layout): bitwise the folded result, output in (B, S, H, D)")
+    del q, k, v, out, ref, viewed
 
     for regime, seq_tol in SSD_SEQ_TOL.items():
         worst = {"y": 0.0, "h": 0.0, "seq": 0.0}
@@ -1348,27 +1414,42 @@ def check_serve_kernels(FK, FR, SK, SR, dev):
 
 def time_serve_kernels(FK, FR, SK, SR, dev):
     """Phase 5d: both prefill kernels at the prefill's shapes, warm, beside
-    their operation bounds, plain versions and library calls."""
+    their operation bounds, plain versions and library calls.  Flash
+    attention is timed as the prefill calls it: ``ops.flash_attention`` on
+    the model's contiguous (B, S, H, D) q, k and v (the kernel reads them
+    as strided (B, H, S, D) views and writes o in (B, S, H, D)), in turns
+    with scaled_dot_product_attention on the same views; the folded,
+    contiguous (1, BH, S, D) form is timed beside it for comparison."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device=dev).manual_seed(12)
     res = {}
     B, H, Hkv, S, D = 8, 15, 5, 1024, 64
-    q = torch.randn((B * H, S, D), generator=gen, device=dev)
-    k, v = torch.randn((2, B * Hkv, S, D), generator=gen, device=dev)
-    rep = lambda t: t.view(B, Hkv, S, D).repeat_interleave(H // Hkv, dim=1)
-    q4, k4, v4 = q.view(B, H, S, D), rep(k), rep(v)
+    q = torch.randn((B, S, H, D), generator=gen, device=dev)
+    k, v = torch.randn((2, B, S, Hkv, D), generator=gen, device=dev)
+    # SDPA computes grouped attention only with k, v repeated to H heads
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+              for t in (k, v))
+    fold = lambda t: t.transpose(1, 2).reshape(-1, S, D)
+    qf, kf, vf = fold(q), fold(k), fold(v)
     rw, ops = attention_bound(S=S)
-    b, by = bound_ms(rw, ops)
+    b_fp32, _ = bound_ms(rw, ops)
+    b, by = bound_ms(*attention_bound_tc(S=S))
+    ms, lib = paired_ms(
+        lambda: flash_attention(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q.transpose(1, 2), kr, vr,
+                                               is_causal=True), iters=20)
+    folded_ms = cuda_ms(lambda: FK.flash_attention_fwd(
+        qf[None], kf[None], vf[None], causal=True), iters=20, warmup=3)
     res["flash_attention_fwd"] = dict(
-        ms=cuda_ms(lambda: FK.flash_attention_fwd(q, k, v, causal=True),
-                   iters=20, warmup=3),
-        plain_ms=cuda_ms(lambda: FR.attention_ref(q, k, v, causal=True)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), iters=20, warmup=3),
-        library="scaled_dot_product_attention (k, v repeated to 15 heads)",
+        ms=ms, plain_ms=cuda_ms(lambda: FR.attention_ref(qf, kf, vf,
+                                                         causal=True)),
+        library_ms=lib,
+        library="scaled_dot_product_attention on the same (B, H, S, D) "
+        "views, k, v repeated to 15 heads",
         bound_ms=b, bound_by=by, bytes=rw, flops=ops)
-    del q, k, v, q4, k4, v4
+    del q, k, v, kr, vr, qf, kf, vf
     x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 8, 1024, 48, 1, 128, "init")
     rw, ops = ssd_bound(S=1024)
     b, by = bound_ms(rw, ops)
@@ -1389,6 +1470,15 @@ def time_serve_kernels(FK, FR, SK, SR, dev):
             f"{r['bytes'] / 1e6:.1f} MB; {100 * r['bound_ms'] / r['ms']:.1f}% "
             f"of bound, {r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s)  plain "
             f"{r['plain_ms']:.4f} ms  library {lib}[{r['library']}]")
+    r = res["flash_attention_fwd"]
+    log(f"  flash_attention_fwd above: ops.flash_attention on the prefill's "
+        f"(B, S, H, D) tensors, in turns with the library call; the folded, "
+        f"contiguous (1, BH, S, D) form beside it: {folded_ms:.4f} ms")
+    log(f"  flash_attention_fwd bounds: 3xTF32 on the tensor cores (three "
+        f"TF32 products at 495 TFLOP/s plus the softmax at fp32's 67) "
+        f"{r['bound_ms']:.4f} ms, the one its share above and the kernels "
+        f"line use; fp32 outside the tensor cores (67 TFLOP/s) "
+        f"{b_fp32:.4f} ms, {100 * b_fp32 / r['ms']:.1f}% of it")
     return res
 
 

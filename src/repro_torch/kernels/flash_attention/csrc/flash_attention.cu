@@ -2,24 +2,66 @@
 // Pallas kernel flash_attention_fwd in
 // src/repro/kernels/flash_attention/kernel.py, and of the online-softmax
 // scheme of src/repro/models/attention.py::_fa_fwd_inner that the JAX
-// prefill runs.  fp32 in, fp32 out, fp32 arithmetic throughout (the port
-// keeps the reference's fp32 products; no TF32).
+// prefill runs.  fp32 in, fp32 out, fp32 accuracy.
 //
-//   q (BH, Sq, D), k / v (BHkv, Skv, D), o (BH, Sq, D), all contiguous,
-//   heads ordered (b, h); query head bh reads key/value head bh / group,
+//   q (B, H, Sq, D), k / v (B, Hkv, Skv, D): strided views, D at unit
+//   stride, every other stride a multiple of 4 floats and every base
+//   16-byte aligned; o (B, H, Sq, D) through its own strides (the model's
+//   (B, S, H, D) storage).  Query head h reads key/value head h / group,
 //   so the grouped key/value heads are never repeated in memory.
 //
-// One thread block per (64-row query tile, bh): it walks the 64-row key
-// tiles in order, staging each in shared memory, and keeps the online
-// softmax state in registers: the running max m, the running sum l and
-// the accumulator acc of its query rows, as the Pallas kernel keeps them
-// in VMEM scratch across its sequential kv grid axis.  256 threads as
-// 16 x 16: thread (ty, tx) owns query rows 4ty..4ty+3, score columns
-// 4tx..4tx+3 and output columns 4tx..4tx+3 (+64 for D = 128).  Q and K are
-// staged transposed (d-major, rows padded to 68 floats) so that each step
-// of the q.k product is two float4 loads and 16 FMAs; the probabilities go
-// through shared memory, transposed the same way, for the p.v product.
-// Row max and row sum reduce over the 16 lanes of a half-warp by shuffles.
+// What bounds it.  At the serving prefill (B 8, 15 query and 5 key/value
+// heads, S 1024, D 64, causal) one call does 4D operations per (query,
+// key) pair for q.k and p.v: 16.1 GFLOP of products against 83.9 MB of
+// input and output.  In fp32 outside the tensor cores (67 TFLOP/s) that
+// is 0.24 ms, and the earlier SIMT version of this kernel reached a third
+// of it.  The tensor cores are the only way past that, and plain TF32 (10
+// mantissa bits) would break the port's parity with the fp32 reference.
+// So both products run as 3xTF32: each operand x is split into hi =
+// tf32(x) and lo = tf32(x - hi) and a.b is taken as a_hi.b_hi plus
+// (a_lo.b_hi + a_hi.b_lo), the small terms in an accumulator of their own.
+// The dropped a_lo.b_lo term and lo's own rounding are each about 2^-22
+// relative per product, far below the 1e-5 the kernel is held to.  Three
+// TF32 products at 495 TFLOP/s and the softmax at 67 bound it at about
+// 0.10 ms; bytes (0.025 ms) do not.
+//
+// The design, for this card:
+//   * wgmma (m64nNk8, tf32 in, fp32 accumulate) by inline PTX: one
+//     warpgroup (4 warps, 64 query rows) per query head.  mma.sync peaks
+//     well below wgmma's rate on this card, and with it each warp reads
+//     every K and V fragment from shared memory for its own 16 rows;
+//     wgmma reads a shared operand once for 64 rows.
+//   * tf32 wgmma takes B K-major from shared memory, and A K-major from
+//     shared memory or from registers.  q.k: Q's high part from registers
+//     (loaded once), its low part and K (keys, d) from shared memory; p.v:
+//     P from registers, V stored transposed, (d, keys).  The shared tiles
+//     live in the no-swizzle layout of 8-row x 16-byte core matrices
+//     (cm_offset), which wgmma reads without bank conflicts; a
+//     descriptor's leading offset steps along k (128 bytes), its stride
+//     offset along rows (a row group).
+//   * One block per (batch, key/value head, 64-row query tile, chunk of at
+//     most 3 query heads at D 64, 2 at D 128): the query heads of a GQA
+//     group share the block, so each K/V tile reaches shared memory once
+//     per group, not once per query head.
+//   * K/V tiles stream through a two-stage ring of raw fp32 tiles filled
+//     by cp.async.cg 16-byte copies (zero-filled past Skv), rows padded to
+//     D + 4 floats.  The block splits each tile once into hi and lo tiles
+//     (V transposed on the way), double-buffered: after the one barrier a
+//     tile, tile t + 2 is copied and tile t + 1 split while tile t is
+//     multiplied.  Q is split once, before the key loop.
+//   * The probabilities never leave registers.  The q.k accumulator holds
+//     columns 2t, 2t+1 of rows g, g+8 of each 8-column group, the p.v A
+//     operand columns t, t+4.  So K's rows are stored permuted within each
+//     group of 8 (storage row 2r holds key r, storage row 2r+1 key r+4):
+//     the accumulator then holds keys t and t+4, exactly the A fragment
+//     p.v takes.  Row max and row sum reduce over the quad of lanes that
+//     share a row (__shfl_xor_sync 1, 2).
+//   * The tensor cores add into an fp32 accumulator with truncation: a
+//     chain of products over the whole key axis drifts past the 1e-5
+//     tolerance over a thousand keys.  Each tile's p.v is taken from zero and
+//     added to the output accumulator in fp32, rounded to nearest.
+//   * The grid's slow axis walks the query tiles in reverse, so the
+//     longest causal rows go first and the tail of the grid is short.
 //
 // Masking follows the reference exactly: a masked score is -1e30, never
 // -inf (exp(-inf - -inf) is NaN), so a row whose first tile is wholly
@@ -27,17 +69,8 @@
 // by exp(-1e30 - m) = 0, as the reference's online softmax does.  Key
 // tiles wholly above the causal diagonal or wholly outside the window
 // are skipped: their p is 0 and their correction factor 1, so skipping
-// them is exact.  Keys past Skv (the ragged tail) get p = 0 outright and
-// rows past Sq are not stored.  The output is acc / max(l, 1e-30).
-//
-// What bounds it: at the serving prefill's shapes (B 8, 15 query and 5
-// key/value heads, S 1024, D 64, causal) it does 2D multiply-adds per
-// (query, key) pair for q.k and p.v and a few more for the softmax, 16.4
-// GFLOP a layer against 52.4 MB of input and 31.5 MB of output: bound by
-// operations (0.24 ms at fp32's 67 TFLOP/s).  This first version is
-// plain SIMT fp32; shared-memory bandwidth (two float4 loads per 16
-// FMAs) and 68 KB of shared memory a block (three blocks of 8 warps an SM
-// at D = 64) limit it.  wgmma and TMA are for a later version.
+// them is exact.  Keys past Skv get p = 0 outright and rows past Sq are
+// not stored.  The output is acc / max(l, 1e-30).  No atomics.
 //
 // Plain C interface (loaded with ctypes): fa_forward launches on the given
 // stream, allocates nothing, does not synchronise, and returns
@@ -48,193 +81,618 @@
 
 namespace {
 
-constexpr int kBQ = 64;            // query rows per block
-constexpr int kBK = 64;            // key rows per tile
-constexpr int kThreads = 256;
-constexpr int kLd = 68;            // padded row of a transposed tile (float4 aligned)
+constexpr int kBQ = 64;            // query rows per head per block
+constexpr int kWarpsPerHead = 4;   // one warpgroup per query head
+constexpr int kStages = 2;         // raw K/V ring
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Key rows per tile and query heads per block, so that shared memory
+// (split Q, the raw ring, two split K/V buffers) stays under 227 KB.
+template <int D> struct Cfg;
+template <> struct Cfg<64> {
+  static constexpr int kBK = 32;
+  static constexpr int kMaxHeads = 3;
+};
+template <> struct Cfg<128> {
+  static constexpr int kBK = 16;
+  static constexpr int kMaxHeads = 2;
+};
 
 template <int D>
-constexpr int smem_floats() {
-  return D * kLd      // Qt[d][r]
-       + D * kLd      // Kt[d][c]
-       + kBK * D      // Vs[c][d]
-       + kBK * kLd;   // Pt[c][r]
+constexpr int smem_bytes() {
+  constexpr int BK = Cfg<D>::kBK;
+  return Cfg<D>::kMaxHeads * kBQ * D * 4         // Q lo
+         + kStages * 2 * BK * (D + 4) * 4        // raw K, V ring
+         + 2 * 4 * BK * D * 4;                   // K hi/lo, V^T hi/lo, x2
 }
 
-// D = 64: three 68 KB blocks fit an SM, so at most 85 registers a thread;
-// D = 128: one 120 KB block.
+struct Strides {
+  int64_t b, h, s;
+};
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: cvt.rna.tf32.f32's rounding, done as integer ops on the
+// sign-magnitude bits (add half of the 13 dropped bits, clear them), which
+// issue faster than the conversion.  Finite inputs only.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+  uint32_t h[4], l[4];
+  split(x.x, h[0], l[0]);
+  split(x.y, h[1], l[1]);
+  split(x.z, h[2], l[2]);
+  split(x.w, h[3], l[3]);
+  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                   __uint_as_float(h[2]), __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                   __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
+// Byte offset of element (row, k) in the no-swizzle K-major layout of
+// wgmma: 8-row x 16-byte core matrices, 128 contiguous bytes each, the
+// core matrices of one 8-row group adjacent along k, the groups kdim / 4
+// core matrices apart.
+__device__ __forceinline__ int cm_offset(int row, int k, int kdim) {
+  return ((row >> 3) * (kdim >> 2) + (k >> 2)) * 128 + (row & 7) * 16 +
+         (k & 3) * 4;
+}
+
+// wgmma's shared-memory matrix descriptor, no swizzle: start address,
+// leading byte offset (between core matrices along k), stride byte offset
+// (between 8-row groups), each in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3ffff) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32);
+}
+
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+template <int R, int C>
+__device__ __forceinline__ void fence_regs(float (&d)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// wgmma.m64nNk8, tf32 in, fp32 accumulate.  d: the warpgroup's
+// accumulator, N / 8 groups of four a thread (rows g, g + 8 of the warp's
+// 16; columns 2t, 2t + 1 of each group of 8).  SS takes A and B by
+// descriptor, RS takes A from registers (the mma A fragment of the warp's
+// 16 rows).  scale_d = 0 starts the accumulator from zero.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[2][4],
+                                              uint64_t adesc, uint64_t bdesc,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4],
+                                              uint64_t adesc, uint64_t bdesc,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[2][4],
+                                              const uint32_t a[4],
+                                              uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[4][4],
+                                              const uint32_t a[4],
+                                              uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                              const uint32_t a[4],
+                                              uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                              const uint32_t a[4],
+                                              uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+
+// The wgmma shapes the kernel uses.  q.k: N = the tile's keys, SS for
+// q_lo.k_hi and RS (q_hi from registers) for the other two products; p.v:
+// N = D, RS (P from registers).
+template <int N> struct WG;
+template <> struct WG<16> {
+  static __device__ __forceinline__ void ss(float (&d)[2][4], uint64_t a,
+                                            uint64_t b, int s) {
+    wgmma_ss_n16(d, a, b, s);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[2][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_rs_n16(d, a, b, s);
+  }
+};
+template <> struct WG<32> {
+  static __device__ __forceinline__ void ss(float (&d)[4][4], uint64_t a,
+                                            uint64_t b, int s) {
+    wgmma_ss_n32(d, a, b, s);
+  }
+  static __device__ __forceinline__ void rs(float (&d)[4][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_rs_n32(d, a, b, s);
+  }
+};
+template <> struct WG<64> {
+  static __device__ __forceinline__ void rs(float (&d)[8][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_rs_n64(d, a, b, s);
+  }
+};
+template <> struct WG<128> {
+  static __device__ __forceinline__ void rs(float (&d)[16][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_rs_n128(d, a, b, s);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// One tile's online-softmax step for the two rows (row, row + 8) a thread
+// holds a quarter of: s (accumulator fragments, keys key0 + 8j + {0, 4})
+// becomes p; m, l and the accumulator are rescaled.  kMask applies the
+// causal and window masks and the Skv tail.  Scores are taken in base 2:
+// x = s scale log2(e) and p = 2^(x - m), one ex2 each where expf would
+// reduce its argument first; the same softmax, and -1e30 still masks.
+template <int NT, int KD, bool kMask>
+__device__ __forceinline__ void online_softmax(float (&s)[NT][4], float m[2],
+                                               float l[2], float (&acc)[KD][4],
+                                               int row, int key0, int Skv,
+                                               float scale_log2, int causal,
+                                               int window) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qr = row + 8 * hr;
+    float mx = m[hr];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = s[j][2 * hr + e] * scale_log2;
+        if (kMask) {
+          const int kc = key0 + j * 8 + 4 * e;
+          const int rel = qr - kc;
+          if (causal && rel < 0) x = kNegInf;
+          if (window > 0 && rel >= window) x = kNegInf;
+          if (kc < Skv) mx = fmaxf(mx, x);
+        } else {
+          mx = fmaxf(mx, x);
+        }
+        s[j][2 * hr + e] = x;
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float corr = exp2f(m[hr] - mx);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = !kMask || key0 + j * 8 + 4 * e < Skv;
+        const float p = ok ? exp2f(s[j][2 * hr + e] - mx) : 0.f;
+        s[j][2 * hr + e] = p;
+        rs += p;
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[hr] = l[hr] * corr + rs;
+    m[hr] = mx;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      acc[n][2 * hr] *= corr;
+      acc[n][2 * hr + 1] *= corr;
+    }
+  }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
+__global__ void __launch_bounds__(Cfg<D>::kMaxHeads * kWarpsPerHead * 32, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int Sq,
-                 int Skv, int group, float scale, int causal, int window) {
-  constexpr int H4 = D / 64;       // float4 column groups per thread
+                 const float* __restrict__ v, float* __restrict__ o,
+                 Strides sq, Strides sk, Strides sv, Strides so, int Hkv,
+                 int Sq, int Skv, int group, int heads_per_block,
+                 int chunks, float scale_log2, int causal, int window) {
+  constexpr int BK = Cfg<D>::kBK;
+  constexpr int NT = BK / 8;         // score column groups of a tile
+  constexpr int KD = D / 8;          // q.k k-steps (= output column groups)
+  constexpr int C4 = D / 4;          // float4 chunks a row
+  constexpr int RL = D + 4;          // raw row, floats
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);
-  float* Kt = Qt + D * kLd;
-  float* Vs = Kt + D * kLd;
-  float* Pt = Vs + kBK * D;
+  float* Qsm = reinterpret_cast<float*>(smem4);          // [head][64*D] (lo)
+  float* raw = Qsm + Cfg<D>::kMaxHeads * kBQ * D;        // [stage][K|V][BK][RL]
+  // [buffer][K hi | K lo | V^T hi | V^T lo][BK * D]
+  float* split_kv = raw + kStages * 2 * BK * RL;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const int nthreads = blockDim.x;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const float* qb = q + (int64_t)bh * Sq * D;
-  const float* kb = k + (int64_t)(bh / group) * Skv * D;
-  const float* vb = v + (int64_t)(bh / group) * Skv * D;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    Qt[d * kLd + r] = q0 + r < Sq ? qb[(int64_t)(q0 + r) * D + d] : 0.f;
-  }
+  // blockIdx.x: (b, kv head, head chunk); blockIdx.y: query tile, longest
+  // causal rows first.
+  const int chunk = blockIdx.x % chunks;
+  const int bk = blockIdx.x / chunks;
+  const int hkv = bk % Hkv, b = bk / Hkv;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int hw = warp / kWarpsPerHead;                // warpgroup = head
+  const int gi = chunk * heads_per_block + hw;        // head within group
+  const bool active = gi < group;
+  const int h = hkv * group + gi;
+  const int r0 = q0 + (warp % kWarpsPerHead) * 16;    // the warp's rows
 
-  float m[4], l[4], acc[4][4 * H4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * H4; ++c) acc[i][c] = 0.f;
-  }
+  const float* kb = k + b * sk.b + hkv * sk.h;
+  const float* vb = v + b * sv.b + hkv * sv.h;
 
   // Key tiles any row of this query tile can see.
-  int kt_end = (Skv + kBK - 1) / kBK;
-  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
+  int kt_end = (Skv + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / BK + 1);
   int kt_begin = 0;
   if (window > 0) {
     const int lo = q0 - window + 1;          // smallest key row q0 keeps
-    kt_begin = lo > 0 ? lo / kBK : 0;
+    kt_begin = lo > 0 ? lo / BK : 0;
   }
+
+  auto issue = [&](int kt, int stage) {
+    float* dk = raw + stage * 2 * BK * RL;
+    float* dv = dk + BK * RL;
+    const int k0 = kt * BK;
+    for (int i = tid; i < BK * C4; i += nthreads) {
+      const int r = i / C4, c = (i % C4) * 4;
+      const bool ok = k0 + r < Skv;
+      const int64_t row = ok ? k0 + r : 0;
+      cp_async16(dk + r * RL + c, kb + row * sk.s + c, ok);
+      cp_async16(dv + r * RL + c, vb + row * sv.s + c, ok);
+    }
+    cp_async_commit();
+  };
+  // Tile kt's raw stage and split buffer are (kt - kt_begin) % 2.
+  auto split_tile = [&](int buf) {
+    const float* rk = raw + buf * 2 * BK * RL;
+    const float* rv = rk + BK * RL;
+    float* Khi = split_kv + buf * 4 * BK * D;
+    float* Klo = Khi + BK * D;
+    float* Vhi = Klo + BK * D;
+    float* Vlo = Vhi + BK * D;
+    // K: row r (key) fastest, so 8 neighbouring threads store the 8 rows
+    // of one core matrix; storage row permuted (C -> A fragment).
+    for (int i = tid; i < BK * C4; i += nthreads) {
+      const int r = i % BK, c = (i / BK) * 4;
+      const int rr = (r & ~7) | ((r & 3) << 1) | ((r >> 2) & 1);
+      float4 hi, lo;
+      split4(*reinterpret_cast<const float4*>(rk + r * RL + c), hi, lo);
+      const int off = cm_offset(rr, c, D) / 4;
+      *reinterpret_cast<float4*>(Khi + off) = hi;
+      *reinterpret_cast<float4*>(Klo + off) = lo;
+    }
+    // V^T (rows d, k = keys): d fastest; four keys a thread.
+    for (int i = tid; i < D * (BK / 4); i += nthreads) {
+      const int d = i % D, r = (i / D) * 4;
+      const float4 x = make_float4(rv[r * RL + d], rv[(r + 1) * RL + d],
+                                   rv[(r + 2) * RL + d], rv[(r + 3) * RL + d]);
+      float4 hi, lo;
+      split4(x, hi, lo);
+      const int off = cm_offset(d, r, BK) / 4;
+      *reinterpret_cast<float4*>(Vhi + off) = hi;
+      *reinterpret_cast<float4*>(Vlo + off) = lo;
+    }
+    fence_proxy_async();
+  };
+
+  if (kt_begin < kt_end) {
+    issue(kt_begin, 0);
+    if (kt_begin + 1 < kt_end) issue(kt_begin + 1, 1);
+  }
+  // The low part of the block's query rows, in the core-matrix layout
+  // (rows m, k = d); the high part stays in registers (below).
+  for (int i = tid; i < heads_per_block * kBQ * C4; i += nthreads) {
+    const int m = i % kBQ, c = ((i / kBQ) % C4) * 4, hq = i / (kBQ * C4);
+    const int gq = chunk * heads_per_block + hq;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gq < group && q0 + m < Sq)
+      x = *reinterpret_cast<const float4*>(
+          q + b * sq.b + (int64_t)(hkv * group + gq) * sq.h +
+          (int64_t)(q0 + m) * sq.s + c);
+    float4 hi, lo;
+    split4(x, hi, lo);
+    *reinterpret_cast<float4*>(Qsm + hq * kBQ * D + cm_offset(m, c, D) / 4) =
+        lo;
+  }
+  fence_proxy_async();
+  if (kt_begin < kt_end) {
+    if (kt_begin + 1 < kt_end) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+    split_tile(0);
+  }
+  const float* Qlo = Qsm + hw * kBQ * D;
+
+  // The warp's query rows rounded to TF32, as wgmma A fragments (rows g,
+  // g + 8; columns t, t + 4 of each k-step), in registers for the whole
+  // key loop.
+  uint32_t qhi[KD][4];
+  {
+    const float* qb = q + b * sq.b + h * sq.h;
+    const bool ok0 = active && r0 + g < Sq, ok1 = active && r0 + g + 8 < Sq;
+    const float* q0p = qb + (int64_t)(r0 + g) * sq.s;
+    const float* q1p = qb + (int64_t)(r0 + g + 8) * sq.s;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      qhi[kk][0] = tf32(ok0 ? q0p[kk * 8 + t] : 0.f);
+      qhi[kk][1] = tf32(ok1 ? q1p[kk * 8 + t] : 0.f);
+      qhi[kk][2] = tf32(ok0 ? q0p[kk * 8 + t + 4] : 0.f);
+      qhi[kk][3] = tf32(ok1 ? q1p[kk * 8 + t + 4] : 0.f);
+    }
+  }
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[KD][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                 // the previous tile is consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int c = i / D, d = i % D;
-      const bool ok = k0 + c < Skv;
-      const int64_t off = (int64_t)(k0 + c) * D + d;
-      Kt[d * kLd + c] = ok ? kb[off] : 0.f;
-      Vs[c * D + d] = ok ? vb[off] : 0.f;
-    }
+    const int it = kt - kt_begin;
+    // One barrier a tile.  After it: tile kt's split buffer is complete,
+    // tile kt + 1 has landed, and every warpgroup is done with tile kt - 1,
+    // so its split buffer and raw stage are free.
+    cp_async_wait<0>();
     __syncthreads();
+    if (kt + 2 < kt_end) issue(kt + 2, it % 2);
+    if (kt + 1 < kt_end) split_tile((it + 1) % 2);
+    if (!active) continue;
+    const float* Khi = split_kv + (it % 2) * 4 * BK * D;
+    const float* Klo = Khi + BK * D;
+    const float* Vhi = Klo + BK * D;
+    const float* Vlo = Vhi + BK * D;
+    const int k0 = kt * BK;
 
-    float s[4][4];
+    // s = q.k^T on the warpgroup's 64 rows: big += q_hi.k_hi, small +=
+    // q_lo.k_hi + q_hi.k_lo; k-step kk covers d 8kk..8kk+7, two core
+    // matrices of 128 bytes.  q_hi comes from registers (RS): an SS
+    // product re-reads its A tile from shared memory for every 8 columns
+    // of k, which at N = 32 asks more bytes a cycle than shared memory
+    // gives.
+    float s[NT][4] = {}, sl[NT][4] = {};
+    wg_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qt[d * kLd + ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Kt[d * kLd + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+    for (int kk = 0; kk < KD; ++kk) {
+      const uint64_t ql = make_desc(Qlo + kk * 64, 128, D * 32);
+      const uint64_t kh = make_desc(Khi + kk * 64, 128, D * 32);
+      const uint64_t kl = make_desc(Klo + kk * 64, 128, D * 32);
+      WG<BK>::ss(sl, ql, kh, kk > 0);
+      WG<BK>::rs(sl, qhi[kk], kl, 1);
+      WG<BK>::rs(s, qhi[kk], kh, kk > 0);
     }
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+    fence_regs(sl);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] += sl[j][c];
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty * 4 + i;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx * 4 + j;
-        const int rel = qr - kc;
-        float x = s[i][j] * scale;
-        if (causal && rel < 0) x = kNegInf;
-        if (window > 0 && rel >= window) x = kNegInf;
-        s[i][j] = x;
-        if (kc < Skv) mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float corr = expf(m[i] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx * 4 + j < Skv ? expf(s[i][j] - mx) : 0.f;
-        rs += p;
-        Pt[(tx * 4 + j) * kLd + ty * 4 + i] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = mx;
-#pragma unroll
-      for (int c = 0; c < 4 * H4; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
+    const bool interior = (!causal || k0 + BK - 1 <= r0) &&
+                          (window <= 0 || r0 + 15 - k0 < window) &&
+                          k0 + BK <= Skv;
+    if (interior)
+      online_softmax<NT, KD, false>(s, m, l, acc, r0 + g, k0 + t, Skv,
+                                    scale_log2, causal, window);
+    else
+      online_softmax<NT, KD, true>(s, m, l, acc, r0 + g, k0 + t, Skv,
+                                   scale_log2, causal, window);
 
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&Pt[c * kLd + ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+    // acc += p.v: accumulator group j is the A fragment of k-step j (rows
+    // g, g + 8; keys t, t + 4), split once; the tile's product from zero.
+    uint32_t phi[NT][4], plo[NT][4];
 #pragma unroll
-      for (int h = 0; h < H4; ++h) {
-        const float4 v4 =
-            *reinterpret_cast<const float4*>(&Vs[c * D + h * 64 + tx * 4]);
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+    for (int j = 0; j < NT; ++j) {
+      const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][h * 4 + j] = fmaf(pv[i], vv[j], acc[i][h * 4 + j]);
-      }
+      for (int c = 0; c < 4; ++c) split(pa[c], phi[j][c], plo[j][c]);
     }
+    float part[KD][4] = {};
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const uint64_t vh = make_desc(Vhi + j * 64, 128, BK * 32);
+      const uint64_t vl = make_desc(Vlo + j * 64, 128, BK * 32);
+      WG<D>::rs(part, plo[j], vh, j > 0);
+      WG<D>::rs(part, phi[j], vl, 1);
+      WG<D>::rs(part, phi[j], vh, 1);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(part);
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
   }
 
+  if (!active) return;
+  float* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qr = r0 + g + 8 * hr;
     if (qr >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((int64_t)bh * Sq + qr) * D;
+    const float den = fmaxf(l[hr], 1e-30f);
+    float* orow = ob + (int64_t)qr * so.s;
 #pragma unroll
-    for (int h = 0; h < H4; ++h) {
-      float4 r;
-      r.x = acc[i][h * 4 + 0] / den;
-      r.y = acc[i][h * 4 + 1] / den;
-      r.z = acc[i][h * 4 + 2] / den;
-      r.w = acc[i][h * 4 + 3] / den;
-      *reinterpret_cast<float4*>(&orow[h * 64 + tx * 4]) = r;
-    }
+    for (int n = 0; n < KD; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * hr] / den, acc[n][2 * hr + 1] / den);
   }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int BH, int Sq, int Skv, int group, float scale,
+                   Strides sq, Strides sk, Strides sv, Strides so, int B,
+                   int Hkv, int Sq, int Skv, int group, float scale,
                    int causal, int window, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
+  constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, Sq, Skv, group, scale, causal, window);
+  const int chunks = (group + Cfg<D>::kMaxHeads - 1) / Cfg<D>::kMaxHeads;
+  const int heads_per_block = (group + chunks - 1) / chunks;
+  const int64_t gx = (int64_t)B * Hkv * chunks;
+  const int64_t gy = (Sq + kBQ - 1) / kBQ;
+  if (gx > 0x7fffffff || gy > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)gx, (unsigned)gy);
+  flash_fwd_kernel<D><<<grid, heads_per_block * kWarpsPerHead * 32, bytes,
+                        stream>>>(q, k, v, o, sq, sk, sv, so, Hkv, Sq, Skv,
+                                  group, heads_per_block, chunks,
+                                  scale * kLog2e, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fa_forward(const float* q, const float* k, const float* v,
-                          float* o, int BH, int Sq, int Skv, int D, int group,
-                          float scale, int causal, int window,
-                          cudaStream_t stream) {
-  if (BH <= 0 || Sq <= 0 || Skv <= 0) return (int)cudaSuccess;
+                          float* o, const int64_t* strides, int B, int Hkv,
+                          int Sq, int Skv, int D, int group, float scale,
+                          int causal, int window, cudaStream_t stream) {
+  if (B <= 0 || Hkv <= 0 || group <= 0 || Sq <= 0 || Skv <= 0)
+    return (int)cudaSuccess;
+  const Strides sq{strides[0], strides[1], strides[2]};
+  const Strides sk{strides[3], strides[4], strides[5]};
+  const Strides sv{strides[6], strides[7], strides[8]};
+  const Strides so{strides[9], strides[10], strides[11]};
   switch (D) {
     case 64:
-      return (int)launch<64>(q, k, v, o, BH, Sq, Skv, group, scale, causal,
-                             window, stream);
+      return (int)launch<64>(q, k, v, o, sq, sk, sv, so, B, Hkv, Sq, Skv,
+                             group, scale, causal, window, stream);
     case 128:
-      return (int)launch<128>(q, k, v, o, BH, Sq, Skv, group, scale, causal,
-                              window, stream);
+      return (int)launch<128>(q, k, v, o, sq, sk, sv, so, B, Hkv, Sq, Skv,
+                              group, scale, causal, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,7 +6,16 @@ and loaded as the other families are (:mod:`repro_torch.kernels._cuda`:
 ``nvcc`` for ``sm_90a`` at first use, into ``build/`` beside this file,
 keyed by a hash of the source and flags).
 
-The wrapper checks device, dtype, shape and contiguity, then:
+The kernel reads q, k and v as strided ``(B, H, S, D)`` views (the model's
+``(B, S, H, D)`` tensors transposed, no copy) and writes o through its own
+strides, so :func:`repro_torch.kernels.flash_attention.flash_attention`
+hands it the model's layout as it is and gets the output back in it.  Both
+products run on the tensor cores (``wgmma``, one warpgroup per query head,
+the query heads of a GQA group in one block) as 3xTF32: each operand split
+into a TF32 high and low part, three products, which keeps fp32 accuracy;
+see the source's note.
+
+The wrapper checks device, dtype, shape and layout, then:
 
   * for CPU tensors computes the plain PyTorch version (``ref.py``) — the
     CPU tests run that, and nothing else takes it;
@@ -21,8 +30,10 @@ dims 64 and 128 are built; fp32 only (bf16 inputs are ROADMAP Queue 2 row
 11's open part).
 
 Bound at the serving prefill of smollm-360m (B 8, 15/5 heads, S 1024, D
-64, causal, one layer): 16.4 GFLOP, 83.9 MB — bound by operations, 0.244
-ms at the H100's 67 fp32 TFLOP/s.  ``PERF.md`` holds the measured time.
+64, causal, one layer): 16.1 GFLOP of products, 83.9 MB.  As three TF32
+products on the tensor cores (495 TFLOP/s) plus the softmax at fp32's 67
+TFLOP/s: about 0.10 ms; in fp32 outside the tensor cores: 0.244 ms.
+``PERF.md`` holds the measured time.
 """
 from __future__ import annotations
 
@@ -36,7 +47,7 @@ from repro_torch.kernels._cuda import CudaLibrary, device_of, raise_on, stream
 from repro_torch.kernels.flash_attention import ref as R
 
 HEAD_DIMS = (64, 128)
-MAX_BLOCKS_Y = 65535          # the grid's y extent is B * H
+MAX_QUERY_TILES = 65535       # the grid's y extent: ceil(Sq / 64)
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "flash_attention.cu")
@@ -44,8 +55,8 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fa_forward.argtypes = [P, P, P, P, I, I, I, I, I, ctypes.c_float, I,
-                               I, P]
+    lib.fa_forward.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
+                               ctypes.c_float, I, I, P]
     lib.fa_forward.restype = ctypes.c_int
 
 
@@ -58,55 +69,79 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected torch.float32, got {t.dtype} "
                             "(bf16 inputs: ROADMAP Queue 2 row 11)")
-        if t.dim() != 3:
-            raise ValueError(f"{name}: expected (heads, S, D), got "
+        if t.dim() != 4:
+            raise ValueError(f"{name}: expected (B, heads, S, D), got "
                              f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
         if t.requires_grad:
             raise RuntimeError(
                 f"{name} requires grad: the flash-attention kernel has no "
                 "backward; differentiate through models.attention.attend")
-    BH, Sq, D = q.shape
-    BHkv, Skv, Dk = k.shape
-    if tuple(v.shape) != (BHkv, Skv, Dk) or Dk != D:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dimension must have unit "
+                             f"stride, got strides {t.stride()}")
+    B, H, Sq, D = q.shape
+    Bk, Hkv, Skv, Dk = k.shape
+    if tuple(v.shape) != tuple(k.shape) or Dk != D or Bk != B:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if BHkv == 0 or BH % BHkv:
-        raise ValueError(f"{BH} query heads are not a multiple of {BHkv} "
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"{H} query heads are not a multiple of {Hkv} "
                          "key/value heads")
-    return BH, Sq, Skv, D, BH // BHkv
+    return B, H, Hkv, Sq, Skv, D
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte copies: base 16-byte aligned, batch/head/seq strides whole
+    float4s (the last dimension is unit stride, checked before)."""
+    return (t.data_ptr() % 16 == 0
+            and all(s % 4 == 0 for s in t.stride()[:3]))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q: (BH, Sq, D); k, v: (BHkv, Skv, D), fp32, contiguous, heads
-    ordered (b, h); query head bh reads key/value head bh // (BH / BHkv).
-    Any Sq and Skv.  Returns o (BH, Sq, D).
+    """q: (B, H, Sq, D); k, v: (B, Hkv, Skv, D), fp32, any strides with the
+    last dimension at unit stride; query head h reads key/value head
+    h // (H / Hkv).  The folded form, (BH, Sq, D) and (BHkv, Skv, D) with
+    heads ordered (b, h), is the case B = 1 (``unsqueeze(0)``).  Any Sq and
+    Skv.
+
+    Returns o, a (B, H, Sq, D) view of a contiguous (B, Sq, H, D) tensor
+    (the model's layout).
 
     Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``.
     """
-    BH, Sq, Skv, D, group = _check(q, k, v)
+    B, H, Hkv, Sq, Skv, D = _check(q, k, v)
     window = int(window)
     if window < 0:
         raise ValueError(f"window={window} must be >= 0")
     dev = device_of(q, k, v)
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
     if dev.type == "cpu":
-        return R.attention_ref(q, k, v, causal=causal, window=window)
+        fold = lambda t: t.reshape(-1, *t.shape[-2:])
+        return o.copy_(R.attention_ref(fold(q), fold(k), fold(v),
+                                       causal=causal, window=window
+                                       ).view(o.shape))
     if D not in HEAD_DIMS:
         raise NotImplementedError(
             f"head dim {D}: the CUDA kernel is built for {HEAD_DIMS} "
             "(other head dims: ROADMAP Queue 2 row 11)")
-    if BH > MAX_BLOCKS_Y:
-        raise ValueError(f"B * H = {BH} exceeds the grid's {MAX_BLOCKS_Y}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned(t):
+            raise ValueError(f"{name}: the kernel copies 16 bytes at a time "
+                             "and needs a 16-byte aligned base and strides "
+                             f"that are multiples of 4, got {t.stride()}")
+    if (Sq + 63) // 64 > MAX_QUERY_TILES:
+        raise ValueError(f"Sq = {Sq} exceeds the grid's {MAX_QUERY_TILES} "
+                         "query tiles")
     lib = LIB.load()
-    o = torch.empty_like(q)
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
+                                       for s in t.stride()[:3]))
     with torch.cuda.device(dev):
         code = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              o.data_ptr(), BH, Sq, Skv, D, group,
-                              1.0 / math.sqrt(D), int(bool(causal)), window,
-                              stream(dev))
+                              o.data_ptr(), strides, B, Hkv, Sq, Skv, D,
+                              H // Hkv, 1.0 / math.sqrt(D),
+                              int(bool(causal)), window, stream(dev))
     raise_on(code, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return o

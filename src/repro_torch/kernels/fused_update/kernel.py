@@ -30,7 +30,10 @@ is 1.447 GB; H100 SXM, 3.35 TB/s):
   * ``update_pass_bwd``: sgd reads 2.89 GB, writes 1.45 GB; adam reads
     8.68 GB, writes 4.34 GB.
 
-All six are bound by bytes; ``PERF.md`` holds their measured times.  The
+All six are bound by bytes; ``PERF.md`` holds their measured times.
+``accumulate_pass`` (four launches a scan round) reads g and writes out
+with streaming cache hints; the source's note gives the times of the forms
+``tools/accumulate_forms.py`` compares.  The
 backward kernels' sums (``dw``, ``dscal``) are fp64 per-block partials over
 a fixed grid, added in a fixed order, so they are bitwise equal from launch
 to launch.

@@ -8,6 +8,7 @@ Inputs are made once with numpy from a seed.  Tolerance <= 1e-5 relative
 another order (the online softmax of the Pallas kernel and of ``attend``
 rescales by exp of max differences block by block; a few ulps)."""
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -112,6 +113,25 @@ def test_prefill_attention_equals_training_attend():
     assert rel_err(a, b) <= TOL
 
 
+def test_flash_attention_returns_the_models_layout():
+    """The op hands the kernel (B, H, S, D) views of the model's (B, S, H,
+    D) tensors and gets o back in (B, S, H, D) storage, so the prefill's
+    ``reshape(B, S, H * D)`` is a view, not a copy; the folded (BH, S, D)
+    form is the case B = 1."""
+    q, k, v = (torch.from_numpy(t) for t in _inputs(8, 6, 2, 16))
+    out = flash_attention(q, k, v, causal=True)
+    assert out.is_contiguous()
+    assert out.reshape(2, 8, -1).data_ptr() == out.data_ptr()
+    o4 = K.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2))
+    assert o4.shape == (2, 6, 8, 16) and o4.transpose(1, 2).is_contiguous()
+    assert torch.equal(o4.transpose(1, 2), out)
+    of = K.flash_attention_fwd(*(torch.from_numpy(_fold(t)).unsqueeze(0)
+                                 for t in _inputs(8, 6, 2, 16)))
+    assert of.shape == (1, 12, 8, 16) and torch.equal(
+        of[0], torch.from_numpy(_fold(out.numpy())))
+
+
 def test_decode_attention_matches_jax():
     from repro.models.attention import decode_attention as jax_decode
     rng = np.random.default_rng(3)
@@ -128,18 +148,98 @@ def test_decode_attention_matches_jax():
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
-    q, k, v = (torch.from_numpy(_fold(t)) for t in _inputs(8, 6, 2, 16))
+    q, k, v = (torch.from_numpy(t).transpose(1, 2)
+               for t in _inputs(8, 6, 2, 16))
     with pytest.raises(RuntimeError, match="no backward"):
         K.flash_attention_fwd(q.clone().requires_grad_(), k, v)
     with pytest.raises(TypeError, match="float32"):
         K.flash_attention_fwd(q.to(torch.bfloat16), k, v)
     with pytest.raises(ValueError, match="multiple"):
-        K.flash_attention_fwd(q[:5], k, v)
-    with pytest.raises(ValueError, match="contiguous"):
-        K.flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2),
+        K.flash_attention_fwd(q[:, :5], k, v)
+    with pytest.raises(ValueError, match="B, heads, S, D"):
+        K.flash_attention_fwd(q[0], k[0], v[0])
+    with pytest.raises(ValueError, match="unit stride"):
+        K.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3),
                               k, v)
     with pytest.raises(ValueError, match="window"):
         K.flash_attention_fwd(q, k, v, window=-1)
     n0 = K.flash_attention_fwd.launches
     K.flash_attention_fwd(q, k, v)            # the CPU: the plain version
     assert K.flash_attention_fwd.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's numerics, pinned on the CPU: both products run on the
+# tensor cores as 3xTF32.  TF32 keeps 10 of fp32's 23 mantissa bits;
+# ``cvt.rna.tf32.f32`` rounds to nearest with ties away from zero, which on
+# the sign-magnitude bits is "add half of the dropped part, then mask".
+# ---------------------------------------------------------------------------
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel takes it: a_lo.b_hi + a_hi.b_lo + a_hi.b_hi,
+    each product of TF32 values exact in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_emulated(q, k, v, mm):
+    """Causal attention with both products through ``mm``: (BH, S, D)."""
+    S, D = q.shape[1], q.shape[2]
+    s = mm(q, k.transpose(1, 2)) / math.sqrt(D)
+    rel = torch.arange(S)[:, None] - torch.arange(S)[None, :]
+    p = torch.softmax(torch.where(rel >= 0, s, R.NEG_INF), dim=-1)
+    return mm(p, v)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    ulp = 2.0 ** -10                     # TF32's unit in the last place at 1
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 3 * ulp / 2, 0.0, -0.0, 3.0], dtype=torch.float32)
+    want = [1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 0.0, -0.0, 3.0]
+    assert _tf32(x).tolist() == want
+    hi = _tf32(x)
+    assert torch.equal(hi + (x - hi), x)          # x - hi is exact
+
+
+def test_3xtf32_attention_keeps_fp32_accuracy():
+    """At S 1024, D 64 (the prefill's head): the three-term split is
+    within 1e-5 of fp32 attention (about 3e-7); one TF32 product is not
+    (about 4e-4)."""
+    rng = np.random.default_rng(1024)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 1024, 64),
+                                                    dtype=np.float32))
+               for _ in range(3))
+    ref = R.attention_ref(q, k, v, causal=True)
+    assert rel_err(_attention_emulated(q, k, v, _mm_3xtf32), ref) <= TOL
+    assert rel_err(_attention_emulated(q, k, v, _mm_1xtf32), ref) > 10 * TOL
+
+
+def test_score_fragments_are_the_pv_a_fragments():
+    """The kernel stores K's rows permuted within each group of 8 (key r at
+    storage row 2r for r < 4, 2(r - 4) + 1 for r >= 4), so the q.k
+    product's mma C fragment (rows g, g + 8; columns 2t, 2t + 1) holds keys
+    t and t + 4: the A fragment (columns t, t + 4) that the p.v product
+    takes.  Checked for every lane on one 16 x 8 tile, with the storage
+    formula of ``csrc/flash_attention.cu``."""
+    rr = lambda r: (r & ~7) | ((r & 3) << 1) | ((r >> 2) & 1)
+    assert sorted(rr(r) for r in range(16)) == list(range(16))
+    rng = np.random.default_rng(0)
+    s = rng.standard_normal((16, 8))                 # scores, true key order
+    stored = np.empty_like(s)
+    for r in range(8):
+        stored[:, rr(r)] = s[:, r]                   # column n = storage row
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        c = [stored[g, 2 * t], stored[g, 2 * t + 1],
+             stored[g + 8, 2 * t], stored[g + 8, 2 * t + 1]]
+        a = [s[g, t], s[g + 8, t], s[g, t + 4], s[g + 8, t + 4]]
+        assert [c[0], c[2], c[1], c[3]] == a, lane

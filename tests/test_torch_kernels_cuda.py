@@ -66,6 +66,26 @@ def test_accumulate_kernel_matches_plain(cuda_device, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 4099, 40003, 2_826_728])
+def test_accumulate_kernel_in_place_equals_out_of_place(cuda_device, rows):
+    """Row counts that end inside a block (4099, 40003), and the full width
+    of smollm-360m; in place (``out=acc``, as the scan executor calls it)
+    bitwise equal to out of place, both within 1e-6 of the plain
+    version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + 5)
+    acc, g = torch.randn((2, rows, 128), generator=gen, device=cuda_device)
+    w = torch.tensor([0.37], device=cuda_device)
+    ref = R.accumulate_ref(acc, g, w[0])
+    out = K.accumulate_pass(acc, g, w)
+    n0 = K.accumulate_pass.launches
+    same = K.accumulate_pass(acc, g, w, out=acc)
+    torch.cuda.synchronize()
+    assert same is acc and K.accumulate_pass.launches == n0 + 1
+    assert rel_err(out, ref) <= TOL
+    assert torch.equal(acc, out)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("opt", OPTS)
 def test_update_kernel_matches_plain(cuda_device, opt):
     rows = 4104
@@ -257,7 +277,8 @@ def test_flash_attention_kernel_matches_plain(cuda_device, S, causal, window,
     q = torch.randn((B * Hkv * G, S, D), generator=gen, device=cuda_device)
     k, v = torch.randn((2, B * Hkv, S, D), generator=gen, device=cuda_device)
     n0 = FK.flash_attention_fwd.launches
-    out = FK.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    out = FK.flash_attention_fwd(q[None], k[None], v[None], causal=causal,
+                                 window=window)[0]
     ref = FR.attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert FK.flash_attention_fwd.launches == n0 + 1
@@ -265,14 +286,60 @@ def test_flash_attention_kernel_matches_plain(cuda_device, S, causal, window,
 
 
 @pytest.mark.cuda
+def test_flash_attention_kernel_matches_plain_at_prefill_shape(cuda_device):
+    """smollm-360m's prefill: B 8, 15 query and 5 key/value heads, S 1024,
+    D 64, causal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1024)
+    q = torch.randn((8 * 15, 1024, 64), generator=gen, device=cuda_device)
+    k, v = torch.randn((2, 8 * 5, 1024, 64), generator=gen,
+                       device=cuda_device)
+    out = FK.flash_attention_fwd(q[None], k[None], v[None], causal=True)[0]
+    ref = FR.attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert rel_err(out, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,causal,window,D", [(1024, True, 0, 64),
+                                               (100, False, 32, 128)])
+def test_flash_attention_kernel_strided_views(cuda_device, S, causal, window,
+                                              D):
+    """The model's (B, S, H, D) tensors handed over as (B, H, S, D) views
+    (as ``ops.flash_attention`` does), k and v slices of one projection
+    buffer, against the same input folded and contiguous; the output in
+    the model's layout."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=cuda_device).manual_seed(S + 7)
+    B, H, Hkv = 2, 6, 2
+    q = torch.randn((B, S, H, D), generator=gen, device=cuda_device)
+    kv = torch.randn((B, S, 2 * Hkv, D), generator=gen, device=cuda_device)
+    k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    fold = lambda t: t.transpose(1, 2).reshape(-1, S, D)
+    folded = FK.flash_attention_fwd(fold(q)[None], fold(k)[None],
+                                    fold(v)[None], causal=causal,
+                                    window=window)[0]
+    torch.cuda.synchronize()
+    assert out.shape == (B, S, H, D) and out.is_contiguous()
+    assert torch.equal(fold(out), folded)
+    ref = FR.attention_ref(fold(q), fold(k), fold(v), causal=causal,
+                           window=window)
+    assert rel_err(folded, ref) <= 1e-5
+
+
+@pytest.mark.cuda
 def test_flash_attention_kernel_refuses_grad(cuda_device):
-    q = torch.randn((2, 8, 64), device=cuda_device, requires_grad=True)
-    k = torch.randn((2, 8, 64), device=cuda_device)
+    q = torch.randn((1, 2, 8, 64), device=cuda_device, requires_grad=True)
+    k = torch.randn((1, 2, 8, 64), device=cuda_device)
     with pytest.raises(RuntimeError, match="no backward"):
         FK.flash_attention_fwd(q, k, k)
     with pytest.raises(NotImplementedError, match="head dim"):
-        FK.flash_attention_fwd(*(torch.randn((2, 8, 32), device=cuda_device)
+        FK.flash_attention_fwd(*(torch.randn((1, 2, 8, 32),
+                                             device=cuda_device)
                                  for _ in range(3)))
+    buf = torch.randn((1, 2, 8, 68), device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        FK.flash_attention_fwd(buf[..., 1:65], buf[..., :64], buf[..., :64])
 
 
 def _ssd_inputs(gen, dev, B, S, H, G, N, regime):
