@@ -55,18 +55,21 @@ The serving path (``repro_torch.launch.serve``) adds, beside these:
       and 256, group 1 and 3, head dim 64 and 128; the SSD scan at S 128
       to 1025, chunk 256 and 64, y and h_final, at the init's decay range
       and at slow decays, and against the sequential recurrence at S <=
-      256), then each at the prefill's shapes (the SSD scan in both decay
-      regimes, so the state carried across chunks is held at full width);
+      256; then at eight edge shapes, N 10 to 128, chunk 32 to 256, G 1,
+      2 and 4, and on strided views), then each at the prefill's shapes
+      (the SSD scan in both decay regimes, so the state carried across
+      chunks is held at full width);
   5d. their times at the prefill's shapes beside bound, plain and library
       (flash attention on the prefill's (B, S, H, D) tensors, in turns
-      with scaled_dot_product_attention on the same views; its bound as
-      it computes, 3xTF32 on the tensor cores, and beside it fp32's;
-      phase 5b keeps S 128's bounds and library time);
+      with scaled_dot_product_attention on the same views); both bounds
+      as the kernels compute, 3xTF32 on the tensor cores, and beside them
+      fp32's; the device kernels one SSD call launches and their times
+      (torch.profiler); phase 5b keeps S 128's bounds and library time;
   6s. the serving main path: ``serve.main`` at full width on smollm-360m
       and mamba2-780m, batch 8, prompt 1024, 32 tokens, seed 0, greedy;
       the launch counts zeroed just before each run and read just after
       (flash 32 or SSD 48, none of rows 1-10); prefill wall, decode tok/s,
-      peak memory;
+      peak memory (mamba2-780m's within 0.1 GiB of its 4.36 GiB);
   6t. at full width, the decode of token 1024 after prefill(1024) against
       the last logits of prefill(1025) (both kernels' ragged tails), with
       the launch counts of the prefill (one per layer) and of the decode
@@ -752,18 +755,45 @@ def attention_bound_tc(**kw) -> tuple:
     return rw, ops - products, 3 * products
 
 
-def ssd_bound(B=8, H=48, S=128, P=64, N=128, chunk=256, nbytes=4):
+def ssd_bound(B=8, H=48, S=128, P=64, N=128, chunk=256, G=None, nbytes=4):
     """One Mamba2 SSD chunked-scan call (one layer) at mamba2-780m's widths
     (d_inner 3072 = 48 heads of 64, d_state 128, chunk 256) and the main
     path's client batch and sequence: x, dt, a, B, C read once and y
     written once.  Per head and chunk of L: the causal half of C.B^T and
     of M.(x dt) (2N + 2P + 3 a pair), the carried state's term (2NP + N a
-    position) and the state update (2NP + N a position, NP a chunk)."""
+    position) and the state update (2NP + N a position, NP a chunk).
+
+    With ``G`` groups given (mamba2-780m has one), the count the function
+    needs: C.B^T once per group, since the heads of a group share B and C
+    (2N a pair per group and chunk, 2P + 3 a pair per head), B and C read
+    once per group, and h_final written; without, every term per head, as
+    PRs 14-15 counted."""
     L = min(chunk, S)
-    rw = B * H * S * (2 * P + 2 + 2 * N) * nbytes
-    per_chunk = (L * (L + 1) // 2 * (2 * N + 2 * P + 3)
-                 + L * (4 * N * P + 2 * N + P + 1) + N * P)
-    return rw, B * H * (S // L) * per_chunk
+    nc = S // L
+    pairs = L * (L + 1) // 2
+    per_head = pairs * (2 * P + 3) + L * (4 * N * P + 2 * N + P + 1) + N * P
+    if G is None:
+        rw = B * H * S * (2 * P + 2 + 2 * N) * nbytes
+        return rw, B * H * nc * (per_head + pairs * 2 * N)
+    rw = (B * H * S * (2 * P + 2) + B * G * S * 2 * N
+          + B * H * N * P) * nbytes
+    return rw, B * nc * (H * per_head + G * pairs * 2 * N)
+
+
+def ssd_bound_tc(**kw) -> tuple:
+    """The same call as the kernel computes it: the matrix products (C.B^T
+    and M.(x dt) over the causal half, C.h and the state update) as three
+    TF32 tensor-core products each (3xTF32), the decays and masks in fp32.
+    Returns (bytes, fp32 operations, TF32 operations) for ``bound_ms``."""
+    rw, ops = ssd_bound(**kw)
+    B, H, S = kw.get("B", 8), kw.get("H", 48), kw.get("S", 128)
+    P, N = kw.get("P", 64), kw.get("N", 128)
+    L = min(kw.get("chunk", 256), S)
+    G = kw.get("G") or H
+    pairs = L * (L + 1) // 2
+    products = B * (S // L) * (H * (pairs * 2 * P + L * 4 * N * P)
+                               + G * pairs * 2 * N)
+    return rw, ops - products, 3 * products
 
 
 def print_all_bounds():
@@ -774,9 +804,9 @@ def print_all_bounds():
     card's memory rate.  Flash attention and the SSD scan at one layer of
     the models that run them, at S 128 and at the serving prefill's 1024:
     the larger of bytes over the memory rate and operations over the fp32
-    rate (``ssd_bound`` counts B and C per head, as the Pallas kernel reads
-    them; the port's kernel reads them per group, and moves less, but the
-    bound is set by operations either way)."""
+    rate (``ssd_bound`` counts B, C and C.B^T per head, as the Pallas
+    kernel takes them, and, with its groups given, once per group, as the
+    port's kernel takes them)."""
     buf = FULL_ROWS * 128 * 4.0                   # one fp32 flat buffer
     i8, bits = buf / 4, buf / 32                  # int8 payload, sign bits
     rows = [
@@ -802,9 +832,11 @@ def print_all_bounds():
             ("11 flash_attention_fwd (the serving prefill: S 1024)",
              attention_bound(S=1024)),
             ("12 ssd_scan_fwd (mamba2-780m, B 8, 48 heads, S 128, P 64, "
-             "N 128, fp32)", ssd_bound()),
-            ("12 ssd_scan_fwd (the serving prefill: S 1024, chunk 256)",
-             ssd_bound(S=1024))):
+             "N 128, fp32; C.B^T per head)", ssd_bound()),
+            ("12 ssd_scan_fwd (the serving prefill: S 1024, chunk 256; "
+             "C.B^T per head)", ssd_bound(S=1024)),
+            ("12 ssd_scan_fwd (the serving prefill, C.B^T once for its one "
+             "group)", ssd_bound(S=1024, G=1))):
         b, by = bound_ms(rw, ops)
         log(f"  {name}: {rw / 1e6:.3f} MB, {ops / 1e9:.4f} GFLOP, bound "
             f"{b * 1e3:.3f} us ({by}) per layer call at fp32's rate")
@@ -813,6 +845,11 @@ def print_all_bounds():
         log(f"  11 flash_attention_fwd at S {S} as the kernel computes it "
             f"(3xTF32 products on the tensor cores, fp32 softmax): bound "
             f"{b * 1e3:.3f} us ({by})")
+    for S in (128, 1024):
+        b, by = bound_ms(*ssd_bound_tc(S=S, G=1))
+        log(f"  12 ssd_scan_fwd at S {S} as the kernel computes it (3xTF32 "
+            f"products on the tensor cores, C.B^T once for the one group, "
+            f"fp32 decays and masks): bound {b * 1e3:.3f} us ({by})")
 
 
 # ---------------------------------------------------------------------------
@@ -1293,11 +1330,19 @@ def small_reference_coded(dev):
 FLASH_TOL = 1e-5
 SSD_TOL = 1e-5
 SSD_SEQ_TOL = {"init": 2e-3, "slow": 1e-5}
+SSD_EDGE_SHAPES = [(1, 256, 1, 128), (63, 32, 2, 16), (200, 128, 1, 128),
+                   (300, 64, 4, 16), (150, 32, 2, 16), (100, 32, 4, 12),
+                   (130, 64, 1, 10), (257, 256, 4, 100)]
 SERVE_TOL = 1e-4
 SERVE_ARCHS = {"smollm-360m": ("flash_attention_fwd", 32),
                "mamba2-780m": ("ssd_scan_fwd", 48)}
 SERVE_ARGS = ["--batch", "8", "--prompt-len", "1024", "--gen", "32",
               "--seed", "0"]
+# mamba2-780m's serving peak above the memory held before the run: 4.36
+# GiB before the SSD scan took its scratch (the chunk states, B H nchunks
+# x P x N fp32, and C B^T's tiles: 58 MB a layer call); it may grow by at
+# most 0.1 GiB
+SERVE_PEAK_GIB = {"mamba2-780m": 4.36 + 0.1}
 
 
 def ssd_inputs(gen, dev, B, S, H, G, N, regime):
@@ -1395,6 +1440,35 @@ def check_serve_kernels(FK, FR, SK, SR, dev):
             f"{worst['y']:.3e}, h_final {worst['h']:.3e} (tol {SSD_TOL:g}); "
             f"against the sequential ssd_ref at S <= 256 {worst['seq']:.3e} "
             f"(tol {seq_tol:g})")
+    # the shapes the kernel pads or loads apart: one chunk, two, five with
+    # a ragged tail; N 16 (the smoke config's, with its chunk 32), N not a
+    # multiple of 8 or of 4; G 1, 2 and 4 of 4 heads; then strided views
+    # of one (B, S, C) buffer, as the mamba block hands them over
+    for regime in SSD_SEQ_TOL:
+        worst = 0.0
+        for S, chunk, G, N in SSD_EDGE_SHAPES:
+            x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 2, S, 4, G, N, regime)
+            y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+            ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+            e = max(rel_err(y, ry), rel_err(h, rh))
+            assert e <= SSD_TOL, (regime, S, chunk, G, N, e)
+            worst = max(worst, e)
+            errs["ssd_scan_fwd"] = max(errs["ssd_scan_fwd"],
+                                       max_abs_err(y, ry), max_abs_err(h, rh))
+        buf = torch.randn((2, 100, 4 * 64 + 2 * 16), generator=gen,
+                          device=dev)
+        x = buf[..., :256].reshape(2, 100, 4, 64)
+        Bm = buf[..., 256:272].reshape(2, 100, 1, 16)
+        Cm = buf[..., 272:].reshape(2, 100, 1, 16)
+        _, dt, A, _, _ = ssd_inputs(gen, dev, 2, 100, 4, 1, 16, regime)
+        y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=32)
+        ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 32)
+        e = max(rel_err(y, ry), rel_err(h, rh))
+        assert e <= SSD_TOL, (regime, "strided", e)
+        log(f"  ssd_scan_fwd, {regime} decays, {len(SSD_EDGE_SHAPES)} edge "
+            f"shapes (S, chunk, G, N) {SSD_EDGE_SHAPES}: max rel "
+            f"{worst:.3e}; strided views of one buffer (S 100, N 16, chunk "
+            f"32): {e:.3e} (tol {SSD_TOL:g})")
     for regime in SSD_SEQ_TOL:
         x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 8, 1024, 48, 1, 128, regime)
         y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256)
@@ -1451,15 +1525,19 @@ def time_serve_kernels(FK, FR, SK, SR, dev):
         bound_ms=b, bound_by=by, bytes=rw, flops=ops)
     del q, k, v, kr, vr, qf, kf, vf
     x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 8, 1024, 48, 1, 128, "init")
-    rw, ops = ssd_bound(S=1024)
-    b, by = bound_ms(rw, ops)
+    rw, ops = ssd_bound(S=1024, G=1)
+    ssd_b_fp32, _ = bound_ms(rw, ops)
+    b, by = bound_ms(*ssd_bound_tc(S=1024, G=1))
+    ssd_b_head = bound_ms(*ssd_bound(S=1024))[0], bound_ms(
+        *ssd_bound_tc(S=1024))[0]
+    ssd = lambda: SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256)
     res["ssd_scan_fwd"] = dict(
-        ms=cuda_ms(lambda: SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256),
-                   iters=20, warmup=3),
+        ms=cuda_ms(ssd, iters=20, warmup=3),
         plain_ms=cuda_ms(lambda: SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 256),
                          iters=5),
         library_ms=None, library="none: no single call",
         bound_ms=b, bound_by=by, bytes=rw, flops=ops)
+    ssd_kernels = device_kernels(ssd)
     del x, dt, A, Bm, Cm
     torch.cuda.empty_cache()
     for name, r in res.items():
@@ -1479,7 +1557,50 @@ def time_serve_kernels(FK, FR, SK, SR, dev):
         f"{r['bound_ms']:.4f} ms, the one its share above and the kernels "
         f"line use; fp32 outside the tensor cores (67 TFLOP/s) "
         f"{b_fp32:.4f} ms, {100 * b_fp32 / r['ms']:.1f}% of it")
+    r = res["ssd_scan_fwd"]
+    log(f"  ssd_scan_fwd bounds, C B^T once per group (the heads of a group "
+        f"share B and C): 3xTF32 on the tensor cores (three TF32 products "
+        f"at 495 TFLOP/s plus the decays and masks at fp32's 67) "
+        f"{r['bound_ms']:.4f} ms, {100 * r['bound_ms'] / r['ms']:.1f}% of "
+        f"the kernel's time, the one its share above and the kernels line "
+        f"use; fp32 outside the tensor cores (67 TFLOP/s) {ssd_b_fp32:.4f} "
+        f"ms, {100 * ssd_b_fp32 / r['ms']:.1f}% of it.  Counted per head, "
+        f"as PRs 14-15 did: 3xTF32 {ssd_b_head[1]:.4f} ms "
+        f"({100 * ssd_b_head[1] / r['ms']:.1f}%), fp32 {ssd_b_head[0]:.4f} "
+        f"ms ({100 * ssd_b_head[0] / r['ms']:.1f}%)")
+    total = sum(ms for _, ms in ssd_kernels)
+    log(f"  ssd_scan_fwd: one call launches {len(ssd_kernels)} device "
+        f"kernels (torch.profiler): " + "; ".join(
+            f"{name} {ms:.4f} ms" for name, ms in ssd_kernels)
+        + f" (sum {total:.4f} ms, profiled)")
+    assert len(ssd_kernels) == SK.kernels_per_call(), ssd_kernels
     return res
+
+
+def device_kernels(fn, reps: int = 5) -> list:
+    """(name, mean ms) of each device kernel one ``fn()`` call launches,
+    in launch order, from ``reps`` calls under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    per_call = len(kernels) // reps
+    assert per_call * reps == len(kernels), len(kernels)
+    out = []
+    for i in range(per_call):
+        evs = kernels[i::per_call]
+        name = evs[0].name.replace("(anonymous namespace)::", "")
+        name = name.replace("void ", "").split("(")[0]
+        out.append((name, sum(e.time_range.elapsed_us() for e in evs)
+                    / reps / 1e3))
+    return out
 
 
 def serve_path(counts_of, dev):
@@ -1512,6 +1633,8 @@ def serve_path(counts_of, dev):
             f"tok/s; max_memory_allocated {peak:.2f} GiB above the "
             f"{base / 2**30:.2f} GiB held before the run; {layers} {kernel} "
             f"launches, none of the other kernels")
+        if arch in SERVE_PEAK_GIB:
+            assert peak <= SERVE_PEAK_GIB[arch], (arch, peak)
         del toks
     return counts
 
@@ -1528,6 +1651,7 @@ def prefill_flops(cfg, B=8, S=1024) -> float:
         d_in = s.expand * d
         H = d_in // s.d_head
         weights = d * (2 * d_in + 2 * s.n_groups * s.d_state + H) + d_in * d
+        # per head, as PRs 14-15 counted: the rate compares across PRs
         mix = ssd_bound(B=B, H=H, S=S, P=s.d_head, N=s.d_state,
                         chunk=s.chunk)[1]
     else:

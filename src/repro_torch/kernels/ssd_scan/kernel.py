@@ -21,18 +21,31 @@ directly: where the JAX wrapper folds the heads and ``ssd_chunked``
 repeats B and C to heads, the kernel reads x, B and C through their
 strides (unit stride on the last axis), as views of the convolution's
 output without copies, and B and C by group (head h reads group h // (H /
-G)).  Besides y, it writes the final state it already holds: the JAX
-prefill takes ``h_final`` from ``ssd_chunked`` for the decode cache (the
-Pallas kernel writes y only).  Like both, it starts from a zero state.
-No backward: a tensor that
-requires a gradient is refused (SSM-family training is a ROADMAP item).
-P = 64, N <= 128, chunk <= 256, fp32 (bf16 inputs: ROADMAP Queue 2 row
-12).
+G)).  Besides y, it writes the final state: the JAX prefill takes
+``h_final`` from ``ssd_chunked`` for the decode cache (the Pallas kernel
+writes y only).  Like both, it starts from a zero state.  No backward: a
+tensor that requires a gradient is refused (SSM-family training is a
+ROADMAP item).  P = 64, N <= 128, chunk <= 256, fp32 (bf16 inputs:
+ROADMAP Queue 2 row 12).
 
-Bound at the serving prefill of mamba2-780m (B 8, 48 heads, S 1024, P 64,
-N 128, chunk 256, one layer): 32.6 GFLOP, 0.22 GB — bound by operations,
-0.486 ms at the H100's 67 fp32 TFLOP/s.  ``PERF.md`` holds the measured
-time.
+The design (``csrc/ssd_scan.cu`` has it in full): SSD's chunk-parallel
+algorithm in two device kernels a call, every product 3xTF32 on the
+tensor cores (``wgmma``) at fp32 accuracy: (1) per (b, h), the chunks'
+cumsums (sequential in index order, the bits ``torch.cumsum`` gives on
+the card) and states, and the state passed across the chunks, with, in
+the same launch, C B^T once per group (the heads of a group share B and
+C); (2) each chunk's outputs, independently.  The wrapper hands them
+their scratch (``torch.empty``): the states entering the chunks (B H
+nchunks x 64 x N fp32, 50 MB at the prefill), the cumsums and the C B^T
+tiles (8 MB).
+``launches`` counts calls; :func:`kernels_per_call` says how many device
+kernels each one runs.
+
+Bound at the serving prefill of mamba2-780m (B 8, 48 heads, one group, S
+1024, P 64, N 128, chunk 256, one layer): 19.9 GFLOP with C B^T taken
+once for the group, bound by operations: 0.123 ms as the kernel computes
+it (3xTF32 products at the H100's 495 TFLOP/s, the rest at fp32's 67),
+0.297 ms in fp32.  ``PERF.md`` holds the measured time.
 """
 from __future__ import annotations
 
@@ -56,8 +69,10 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.ssd_forward.argtypes = ([P] * 7 + [I] * 7 + [I64] * 12 + [P])
+    lib.ssd_forward.argtypes = ([P] * 10 + [I] * 7 + [I64] * 12 + [P])
     lib.ssd_forward.restype = ctypes.c_int
+    lib.ssd_kernels_per_call.argtypes = []
+    lib.ssd_kernels_per_call.restype = ctypes.c_int
 
 
 LIB = CudaLibrary("ssd_scan", SOURCE, _bind)
@@ -113,12 +128,21 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: expected unit stride on the last axis")
     lib = LIB.load()
+    nc = -(-S // L)
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     hT = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
+    # scratch: the state entering each chunk (transposed, P x N), each
+    # chunk's cumsum of a, and C B^T of each (b, group, chunk) in 64 x 32
+    # tiles
+    states = torch.empty((B * H * nc, P, N), dtype=torch.float32, device=dev)
+    acum = torch.empty((B * H * nc, L), dtype=torch.float32, device=dev)
+    cb = torch.empty((B * G * nc, -(-L // 64), -(-L // 32), 64 * 32),
+                     dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = lib.ssd_forward(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(), hT.data_ptr(), B, S, H, G, N, P, L,
+            Cm.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(),
+            acum.data_ptr(), cb.data_ptr(), B, S, H, G, N, P, L,
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
             *Cm.stride()[:3], stream(dev))
     raise_on(code, "ssd_scan_fwd")
@@ -129,6 +153,13 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd_scan_fwd.launches = 0
 
 KERNELS = (ssd_scan_fwd,)
+
+
+def kernels_per_call() -> int:
+    """Device kernels one ``ssd_scan_fwd`` call on a CUDA tensor launches
+    (the states with C B^T per group, then the outputs); ``launches``
+    counts calls."""
+    return LIB.load().ssd_kernels_per_call()
 
 
 def launch_counts() -> dict:

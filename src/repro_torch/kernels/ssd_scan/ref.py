@@ -11,10 +11,16 @@ chunk of L positions a masked quadratic form, across chunks the carried
 JAX does, so padded positions carry the state unchanged to ``h_final``.
 The CPU path and the tests run these; on the card they are only the
 yardsticks the kernel is held to.
+
+``ssd_chunk_parallel_ref`` renders the kernel's own decomposition in plain
+PyTorch, for the tests only: (i) acum sequentially in index order, (ii)
+each chunk's state, (iii) the states passed across the chunks, (iv) each
+chunk's outputs, every matrix product through one function that a test may
+replace (with an emulation of the kernel's 3xTF32 products).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,4 +86,66 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                             Bk.float() * decay_to_end[..., None], xdt))
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(B_, nc * L, H, P)
+    return y[:, :S].to(x.dtype), h
+
+
+def sequential_cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """The inclusive cumsum along ``dim``, one position at a time in index
+    order, each sum rounded on its own: how the kernel takes acum."""
+    a = a.movedim(dim, 0)
+    out = torch.empty_like(a)
+    run = torch.zeros_like(a[0])
+    for i in range(a.shape[0]):
+        run = run + a[i]
+        out[i] = run
+    return out.movedim(0, dim)
+
+
+def ssd_chunk_parallel_ref(x: torch.Tensor, dt: torch.Tensor,
+                           A: torch.Tensor, Bm: torch.Tensor,
+                           Cm: torch.Tensor, chunk: int,
+                           mm: Callable = torch.matmul,
+                           cumsum: Callable = sequential_cumsum
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function as :func:`ssd_chunked_ref`, in the order the CUDA
+    kernel computes it; ``mm(a, b)``, a batched ``a @ b``, takes every
+    matrix product, ``cumsum(a, dim)``
+    takes acum (default the kernel's sequential order; a test that holds
+    the decomposition to another implementation hands it that one's)."""
+    B_, S, H, P = x.shape
+    Bm, Cm = expand_groups(Bm, H), expand_groups(Cm, H)
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    pad = (-S) % L
+    if pad:
+        zf = lambda t: F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
+        x, dt, Bm, Cm = zf(x), zf(dt), zf(Bm), zf(Cm)
+    nc = x.shape[1] // L
+    # (B, H, nc, L, ...): one row per (b, h, chunk)
+    rs = lambda t: t.reshape((B_, nc, L) + tuple(t.shape[2:])).movedim(
+        3, 1).float()
+    xc, Bc, Cc = rs(x), rs(Bm), rs(Cm)
+    dtc = dt.reshape(B_, nc, L, H).movedim(3, 1).float()
+    # (i) acum, sequentially in index order within each chunk
+    acum = cumsum(dtc * A.float()[None, :, None, None], 3)
+    aL = acum[..., -1:]
+    xdt = xc * dtc[..., None]                                 # (B,H,nc,L,P)
+    # (ii) each chunk's state (N, P)
+    states = mm((Bc * torch.exp(aL - acum)[..., None]).transpose(-1, -2),
+                xdt)
+    # (iii) the state entering each chunk, in the reference's order
+    h = torch.zeros((B_, H, N, P), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = torch.exp(aL[:, :, c])[..., None] * h + states[:, :, c]
+    hc = torch.stack(entering, dim=2)                         # (B,H,nc,N,P)
+    # (iv) the outputs
+    idx = torch.arange(L, device=x.device)
+    tri = idx[:, None] >= idx[None, :]
+    seg = acum[..., :, None] - acum[..., None, :]
+    decay = torch.exp(torch.where(tri, seg, -torch.inf))
+    scores = mm(Cc, Bc.transpose(-1, -2)) * decay
+    y = mm(scores, xdt) + torch.exp(acum)[..., None] * mm(Cc, hc)
+    y = y.movedim(1, 3).reshape(B_, nc * L, H, P)
     return y[:, :S].to(x.dtype), h

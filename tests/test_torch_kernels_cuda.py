@@ -105,6 +105,35 @@ def test_update_kernel_matches_plain(cuda_device, opt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("opt", OPTS)
+def test_update_kernel_bitwise_its_earlier_form(cuda_device, opt):
+    """The streaming stores changed how update_pass moves its bytes, not
+    its arithmetic: every instance is bitwise the kernel as it was before
+    (form 0 of tools/csrc/update_forms.cu)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import update_forms as UF
+    before = UF.launcher(UF.library().load(), opt, 0)
+    rows = 4104
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    G, p, m = torch.randn((3, rows, 128), generator=gen, device=cuda_device)
+    v = torch.rand((rows, 128), generator=gen, device=cuda_device) + 1e-3
+    m = m if opt != "sgd" else None
+    v = v if opt in ("adam", "yogi") else None
+    scal = torch.tensor([0.7, 0.05, 1.7, 1.2], device=cuda_device)
+    got = K.update_pass(G, p, m, v, scal, opt=opt, **UF.HYPER)
+    want = [None if t is None else torch.empty_like(p) for t in got]
+    before(G, p, m, v, scal, *want)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows", [8, 4104])
 def test_accumulate_bwd_kernel_matches_plain(cuda_device, rows):
     gen = torch.Generator(device=cuda_device).manual_seed(rows + 1)
@@ -358,19 +387,65 @@ def _ssd_inputs(gen, dev, B, S, H, G, N, regime):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,chunk", [(128, 256), (256, 64), (1000, 256),
-                                     (1025, 256), (1025, 64)])
+@pytest.mark.parametrize("S,chunk,G,N", [
+    (128, 256, 2, 128), (256, 64, 2, 128), (1000, 256, 2, 128),
+    (1025, 256, 2, 128), (1025, 64, 2, 128),
+    # one chunk, two, and five with a ragged tail; N 16 (the smoke
+    # config's, with its chunk 32), N not a multiple of 8 (padded with
+    # zeros), N not a multiple of 4 (B and C loaded one float at a time);
+    # G 1, 2 and 4 of 4 heads
+    (1, 256, 1, 128), (63, 256, 4, 64), (200, 128, 1, 128),
+    (300, 64, 4, 16), (150, 32, 2, 16), (100, 32, 4, 12), (130, 64, 1, 10),
+    (257, 256, 4, 100)])
 @pytest.mark.parametrize("init_range", [False, True])
-def test_ssd_scan_kernel_matches_plain(cuda_device, S, chunk, init_range):
-    gen = torch.Generator(device=cuda_device).manual_seed(S + chunk)
-    x, dt, A, Bm, Cm = _ssd_inputs(gen, cuda_device, 2, S, 4, 2, 128,
+def test_ssd_scan_kernel_matches_plain(cuda_device, S, chunk, G, N,
+                                       init_range):
+    """y and h_final against the chunked plain version at 1e-5: both take
+    acum in fp32 in index order (torch.cumsum scans an outer axis so on
+    the card), so only the products' summation orders differ."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + chunk + N)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, cuda_device, 2, S, 4, G, N,
                                    "init" if init_range else "unit")
     n0 = SK.ssd_scan_fwd.launches
     y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
     ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
     assert SK.ssd_scan_fwd.launches == n0 + 1
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
     assert rel_err(y, ry) <= 1e-5 and rel_err(h, rh) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 32, 256])
+def test_torch_cumsum_on_the_card_is_sequential_fp32(cuda_device, L):
+    """What the kernel's acum relies on to meet the plain version at the
+    init's decay range: torch.cumsum along S of (B, L, H) on the card
+    equals the sum one position at a time in fp32, bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    dt = torch.nn.functional.softplus(
+        torch.randn((8, L, 48), generator=gen, device=cuda_device))
+    a = dt * -torch.linspace(1.0, 16.0, 48, device=cuda_device)
+    assert torch.equal(torch.cumsum(a, dim=1), SR.sequential_cumsum(a, 1))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_launches_per_call(cuda_device):
+    """``launches`` counts calls; each call runs two device kernels (the
+    states with C B^T, then the outputs)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    args = _ssd_inputs(gen, cuda_device, 2, 300, 4, 2, 128, "unit")
+    SK.ssd_scan_fwd(*args, chunk=64)
+    torch.cuda.synchronize()
+    n0 = SK.ssd_scan_fwd.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        SK.ssd_scan_fwd(*args, chunk=64)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "ssd_" in e.name]
+    assert SK.ssd_scan_fwd.launches == n0 + 1
+    assert SK.kernels_per_call() == 2 == len(names), names
 
 
 @pytest.mark.cuda

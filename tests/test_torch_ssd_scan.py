@@ -243,3 +243,151 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     y, h = K.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=8)     # the plain version
     assert K.ssd_scan_fwd.launches == n0
     assert y.shape == x.shape and h.shape == (2, 4, 8, 16)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's decomposition, pinned on the CPU.  The kernel computes
+# the scan chunk-parallel (arXiv:2405.21060 section 6): (i) acum within each
+# chunk, sequentially in index order; (ii) each chunk's state; (iii) the
+# states passed across the chunks; (iv) each chunk's outputs.
+# ``ref.ssd_chunk_parallel_ref`` renders that order in plain PyTorch.
+#
+# Three cumsums meet here: the kernel's (fp32, one position at a time),
+# torch's on the CPU (it accumulates fp32 in double) and XLA's on the CPU.
+# At the init's decay range (A down to -16) acum reaches a few thousand
+# within a chunk, where one ulp is 2.4e-4, so the three give decays that
+# differ by more than 1e-5.  The decomposition is therefore held to each
+# other implementation with that implementation's own cumsum handed in;
+# the kernel's order is pinned on its own below, and on the card
+# (tests/test_torch_kernels_cuda.py) against torch.cumsum there, which
+# scans an outer axis in fp32 in index order.
+# ---------------------------------------------------------------------------
+def _regime_inputs(S, *, regime, B=1, H=4, P=16, N=16, G=2, seed=0):
+    """numpy inputs.  "init": A = -linspace(1, 16) (the model's A_log
+    init), dt = softplus(normal); "slow": A = -exp(0.3 normal), dt a
+    hundredth of softplus(normal), so the state carries across chunks."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    if regime == "init":
+        A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    else:
+        A = -np.exp(0.3 * rng.standard_normal(H)).astype(np.float32)
+        dt = (dt * 0.01).astype(np.float32)
+    Bm = rng.standard_normal((B, S, G, N), dtype=np.float32)
+    Cm = rng.standard_normal((B, S, G, N), dtype=np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _jax_cumsum(a, dim):
+    return torch.from_numpy(np.array(jnp.cumsum(jnp.asarray(a.numpy()),
+                                                axis=dim)))
+
+
+_GN = [(1, 16), (2, 64), (4, 128), (2, 12), (1, 10)]
+_SHAPES = [(S, chunk) for S in (1, 63, 128, 1000, 1025)
+           for chunk in (32, 64, 256)]
+
+
+@pytest.mark.parametrize("regime", ["init", "slow"])
+@pytest.mark.parametrize("S,chunk", _SHAPES)
+def test_chunk_parallel_matches_chunked_ref(S, chunk, regime):
+    """Steps (i)-(iv) against ``ssd_chunked_ref`` (torch's cumsum handed
+    in): y and h_final at 1e-5, ragged tails and one-chunk S included; G
+    and N (16, 64, 128 and ones not a multiple of 8) vary with the case."""
+    G, N = _GN[(S + chunk) % len(_GN)]
+    x, dt, A, Bm, Cm = _t(*_regime_inputs(S, regime=regime, G=G, N=N))
+    ry, rh = R.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+    y, h = R.ssd_chunk_parallel_ref(x, dt, A, Bm, Cm, chunk,
+                                    cumsum=torch.cumsum)
+    assert rel_err(y, ry) <= TOL and rel_err(h, rh) <= TOL
+
+
+@pytest.mark.parametrize("G,N", _GN)
+def test_chunk_parallel_groups_and_state_widths(G, N):
+    """Every G and N of ``_GN`` at a ragged S of three chunks, the init's
+    decays: the decomposition against ``ssd_chunked_ref``."""
+    x, dt, A, Bm, Cm = _t(*_regime_inputs(200, regime="init", G=G, N=N,
+                                          seed=G * N))
+    ry, rh = R.ssd_chunked_ref(x, dt, A, Bm, Cm, 64)
+    y, h = R.ssd_chunk_parallel_ref(x, dt, A, Bm, Cm, 64,
+                                    cumsum=torch.cumsum)
+    assert rel_err(y, ry) <= TOL and rel_err(h, rh) <= TOL
+
+
+@pytest.mark.parametrize("regime", ["init", "slow"])
+@pytest.mark.parametrize("S,chunk,G,N", [(63, 32, 1, 16), (1025, 256, 4, 128),
+                                         (1000, 64, 2, 12), (128, 32, 2, 64)])
+def test_chunk_parallel_matches_jax(S, chunk, G, N, regime):
+    """Steps (i)-(iv) against JAX's ``ssd_chunked`` (B and C repeated to
+    heads, XLA's cumsum handed in): y and h_final at 1e-5."""
+    x, dt, A, Bm, Cm = _regime_inputs(S, regime=regime, G=G, N=N)
+    rep = lambda t: np.repeat(t, 4 // G, axis=2)
+    jy, jh = JS.ssd_chunked(*map(jnp.asarray, (x, dt, A, rep(Bm), rep(Cm))),
+                            chunk)
+    y, h = R.ssd_chunk_parallel_ref(*_t(x, dt, A, Bm, Cm), chunk,
+                                    cumsum=_jax_cumsum)
+    assert rel_err(y, np.asarray(jy)) <= TOL
+    assert rel_err(h, np.asarray(jh)) <= TOL
+
+
+@pytest.mark.parametrize("regime", ["init", "slow"])
+@pytest.mark.parametrize("S,chunk", [(128, 32), (128, 64)])
+def test_chunk_parallel_matches_pallas_interpret(S, chunk, regime):
+    x, dt, A, Bm, Cm = _regime_inputs(S, regime=regime, G=4, N=16)
+    jy = jax_pallas_ssd(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=chunk,
+                        interpret=True)
+    y, _ = R.ssd_chunk_parallel_ref(*_t(x, dt, A, Bm, Cm), chunk,
+                                    cumsum=_jax_cumsum)
+    assert rel_err(y, np.asarray(jy)) <= TOL
+
+
+@pytest.mark.parametrize("L", [1, 32, 256])
+def test_sequential_cumsum_is_fp32_in_index_order(L):
+    """The kernel's acum: one position at a time, each sum rounded to fp32
+    (numpy's float32 add.accumulate), at the init's decay range, where
+    torch's CPU cumsum (accumulated in double) differs by ulps."""
+    rng = np.random.default_rng(L)
+    dt = np.log1p(np.exp(rng.standard_normal((3, L, 4)))).astype(np.float32)
+    a = (dt * -np.linspace(1.0, 16.0, 4).astype(np.float32)).astype(
+        np.float32)
+    got = R.sequential_cumsum(torch.from_numpy(a), 1).numpy()
+    assert np.array_equal(got, np.add.accumulate(a, axis=1, dtype=np.float32))
+    wide = np.cumsum(a.astype(np.float64), axis=1).astype(np.float32)
+    assert np.array_equal(torch.cumsum(torch.from_numpy(a), 1).numpy(), wide)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """TF32 rounding as the kernel takes it (cvt.rna: to nearest, ties
+    away from zero, on the sign-magnitude bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's tensor cores take it: a_lo.b_hi + a_hi.b_lo +
+    a_hi.b_hi, each product of TF32 values exact in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+@pytest.mark.parametrize("regime", ["init", "slow"])
+def test_3xtf32_ssd_keeps_fp32_accuracy(regime):
+    """At the prefill's widths (P 64, N 128, chunk 256) over four chunks
+    and a ragged tail: every product of the decomposition split into TF32
+    high and low parts stays within 1e-5 of ``ssd_chunked_ref``; one TF32
+    product does not."""
+    x, dt, A, Bm, Cm = _t(*_regime_inputs(1025, regime=regime, P=64, N=128,
+                                          G=1, H=2))
+    ry, rh = R.ssd_chunked_ref(x, dt, A, Bm, Cm, 256)
+    y3, h3 = R.ssd_chunk_parallel_ref(x, dt, A, Bm, Cm, 256, mm=_mm_3xtf32,
+                                      cumsum=torch.cumsum)
+    assert rel_err(y3, ry) <= TOL and rel_err(h3, rh) <= TOL
+    y1, h1 = R.ssd_chunk_parallel_ref(x, dt, A, Bm, Cm, 256, mm=_mm_1xtf32,
+                                      cumsum=torch.cumsum)
+    assert max(rel_err(y1, ry), rel_err(h1, rh)) > 10 * TOL
