@@ -51,20 +51,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 The serving path (``repro_torch.launch.serve``) adds, beside these:
 
   3b. flash attention and the SSD scan against their plain versions on the
-      card (flash at 96 shapes: S 1 to 1025, causal on and off, window 0
-      and 256, group 1 and 3, head dim 64 and 128; the SSD scan at S 128
+      card (flash at 192 shapes: S 1 to 1025, causal on and off, window 0
+      and 256, group 1 and 3, each (Dk, Dv) form; the SSD scan at S 128
       to 1025, chunk 256 and 64, y and h_final, at the init's decay range
       and at slow decays, and against the sequential recurrence at S <=
       256; then at eight edge shapes, N 10 to 128, chunk 32 to 256, G 1,
       2 and 4, and on strided views), then each at the prefill's shapes
       (the SSD scan in both decay regimes, so the state carried across
-      chunks is held at full width);
+      chunks is held at full width); flash at all four of its (Dk, Dv)
+      forms, (96, 96) and (192, 128) beside (64, 64) and (128, 128), and
+      at every served model's prefill shape (``FLASH_MODELS``);
   5d. their times at the prefill's shapes beside bound, plain and library
       (flash attention on the prefill's (B, S, H, D) tensors, in turns
       with scaled_dot_product_attention on the same views); both bounds
       as the kernels compute, 3xTF32 on the tensor cores, and beside them
       fp32's; the device kernels one SSD call launches and their times
-      (torch.profiler); phase 5b keeps S 128's bounds and library time;
+      (torch.profiler); flash at every served model's prefill shape in
+      turns with scaled_dot_product_attention, its bounds widened to Dk
+      != Dv; phase 5b keeps S 128's bounds and library time;
   6s. the serving main path: ``serve.main`` at full width on smollm-360m
       and mamba2-780m, batch 8, prompt 1024, 32 tokens, seed 0, greedy;
       the launch counts zeroed just before each run and read just after
@@ -75,8 +79,18 @@ The serving path (``repro_torch.launch.serve``) adds, beside these:
       the launch counts of the prefill (one per layer) and of the decode
       step (none), and the warm prefill's wall, operations, rate and the
       kernel's share of it;
+  6u. ``serve.main`` at full width on deepseek-v2-lite-16b (MoE + MLA,
+      60.4 GiB of weights), minicpm-2b, phi3-mini-3.8b and
+      phi3-medium-14b, batch 8, prompt 1024, 32 tokens, each freed before
+      the next: counts as in 6s (flash once a layer), the warm prefill on
+      a second init, finite logits, peak memory; for deepseek the decode
+      after prefill(256) against prefill(257), batch 2, on a dropless copy
+      of the config (capacity_factor 11 >= E / K);
   7s. at smoke size, prefill logits, cache and 4 teacher-forced decode
-      steps on the card against the CPU plain versions, both models.
+      steps on the card against the CPU plain versions: smollm, mamba2,
+      phi3-mini, llama4-scout (MoE, routing asserted equal first) and
+      deepseek's smoke config at head_dim 128, rope_head_dim 64 (MLA's
+      prefill through flash at (192, 128), the absorbed decode).
 
 Exits 2 without a result when no CUDA device is present.
 """
@@ -735,14 +749,16 @@ def time_attention_library(dev):
     return ms
 
 
-def attention_bound(B=8, H=15, Hkv=5, S=128, D=64, nbytes=4):
+def attention_bound(B=8, H=15, Hkv=5, S=128, D=64, Dv=None, nbytes=4):
     """One causal GQA flash-attention call (one layer) at smollm-360m's
-    heads and the main path's client batch and sequence: q, k, v read once,
-    o written once; per causal (query, key) pair 2D for q.k, 2D for p.v and
-    4 for scale, max, exp and sum: the operations of fp32 attention."""
-    rw = (2 * B * H * S * D + 2 * B * Hkv * S * D) * nbytes
+    heads and the main path's client batch and sequence by default: q, k
+    (head dim D), v (Dv, D unless given) read once, o (Dv) written once;
+    per causal (query, key) pair 2D for q.k, 2Dv for p.v and 4 for scale,
+    max, exp and sum: the operations of fp32 attention."""
+    Dv = D if Dv is None else Dv
+    rw = (B * H * S * (D + Dv) + B * Hkv * S * (D + Dv)) * nbytes
     pairs = B * H * S * (S + 1) // 2
-    return rw, pairs * (4 * D + 4)
+    return rw, pairs * (2 * D + 2 * Dv + 4)
 
 
 def attention_bound_tc(**kw) -> tuple:
@@ -751,7 +767,8 @@ def attention_bound_tc(**kw) -> tuple:
     (bytes, fp32 operations, TF32 operations) for ``bound_ms``."""
     rw, ops = attention_bound(**kw)
     D = kw.get("D", 64)
-    products = ops // (4 * D + 4) * 4 * D
+    Dv = kw.get("Dv") or D
+    products = ops // (2 * D + 2 * Dv + 4) * (2 * D + 2 * Dv)
     return rw, ops - products, 3 * products
 
 
@@ -1343,6 +1360,31 @@ SERVE_ARGS = ["--batch", "8", "--prompt-len", "1024", "--gen", "32",
 # x P x N fp32, and C B^T's tiles: 58 MB a layer call); it may grow by at
 # most 0.1 GiB
 SERVE_PEAK_GIB = {"mamba2-780m": 4.36 + 0.1}
+# The models the serving phase 6u runs at full width (flash in every
+# prefill), each freed before the next is built; deepseek-v2-lite-16b's
+# weights alone take 60.4 GiB.  The dropless check runs its decode after
+# prefill(256) against prefill(257) at batch 2 with capacity_factor 11 >=
+# E / K = 64 / 6, so that no token is dropped in either prefill.
+FLASH_SERVE = ("deepseek-v2-lite-16b", "minicpm-2b", "phi3-mini-3.8b",
+               "phi3-medium-14b")
+# The models flash attention serves; their prefill shapes (B 8, S 1024,
+# causal) come from the config registry through ``flash_prefill``.
+FLASH_MODELS = ("smollm-360m",) + FLASH_SERVE
+DROPLESS_CF = 11.0
+
+
+def flash_prefill(name) -> tuple:
+    """The flash call of ``name``'s prefill: query and key/value heads, Dk,
+    Dv, and its layers (one call each a prefill).  Under MLA every head
+    has its own expanded key/value head and the keys carry the RoPE
+    slice."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    hd = cfg.resolved_head_dim
+    if cfg.mla is not None:
+        return (cfg.num_heads, cfg.num_heads, hd + cfg.mla.rope_head_dim, hd,
+                cfg.num_layers)
+    return cfg.num_heads, cfg.num_kv_heads, hd, hd, cfg.num_layers
 
 
 def ssd_inputs(gen, dev, B, S, H, G, N, regime):
@@ -1365,29 +1407,10 @@ def ssd_inputs(gen, dev, B, S, H, G, N, regime):
 
 def check_serve_kernels(FK, FR, SK, SR, dev):
     """Phase 3b: both prefill kernels against their plain versions."""
-    import itertools
-
     import torch
     errs = dict.fromkeys(SERVE_NAMES, 0.0)
+    errs["flash_attention_fwd"] = check_flash_forms(FK, FR, dev)
     gen = torch.Generator(device=dev).manual_seed(11)
-    worst = 0.0
-    grid = list(itertools.product((1, 63, 128, 1000, 1024, 1025),
-                                  (True, False), (0, 256), (1, 3),
-                                  (64, 128)))
-    for S, causal, window, G, D in grid:
-        q = torch.randn((2 * 2 * G, S, D), generator=gen, device=dev)
-        k, v = torch.randn((2, 2 * 2, S, D), generator=gen, device=dev)
-        out = FK.flash_attention_fwd(q[None], k[None], v[None],
-                                     causal=causal, window=window)[0]
-        ref = FR.attention_ref(q, k, v, causal=causal, window=window)
-        e = rel_err(out, ref)
-        assert e <= FLASH_TOL, (S, causal, window, G, D, e)
-        worst = max(worst, e)
-        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
-                                          max_abs_err(out, ref))
-    log(f"  flash_attention_fwd at {len(grid)} shapes (S 1, 63, 128, 1000, "
-        f"1024, 1025; causal on/off; window 0/256; group 1/3; head dim "
-        f"64/128; B 2, 2 kv heads): max rel {worst:.3e} (tol {FLASH_TOL:g})")
     q = torch.randn((8 * 15, 1024, 64), generator=gen, device=dev)
     k, v = torch.randn((2, 8 * 5, 1024, 64), generator=gen, device=dev)
     out = FK.flash_attention_fwd(q[None], k[None], v[None], causal=True)[0]
@@ -1484,6 +1507,101 @@ def check_serve_kernels(FK, FR, SK, SR, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return errs
+
+
+def check_flash_forms(FK, FR, dev) -> float:
+    """Phase 3b, flash attention at each of its (Dk, Dv) forms at S 1 to
+    1025, causal on and off, window 0 and 256, group 1 and 3 (B 2, 2
+    key/value heads), then at every served model's prefill shape (B 8, S
+    1024, causal) on the model's (B, S, H, D) views, each against the
+    plain version.  Returns the largest max |a-b|."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = err = 0.0
+    grid = list(itertools.product((1, 63, 128, 1000, 1024, 1025),
+                                  (True, False), (0, 256), (1, 3), FK.FORMS))
+    for S, causal, window, G, (Dk, Dv) in grid:
+        q = torch.randn((2 * 2 * G, S, Dk), generator=gen, device=dev)
+        k = torch.randn((2 * 2, S, Dk), generator=gen, device=dev)
+        v = torch.randn((2 * 2, S, Dv), generator=gen, device=dev)
+        out = FK.flash_attention_fwd(q[None], k[None], v[None],
+                                     causal=causal, window=window)[0]
+        ref = FR.attention_ref(q, k, v, causal=causal, window=window)
+        e = rel_err(out, ref)
+        assert out.shape == ref.shape and e <= FLASH_TOL, (
+            S, causal, window, G, Dk, Dv, e)
+        worst, err = max(worst, e), max(err, max_abs_err(out, ref))
+    log(f"  flash_attention_fwd at {len(grid)} shapes (S 1, 63, 128, 1000, "
+        f"1024, 1025; causal on/off; window 0/256; group 1/3; (Dk, Dv) "
+        f"{FK.FORMS}; B 2, 2 kv heads): max rel {worst:.3e} (tol "
+        f"{FLASH_TOL:g})")
+    for model in FLASH_MODELS:
+        H, Hkv, Dk, Dv, _ = flash_prefill(model)
+        q = torch.randn((8, 1024, H, Dk), generator=gen, device=dev)
+        k = torch.randn((8, 1024, Hkv, Dk), generator=gen, device=dev)
+        v = torch.randn((8, 1024, Hkv, Dv), generator=gen, device=dev)
+        out = flash_attention(q, k, v, causal=True)
+        fold = lambda t: t.transpose(1, 2).reshape(-1, 1024, t.shape[-1])
+        ref = FR.attention_ref(fold(q), fold(k), fold(v), causal=True)
+        e = rel_err(fold(out), ref)
+        assert out.shape == (8, 1024, H, Dv) and e <= FLASH_TOL, (model, e)
+        err = max(err, max_abs_err(fold(out), ref))
+        log(f"  flash_attention_fwd at {model}'s prefill (B 8, {H}/{Hkv} "
+            f"heads, S 1024, Dk {Dk}, Dv {Dv}, causal; (B, S, H, D) views): "
+            f"rel {e:.3e} (tol {FLASH_TOL:g})")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_flash_prefills(FK, FR, dev) -> dict:
+    """Phase 5d, flash attention at every served model's prefill shape (B 8,
+    S 1024, causal), as the prefill calls it (``ops.flash_attention`` on
+    the model's (B, S, H, D) tensors), in turns with
+    scaled_dot_product_attention on the same views (k, v repeated to H
+    heads where H > Hkv), beside the plain version and both bounds (3xTF32
+    on the tensor cores; fp32's)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for model in FLASH_MODELS:
+        H, Hkv, Dk, Dv, layers = flash_prefill(model)
+        q = torch.randn((8, 1024, H, Dk), generator=gen, device=dev)
+        k = torch.randn((8, 1024, Hkv, Dk), generator=gen, device=dev)
+        v = torch.randn((8, 1024, Hkv, Dv), generator=gen, device=dev)
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        fold = lambda t: t.transpose(1, 2).reshape(-1, 1024, t.shape[-1])
+        qf, kf, vf = fold(q), fold(k), fold(v)
+        shape = dict(B=8, H=H, Hkv=Hkv, S=1024, D=Dk, Dv=Dv)
+        rw, ops = attention_bound(**shape)
+        b_fp32, _ = bound_ms(rw, ops)
+        b, by = bound_ms(*attention_bound_tc(**shape))
+        ms, lib = paired_ms(
+            lambda: flash_attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kr, vr, is_causal=True), iters=20)
+        plain = cuda_ms(lambda: FR.attention_ref(qf, kf, vf, causal=True),
+                        iters=5)
+        out[model] = dict(heads=f"{H}/{Hkv}", Dk=Dk, Dv=Dv, layers=layers,
+                          ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                          bound_by=by, fp32_bound_ms=b_fp32, bytes=rw,
+                          flops=ops)
+        log(f"  flash_attention_fwd at {model}'s prefill (B 8, {H}/{Hkv} "
+            f"heads, S 1024, Dk {Dk}, Dv {Dv}): {ms:.4f} ms, 3xTF32 bound "
+            f"{b:.4f} ms ({by}; {100 * b / ms:.1f}% of it), fp32 bound "
+            f"{b_fp32:.4f} ms; plain {plain:.4f} ms; "
+            f"scaled_dot_product_attention {lib:.4f} ms in turns "
+            f"({lib / ms:.2f}x the kernel's time); {layers} calls a prefill "
+            f"= {layers * ms:.3f} ms")
+        del q, k, v, kr, vr, qf, kf, vf
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_serve_kernels(FK, FR, SK, SR, dev):
@@ -1656,8 +1774,21 @@ def prefill_flops(cfg, B=8, S=1024) -> float:
                         chunk=s.chunk)[1]
     else:
         H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        weights = 2 * d * H * hd + 2 * d * Hkv * hd + 3 * d * cfg.d_ff
-        mix = attention_bound(B=B, H=H, Hkv=Hkv, S=S, D=hd)[1]
+        if cfg.mla is not None:          # MLA: latent kv, expanded per head
+            r, rd = cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim
+            weights = (d * (r + rd) + 2 * r * H * hd + d * H * (hd + rd)
+                       + H * hd * d)
+            mix = attention_bound(B=B, H=H, Hkv=H, S=S, D=hd + rd, Dv=hd)[1]
+        else:
+            weights = 2 * d * H * hd + 2 * d * Hkv * hd
+            mix = attention_bound(B=B, H=H, Hkv=Hkv, S=S, D=hd)[1]
+        if cfg.moe is not None:          # the routed top-k and the shared
+            m = cfg.moe                  # experts a token needs, the router
+            de = m.d_expert or cfg.d_ff
+            weights += (3 * d * de * (m.top_k + m.num_shared)
+                        + d * m.num_experts)
+        else:
+            weights += 3 * d * cfg.d_ff
     return (cfg.num_layers * (2 * B * S * weights + mix)
             + 2 * B * d * cfg.vocab_size)
 
@@ -1713,41 +1844,197 @@ def serve_consistency(counts_of, dev, times):
         torch.cuda.empty_cache()
 
 
-def small_reference_serve(dev):
-    """Phase 7s: at smoke size, prefill (B 2, S 40: a ragged chunk for
-    mamba2's chunk of 32) and 4 teacher-forced decode steps, the card
-    against the CPU plain versions."""
+def serve_flash_models(counts_of, dev, forms) -> dict:
+    """Phase 6u: ``serve.main`` at full width (batch 8, prompt 1024, 32
+    tokens, greedy, seed 0) on each of FLASH_SERVE, its own main path
+    (counts zeroed just before, read just after: one flash launch a layer
+    in the prefill, none in decode); then the warm prefill on a second
+    init from the same seed, its last logits finite; for
+    deepseek-v2-lite-16b the dropless check.  Each model is freed before
+    the next is built."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
     from repro_torch.models.model import build_model
 
-    for arch in SERVE_ARCHS:
-        arch = f"{arch}-smoke"
-        model = build_model(get_arch(arch))
+    counts = {}
+    for arch in FLASH_SERVE:
+        cfg = get_arch(arch)
+        layers, tag = cfg.num_layers, f"serve:{arch}"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counts_of.reset()
+        toks, stats = serve.main(["--arch", arch] + SERVE_ARGS)
+        counts[tag] = counts_of.read()
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        assert counts[tag] == _launches(flash_attention_fwd=layers), (
+            tag, counts[tag])
+        assert toks.shape == (8, 32) and toks.is_cuda, toks.shape
+        assert 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del toks
+        torch.cuda.empty_cache()
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        held = sum(t.numel() * t.element_size() for t in params.values())
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (8, 1024))).to(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      cache_len=1024 + 32 + 1)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t
+        finite = bool(torch.isfinite(logits).all())
+        del logits, cache
+        ops = prefill_flops(cfg)
+        f = forms[arch]
+        log(f"  {tag}: {cfg.param_count() + cfg.d_model:,} parameters "
+            f"({held / 2**30:.2f} GiB fp32); prefill (B 8, S 1024) first "
+            f"{stats['prefill_s']:.4f} s (the process's first at this model),"
+            f" warm {warm:.4f} s, {ops / 1e12:.3f} TFLOP, "
+            f"{ops / warm / 1e12:.2f} TFLOP/s; {layers} x flash "
+            f"({f['ms']:.4f} ms, Dk {f['Dk']}, Dv {f['Dv']}, phase 5d) = "
+            f"{100 * layers * f['ms'] / (warm * 1e3):.1f}% of it; decode 31 "
+            f"steps {stats['decode_s']:.4f} s, {stats['tok_per_s']:.1f} "
+            f"tok/s; max_memory_allocated {peak:.2f} GiB above the "
+            f"{base / 2**30:.2f} GiB held before the run; {layers} "
+            f"flash_attention_fwd launches, none of the other kernels; last "
+            f"logits finite: {finite}")
+        assert finite, arch
+        if cfg.moe is not None:
+            dropless_check(cfg, params, counts_of, dev)
+        del params, model
+        torch.cuda.empty_cache()
+    return counts
+
+
+def dropless_check(cfg, params, counts_of, dev):
+    """Decode after prefill(256) against prefill(257), batch 2, on the
+    full-width weights, with a copy of the config at capacity_factor
+    DROPLESS_CF: capacity then exceeds a group's tokens, so neither
+    prefill drops a token (at the config's 1.25 the two prefills group and
+    drop differently, and the check would not hold).  atol 2e-4 + rtol
+    1e-3, the JAX suite's tolerance; counts as in phase 6t."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.model import build_model
+    m = cfg.moe
+    dl = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=DROPLESS_CF)))
+    T = 2 * 257
+    C = math.ceil(m.top_k * T / m.num_experts * DROPLESS_CF)
+    assert C >= T, (C, T)                     # no expert can overflow
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 257))).to(dev)
+    counts_of.reset()
+    _, cache = dl.prefill(params, {"tokens": toks[:, :256]}, cache_len=257)
+    pre = counts_of.read()
+    counts_of.reset()
+    dec, _ = dl.decode(params, toks[:, 256], cache)
+    torch.cuda.synchronize()
+    step = counts_of.read()
+    del cache
+    full, _ = dl.prefill(params, {"tokens": toks})
+    assert pre == _launches(flash_attention_fwd=cfg.num_layers), pre
+    assert step == _launches(), step
+    diff = (dec - full).abs()
+    bad = int((diff > 2e-4 + 1e-3 * full.abs()).sum())
+    log(f"  {cfg.name}, dropless copy (capacity_factor {DROPLESS_CF:g}: "
+        f"capacity {C} >= the {T} tokens of prefill(257)'s one group): "
+        f"decode(token 256 | prefill 256) vs prefill(257) last logits, "
+        f"batch 2: max |a-b| {float(diff.max()):.3e}, rel "
+        f"{rel_err(dec, full):.3e}, {bad} elements beyond atol 2e-4 + rtol "
+        f"1e-3; launches: prefill {cfg.num_layers} flash_attention_fwd, "
+        f"decode step none")
+    assert bad == 0, bad
+    del dec, full
+
+
+def small_serve_configs() -> list:
+    """Phase 7s's configs: the smoke configs of SERVE_ARCHS, a dense one
+    with flash in its prefill (phi3-mini-3.8b-smoke), the MoE one
+    (llama4-scout-17b-a16e-smoke, D 64, windowed), and deepseek's smoke
+    config at deepseek's attention widths (head_dim 128, rope_head_dim 64)
+    so that its MLA prefill reaches the kernel's (192, 128) form: the smoke
+    config's own (96, 64) is not a built form."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfgs = [get_arch(f"{a}-smoke") for a in SERVE_ARCHS]
+    cfgs += [get_arch("phi3-mini-3.8b-smoke"),
+             get_arch("llama4-scout-17b-a16e-smoke")]
+    ds = get_arch("deepseek-v2-lite-16b-smoke")
+    cfgs.append(dataclasses.replace(
+        ds, name=f"{ds.name} (head_dim 128, rope_head_dim 64)",
+        head_dim=128, mla=dataclasses.replace(ds.mla, rope_head_dim=64)))
+    return cfgs
+
+
+def small_reference_serve(dev):
+    """Phase 7s: at smoke size, prefill (B 2, S 40: a ragged chunk for
+    mamba2's chunk of 32) and 4 teacher-forced decode steps, the card
+    against the CPU plain versions, on each of ``small_serve_configs``.
+    Under MoE the routing of every layer call (the chosen experts and the
+    kept entries) is asserted equal on both devices before any value is
+    compared: a flipped expert is an O(1) change, not a rounding one."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    for cfg in small_serve_configs():
+        model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(3))
         toks = torch.from_numpy(np.random.default_rng(2).integers(
-            0, 512, (2, 44)))
-        out = {}
+            0, cfg.vocab_size, (2, 44)))
+        out, routes = [], []
+        orig = moe._route
         for d in (dev, torch.device("cpu")):
-            p = {k: v.to(d) for k, v in params.items()}
-            logits, cache = model.prefill(p, {"tokens": toks[:, :40].to(d)},
-                                          cache_len=45)
-            snap = {k: t.clone() for k, t in cache["layers"][0].items()}
-            steps = []
-            for i in range(4):
-                lg, cache = model.decode(p, toks[:, 40 + i].to(d), cache)
-                steps.append(lg)
-            out[d.type] = (logits, snap, steps)
-        (lg, cg, sg), (lc, cc, sc) = out["cuda"], out["cpu"]
+            recs = []
+
+            def route(xg, p, c):
+                r = orig(xg, p, c)
+                recs.append((r[1].cpu(), r[3].cpu()))   # expert_idx, keep
+                return r
+
+            moe._route = route
+            try:
+                p = {k: v.to(d) for k, v in params.items()}
+                logits, cache = model.prefill(
+                    p, {"tokens": toks[:, :40].to(d)}, cache_len=45)
+                snap = {k: t.clone() for k, t in cache["layers"][0].items()}
+                steps = []
+                for i in range(4):
+                    lg, cache = model.decode(p, toks[:, 40 + i].to(d), cache)
+                    steps.append(lg)
+            finally:
+                moe._route = orig
+            out.append((logits, snap, steps))
+            routes.append(recs)
+        (lg, cg, sg), (lc, cc, sc) = out
+        rg, rc = routes
+        assert len(rg) == len(rc) and (cfg.moe is None) == (not rg), (
+            cfg.name, len(rg), len(rc))
+        for i, ((eg, kg), (ec, kc)) in enumerate(zip(rg, rc)):
+            flips = int((eg != ec).sum())
+            assert flips == 0 and torch.equal(kg, kc), (cfg.name, i, flips)
         e_pre = rel_err(lg.cpu(), lc)
         e_cache = max(rel_err(cg[k].cpu(), cc[k]) for k in cc)
         e_dec = max(rel_err(a.cpu(), b) for a, b in zip(sg, sc))
-        log(f"  {arch}, card vs CPU plain: prefill logits rel {e_pre:.3e}, "
-            f"cache {e_cache:.3e}, 4 teacher-forced decode steps "
-            f"{e_dec:.3e} (tol {SERVE_TOL:g})")
-        assert max(e_pre, e_cache, e_dec) <= SERVE_TOL, (arch, e_pre,
-                                                         e_cache, e_dec)
+        routed = (f"; routing equal in all {len(rg)} MoE calls" if rg
+                  else "")
+        log(f"  {cfg.name}, card vs CPU plain: prefill logits rel "
+            f"{e_pre:.3e}, cache ({', '.join(sorted(cc))}) {e_cache:.3e}, "
+            f"4 teacher-forced decode steps {e_dec:.3e} (tol "
+            f"{SERVE_TOL:g}){routed}")
+        assert max(e_pre, e_cache, e_dec) <= SERVE_TOL, (
+            cfg.name, e_pre, e_cache, e_dec)
 
 
 def main() -> int:
@@ -1804,6 +2091,7 @@ def main() -> int:
     log("[5d] the prefill's kernels at the prefill's shapes (CUDA events, "
         "warm):")
     times.update(time_serve_kernels(FK, FR, SK, SR, dev))
+    times["flash_attention_fwd"]["forms"] = time_flash_prefills(FK, FR, dev)
     log("[5c] one client's uplink at full width (CUDA events, 5 launches, "
         "warm):")
     time_codec_stage(dev)
@@ -1828,6 +2116,11 @@ def main() -> int:
     counts.update(serve_path(counts_of, dev))
     log("[6t] full width: decode after prefill(1024) against prefill(1025):")
     serve_consistency(counts_of, dev, times)
+    log("[6u] serving at full width with flash in every prefill: "
+        f"{', '.join(FLASH_SERVE)} (serve.main, batch 8, prompt 1024, 32 "
+        "tokens, greedy), then the warm prefill; MoE: the dropless check:")
+    counts.update(serve_flash_models(counts_of, dev,
+                                     times["flash_attention_fwd"]["forms"]))
 
     log("[7] small input, card against the CPU plain versions:")
     small_reference(dev)
@@ -1846,6 +2139,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if "forms" in t:          # flash at every served model's prefill
+            kernels[-1]["prefill_shapes"] = t["forms"]
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

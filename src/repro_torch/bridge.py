@@ -1,16 +1,19 @@
 """State bridge between the JAX package's layout and the port's.
 
-The JAX parameters of the dense LM are a nested dict/tuple tree (``blocks``
-is a tuple of one dict whose leaves are stacked over layers); the port's
-are a flat dict keyed by the dotted path (``"blocks.0.attn.wq"``).  The
+The JAX parameters of the LM are a nested dict/tuple tree (``blocks`` is a
+tuple of one dict per position in the layer period, whose leaves are
+stacked over periods); the port's are a flat dict keyed by the dotted
+path (``"blocks.0.attn.wq"``, the MoE's ``"blocks.0.mlp.router"`` and
+``"blocks.0.mlp.shared.w_gate"``, MLA's ``"blocks.0.attn.w_uk"``).  The
 arrays are the same in both, so converting is a copy through numpy and
 the flat buffers of both packages compare element for element.  The rest
 of the server state — the flat optimizer slots, the step counter and the
 controllable ``ctrl`` slot — has the same structure in both packages and
 crosses with :func:`server_state_to_torch`.  The serving decode cache has
 the same tree in both packages too (``{"layers": (entry, ...), "index":
-int32}``, each entry a dict of arrays stacked over layers) and crosses
-with :func:`cache_to_torch` / :func:`cache_to_numpy`."""
+int32}``, each entry a dict of arrays stacked over periods: ``k`` / ``v``,
+MLA's latent ``ckv`` / ``krope``, or mamba's ``ssm`` / ``conv``) and
+crosses with :func:`cache_to_torch` / :func:`cache_to_numpy`."""
 from __future__ import annotations
 
 from typing import Any, Dict

@@ -102,6 +102,72 @@ class ArchConfig:
                 kinds.append(ATTN)
         return tuple(kinds)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + per-layer blocks; the
+        final norm's ``d_model`` scales are not counted, as in JAX)."""
+        d, v = self.d_model, self.vocab_size
+        hd = self.resolved_head_dim
+        total = v * d                                    # token embedding
+        if not self.tie_embeddings:
+            total += v * d                               # lm head
+        for i, kind in enumerate(self.layer_kinds()):
+            total += 2 * d                               # 2 RMSNorm scales
+            if kind == MAMBA:
+                s = self.ssm or SSMConfig()
+                d_in = s.expand * d
+                heads = d_in // s.d_head
+                # in_proj -> [z, x, B, C, dt]; B/C are per-group
+                total += d * (2 * d_in + 2 * s.n_groups * s.d_state + heads)
+                total += (d_in + 2 * s.n_groups * s.d_state) * s.d_conv
+                total += 2 * heads                       # A, D per head
+                total += d_in * d                        # out_proj
+            elif kind in (ATTN, CROSS):
+                if self.mla is not None:
+                    m = self.mla
+                    q_dim = self.num_heads * (hd + m.rope_head_dim)
+                    total += d * (m.kv_lora_rank + m.rope_head_dim)  # kv down
+                    total += m.kv_lora_rank * self.num_heads * 2 * hd  # kv up
+                    total += d * q_dim                               # q proj
+                    total += self.num_heads * hd * d                 # o proj
+                else:
+                    total += d * self.num_heads * hd                 # q
+                    total += 2 * d * self.num_kv_heads * hd          # k, v
+                    total += self.num_heads * hd * d                 # o
+            total += self._mlp_params(i)
+        if self.encoder is not None:
+            e = self.encoder
+            eff = e.enc_ff or 4 * e.enc_dim
+            per = (4 * e.enc_dim * e.enc_dim + 3 * e.enc_dim * eff
+                   + 2 * e.enc_dim)
+            total += e.enc_layers * per
+        return total
+
+    def _mlp_params(self, layer_idx: int) -> int:
+        d = self.d_model
+        if self.moe is not None and (layer_idx % self.moe.every
+                                     == self.moe.every - 1):
+            m = self.moe
+            de = m.d_expert or self.d_ff
+            routed = m.num_experts * 3 * d * de          # swiglu experts
+            shared = m.num_shared * 3 * d * de
+            router = d * m.num_experts
+            return routed + shared + router
+        if self.d_ff == 0:
+            return 0                                     # attn-free pure SSM
+        return 3 * d * self.d_ff                         # swiglu dense
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k + shared experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        de = m.d_expert or self.d_ff
+        n_moe_layers = sum(1 for i in range(self.num_layers)
+                           if i % m.every == m.every - 1)
+        inactive = (n_moe_layers * (m.num_experts - m.top_k) * 3
+                    * self.d_model * de)
+        return self.param_count() - inactive
+
 
 # ---------------------------------------------------------------------------
 # Federated configuration (the paper's knobs)

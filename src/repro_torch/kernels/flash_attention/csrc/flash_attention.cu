@@ -4,11 +4,16 @@
 // scheme of src/repro/models/attention.py::_fa_fwd_inner that the JAX
 // prefill runs.  fp32 in, fp32 out, fp32 accuracy.
 //
-//   q (B, H, Sq, D), k / v (B, Hkv, Skv, D): strided views, D at unit
-//   stride, every other stride a multiple of 4 floats and every base
-//   16-byte aligned; o (B, H, Sq, D) through its own strides (the model's
-//   (B, S, H, D) storage).  Query head h reads key/value head h / group,
-//   so the grouped key/value heads are never repeated in memory.
+//   q (B, H, Sq, DK), k (B, Hkv, Skv, DK), v (B, Hkv, Skv, DV): strided
+//   views, the head dim at unit stride, every other stride a multiple of 4
+//   floats and every base 16-byte aligned; o (B, H, Sq, DV) through its own
+//   strides (the model's (B, S, H, DV) storage).  Query head h reads
+//   key/value head h / group, so the grouped key/value heads are never
+//   repeated in memory.  Built forms (DK, DV): (64, 64) (smollm-360m,
+//   minicpm-2b), (96, 96) (phi3-mini-3.8b), (128, 128) (phi3-medium-14b)
+//   and (192, 128): MLA's prefill (deepseek-v2-lite-16b), whose keys carry
+//   128 latent-expanded columns and a 64-column RoPE slice and whose values
+//   only the 128.  The scale is 1 / sqrt(DK).
 //
 // What bounds it.  At the serving prefill (B 8, 15 query and 5 key/value
 // heads, S 1024, D 64, causal) one call does 4D operations per (query,
@@ -40,15 +45,26 @@
 //     descriptor's leading offset steps along k (128 bytes), its stride
 //     offset along rows (a row group).
 //   * One block per (batch, key/value head, 64-row query tile, chunk of at
-//     most 3 query heads at D 64, 2 at D 128): the query heads of a GQA
-//     group share the block, so each K/V tile reaches shared memory once
-//     per group, not once per query head.
+//     most 3 query heads at D 64, 2 at D 96 and 128, 1 at (192, 128)): the
+//     query heads of a GQA group share the block, so each K/V tile reaches
+//     shared memory once per group, not once per query head.
+//   * At (192, 128) Q's high part would take 96 registers a thread beside
+//     the 64 of the output accumulator and the 64 of a tile's p.v, more
+//     than the 255 a thread may hold: there it stays in shared memory
+//     beside the low part (217 KB in all), and all three q.k products read
+//     A from shared memory (SS).  The p.v side works at DV throughout.
 //   * K/V tiles stream through a two-stage ring of raw fp32 tiles filled
 //     by cp.async.cg 16-byte copies (zero-filled past Skv), rows padded to
-//     D + 4 floats.  The block splits each tile once into hi and lo tiles
-//     (V transposed on the way), double-buffered: after the one barrier a
-//     tile, tile t + 2 is copied and tile t + 1 split while tile t is
-//     multiplied.  Q is split once, before the key loop.
+//     DK + 4 and DV + 4 floats.  The block splits each tile once into hi
+//     and lo tiles (V transposed on the way), double-buffered: after the
+//     one barrier a tile, tile t + 2 is copied and tile t + 1 split while
+//     tile t is multiplied.  Q is split once, before the key loop.  One
+//     loop over K's 16-byte row chunks issues V's chunk beside K's where
+//     the column is inside DV (DV <= DK).  A K loop then a V loop, the
+//     same copies in another order, ran phi3-medium-14b's prefill (B 8,
+//     40/10 heads, S 1024, D 128) in 2.0425 ms against this loop's 1.9993
+//     (4 runs each in turns, tools/flash_turns.py, H100 80GB HBM3 at
+//     700 W); at D 64 and at (192, 128) the two were within the spread.
 //   * The probabilities never leave registers.  The q.k accumulator holds
 //     columns 2t, 2t+1 of rows g, g+8 of each 8-column group, the p.v A
 //     operand columns t, t+4.  So K's rows are stored permuted within each
@@ -87,24 +103,39 @@ constexpr int kStages = 2;         // raw K/V ring
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Key rows per tile and query heads per block, so that shared memory
-// (split Q, the raw ring, two split K/V buffers) stays under 227 KB.
-template <int D> struct Cfg;
-template <> struct Cfg<64> {
+// Key rows per tile, query heads per block, and where Q's high part lives
+// (registers, or shared memory beside the low part), so that shared memory
+// (split Q, the raw ring, two split K/V buffers) stays under 227 KB and a
+// thread under 255 registers.
+template <int DK, int DV> struct Cfg;
+template <> struct Cfg<64, 64> {
   static constexpr int kBK = 32;
   static constexpr int kMaxHeads = 3;
+  static constexpr bool kQhiInRegs = true;
 };
-template <> struct Cfg<128> {
+template <> struct Cfg<96, 96> {
   static constexpr int kBK = 16;
   static constexpr int kMaxHeads = 2;
+  static constexpr bool kQhiInRegs = true;
+};
+template <> struct Cfg<128, 128> {
+  static constexpr int kBK = 16;
+  static constexpr int kMaxHeads = 2;
+  static constexpr bool kQhiInRegs = true;
+};
+template <> struct Cfg<192, 128> {
+  static constexpr int kBK = 16;
+  static constexpr int kMaxHeads = 1;
+  static constexpr bool kQhiInRegs = false;
 };
 
-template <int D>
+template <int DK, int DV>
 constexpr int smem_bytes() {
-  constexpr int BK = Cfg<D>::kBK;
-  return Cfg<D>::kMaxHeads * kBQ * D * 4         // Q lo
-         + kStages * 2 * BK * (D + 4) * 4        // raw K, V ring
-         + 2 * 4 * BK * D * 4;                   // K hi/lo, V^T hi/lo, x2
+  using C = Cfg<DK, DV>;
+  constexpr int BK = C::kBK;
+  return C::kMaxHeads * (C::kQhiInRegs ? 1 : 2) * kBQ * DK * 4  // Q lo (hi)
+         + kStages * BK * (DK + 4 + DV + 4) * 4    // raw K, V ring
+         + 2 * 2 * BK * (DK + DV) * 4;             // K hi/lo, V^T hi/lo, x2
 }
 
 struct Strides {
@@ -265,6 +296,35 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
         "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[12][4],
+                                             const uint32_t a[4],
+                                             uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47},"
+      " {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
                                               const uint32_t a[4],
                                               uint64_t bdesc, int scale_d) {
@@ -301,8 +361,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
 }
 
 // The wgmma shapes the kernel uses.  q.k: N = the tile's keys, SS for
-// q_lo.k_hi and RS (q_hi from registers) for the other two products; p.v:
-// N = D, RS (P from registers).
+// q_lo.k_hi and RS (q_hi from registers) for the other two products, or SS
+// for all three where q_hi stays in shared memory; p.v: N = DV, RS (P from
+// registers).
 template <int N> struct WG;
 template <> struct WG<16> {
   static __device__ __forceinline__ void ss(float (&d)[2][4], uint64_t a,
@@ -331,6 +392,13 @@ template <> struct WG<64> {
                                             const uint32_t a[4], uint64_t b,
                                             int s) {
     wgmma_rs_n64(d, a, b, s);
+  }
+};
+template <> struct WG<96> {
+  static __device__ __forceinline__ void rs(float (&d)[12][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_rs_n96(d, a, b, s);
   }
 };
 template <> struct WG<128> {
@@ -412,23 +480,30 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float m[2],
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kMaxHeads * kWarpsPerHead * 32, 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__((Cfg<DK, DV>::kMaxHeads * kWarpsPerHead *
+                                   32), 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  Strides sq, Strides sk, Strides sv, Strides so, int Hkv,
                  int Sq, int Skv, int group, int heads_per_block,
                  int chunks, float scale_log2, int causal, int window) {
-  constexpr int BK = Cfg<D>::kBK;
+  using C = Cfg<DK, DV>;
+  constexpr int BK = C::kBK;
   constexpr int NT = BK / 8;         // score column groups of a tile
-  constexpr int KD = D / 8;          // q.k k-steps (= output column groups)
-  constexpr int C4 = D / 4;          // float4 chunks a row
-  constexpr int RL = D + 4;          // raw row, floats
+  constexpr int KK = DK / 8;         // q.k k-steps
+  constexpr int NV = DV / 8;         // output column groups
+  constexpr int CK = DK / 4;         // float4 chunks a K (and Q) row
+  static_assert(DV <= DK, "the K/V loader walks K's row chunks");
+  constexpr int RK = DK + 4;         // raw K row, floats
+  constexpr int RV = DV + 4;         // raw V row, floats
+  constexpr int QP = C::kQhiInRegs ? 1 : 2;   // Q parts in shared memory
   extern __shared__ float4 smem4[];
-  float* Qsm = reinterpret_cast<float*>(smem4);          // [head][64*D] (lo)
-  float* raw = Qsm + Cfg<D>::kMaxHeads * kBQ * D;        // [stage][K|V][BK][RL]
-  // [buffer][K hi | K lo | V^T hi | V^T lo][BK * D]
-  float* split_kv = raw + kStages * 2 * BK * RL;
+  float* Qsm = reinterpret_cast<float*>(smem4);   // [head][lo (| hi)][64*DK]
+  // [stage][K | V][BK][RK | RV]
+  float* raw = Qsm + C::kMaxHeads * QP * kBQ * DK;
+  // [buffer][K hi | K lo | V^T hi | V^T lo]
+  float* split_kv = raw + kStages * BK * (RK + RV);
 
   const int nthreads = blockDim.x;
   const int tid = threadIdx.x;
@@ -460,42 +535,42 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   auto issue = [&](int kt, int stage) {
-    float* dk = raw + stage * 2 * BK * RL;
-    float* dv = dk + BK * RL;
+    float* dk = raw + stage * BK * (RK + RV);
+    float* dv = dk + BK * RK;
     const int k0 = kt * BK;
-    for (int i = tid; i < BK * C4; i += nthreads) {
-      const int r = i / C4, c = (i % C4) * 4;
+    for (int i = tid; i < BK * CK; i += nthreads) {
+      const int r = i / CK, c = (i % CK) * 4;
       const bool ok = k0 + r < Skv;
       const int64_t row = ok ? k0 + r : 0;
-      cp_async16(dk + r * RL + c, kb + row * sk.s + c, ok);
-      cp_async16(dv + r * RL + c, vb + row * sv.s + c, ok);
+      cp_async16(dk + r * RK + c, kb + row * sk.s + c, ok);
+      if (c < DV) cp_async16(dv + r * RV + c, vb + row * sv.s + c, ok);
     }
     cp_async_commit();
   };
   // Tile kt's raw stage and split buffer are (kt - kt_begin) % 2.
   auto split_tile = [&](int buf) {
-    const float* rk = raw + buf * 2 * BK * RL;
-    const float* rv = rk + BK * RL;
-    float* Khi = split_kv + buf * 4 * BK * D;
-    float* Klo = Khi + BK * D;
-    float* Vhi = Klo + BK * D;
-    float* Vlo = Vhi + BK * D;
+    const float* rk = raw + buf * BK * (RK + RV);
+    const float* rv = rk + BK * RK;
+    float* Khi = split_kv + buf * 2 * BK * (DK + DV);
+    float* Klo = Khi + BK * DK;
+    float* Vhi = Klo + BK * DK;
+    float* Vlo = Vhi + BK * DV;
     // K: row r (key) fastest, so 8 neighbouring threads store the 8 rows
     // of one core matrix; storage row permuted (C -> A fragment).
-    for (int i = tid; i < BK * C4; i += nthreads) {
+    for (int i = tid; i < BK * CK; i += nthreads) {
       const int r = i % BK, c = (i / BK) * 4;
       const int rr = (r & ~7) | ((r & 3) << 1) | ((r >> 2) & 1);
       float4 hi, lo;
-      split4(*reinterpret_cast<const float4*>(rk + r * RL + c), hi, lo);
-      const int off = cm_offset(rr, c, D) / 4;
+      split4(*reinterpret_cast<const float4*>(rk + r * RK + c), hi, lo);
+      const int off = cm_offset(rr, c, DK) / 4;
       *reinterpret_cast<float4*>(Khi + off) = hi;
       *reinterpret_cast<float4*>(Klo + off) = lo;
     }
     // V^T (rows d, k = keys): d fastest; four keys a thread.
-    for (int i = tid; i < D * (BK / 4); i += nthreads) {
-      const int d = i % D, r = (i / D) * 4;
-      const float4 x = make_float4(rv[r * RL + d], rv[(r + 1) * RL + d],
-                                   rv[(r + 2) * RL + d], rv[(r + 3) * RL + d]);
+    for (int i = tid; i < DV * (BK / 4); i += nthreads) {
+      const int d = i % DV, r = (i / DV) * 4;
+      const float4 x = make_float4(rv[r * RV + d], rv[(r + 1) * RV + d],
+                                   rv[(r + 2) * RV + d], rv[(r + 3) * RV + d]);
       float4 hi, lo;
       split4(x, hi, lo);
       const int off = cm_offset(d, r, BK) / 4;
@@ -510,9 +585,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kt_begin + 1 < kt_end) issue(kt_begin + 1, 1);
   }
   // The low part of the block's query rows, in the core-matrix layout
-  // (rows m, k = d); the high part stays in registers (below).
-  for (int i = tid; i < heads_per_block * kBQ * C4; i += nthreads) {
-    const int m = i % kBQ, c = ((i / kBQ) % C4) * 4, hq = i / (kBQ * C4);
+  // (rows m, k = d); the high part stays in registers (below), or beside
+  // the low part where C::kQhiInRegs is false.
+  for (int i = tid; i < heads_per_block * kBQ * CK; i += nthreads) {
+    const int m = i % kBQ, c = ((i / kBQ) % CK) * 4, hq = i / (kBQ * CK);
     const int gq = chunk * heads_per_block + hq;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (gq < group && q0 + m < Sq)
@@ -521,8 +597,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           (int64_t)(q0 + m) * sq.s + c);
     float4 hi, lo;
     split4(x, hi, lo);
-    *reinterpret_cast<float4*>(Qsm + hq * kBQ * D + cm_offset(m, c, D) / 4) =
-        lo;
+    float* dst = Qsm + hq * QP * kBQ * DK + cm_offset(m, c, DK) / 4;
+    *reinterpret_cast<float4*>(dst) = lo;
+    if constexpr (!C::kQhiInRegs)
+      *reinterpret_cast<float4*>(dst + kBQ * DK) = hi;
   }
   fence_proxy_async();
   if (kt_begin < kt_end) {
@@ -530,19 +608,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     split_tile(0);
   }
-  const float* Qlo = Qsm + hw * kBQ * D;
+  const float* Qlo = Qsm + hw * QP * kBQ * DK;
+  const float* Qhi = Qlo + kBQ * DK;       // read only if !C::kQhiInRegs
 
   // The warp's query rows rounded to TF32, as wgmma A fragments (rows g,
   // g + 8; columns t, t + 4 of each k-step), in registers for the whole
   // key loop.
-  uint32_t qhi[KD][4];
-  {
+  uint32_t qhi[C::kQhiInRegs ? KK : 1][4];
+  if constexpr (C::kQhiInRegs) {
     const float* qb = q + b * sq.b + h * sq.h;
     const bool ok0 = active && r0 + g < Sq, ok1 = active && r0 + g + 8 < Sq;
     const float* q0p = qb + (int64_t)(r0 + g) * sq.s;
     const float* q1p = qb + (int64_t)(r0 + g + 8) * sq.s;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
+    for (int kk = 0; kk < KK; ++kk) {
       qhi[kk][0] = tf32(ok0 ? q0p[kk * 8 + t] : 0.f);
       qhi[kk][1] = tf32(ok1 ? q1p[kk * 8 + t] : 0.f);
       qhi[kk][2] = tf32(ok0 ? q0p[kk * 8 + t + 4] : 0.f);
@@ -551,9 +630,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[KD][4];
+  float acc[NV][4];
 #pragma unroll
-  for (int j = 0; j < KD; ++j)
+  for (int j = 0; j < NV; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
@@ -567,28 +646,34 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kt + 2 < kt_end) issue(kt + 2, it % 2);
     if (kt + 1 < kt_end) split_tile((it + 1) % 2);
     if (!active) continue;
-    const float* Khi = split_kv + (it % 2) * 4 * BK * D;
-    const float* Klo = Khi + BK * D;
-    const float* Vhi = Klo + BK * D;
-    const float* Vlo = Vhi + BK * D;
+    const float* Khi = split_kv + (it % 2) * 2 * BK * (DK + DV);
+    const float* Klo = Khi + BK * DK;
+    const float* Vhi = Klo + BK * DK;
+    const float* Vlo = Vhi + BK * DV;
     const int k0 = kt * BK;
 
     // s = q.k^T on the warpgroup's 64 rows: big += q_hi.k_hi, small +=
     // q_lo.k_hi + q_hi.k_lo; k-step kk covers d 8kk..8kk+7, two core
-    // matrices of 128 bytes.  q_hi comes from registers (RS): an SS
-    // product re-reads its A tile from shared memory for every 8 columns
-    // of k, which at N = 32 asks more bytes a cycle than shared memory
-    // gives.
+    // matrices of 128 bytes.  q_hi comes from registers (RS) where it fits:
+    // an SS product re-reads its A tile from shared memory for every 8
+    // columns of k, which at N = 32 asks more bytes a cycle than shared
+    // memory gives.
     float s[NT][4] = {}, sl[NT][4] = {};
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      const uint64_t ql = make_desc(Qlo + kk * 64, 128, D * 32);
-      const uint64_t kh = make_desc(Khi + kk * 64, 128, D * 32);
-      const uint64_t kl = make_desc(Klo + kk * 64, 128, D * 32);
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint64_t ql = make_desc(Qlo + kk * 64, 128, DK * 32);
+      const uint64_t kh = make_desc(Khi + kk * 64, 128, DK * 32);
+      const uint64_t kl = make_desc(Klo + kk * 64, 128, DK * 32);
       WG<BK>::ss(sl, ql, kh, kk > 0);
-      WG<BK>::rs(sl, qhi[kk], kl, 1);
-      WG<BK>::rs(s, qhi[kk], kh, kk > 0);
+      if constexpr (C::kQhiInRegs) {
+        WG<BK>::rs(sl, qhi[kk], kl, 1);
+        WG<BK>::rs(s, qhi[kk], kh, kk > 0);
+      } else {
+        const uint64_t qh = make_desc(Qhi + kk * 64, 128, DK * 32);
+        WG<BK>::ss(sl, qh, kl, 1);
+        WG<BK>::ss(s, qh, kh, kk > 0);
+      }
     }
     wg_commit();
     wg_wait0();
@@ -603,10 +688,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           (window <= 0 || r0 + 15 - k0 < window) &&
                           k0 + BK <= Skv;
     if (interior)
-      online_softmax<NT, KD, false>(s, m, l, acc, r0 + g, k0 + t, Skv,
+      online_softmax<NT, NV, false>(s, m, l, acc, r0 + g, k0 + t, Skv,
                                     scale_log2, causal, window);
     else
-      online_softmax<NT, KD, true>(s, m, l, acc, r0 + g, k0 + t, Skv,
+      online_softmax<NT, NV, true>(s, m, l, acc, r0 + g, k0 + t, Skv,
                                    scale_log2, causal, window);
 
     // acc += p.v: accumulator group j is the A fragment of k-step j (rows
@@ -618,21 +703,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) split(pa[c], phi[j][c], plo[j][c]);
     }
-    float part[KD][4] = {};
+    float part[NV][4] = {};
     wg_fence();
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const uint64_t vh = make_desc(Vhi + j * 64, 128, BK * 32);
       const uint64_t vl = make_desc(Vlo + j * 64, 128, BK * 32);
-      WG<D>::rs(part, plo[j], vh, j > 0);
-      WG<D>::rs(part, phi[j], vl, 1);
-      WG<D>::rs(part, phi[j], vh, 1);
+      WG<DV>::rs(part, plo[j], vh, j > 0);
+      WG<DV>::rs(part, phi[j], vl, 1);
+      WG<DV>::rs(part, phi[j], vh, 1);
     }
     wg_commit();
     wg_wait0();
     fence_regs(part);
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
+    for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
   }
@@ -646,31 +731,34 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[hr], 1e-30f);
     float* orow = ob + (int64_t)qr * so.s;
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
+    for (int n = 0; n < NV; ++n)
       *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
           make_float2(acc[n][2 * hr] / den, acc[n][2 * hr + 1] / den);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    Strides sq, Strides sk, Strides sv, Strides so, int B,
                    int Hkv, int Sq, int Skv, int group, float scale,
                    int causal, int window, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+  constexpr int bytes = smem_bytes<DK, DV>();
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return err;
-  const int chunks = (group + Cfg<D>::kMaxHeads - 1) / Cfg<D>::kMaxHeads;
+  constexpr int kMaxHeads = Cfg<DK, DV>::kMaxHeads;
+  const int chunks = (group + kMaxHeads - 1) / kMaxHeads;
   const int heads_per_block = (group + chunks - 1) / chunks;
   const int64_t gx = (int64_t)B * Hkv * chunks;
   const int64_t gy = (Sq + kBQ - 1) / kBQ;
   if (gx > 0x7fffffff || gy > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)gx, (unsigned)gy);
-  flash_fwd_kernel<D><<<grid, heads_per_block * kWarpsPerHead * 32, bytes,
-                        stream>>>(q, k, v, o, sq, sk, sv, so, Hkv, Sq, Skv,
-                                  group, heads_per_block, chunks,
-                                  scale * kLog2e, causal, window);
+  flash_fwd_kernel<DK, DV><<<grid, heads_per_block * kWarpsPerHead * 32,
+                             bytes, stream>>>(
+      q, k, v, o, sq, sk, sv, so, Hkv, Sq, Skv, group, heads_per_block,
+      chunks, scale * kLog2e, causal, window);
   return cudaGetLastError();
 }
 
@@ -678,22 +766,23 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 
 extern "C" int fa_forward(const float* q, const float* k, const float* v,
                           float* o, const int64_t* strides, int B, int Hkv,
-                          int Sq, int Skv, int D, int group, float scale,
-                          int causal, int window, cudaStream_t stream) {
+                          int Sq, int Skv, int Dk, int Dv, int group,
+                          float scale, int causal, int window,
+                          cudaStream_t stream) {
   if (B <= 0 || Hkv <= 0 || group <= 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaSuccess;
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
-  switch (D) {
-    case 64:
-      return (int)launch<64>(q, k, v, o, sq, sk, sv, so, B, Hkv, Sq, Skv,
-                             group, scale, causal, window, stream);
-    case 128:
-      return (int)launch<128>(q, k, v, o, sq, sk, sv, so, B, Hkv, Sq, Skv,
-                              group, scale, causal, window, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define FA_FORM(DK, DV)                                                     \
+  if (Dk == DK && Dv == DV)                                                 \
+    return (int)launch<DK, DV>(q, k, v, o, sq, sk, sv, so, B, Hkv, Sq, Skv, \
+                               group, scale, causal, window, stream);
+  FA_FORM(64, 64)
+  FA_FORM(96, 96)
+  FA_FORM(128, 128)
+  FA_FORM(192, 128)
+#undef FA_FORM
+  return (int)cudaErrorInvalidValue;
 }

@@ -25,9 +25,11 @@ The wrapper checks device, dtype, shape and layout, then:
     error.
 
 The kernel has no backward: a tensor that requires a gradient is refused
-(training attends through the plain ``models.attention.attend``).  Head
-dims 64 and 128 are built; fp32 only (bf16 inputs are ROADMAP Queue 2 row
-11's open part).
+(training attends through the plain ``models.attention.attend``).  The
+built forms (key head dim, value head dim) are :data:`FORMS`: 64, 96 and
+128 for both (the dense configs), and (192, 128), MLA's prefill, whose
+keys are wider than its values; fp32 only (bf16 inputs are ROADMAP Queue
+2 row 11's open part).
 
 Bound at the serving prefill of smollm-360m (B 8, 15/5 heads, S 1024, D
 64, causal, one layer): 16.1 GFLOP of products, 83.9 MB.  As three TF32
@@ -46,7 +48,7 @@ import torch
 from repro_torch.kernels._cuda import CudaLibrary, device_of, raise_on, stream
 from repro_torch.kernels.flash_attention import ref as R
 
-HEAD_DIMS = (64, 128)
+FORMS = ((64, 64), (96, 96), (128, 128), (192, 128))   # (Dk, Dv)
 MAX_QUERY_TILES = 65535       # the grid's y extent: ceil(Sq / 64)
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -55,7 +57,7 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fa_forward.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
+    lib.fa_forward.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                                ctypes.c_float, I, I, P]
     lib.fa_forward.restype = ctypes.c_int
 
@@ -79,15 +81,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dimension must have unit "
                              f"stride, got strides {t.stride()}")
-    B, H, Sq, D = q.shape
-    Bk, Hkv, Skv, Dk = k.shape
-    if tuple(v.shape) != tuple(k.shape) or Dk != D or Bk != B:
+    B, H, Sq, Dk = q.shape
+    Bk, Hkv, Skv, Dkk = k.shape
+    if (tuple(v.shape[:-1]) != tuple(k.shape[:-1]) or Dkk != Dk
+            or Bk != B):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"{H} query heads are not a multiple of {Hkv} "
                          "key/value heads")
-    return B, H, Hkv, Sq, Skv, D
+    return B, H, Hkv, Sq, Skv, Dk, v.shape[-1]
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -100,32 +103,32 @@ def _aligned(t: torch.Tensor) -> bool:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, Hkv, Skv, D), fp32, any strides with the
-    last dimension at unit stride; query head h reads key/value head
-    h // (H / Hkv).  The folded form, (BH, Sq, D) and (BHkv, Skv, D) with
-    heads ordered (b, h), is the case B = 1 (``unsqueeze(0)``).  Any Sq and
-    Skv.
+    """q: (B, H, Sq, Dk); k: (B, Hkv, Skv, Dk); v: (B, Hkv, Skv, Dv), fp32,
+    any strides with the last dimension at unit stride; query head h reads
+    key/value head h // (H / Hkv); scores scaled by 1 / sqrt(Dk).  The
+    folded form, (BH, Sq, Dk) and (BHkv, Skv, Dk | Dv) with heads ordered
+    (b, h), is the case B = 1 (``unsqueeze(0)``).  Any Sq and Skv.
 
-    Returns o, a (B, H, Sq, D) view of a contiguous (B, Sq, H, D) tensor
+    Returns o, a (B, H, Sq, Dv) view of a contiguous (B, Sq, H, Dv) tensor
     (the model's layout).
 
     Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``.
     """
-    B, H, Hkv, Sq, Skv, D = _check(q, k, v)
+    B, H, Hkv, Sq, Skv, Dk, Dv = _check(q, k, v)
     window = int(window)
     if window < 0:
         raise ValueError(f"window={window} must be >= 0")
     dev = device_of(q, k, v)
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
+    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev).transpose(1, 2)
     if dev.type == "cpu":
         fold = lambda t: t.reshape(-1, *t.shape[-2:])
         return o.copy_(R.attention_ref(fold(q), fold(k), fold(v),
                                        causal=causal, window=window
                                        ).view(o.shape))
-    if D not in HEAD_DIMS:
+    if (Dk, Dv) not in FORMS:
         raise NotImplementedError(
-            f"head dim {D}: the CUDA kernel is built for {HEAD_DIMS} "
-            "(other head dims: ROADMAP Queue 2 row 11)")
+            f"head dims (Dk, Dv) = ({Dk}, {Dv}): the CUDA kernel is built "
+            f"for {FORMS} (other head dims: ROADMAP Queue 2 row 11)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _aligned(t):
             raise ValueError(f"{name}: the kernel copies 16 bytes at a time "
@@ -139,8 +142,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        for s in t.stride()[:3]))
     with torch.cuda.device(dev):
         code = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              o.data_ptr(), strides, B, Hkv, Sq, Skv, D,
-                              H // Hkv, 1.0 / math.sqrt(D),
+                              o.data_ptr(), strides, B, Hkv, Sq, Skv, Dk,
+                              Dv, H // Hkv, 1.0 / math.sqrt(Dk),
                               int(bool(causal)), window, stream(dev))
     raise_on(code, "flash_attention_fwd")
     flash_attention_fwd.launches += 1

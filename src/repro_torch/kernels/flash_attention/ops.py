@@ -22,8 +22,8 @@ from repro_torch.kernels.flash_attention import kernel as K
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) with H a multiple of Hkv.
-    Returns (B, Sq, H, D), contiguous."""
+    """q: (B, Sq, H, Dk); k: (B, Skv, Hkv, Dk); v: (B, Skv, Hkv, Dv) with H
+    a multiple of Hkv.  Returns (B, Sq, H, Dv), contiguous."""
     o = K.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window)

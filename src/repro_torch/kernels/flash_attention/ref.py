@@ -2,7 +2,9 @@
 ``repro/kernels/flash_attention/ref.py``), in the kernel's folded
 ``(B*H, S, D)`` layout: k and v repeated over the group, then einsum,
 mask, softmax, einsum.  The CPU path and the tests run it; on the card it
-is only the yardstick the kernel is held to."""
+is only the yardstick the kernel is held to.  Values may be narrower than
+keys (MLA: Dk 192, Dv 128); scores are scaled by 1 / sqrt(Dk), as JAX's
+``simple_attention`` scales them."""
 from __future__ import annotations
 
 import math
@@ -14,8 +16,8 @@ NEG_INF = -1e30
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (BH, Sq, D); k, v: (BHkv, Skv, D); kv head = q head // group
-    (heads ordered (b, h)).  Query i and key j are positions i and j of the
+    """q: (BH, Sq, Dk); k: (BHkv, Skv, Dk); v: (BHkv, Skv, Dv); kv head = q
+    head // group (heads ordered (b, h)); returns (BH, Sq, Dv).  Query i and key j are positions i and j of the
     same sequence: causal keeps j <= i, ``window > 0`` keeps i - j <
     window."""
     BH, Sq, D = q.shape

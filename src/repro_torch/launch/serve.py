@@ -3,14 +3,19 @@
 decode.
 
 Runs on one CUDA device — the prefill through the flash-attention kernel
-(dense family) or the SSD-scan kernel (SSM family) — and on the CPU with
-``--device cpu``, where the kernels' plain versions run.  Weights are
+(dense and MoE families, GQA or MLA) or the SSD-scan kernel (SSM family)
+— and on the CPU with ``--device cpu``, where the kernels' plain versions
+run.  Every registered config serves; ``--window`` gives GQA a ring-buffer
+cache (MLA writes its latent cache at the clamped index, as JAX does).
+Weights are
 random from ``--seed``; prompts are drawn with numpy from the same seed,
 the JAX launcher's prompts.
 
   python -m repro_torch.launch.serve --arch smollm-360m-smoke \\
       --batch 2 --prompt-len 40 --gen 8 --device cpu [--window 16]
   python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --batch 8 --prompt-len 1024 --gen 32
+  python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
       --batch 8 --prompt-len 1024 --gen 32
 """
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Grouped-query attention of the dense LM (PyTorch port of the GQA parts
-of ``repro/models/attention.py``).
+"""Attention of the LM stack (PyTorch port of the GQA and MLA parts of
+``repro/models/attention.py``).
 
 Three forms of one function:
 
@@ -14,6 +14,13 @@ Three forms of one function:
     online-softmax function.
   * ``decode_attention`` — one new token against the cache, plain
     PyTorch as in JAX (ring-buffer validity under a decode window).
+
+MLA (DeepSeek-V2's multi-head latent attention): ``mla_attention`` expands
+the latent kv and attends with Dk = head_dim + rope_head_dim (192 at
+deepseek-v2-lite) and Dv = head_dim (128), through the flash kernel in the
+prefill and ``attend`` in training; ``mla_decode_absorbed`` attends in the
+latent space against the ``(ckv, krope)`` cache, which it updates in
+place.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -53,10 +60,10 @@ def gqa_project_qkv(x: torch.Tensor, wq, wk, wv, num_heads: int,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) with H = G * Hkv.
-    Returns (B, Sq, H, D); query head h reads kv head h // G."""
+    """q: (B, Sq, H, Dk); k: (B, Skv, Hkv, Dk); v: (B, Skv, Hkv, Dv) with H
+    = G * Hkv.  Returns (B, Sq, H, Dv); query head h reads kv head h // G."""
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / math.sqrt(D)
@@ -66,7 +73,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s.to(torch.float32), dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
-    return out.reshape(B, Sq, H, D)
+    return out.reshape(B, Sq, H, Dv)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -93,3 +100,93 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(B, H, Dv)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+MLA_LEAVES = ("w_dkv", "w_kr", "w_uk", "w_uv", "wq", "wo")
+
+
+def mla_init(gen: torch.Generator, d_model: int, num_heads: int,
+             head_dim: int, kv_lora_rank: int, rope_head_dim: int, *,
+             lead=(), dtype=torch.float32) -> dict:
+    lead = tuple(lead)
+
+    def up():                                   # (r, H, hd), N(0, 1/r)
+        w = torch.randn(lead + (kv_lora_rank, num_heads, head_dim),
+                        generator=gen, device=gen.device)
+        return w.mul_(1.0 / math.sqrt(kv_lora_rank)).to(dtype)
+
+    p = {"w_dkv": dense_init(gen, d_model, kv_lora_rank, lead=lead,
+                             dtype=dtype),
+         "w_kr": dense_init(gen, d_model, rope_head_dim, lead=lead,
+                            dtype=dtype)}
+    p["w_uk"] = up()
+    p["w_uv"] = up()
+    p["wq"] = dense_init(gen, d_model, num_heads * (head_dim + rope_head_dim),
+                         lead=lead, dtype=dtype)
+    p["wo"] = dense_init(gen, num_heads * head_dim, d_model, lead=lead,
+                         dtype=dtype,
+                         scale=1.0 / math.sqrt(num_heads * head_dim))
+    return p
+
+
+def mla_attention(x: torch.Tensor, p, positions: torch.Tensor, *,
+                  num_heads: int, head_dim: int, rope_head_dim: int,
+                  rope_theta: float, attn_fn=None):
+    """Training / prefill MLA: expand the latent kv and attend with Dk =
+    head_dim + rope_head_dim, Dv = head_dim.  The query RoPE applies to
+    the last ``rope_head_dim`` columns only; the key RoPE slice is one
+    head, broadcast to all.  ``attn_fn(q, k, v)`` is the causal attention
+    (``attend`` by default; the prefill passes the flash kernel's op).
+    Returns (out (B, S, d_model), and the decode cache's latent ``ckv``
+    (B, S, r) and roped ``krope`` (B, S, rd))."""
+    B, S, _ = x.shape
+    ckv = x @ p["w_dkv"]
+    # one key head, shared by all (JAX's apply_rope_1h)
+    krope = apply_rope(x @ p["w_kr"], positions, rope_theta)
+    k_nope = torch.einsum("bsr,rhd->bshd", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhd->bshd", ckv, p["w_uv"])
+    q = (x @ p["wq"]).reshape(B, S, num_heads, head_dim + rope_head_dim)
+    q_rope = apply_rope(q[..., head_dim:], positions, rope_theta)
+    q = torch.cat([q[..., :head_dim], q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        B, S, num_heads, rope_head_dim)], dim=-1)
+    out = (attn_fn or attend)(q, k, v)
+    return out.reshape(B, S, num_heads * head_dim) @ p["wo"], ckv, krope
+
+
+def mla_decode_absorbed(x: torch.Tensor, p, ckv_cache: torch.Tensor,
+                        krope_cache: torch.Tensor, index: torch.Tensor, *,
+                        num_heads: int, head_dim: int, rope_head_dim: int,
+                        rope_theta: float) -> torch.Tensor:
+    """Absorbed-matmul MLA decode: scores and values in the compressed
+    latent space against the cache of (ckv, krope) alone.
+
+    x: (B, d_model), the current token; caches (B, S, r) / (B, S, rd),
+    written in place at ``index`` (clamped to the last slot, as JAX's
+    ``dynamic_update_slice`` clamps it); index: 0-d int tensor, the
+    token's position.  Returns (B, d_model)."""
+    B = x.shape[0]
+    S = ckv_cache.shape[1]
+    pos = index.reshape(1, 1).expand(B, 1)
+    ckv_new = x @ p["w_dkv"]                                   # (B, r)
+    krope_new = apply_rope((x @ p["w_kr"])[:, None, :], pos, rope_theta)
+    slot = torch.clamp(index, max=S - 1).reshape(1).long()
+    ckv_cache.index_copy_(1, slot, ckv_new[:, None].to(ckv_cache.dtype))
+    krope_cache.index_copy_(1, slot, krope_new.to(krope_cache.dtype))
+    q = (x @ p["wq"]).reshape(B, num_heads, head_dim + rope_head_dim)
+    q_nope = q[..., :head_dim]
+    q_rope = apply_rope(q[:, None, :, head_dim:], pos, rope_theta)[:, 0]
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope, p["w_uk"])   # absorb W_uk
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, ckv_cache).to(torch.float32)
+         + torch.einsum("bhd,bsd->bhs", q_rope, krope_cache).to(
+             torch.float32))
+    s = s / math.sqrt(head_dim + rope_head_dim)
+    valid = torch.arange(S, device=x.device) <= index
+    s = torch.where(valid[None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", w.to(ckv_cache.dtype), ckv_cache)
+    o = torch.einsum("bhr,rhd->bhd", o_lat, p["w_uv"])         # (B, H, hd)
+    return o.reshape(B, num_heads * head_dim) @ p["wo"]

@@ -18,18 +18,19 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                lead=(), dtype=torch.float32, scale: Optional[float] = None
                ) -> torch.Tensor:
     """Normal(0, 1/d_in) weights of shape ``lead + (d_in, d_out)``, used as
-    ``x @ w`` like the JAX layout."""
+    ``x @ w`` like the JAX layout.  Scaled in place, so a full-width init
+    holds one copy of each leaf at a time."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn(tuple(lead) + (d_in, d_out), generator=gen,
                     device=gen.device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.float32) -> torch.Tensor:
     w = torch.randn((vocab, d), generator=gen, device=gen.device,
                     dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

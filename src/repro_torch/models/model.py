@@ -2,12 +2,13 @@
 :class:`Model` bundles init / loss / prefill / decode for one architecture
 so the federated runtime and the launchers stay model-agnostic.
 
-The dense LM family trains and serves; the SSM family (Mamba2) serves
-only — its training needs derivatives through the SSD scan, forward mode
+The dense LM family and the MoE family (capacity-routed experts, with GQA
+or MLA attention) train and serve; the SSM family (Mamba2) serves only —
+its training needs derivatives through the SSD scan, forward mode
 included, which no kernel has yet (ROADMAP Queue 1 item 10).  The other
-families wait for ROADMAP Queue 1 items 5 (paper CNN/GRU) and 6 (MoE,
-MLA, hybrid, encoders).  Prefill and decode run under
-``torch.inference_mode()``."""
+families wait for ROADMAP Queue 1 items 5 (paper CNN/GRU), 6e (the jamba
+hybrid) and 6f (encoders, cross-attention, sinusoidal positions).
+Prefill and decode run under ``torch.inference_mode()``."""
 from __future__ import annotations
 
 import dataclasses
@@ -44,24 +45,25 @@ class Model:
 def build_model(cfg: ArchConfig, *, dtype=torch.float32,
                 decode_window: int = 0, loss_chunk: int = 2048) -> Model:
     """``decode_window > 0`` selects the sliding-window decode variant (a
-    ring-buffer cache of that size) for the dense family."""
+    ring-buffer cache of that size) for GQA attention; MLA's latent cache
+    is written at the clamped index, as JAX writes it."""
     kinds = set(cfg.layer_kinds())
     ssm_family = kinds == {MAMBA}
     unsupported = [what for what, bad in (
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-        ("encoder", cfg.encoder is not None),
-        ("cross-attention layers", CROSS in kinds),
-        ("hybrid attention/SSM stack",
+        ("hybrid attention/SSM stack (ROADMAP Queue 1 item 6e)",
          cfg.family == "hybrid" or {ATTN, MAMBA} <= kinds),
-        ("SSM layers without an SSM config",
+        ("encoder (ROADMAP Queue 1 item 6f)", cfg.encoder is not None),
+        ("cross-attention layers (ROADMAP Queue 1 item 6f)",
+         CROSS in kinds),
+        ("SSM layers without an SSM config (ROADMAP Queue 1 item 6e)",
          MAMBA in kinds and cfg.ssm is None),
-        ("rope_theta <= 0 (sinusoidal positions)",
+        ("rope_theta <= 0 (sinusoidal positions; ROADMAP Queue 1 item 6f)",
          ATTN in kinds and cfg.rope_theta <= 0),
     ) if bad]
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not yet ported to "
-            "repro_torch (ROADMAP Queue 1 item 6)")
+            "repro_torch")
     module = transformer.Transformer(cfg)
 
     def init(gen: torch.Generator):
@@ -72,15 +74,15 @@ def build_model(cfg: ArchConfig, *, dtype=torch.float32,
             raise NotImplementedError(SSM_TRAINING)
         if "mask" in batch or "enc_embeds" in batch:
             raise NotImplementedError("masked / encoder LM batches are not "
-                                      "ported (ROADMAP Queue 1 item 6)")
+                                      "ported (ROADMAP Queue 1 item 6f)")
         return transformer.lm_loss_chunked(module, params, batch["tokens"],
                                            chunk=loss_chunk)
 
     @torch.inference_mode()
     def prefill(params, batch: Batch, cache_len: Optional[int] = None):
         # only the last position goes through the vocab projection
-        h, cache = functional_call(module, params, (batch["tokens"],),
-                                   {"collect_cache": True})
+        h, _, cache = functional_call(module, params, (batch["tokens"],),
+                                      {"collect_cache": True})
         logits_last = h[:, -1] @ transformer.head_of(cfg, params)
         if cache_len is not None:
             cache = transformer.pad_cache(cache, cfg, cache_len)

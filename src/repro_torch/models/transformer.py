@@ -1,30 +1,38 @@
-"""Decoder-only LM of the port (PyTorch port of the dense and SSM subsets
-of ``repro/models/transformer.py``): GQA attention with RoPE, SwiGLU MLP
-and RMSNorm (the dense family), or Mamba2 SSD blocks with no MLP (the SSM
+"""Decoder-only LM of the port (PyTorch port of the dense, MoE and SSM
+subsets of ``repro/models/transformer.py``): GQA attention with RoPE or
+DeepSeek's MLA, a SwiGLU MLP or a capacity-routed MoE FFN, and RMSNorm
+(the dense and MoE families), or Mamba2 SSD blocks with no MLP (the SSM
 family); tied or untied head.  Training, prefill and decode.
 
+The stack is organized in periods, as JAX's: the layer pattern repeats
+with period ``P = lcm(attn_period, cross_every, moe.every)`` (in the port,
+whose architectures have one attention or mixer kind, that is
+``moe.every``), layer ``i`` is position ``i % P`` of period ``i // P``.
 Parameter layout is the JAX package's, so :mod:`repro_torch.bridge` is a
-copy: every block leaf is stacked over layers, ``(num_layers, ...)``, and
-dense weights are ``(in, out)``, used as ``x @ w``.  The module holds its
-parameters on the ``meta`` device only; a forward always runs through
+copy: ``blocks`` holds one entry per position in the period, every leaf
+stacked over the ``num_layers // P`` periods, ``(num_layers // P, ...)``,
+and dense weights are ``(in, out)``, used as ``x @ w``.  The module holds
+its parameters on the ``meta`` device only; a forward always runs through
 :func:`torch.func.functional_call` with a dict of real tensors
 (``{"blocks.0.attn.wq": ..., "embed": ..., ...}``), which is what the
 federated runtime differentiates with ``torch.func``.  No remat:
 activation checkpointing does not compose with ``torch.func`` transforms.
 
 Serving: ``forward(..., collect_cache=True)`` is the prefill — attention
-through the flash-attention kernel, the mamba blocks' SSD scan through
-its kernel — and returns the decode cache in the JAX tree, ``{"layers":
-(entry,), "index": int32}``, each entry's tensors stacked over layers
-(``{"k", "v"}`` (L, B, S, Hkv, hd) or ``{"ssm"}`` (L, B, H, N, P) and
-``{"conv"}`` (L, B, d_conv - 1, C)).  :func:`decode_step` takes one
-token per sequence against it.  The port's architectures have one layer
-kind each (a period of 1), so ``blocks`` has one entry.
+through the flash-attention kernel (GQA at the config's head dim, MLA at
+Dk 192 / Dv 128), the mamba blocks' SSD scan through its kernel — and
+returns the decode cache in the JAX tree, ``{"layers": (entry, ...),
+"index": int32}``, one entry per position in the period, its tensors
+stacked over periods (``{"k", "v"}`` (n, B, S, Hkv, hd), MLA's ``{"ckv"}``
+(n, B, S, r) and ``{"krope"}`` (n, B, S, rd), or ``{"ssm"}`` (n, B, H, N,
+P) and ``{"conv"}`` (n, B, d_conv - 1, C)).  :func:`decode_step` takes
+one token per sequence against it.
 """
 from __future__ import annotations
 
+import math
 from operator import attrgetter
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,10 +41,13 @@ from torch.func import functional_call
 
 from repro_torch.configs.base import MAMBA, ArchConfig
 from repro_torch.core.flat import leaf_order
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.attention import (attend, decode_attention, gqa_init,
-                                          gqa_project_qkv)
+from repro_torch.models.attention import (MLA_LEAVES, attend,
+                                          decode_attention, gqa_init,
+                                          gqa_project_qkv, mla_attention,
+                                          mla_decode_absorbed, mla_init)
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        rmsnorm, swiglu)
 
@@ -53,6 +64,29 @@ def is_ssm(cfg: ArchConfig) -> bool:
     return cfg.layer_kinds()[0] == MAMBA
 
 
+def _lcm(*xs) -> int:
+    out = 1
+    for x in xs:
+        x = max(int(x), 1)
+        out = out * x // math.gcd(out, x)
+    return out
+
+
+def period_of(cfg: ArchConfig) -> int:
+    p = _lcm(cfg.attn_period, cfg.cross_every or 1,
+             cfg.moe.every if cfg.moe else 1)
+    assert cfg.num_layers % p == 0, (cfg.name, cfg.num_layers, p)
+    return p
+
+
+def _has_moe(cfg: ArchConfig, j: int) -> bool:
+    return cfg.moe is not None and (j % cfg.moe.every == cfg.moe.every - 1)
+
+
+def _has_mlp(cfg: ArchConfig, j: int) -> bool:
+    return _has_moe(cfg, j) or cfg.d_ff > 0
+
+
 class Attention(nn.Module):
     def __init__(self, L: int, d: int, h: int, hkv: int, hd: int):
         super().__init__()
@@ -60,11 +94,31 @@ class Attention(nn.Module):
         self.wv, self.wo = _meta(L, d, hkv * hd), _meta(L, h * hd, d)
 
 
+class MLA(nn.Module):
+    def __init__(self, L: int, d: int, h: int, hd: int, r: int, rd: int):
+        super().__init__()
+        self.w_dkv, self.w_kr = _meta(L, d, r), _meta(L, d, rd)
+        self.w_uk, self.w_uv = _meta(L, r, h, hd), _meta(L, r, h, hd)
+        self.wq, self.wo = _meta(L, d, h * (hd + rd)), _meta(L, h * hd, d)
+
+
 class MLP(nn.Module):
     def __init__(self, L: int, d: int, d_ff: int):
         super().__init__()
         self.w_gate, self.w_up = _meta(L, d, d_ff), _meta(L, d, d_ff)
         self.w_down = _meta(L, d_ff, d)
+
+
+class MoE(nn.Module):
+    def __init__(self, L: int, d: int, cfg: ArchConfig):
+        super().__init__()
+        m = cfg.moe
+        E, de = m.num_experts, m.d_expert or cfg.d_ff
+        self.router = _meta(L, d, E)
+        self.w_gate, self.w_up = _meta(L, E, d, de), _meta(L, E, d, de)
+        self.w_down = _meta(L, E, de, d)
+        if m.num_shared:
+            self.shared = MLP(L, d, de * m.num_shared)
 
 
 class Mamba(nn.Module):
@@ -80,72 +134,109 @@ class Mamba(nn.Module):
 
 
 class Block(nn.Module):
-    """All ``L`` layers of one position in the period, stacked."""
+    """Position ``j`` of the period: its layers of every period, stacked."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, j: int):
         super().__init__()
-        L, d = cfg.num_layers, cfg.d_model
+        L, d = cfg.num_layers // period_of(cfg), cfg.d_model
+        hd = cfg.resolved_head_dim
         if is_ssm(cfg):
             self.mamba = Mamba(L, d, cfg)
+        elif cfg.mla is not None:
+            self.attn = MLA(L, d, cfg.num_heads, hd, cfg.mla.kv_lora_rank,
+                            cfg.mla.rope_head_dim)
         else:
-            self.attn = Attention(L, d, cfg.num_heads, cfg.num_kv_heads,
-                                  cfg.resolved_head_dim)
-        if cfg.d_ff > 0:
-            self.mlp = MLP(L, d, cfg.d_ff)
+            self.attn = Attention(L, d, cfg.num_heads, cfg.num_kv_heads, hd)
+        if _has_mlp(cfg, j):
+            self.mlp = (MoE(L, d, cfg) if _has_moe(cfg, j)
+                        else MLP(L, d, cfg.d_ff))
             self.norm2 = _meta(L, d)
         self.norm1 = _meta(L, d)
 
 
+def block_leaves(cfg: ArchConfig, j: int) -> List[str]:
+    """The leaf paths of position ``j``'s block, relative to it."""
+    names = ["norm1"]
+    if is_ssm(cfg):
+        names += [f"mamba.{n}" for n in ssm.LEAVES]
+    else:
+        leaves = MLA_LEAVES if cfg.mla is not None else ATTN_LEAVES
+        names += [f"attn.{n}" for n in leaves]
+    if _has_mlp(cfg, j):
+        names.append("norm2")
+        if _has_moe(cfg, j):
+            names += [f"mlp.{n}" for n in moe_lib.LEAVES]
+            if cfg.moe.num_shared:
+                names += [f"mlp.shared.{n}" for n in MLP_LEAVES]
+        else:
+            names += [f"mlp.{n}" for n in MLP_LEAVES]
+    return names
+
+
 def _layers(get, cfg: ArchConfig):
-    """The per-layer parameter trees (the JAX per-layer layout), from the
-    stacked leaves; ``get(path)`` returns the leaf ``blocks.0.<path>``.
+    """The per-layer parameter trees (the JAX per-layer layout) in layer
+    order, from the stacked leaves; ``get(path)`` returns the leaf
+    ``blocks.<path>`` (``path`` starts with the position in the period).
     Each stacked leaf is unbound once, so its gradient is one stack of
     the layers' gradients."""
-    groups = [("", ("norm1",))]
-    groups.append(("mamba.", ssm.LEAVES) if is_ssm(cfg)
-                  else ("attn.", ATTN_LEAVES))
-    if cfg.d_ff > 0:
-        groups += [("", ("norm2",)), ("mlp.", MLP_LEAVES)]
+    P = period_of(cfg)
     per_layer = [dict() for _ in range(cfg.num_layers)]
-    for prefix, names in groups:
-        for n in names:
-            for lp, t in zip(per_layer, get(prefix + n).unbind(0)):
-                (lp.setdefault(prefix[:-1], {}) if prefix else lp)[n] = t
+    for j in range(P):
+        for path in block_leaves(cfg, j):
+            *parents, last = path.split(".")
+            for n, t in enumerate(get(f"{j}.{path}").unbind(0)):
+                node = per_layer[n * P + j]
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[last] = t
     return per_layer
 
 
-def _mlp(h: torch.Tensor, lp, cfg: ArchConfig) -> torch.Tensor:
-    if cfg.d_ff <= 0:
-        return h
-    m = lp["mlp"]
+def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int):
+    """The layer's MLP or MoE on the residual stream; returns (h, aux)."""
+    if "mlp" not in lp:
+        return h, None
     x2 = rmsnorm(h, lp["norm2"], cfg.norm_eps)
-    return h + swiglu(x2, m["w_gate"], m["w_up"], m["w_down"])
+    if _has_moe(cfg, j):
+        y2, aux = moe_lib.moe_ffn(x2, lp["mlp"], cfg.moe)
+        return h + y2, aux
+    m = lp["mlp"]
+    return h + swiglu(x2, m["w_gate"], m["w_up"], m["w_down"]), None
 
 
-def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig,
+def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
                  positions: torch.Tensor, collect_cache: bool):
-    """One layer over the full sequence.  Returns (h, cache_entry)."""
+    """One layer over the full sequence.  Returns (h, aux, cache_entry)."""
     B, S, _ = h.shape
     x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
     ce = None
+    hd = cfg.resolved_head_dim
+    attn_fn = ((lambda q, k, v: flash_attention(q, k, v, causal=True))
+               if collect_cache else
+               (lambda q, k, v: attend(q, k, v, causal=True)))
     if is_ssm(cfg):
         y = ssm.mamba_block(x, lp["mamba"], cfg.ssm,
                             collect_cache=collect_cache)
         if collect_cache:
             y, ce = y
+    elif cfg.mla is not None:
+        y, ckv, krope = mla_attention(
+            x, lp["attn"], positions, num_heads=cfg.num_heads, head_dim=hd,
+            rope_head_dim=cfg.mla.rope_head_dim, rope_theta=cfg.rope_theta,
+            attn_fn=attn_fn)
+        if collect_cache:
+            ce = {"ckv": ckv, "krope": krope}
     else:
         a_p = lp["attn"]
-        hd = cfg.resolved_head_dim
         q, k, v = gqa_project_qkv(x, a_p["wq"], a_p["wk"], a_p["wv"],
                                   cfg.num_heads, cfg.num_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        a = (flash_attention(q, k, v, causal=True) if collect_cache
-             else attend(q, k, v, causal=True))
-        y = a.reshape(B, S, -1) @ a_p["wo"]
+        y = attn_fn(q, k, v).reshape(B, S, -1) @ a_p["wo"]
         if collect_cache:
             ce = {"k": k, "v": v}
-    return _mlp(h + y, lp, cfg), ce
+    h, aux = _ffn(h + y, lp, cfg, j)
+    return h, aux, ce
 
 
 class Transformer(nn.Module):
@@ -156,27 +247,42 @@ class Transformer(nn.Module):
         self.final_norm = _meta(cfg.d_model)
         if not cfg.tie_embeddings:
             self.head = _meta(cfg.d_model, cfg.vocab_size)
-        self.blocks = nn.ModuleList([Block(cfg)])
+        self.blocks = nn.ModuleList([Block(cfg, j)
+                                     for j in range(period_of(cfg))])
 
     def forward(self, tokens: torch.Tensor, collect_cache: bool = False):
-        """tokens: (B, S) int -> pre-head hidden state (B, S, d), and with
+        """tokens: (B, S) int -> (pre-head hidden state (B, S, d), the MoE
+        aux loss summed over layers (0 without MoE)), and with
         ``collect_cache`` (the prefill) also the decode cache."""
         cfg = self.cfg
         B, S = tokens.shape
-        blk = self.blocks[0]
+        P = period_of(cfg)
         h = self.embed[tokens]
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        entries = []
-        for lp in _layers(lambda path: attrgetter(path)(blk), cfg):
-            h, ce = _apply_layer(h, lp, cfg, positions, collect_cache)
-            entries.append(ce)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        entries = [[] for _ in range(P)]
+        for i, lp in enumerate(_layers(
+                lambda path: attrgetter(path)(self.blocks), cfg)):
+            h, a, ce = _apply_layer(h, lp, cfg, i % P, positions,
+                                    collect_cache)
+            if a is not None:
+                aux = aux + a
+            entries[i % P].append(ce)
         h = rmsnorm(h, self.final_norm, cfg.norm_eps)
         if not collect_cache:
-            return h
-        stacked = {k: torch.stack([e[k] for e in entries])
-                   for k in entries[0]}
+            return h, aux
+        layers = tuple({k: torch.stack([e[k] for e in es]) for k in es[0]}
+                       for es in entries)
         index = torch.tensor(S, dtype=torch.int32, device=tokens.device)
-        return h, {"layers": (stacked,), "index": index}
+        return h, aux, {"layers": layers, "index": index}
+
+
+def _flatten(prefix: str, tree: dict, out: Params) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(f"{prefix}{k}.", v, out)
+        else:
+            out[prefix + k] = v
 
 
 def init_transformer(cfg: ArchConfig, gen: torch.Generator,
@@ -184,33 +290,44 @@ def init_transformer(cfg: ArchConfig, gen: torch.Generator,
     """Random parameters from ``gen`` on ``gen.device``: the JAX
     initializers' distributions (not their numbers — the two frameworks'
     generators differ; tests pass JAX parameters through the bridge)."""
-    L, d = cfg.num_layers, cfg.d_model
+    P, d = period_of(cfg), cfg.d_model
+    n = cfg.num_layers // P
     dev = gen.device
-    # the draw order (block, embed, MLP, head) fixes what a seed gives
-    if is_ssm(cfg):
-        block = {f"mamba.{k}": v for k, v in ssm.mamba_init(
-            gen, d, cfg.ssm, lead=(L,), dtype=dtype).items()}
-    else:
-        block = {f"attn.{k}": v for k, v in gqa_init(
-            gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-            lead=(L,), dtype=dtype).items()}
-    p: Params = {
-        "embed": embed_init(gen, cfg.vocab_size, d, dtype),
-        "final_norm": torch.ones((d,), dtype=torch.float32, device=dev),
-        "blocks.0.norm1": torch.ones((L, d), dtype=torch.float32, device=dev),
-    }
-    if cfg.d_ff > 0:
-        p.update({
-            "blocks.0.norm2": torch.ones((L, d), dtype=torch.float32,
-                                         device=dev),
-            "blocks.0.mlp.w_gate": dense_init(gen, d, cfg.d_ff, lead=(L,),
-                                              dtype=dtype),
-            "blocks.0.mlp.w_up": dense_init(gen, d, cfg.d_ff, lead=(L,),
-                                            dtype=dtype),
-            "blocks.0.mlp.w_down": dense_init(gen, cfg.d_ff, d, lead=(L,),
-                                              dtype=dtype),
-        })
-    p.update({f"blocks.0.{k}": v for k, v in block.items()})
+    hd = cfg.resolved_head_dim
+    p: Params = {}
+    # the draw order (mixers, embed, MLPs, head) fixes what a seed gives
+    for j in range(P):
+        if is_ssm(cfg):
+            mixer = {"mamba": ssm.mamba_init(gen, d, cfg.ssm, lead=(n,),
+                                             dtype=dtype)}
+        elif cfg.mla is not None:
+            mixer = {"attn": mla_init(gen, d, cfg.num_heads, hd,
+                                      cfg.mla.kv_lora_rank,
+                                      cfg.mla.rope_head_dim, lead=(n,),
+                                      dtype=dtype)}
+        else:
+            mixer = {"attn": gqa_init(gen, d, cfg.num_heads,
+                                      cfg.num_kv_heads, hd, lead=(n,),
+                                      dtype=dtype)}
+        _flatten(f"blocks.{j}.", mixer, p)
+        p[f"blocks.{j}.norm1"] = torch.ones((n, d), dtype=torch.float32,
+                                            device=dev)
+    p["embed"] = embed_init(gen, cfg.vocab_size, d, dtype)
+    p["final_norm"] = torch.ones((d,), dtype=torch.float32, device=dev)
+    for j in range(P):
+        if not _has_mlp(cfg, j):
+            continue
+        p[f"blocks.{j}.norm2"] = torch.ones((n, d), dtype=torch.float32,
+                                            device=dev)
+        if _has_moe(cfg, j):
+            mlp = moe_lib.moe_init(gen, d, cfg.moe, cfg.d_ff, lead=(n,),
+                                   dtype=dtype)
+        else:
+            mlp = {k: dense_init(gen, a, b, lead=(n,), dtype=dtype)
+                   for k, (a, b) in (("w_gate", (d, cfg.d_ff)),
+                                     ("w_up", (d, cfg.d_ff)),
+                                     ("w_down", (cfg.d_ff, d)))}
+        _flatten(f"blocks.{j}.mlp.", mlp, p)
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, d, cfg.vocab_size, dtype=dtype)
     return {k: p[k] for k in leaf_order(p)}
@@ -224,11 +341,12 @@ def lm_loss_chunked(module: Transformer, params: Params, tokens: torch.Tensor,
                     *, chunk: int = 2048
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss with the vocab projection and cross-entropy taken
-    over sequence chunks, so the (B, S, V) logits never exist at once.
-    Returns (loss, {"xent", "aux", "acc"})."""
+    over sequence chunks (the last one ragged), so the (B, S, V) logits
+    never exist at once; plus the MoE aux loss.  Returns (xent + aux,
+    {"xent", "aux", "acc"})."""
     cfg = module.cfg
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    h = functional_call(module, params, (inputs,))
+    h, aux = functional_call(module, params, (inputs,))
     head = head_of(cfg, params)
     S = h.shape[1]
     C = min(chunk, S)
@@ -244,7 +362,6 @@ def lm_loss_chunked(module: Transformer, params: Params, tokens: torch.Tensor,
         hit = c if hit is None else hit + c
     cnt = float(max(labels.numel(), 1))
     xent = nll / cnt
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return xent + aux, {"xent": xent, "aux": aux, "acc": hit / cnt}
 
 
@@ -252,18 +369,19 @@ def lm_loss_chunked(module: Transformer, params: Params, tokens: torch.Tensor,
 # Decode (one token against the stacked cache)
 # ---------------------------------------------------------------------------
 def pad_cache(cache, cfg: ArchConfig, cache_len: int):
-    """Grow a prefill cache's attention sequence axis to ``cache_len`` (zero
-    slots) so decode steps can write into it; mamba entries carry constant
-    state and pass through."""
+    """Grow a prefill cache's attention sequence axis (k / v, or MLA's ckv
+    / krope) to ``cache_len`` (zero slots) so decode steps can write into
+    it; mamba entries carry constant state and pass through."""
     if is_ssm(cfg):
         return cache
-    (ce,) = cache["layers"]
-    S = ce["k"].shape[2]
-    if S >= cache_len:
-        return cache
-    pad = [0, 0, 0, 0, 0, cache_len - S]            # axis 2 of (L, B, S, ...)
-    return {"layers": ({k: F.pad(t, pad) for k, t in ce.items()},),
-            "index": cache["index"]}
+    layers = []
+    for ce in cache["layers"]:
+        S = next(iter(ce.values())).shape[2]
+        pad = cache_len - S
+        layers.append(ce if pad <= 0 else {
+            k: F.pad(t, [0, 0] * (t.dim() - 3) + [0, pad])   # axis 2
+            for k, t in ce.items()})
+    return {"layers": tuple(layers), "index": cache["index"]}
 
 
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int,
@@ -271,16 +389,23 @@ def make_cache(cfg: ArchConfig, batch: int, cache_len: int,
     """Zero-initialized decode cache.  ``cache_len`` is the attention cache
     length (the window instead when a sliding-window decode is used);
     mamba layers carry constant-size state."""
-    L = cfg.num_layers
-    if is_ssm(cfg):
-        ce = ssm.mamba_make_cache(batch, cfg.d_model, cfg.ssm, dtype,
-                                  lead=(L,), device=device)
+    P = period_of(cfg)
+    n = cfg.num_layers // P
+    S = window if window > 0 else cache_len
+    if cfg.mla is not None:
+        shapes = {"ckv": (n, batch, S, cfg.mla.kv_lora_rank),
+                  "krope": (n, batch, S, cfg.mla.rope_head_dim)}
     else:
-        S = window if window > 0 else cache_len
-        shape = (L, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
-        ce = {"k": torch.zeros(shape, dtype=dtype, device=device),
-              "v": torch.zeros(shape, dtype=dtype, device=device)}
-    return {"layers": (ce,),
+        kv = (n, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shapes = {"k": kv, "v": kv}
+    layers = []
+    for _ in range(P):
+        layers.append(
+            ssm.mamba_make_cache(batch, cfg.d_model, cfg.ssm, dtype,
+                                 lead=(n,), device=device) if is_ssm(cfg)
+            else {k: torch.zeros(s, dtype=dtype, device=device)
+                  for k, s in shapes.items()})
+    return {"layers": tuple(layers),
             "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -292,34 +417,44 @@ def decode_step(params: Params, tokens: torch.Tensor, cache,
     never reads an old cache again), so the step allocates no cache."""
     tokens = tokens.reshape(tokens.shape[0])
     B = tokens.shape[0]
+    P = period_of(cfg)
     index = cache["index"]
-    (ce,) = cache["layers"]
-    layers = _layers(lambda path: params[f"blocks.0.{path}"], cfg)
+    layers = _layers(lambda path: params[f"blocks.{path}"], cfg)
+    hd = cfg.resolved_head_dim
     h = params["embed"][tokens]
     for i, lp in enumerate(layers):
+        j, n = i % P, i // P
+        ce = cache["layers"][j]
         x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
         if is_ssm(cfg):
             y, new = ssm.mamba_block_decode(
                 x, lp["mamba"], cfg.ssm,
-                {"ssm": ce["ssm"][i], "conv": ce["conv"][i]})
-            ce["ssm"][i].copy_(new["ssm"])
-            ce["conv"][i].copy_(new["conv"])
+                {"ssm": ce["ssm"][n], "conv": ce["conv"][n]})
+            ce["ssm"][n].copy_(new["ssm"])
+            ce["conv"][n].copy_(new["conv"])
+        elif cfg.mla is not None:
+            y = mla_decode_absorbed(
+                x, lp["attn"], ce["ckv"][n], ce["krope"][n], index,
+                num_heads=cfg.num_heads, head_dim=hd,
+                rope_head_dim=cfg.mla.rope_head_dim,
+                rope_theta=cfg.rope_theta)
         else:
-            a_p, hd = lp["attn"], cfg.resolved_head_dim
+            a_p = lp["attn"]
             pos = index.reshape(1, 1).expand(B, 1)
             q = (x @ a_p["wq"]).reshape(B, 1, cfg.num_heads, hd)
             k = (x @ a_p["wk"]).reshape(B, 1, cfg.num_kv_heads, hd)
             v = (x @ a_p["wv"]).reshape(B, 1, cfg.num_kv_heads, hd)
             q = apply_rope(q, pos, cfg.rope_theta)[:, 0]
             k = apply_rope(k, pos, cfg.rope_theta)
-            k_cache, v_cache = ce["k"][i], ce["v"][i]
+            k_cache, v_cache = ce["k"][n], ce["v"][n]
             slot = (index % k_cache.shape[1] if window > 0 else index)
             slot = slot.reshape(1).long()
             k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
             v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
             a = decode_attention(q, k_cache, v_cache, index, window=window)
             y = a.reshape(B, -1) @ a_p["wo"]
-        h = _mlp(h + y, lp, cfg)
+        # as a (B, 1, d) step: a MoE routes every token as its own group
+        h = _ffn((h + y)[:, None], lp, cfg, j)[0][:, 0]
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = h @ head_of(cfg, params)
     return logits, {"layers": cache["layers"], "index": index + 1}

@@ -19,6 +19,7 @@ from _torch_parity import rel_err
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models.attention import attend as jax_attend
+from repro.models.attention import simple_attention
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref as R
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -100,6 +101,70 @@ def test_ragged_length_matches_jax_chunked_attend():
     out = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
                           causal=True)
     assert rel_err(out, np.asarray(att)) <= TOL
+
+
+@pytest.mark.parametrize("S,H,Hkv,causal,window", [
+    (40, 4, 4, True, 0), (33, 6, 2, True, 8), (17, 4, 2, False, 0)])
+def test_head_dim_96_matches_pallas_interpret(S, H, Hkv, causal, window):
+    """phi3-mini's head dim (96), a form the kernel is built for: the op
+    against the Pallas kernel in interpret mode and the model's
+    ``attend``."""
+    q, k, v = _inputs(S, H, Hkv, 96)
+    pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=causal, window=window, interpret=True)
+    out = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
+                          causal=causal, window=window)
+    assert out.shape == (2, S, H, 96)
+    assert rel_err(out, np.asarray(pallas)) <= TOL
+    assert rel_err(TA.attend(*(torch.from_numpy(t) for t in (q, k, v)),
+                             causal=causal), np.asarray(jax_attend(
+                                 jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=causal))) <= TOL
+
+
+@pytest.mark.parametrize("S,H,Hkv,causal,window", [
+    (24, 4, 4, True, 0), (37, 4, 2, True, 0), (16, 2, 2, False, 0),
+    (30, 4, 4, True, 8)])
+def test_wide_keys_narrow_values_match_jax_simple_attention(
+        S, H, Hkv, causal, window):
+    """MLA's form, Dk 192 > Dv 128 (the Pallas kernel takes one head
+    dim): the op, its plain version and ``attend`` against JAX's
+    ``simple_attention``, which scales by 1 / sqrt(Dk)."""
+    rng = np.random.default_rng([S, H, Hkv])
+    q = rng.standard_normal((2, S, H, 192), dtype=np.float32)
+    k = rng.standard_normal((2, S, Hkv, 192), dtype=np.float32)
+    v = rng.standard_normal((2, S, Hkv, 128), dtype=np.float32)
+    ref = np.asarray(simple_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=causal,
+                                      window=window))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.shape == (2, S, H, 128) and out.is_contiguous()
+    assert rel_err(out, ref) <= TOL
+    o4 = K.flash_attention_fwd(tq.transpose(1, 2), tk.transpose(1, 2),
+                               tv.transpose(1, 2), causal=causal,
+                               window=window)
+    assert o4.shape == (2, H, S, 128) and torch.equal(o4.transpose(1, 2), out)
+    if window == 0:
+        assert rel_err(TA.attend(tq, tk, tv, causal=causal), ref) <= TOL
+
+
+def test_kernel_forms_and_shape_refusals():
+    """The CUDA kernel is built for (Dk, Dv) in (64, 64), (96, 96), (128,
+    128) and (192, 128) (a CUDA tensor at any other pair raises
+    ``NotImplementedError``, checked on the card); on every device the
+    wrapper refuses keys whose head dim is not the queries', and values
+    whose batch, heads or length are not the keys'."""
+    assert K.FORMS == ((64, 64), (96, 96), (128, 128), (192, 128))
+    q = torch.zeros((1, 4, 8, 192))
+    k, v = torch.zeros((1, 2, 8, 192)), torch.zeros((1, 2, 8, 128))
+    assert K.flash_attention_fwd(q, k, v).shape == (1, 4, 8, 128)
+    with pytest.raises(ValueError, match="do not match"):
+        K.flash_attention_fwd(q, k[..., :128], v)
+    with pytest.raises(ValueError, match="do not match"):
+        K.flash_attention_fwd(q, k, v[:, :, :5])
+    with pytest.raises(ValueError, match="do not match"):
+        K.flash_attention_fwd(q, k, v[:, :1])
 
 
 def test_prefill_attention_equals_training_attend():

@@ -10,7 +10,7 @@ import torch
 from repro.configs import FedConfig as JaxFedConfig
 from repro.core import rngtags as jax_rngtags
 from repro_torch.configs import FedConfig, get_arch
-from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.configs.base import ArchConfig, EncoderConfig, MoEConfig
 from repro_torch.core import rngtags
 from repro_torch.device import resolve_device
 
@@ -94,9 +94,20 @@ def test_bad_values_raise_value_errors():
 
 
 def test_build_model_refuses_unported_families():
+    """MoE FFNs on an attention stack are ported (deepseek, llama4); the
+    jamba hybrid's attention/mamba period with MoE (ROADMAP Queue 1 item
+    6e) and an encoder (item 6f) still raise."""
     from repro_torch.models.model import build_model
-    cfg = dataclasses.replace(get_arch("smollm-360m-smoke"), family="moe",
-                              moe=MoEConfig(num_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    moe = MoEConfig(num_experts=4, top_k=2, every=2)
+    cfg = dataclasses.replace(get_arch("mamba2-780m-smoke"), family="hybrid",
+                              attn_period=2, num_heads=4, num_kv_heads=4,
+                              moe=moe)
+    with pytest.raises(NotImplementedError, match="hybrid.*item 6e"):
         build_model(cfg)
+    enc = dataclasses.replace(get_arch("smollm-360m-smoke"),
+                              encoder=EncoderConfig(1, 8, 32))
+    with pytest.raises(NotImplementedError, match="encoder.*item 6f"):
+        build_model(enc)
+    build_model(dataclasses.replace(get_arch("smollm-360m-smoke"),
+                                    family="moe", moe=moe))
     assert isinstance(get_arch("smollm-360m"), ArchConfig)

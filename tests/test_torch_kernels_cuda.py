@@ -371,6 +371,63 @@ def test_flash_attention_kernel_refuses_grad(cuda_device):
         FK.flash_attention_fwd(buf[..., 1:65], buf[..., :64], buf[..., :64])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dk,Dv", [(96, 96), (192, 128)])
+@pytest.mark.parametrize("S,causal,window,G", [
+    (1, True, 0, 1), (63, True, 0, 3), (100, False, 0, 1),
+    (1000, True, 256, 3), (1025, True, 0, 1), (1025, False, 256, 3)])
+def test_flash_attention_kernel_new_forms_match_plain(cuda_device, Dk, Dv, S,
+                                                      causal, window, G):
+    """phi3-mini's head dim 96 and MLA's Dk 192 / Dv 128, at ragged S,
+    causal and not, windowed, group 1 and 3."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + Dk)
+    q = torch.randn((2 * 2 * G, S, Dk), generator=gen, device=cuda_device)
+    k = torch.randn((2 * 2, S, Dk), generator=gen, device=cuda_device)
+    v = torch.randn((2 * 2, S, Dv), generator=gen, device=cuda_device)
+    n0 = FK.flash_attention_fwd.launches
+    out = FK.flash_attention_fwd(q[None], k[None], v[None], causal=causal,
+                                 window=window)[0]
+    ref = FR.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_fwd.launches == n0 + 1
+    assert out.shape == ref.shape == (2 * 2 * G, S, Dv)
+    assert rel_err(out, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,H,Hkv,Dk,Dv,S", [
+    ("phi3-medium-14b", 40, 10, 128, 128, 1025),
+    ("phi3-mini-3.8b", 32, 32, 96, 96, 1024),
+    ("deepseek-v2-lite-16b", 16, 16, 192, 128, 1024)])
+def test_flash_attention_kernel_at_served_heads(cuda_device, model, H, Hkv,
+                                                Dk, Dv, S):
+    """The served models' heads on the model's (B, S, H, D) views, B 2,
+    causal: phi3-medium's GQA 40/10 (a ragged S), phi3-mini's 32 heads of
+    96, deepseek's MLA form."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=cuda_device).manual_seed(H + Dk)
+    q = torch.randn((2, S, H, Dk), generator=gen, device=cuda_device)
+    k = torch.randn((2, S, Hkv, Dk), generator=gen, device=cuda_device)
+    v = torch.randn((2, S, Hkv, Dv), generator=gen, device=cuda_device)
+    out = flash_attention(q, k, v, causal=True)
+    fold = lambda t: t.transpose(1, 2).reshape(-1, S, t.shape[-1])
+    ref = FR.attention_ref(fold(q), fold(k), fold(v), causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == (2, S, H, Dv) and out.is_contiguous()
+    assert rel_err(fold(out), ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dk,Dv", [(192, 192), (128, 64), (96, 64), (32, 32)])
+def test_flash_attention_kernel_refuses_other_forms(cuda_device, Dk, Dv):
+    q, k = (torch.randn((1, 2, 8, Dk), device=cuda_device) for _ in range(2))
+    v = torch.randn((1, 2, 8, Dv), device=cuda_device)
+    n0 = FK.flash_attention_fwd.launches
+    with pytest.raises(NotImplementedError, match="head dim"):
+        FK.flash_attention_fwd(q, k, v)
+    assert FK.flash_attention_fwd.launches == n0
+
+
 def _ssd_inputs(gen, dev, B, S, H, G, N, regime):
     """"init": A from -1 to -16 (the model's init), dt = softplus(normal);
     "unit": |a| about 1; "slow": |a| about 0.01, the state carries."""
