@@ -52,23 +52,30 @@ The serving path (``repro_torch.launch.serve``) adds, beside these:
 
   3b. flash attention and the SSD scan against their plain versions on the
       card (flash at 192 shapes: S 1 to 1025, causal on and off, window 0
-      and 256, group 1 and 3, each (Dk, Dv) form; the SSD scan at S 128
-      to 1025, chunk 256 and 64, y and h_final, at the init's decay range
-      and at slow decays, and against the sequential recurrence at S <=
-      256; then at eight edge shapes, N 10 to 128, chunk 32 to 256, G 1,
-      2 and 4, and on strided views), then each at the prefill's shapes
+      and 256, group 1 and 3, each (Dk, Dv) form; non-causal at Sq !=
+      Skv, queries against an encoder's keys (``CROSS_PAIRS``: (1, 1500),
+      (63, 1500), (416, 1500), (1024, 1601)) and S 1500 square, group 1
+      and 8, each form; the SSD scan at S 128 to 1025, chunk 256 and 64,
+      y and h_final, at the init's decay range and at slow decays, and
+      against the sequential recurrence at S <= 256; then at eight edge
+      shapes, N 10 to 128, chunk 32 to 256, G 1, 2 and 4, and on strided
+      views), then each at the prefill's shapes
       (the SSD scan in both decay regimes, so the state carried across
       chunks is held at full width); flash at all four of its (Dk, Dv)
       forms, (96, 96) and (192, 128) beside (64, 64) and (128, 128), and
-      at every served model's prefill shape (``FLASH_MODELS``);
+      at every served prefill's call shape (``flash_calls``: the
+      decoder-only models' causal S 1024, whisper-large-v3's encoder,
+      decoder self- and cross-attention, llama-3.2-vision-90b's
+      cross-attention);
   5d. their times at the prefill's shapes beside bound, plain and library
       (flash attention on the prefill's (B, S, H, D) tensors, in turns
       with scaled_dot_product_attention on the same views); both bounds
       as the kernels compute, 3xTF32 on the tensor cores, and beside them
       fp32's; the device kernels one SSD call launches and their times
-      (torch.profiler); flash at every served model's prefill shape in
-      turns with scaled_dot_product_attention, its bounds widened to Dk
-      != Dv; phase 5b keeps S 128's bounds and library time;
+      (torch.profiler); flash at every served prefill's call shape in
+      turns with scaled_dot_product_attention (``is_causal`` as the
+      call), its bounds widened to Dk != Dv and to the Sq Skv pairs of a
+      non-causal call; phase 5b keeps S 128's bounds and library time;
   6s. the serving main path: ``serve.main`` at full width on smollm-360m
       and mamba2-780m, batch 8, prompt 1024, 32 tokens, seed 0, greedy;
       the launch counts zeroed just before each run and read just after
@@ -80,17 +87,23 @@ The serving path (``repro_torch.launch.serve``) adds, beside these:
       step (none), and the warm prefill's wall, operations, rate and the
       kernel's share of it;
   6u. ``serve.main`` at full width on deepseek-v2-lite-16b (MoE + MLA,
-      60.4 GiB of weights), minicpm-2b, phi3-mini-3.8b and
-      phi3-medium-14b, batch 8, prompt 1024, 32 tokens, each freed before
-      the next: counts as in 6s (flash once a layer), the warm prefill on
-      a second init, finite logits, peak memory; for deepseek the decode
-      after prefill(256) against prefill(257), batch 2, on a dropless copy
-      of the config (capacity_factor 11 >= E / K);
+      60.4 GiB of weights), minicpm-2b, phi3-mini-3.8b, phi3-medium-14b
+      (batch 8, prompt 1024, 32 tokens) and whisper-large-v3 (32 encoder
+      and 32 decoder layers, batch 8, 1500 encoder frames, prompt 416, 32
+      tokens), each freed before the next: counts as in 6s (flash once a
+      layer, the encoder's included: 64 for whisper), the warm prefill on
+      a second init, its rate and flash's share, finite logits, peak
+      memory; for deepseek the decode after prefill(256) against
+      prefill(257), batch 2, on a dropless copy of the config
+      (capacity_factor 11 >= E / K);
   7s. at smoke size, prefill logits, cache and 4 teacher-forced decode
       steps on the card against the CPU plain versions: smollm, mamba2,
-      phi3-mini, llama4-scout (MoE, routing asserted equal first) and
+      phi3-mini, llama4-scout (MoE, routing asserted equal first),
       deepseek's smoke config at head_dim 128, rope_head_dim 64 (MLA's
-      prefill through flash at (192, 128), the absorbed decode).
+      prefill through flash at (192, 128), the absorbed decode), jamba's
+      (the hybrid: the SSD scan and flash in one stack, routing asserted
+      equal first), whisper's (encoder, cross-attention, sinusoidal
+      positions) and llama-3.2-vision's at head_dim 64.
 
 Exits 2 without a result when no CUDA device is present.
 """
@@ -749,15 +762,23 @@ def time_attention_library(dev):
     return ms
 
 
-def attention_bound(B=8, H=15, Hkv=5, S=128, D=64, Dv=None, nbytes=4):
-    """One causal GQA flash-attention call (one layer) at smollm-360m's
-    heads and the main path's client batch and sequence by default: q, k
-    (head dim D), v (Dv, D unless given) read once, o (Dv) written once;
-    per causal (query, key) pair 2D for q.k, 2Dv for p.v and 4 for scale,
-    max, exp and sum: the operations of fp32 attention."""
+def attention_bound(B=8, H=15, Hkv=5, S=128, D=64, Dv=None, nbytes=4,
+                    Skv=None, causal=True):
+    """One GQA flash-attention call (one layer) at smollm-360m's heads and
+    the main path's client batch and sequence by default, S queries
+    against Skv keys (S unless given): q, k (head dim D), v (Dv, D unless
+    given) read once, o (Dv) written once; per (query, key) pair the call
+    computes, the S (S + 1) / 2 of the causal triangle or all S Skv of a
+    non-causal call, 2D for q.k, 2Dv for p.v and 4 for scale, max, exp and
+    sum: the operations of fp32 attention."""
     Dv = D if Dv is None else Dv
-    rw = (B * H * S * (D + Dv) + B * Hkv * S * (D + Dv)) * nbytes
-    pairs = B * H * S * (S + 1) // 2
+    Skv = S if Skv is None else Skv
+    rw = (B * H * S * (D + Dv) + B * Hkv * Skv * (D + Dv)) * nbytes
+    if causal:
+        assert Skv == S, (S, Skv)
+        pairs = B * H * S * (S + 1) // 2
+    else:
+        pairs = B * H * S * Skv
     return rw, pairs * (2 * D + 2 * Dv + 4)
 
 
@@ -1365,12 +1386,22 @@ SERVE_PEAK_GIB = {"mamba2-780m": 4.36 + 0.1}
 # weights alone take 60.4 GiB.  The dropless check runs its decode after
 # prefill(256) against prefill(257) at batch 2 with capacity_factor 11 >=
 # E / K = 64 / 6, so that no token is dropped in either prefill.
+# whisper-large-v3 serves 30 s of audio (1500 encoder frames,
+# arXiv:2212.04356) and a prompt of 416: 416 + 32 generated = 448, its
+# decoder's context; the others a prompt of 1024.
 FLASH_SERVE = ("deepseek-v2-lite-16b", "minicpm-2b", "phi3-mini-3.8b",
-               "phi3-medium-14b")
-# The models flash attention serves; their prefill shapes (B 8, S 1024,
-# causal) come from the config registry through ``flash_prefill``.
-FLASH_MODELS = ("smollm-360m",) + FLASH_SERVE
+               "phi3-medium-14b", "whisper-large-v3")
+SERVE_PROMPT = {"whisper-large-v3": 416}
+# The decoder-only models flash attention serves; their prefill shapes (B
+# 8, S 1024, causal) come from the config registry through
+# ``flash_prefill``.  ``flash_calls`` adds the encoder-decoder shapes.
+FLASH_MODELS = ("smollm-360m", "deepseek-v2-lite-16b", "minicpm-2b",
+                "phi3-mini-3.8b", "phi3-medium-14b")
 DROPLESS_CF = 11.0
+# Flash at Sq != Skv without a causal mask (queries against an encoder's
+# keys), phase 3b: (Sq, Skv), and S 1500 square (whisper's encoder)
+CROSS_PAIRS = ((1, 1500), (63, 1500), (416, 1500), (1024, 1601),
+               (1500, 1500))
 
 
 def flash_prefill(name) -> tuple:
@@ -1385,6 +1416,62 @@ def flash_prefill(name) -> tuple:
         return (cfg.num_heads, cfg.num_heads, hd + cfg.mla.rope_head_dim, hd,
                 cfg.num_layers)
     return cfg.num_heads, cfg.num_kv_heads, hd, hd, cfg.num_layers
+
+
+def flash_calls() -> dict:
+    """Every flash call shape of a served prefill at batch 8, by name:
+    ``dict(model, H, Hkv, Dk, Dv, Sq, Skv, causal, calls)``, ``calls`` its
+    launches a prefill.  The decoder-only models at S 1024, causal, one a
+    layer; whisper-large-v3's encoder self-attention (S 1500, non-causal,
+    one an encoder layer), its decoder self-attention (S 416, causal) and
+    its cross-attention (416 queries against 1500 encoder keys), one each
+    a layer of their kind; llama-3.2-vision-90b's cross-attention (1024
+    queries against its 1601 patch embeddings, GQA 64/8 of 128), one a
+    cross layer (its full width does not fit the card: the shape alone)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ATTN, CROSS
+    out = {}
+    for model in FLASH_MODELS:
+        H, Hkv, Dk, Dv, layers = flash_prefill(model)
+        out[model] = dict(model=model, H=H, Hkv=Hkv, Dk=Dk, Dv=Dv, Sq=1024,
+                          Skv=1024, causal=True, calls=layers)
+    for model, S in (("whisper-large-v3", SERVE_PROMPT["whisper-large-v3"]),
+                     ("llama-3.2-vision-90b", 1024)):
+        cfg = get_arch(model)
+        e, kinds = cfg.encoder, cfg.layer_kinds()
+        hd = cfg.resolved_head_dim
+        heads = dict(model=model, H=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                     Dk=hd, Dv=hd)
+        if e.enc_layers:
+            ehd = e.enc_dim // e.enc_heads
+            out[f"{model} encoder"] = dict(
+                model=model, H=e.enc_heads, Hkv=e.enc_heads, Dk=ehd, Dv=ehd,
+                Sq=e.enc_len, Skv=e.enc_len, causal=False,
+                calls=e.enc_layers)
+            out[f"{model} decoder self"] = dict(
+                heads, Sq=S, Skv=S, causal=True, calls=kinds.count(ATTN))
+        out[f"{model} cross"] = dict(heads, Sq=S, Skv=e.enc_len,
+                                     causal=False, calls=kinds.count(CROSS))
+    return out
+
+
+def flash_shape(c) -> str:
+    kind = "causal" if c["causal"] else "non-causal"
+    seq = (f"S {c['Sq']}" if c["Sq"] == c["Skv"]
+           else f"Sq {c['Sq']}, Skv {c['Skv']}")
+    return (f"B 8, {c['H']}/{c['Hkv']} heads, {seq}, Dk {c['Dk']}, Dv "
+            f"{c['Dv']}, {kind}")
+
+
+def flash_inputs(gen, dev, c) -> tuple:
+    """q, k, v of call shape ``c`` in the model's (B, S, H, D) layout."""
+    import torch
+    q = torch.randn((8, c["Sq"], c["H"], c["Dk"]), generator=gen, device=dev)
+    k = torch.randn((8, c["Skv"], c["Hkv"], c["Dk"]), generator=gen,
+                    device=dev)
+    v = torch.randn((8, c["Skv"], c["Hkv"], c["Dv"]), generator=gen,
+                    device=dev)
+    return q, k, v
 
 
 def ssd_inputs(gen, dev, B, S, H, G, N, regime):
@@ -1512,95 +1599,106 @@ def check_serve_kernels(FK, FR, SK, SR, dev):
 def check_flash_forms(FK, FR, dev) -> float:
     """Phase 3b, flash attention at each of its (Dk, Dv) forms at S 1 to
     1025, causal on and off, window 0 and 256, group 1 and 3 (B 2, 2
-    key/value heads), then at every served model's prefill shape (B 8, S
-    1024, causal) on the model's (B, S, H, D) views, each against the
-    plain version.  Returns the largest max |a-b|."""
+    key/value heads); non-causal at Sq != Skv (``CROSS_PAIRS``: queries
+    against an encoder's keys, a ragged key tail) and S 1500 square, group
+    1 and 8; then at every served prefill's call shape (``flash_calls``)
+    on the model's (B, S, H, D) views, each against the plain version.
+    Returns the largest max |a-b|."""
     import itertools
 
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device=dev).manual_seed(13)
     worst = err = 0.0
-    grid = list(itertools.product((1, 63, 128, 1000, 1024, 1025),
-                                  (True, False), (0, 256), (1, 3), FK.FORMS))
-    for S, causal, window, G, (Dk, Dv) in grid:
-        q = torch.randn((2 * 2 * G, S, Dk), generator=gen, device=dev)
-        k = torch.randn((2 * 2, S, Dk), generator=gen, device=dev)
-        v = torch.randn((2 * 2, S, Dv), generator=gen, device=dev)
+
+    def check(Sq, Skv, causal, window, G, Dk, Dv):
+        q = torch.randn((2 * 2 * G, Sq, Dk), generator=gen, device=dev)
+        k = torch.randn((2 * 2, Skv, Dk), generator=gen, device=dev)
+        v = torch.randn((2 * 2, Skv, Dv), generator=gen, device=dev)
         out = FK.flash_attention_fwd(q[None], k[None], v[None],
                                      causal=causal, window=window)[0]
         ref = FR.attention_ref(q, k, v, causal=causal, window=window)
         e = rel_err(out, ref)
         assert out.shape == ref.shape and e <= FLASH_TOL, (
-            S, causal, window, G, Dk, Dv, e)
-        worst, err = max(worst, e), max(err, max_abs_err(out, ref))
+            Sq, Skv, causal, window, G, Dk, Dv, e)
+        return e, max_abs_err(out, ref)
+
+    grid = list(itertools.product((1, 63, 128, 1000, 1024, 1025),
+                                  (True, False), (0, 256), (1, 3), FK.FORMS))
+    for S, causal, window, G, (Dk, Dv) in grid:
+        e, a = check(S, S, causal, window, G, Dk, Dv)
+        worst, err = max(worst, e), max(err, a)
     log(f"  flash_attention_fwd at {len(grid)} shapes (S 1, 63, 128, 1000, "
         f"1024, 1025; causal on/off; window 0/256; group 1/3; (Dk, Dv) "
         f"{FK.FORMS}; B 2, 2 kv heads): max rel {worst:.3e} (tol "
         f"{FLASH_TOL:g})")
-    for model in FLASH_MODELS:
-        H, Hkv, Dk, Dv, _ = flash_prefill(model)
-        q = torch.randn((8, 1024, H, Dk), generator=gen, device=dev)
-        k = torch.randn((8, 1024, Hkv, Dk), generator=gen, device=dev)
-        v = torch.randn((8, 1024, Hkv, Dv), generator=gen, device=dev)
-        out = flash_attention(q, k, v, causal=True)
-        fold = lambda t: t.transpose(1, 2).reshape(-1, 1024, t.shape[-1])
-        ref = FR.attention_ref(fold(q), fold(k), fold(v), causal=True)
+    cross = list(itertools.product(CROSS_PAIRS, (1, 8), FK.FORMS))
+    worst = 0.0
+    for (Sq, Skv), G, (Dk, Dv) in cross:
+        e, a = check(Sq, Skv, False, 0, G, Dk, Dv)
+        worst, err = max(worst, e), max(err, a)
+    log(f"  flash_attention_fwd non-causal at {len(cross)} shapes ((Sq, Skv) "
+        f"{CROSS_PAIRS}; group 1/8; (Dk, Dv) {FK.FORMS}; B 2, 2 kv heads): "
+        f"max rel {worst:.3e} (tol {FLASH_TOL:g})")
+    for name, c in flash_calls().items():
+        q, k, v = flash_inputs(gen, dev, c)
+        out = flash_attention(q, k, v, causal=c["causal"])
+        fold = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1],
+                                                   t.shape[-1])
+        ref = FR.attention_ref(fold(q), fold(k), fold(v), causal=c["causal"])
         e = rel_err(fold(out), ref)
-        assert out.shape == (8, 1024, H, Dv) and e <= FLASH_TOL, (model, e)
+        assert out.shape == (8, c["Sq"], c["H"], c["Dv"]) and \
+            e <= FLASH_TOL, (name, e)
         err = max(err, max_abs_err(fold(out), ref))
-        log(f"  flash_attention_fwd at {model}'s prefill (B 8, {H}/{Hkv} "
-            f"heads, S 1024, Dk {Dk}, Dv {Dv}, causal; (B, S, H, D) views): "
-            f"rel {e:.3e} (tol {FLASH_TOL:g})")
+        log(f"  flash_attention_fwd at {name}'s prefill ({flash_shape(c)}; "
+            f"(B, S, H, D) views): rel {e:.3e} (tol {FLASH_TOL:g})")
         del q, k, v, out, ref
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return err
 
 
 def time_flash_prefills(FK, FR, dev) -> dict:
-    """Phase 5d, flash attention at every served model's prefill shape (B 8,
-    S 1024, causal), as the prefill calls it (``ops.flash_attention`` on
+    """Phase 5d, flash attention at every served prefill's call shape
+    (``flash_calls``), as the prefill calls it (``ops.flash_attention`` on
     the model's (B, S, H, D) tensors), in turns with
     scaled_dot_product_attention on the same views (k, v repeated to H
-    heads where H > Hkv), beside the plain version and both bounds (3xTF32
-    on the tensor cores; fp32's)."""
+    heads where H > Hkv; ``is_causal`` as the call), beside the plain
+    version and both bounds (3xTF32 on the tensor cores; fp32's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device=dev).manual_seed(14)
     out = {}
-    for model in FLASH_MODELS:
-        H, Hkv, Dk, Dv, layers = flash_prefill(model)
-        q = torch.randn((8, 1024, H, Dk), generator=gen, device=dev)
-        k = torch.randn((8, 1024, Hkv, Dk), generator=gen, device=dev)
-        v = torch.randn((8, 1024, Hkv, Dv), generator=gen, device=dev)
+    for name, c in flash_calls().items():
+        H, Hkv, causal = c["H"], c["Hkv"], c["causal"]
+        q, k, v = flash_inputs(gen, dev, c)
         kr, vr = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
                   for t in (k, v))
-        fold = lambda t: t.transpose(1, 2).reshape(-1, 1024, t.shape[-1])
+        fold = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1],
+                                                   t.shape[-1])
         qf, kf, vf = fold(q), fold(k), fold(v)
-        shape = dict(B=8, H=H, Hkv=Hkv, S=1024, D=Dk, Dv=Dv)
+        shape = dict(B=8, H=H, Hkv=Hkv, S=c["Sq"], Skv=c["Skv"], D=c["Dk"],
+                     Dv=c["Dv"], causal=causal)
         rw, ops = attention_bound(**shape)
         b_fp32, _ = bound_ms(rw, ops)
         b, by = bound_ms(*attention_bound_tc(**shape))
         ms, lib = paired_ms(
-            lambda: flash_attention(q, k, v, causal=True),
+            lambda: flash_attention(q, k, v, causal=causal),
             lambda: F.scaled_dot_product_attention(
-                q.transpose(1, 2), kr, vr, is_causal=True), iters=20)
-        plain = cuda_ms(lambda: FR.attention_ref(qf, kf, vf, causal=True),
+                q.transpose(1, 2), kr, vr, is_causal=causal), iters=20)
+        plain = cuda_ms(lambda: FR.attention_ref(qf, kf, vf, causal=causal),
                         iters=5)
-        out[model] = dict(heads=f"{H}/{Hkv}", Dk=Dk, Dv=Dv, layers=layers,
-                          ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                          bound_by=by, fp32_bound_ms=b_fp32, bytes=rw,
-                          flops=ops)
-        log(f"  flash_attention_fwd at {model}'s prefill (B 8, {H}/{Hkv} "
-            f"heads, S 1024, Dk {Dk}, Dv {Dv}): {ms:.4f} ms, 3xTF32 bound "
-            f"{b:.4f} ms ({by}; {100 * b / ms:.1f}% of it), fp32 bound "
-            f"{b_fp32:.4f} ms; plain {plain:.4f} ms; "
-            f"scaled_dot_product_attention {lib:.4f} ms in turns "
-            f"({lib / ms:.2f}x the kernel's time); {layers} calls a prefill "
-            f"= {layers * ms:.3f} ms")
+        out[name] = dict(c, heads=f"{H}/{Hkv}", ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=b, bound_by=by,
+                         fp32_bound_ms=b_fp32, bytes=rw, flops=ops)
+        log(f"  flash_attention_fwd at {name}'s prefill ({flash_shape(c)}): "
+            f"{ms:.4f} ms, 3xTF32 bound {b:.4f} ms ({by}; "
+            f"{100 * b / ms:.1f}% of it), fp32 bound {b_fp32:.4f} ms; plain "
+            f"{plain:.4f} ms; scaled_dot_product_attention {lib:.4f} ms in "
+            f"turns ({lib / ms:.2f}x the kernel's time); {c['calls']} calls "
+            f"a prefill = {c['calls'] * ms:.3f} ms")
         del q, k, v, kr, vr, qf, kf, vf
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1762,19 +1860,31 @@ def prefill_flops(cfg, B=8, S=1024) -> float:
     multiply-add of each layer's weight matrices for every token, the
     attention or SSD scan as their bounds count them, and the last
     position's vocab projection (elementwise work and the convolution
-    left out)."""
+    left out).  An encoder's layers count at its ``enc_len`` positions,
+    with non-causal attention; a cross layer projects queries and output
+    at the prompt's S tokens and keys and values at the encoder's
+    positions, and attends non-causally."""
+    from repro_torch.configs.base import CROSS, MAMBA
     d = cfg.d_model
-    if cfg.ssm is not None:
-        s = cfg.ssm
-        d_in = s.expand * d
-        H = d_in // s.d_head
-        weights = d * (2 * d_in + 2 * s.n_groups * s.d_state + H) + d_in * d
-        # per head, as PRs 14-15 counted: the rate compares across PRs
-        mix = ssd_bound(B=B, H=H, S=S, P=s.d_head, N=s.d_state,
-                        chunk=s.chunk)[1]
-    else:
-        H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        if cfg.mla is not None:          # MLA: latent kv, expanded per head
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    total = 2 * B * d * cfg.vocab_size
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind == MAMBA:
+            s = cfg.ssm
+            d_in = s.expand * d
+            Hs = d_in // s.d_head
+            weights = d * (2 * d_in + 2 * s.n_groups * s.d_state + Hs) \
+                + d_in * d
+            # per head, as PRs 14-15 counted: the rate compares across PRs
+            mix = ssd_bound(B=B, H=Hs, S=S, P=s.d_head, N=s.d_state,
+                            chunk=s.chunk)[1]
+        elif kind == CROSS:
+            L = cfg.encoder.enc_len
+            weights = 2 * d * H * hd
+            mix = (2 * B * L * 2 * d * Hkv * hd
+                   + attention_bound(B=B, H=H, Hkv=Hkv, S=S, Skv=L, D=hd,
+                                     causal=False)[1])
+        elif cfg.mla is not None:        # MLA: latent kv, expanded per head
             r, rd = cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim
             weights = (d * (r + rd) + 2 * r * H * hd + d * H * (hd + rd)
                        + H * hd * d)
@@ -1782,15 +1892,25 @@ def prefill_flops(cfg, B=8, S=1024) -> float:
         else:
             weights = 2 * d * H * hd + 2 * d * Hkv * hd
             mix = attention_bound(B=B, H=H, Hkv=Hkv, S=S, D=hd)[1]
-        if cfg.moe is not None:          # the routed top-k and the shared
-            m = cfg.moe                  # experts a token needs, the router
-            de = m.d_expert or cfg.d_ff
-            weights += (3 * d * de * (m.top_k + m.num_shared)
-                        + d * m.num_experts)
-        else:
+        m = cfg.moe
+        if m is not None and i % m.every == m.every - 1:
+            de = m.d_expert or cfg.d_ff  # the routed top-k and the shared
+            weights += (3 * d * de * (m.top_k + m.num_shared)   # experts a
+                        + d * m.num_experts)     # token needs, the router
+        elif cfg.d_ff > 0:
             weights += 3 * d * cfg.d_ff
-    return (cfg.num_layers * (2 * B * S * weights + mix)
-            + 2 * B * d * cfg.vocab_size)
+        total += 2 * B * S * weights + mix
+    e = cfg.encoder
+    if e is not None:
+        L, de = e.enc_len, e.enc_dim
+        eff, ehd = e.enc_ff or 4 * de, de // e.enc_heads
+        total += e.enc_layers * (
+            2 * B * L * (4 * de * de + 2 * de * eff)
+            + attention_bound(B=B, H=e.enc_heads, Hkv=e.enc_heads, S=L,
+                              D=ehd, causal=False)[1])
+        if de != d:
+            total += 2 * B * L * de * d
+    return total
 
 
 def serve_consistency(counts_of, dev, times):
@@ -1845,13 +1965,13 @@ def serve_consistency(counts_of, dev, times):
 
 
 def serve_flash_models(counts_of, dev, forms) -> dict:
-    """Phase 6u: ``serve.main`` at full width (batch 8, prompt 1024, 32
-    tokens, greedy, seed 0) on each of FLASH_SERVE, its own main path
-    (counts zeroed just before, read just after: one flash launch a layer
-    in the prefill, none in decode); then the warm prefill on a second
-    init from the same seed, its last logits finite; for
-    deepseek-v2-lite-16b the dropless check.  Each model is freed before
-    the next is built."""
+    """Phase 6u: ``serve.main`` at full width (batch 8, prompt 1024 or
+    ``SERVE_PROMPT``'s, 32 tokens, greedy, seed 0) on each of FLASH_SERVE,
+    its own main path (counts zeroed just before, read just after: one
+    flash launch a layer in the prefill, an encoder's layers included,
+    none in decode); then the warm prefill on a second init from the same
+    seed, its last logits finite; for deepseek-v2-lite-16b the dropless
+    check.  Each model is freed before the next is built."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -1861,16 +1981,22 @@ def serve_flash_models(counts_of, dev, forms) -> dict:
     counts = {}
     for arch in FLASH_SERVE:
         cfg = get_arch(arch)
-        layers, tag = cfg.num_layers, f"serve:{arch}"
+        S, tag = SERVE_PROMPT.get(arch, 1024), f"serve:{arch}"
+        calls = {n: f for n, f in forms.items() if f["model"] == arch}
+        launches = sum(f["calls"] for f in calls.values())
+        assert launches == cfg.num_layers + (
+            cfg.encoder.enc_layers if cfg.encoder else 0), (arch, launches)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         counts_of.reset()
-        toks, stats = serve.main(["--arch", arch] + SERVE_ARGS)
+        toks, stats = serve.main(["--arch", arch, "--batch", "8",
+                                  "--prompt-len", str(S), "--gen", "32",
+                                  "--seed", "0"])
         counts[tag] = counts_of.read()
         log(f"kernels: {tag} {json.dumps(counts[tag])}")
-        assert counts[tag] == _launches(flash_attention_fwd=layers), (
+        assert counts[tag] == _launches(flash_attention_fwd=launches), (
             tag, counts[tag])
         assert toks.shape == (8, 32) and toks.is_cuda, toks.shape
         assert 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
@@ -1879,31 +2005,36 @@ def serve_flash_models(counts_of, dev, forms) -> dict:
         torch.cuda.empty_cache()
         model = build_model(cfg)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(t.numel() for t in params.values())
         held = sum(t.numel() * t.element_size() for t in params.values())
-        prompts = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (8, 1024))).to(dev)
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (8, S))).to(dev)}
+        if cfg.encoder is not None:
+            e = cfg.encoder
+            batch["enc_embeds"] = torch.from_numpy(rng.normal(
+                0, 1, (8, e.enc_len, e.enc_dim)).astype(np.float32)).to(dev)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompts},
-                                      cache_len=1024 + 32 + 1)
+        logits, cache = model.prefill(params, batch, cache_len=S + 32 + 1)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t
         finite = bool(torch.isfinite(logits).all())
-        del logits, cache
-        ops = prefill_flops(cfg)
-        f = forms[arch]
-        log(f"  {tag}: {cfg.param_count() + cfg.d_model:,} parameters "
-            f"({held / 2**30:.2f} GiB fp32); prefill (B 8, S 1024) first "
-            f"{stats['prefill_s']:.4f} s (the process's first at this model),"
-            f" warm {warm:.4f} s, {ops / 1e12:.3f} TFLOP, "
-            f"{ops / warm / 1e12:.2f} TFLOP/s; {layers} x flash "
-            f"({f['ms']:.4f} ms, Dk {f['Dk']}, Dv {f['Dv']}, phase 5d) = "
-            f"{100 * layers * f['ms'] / (warm * 1e3):.1f}% of it; decode 31 "
-            f"steps {stats['decode_s']:.4f} s, {stats['tok_per_s']:.1f} "
-            f"tok/s; max_memory_allocated {peak:.2f} GiB above the "
-            f"{base / 2**30:.2f} GiB held before the run; {layers} "
-            f"flash_attention_fwd launches, none of the other kernels; last "
-            f"logits finite: {finite}")
+        del logits, cache, batch
+        ops = prefill_flops(cfg, S=S)
+        flash_ms = sum(f["calls"] * f["ms"] for f in calls.values())
+        log(f"  {tag}: {n_params:,} parameters ({held / 2**30:.2f} GiB "
+            f"fp32); prefill (B 8, S {S}) first {stats['prefill_s']:.4f} s "
+            f"(the process's first at this model), warm {warm:.4f} s, "
+            f"{ops / 1e12:.3f} TFLOP, {ops / warm / 1e12:.2f} TFLOP/s; flash "
+            + " + ".join(f"{f['calls']} x {f['ms']:.4f} ms ({n})"
+                         for n, f in calls.items())
+            + f" (phase 5d) = {100 * flash_ms / (warm * 1e3):.1f}% of it; "
+            f"decode 31 steps {stats['decode_s']:.4f} s, "
+            f"{stats['tok_per_s']:.1f} tok/s; max_memory_allocated "
+            f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before "
+            f"the run; {launches} flash_attention_fwd launches, none of the "
+            f"other kernels; last logits finite: {finite}")
         assert finite, arch
         if cfg.moe is not None:
             dropless_check(cfg, params, counts_of, dev)
@@ -1959,10 +2090,15 @@ def dropless_check(cfg, params, counts_of, dev):
 def small_serve_configs() -> list:
     """Phase 7s's configs: the smoke configs of SERVE_ARCHS, a dense one
     with flash in its prefill (phi3-mini-3.8b-smoke), the MoE one
-    (llama4-scout-17b-a16e-smoke, D 64, windowed), and deepseek's smoke
+    (llama4-scout-17b-a16e-smoke, D 64, windowed), deepseek's smoke
     config at deepseek's attention widths (head_dim 128, rope_head_dim 64)
     so that its MLA prefill reaches the kernel's (192, 128) form: the smoke
-    config's own (96, 64) is not a built form."""
+    config's own (96, 64) is not a built form; the hybrid
+    (jamba-1.5-large-398b-smoke: a mamba layer through the SSD scan, an
+    attention layer with a top-2 MoE), whisper-large-v3-smoke (its
+    encoder's and cross layer's non-causal flash) and
+    llama-3.2-vision-90b-smoke at head_dim 64 (its own 32 is not a built
+    form either)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1973,16 +2109,24 @@ def small_serve_configs() -> list:
     cfgs.append(dataclasses.replace(
         ds, name=f"{ds.name} (head_dim 128, rope_head_dim 64)",
         head_dim=128, mla=dataclasses.replace(ds.mla, rope_head_dim=64)))
+    cfgs += [get_arch("jamba-1.5-large-398b-smoke"),
+             get_arch("whisper-large-v3-smoke")]
+    lv = get_arch("llama-3.2-vision-90b-smoke")
+    cfgs.append(dataclasses.replace(lv, name=f"{lv.name} (head_dim 64)",
+                                    head_dim=64))
     return cfgs
 
 
 def small_reference_serve(dev):
     """Phase 7s: at smoke size, prefill (B 2, S 40: a ragged chunk for
-    mamba2's chunk of 32) and 4 teacher-forced decode steps, the card
-    against the CPU plain versions, on each of ``small_serve_configs``.
-    Under MoE the routing of every layer call (the chosen experts and the
-    kept entries) is asserted equal on both devices before any value is
-    compared: a flipped expert is an O(1) change, not a rounding one."""
+    mamba2's chunk of 32; an encoder config's ``enc_embeds`` drawn with
+    numpy) and 4 teacher-forced decode steps, the card against the CPU
+    plain versions, on each of ``small_serve_configs``: the last logits,
+    every cache entry just after the prefill (``enc_out`` too) and the
+    decode steps' logits.  Under MoE the routing of every layer call (the
+    chosen experts and the kept entries) is asserted equal on both devices
+    before any value is compared: a flipped expert is an O(1) change, not
+    a rounding one."""
     import numpy as np
     import torch
     from repro_torch.models import moe
@@ -1991,8 +2135,13 @@ def small_reference_serve(dev):
     for cfg in small_serve_configs():
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(3))
-        toks = torch.from_numpy(np.random.default_rng(2).integers(
-            0, cfg.vocab_size, (2, 44)))
+        rng = np.random.default_rng(2)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 44)))
+        enc = None
+        if cfg.encoder is not None:
+            e = cfg.encoder
+            enc = torch.from_numpy(rng.normal(
+                0, 1, (2, e.enc_len, e.enc_dim)).astype(np.float32))
         out, routes = [], []
         orig = moe._route
         for d in (dev, torch.device("cpu")):
@@ -2006,9 +2155,15 @@ def small_reference_serve(dev):
             moe._route = route
             try:
                 p = {k: v.to(d) for k, v in params.items()}
-                logits, cache = model.prefill(
-                    p, {"tokens": toks[:, :40].to(d)}, cache_len=45)
-                snap = {k: t.clone() for k, t in cache["layers"][0].items()}
+                batch = {"tokens": toks[:, :40].to(d)}
+                if enc is not None:
+                    batch["enc_embeds"] = enc.to(d)
+                logits, cache = model.prefill(p, batch, cache_len=45)
+                snap = {f"{j}.{k}": t.clone()
+                        for j, entry in enumerate(cache["layers"])
+                        for k, t in entry.items()}
+                if "enc_out" in cache:
+                    snap["enc_out"] = cache["enc_out"].clone()
                 steps = []
                 for i in range(4):
                     lg, cache = model.decode(p, toks[:, 40 + i].to(d), cache)
@@ -2117,8 +2272,9 @@ def main() -> int:
     log("[6t] full width: decode after prefill(1024) against prefill(1025):")
     serve_consistency(counts_of, dev, times)
     log("[6u] serving at full width with flash in every prefill: "
-        f"{', '.join(FLASH_SERVE)} (serve.main, batch 8, prompt 1024, 32 "
-        "tokens, greedy), then the warm prefill; MoE: the dropless check:")
+        f"{', '.join(FLASH_SERVE)} (serve.main, batch 8, prompt 1024 "
+        f"({SERVE_PROMPT}), 32 tokens, greedy), then the warm prefill; MoE: "
+        "the dropless check:")
     counts.update(serve_flash_models(counts_of, dev,
                                      times["flash_attention_fwd"]["forms"]))
 

@@ -9,11 +9,17 @@ arrays are the same in both, so converting is a copy through numpy and
 the flat buffers of both packages compare element for element.  The rest
 of the server state — the flat optimizer slots, the step counter and the
 controllable ``ctrl`` slot — has the same structure in both packages and
-crosses with :func:`server_state_to_torch`.  The serving decode cache has
-the same tree in both packages too (``{"layers": (entry, ...), "index":
-int32}``, each entry a dict of arrays stacked over periods: ``k`` / ``v``,
-MLA's latent ``ckv`` / ``krope``, or mamba's ``ssm`` / ``conv``) and
-crosses with :func:`cache_to_torch` / :func:`cache_to_numpy`."""
+crosses with :func:`server_state_to_torch`.  An encoder's parameters
+are the subtree ``encoder`` (``encoder.layers.attn.wq``, stacked over its
+layers, ``encoder.proj``); an encoder with no layers at the model's width
+has none, and its JAX subtree is an empty dict, which has no leaves either:
+``to_torch`` drops it, and JAX's functions take the tree without it.  The
+serving decode cache has the same tree in both packages too (``{"layers":
+(entry, ...), "index": int32}``, each entry a dict of arrays stacked over
+periods: ``k`` / ``v`` (a cross layer's over the encoder's positions),
+MLA's latent ``ckv`` / ``krope``, or mamba's ``ssm`` / ``conv``; with an
+encoder also ``"enc_out"``) and crosses with :func:`cache_to_torch` /
+:func:`cache_to_numpy`."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -100,20 +106,28 @@ def server_state_to_torch(opt: Dict[str, Any], ctrl: Dict[str, Any] = None,
 
 def cache_to_torch(cache: Dict[str, Any], device=None) -> Dict[str, Any]:
     """A JAX decode cache (numpy, or anything ``np.asarray`` takes) -> the
-    port's: ``{"layers": tuple of dicts of tensors, "index": 0-d int32}``.
-    The arrays are copied, so the port's in-place decode never writes into
-    the caller's arrays."""
+    port's: ``{"layers": tuple of dicts of tensors, "index": 0-d int32}``
+    and ``"enc_out"`` where the cache has it.  The arrays are copied, so
+    the port's in-place decode never writes into the caller's arrays."""
     def tensor(x):
         return torch.from_numpy(np.array(x, copy=True)).to(device)
 
-    return {"layers": tuple({k: tensor(v) for k, v in entry.items()}
-                            for entry in cache["layers"]),
-            "index": tensor(np.asarray(cache["index"], np.int32))}
+    out = {"layers": tuple({k: tensor(v) for k, v in entry.items()}
+                           for entry in cache["layers"]),
+           "index": tensor(np.asarray(cache["index"], np.int32))}
+    if "enc_out" in cache:
+        out["enc_out"] = tensor(cache["enc_out"])
+    return out
 
 
 def cache_to_numpy(cache: Dict[str, Any]) -> Dict[str, Any]:
     """The port's decode cache -> the JAX tree of numpy arrays."""
-    return {"layers": tuple({k: t.detach().cpu().numpy()
-                             for k, t in entry.items()}
-                            for entry in cache["layers"]),
-            "index": cache["index"].detach().cpu().numpy()}
+    def array(t):
+        return t.detach().cpu().numpy()
+
+    out = {"layers": tuple({k: array(t) for k, t in entry.items()}
+                           for entry in cache["layers"]),
+           "index": array(cache["index"])}
+    if "enc_out" in cache:
+        out["enc_out"] = array(cache["enc_out"])
+    return out

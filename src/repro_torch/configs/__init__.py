@@ -1,17 +1,21 @@
 """Config registry of the port: ``get_arch(name)`` / ``get_smoke(name)``.
 
-Only the architectures the port can build are registered: the dense
-family (smollm-360m, minicpm-2b, phi3-mini-3.8b, phi3-medium-14b; train
-and serve), the MoE family with MLA or GQA attention (deepseek-v2-lite-16b,
-llama4-scout-17b-a16e; train and serve) and the SSM family (mamba2-780m;
-serves only, its training is ROADMAP Queue 1 item 10).  The JAX package's
-hybrid (jamba, item 6e) and encoder / cross-attention architectures
-(whisper, llama-3.2-vision, item 6f) wait."""
+All ten of the JAX package's architectures.  The dense family
+(smollm-360m, minicpm-2b, phi3-mini-3.8b, phi3-medium-14b) and the MoE
+family with MLA or GQA attention (deepseek-v2-lite-16b,
+llama4-scout-17b-a16e) train and serve; the encoder / cross-attention
+families (whisper-large-v3, llama-3.2-vision-90b) serve, and their loss
+takes ``enc_embeds`` and ``mask`` batches as JAX's does (no data pipeline
+of either package makes such batches); the stacks with mamba layers, the
+SSM family (mamba2-780m) and the hybrid (jamba-1.5-large-398b), serve
+only: their training is ROADMAP Queue 1 item 10."""
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_v2_lite_16b, llama4_scout_17b_a16e,
+from repro_torch.configs import (deepseek_v2_lite_16b, jamba_1_5_large_398b,
+                                 llama4_scout_17b_a16e, llama32_vision_90b,
                                  mamba2_780m, minicpm_2b, phi3_medium_14b,
-                                 phi3_mini_3_8b, smollm_360m)
+                                 phi3_mini_3_8b, smollm_360m,
+                                 whisper_large_v3)
 from repro_torch.configs.base import ArchConfig, FedConfig
 
 _MODULES = {
@@ -22,6 +26,9 @@ _MODULES = {
     "phi3-medium-14b": phi3_medium_14b,
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
+    "whisper-large-v3": whisper_large_v3,
+    "llama-3.2-vision-90b": llama32_vision_90b,
 }
 
 ARCHS = tuple(_MODULES.keys())

@@ -9,7 +9,9 @@ query head ``h`` (GQA without repeating k and v).  Unlike the JAX wrapper
 it needs no padding: the kernel masks the ragged tail of any Sq and Skv,
 so the function is the one JAX's ``attend`` computes at every length
 (through ``chunked_attention`` where the length is not a multiple of its
-block).  The call dispatches on the tensors' device through the kernel
+block), non-causal queries against an encoder's keys included (Sq !=
+Skv; the JAX wrapper refuses a non-causal call whose keys it would
+zero-pad, since padded keys would take softmax weight).  The call dispatches on the tensors' device through the kernel
 wrapper: the plain version for CPU tensors, the CUDA kernel for CUDA
 tensors.
 """

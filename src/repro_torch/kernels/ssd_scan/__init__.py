@@ -1,5 +1,5 @@
 """CUDA kernel of the Mamba2 SSD chunked scan (the serving prefill of the
-SSM family), with its plain PyTorch versions (``ref.py``); the
+SSM family and of jamba's mamba layers), with its plain PyTorch versions (``ref.py``); the
 counterpart of ``repro/kernels/ssd_scan``.  The kernel's wrapper takes the
 model's (B, S, H, P) layout and B, C by group, so it is the entry point
 itself: there is no ``ops`` layer to fold heads."""

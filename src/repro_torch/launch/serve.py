@@ -2,14 +2,16 @@
 ``repro/launch/serve.py``): batched prefill, then greedy (or temperature)
 decode.
 
-Runs on one CUDA device — the prefill through the flash-attention kernel
-(dense and MoE families, GQA or MLA) or the SSD-scan kernel (SSM family)
-— and on the CPU with ``--device cpu``, where the kernels' plain versions
-run.  Every registered config serves; ``--window`` gives GQA a ring-buffer
-cache (MLA writes its latent cache at the clamped index, as JAX does).
-Weights are
-random from ``--seed``; prompts are drawn with numpy from the same seed,
-the JAX launcher's prompts.
+Runs on one CUDA device — the prefill's attention through the
+flash-attention kernel (GQA or MLA self-attention, and the encoder's and
+the cross layers' non-causal attention), its mamba layers through the
+SSD-scan kernel — and on the CPU with ``--device cpu``, where the
+kernels' plain versions run.  Every registered config serves; ``--window``
+gives GQA self-attention a ring-buffer cache (MLA writes its latent cache
+at the clamped index, as JAX does).  Weights are random from ``--seed``;
+prompts, then an encoder config's frame or patch embeddings (``enc_len``
+of ``enc_dim``, unit normal), are drawn with numpy from the same seed:
+the JAX launcher's inputs.
 
   python -m repro_torch.launch.serve --arch smollm-360m-smoke \\
       --batch 2 --prompt-len 40 --gen 8 --device cpu [--window 16]
@@ -17,11 +19,14 @@ the JAX launcher's prompts.
       --batch 8 --prompt-len 1024 --gen 32
   python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
       --batch 8 --prompt-len 1024 --gen 32
+  python -m repro_torch.launch.serve --arch whisper-large-v3 \\
+      --batch 8 --prompt-len 416 --gen 32
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,12 +42,14 @@ def _sync(dev: torch.device) -> None:
 
 
 def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
-             cache_len: int, temperature: float = 0.0, seed: int = 0):
-    """prompts: (B, P) int.  Greedy decoding by argmax, or sampling at
-    ``temperature`` from a ``torch.Generator`` seeded with ``seed`` (its
-    stream is not JAX's).  Returns (tokens (B, gen_len), stats): the
-    decode wall and tokens per second of the JAX launcher, and the
-    synchronized prefill wall."""
+             cache_len: int, temperature: float = 0.0, seed: int = 0,
+             enc_embeds: Optional[torch.Tensor] = None):
+    """prompts: (B, P) int; ``enc_embeds`` (B, L, enc_dim), the encoder's
+    input where the config has one.  Greedy decoding by argmax, or
+    sampling at ``temperature`` from a ``torch.Generator`` seeded with
+    ``seed`` (its stream is not JAX's).  Returns (tokens (B, gen_len),
+    stats): the decode wall and tokens per second of the JAX launcher, and
+    the synchronized prefill wall."""
     B = prompts.shape[0]
     dev = prompts.device
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -56,8 +63,10 @@ def generate(model, params, prompts: torch.Tensor, *, gen_len: int,
     with torch.inference_mode():
         _sync(dev)
         t0 = time.time()
-        logits, cache = model.prefill(params, {"tokens": prompts},
-                                      cache_len=cache_len)
+        batch = {"tokens": prompts}
+        if enc_embeds is not None:
+            batch["enc_embeds"] = enc_embeds
+        logits, cache = model.prefill(params, batch, cache_len=cache_len)
         tok = pick(logits)
         _sync(dev)
         prefill_s = time.time() - t0
@@ -100,11 +109,17 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    enc = None
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        enc = torch.from_numpy(rng.normal(
+            0, 1, (args.batch, e.enc_len, e.enc_dim)).astype(np.float32)
+        ).to(dev)
     cache_len = (args.window if args.window
                  else args.prompt_len + args.gen + 1)
     toks, stats = generate(model, params, prompts, gen_len=args.gen,
                            cache_len=cache_len, temperature=args.temperature,
-                           seed=args.seed)
+                           seed=args.seed, enc_embeds=enc)
     print(f"[serve] generated {tuple(toks.shape)} tokens: "
           f"{stats['tok_per_s']:.1f} tok/s (decode {stats['decode_s']:.2f}s)")
     print("[serve] sample:", toks[0, :16].tolist())

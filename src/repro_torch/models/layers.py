@@ -44,6 +44,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the population variance, as ``jnp.var`` takes it."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (interleaved lane pairs, as the JAX package)
 # ---------------------------------------------------------------------------
@@ -73,9 +84,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.reshape(x.shape).to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d: int,
+                         dtype=torch.float32) -> torch.Tensor:
+    """The classic sinusoidal table's rows at ``positions`` (any shape):
+    (..., d), sin in the even lanes and cos in the odd ones.  JAX's
+    ``sinusoidal_positions(length, d)`` is ``positions = arange(length)``;
+    its decode step computes the row at the cache index the same way."""
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-math.log(10000.0) / d))
+    ang = positions.to(torch.float32)[..., None] * div
+    tab = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return tab.reshape(*positions.shape, d).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, *, lead=(),
+                  dtype=torch.float32) -> dict:
+    lead, dev = tuple(lead), gen.device
+    return {"w_in": dense_init(gen, d, d_ff, lead=lead, dtype=dtype),
+            "b_in": torch.zeros(lead + (d_ff,), dtype=dtype, device=dev),
+            "w_out": dense_init(gen, d_ff, d, lead=lead, dtype=dtype),
+            "b_out": torch.zeros(lead + (d,), dtype=dtype, device=dev)}
+
+
+def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
+    """``jax.nn.gelu`` defaults to the tanh approximation, so this does."""
+    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+    return h @ p["w_out"] + p["b_out"]

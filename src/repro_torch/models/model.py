@@ -2,12 +2,14 @@
 :class:`Model` bundles init / loss / prefill / decode for one architecture
 so the federated runtime and the launchers stay model-agnostic.
 
-The dense LM family and the MoE family (capacity-routed experts, with GQA
-or MLA attention) train and serve; the SSM family (Mamba2) serves only —
-its training needs derivatives through the SSD scan, forward mode
-included, which no kernel has yet (ROADMAP Queue 1 item 10).  The other
-families wait for ROADMAP Queue 1 items 5 (paper CNN/GRU), 6e (the jamba
-hybrid) and 6f (encoders, cross-attention, sinusoidal positions).
+Every architecture of the JAX package's transformer builds.  The dense LM
+and MoE families (capacity-routed experts, with GQA or MLA attention)
+train and serve; the encoder-decoder and cross-attention families
+(whisper, llama-3.2-vision) serve, and their ``loss`` takes the batch's
+``enc_embeds`` and ``mask`` as JAX's does; a stack with Mamba2 layers
+(the SSM family, jamba's hybrid) serves only — its training needs
+derivatives through the SSD scan, forward mode included, which no kernel
+has yet (ROADMAP Queue 1 item 10).  The paper's CNN/GRU wait for item 5.
 Prefill and decode run under ``torch.inference_mode()``."""
 from __future__ import annotations
 
@@ -17,12 +19,13 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.func import functional_call
 
-from repro_torch.configs.base import ATTN, CROSS, MAMBA, ArchConfig
+from repro_torch.configs.base import MAMBA, ArchConfig
 from repro_torch.models import transformer
 
 Batch = Dict[str, torch.Tensor]
-SSM_TRAINING = ("SSM-family training is not yet ported to repro_torch: it "
-                "needs derivatives through the SSD scan, forward mode "
+SSM_TRAINING = ("training a stack with Mamba2 layers (the SSM family, the "
+                "jamba hybrid) is not yet ported to repro_torch: it needs "
+                "derivatives through the SSD scan, forward mode "
                 "included (ROADMAP Queue 1 item 10)")
 
 
@@ -47,42 +50,26 @@ def build_model(cfg: ArchConfig, *, dtype=torch.float32,
     """``decode_window > 0`` selects the sliding-window decode variant (a
     ring-buffer cache of that size) for GQA attention; MLA's latent cache
     is written at the clamped index, as JAX writes it."""
-    kinds = set(cfg.layer_kinds())
-    ssm_family = kinds == {MAMBA}
-    unsupported = [what for what, bad in (
-        ("hybrid attention/SSM stack (ROADMAP Queue 1 item 6e)",
-         cfg.family == "hybrid" or {ATTN, MAMBA} <= kinds),
-        ("encoder (ROADMAP Queue 1 item 6f)", cfg.encoder is not None),
-        ("cross-attention layers (ROADMAP Queue 1 item 6f)",
-         CROSS in kinds),
-        ("SSM layers without an SSM config (ROADMAP Queue 1 item 6e)",
-         MAMBA in kinds and cfg.ssm is None),
-        ("rope_theta <= 0 (sinusoidal positions; ROADMAP Queue 1 item 6f)",
-         ATTN in kinds and cfg.rope_theta <= 0),
-    ) if bad]
-    if unsupported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not yet ported to "
-            "repro_torch")
+    has_mamba = MAMBA in cfg.layer_kinds()
     module = transformer.Transformer(cfg)
 
     def init(gen: torch.Generator):
         return transformer.init_transformer(cfg, gen, dtype)
 
     def loss(params, batch: Batch, rng=None):
-        if ssm_family:
+        if has_mamba:
             raise NotImplementedError(SSM_TRAINING)
-        if "mask" in batch or "enc_embeds" in batch:
-            raise NotImplementedError("masked / encoder LM batches are not "
-                                      "ported (ROADMAP Queue 1 item 6f)")
-        return transformer.lm_loss_chunked(module, params, batch["tokens"],
-                                           chunk=loss_chunk)
+        return transformer.lm_loss_chunked(
+            module, params, batch["tokens"],
+            enc_embeds=batch.get("enc_embeds"), mask=batch.get("mask"),
+            chunk=loss_chunk)
 
     @torch.inference_mode()
     def prefill(params, batch: Batch, cache_len: Optional[int] = None):
         # only the last position goes through the vocab projection
-        h, _, cache = functional_call(module, params, (batch["tokens"],),
-                                      {"collect_cache": True})
+        h, _, cache = functional_call(
+            module, params, (batch["tokens"],),
+            {"enc_embeds": batch.get("enc_embeds"), "collect_cache": True})
         logits_last = h[:, -1] @ transformer.head_of(cfg, params)
         if cache_len is not None:
             cache = transformer.pad_cache(cache, cfg, cache_len)

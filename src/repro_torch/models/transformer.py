@@ -1,18 +1,28 @@
-"""Decoder-only LM of the port (PyTorch port of the dense, MoE and SSM
-subsets of ``repro/models/transformer.py``): GQA attention with RoPE or
-DeepSeek's MLA, a SwiGLU MLP or a capacity-routed MoE FFN, and RMSNorm
-(the dense and MoE families), or Mamba2 SSD blocks with no MLP (the SSM
-family); tied or untied head.  Training, prefill and decode.
+"""The LM stack of the port (PyTorch port of ``repro/models/transformer.py``):
+every architecture family of the JAX package.  Decoder layers are GQA
+self-attention with RoPE (or sinusoidal absolute positions where
+``rope_theta <= 0``, whisper) or DeepSeek's MLA, cross-attention to an
+encoder's output (whisper, llama-3.2-vision), or Mamba2 SSD blocks (the
+SSM family, and jamba's hybrid period); each followed by a SwiGLU MLP or a
+capacity-routed MoE FFN where the config gives one, RMSNorm before each;
+tied or untied head.  An encoder (pre-LN LayerNorm layers, non-causal
+attention at ``enc_heads``, a GELU MLP; then a projection where its width
+differs) turns the batch's precomputed ``enc_embeds`` into the keys and
+values of the cross layers.  Training, prefill and decode.
 
 The stack is organized in periods, as JAX's: the layer pattern repeats
-with period ``P = lcm(attn_period, cross_every, moe.every)`` (in the port,
-whose architectures have one attention or mixer kind, that is
-``moe.every``), layer ``i`` is position ``i % P`` of period ``i // P``.
+with period ``P = lcm(attn_period, cross_every, moe.every)``, layer ``i``
+is position ``i % P`` of period ``i // P`` and its kind is
+``cfg.layer_kinds()[i % P]`` (jamba: mamba everywhere but position
+``attn_period // 2``; whisper: cross-attention at odd positions).
 Parameter layout is the JAX package's, so :mod:`repro_torch.bridge` is a
 copy: ``blocks`` holds one entry per position in the period, every leaf
-stacked over the ``num_layers // P`` periods, ``(num_layers // P, ...)``,
-and dense weights are ``(in, out)``, used as ``x @ w``.  The module holds
-its parameters on the ``meta`` device only; a forward always runs through
+stacked over the ``num_layers // P`` periods, ``(num_layers // P, ...)``;
+``encoder.layers`` is stacked over ``enc_layers``; dense weights are
+``(in, out)``, used as ``x @ w``.  An encoder without layers and at the
+model's width (llama-3.2-vision's stub) has no parameters at all, as
+JAX's empty ``params["encoder"]`` has no leaves.  The module holds its
+parameters on the ``meta`` device only; a forward always runs through
 :func:`torch.func.functional_call` with a dict of real tensors
 (``{"blocks.0.attn.wq": ..., "embed": ..., ...}``), which is what the
 federated runtime differentiates with ``torch.func``.  No remat:
@@ -20,26 +30,29 @@ activation checkpointing does not compose with ``torch.func`` transforms.
 
 Serving: ``forward(..., collect_cache=True)`` is the prefill — attention
 through the flash-attention kernel (GQA at the config's head dim, MLA at
-Dk 192 / Dv 128), the mamba blocks' SSD scan through its kernel — and
-returns the decode cache in the JAX tree, ``{"layers": (entry, ...),
-"index": int32}``, one entry per position in the period, its tensors
-stacked over periods (``{"k", "v"}`` (n, B, S, Hkv, hd), MLA's ``{"ckv"}``
-(n, B, S, r) and ``{"krope"}`` (n, B, S, rd), or ``{"ssm"}`` (n, B, H, N,
-P) and ``{"conv"}`` (n, B, d_conv - 1, C)).  :func:`decode_step` takes
-one token per sequence against it.
+Dk 192 / Dv 128; the encoder's and the cross layers' non-causal), the
+mamba blocks' SSD scan through its kernel — and returns the decode cache
+in the JAX tree, ``{"layers": (entry, ...), "index": int32}`` and, with
+an encoder, ``"enc_out"`` (B, L, d).  One entry per position in the
+period, its tensors stacked over periods: ``{"k", "v"}`` (n, B, S, Hkv,
+hd) (a cross layer's of the encoder's length L), MLA's ``{"ckv"}`` (n, B,
+S, r) and ``{"krope"}`` (n, B, S, rd), or ``{"ssm"}`` (n, B, H, N, P) and
+``{"conv"}`` (n, B, d_conv - 1, C).  :func:`decode_step` takes one token
+per sequence against it.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from operator import attrgetter
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from repro_torch.configs.base import MAMBA, ArchConfig
+from repro_torch.configs.base import ATTN, CROSS, MAMBA, ArchConfig
 from repro_torch.core.flat import leaf_order
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
@@ -49,19 +62,19 @@ from repro_torch.models.attention import (MLA_LEAVES, attend,
                                           gqa_project_qkv, mla_attention,
                                           mla_decode_absorbed, mla_init)
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
-                                       rmsnorm, swiglu)
+                                       gelu_mlp, gelu_mlp_init, layernorm,
+                                       rmsnorm, sinusoidal_positions, swiglu)
 
 Params = Dict[str, torch.Tensor]
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
 MLP_LEAVES = ("w_gate", "w_up", "w_down")
+ENC_LAYER_LEAVES = ("attn.wk", "attn.wo", "attn.wq", "attn.wv", "ln1_b",
+                    "ln1_s", "ln2_b", "ln2_s", "mlp.b_in", "mlp.b_out",
+                    "mlp.w_in", "mlp.w_out")
 
 
 def _meta(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device="meta"))
-
-
-def is_ssm(cfg: ArchConfig) -> bool:
-    return cfg.layer_kinds()[0] == MAMBA
 
 
 def _lcm(*xs) -> int:
@@ -77,6 +90,16 @@ def period_of(cfg: ArchConfig) -> int:
              cfg.moe.every if cfg.moe else 1)
     assert cfg.num_layers % p == 0, (cfg.name, cfg.num_layers, p)
     return p
+
+
+def period_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The kind (ATTN, CROSS or MAMBA) of each position in the period."""
+    return cfg.layer_kinds()[:period_of(cfg)]
+
+
+def _is_mla(cfg: ArchConfig, kind: str) -> bool:
+    # a cross layer attends with plain GQA projections, MLA or not (JAX)
+    return cfg.mla is not None and kind == ATTN
 
 
 def _has_moe(cfg: ArchConfig, j: int) -> bool:
@@ -140,9 +163,10 @@ class Block(nn.Module):
         super().__init__()
         L, d = cfg.num_layers // period_of(cfg), cfg.d_model
         hd = cfg.resolved_head_dim
-        if is_ssm(cfg):
+        kind = cfg.layer_kinds()[j]
+        if kind == MAMBA:
             self.mamba = Mamba(L, d, cfg)
-        elif cfg.mla is not None:
+        elif _is_mla(cfg, kind):
             self.attn = MLA(L, d, cfg.num_heads, hd, cfg.mla.kv_lora_rank,
                             cfg.mla.rope_head_dim)
         else:
@@ -154,13 +178,46 @@ class Block(nn.Module):
         self.norm1 = _meta(L, d)
 
 
+class GeluMLP(nn.Module):
+    def __init__(self, L: int, d: int, d_ff: int):
+        super().__init__()
+        self.w_in, self.b_in = _meta(L, d, d_ff), _meta(L, d_ff)
+        self.w_out, self.b_out = _meta(L, d_ff, d), _meta(L, d)
+
+
+class EncoderLayers(nn.Module):
+    """The encoder's pre-LN layers, every leaf stacked over ``enc_layers``."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        e = cfg.encoder
+        L, d = e.enc_layers, e.enc_dim
+        self.attn = Attention(L, d, e.enc_heads, e.enc_heads,
+                              d // e.enc_heads)
+        self.mlp = GeluMLP(L, d, e.enc_ff or 4 * d)
+        self.ln1_s, self.ln1_b = _meta(L, d), _meta(L, d)
+        self.ln2_s, self.ln2_b = _meta(L, d), _meta(L, d)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        e = cfg.encoder
+        if e.enc_dim != cfg.d_model:
+            self.proj = _meta(e.enc_dim, cfg.d_model)
+        if e.enc_layers > 0:
+            self.layers = EncoderLayers(cfg)
+            self.ln_f_s, self.ln_f_b = _meta(e.enc_dim), _meta(e.enc_dim)
+
+
 def block_leaves(cfg: ArchConfig, j: int) -> List[str]:
     """The leaf paths of position ``j``'s block, relative to it."""
     names = ["norm1"]
-    if is_ssm(cfg):
+    kind = cfg.layer_kinds()[j]
+    if kind == MAMBA:
         names += [f"mamba.{n}" for n in ssm.LEAVES]
     else:
-        leaves = MLA_LEAVES if cfg.mla is not None else ATTN_LEAVES
+        leaves = MLA_LEAVES if _is_mla(cfg, kind) else ATTN_LEAVES
         names += [f"attn.{n}" for n in leaves]
     if _has_mlp(cfg, j):
         names.append("norm2")
@@ -173,23 +230,62 @@ def block_leaves(cfg: ArchConfig, j: int) -> List[str]:
     return names
 
 
-def _layers(get, cfg: ArchConfig):
+def _unstack(get, paths, n: int) -> List[dict]:
+    """``n`` nested per-layer trees from the stacked leaves ``get(path)``,
+    each ``(n, ...)``.  Each leaf is unbound once, so its gradient is one
+    stack of the layers' gradients."""
+    trees = [dict() for _ in range(n)]
+    for path in paths:
+        *parents, last = path.split(".")
+        for tree, t in zip(trees, get(path).unbind(0)):
+            for part in parents:
+                tree = tree.setdefault(part, {})
+            tree[last] = t
+    return trees
+
+
+def _layers(get, cfg: ArchConfig) -> List[dict]:
     """The per-layer parameter trees (the JAX per-layer layout) in layer
     order, from the stacked leaves; ``get(path)`` returns the leaf
-    ``blocks.<path>`` (``path`` starts with the position in the period).
-    Each stacked leaf is unbound once, so its gradient is one stack of
-    the layers' gradients."""
+    ``blocks.<path>`` (``path`` starts with the position in the period)."""
     P = period_of(cfg)
-    per_layer = [dict() for _ in range(cfg.num_layers)]
+    per_layer = [None] * cfg.num_layers
     for j in range(P):
-        for path in block_leaves(cfg, j):
-            *parents, last = path.split(".")
-            for n, t in enumerate(get(f"{j}.{path}").unbind(0)):
-                node = per_layer[n * P + j]
-                for part in parents:
-                    node = node.setdefault(part, {})
-                node[last] = t
+        trees = _unstack(lambda path: get(f"{j}.{path}"),
+                         block_leaves(cfg, j), cfg.num_layers // P)
+        for n, tree in enumerate(trees):
+            per_layer[n * P + j] = tree
     return per_layer
+
+
+def encode(get, enc_embeds: torch.Tensor, cfg: ArchConfig, attn_fn
+           ) -> torch.Tensor:
+    """enc_embeds: (B, L, enc_dim), the precomputed frame or patch
+    embeddings (the modality frontend is a stub, as in JAX) -> (B, L,
+    d_model).  ``get(path)`` returns the leaf ``encoder.<path>``;
+    ``attn_fn(q, k, v, causal=False)`` is ``attend`` in training and the
+    flash kernel's op in the prefill."""
+    e = cfg.encoder
+    h = enc_embeds
+    if e.enc_layers > 0:
+        B, L, _ = h.shape
+        hd = e.enc_dim // e.enc_heads
+        h = h + sinusoidal_positions(torch.arange(L, device=h.device),
+                                     e.enc_dim, h.dtype)[None]
+        for lp in _unstack(lambda path: get(f"layers.{path}"),
+                           ENC_LAYER_LEAVES, e.enc_layers):
+            a_p = lp["attn"]
+            x = layernorm(h, lp["ln1_s"], lp["ln1_b"], cfg.norm_eps)
+            q, k, v = gqa_project_qkv(x, a_p["wq"], a_p["wk"], a_p["wv"],
+                                      e.enc_heads, e.enc_heads, hd)
+            h = h + attn_fn(q, k, v, causal=False).reshape(B, L, -1) \
+                @ a_p["wo"]
+            x = layernorm(h, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
+            h = h + gelu_mlp(x, lp["mlp"])
+        h = layernorm(h, get("ln_f_s"), get("ln_f_b"), cfg.norm_eps)
+    if e.enc_dim != cfg.d_model:
+        h = h @ get("proj")
+    return h
 
 
 def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int):
@@ -205,34 +301,43 @@ def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int):
 
 
 def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
-                 positions: torch.Tensor, collect_cache: bool):
+                 positions: torch.Tensor, enc_out: Optional[torch.Tensor],
+                 collect_cache: bool):
     """One layer over the full sequence.  Returns (h, aux, cache_entry)."""
     B, S, _ = h.shape
     x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
     ce = None
     hd = cfg.resolved_head_dim
-    attn_fn = ((lambda q, k, v: flash_attention(q, k, v, causal=True))
-               if collect_cache else
-               (lambda q, k, v: attend(q, k, v, causal=True)))
-    if is_ssm(cfg):
+    kind = cfg.layer_kinds()[j]
+    attn_fn = flash_attention if collect_cache else attend
+    if kind == MAMBA:
         y = ssm.mamba_block(x, lp["mamba"], cfg.ssm,
                             collect_cache=collect_cache)
         if collect_cache:
             y, ce = y
-    elif cfg.mla is not None:
+    elif _is_mla(cfg, kind):
         y, ckv, krope = mla_attention(
             x, lp["attn"], positions, num_heads=cfg.num_heads, head_dim=hd,
             rope_head_dim=cfg.mla.rope_head_dim, rope_theta=cfg.rope_theta,
-            attn_fn=attn_fn)
+            attn_fn=partial(attn_fn, causal=True))
         if collect_cache:
             ce = {"ckv": ckv, "krope": krope}
+    elif kind == CROSS:
+        a_p = lp["attn"]
+        L = enc_out.shape[1]
+        q = (x @ a_p["wq"]).reshape(B, S, cfg.num_heads, hd)
+        k = (enc_out @ a_p["wk"]).reshape(B, L, cfg.num_kv_heads, hd)
+        v = (enc_out @ a_p["wv"]).reshape(B, L, cfg.num_kv_heads, hd)
+        y = attn_fn(q, k, v, causal=False).reshape(B, S, -1) @ a_p["wo"]
+        if collect_cache:
+            ce = {"k": k, "v": v}
     else:
         a_p = lp["attn"]
         q, k, v = gqa_project_qkv(x, a_p["wq"], a_p["wk"], a_p["wv"],
                                   cfg.num_heads, cfg.num_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        y = attn_fn(q, k, v).reshape(B, S, -1) @ a_p["wo"]
+        y = attn_fn(q, k, v, causal=True).reshape(B, S, -1) @ a_p["wo"]
         if collect_cache:
             ce = {"k": k, "v": v}
     h, aux = _ffn(h + y, lp, cfg, j)
@@ -249,9 +354,14 @@ class Transformer(nn.Module):
             self.head = _meta(cfg.d_model, cfg.vocab_size)
         self.blocks = nn.ModuleList([Block(cfg, j)
                                      for j in range(period_of(cfg))])
+        if cfg.encoder is not None:
+            self.encoder = Encoder(cfg)
 
-    def forward(self, tokens: torch.Tensor, collect_cache: bool = False):
-        """tokens: (B, S) int -> (pre-head hidden state (B, S, d), the MoE
+    def forward(self, tokens: torch.Tensor,
+                enc_embeds: Optional[torch.Tensor] = None,
+                collect_cache: bool = False):
+        """tokens: (B, S) int; ``enc_embeds`` (B, L, enc_dim) where the
+        config has an encoder -> (pre-head hidden state (B, S, d), the MoE
         aux loss summed over layers (0 without MoE)), and with
         ``collect_cache`` (the prefill) also the decode cache."""
         cfg = self.cfg
@@ -259,11 +369,22 @@ class Transformer(nn.Module):
         P = period_of(cfg)
         h = self.embed[tokens]
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if cfg.rope_theta <= 0:          # whisper: absolute sinusoidal
+            h = h + sinusoidal_positions(positions[0], cfg.d_model,
+                                         h.dtype)[None]
+        enc_out = None
+        if cfg.encoder is not None:
+            if enc_embeds is None:
+                raise ValueError(f"{cfg.name} has an encoder: the batch "
+                                 "needs 'enc_embeds'")
+            enc_out = encode(lambda path: attrgetter(path)(self.encoder),
+                             enc_embeds, cfg,
+                             flash_attention if collect_cache else attend)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         entries = [[] for _ in range(P)]
         for i, lp in enumerate(_layers(
                 lambda path: attrgetter(path)(self.blocks), cfg)):
-            h, a, ce = _apply_layer(h, lp, cfg, i % P, positions,
+            h, a, ce = _apply_layer(h, lp, cfg, i % P, positions, enc_out,
                                     collect_cache)
             if a is not None:
                 aux = aux + a
@@ -274,7 +395,10 @@ class Transformer(nn.Module):
         layers = tuple({k: torch.stack([e[k] for e in es]) for k in es[0]}
                        for es in entries)
         index = torch.tensor(S, dtype=torch.int32, device=tokens.device)
-        return h, aux, {"layers": layers, "index": index}
+        cache = {"layers": layers, "index": index}
+        if enc_out is not None:
+            cache["enc_out"] = enc_out
+        return h, aux, cache
 
 
 def _flatten(prefix: str, tree: dict, out: Params) -> None:
@@ -294,13 +418,15 @@ def init_transformer(cfg: ArchConfig, gen: torch.Generator,
     n = cfg.num_layers // P
     dev = gen.device
     hd = cfg.resolved_head_dim
+    ones = partial(torch.ones, dtype=torch.float32, device=dev)
     p: Params = {}
-    # the draw order (mixers, embed, MLPs, head) fixes what a seed gives
-    for j in range(P):
-        if is_ssm(cfg):
+    # the draw order (mixers, embed, MLPs, head, encoder) fixes what a seed
+    # gives
+    for j, kind in enumerate(period_kinds(cfg)):
+        if kind == MAMBA:
             mixer = {"mamba": ssm.mamba_init(gen, d, cfg.ssm, lead=(n,),
                                              dtype=dtype)}
-        elif cfg.mla is not None:
+        elif _is_mla(cfg, kind):
             mixer = {"attn": mla_init(gen, d, cfg.num_heads, hd,
                                       cfg.mla.kv_lora_rank,
                                       cfg.mla.rope_head_dim, lead=(n,),
@@ -310,15 +436,13 @@ def init_transformer(cfg: ArchConfig, gen: torch.Generator,
                                       cfg.num_kv_heads, hd, lead=(n,),
                                       dtype=dtype)}
         _flatten(f"blocks.{j}.", mixer, p)
-        p[f"blocks.{j}.norm1"] = torch.ones((n, d), dtype=torch.float32,
-                                            device=dev)
+        p[f"blocks.{j}.norm1"] = ones((n, d))
     p["embed"] = embed_init(gen, cfg.vocab_size, d, dtype)
-    p["final_norm"] = torch.ones((d,), dtype=torch.float32, device=dev)
+    p["final_norm"] = ones((d,))
     for j in range(P):
         if not _has_mlp(cfg, j):
             continue
-        p[f"blocks.{j}.norm2"] = torch.ones((n, d), dtype=torch.float32,
-                                            device=dev)
+        p[f"blocks.{j}.norm2"] = ones((n, d))
         if _has_moe(cfg, j):
             mlp = moe_lib.moe_init(gen, d, cfg.moe, cfg.d_ff, lead=(n,),
                                    dtype=dtype)
@@ -330,6 +454,22 @@ def init_transformer(cfg: ArchConfig, gen: torch.Generator,
         _flatten(f"blocks.{j}.mlp.", mlp, p)
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, d, cfg.vocab_size, dtype=dtype)
+    e = cfg.encoder
+    if e is not None:
+        if e.enc_dim != d:
+            p["encoder.proj"] = dense_init(gen, e.enc_dim, d, dtype=dtype)
+        if e.enc_layers > 0:
+            L, de = e.enc_layers, e.enc_dim
+            zeros = partial(torch.zeros, dtype=torch.float32, device=dev)
+            _flatten("encoder.layers.", {
+                "ln1_s": ones((L, de)), "ln1_b": zeros((L, de)),
+                "attn": gqa_init(gen, de, e.enc_heads, e.enc_heads,
+                                 de // e.enc_heads, lead=(L,), dtype=dtype),
+                "ln2_s": ones((L, de)), "ln2_b": zeros((L, de)),
+                "mlp": gelu_mlp_init(gen, de, e.enc_ff or 4 * de,
+                                     lead=(L,), dtype=dtype)}, p)
+            p["encoder.ln_f_s"], p["encoder.ln_f_b"] = ones((de,)), zeros(
+                (de,))
     return {k: p[k] for k in leaf_order(p)}
 
 
@@ -338,29 +478,36 @@ def head_of(cfg: ArchConfig, params: Params) -> torch.Tensor:
 
 
 def lm_loss_chunked(module: Transformer, params: Params, tokens: torch.Tensor,
-                    *, chunk: int = 2048
+                    *, enc_embeds: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None, chunk: int = 2048
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss with the vocab projection and cross-entropy taken
     over sequence chunks (the last one ragged), so the (B, S, V) logits
-    never exist at once; plus the MoE aux loss.  Returns (xent + aux,
-    {"xent", "aux", "acc"})."""
+    never exist at once; plus the MoE aux loss.  ``mask`` (B, S) in {0,
+    1}, aligned with ``tokens``, drops the positions it zeroes (shifted by
+    one with the labels): cross-entropy and accuracy are means over the
+    kept labels.  Returns (xent + aux, {"xent", "aux", "acc"})."""
     cfg = module.cfg
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    h, aux = functional_call(module, params, (inputs,))
+    m = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+         if mask is None else mask[:, 1:].to(torch.float32))
+    h, aux = functional_call(module, params, (inputs,),
+                             {"enc_embeds": enc_embeds})
     head = head_of(cfg, params)
     S = h.shape[1]
     C = min(chunk, S)
     nll = hit = None
     for s0 in range(0, S, C):
         logits = (h[:, s0:s0 + C] @ head).to(torch.float32)
-        lc = labels[:, s0:s0 + C]
+        lc, mc = labels[:, s0:s0 + C], m[:, s0:s0 + C]
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lc[..., None])[..., 0]
-        n = torch.sum(logz - gold)
-        c = torch.sum((torch.argmax(logits, dim=-1) == lc).to(torch.float32))
+        n = torch.sum((logz - gold) * mc)
+        c = torch.sum((torch.argmax(logits, dim=-1) == lc).to(torch.float32)
+                      * mc)
         nll = n if nll is None else nll + n
         hit = c if hit is None else hit + c
-    cnt = float(max(labels.numel(), 1))
+    cnt = torch.clamp(torch.sum(m), min=1.0)
     xent = nll / cnt
     return xent + aux, {"xent": xent, "aux": aux, "acc": hit / cnt}
 
@@ -369,42 +516,44 @@ def lm_loss_chunked(module: Transformer, params: Params, tokens: torch.Tensor,
 # Decode (one token against the stacked cache)
 # ---------------------------------------------------------------------------
 def pad_cache(cache, cfg: ArchConfig, cache_len: int):
-    """Grow a prefill cache's attention sequence axis (k / v, or MLA's ckv
-    / krope) to ``cache_len`` (zero slots) so decode steps can write into
-    it; mamba entries carry constant state and pass through."""
-    if is_ssm(cfg):
-        return cache
+    """Grow a prefill cache's self-attention sequence axis (k / v, or MLA's
+    ckv / krope) to ``cache_len`` (zero slots) so decode steps can write
+    into it; mamba entries (constant state) and cross entries (the
+    encoder's constant length) pass through, as does ``enc_out``."""
     layers = []
-    for ce in cache["layers"]:
-        S = next(iter(ce.values())).shape[2]
-        pad = cache_len - S
-        layers.append(ce if pad <= 0 else {
+    for kind, ce in zip(period_kinds(cfg), cache["layers"]):
+        pad = cache_len - next(iter(ce.values())).shape[2]
+        layers.append(ce if kind in (MAMBA, CROSS) or pad <= 0 else {
             k: F.pad(t, [0, 0] * (t.dim() - 3) + [0, pad])   # axis 2
             for k, t in ce.items()})
-    return {"layers": tuple(layers), "index": cache["index"]}
+    return {**cache, "layers": tuple(layers)}
 
 
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.float32, *, window: int = 0, device=None):
-    """Zero-initialized decode cache.  ``cache_len`` is the attention cache
-    length (the window instead when a sliding-window decode is used);
-    mamba layers carry constant-size state."""
-    P = period_of(cfg)
-    n = cfg.num_layers // P
+    """Zero-initialized decode cache.  ``cache_len`` is the self-attention
+    cache length (the window instead when a sliding-window decode is
+    used); mamba layers carry constant-size state and cross layers the
+    encoder's keys and values (its ``enc_len``)."""
+    n = cfg.num_layers // period_of(cfg)
     S = window if window > 0 else cache_len
-    if cfg.mla is not None:
-        shapes = {"ckv": (n, batch, S, cfg.mla.kv_lora_rank),
-                  "krope": (n, batch, S, cfg.mla.rope_head_dim)}
-    else:
-        kv = (n, batch, S, cfg.num_kv_heads, cfg.resolved_head_dim)
-        shapes = {"k": kv, "v": kv}
+    hd = cfg.resolved_head_dim
     layers = []
-    for _ in range(P):
-        layers.append(
-            ssm.mamba_make_cache(batch, cfg.d_model, cfg.ssm, dtype,
-                                 lead=(n,), device=device) if is_ssm(cfg)
-            else {k: torch.zeros(s, dtype=dtype, device=device)
-                  for k, s in shapes.items()})
+    for kind in period_kinds(cfg):
+        if kind == MAMBA:
+            layers.append(ssm.mamba_make_cache(batch, cfg.d_model, cfg.ssm,
+                                               dtype, lead=(n,),
+                                               device=device))
+            continue
+        if _is_mla(cfg, kind):
+            shapes = {"ckv": (n, batch, S, cfg.mla.kv_lora_rank),
+                      "krope": (n, batch, S, cfg.mla.rope_head_dim)}
+        else:
+            L = cfg.encoder.enc_len if kind == CROSS else S
+            kv = (n, batch, L, cfg.num_kv_heads, hd)
+            shapes = {"k": kv, "v": kv}
+        layers.append({k: torch.zeros(s, dtype=dtype, device=device)
+                       for k, s in shapes.items()})
     return {"layers": tuple(layers),
             "index": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -418,26 +567,35 @@ def decode_step(params: Params, tokens: torch.Tensor, cache,
     tokens = tokens.reshape(tokens.shape[0])
     B = tokens.shape[0]
     P = period_of(cfg)
+    kinds = period_kinds(cfg)
     index = cache["index"]
     layers = _layers(lambda path: params[f"blocks.{path}"], cfg)
     hd = cfg.resolved_head_dim
     h = params["embed"][tokens]
+    if cfg.rope_theta <= 0:              # the current token's position
+        h = h + sinusoidal_positions(index.reshape(1), cfg.d_model, h.dtype)
     for i, lp in enumerate(layers):
         j, n = i % P, i // P
         ce = cache["layers"][j]
         x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
-        if is_ssm(cfg):
+        if kinds[j] == MAMBA:
             y, new = ssm.mamba_block_decode(
                 x, lp["mamba"], cfg.ssm,
                 {"ssm": ce["ssm"][n], "conv": ce["conv"][n]})
             ce["ssm"][n].copy_(new["ssm"])
             ce["conv"][n].copy_(new["conv"])
-        elif cfg.mla is not None:
+        elif _is_mla(cfg, kinds[j]):
             y = mla_decode_absorbed(
                 x, lp["attn"], ce["ckv"][n], ce["krope"][n], index,
                 num_heads=cfg.num_heads, head_dim=hd,
                 rope_head_dim=cfg.mla.rope_head_dim,
                 rope_theta=cfg.rope_theta)
+        elif kinds[j] == CROSS:          # every encoder position is valid
+            q = (x @ lp["attn"]["wq"]).reshape(B, cfg.num_heads, hd)
+            k_cache, v_cache = ce["k"][n], ce["v"][n]
+            a = decode_attention(q, k_cache, v_cache,
+                                 index.new_tensor(k_cache.shape[1] - 1))
+            y = a.reshape(B, -1) @ lp["attn"]["wo"]
         else:
             a_p = lp["attn"]
             pos = index.reshape(1, 1).expand(B, 1)
@@ -457,4 +615,4 @@ def decode_step(params: Params, tokens: torch.Tensor, cache,
         h = _ffn((h + y)[:, None], lp, cfg, j)[0][:, 0]
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = h @ head_of(cfg, params)
-    return logits, {"layers": cache["layers"], "index": index + 1}
+    return logits, {**cache, "index": index + 1}

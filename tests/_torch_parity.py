@@ -32,3 +32,49 @@ def jax_params_to_torch(tree):
     import jax
     from repro_torch import bridge
     return bridge.to_torch(jax.tree.map(np.asarray, tree))
+
+
+def routes_jax(fn):
+    """Call ``fn`` with JAX's ``_route`` recording (expert_idx, keep) of
+    every MoE layer, in layer order; returns (fn's result, records)."""
+    import jax
+    import repro.models.moe as JMOE
+    recs, orig = [], JMOE._route
+
+    def route(xg, p, cfg):
+        out = orig(xg, p, cfg)
+        jax.debug.callback(lambda e, k: recs.append(
+            (np.asarray(e), np.asarray(k))), out[1], out[3], ordered=True)
+        return out
+
+    JMOE._route = route
+    try:
+        res = jax.block_until_ready(fn())
+        jax.effects_barrier()
+    finally:
+        JMOE._route = orig
+    return res, recs
+
+
+def routes_port(fn, monkeypatch):
+    """The same for the port's ``_route``."""
+    from repro_torch.models import moe as TMOE
+    recs, orig = [], TMOE._route
+
+    def route(xg, p, cfg):
+        out = orig(xg, p, cfg)
+        recs.append((out[1].numpy().copy(), out[3].numpy().copy()))
+        return out
+
+    monkeypatch.setattr(TMOE, "_route", route)
+    res = fn()
+    monkeypatch.setattr(TMOE, "_route", orig)
+    return res, recs
+
+
+def assert_same_routing(jrecs, trecs):
+    assert len(trecs) == len(jrecs) > 0
+    for i, ((je, jk), (te, tk)) in enumerate(zip(jrecs, trecs)):
+        flips = int((te != je).sum())
+        assert flips == 0, f"layer {i}: {flips} routing decisions differ"
+        assert np.array_equal(tk, jk), f"layer {i}: kept entries differ"

@@ -25,8 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-import repro.models.moe as JMOE
-from _torch_parity import jax_params_to_torch, max_tree_rel_err, rel_err
+from _torch_parity import (assert_same_routing, jax_params_to_torch,
+                           max_tree_rel_err, rel_err, routes_jax, routes_port)
 from repro.configs import get_arch as jax_get_arch
 from repro.core import client as JC
 from repro.models.model import build_model as jax_build_model
@@ -34,7 +34,6 @@ from repro_torch import bridge
 from repro_torch.configs import get_arch
 from repro_torch.core import client as TC
 from repro_torch.launch import serve
-from repro_torch.models import moe as TMOE
 from repro_torch.models.model import build_model
 from repro_torch.models.transformer import Transformer, period_of
 
@@ -44,48 +43,6 @@ SMOKE = [f"{a}-smoke" for a in NEW]
 MOE = [a for a in SMOKE if get_arch(a).moe is not None]
 B, P = 2, 24
 TOL = 1e-5
-
-
-def _routes_jax(fn):
-    """Call ``fn`` with JAX's ``_route`` recording (expert_idx, keep) of
-    every MoE layer, in layer order; returns (fn's result, records)."""
-    recs, orig = [], JMOE._route
-
-    def route(xg, p, cfg):
-        out = orig(xg, p, cfg)
-        jax.debug.callback(lambda e, k: recs.append(
-            (np.asarray(e), np.asarray(k))), out[1], out[3], ordered=True)
-        return out
-
-    JMOE._route = route
-    try:
-        res = jax.block_until_ready(fn())
-        jax.effects_barrier()
-    finally:
-        JMOE._route = orig
-    return res, recs
-
-
-def _routes_port(fn, monkeypatch):
-    recs, orig = [], TMOE._route
-
-    def route(xg, p, cfg):
-        out = orig(xg, p, cfg)
-        recs.append((out[1].numpy().copy(), out[3].numpy().copy()))
-        return out
-
-    monkeypatch.setattr(TMOE, "_route", route)
-    res = fn()
-    monkeypatch.setattr(TMOE, "_route", orig)
-    return res, recs
-
-
-def _assert_same_routing(jrecs, trecs):
-    assert len(trecs) == len(jrecs) > 0
-    for i, ((je, jk), (te, tk)) in enumerate(zip(jrecs, trecs)):
-        flips = int((te != je).sum())
-        assert flips == 0, f"layer {i}: {flips} routing decisions differ"
-        assert np.array_equal(tk, jk), f"layer {i}: kept entries differ"
 
 
 @pytest.fixture(scope="module", params=SMOKE)
@@ -107,12 +64,12 @@ def test_loss_and_metrics_match_jax(arch, monkeypatch):
     chunks of 16)."""
     toks = arch["toks"][:, :P + 1]
     moe = arch["name"] in MOE
-    (jl, jmet), jrecs = _routes_jax(lambda: jax.jit(arch["jm"].loss)(
+    (jl, jmet), jrecs = routes_jax(lambda: jax.jit(arch["jm"].loss)(
         arch["jp"], {"tokens": jnp.asarray(toks)}))
-    (tl, tmet), trecs = _routes_port(lambda: arch["tm"].loss(
+    (tl, tmet), trecs = routes_port(lambda: arch["tm"].loss(
         arch["tp"], {"tokens": torch.from_numpy(toks).long()}), monkeypatch)
     if moe:
-        _assert_same_routing(jrecs, trecs)
+        assert_same_routing(jrecs, trecs)
         assert float(tmet["aux"]) > 0
     else:
         assert not jrecs and not trecs and float(tmet["aux"]) == 0.0
@@ -130,11 +87,11 @@ def test_uga_client_update_matches_jax(arch, monkeypatch):
     jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(
         toks).long()}
     if arch["name"] in MOE:
-        _, jrecs = _routes_jax(lambda: jax.jit(arch["jm"].loss)(
+        _, jrecs = routes_jax(lambda: jax.jit(arch["jm"].loss)(
             arch["jp"], jb))
-        _, trecs = _routes_port(lambda: arch["tm"].loss(arch["tp"], tb),
+        _, trecs = routes_port(lambda: arch["tm"].loss(arch["tp"], tb),
                                 monkeypatch)
-        _assert_same_routing(jrecs, trecs)
+        assert_same_routing(jrecs, trecs)
     lr = 0.05
     g, l = TC.uga_update(arch["tm"].loss, arch["tp"], tb, lr, local_steps=2,
                          local_epochs=1)
@@ -153,14 +110,14 @@ def test_prefill_cache_and_decode_match_jax(arch, monkeypatch):
     krope), then four decode steps fed the same tokens, against JAX."""
     jm, tm, toks = arch["jm"], arch["tm"], arch["toks"]
     cache_len = P + 5
-    (jlog, jc), jrecs = _routes_jax(lambda: jax.jit(
+    (jlog, jc), jrecs = routes_jax(lambda: jax.jit(
         lambda p, b: jm.prefill(p, b, cache_len=cache_len))(
             arch["jp"], {"tokens": jnp.asarray(toks[:, :P])}))
-    (tlog, tc), trecs = _routes_port(lambda: tm.prefill(
+    (tlog, tc), trecs = routes_port(lambda: tm.prefill(
         arch["tp"], {"tokens": torch.from_numpy(toks[:, :P]).long()},
         cache_len=cache_len), monkeypatch)
     if arch["name"] in MOE:
-        _assert_same_routing(jrecs, trecs)
+        assert_same_routing(jrecs, trecs)
     assert rel_err(tlog, np.asarray(jlog)) <= TOL
     assert len(tc["layers"]) == len(jc["layers"])
     for entry, jentry in zip(tc["layers"], jc["layers"]):
@@ -240,11 +197,11 @@ def test_moe_every_second_layer_builds_jaxs_pattern(monkeypatch):
     assert tp["blocks.1.mlp.router"].shape[0] == 2
     toks = np.random.default_rng(6).integers(0, 512, (2, 13)).astype(
         np.int32)
-    (jl, _), jrecs = _routes_jax(lambda: jax.jit(jm.loss)(
+    (jl, _), jrecs = routes_jax(lambda: jax.jit(jm.loss)(
         jp, {"tokens": jnp.asarray(toks)}))
-    (tl, _), trecs = _routes_port(lambda: tm.loss(
+    (tl, _), trecs = routes_port(lambda: tm.loss(
         tp, {"tokens": torch.from_numpy(toks).long()}), monkeypatch)
-    _assert_same_routing(jrecs, trecs)
+    assert_same_routing(jrecs, trecs)
     assert len(trecs) == 2
     assert rel_err(tl, np.asarray(jl)) <= TOL
 

@@ -7,7 +7,9 @@ import pathlib
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import FedConfig as JaxFedConfig
+from repro.configs import get_arch as jax_get_arch
 from repro.core import rngtags as jax_rngtags
 from repro_torch.configs import FedConfig, get_arch
 from repro_torch.configs.base import ArchConfig, EncoderConfig, MoEConfig
@@ -94,20 +96,47 @@ def test_bad_values_raise_value_errors():
 
 
 def test_build_model_refuses_unported_families():
-    """MoE FFNs on an attention stack are ported (deepseek, llama4); the
-    jamba hybrid's attention/mamba period with MoE (ROADMAP Queue 1 item
-    6e) and an encoder (item 6f) still raise."""
+    """Every family of the JAX transformer builds now: MoE FFNs on an
+    attention stack (deepseek, llama4), the jamba hybrid's attention/mamba
+    period with MoE and an encoder (ROADMAP Queue 1 items 6e, 6f, done).
+    What is still unported raises naming its item: training through mamba
+    layers (item 10) and checkpoints (item 4)."""
+    from repro_torch.launch import serve
     from repro_torch.models.model import build_model
     moe = MoEConfig(num_experts=4, top_k=2, every=2)
     cfg = dataclasses.replace(get_arch("mamba2-780m-smoke"), family="hybrid",
                               attn_period=2, num_heads=4, num_kv_heads=4,
                               moe=moe)
-    with pytest.raises(NotImplementedError, match="hybrid.*item 6e"):
-        build_model(cfg)
+    hybrid = build_model(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        hybrid.loss({}, {"tokens": torch.zeros((1, 5), dtype=torch.long)})
     enc = dataclasses.replace(get_arch("smollm-360m-smoke"),
-                              encoder=EncoderConfig(1, 8, 32))
-    with pytest.raises(NotImplementedError, match="encoder.*item 6f"):
-        build_model(enc)
+                              encoder=EncoderConfig(1, 8, 32, enc_heads=2))
+    model = build_model(enc)
+    params = model.init(torch.Generator().manual_seed(0))
+    assert params["encoder.proj"].shape == (32, enc.d_model)
+    loss, _ = model.loss(params, {"tokens": torch.zeros((1, 5), dtype=torch
+                                                        .long),
+                                  "enc_embeds": torch.zeros((1, 8, 32))})
+    assert torch.isfinite(loss)
     build_model(dataclasses.replace(get_arch("smollm-360m-smoke"),
                                     family="moe", moe=moe))
     assert isinstance(get_arch("smollm-360m"), ArchConfig)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        serve.main(["--arch", "whisper-large-v3-smoke", "--ckpt", "x",
+                    "--device", "cpu"])
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("name", JAX_ARCHS)
+def test_every_jax_architecture_builds(name, smoke):
+    """The port registers each of the JAX package's architectures, full and
+    smoke, and builds its module (on the meta device: full width costs
+    nothing here) with the JAX config's values."""
+    from repro_torch.models.model import build_model
+    cfg = get_arch(f"{name}-smoke" if smoke else name)
+    jcfg = jax_get_arch(f"{name}-smoke" if smoke else name)
+    assert cfg.name == jcfg.name and cfg.layer_kinds() == jcfg.layer_kinds()
+    assert cfg.param_count() == jcfg.param_count()
+    model = build_model(cfg)
+    assert model.name == cfg.name and model.prefill is not None

@@ -418,6 +418,30 @@ def test_flash_attention_kernel_at_served_heads(cuda_device, model, H, Hkv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Dk,Dv", FK.FORMS)
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("Sq,Skv", [(1, 1500), (63, 1500), (416, 1500),
+                                    (1024, 1601), (1500, 1500)])
+def test_flash_attention_kernel_noncausal_encoder_keys(cuda_device, Sq, Skv,
+                                                       G, Dk, Dv):
+    """Queries against an encoder's keys, as the cross layers and the
+    encoder call it: non-causal, Sq != Skv (whisper's 1500 frames,
+    llama-3.2-vision's 1601 patches, a ragged key tail), and S 1500 square
+    (whisper's encoder), group 1 and 8, every form; nothing zero-padded."""
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + Skv + Dk)
+    q = torch.randn((2 * 2 * G, Sq, Dk), generator=gen, device=cuda_device)
+    k = torch.randn((2 * 2, Skv, Dk), generator=gen, device=cuda_device)
+    v = torch.randn((2 * 2, Skv, Dv), generator=gen, device=cuda_device)
+    n0 = FK.flash_attention_fwd.launches
+    out = FK.flash_attention_fwd(q[None], k[None], v[None], causal=False)[0]
+    ref = FR.attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_fwd.launches == n0 + 1
+    assert out.shape == ref.shape == (2 * 2 * G, Sq, Dv)
+    assert rel_err(out, ref) <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("Dk,Dv", [(192, 192), (128, 64), (96, 64), (32, 32)])
 def test_flash_attention_kernel_refuses_other_forms(cuda_device, Dk, Dv):
     q, k = (torch.randn((1, 2, 8, Dk), device=cuda_device) for _ in range(2))

@@ -12,8 +12,6 @@ top-two logit gap is at most 1e-3 (a tie within the decode tolerance may
 go either way); after a flip the two sequences feed different tokens and
 are no longer compared.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -217,6 +215,9 @@ def test_unported_paths_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         run_training(ARCHS[1], rounds=1, cohort=2, client_batch=2, seq=8,
                      num_clients=4, examples=32, fused=True, device="cpu")
-    hybrid = dataclasses.replace(cfg, family="hybrid", attn_period=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(hybrid)
+    # the hybrid stack builds now (item 6e) and serves; its training is
+    # item 10 too
+    jamba = build_model(get_arch("jamba-1.5-large-398b-smoke"))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        jamba.loss(jamba.init(torch.Generator().manual_seed(0)),
+                   {"tokens": toks})

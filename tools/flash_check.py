@@ -5,9 +5,12 @@ Builds ``src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu``
 (``nvcc``, ``-Xptxas -v`` printed), holds ``flash_attention_fwd`` against
 ``ref.attention_ref`` at 1e-5 (max |a-b| over max |b|) at each (Dk, Dv)
 form, (64, 64), (96, 96), (128, 128) and (192, 128) (S 1 to 1025, causal
-on and off, window 0 and 256, group 1 and 3), and at the prefill shape of
-every model it serves (B 8, S 1024, causal), then
-times it there in turns with scaled_dot_product_attention.  The same
+on and off, window 0 and 256, group 1 and 3; non-causal at Sq != Skv,
+queries against an encoder's keys, and S 1500, group 1 and 8), and at
+every call shape of a served prefill (B 8: the decoder-only models' S
+1024, causal; whisper-large-v3's encoder, decoder self- and
+cross-attention; llama-3.2-vision-90b's cross-attention), then times it
+there in turns with scaled_dot_product_attention.  The same
 checks run in ``chip_smoke.py`` phases 3b and 5d (this script calls its
 functions), among everything else.
 
