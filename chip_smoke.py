@@ -42,9 +42,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      of ``flip_aware``).  Then one unprofiled and one profiled vmap/sgd
      round for the device's busy time by kernel, its idle share and the
      host's time in operators;
+  6m. training through Mamba2 layers at full width: ``run_training`` on
+     mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd 3
+     rounds, scan/sgd 2 (scan/adam does not fit the card: ``MAMBA_RUNS``),
+     each held to exactly its cohort's
+     fused-update launches and no SSD-scan launch (training runs the
+     differentiable ``models/ssm.py::ssd_chunked``), finite metrics, vmap
+     and scan within 1e-5 after round 1, the flat rows, the steady round
+     wall and the peak printed;
+  6f. the synchronous fault model at full width: smollm-360m vmap/sgd, 3
+     rounds, participation 0.75, the 'flaky' profile, a deadline of 3 and
+     retry with backoff 1: each round's launches (one aggregate and one
+     update pass, none when every client failed) and its participation
+     and fault metrics held to what the round's draws give;
   7. a reference check on a small input: the same trainer at smoke size on
      the card against the plain versions on the CPU, in both meta modes
-     and with int8 and sign1bit error feedback;
+     and with int8 and sign1bit error feedback; mamba2-780m-smoke and
+     jamba-1.5-large-398b-smoke in both meta modes (routing asserted
+     equal first); under int8 error feedback a round whose clients all
+     crashed (no launch, state bitwise unchanged) and one with a client
+     crashed (its residual slot byte-identical);
   8. one JSON line of per-kernel numbers, then the card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1141,6 +1158,179 @@ def coded_path(counts_of, dev):
     return counts
 
 
+# Phase 6m: training through Mamba2 layers at full width.  mamba2-780m
+# trains through models/ssm.py::ssd_chunked (plain PyTorch, differentiable
+# in both modes), so the SSD-scan kernel launches no time; the server step
+# runs the fused-update kernels as on smollm-360m.  vmap/sgd 3 rounds and
+# scan/sgd 2 (held to vmap/sgd after round 1).  scan/adam does not fit:
+# both sgd runs peak at 69.99 GiB, outside the aggregation (the same on
+# both cohorts), and adam's two slots (6.24 GB) ran the card out of
+# memory at 75.81 GiB allocated, 2.62 GiB more reserved, of 79.18.
+MAMBA_RUNS = {"mamba2:vmap/sgd": 3, "mamba2:scan/sgd": 2}
+MAMBA_N_PARAMS = 779_841_792
+# vmap against scan after round 1: the two cohorts sum G in other orders
+# (1e-7 apart), and the FedMeta step's gradient at parameters that close
+# is ill-conditioned in a stack with mamba layers (tests/
+# test_torch_ssm_train.py); dt_bias starts at zero, so its relative error
+# is its update's.  Measured 1.95e-5; smollm-360m's runs hold 1e-5.
+MAMBA_VMAP_SCAN_TOL = 1e-4
+
+
+def mamba_path(counts_of, dev):
+    """Each run its own main path (counts zeroed just before, read just
+    after): exactly the fused-update launches of its cohort and none of
+    the SSD scan, finite metrics, the flat rows, the steady round wall and
+    the peak."""
+    import numpy as np
+    import torch
+    from repro_torch.core import flat as F
+    from repro_torch.launch.train import run_training
+
+    counts, round1, walls = {}, {}, {}
+    for tag, rounds in MAMBA_RUNS.items():
+        strategy, opt = tag.split(":")[1].split("/")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks, copy_s = [time.perf_counter()], [0.0]
+
+        def on_records(recs, trainer, tag=tag, opt=opt, marks=marks,
+                       copy_s=copy_s):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter() - copy_s[0])
+            if recs[0]["round"] != 0 or opt != "sgd":
+                return
+            t = time.perf_counter()     # a host copy: kept out of the peak
+            round1[tag] = {k: v.cpu() for k, v in
+                           trainer.state["params"].items()}
+            copy_s[0] += time.perf_counter() - t
+
+        counts_of.reset()
+        state, hist = run_training(
+            "mamba2-780m", rounds=rounds, cohort=COHORT, client_batch=8,
+            seq=128, algorithm="uga", meta=True, fused=True,
+            strategy=strategy, server_opt=opt, seed=0, log_every=1,
+            device=dev, on_records=on_records)
+        counts[tag] = counts_of.read()
+        want = (_vmap_counts if strategy == "vmap" else _scan_counts)(
+            rounds, False)
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        assert counts[tag] == want, (tag, counts[tag], want)
+        assert counts[tag]["ssd_scan_fwd"] == 0
+        n = sum(p.numel() for p in state["params"].values())
+        rows = F.make_flat_spec(state["params"]).groups[0].rows
+        assert n == MAMBA_N_PARAMS, n
+        for rec in hist:
+            assert all(math.isfinite(v) for v in rec.values()), (tag, rec)
+        secs = [b - a for a, b in zip(marks, marks[1:])]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        walls[tag] = dict(round_wall_s=secs, peak_gib=peak)
+        steady = (f"steady {np.mean(secs[1:]):.4f} s" if len(secs) > 1
+                  else "no steady round")
+        log(f"  {tag}: params {n:,}, flat rows {rows:,} x 128 "
+            f"({rows * 512 / 1e9:.3f} GB fp32); round wall s "
+            f"{[round(x, 4) for x in secs]} (round 0 includes init and "
+            f"data; {steady}); max_memory_allocated {peak:.2f} GiB")
+        del state
+        torch.cuda.empty_cache()
+        if tag == "mamba2:scan/sgd":
+            a, b = round1.pop("mamba2:vmap/sgd"), round1.pop(tag)
+            errs = {k: rel_err(b[k], a[k]) for k in a}
+            leaf = max(errs, key=errs.get)
+            log(f"  mamba2 post: vmap vs scan params after round 1: rel "
+                f"{errs[leaf]:.3e} ({leaf}; tol {MAMBA_VMAP_SCAN_TOL:g}); "
+                f"every other leaf within "
+                f"{max(v for k, v in errs.items() if k != leaf):.3e}")
+            assert errs[leaf] <= MAMBA_VMAP_SCAN_TOL, errs[leaf]
+    return counts
+
+
+# Phase 6f: the synchronous fault model on smollm-360m at full width,
+# vmap/sgd: participation 0.75, the 'flaky' fault profile (crash 0.05,
+# drop 0.08, delay 0.15 up to 3 rounds; its garble zeroed on a sync
+# round), a deadline of 3 round-units and retry with a backoff of 1.
+FAULT_ROUNDS = 3
+FAULT_KW = dict(participation=0.75, fault_profile="flaky",
+                round_deadline=3.0, retry_backoff=1)
+
+
+def expected_fault_metrics(fed, draws) -> tuple:
+    """(stepped, the participation and fault metrics) a round under
+    ``draws`` must report, from the draws alone."""
+    import numpy as np
+    from repro_torch.core.round import sync_faults
+    from repro_torch.sim.faults import client_failed_mask, timed_out
+    fc = sync_faults(fed)
+    keep = draws.participation > 0
+    fs = draws.faults
+    arrive = keep & ~client_failed_mask(fs, fc)
+    want = {"participants": float(keep.sum()),
+            "arrivals": float(arrive.sum()),
+            "fault_crashed": float(fs.crashed.sum()),
+            "fault_dropped": float(fs.dropped.sum()),
+            "fault_timeout": float(timed_out(fs, fc).sum())}
+    return bool(np.any(arrive)), want
+
+
+def fault_path(counts_of, dev):
+    """One run (counts zeroed just before it, read just after), and the
+    launches of each round read off the running counts: one aggregate
+    and one update pass a round with an arrival, none in a round whose
+    clients all failed; the metrics equal what the round's draws give."""
+    import torch
+    from repro_torch.launch.train import run_training
+
+    per_round, seen = [], [counts_of.read()]
+
+    def on_records(recs, trainer):
+        torch.cuda.synchronize()
+        now = counts_of.read()
+        delta = {k: now[k] - seen[-1][k] for k in now}
+        seen.append(now)
+        rec = recs[0]
+        stepped, want = expected_fault_metrics(
+            trainer.fed, trainer.draw_round(rec["round"], COHORT))
+        got = {k: rec[k] for k in want}
+        assert got == want, (rec["round"], got, want)
+        n = 1 if stepped else 0
+        assert delta == _launches(aggregate_pass=n, update_pass=n), (
+            rec["round"], delta)
+        if not stepped:
+            assert rec["client_loss"] == rec["grad_norm"] == \
+                rec["meta_loss"] == 0.0, rec
+        per_round.append((rec["round"], stepped, got, rec["retried"],
+                          delta["aggregate_pass"], delta["update_pass"]))
+
+    counts_of.reset()
+    seen[0] = counts_of.read()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state, hist = run_training(
+        "smollm-360m", rounds=FAULT_ROUNDS, cohort=COHORT, client_batch=8,
+        seq=128, algorithm="uga", meta=True, fused=True, strategy="vmap",
+        server_opt="sgd", seed=0, log_every=1, device=dev,
+        on_records=on_records, **FAULT_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    tag = "faults:vmap/sgd"
+    counts = {tag: counts_of.read()}
+    log(f"kernels: {tag} {json.dumps(counts[tag])}")
+    n = sum(s for _, s, *_ in per_round)
+    assert counts[tag] == _launches(aggregate_pass=n, update_pass=n)
+    for rec in hist:
+        assert all(math.isfinite(v) for v in rec.values()), rec
+    for r, stepped, got, retried, na, nu in per_round:
+        log(f"  round {r}: {'stepped' if stepped else 'all failed'}; "
+            f"{json.dumps(got)}; retried {retried:g}; launches aggregate "
+            f"{na}, update {nu} (as the draws give)")
+    log(f"  {FAULT_ROUNDS} rounds in {wall:.2f} s (round 0 includes init "
+        f"and data); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
 def profile_round(dev):
     """Two steady vmap/sgd rounds at full width, the second under
     ``torch.profiler``: device busy time by kernel, the share of the
@@ -1345,6 +1535,186 @@ def small_reference_coded(dev):
         log(f"  smoke {codec}+ef {strategy}/{opt}, card vs CPU plain: "
             f"history <= 1e-4, comm_bytes exact; params: {n_p} elements "
             f"off by more than 1e-5, residuals: {n_r} (flip-aware)")
+
+
+# Rounds and tolerance (history and params, max |a-b| over max |b|) of
+# phase 7's SSM training check.  The client update of a stack with mamba
+# layers is ill-conditioned in the embedding (tests/test_torch_ssm_train
+# .py), and jamba's the more so: the port and JAX on the CPU 1.5e-4 apart
+# after one client update at lr 0.05.  Card against CPU, routing equal:
+# mamba2 within 1.5e-5 over 2 rounds; jamba's first round within 2.5e-4
+# (ctrl_lr_grad; params 2.1e-5), its second 4.1e-4 (post params) and
+# 2.4e-3 (through_aggregation's ctrl_w_gnorm, a hypergradient norm), so
+# jamba runs one round.
+SSM_SMALL = {"mamba2-780m-smoke": (2, 1e-4),
+             "jamba-1.5-large-398b-smoke": (1, 1e-3)}
+
+
+def small_reference_ssm(counts_of, dev):
+    """Phase 7 for training through mamba layers: mamba2-780m-smoke and
+    jamba-1.5-large-398b-smoke (routing asserted equal first) in each meta
+    mode, vmap/sgd, seq 40 (a ragged last SSD chunk of the 32), the card
+    against the CPU: rounds, history and parameters as ``SSM_SMALL``
+    says, and no SSD-scan launch on the card."""
+    import torch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.launch.train import build_synthetic_fed_data
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+
+    for arch, (rounds, tol) in SSM_SMALL.items():
+        cfg = get_arch(arch)
+        model = build_model(cfg, loss_chunk=256)
+        params = model.init(torch.Generator().manual_seed(3))
+        for mode in ("post", "through_aggregation"):
+            fed = FedConfig(algorithm="uga", meta=True, cohort=2,
+                            local_steps=2, client_lr=0.01, server_lr=0.01,
+                            meta_lr=0.01, lr_decay=0.992, fused_update=True,
+                            meta_mode=mode)
+            out, routes = {}, []
+            orig = moe._route
+            for d in (dev, torch.device("cpu")):
+                recs = []
+
+                def route(xg, p, c, recs=recs):
+                    r = orig(xg, p, c)
+                    recs.append((r[1].cpu(), r[3].cpu()))
+                    return r
+
+                moe._route = route
+                counts_of.reset()
+                try:
+                    tr = FederatedTrainer(model, fed, device=d,
+                                          params=params)
+                    data = build_synthetic_fed_data(
+                        cfg, num_clients=8, examples=64, seq=40, iid=False)
+                    hist = tr.run(data, rounds=rounds, cohort=2, batch=4,
+                                  meta_batch=8)
+                finally:
+                    moe._route = orig
+                if d.type == "cuda":
+                    c = counts_of.read()
+                    assert c == _vmap_counts(rounds, mode != "post"), (
+                        arch, c)
+                out[d.type] = tr.state, hist
+                routes.append(recs)
+            for i, ((eg, kg), (ec, kc)) in enumerate(zip(*routes)):
+                assert int((eg != ec).sum()) == 0 and torch.equal(kg, kc), (
+                    arch, mode, i)
+            assert len(routes[0]) == len(routes[1])
+            (sg, hg), (sc, hc) = out["cuda"], out["cpu"]
+            for rg, rc in zip(hg, hc):
+                for k in rc:
+                    assert abs(rg[k] - rc[k]) <= tol * abs(rc[k]), (
+                        arch, mode, k, rg, rc)
+            he = max(abs(rg[k] - rc[k]) / max(abs(rc[k]), 1e-30)
+                     for rg, rc in zip(hg, hc) for k in rc)
+            pe = max(rel_err(sg["params"][k].cpu(), sc["params"][k])
+                     for k in sc["params"])
+            assert pe <= tol, (arch, mode, pe)
+            routed = (f"; routing equal in all {len(routes[0])} MoE calls"
+                      if routes[0] else "")
+            log(f"  smoke {arch} {mode} vmap/sgd, {rounds} rounds, card vs "
+                f"CPU plain: history rel {he:.3e}, params rel {pe:.3e} (tol "
+                f"{tol:g}); no SSD-scan launch{routed}")
+
+
+def small_reference_faults(counts_of, dev):
+    """Phase 7 for the fault model, int8 with error feedback on a warm
+    scan/adam at smoke size: (i) a round whose clients all crashed
+    launches no kernel and leaves params, opt and residuals bitwise as
+    they were; (ii) a round with client 1 crashed keeps that client's
+    residual slot byte-identical and moves the others, the card against
+    the CPU: metrics within 1e-4, comm_bytes and the counts exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.core import flat as F
+    from repro_torch.core.round import RoundDraws, draw_round
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.launch.train import build_synthetic_fed_data
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("smollm-360m-smoke")
+    model = build_model(cfg, loss_chunk=256)
+    params = model.init(torch.Generator().manual_seed(3))
+    rows = F.make_flat_spec(params).groups[0].rows
+    gen = torch.Generator().manual_seed(4)
+    m = 0.01 * torch.randn((rows, 128), generator=gen)
+    v = 1e-3 * torch.rand((rows, 128), generator=gen) + 1e-4
+    res = 1e-3 * torch.randn((2, rows, 128), generator=gen)
+    kw = dict(algorithm="uga", meta=True, cohort=2, local_steps=2,
+              client_lr=0.01, server_lr=0.01, meta_lr=0.01, server_opt="adam",
+              cohort_strategy="scan", lr_decay=0.992, fused_update=True,
+              codec="int8", error_feedback=True)
+
+    def trainer(fed, d):
+        tr = FederatedTrainer(model, fed, device=d, params=params)
+        tr.state["opt"] = {"m": (m.to(d, copy=True),),
+                           "v": (v.to(d, copy=True),),
+                           "t": torch.tensor(5, dtype=torch.int32,
+                                             device=d)}
+        tr.state["comm"] = {"residual": (res.to(d, copy=True),)}
+        return tr
+
+    def data():
+        return build_synthetic_fed_data(cfg, num_clients=8, examples=64,
+                                        seq=32, iid=False)
+
+    def leaves(state):
+        return [t for k in ("params", "opt", "comm") for t in
+                (state[k].values() if k == "params" else
+                 [x for vals in state[k].values()
+                  for x in (vals if isinstance(vals, tuple) else (vals,))])]
+
+    # (i) every client crashed
+    tr = trainer(FedConfig(**kw, fault_crash=1.0), dev)
+    before = [t.clone() for t in leaves(tr.state)]
+    counts_of.reset()
+    (rec,) = tr.run(data(), rounds=1, cohort=2, batch=4, meta_batch=8)
+    torch.cuda.synchronize()
+    c = counts_of.read()
+    assert all(n == 0 for n in c.values()), c
+    same = all(torch.equal(a.view(-1).view(torch.uint8) if a.dim() else
+                           a.reshape(1).view(torch.uint8),
+                           b.view(-1).view(torch.uint8) if b.dim() else
+                           b.reshape(1).view(torch.uint8))
+               for a, b in zip(leaves(tr.state), before))
+    assert same and tr.state["round"] == 1, rec
+    assert rec["client_loss"] == rec["grad_norm"] == rec["meta_loss"] == 0
+    log(f"  smoke int8+ef scan/adam, every client crashed: no kernel "
+        f"launched, params, opt and residuals bitwise unchanged; "
+        f"{json.dumps(rec)}")
+
+    # (ii) client 1 crashed, client 0 alive: the same draws on both devices
+    fed = FedConfig(**kw, fault_crash=0.5)
+    fs = draw_round(fed, 0, 0, 2).faults
+    crashed = np.array([False, True])
+    draws = RoundDraws(faults=fs._replace(
+        crashed=crashed, dropped=np.zeros(2, bool),
+        alive=(~crashed).astype(np.float32)))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        tr = trainer(fed, d)
+        tr.draw_round = lambda r, cohort: draws
+        (rec,) = tr.run(data(), rounds=1, cohort=2, batch=4, meta_batch=8)
+        after = tr.state["comm"]["residual"][0].cpu()
+        assert after[1].numpy().tobytes() == res[1].numpy().tobytes(), d
+        assert not torch.equal(after[0], res[0]), d
+        out[d.type] = rec, tr.state
+    (rg, sg), (rc, sc) = out["cuda"], out["cpu"]
+    for k in rc:
+        if k in ("comm_bytes", "arrivals", "fault_crashed", "fault_dropped"):
+            assert rg[k] == rc[k], (k, rg, rc)
+        else:
+            assert abs(rg[k] - rc[k]) <= 1e-4 * abs(rc[k]), (k, rg, rc)
+    n_p = params_flip_aware({k: t.cpu() for k, t in sg["params"].items()},
+                            sc["params"], "smoke int8+ef, client 1 crashed")
+    log(f"  smoke int8+ef scan/adam, client 1 crashed: its residual slot "
+        f"byte-identical on the card and the CPU, slot 0 moved; card vs "
+        f"CPU history <= 1e-4, counts and comm_bytes exact; params: {n_p} "
+        f"elements off by more than 1e-5 (flip-aware)")
 
 
 # ---------------------------------------------------------------------------
@@ -2211,6 +2581,11 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ref as SR
 
     t0 = time.perf_counter()
+
+    def phase(*a):
+        """A phase's header, with the time since the start."""
+        log(*a, f"(at {time.perf_counter() - t0:.1f} s)")
+
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     strict_fp32()
@@ -2230,58 +2605,67 @@ def main() -> int:
     for lib in libs:
         log(lib.build_log.strip())
 
-    log("[3,4] kernels against their plain versions (ssq, dw, dscal bitwise "
+    phase("[3,4] kernels against their plain versions (ssq, dw, dscal bitwise "
         "across launches; the codec kernels bitwise):")
     shapes = [8, 24, 264, 4104, FULL_ROWS]
     errs = check_kernels(K, R, O, dev, shapes)
     errs.update(check_bwd_kernels(K, R, O, dev, shapes))
     errs.update(check_codec_kernels(CK, CR, dev, shapes))
-    log("[3b] the serving prefill's kernels against their plain versions:")
+    phase("[3b] the serving prefill's kernels against their plain versions:")
     errs.update(check_serve_kernels(FK, FR, SK, SR, dev))
 
-    log("[5] kernel times at full width (CUDA events, 10 launches, warm):")
+    phase("[5] kernel times at full width (CUDA events, 10 launches, warm):")
     times = time_kernels(K, R, dev)
     times.update(time_bwd_kernels(K, R, dev))
     times.update(time_codec_kernels(CK, CR, dev))
-    log("[5d] the prefill's kernels at the prefill's shapes (CUDA events, "
+    phase("[5d] the prefill's kernels at the prefill's shapes (CUDA events, "
         "warm):")
     times.update(time_serve_kernels(FK, FR, SK, SR, dev))
     times["flash_attention_fwd"]["forms"] = time_flash_prefills(FK, FR, dev)
-    log("[5c] one client's uplink at full width (CUDA events, 5 launches, "
+    phase("[5c] one client's uplink at full width (CUDA events, 5 launches, "
         "warm):")
     time_codec_stage(dev)
-    log("[5b] bounds of the twelve Pallas kernels, and the library time of "
+    phase("[5b] bounds of the twelve Pallas kernels, and the library time of "
         "flash attention at S 128:")
     print_all_bounds()
     time_attention_library(dev)
 
     counts_of = Counts(K, CK, FK, SK)
-    log(f"[6] main path: smollm-360m, UGA + FedMeta, fused; {ROUNDS} rounds "
+    phase(f"[6] main path: smollm-360m, UGA + FedMeta, fused; {ROUNDS} rounds "
         f"each in meta_mode='post', {TA_ROUNDS} in 'through_aggregation', "
         f"{CODED_ROUNDS} with each lossy uplink codec:")
     counts = main_path(counts_of, dev)
     counts.update(coded_path(counts_of, dev))
+    phase("[6m] training through Mamba2 layers at full width: mamba2-780m, "
+        "UGA + FedMeta, fused, meta_mode='post', cohort 4, client batch 8, "
+        "seq 128 (one SSD chunk):")
+    counts.update(mamba_path(counts_of, dev))
+    phase(f"[6f] the synchronous fault model at full width: smollm-360m "
+        f"vmap/sgd, {FAULT_ROUNDS} rounds, {FAULT_KW}:")
+    counts.update(fault_path(counts_of, dev))
 
-    log("[6b] two vmap/sgd rounds at full width, the second under "
+    phase("[6b] two vmap/sgd rounds at full width, the second under "
         "torch.profiler:")
     profile_round(dev)
 
-    log("[6s] the serving main path at full width (serve.main, batch 8, "
+    phase("[6s] the serving main path at full width (serve.main, batch 8, "
         "prompt 1024, 32 tokens, greedy):")
     counts.update(serve_path(counts_of, dev))
-    log("[6t] full width: decode after prefill(1024) against prefill(1025):")
+    phase("[6t] full width: decode after prefill(1024) against prefill(1025):")
     serve_consistency(counts_of, dev, times)
-    log("[6u] serving at full width with flash in every prefill: "
+    phase("[6u] serving at full width with flash in every prefill: "
         f"{', '.join(FLASH_SERVE)} (serve.main, batch 8, prompt 1024 "
         f"({SERVE_PROMPT}), 32 tokens, greedy), then the warm prefill; MoE: "
         "the dropless check:")
     counts.update(serve_flash_models(counts_of, dev,
                                      times["flash_attention_fwd"]["forms"]))
 
-    log("[7] small input, card against the CPU plain versions:")
+    phase("[7] small input, card against the CPU plain versions:")
     small_reference(dev)
     small_reference_through(dev)
     small_reference_coded(dev)
+    small_reference_ssm(counts_of, dev)
+    small_reference_faults(counts_of, dev)
     small_reference_serve(dev)
 
     kernels = []

@@ -3,7 +3,7 @@ the GradientCodec registry (``none`` / ``int8`` / ``sign1bit`` / ``topk``
 + ``register_codec``), the per-client error-feedback state and the uplink
 byte accounting.  The buffered-async runtime's per-client decode
 (``coded_decode_stacked``) comes with that runtime (ROADMAP Queue 1
-item 3)."""
+item 3, the async half)."""
 from repro_torch.comm.codecs import (GradientCodec, available_codecs,
                                      get_codec, register_codec,
                                      resolve_codec)

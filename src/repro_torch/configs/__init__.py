@@ -1,14 +1,14 @@
 """Config registry of the port: ``get_arch(name)`` / ``get_smoke(name)``.
 
-All ten of the JAX package's architectures.  The dense family
-(smollm-360m, minicpm-2b, phi3-mini-3.8b, phi3-medium-14b) and the MoE
-family with MLA or GQA attention (deepseek-v2-lite-16b,
-llama4-scout-17b-a16e) train and serve; the encoder / cross-attention
-families (whisper-large-v3, llama-3.2-vision-90b) serve, and their loss
-takes ``enc_embeds`` and ``mask`` batches as JAX's does (no data pipeline
-of either package makes such batches); the stacks with mamba layers, the
-SSM family (mamba2-780m) and the hybrid (jamba-1.5-large-398b), serve
-only: their training is ROADMAP Queue 1 item 10."""
+All ten of the JAX package's architectures, each of which trains and
+serves: the dense family (smollm-360m, minicpm-2b, phi3-mini-3.8b,
+phi3-medium-14b), the MoE family with MLA or GQA attention
+(deepseek-v2-lite-16b, llama4-scout-17b-a16e), the stacks with mamba
+layers, the SSM family (mamba2-780m) and the hybrid
+(jamba-1.5-large-398b), and the encoder / cross-attention families
+(whisper-large-v3, llama-3.2-vision-90b), whose loss takes
+``enc_embeds`` and ``mask`` batches as JAX's does (no data pipeline of
+either package makes such batches)."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_v2_lite_16b, jamba_1_5_large_398b,

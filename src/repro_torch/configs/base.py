@@ -254,20 +254,28 @@ class FedConfig:
                             "(ROADMAP Queue 1 item 9)")
         elif self.engine not in (None, "fused_flat", "buffered_async"):
             raise ValueError(f"unknown server engine {self.engine!r}")
-        if self.participation < 1.0:
-            unported.append("participation < 1 (ROADMAP Queue 1 item 3)")
-        faults = (self.fault_profile != "none" or self.round_deadline > 0
-                  or self.retry_backoff > 0
-                  or max(self.fault_drop, self.fault_crash, self.fault_delay,
-                         self.fault_garble, self.fault_garble_scale,
-                         self.fault_speed_tail, self.fault_max_delay) >= 0)
-        if faults:
-            unported.append("client fault injection and retries "
-                            "(ROADMAP Queue 1 item 3)")
+        # the fault-injection knobs: resolve_faults validates the rates
+        # and shapes (raises naming the bad field), as in the JAX package
+        from repro_torch.sim.faults import resolve_faults
+        resolve_faults(self)
+        if self.staleness_mode not in ("none", "inv", "invsqrt"):
+            raise ValueError(
+                f"unknown staleness_mode {self.staleness_mode!r}; expected "
+                "'none', 'inv' or 'invsqrt'")
+        if (self.async_buffer < 0 or self.async_capacity < 0
+                or self.async_max_staleness < 0):
+            raise ValueError(
+                f"async_buffer={self.async_buffer} / async_capacity="
+                f"{self.async_capacity} / async_max_staleness="
+                f"{self.async_max_staleness} must be >= 0")
+        if self.retry_backoff < 0 or self.retry_max < 0:
+            raise ValueError(
+                f"retry_backoff={self.retry_backoff} / retry_max="
+                f"{self.retry_max} must be >= 0")
         if (self.engine == "buffered_async" or self.async_buffer
                 or self.async_capacity or self.async_max_staleness):
             unported.append("the buffered_async runtime "
-                            "(ROADMAP Queue 1 item 3)")
+                            "(ROADMAP Queue 1 item 3, the async half)")
         if unported:
             raise NotImplementedError(
                 "not yet ported to repro_torch: " + "; ".join(unported))

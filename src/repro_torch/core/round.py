@@ -1,4 +1,4 @@
-"""One federated round (PyTorch port of the synchronous, fault-free arm of
+"""One federated round (PyTorch port of the synchronous arm of
 ``repro/core/round.py``), composed from the registries:
 
     local updating    (ClientAlgorithm: uga / fedavg / fedprox / fednova)
@@ -14,14 +14,27 @@
                        stepped instead)
 
 ``make_federated_round(model, fed)`` returns ``one_round(state,
-cohort_batch, meta_batch, client_weights) -> (state, metrics)``.  The
-round counter lives on the host (``state["round"]`` is an int), so the
-decayed learning rates are host numbers computed in fp32 as the JAX round
-computes them on the device; metrics come back as device scalars.
+cohort_batch, meta_batch, client_weights, draws=None) -> (state,
+metrics)``.  The round counter lives on the host (``state["round"]`` is an
+int), so the decayed learning rates are host numbers computed in fp32 as
+the JAX round computes them on the device; metrics come back as device
+scalars.
+
+Partial participation and client faults: under ``fed.participation < 1``
+or an active fault config the round takes ``draws`` (:class:`RoundDraws`,
+drawn on the host by :func:`draw_round`).  A client masked out, crashed,
+dropped or past the round deadline gets aggregation weight 0 inside the
+weighted mean (every client still runs, as in JAX), and a lossy codec's
+error-feedback residual of such a client stays as it was.  A round in
+which every client failed is a no-op server step: nothing runs, params,
+opt, ctrl and comm stay as they were, the counter advances and
+``client_loss``, ``grad_norm`` and ``meta_loss`` read 0.  The buffered-
+async runtime is ROADMAP Queue 1 item 3 (the async half).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +47,11 @@ from repro_torch.core.engines import resolve_engine
 from repro_torch.core.executors import resolve_executor
 from repro_torch.core.flat import make_flat_spec
 from repro_torch.core.meta import meta_update, meta_update_through_cohort
+from repro_torch.core.rngtags import PARTICIPATION_FOLD
 from repro_torch.models.model import Model
+from repro_torch.sim.faults import (FaultConfig, FaultStreams,
+                                    client_failed_mask, fault_streams,
+                                    resolve_faults, timed_out)
 
 State = Dict[str, Any]
 
@@ -82,6 +99,54 @@ def decayed_lr(base: float, decay: float, round_idx: int) -> float:
     """``base * decay ** round`` in fp32, as the JAX round traces it."""
     return float(np.float32(base)
                  * np.power(np.float32(decay), np.float32(round_idx)))
+
+
+def participation_mask(seed: int, round_idx: int, cohort: int,
+                       rate: float) -> np.ndarray:
+    """Round ``round_idx``'s straggler mask: keep each client with
+    probability ``rate`` (``uniform < rate``), f32 0/1, from the generator
+    keyed by ``(seed, PARTICIPATION_FOLD, round_idx)``.  An all-zero draw
+    is legal: that round is a no-op server step."""
+    rng = np.random.default_rng((seed, PARTICIPATION_FOLD, round_idx))
+    return (rng.random(cohort) < rate).astype(np.float32)
+
+
+class RoundDraws(NamedTuple):
+    """One round's host-side draws: the participation keep mask ((cohort,)
+    f32 0/1, None at participation 1) and the fault streams (None without
+    an active fault config)."""
+    participation: Optional[np.ndarray] = None
+    faults: Optional[FaultStreams] = None
+
+
+def sync_faults(fed: FedConfig) -> FaultConfig:
+    """The fault config a synchronous round runs: ``resolve_faults`` with a
+    profile's garble zeroed (a sync barrier cannot observe payload
+    corruption); an explicit ``fault_garble`` is an error."""
+    faults = resolve_faults(fed)
+    if faults.garble > 0:
+        if fed.fault_garble >= 0:
+            raise ValueError(
+                f"fault_garble={fed.fault_garble} needs "
+                "engine='buffered_async': payload corruption acts on the "
+                "pooled per-client deltas, which only the async runtime "
+                "models (ROADMAP Queue 1 item 3, the async half) — "
+                "synchronous engines see faults at the aggregation-weight "
+                "level (drop/crash/timeout). Drop fault_garble.")
+        faults = dataclasses.replace(faults, garble=0.0)
+    return faults
+
+
+def draw_round(fed: FedConfig, seed: int, round_idx: int,
+               cohort: int) -> RoundDraws:
+    """The draws round ``round_idx`` of a run seeded ``seed`` takes."""
+    faults = sync_faults(fed)
+    return RoundDraws(
+        participation=(participation_mask(seed, round_idx, cohort,
+                                          fed.participation)
+                       if fed.participation < 1.0 else None),
+        faults=(fault_streams(seed, round_idx, cohort, faults)
+                if faults.active else None))
 
 
 def make_federated_round(model: Model, fed: FedConfig):
@@ -133,15 +198,70 @@ def make_federated_round(model: Model, fed: FedConfig):
                 "into the flat buffers the fused engine consumes. Set "
                 "FedConfig(fused_update=True) or use codec='none'.")
     use_ef = codec.lossy and fed.error_feedback
+    faults = sync_faults(fed)
+    needs_draws = fed.participation < 1.0 or faults.active
+
+    def apply_draws(client_weights: torch.Tensor, draws: RoundDraws):
+        """Zero the weights of the clients masked out or failed; returns
+        (weights, the participation and fault metrics), JAX's keys."""
+        if draws is None:
+            raise ValueError(
+                "participation < 1 or an active fault config: the round "
+                "needs this round's draws (draws=RoundDraws(...), e.g. "
+                "from draw_round)")
+        metrics = {}
+        dev = client_weights.device
+        if fed.participation < 1.0:
+            mask = np.asarray(draws.participation, np.float32)
+            client_weights = client_weights * torch.tensor(mask, device=dev)
+            metrics["participants"] = np.sum(mask, dtype=np.float32)
+        if faults.active:
+            fs = draws.faults
+            alive = (~client_failed_mask(fs, faults)).astype(np.float32)
+            client_weights = client_weights * torch.tensor(alive, device=dev)
+            metrics["arrivals"] = torch.sum(
+                (client_weights > 0).to(torch.float32))
+            metrics["fault_crashed"] = np.sum(fs.crashed, dtype=np.float32)
+            metrics["fault_dropped"] = np.sum(fs.dropped, dtype=np.float32)
+            if faults.deadline > 0:
+                metrics["fault_timeout"] = np.sum(timed_out(fs, faults),
+                                                  dtype=np.float32)
+        return client_weights, metrics
 
     def one_round(state: State, cohort_batch, meta_batch,
-                  client_weights: torch.Tensor
+                  client_weights: torch.Tensor,
+                  draws: Optional[RoundDraws] = None
                   ) -> Tuple[State, Dict[str, torch.Tensor]]:
         params = state["params"]
         r = state["round"]
         lr_c = decayed_lr(fed.client_lr, fed.lr_decay, r)
+        part_metrics = {}
+        if needs_draws:
+            client_weights, part_metrics = apply_draws(client_weights, draws)
+        # uplink bytes: one client's payload times the clients that
+        # reported (participants; the whole cohort at participation 1), in
+        # fp32 as the JAX round computes them
+        comm_metrics = ({"comm_bytes": np.float32(comm_bytes_per_client(
+            codec, make_flat_spec(params))) * np.float32(
+                part_metrics.get("participants", client_weights.shape[0]))}
+            if codec.lossy else {})
+        if needs_draws and not bool(torch.sum(client_weights) > 0):
+            # every client failed: a no-op server step (JAX keeps the old
+            # state by a select after the fact; here nothing runs, so no
+            # kernel launches and no buffer is written)
+            metrics = {"client_loss": 0.0, "grad_norm": 0.0,
+                       **part_metrics, **comm_metrics}
+            if through_agg:
+                # no hypergradient exists: ctrl is not stepped (JAX's
+                # ctrl_w_gnorm reads NaN there, a 0/0 of the weight
+                # normalization at all-zero weights)
+                metrics.update(meta_loss=0.0, ctrl_w_gnorm=0.0,
+                               ctrl_lr_grad=0.0, server_lr_eff=torch.exp(
+                                   state["ctrl"]["log_lr"]))
+            elif fed.meta:
+                metrics["meta_loss"] = 0.0
+            return {**state, "round": r + 1}, metrics
         meta_metrics = {}
-        comm_metrics = {}
         if through_agg:
             rw = exe.reweightable(client_update, params, cohort_batch,
                                   client_weights, lr_c)
@@ -157,12 +277,6 @@ def make_federated_round(model: Model, fed: FedConfig):
             new_params, opt_state, gn_post = eng.apply(
                 params, handle, state["opt"], lr=server_lr)
             del handle
-            # uplink bytes: one client's payload times the clients that
-            # reported (the whole cohort: participation < 1 is not ported),
-            # in fp32 as the JAX round computes it
-            bytes_pc = comm_bytes_per_client(codec, make_flat_spec(params))
-            comm_metrics["comm_bytes"] = (
-                np.float32(bytes_pc) * np.float32(client_weights.shape[0]))
         else:
             handle, client_loss = exe.run(client_update, params,
                                           cohort_batch, client_weights, lr_c)
@@ -170,7 +284,7 @@ def make_federated_round(model: Model, fed: FedConfig):
                 params, handle, state["opt"], lr=server_lr)
             del handle
         metrics = {"client_loss": client_loss, "grad_norm": gn_post,
-                   **meta_metrics, **comm_metrics}
+                   **part_metrics, **meta_metrics, **comm_metrics}
         if fed.meta and not through_agg:
             lr_m = decayed_lr(fed.meta_lr, fed.lr_decay, r)
             new_params, meta_loss = meta_update(model.loss, new_params,

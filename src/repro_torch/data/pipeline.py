@@ -6,15 +6,16 @@
     each selected client's local examples,
   - ``client_weights``: (cohort,) = n_k (the FedAvg weighting),
   - optional FedShare injection: a slice of the globally shared set is mixed
-    into every client batch (Zhao et al., 2018).
+    into every client batch (Zhao et al., 2018),
+  - the retry policy's re-enqueued clients (``include``) and, with
+    ``client_speeds`` set, the cohort's simulated speeds.
 
-The retry policy's ``sample_round(include=...)`` and the simulated client
-speeds belong to the fault runtime (ROADMAP Queue 1 item 3).
+Byte-identical to the JAX package's pipeline for the same arguments.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -28,6 +29,11 @@ class FederatedData:
     meta_indices: Optional[np.ndarray] = None
     shared_indices: Optional[np.ndarray] = None   # FedShare global set
     seed: int = 0
+    client_speeds: Optional[np.ndarray] = None    # (num_clients,) relative
+                                        # compute speeds (repro_torch.sim.
+                                        # faults.heavy_tail_speeds);
+                                        # sample_round ships the cohort's
+                                        # slice when set
 
     @property
     def num_clients(self) -> int:
@@ -37,9 +43,17 @@ class FederatedData:
         return {k: v[idx] for k, v in self.arrays.items()}
 
     def sample_round(self, round_idx: int, *, cohort: int, batch: int,
-                     share: bool = False, share_fraction: float = 0.5
+                     share: bool = False, share_fraction: float = 0.5,
+                     include: Optional[Sequence[int]] = None
                      ) -> Dict:
-        """Returns {'cohort_batch', 'client_weights', 'clients'}."""
+        """Returns {'cohort_batch', 'client_weights', 'clients'} (and
+        'client_speeds' when set).
+
+        ``include``: client ids that must be in this round's cohort (the
+        trainer's retry-with-backoff policy).  They overwrite cohort slots
+        whose random draw is not itself in ``include``, so at most
+        ``cohort`` retries land a round.  ``include=None`` and ``[]`` make
+        the same rng calls as a round without retries."""
         if cohort > self.num_clients:
             # numpy's replace=False error ("Cannot take a larger sample...")
             # names neither quantity; fail with both numbers and the fix
@@ -50,6 +64,15 @@ class FederatedData:
                 "clients")
         rng = np.random.default_rng((self.seed, round_idx))
         clients = rng.choice(self.num_clients, size=cohort, replace=False)
+        if include:
+            want = [int(c) for c in dict.fromkeys(include)
+                    if 0 <= int(c) < self.num_clients]
+            drawn = set(clients.tolist())
+            missing = [c for c in want if c not in drawn]
+            free = [i for i, c in enumerate(clients.tolist())
+                    if c not in set(want)]
+            for slot, c in zip(free, missing[:cohort]):
+                clients[slot] = c
         batches, weights = [], []
         n_share = int(batch * share_fraction) if share else 0
         if n_share and self.shared_indices is None:
@@ -74,11 +97,15 @@ class FederatedData:
             weights.append(idx.size)
         cohort_batch = {k: np.stack([b[k] for b in batches])
                         for k in batches[0]}
-        return {
+        sample = {
             "cohort_batch": cohort_batch,
             "client_weights": np.asarray(weights, np.float32),
             "clients": clients,
         }
+        if self.client_speeds is not None:
+            sample["client_speeds"] = np.asarray(
+                self.client_speeds, np.float32)[clients]
+        return sample
 
     def sample_meta(self, round_idx: int, batch: int) -> Dict[str, np.ndarray]:
         assert self.meta_indices is not None, "no meta set configured"

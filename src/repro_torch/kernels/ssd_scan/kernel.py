@@ -86,8 +86,9 @@ def _check(x, dt, A, Bm, Cm, chunk) -> Tuple[int, ...]:
                             "(bf16 inputs: ROADMAP Queue 2 row 12)")
         if t.requires_grad:
             raise RuntimeError(
-                f"{name} requires grad: the SSD-scan kernel has no backward "
-                "(SSM-family training: ROADMAP Queue 1 item 10)")
+                f"{name} requires grad: the SSD-scan kernel has no "
+                "backward; training runs through models/ssm.py::"
+                "ssd_chunked")
     if x.dim() != 4:
         raise ValueError(f"x: expected (B, S, H, P), got {tuple(x.shape)}")
     B, S, H, P = x.shape

@@ -9,7 +9,13 @@ device (``--device cpu`` runs the kernels' plain versions on the CPU).
       --algorithm uga --meta --rounds 3 --cohort 4 --client-batch 8 \\
       --seq 128 [--strategy scan] [--server-opt adam] \\
       [--meta-mode through_aggregation] \\
-      [--codec int8|sign1bit|topk [--error-feedback] [--topk-ratio R]]
+      [--codec int8|sign1bit|topk [--error-feedback] [--topk-ratio R]] \\
+      [--participation P] [--fault-profile flaky|stragglers] \\
+      [--fault-drop|--fault-crash|--fault-delay R] [--round-deadline D] \\
+      [--retry-backoff B]
+
+Every ``--arch`` trains, ``mamba2-780m`` and the ``-smoke`` SSM and hybrid
+configs included.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.data.pipeline import FederatedData
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.device import resolve_device, strict_fp32
 from repro_torch.models.model import build_model
+from repro_torch.sim.faults import FAULT_PROFILES
 
 
 def build_synthetic_fed_data(cfg, *, num_clients: int, examples: int,
@@ -65,11 +72,19 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                  strategy: str = "vmap", fused: bool = False,
                  meta_mode: str = "post", ctrl_lr: float = 0.01,
                  codec: str = "none", error_feedback: bool = False,
-                 topk_ratio: float = 0.01, device=None, params=None,
+                 topk_ratio: float = 0.01, participation: float = 1.0,
+                 fault_profile: str = "none", fault_drop: float = -1.0,
+                 fault_crash: float = -1.0, fault_delay: float = -1.0,
+                 fault_max_delay: int = -1, fault_garble: float = -1.0,
+                 fault_garble_scale: float = -1.0,
+                 fault_speed_tail: float = -1.0, round_deadline: float = 0.0,
+                 retry_backoff: int = 0, device=None, params=None,
                  on_records: Optional[Callable] = None):
     """Assemble (model, FedConfig, FederatedData) and train.  ``params``
     starts from given parameters instead of a seeded init; ``on_records``
-    is the trainer's per-round hook.  Returns (state, history)."""
+    is the trainer's per-round hook.  The participation and ``fault_*``
+    knobs are those of the JAX package's ``launch/train.py``
+    (``repro_torch.sim.faults``).  Returns (state, history)."""
     dev = resolve_device(device)
     strict_fp32()
     cfg = get_arch(arch)
@@ -82,7 +97,13 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
         meta_lr=meta_lr if meta_lr is not None else client_lr,
         server_opt=server_opt, meta_mode=meta_mode, ctrl_lr=ctrl_lr,
         codec=codec, error_feedback=error_feedback, topk_ratio=topk_ratio,
-        cohort_strategy=strategy, lr_decay=0.992, fused_update=fused)
+        cohort_strategy=strategy, lr_decay=0.992, fused_update=fused,
+        participation=participation, fault_profile=fault_profile,
+        fault_drop=fault_drop, fault_crash=fault_crash,
+        fault_delay=fault_delay, fault_max_delay=fault_max_delay,
+        fault_garble=fault_garble, fault_garble_scale=fault_garble_scale,
+        fault_speed_tail=fault_speed_tail, round_deadline=round_deadline,
+        retry_backoff=retry_backoff)
     data = build_synthetic_fed_data(cfg, num_clients=num_clients,
                                     examples=examples, seq=seq, iid=iid,
                                     seed=seed)
@@ -140,6 +161,41 @@ def main(argv=None):
                          "round's encode (needs a lossy --codec)")
     ap.add_argument("--topk-ratio", type=float, default=0.01,
                     help="fraction of elements the 'topk' codec ships")
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="<1: straggler dropout — per-round probability a "
+                         "sampled client reports; dropped clients' weights "
+                         "are zeroed inside the aggregation")
+    ap.add_argument("--fault-profile", default="none",
+                    choices=sorted(FAULT_PROFILES),
+                    help="named client-fault profile (repro_torch.sim."
+                         "faults); --fault-* flags override individual "
+                         "rates")
+    ap.add_argument("--fault-drop", type=float, default=-1.0,
+                    help="P(uplink report lost); <0 uses the profile")
+    ap.add_argument("--fault-crash", type=float, default=-1.0,
+                    help="P(client dies mid-round); <0 uses the profile")
+    ap.add_argument("--fault-delay", type=float, default=-1.0,
+                    help="P(report arrives rounds late); <0 uses the "
+                         "profile")
+    ap.add_argument("--fault-max-delay", type=int, default=-1,
+                    help="late reports land 1..N rounds late; <0 uses the "
+                         "profile")
+    ap.add_argument("--fault-garble", type=float, default=-1.0,
+                    help="P(payload corrupted) — buffered_async only (not "
+                         "ported: an explicit value raises); <0 uses the "
+                         "profile")
+    ap.add_argument("--fault-garble-scale", type=float, default=-1.0,
+                    help="corrupted payloads scale by U(-s, s); <0 uses "
+                         "the profile")
+    ap.add_argument("--fault-speed-tail", type=float, default=-1.0,
+                    help="lognormal sigma of client compute time (the "
+                         "deadline's latency model); <0 uses the profile")
+    ap.add_argument("--round-deadline", type=float, default=0.0,
+                    help="sync barrier timeout in simulated round-units "
+                         "(0: wait forever)")
+    ap.add_argument("--retry-backoff", type=int, default=0,
+                    help=">0: re-enqueue failed clients after "
+                         "backoff * 2^attempt rounds")
     ap.add_argument("--num-clients", type=int, default=32)
     ap.add_argument("--examples", type=int, default=2048)
     ap.add_argument("--iid", action="store_true")
@@ -161,7 +217,14 @@ def main(argv=None):
         seed=args.seed, log_every=args.log_every, strategy=args.strategy,
         fused=args.fused, meta_mode=args.meta_mode, ctrl_lr=args.ctrl_lr,
         codec=args.codec, error_feedback=args.error_feedback,
-        topk_ratio=args.topk_ratio, device=args.device)
+        topk_ratio=args.topk_ratio, participation=args.participation,
+        fault_profile=args.fault_profile, fault_drop=args.fault_drop,
+        fault_crash=args.fault_crash, fault_delay=args.fault_delay,
+        fault_max_delay=args.fault_max_delay, fault_garble=args.fault_garble,
+        fault_garble_scale=args.fault_garble_scale,
+        fault_speed_tail=args.fault_speed_tail,
+        round_deadline=args.round_deadline,
+        retry_backoff=args.retry_backoff, device=args.device)
     if args.history_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.history_out)),
                     exist_ok=True)

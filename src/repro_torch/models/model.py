@@ -2,15 +2,15 @@
 :class:`Model` bundles init / loss / prefill / decode for one architecture
 so the federated runtime and the launchers stay model-agnostic.
 
-Every architecture of the JAX package's transformer builds.  The dense LM
-and MoE families (capacity-routed experts, with GQA or MLA attention)
-train and serve; the encoder-decoder and cross-attention families
-(whisper, llama-3.2-vision) serve, and their ``loss`` takes the batch's
-``enc_embeds`` and ``mask`` as JAX's does; a stack with Mamba2 layers
-(the SSM family, jamba's hybrid) serves only — its training needs
-derivatives through the SSD scan, forward mode included, which no kernel
-has yet (ROADMAP Queue 1 item 10).  The paper's CNN/GRU wait for item 5.
-Prefill and decode run under ``torch.inference_mode()``."""
+Every architecture of the JAX package's transformer builds, trains and
+serves: the dense LM, the MoE families (capacity-routed experts, with GQA
+or MLA attention), the stacks with Mamba2 layers (the SSM family, jamba's
+hybrid; training runs the differentiable ``models/ssm.py::ssd_chunked``,
+the prefill the SSD-scan kernel), and the encoder-decoder and
+cross-attention families (whisper, llama-3.2-vision), whose ``loss``
+takes the batch's ``enc_embeds`` and ``mask`` as JAX's does.  The paper's
+CNN/GRU wait for ROADMAP Queue 1 item 5.  Prefill and decode run under
+``torch.inference_mode()``."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,14 +19,10 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.func import functional_call
 
-from repro_torch.configs.base import MAMBA, ArchConfig
+from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer
 
 Batch = Dict[str, torch.Tensor]
-SSM_TRAINING = ("training a stack with Mamba2 layers (the SSM family, the "
-                "jamba hybrid) is not yet ported to repro_torch: it needs "
-                "derivatives through the SSD scan, forward mode "
-                "included (ROADMAP Queue 1 item 10)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,15 +46,12 @@ def build_model(cfg: ArchConfig, *, dtype=torch.float32,
     """``decode_window > 0`` selects the sliding-window decode variant (a
     ring-buffer cache of that size) for GQA attention; MLA's latent cache
     is written at the clamped index, as JAX writes it."""
-    has_mamba = MAMBA in cfg.layer_kinds()
     module = transformer.Transformer(cfg)
 
     def init(gen: torch.Generator):
         return transformer.init_transformer(cfg, gen, dtype)
 
     def loss(params, batch: Batch, rng=None):
-        if has_mamba:
-            raise NotImplementedError(SSM_TRAINING)
         return transformer.lm_loss_chunked(
             module, params, batch["tokens"],
             enc_embeds=batch.get("enc_embeds"), mask=batch.get("mask"),

@@ -1,9 +1,12 @@
 """Mamba2 (SSD — state-space duality) block of the port (PyTorch port of
 ``repro/models/ssm.py``).
 
-The chunked SSD scan (JAX's ``ssd_chunked``) is the kernel's wrapper
-``kernels/ssd_scan/kernel.py::ssd_scan_fwd``: the CUDA kernel for CUDA
-tensors, its plain version for CPU tensors.  The
+Two forms of the chunked SSD scan.  Training (the loss, and every
+derivative UGA takes of it, forward mode included) runs
+:func:`ssd_chunked`, the port of JAX's function in plain, differentiable
+PyTorch, as JAX trains through its jnp ``ssd_chunked``.  The prefill runs
+the kernel's wrapper ``kernels/ssd_scan/kernel.py::ssd_scan_fwd``: the
+CUDA kernel for CUDA tensors, its plain version for CPU tensors.  The
 single-token decode step, the depthwise causal convolution and the block
 around the scan are plain PyTorch, as the JAX block leaves them to XLA.
 
@@ -12,9 +15,10 @@ Block layout (mamba2):
   dt = softplus(dt + bias); a = dt * A (A = -exp(A_log) per head);
   y = SSD(x, a, dt, B, C) + D * x;  out = out_proj(y * silu(z)).
 
-Unlike the JAX block, B and C reach the scan by group, (B, S, G, N),
-and the kernel reads head h's group h // (H / G) in place: the JAX
-block's ``jnp.repeat`` to heads is the same function, without the copy.
+In the prefill B and C reach the kernel by group, (B, S, G, N), and it
+reads head h's group h // (H / G) in place: the JAX block's
+``jnp.repeat`` to heads is the same function, without the copy.  The
+training path repeats them to heads as JAX does.
 The functions are pure (no in-place writes); the decode cache's storage
 is updated by :func:`repro_torch.models.transformer.decode_step`.
 """
@@ -40,7 +44,59 @@ def dims(d_model: int, cfg: SSMConfig) -> Tuple[int, int, int]:
 
 
 # ---------------------------------------------------------------------------
-# The SSD scan's one-token step (the scan itself: ``ssd_scan_fwd``)
+# Chunked SSD scan, the differentiable form (training)
+# ---------------------------------------------------------------------------
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, H, P); dt: (B, S, H) (already softplus'ed); A: (H,)
+    negative; Bm/Cm: (B, S, H, N) (groups already broadcast to heads).
+    Returns (y: (B, S, H, P), h_final: (B, H, N, P)), from a zero state.
+
+    S is zero-padded to a multiple of ``L = min(chunk, S)``; within a
+    chunk the recurrence is a masked quadratic form, across chunks the
+    state is carried (JAX's ``lax.scan``, here a loop).  The mask goes in
+    before the exponential, ``exp(where(tri, seg, -inf))``, as in JAX:
+    above the diagonal ``seg`` is positive and reaches thousands at the
+    init's decay range, so masking after ``exp`` would multiply an inf by
+    0 and turn every tangent and cotangent through it into NaN."""
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    pad = (-S) % L
+    if pad:
+        zf = lambda t: F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
+        x, dt, Bm, Cm = zf(x), zf(dt), zf(Bm), zf(Cm)
+    nc = x.shape[1] // L
+    a = dt * A[None, None, :]                                # (B, S, H) <= 0
+    rs = lambda t: t.reshape((B_, nc, L) + tuple(t.shape[2:])).transpose(0, 1)
+    idx = torch.arange(L, device=x.device)
+    tri = (idx[:, None] >= idx[None, :])[None, :, :, None]
+    h = torch.zeros((B_, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for xk, dtk, ak, Bk, Ck in zip(rs(x), rs(dt), rs(a), rs(Bm), rs(Cm)):
+        acum = torch.cumsum(ak.float(), dim=1)               # (B, L, H)
+        # ---- intra-chunk (quadratic) ----
+        seg = acum[:, :, None, :] - acum[:, None, :, :]      # (B, t, s, H)
+        decay = torch.exp(torch.where(tri, seg, -torch.inf))
+        scores = torch.einsum("blhn,bmhn->blmh", Ck.float(), Bk.float())
+        xdt = xk.float() * dtk[..., None]
+        y_intra = torch.einsum("blmh,bmhp->blhp", scores * decay, xdt)
+        # ---- contribution of the incoming state ----
+        y_inter = torch.einsum("blhn,bhnp->blhp",
+                               Ck.float() * torch.exp(acum)[..., None], h)
+        # ---- state update ----
+        decay_to_end = torch.exp(acum[:, -1:, :] - acum)     # (B, L, H)
+        h = (torch.exp(acum[:, -1])[:, :, None, None] * h
+             + torch.einsum("blhn,blhp->bhnp",
+                            Bk.float() * decay_to_end[..., None], xdt))
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(B_, nc * L, H, P)
+    return y[:, :S].to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# The SSD scan's one-token step
 # ---------------------------------------------------------------------------
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     Bm: torch.Tensor, Cm: torch.Tensor, h: torch.Tensor
@@ -115,10 +171,11 @@ def _split_proj(zxbcdt: torch.Tensor, d_in: int, G: int, N: int, H: int):
 
 def mamba_block(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: SSMConfig,
                 *, collect_cache: bool = False):
-    """u: (B, S, d_model) -> (B, S, d_model), the full sequence.  With
-    ``collect_cache`` (the prefill) also the end-of-sequence decode cache
-    ``{"ssm": h_final, "conv": the last d_conv - 1 conv inputs}``, as the
-    JAX ``_mamba_prefill`` returns it."""
+    """u: (B, S, d_model) -> (B, S, d_model), the full sequence, through
+    :func:`ssd_chunked` (training).  With ``collect_cache`` (the prefill)
+    the scan is the kernel's, and the block also returns the
+    end-of-sequence decode cache ``{"ssm": h_final, "conv": the last
+    d_conv - 1 conv inputs}``, as the JAX ``_mamba_prefill`` returns it."""
     B_, S, d_model = u.shape
     d_in, H, _ = dims(d_model, cfg)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.d_head
@@ -131,8 +188,14 @@ def mamba_block(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: SSMConfig,
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     x_h = xr.reshape(B_, S, H, P)
-    y, h_final = ssd_scan_fwd(x_h, dt, A, Bm.reshape(B_, S, G, N),
-                              Cm.reshape(B_, S, G, N), chunk=cfg.chunk)
+    if collect_cache:
+        y, h_final = ssd_scan_fwd(x_h, dt, A, Bm.reshape(B_, S, G, N),
+                                  Cm.reshape(B_, S, G, N), chunk=cfg.chunk)
+    else:
+        rep = H // G
+        B_h = Bm.reshape(B_, S, G, N).repeat_interleave(rep, dim=2)
+        C_h = Cm.reshape(B_, S, G, N).repeat_interleave(rep, dim=2)
+        y, _ = ssd_chunked(x_h, dt, A, B_h, C_h, cfg.chunk)
     y = y + x_h * p["D"][None, None, :, None].to(y.dtype)
     out = (y.reshape(B_, S, d_in) * F.silu(z)) @ p["out_proj"]
     if not collect_cache:

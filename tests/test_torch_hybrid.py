@@ -16,9 +16,10 @@ fp32 model summed in another order; measured about 2e-6), 1e-4 on the
 eight-layer cut, where the orders' drift grows with depth (measured up to
 9e-6 in the prefill and past 1e-5 in the SSD state after four decode
 steps): the JAX suite's tolerance for a round's metrics, which
-``test_torch_serve.py`` holds decode to.  Training a stack with mamba
-layers waits for ROADMAP Queue 1 item 10, and its ``loss`` says so.  Full
-width is checked from shapes alone."""
+``test_torch_serve.py`` holds decode to.  The loss (training runs
+through ``models/ssm.py::ssd_chunked``) is held to the same tolerances;
+training itself is ``test_torch_ssm_train.py``'s.  Full width is checked
+from shapes alone."""
 import dataclasses
 
 import jax
@@ -126,10 +127,19 @@ def test_prefill_cache_and_decode_match_jax(arch, monkeypatch):
     assert int(tc["index"]) == int(jc["index"]) == P + 4
 
 
-def test_loss_raises_naming_item_10(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        arch["tm"].loss(arch["tp"], {"tokens": torch.zeros(
-            (2, 9), dtype=torch.long)})
+def test_loss_raises_naming_item_10(arch, monkeypatch):
+    """Training through mamba layers (ROADMAP Queue 1 item 10) is ported:
+    the hybrid's loss runs through ``ssd_chunked`` and matches JAX's,
+    routing asserted equal first."""
+    toks = np.random.default_rng(7).integers(0, 512, (2, 9)).astype(
+        np.int32)
+    (jl, _), jrecs = routes_jax(lambda: jax.jit(arch["jm"].loss)(
+        arch["jp"], {"tokens": jnp.asarray(toks)}))
+    (tl, _), trecs = routes_port(lambda: arch["tm"].loss(
+        arch["tp"], {"tokens": torch.from_numpy(toks).long()}), monkeypatch)
+    assert_same_routing(jrecs, trecs)
+    assert torch.isfinite(tl)
+    assert rel_err(tl, np.asarray(jl)) <= arch["tol"]
 
 
 @pytest.mark.parametrize("window", [0, 16])

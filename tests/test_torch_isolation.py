@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, no reference-package imports, no
-silent CPU fallback, and loud errors for what is not ported yet."""
+silent CPU fallback, and loud errors for what is not ported yet (the
+buffered-async runtime, the other synchronous arms, checkpoints)."""
 import ast
 import dataclasses
 import pathlib
@@ -73,10 +74,9 @@ def test_rng_tags_match_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(participation=0.5), dict(fault_profile="flaky"),
-    dict(fault_drop=0.1), dict(engine="buffered_async"),
-    dict(async_buffer=2), pytest.param(dict(engine="legacy_tree"),
-                                     id="legacy_tree"),
+    dict(engine="buffered_async"), dict(async_buffer=2),
+    dict(async_capacity=8), dict(async_max_staleness=3),
+    pytest.param(dict(engine="legacy_tree"), id="legacy_tree"),
     dict(cohort_chunk=2), dict(fused_update=False),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_raise_naming_the_roadmap(kw):
@@ -84,6 +84,42 @@ def test_unported_features_raise_naming_the_roadmap(kw):
     base.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         FedConfig(**base)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(participation=0.5), dict(fault_profile="flaky"),
+    dict(fault_drop=0.1), dict(round_deadline=2.0),
+    dict(retry_backoff=1, fault_crash=0.2),
+], ids=lambda kw: next(iter(kw)))
+def test_fault_features_are_accepted(kw):
+    """Participation and the synchronous fault model are ported: the
+    config builds, as the JAX package's does, and so does its round."""
+    from repro_torch.core.round import make_federated_round
+    from repro_torch.models.model import build_model
+    cfg = FedConfig(fused_update=True, **kw)
+    assert cfg == dataclasses.replace(FedConfig(fused_update=True), **kw)
+    JaxFedConfig(fused_update=True, **kw)
+    make_federated_round(build_model(get_arch("smollm-360m-smoke")), cfg)
+
+
+def test_async_half_raises_naming_its_item():
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 3, the async half"):
+        FedConfig(fused_update=True, engine="buffered_async")
+
+
+def test_sim_package_mirrors_jax():
+    """The new ``repro_torch.sim`` package is covered by the import check
+    above and exports the JAX package's names and profiles."""
+    import repro.sim as jsim
+    import repro_torch.sim as tsim
+    assert {p.name for p in PORT_FILES if p.parent.name == "sim"} == {
+        "__init__.py", "faults.py"}
+    assert tsim.__all__ == jsim.__all__
+    assert tsim.FAULT_PROFILES == jsim.FAULT_PROFILES
+    assert ([f.name for f in dataclasses.fields(tsim.FaultConfig)]
+            == [f.name for f in dataclasses.fields(jsim.FaultConfig)])
+    assert tsim.FaultStreams._fields == jsim.FaultStreams._fields
 
 
 def test_bad_values_raise_value_errors():
@@ -98,18 +134,20 @@ def test_bad_values_raise_value_errors():
 def test_build_model_refuses_unported_families():
     """Every family of the JAX transformer builds now: MoE FFNs on an
     attention stack (deepseek, llama4), the jamba hybrid's attention/mamba
-    period with MoE and an encoder (ROADMAP Queue 1 items 6e, 6f, done).
-    What is still unported raises naming its item: training through mamba
-    layers (item 10) and checkpoints (item 4)."""
+    period with MoE and an encoder (ROADMAP Queue 1 items 6e, 6f, done),
+    and trains, through mamba layers too (item 10, done).  What is still
+    unported raises naming its item: checkpoints (item 4)."""
     from repro_torch.launch import serve
     from repro_torch.models.model import build_model
     moe = MoEConfig(num_experts=4, top_k=2, every=2)
     cfg = dataclasses.replace(get_arch("mamba2-780m-smoke"), family="hybrid",
                               attn_period=2, num_heads=4, num_kv_heads=4,
-                              moe=moe)
+                              d_ff=64, moe=moe)
     hybrid = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        hybrid.loss({}, {"tokens": torch.zeros((1, 5), dtype=torch.long)})
+    hp = hybrid.init(torch.Generator().manual_seed(0))
+    loss, _ = hybrid.loss(hp, {"tokens": torch.zeros((1, 5),
+                                                     dtype=torch.long)})
+    assert torch.isfinite(loss)
     enc = dataclasses.replace(get_arch("smollm-360m-smoke"),
                               encoder=EncoderConfig(1, 8, 32, enc_heads=2))
     model = build_model(enc)

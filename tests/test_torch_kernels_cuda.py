@@ -561,3 +561,71 @@ def test_ssd_scan_kernel_strided_views_and_grad(cuda_device):
     assert rel_err(y, ry) <= 1e-5 and rel_err(h, rh) <= 1e-5
     with pytest.raises(RuntimeError, match="no backward"):
         SK.ssd_scan_fwd(x.clone().requires_grad_(), dt, A, Bm, Cm, chunk=32)
+
+
+@pytest.mark.cuda
+def test_training_path_launches_no_ssd_scan(cuda_device):
+    """A stack with mamba layers trains through ``models/ssm.py::
+    ssd_chunked`` (differentiable, plain PyTorch): its loss, gradient and
+    a UGA client update on the card launch no SSD-scan kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.client import uga_update
+    from repro_torch.models.model import build_model
+    model = build_model(get_arch("mamba2-780m-smoke"), loss_chunk=16)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    toks = torch.randint(0, 512, (2, 17), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(1))
+    n0 = SK.ssd_scan_fwd.launches
+    g, loss = uga_update(model.loss, params, {"tokens": toks}, 0.05,
+                         local_steps=2)
+    torch.cuda.synchronize()
+    assert SK.ssd_scan_fwd.launches == n0
+    assert torch.isfinite(loss) and all(bool(torch.isfinite(v).all())
+                                        for v in g.values())
+
+
+@pytest.mark.cuda
+def test_all_failed_round_launches_no_update_pass(cuda_device):
+    """A fused round whose every client crashed runs nothing: no fused-
+    update kernel launches and the state keeps its bytes; the next,
+    stepped round launches one aggregate and one update pass."""
+    import numpy as np
+    from repro_torch.configs import FedConfig
+    from repro_torch.core.round import (draw_round, init_server_state,
+                                        make_federated_round)
+    from repro_torch.models.model import Model
+
+    def loss(w, batch, rng=None):
+        logits = torch.tanh(batch["x"] @ w["w1"]) @ w["w2"]
+        return -torch.mean(torch.gather(torch.log_softmax(logits, -1), 1,
+                                        batch["y"][:, None])), {}
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = {"w1": 0.3 * torch.randn((10, 16), generator=gen,
+                                      device=cuda_device),
+              "w2": 0.3 * torch.randn((16, 4), generator=gen,
+                                      device=cuda_device)}
+    batch = {"x": torch.randn((4, 8, 10), generator=gen, device=cuda_device),
+             "y": torch.randint(0, 4, (4, 8), generator=gen,
+                                device=cuda_device)}
+    meta = {"x": batch["x"][0], "y": batch["y"][0]}
+    weights = torch.full((4,), 32.0, device=cuda_device)
+    model = Model(name="mlp", init=None, loss=loss)
+    for crash, want in ((1.0, 0), (0.0, 1)):
+        # a deadline no client misses keeps the fault path on at crash 0
+        fed = FedConfig(cohort=4, fused_update=True, fault_crash=crash,
+                        round_deadline=100.0)
+        state = init_server_state(model, fed, params=params)
+        before = {k: v.clone() for k, v in state["params"].items()}
+        K.reset_launch_counts()
+        new, m = make_federated_round(model, fed)(
+            state, batch, meta, weights, draw_round(fed, 0, 0, 4))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        assert counts["update_pass"] == counts["aggregate_pass"] == want
+        assert float(m["arrivals"]) == 4 * (1 - crash)
+        if not want:
+            for k, v in before.items():
+                assert np.array_equal(new["params"][k].cpu().numpy().view(
+                    np.uint32), v.cpu().numpy().view(np.uint32))
