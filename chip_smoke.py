@@ -29,7 +29,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      one client's whole uplink for each lossy codec;
   6. the main path: ``repro_torch.launch.train.run_training`` on
      smollm-360m at full width (361,821,120 parameters), UGA + FedMeta,
-     fused engine: 3 rounds each of vmap/sgd, scan/sgd and scan/adam with
+     fused engine: 2 rounds each of vmap/sgd, scan/sgd and scan/adam with
      ``meta_mode='post'``, then 2 rounds each of the same three with
      ``meta_mode='through_aggregation'``, then 2 rounds each of six runs
      with a lossy uplink codec (int8, sign1bit, topk; with and without
@@ -43,8 +43,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      round for the device's busy time by kernel, its idle share and the
      host's time in operators;
   6m. training through Mamba2 layers at full width: ``run_training`` on
-     mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd 3
-     rounds, scan/sgd 2 (scan/adam does not fit the card: ``MAMBA_RUNS``),
+     mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd and
+     scan/sgd 2 rounds each (scan/adam does not fit the card:
+     ``MAMBA_RUNS``),
      each held to exactly its cohort's
      fused-update launches and no SSD-scan launch (training runs the
      differentiable ``models/ssm.py::ssd_chunked``), finite metrics, vmap
@@ -55,13 +56,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      retry with backoff 1: each round's launches (one aggregate and one
      update pass, none when every client failed) and its participation
      and fault metrics held to what the round's draws give;
+  6a. the buffered-async runtime at full width on smollm-360m: two
+     synchronous scan/sgd runs of 2 rounds (does the card repeat a round
+     bitwise?) and the fault-free async tick at K = capacity = cohort on
+     the scan base against them (bitwise, or within the two runs' gap);
+     the defaults (K 4, capacity 8, invsqrt) on vmap/sgd under
+     participation 0.75 and 'flaky' with garble, 4 ticks, each tick's
+     metrics and launches (one accumulate pass per flushed delta, one
+     update pass per flush, no aggregate pass) held to ``simulate_tick``
+     of its draws, its wall and the peak printed; int8 with error
+     feedback on scan, 2 ticks (one quantize launch per client, no
+     dequant-FMA launch);
+  6k. checkpoints at full width: the post vmap/sgd and vmap/adam states
+     after one round saved and restored through the trainer, bitwise,
+     with the seconds and bytes; the full-width async state (an 11.58 GB
+     pool leaf, past msgpack's bin32) refused before anything is written;
   7. a reference check on a small input: the same trainer at smoke size on
      the card against the plain versions on the CPU, in both meta modes
      and with int8 and sign1bit error feedback; mamba2-780m-smoke and
      jamba-1.5-large-398b-smoke in both meta modes (routing asserted
      equal first); under int8 error feedback a round whose clients all
      crashed (no launch, state bitwise unchanged) and one with a client
-     crashed (its residual slot byte-identical);
+     crashed (its residual slot byte-identical); the async tick (vmap and
+     scan, 'flaky' with garble) card against CPU, its sign1bit launches,
+     and an async save and resume on the card against a run that never
+     stopped;
   8. one JSON line of per-kernel numbers, then the card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -917,7 +936,7 @@ def print_all_bounds():
 # the hypergradient adds one backward launch per forward launch: the scan
 # cohort's backward re-runs each client and calls accumulate_pass_bwd on
 # it.  The post-mode runs launch no backward kernel.
-ROUNDS = 3                       # post-mode runs
+ROUNDS = 2                       # post-mode runs (3 through PR 19)
 TA_ROUNDS = 2                    # through-aggregation runs
 CODED_ROUNDS = 2                 # coded-uplink runs
 FUSED_NAMES = ("aggregate_pass", "accumulate_pass", "update_pass",
@@ -1161,12 +1180,13 @@ def coded_path(counts_of, dev):
 # Phase 6m: training through Mamba2 layers at full width.  mamba2-780m
 # trains through models/ssm.py::ssd_chunked (plain PyTorch, differentiable
 # in both modes), so the SSD-scan kernel launches no time; the server step
-# runs the fused-update kernels as on smollm-360m.  vmap/sgd 3 rounds and
-# scan/sgd 2 (held to vmap/sgd after round 1).  scan/adam does not fit:
+# runs the fused-update kernels as on smollm-360m.  vmap/sgd and scan/sgd
+# 2 rounds each (held to each other after round 1; vmap/sgd ran 3 through
+# PR 19).  scan/adam does not fit:
 # both sgd runs peak at 69.99 GiB, outside the aggregation (the same on
 # both cohorts), and adam's two slots (6.24 GB) ran the card out of
 # memory at 75.81 GiB allocated, 2.62 GiB more reserved, of 79.18.
-MAMBA_RUNS = {"mamba2:vmap/sgd": 3, "mamba2:scan/sgd": 2}
+MAMBA_RUNS = {"mamba2:vmap/sgd": 2, "mamba2:scan/sgd": 2}
 MAMBA_N_PARAMS = 779_841_792
 # vmap against scan after round 1: the two cohorts sum G in other orders
 # (1e-7 apart), and the FedMeta step's gradient at parameters that close
@@ -1329,6 +1349,290 @@ def fault_path(counts_of, dev):
     del state
     torch.cuda.empty_cache()
     return counts
+
+
+# Phase 6a: the buffered-async runtime on smollm-360m at full width.  The
+# pool's bookkeeping is re-derived on the host from each tick's draws
+# (``simulate_tick``: occupied slots as a list in logical order), and each
+# tick's launches follow from it: one accumulate_pass per flushed delta,
+# one update_pass per flush, no aggregate_pass (the vmap base's stack is
+# pooled, not reduced).  The defaults: K = cohort = 4, capacity 8,
+# invsqrt.  The pool is 8 x 1.447 GB = 10.78 GiB on top of the
+# synchronous vmap round's 21.04 GiB peak; copying the pool on insert, as
+# JAX's concatenate-and-gather does, would add about 16 GiB more.
+ASYNC_KW = dict(engine="buffered_async", participation=0.75,
+                fault_profile="flaky")
+ASYNC_TICKS = 4
+ASYNC_CLEAN_TICKS = 2            # fault-free K = capacity = cohort, scan
+ASYNC_CODED_TICKS = 2            # int8 with error feedback, scan
+ASYNC_PEAK_GIB = 21.04 + 10.78 + 2.0
+
+
+def simulate_tick(pool, ver, tick, arrive, delay, K, cap):
+    """The pool's bookkeeping for one tick, from its draws alone: ``pool``
+    lists the occupied slots' [version, deliver] in logical order.
+    Returns (pool, server version, the metrics the tick must report)."""
+    import numpy as np
+    cand = pool + [[ver, tick + int(d)] for ok, d in zip(arrive, delay)
+                   if ok]
+    cand = sorted(cand, key=lambda e: -e[0])          # stable: old first
+    kept, overflow = cand[:cap], max(len(cand) - cap, 0)
+    arrivals = sum(1 for _, d in kept if d == tick)
+    stale = []
+    steps = 0
+    for _ in range(max(cap // K, 1)):
+        ready = [i for i, (_, d) in enumerate(kept) if d <= tick]
+        if len(ready) < K:
+            break
+        pick = set(sorted(ready, key=lambda i: (kept[i][1], i))[:K])
+        stale += [ver - kept[i][0] for i in pick]
+        kept = [e for i, e in enumerate(kept) if i not in pick]
+        ver += 1
+        steps += 1
+    hist = [0.0] * 8
+    for x in stale:
+        hist[min(x, 7)] += 1.0
+    mean = float(np.float32(sum(stale)) / np.float32(max(len(stale), 1)))
+    return kept, ver, {"arrivals": float(arrivals),
+                       "server_steps": float(steps),
+                       "buffer_fill": float(len(kept)),
+                       "overflow_dropped": float(overflow),
+                       "staleness_hist": hist,
+                       "staleness_max": float(max(stale, default=0)),
+                       "staleness_mean": mean}
+
+
+def _flat_params(state):
+    from repro_torch.core import flat as F
+    spec = F.make_flat_spec(state["params"])
+    return F.flatten_tree(spec, state["params"])[0].clone()
+
+
+def async_path(counts_of, dev):
+    """Phase 6a: (i) two synchronous scan/sgd runs of 2 rounds from the
+    same init, to see whether the card repeats a round bitwise, and the
+    fault-free async tick (K = capacity = cohort, scan/sgd, 2 ticks)
+    against them: bitwise if the two sync runs are, else within their
+    gap; (ii) the defaults under participation 0.75 and 'flaky' (garble
+    live), vmap/sgd, 4 ticks, each tick's metrics and launches held to
+    ``simulate_tick`` of its draws, its wall time and the peak printed;
+    (iii) int8 with error feedback on scan, 2 ticks: one quantize launch
+    (with the residual) per client, no dequant-FMA launch.  Each run is
+    its own main path: counts zeroed just before, read just after."""
+    import numpy as np
+    import torch
+    from repro_torch.core.round import draw_round
+    from repro_torch.launch.train import run_training
+
+    base = dict(cohort=COHORT, client_batch=8, seq=128, algorithm="uga",
+                meta=True, fused=True, seed=0, log_every=0, device=dev)
+    counts, flats, hists = {}, {}, {}
+    for tag, kw, n in (
+            ("sync:scan/sgd#1", dict(strategy="scan"), ASYNC_CLEAN_TICKS),
+            ("sync:scan/sgd#2", dict(strategy="scan"), ASYNC_CLEAN_TICKS),
+            ("async-clean:scan/sgd", dict(
+                strategy="scan", engine="buffered_async",
+                async_buffer=COHORT, async_capacity=COHORT),
+             ASYNC_CLEAN_TICKS)):
+        counts_of.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, hist = run_training("smollm-360m", rounds=n, **base, **kw)
+        torch.cuda.synchronize()
+        counts[tag] = counts_of.read()
+        flats[tag], hists[tag] = _flat_params(state), hist
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        assert counts[tag] == _scan_counts(n, False), counts[tag]
+        log(f"  {tag}: {n} rounds in {time.perf_counter() - t:.2f} s")
+        del state
+        torch.cuda.empty_cache()
+    a, b = flats["sync:scan/sgd#1"], flats["sync:scan/sgd#2"]
+    c = flats["async-clean:scan/sgd"]
+    keys = ("client_loss", "grad_norm", "meta_loss")
+    sync_same = torch.equal(a, b) and all(
+        x[k] == y[k] for x, y in zip(hists["sync:scan/sgd#1"],
+                                     hists["sync:scan/sgd#2"]) for k in keys)
+    gap = rel_err(b, a)
+    e_async = min(rel_err(c, a), rel_err(c, b))
+    same = "bitwise equal" if sync_same else f"params rel {gap:.3e} apart"
+    log(f"  two sync scan/sgd runs, {ASYNC_CLEAN_TICKS} rounds: {same}; the "
+        f"fault-free async ticks against them: params rel {e_async:.3e}, "
+        f"bitwise {torch.equal(c, a) or torch.equal(c, b)}")
+    for rec in hists["async-clean:scan/sgd"]:
+        assert rec["server_steps"] == 1 and rec["arrivals"] == COHORT, rec
+    if sync_same:
+        assert torch.equal(c, a), e_async
+        for x, y in zip(hists["async-clean:scan/sgd"],
+                        hists["sync:scan/sgd#1"]):
+            assert all(x[k] == y[k] for k in keys), (x, y)
+    else:
+        # the card does not repeat a round bitwise: hold the async ticks
+        # to the gap between two identical sync runs
+        assert e_async <= max(2 * gap, 1e-6) and e_async <= 1e-5, (
+            e_async, gap)
+    del a, b, c, flats
+
+    # (ii) the defaults under faults, held tick by tick to the draws
+    sim = {"pool": [], "ver": 0}
+    per_tick, seen, marks = [], [counts_of.read()], []
+
+    def on_records(recs, trainer):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        now = counts_of.read()
+        delta = {k: now[k] - seen[-1][k] for k in now}
+        seen.append(now)
+        rec = recs[0]
+        r = rec["round"]
+        d = draw_round(trainer.fed, trainer.seed, r, COHORT)
+        fs = d.faults
+        arrive = (d.participation > 0) & (fs.alive > 0)
+        sim["pool"], sim["ver"], want = simulate_tick(
+            sim["pool"], sim["ver"], r, arrive, fs.delay, COHORT,
+            2 * COHORT)
+        want.update(participants=float(d.participation.sum()),
+                    fault_crashed=float(fs.crashed.sum()),
+                    fault_dropped=float(fs.dropped.sum()),
+                    fault_delayed=float(fs.delayed.sum()))
+        got = {k: rec[k] for k in want}
+        assert got == want, (r, got, want)
+        n = int(want["server_steps"])
+        assert delta == _launches(accumulate_pass=COHORT * n,
+                                  update_pass=n), (r, delta)
+        if n == 0:
+            assert rec["grad_norm"] == rec["meta_loss"] == 0.0, rec
+        assert trainer.state["async"]["server_version"] == sim["ver"]
+        per_tick.append((r, got, delta["accumulate_pass"],
+                         delta["update_pass"], float(fs.garbled.sum())))
+
+    tag = "async:vmap/sgd"
+    counts_of.reset()
+    seen[0] = counts_of.read()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks.append(time.perf_counter())
+    state, hist = run_training("smollm-360m", rounds=ASYNC_TICKS, **base,
+                               strategy="vmap", on_records=on_records,
+                               **ASYNC_KW)
+    counts[tag] = counts_of.read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"kernels: {tag} {json.dumps(counts[tag])}")
+    steps = sum(int(g["server_steps"]) for _, g, *_ in per_tick)
+    assert counts[tag] == _launches(accumulate_pass=COHORT * steps,
+                                    update_pass=steps), counts[tag]
+    for rec in hist:
+        assert all(math.isfinite(x) for v in rec.values()
+                   for x in (v if isinstance(v, list) else [v])), rec
+    walls = [y - x for x, y in zip(marks, marks[1:])]
+    for (r, got, na, nu, garbled), w in zip(per_tick, walls):
+        log(f"  tick {r}: {json.dumps(got)}; garbled {garbled:g}; launches "
+            f"accumulate {na}, update {nu} (as the draws give); wall "
+            f"{w:.4f} s")
+    log(f"  {ASYNC_TICKS} ticks (K {COHORT}, capacity {2 * COHORT}, "
+        f"invsqrt; tick 0 includes init and data); max_memory_allocated "
+        f"{peak:.2f} GiB (pool {2 * COHORT * FULL_ROWS * 512 / 2**30:.2f} "
+        f"GiB; bound {ASYNC_PEAK_GIB:.2f})")
+    assert steps > 0
+    assert peak <= ASYNC_PEAK_GIB, peak
+    del state
+    torch.cuda.empty_cache()
+
+    # (iii) int8 with error feedback on the scan base
+    tag = "async-int8+ef:scan/sgd"
+    counts_of.reset()
+    state, hist = run_training(
+        "smollm-360m", rounds=ASYNC_CODED_TICKS, **base, strategy="scan",
+        engine="buffered_async", codec="int8", error_feedback=True)
+    counts[tag] = counts_of.read()
+    log(f"kernels: {tag} {json.dumps(counts[tag])}")
+    n = ASYNC_CODED_TICKS
+    assert counts[tag] == _launches(quantize_i8_pass=COHORT * n,
+                                    accumulate_pass=COHORT * n,
+                                    update_pass=n), counts[tag]
+    comm_bytes = float(np.float32(payload_bytes("int8", FULL_N_VALID))
+                       * np.float32(COHORT))          # in fp32, as JAX's
+    for rec in hist:
+        assert rec["comm_bytes"] == comm_bytes, rec
+        assert rec["server_steps"] == 1, rec
+    res = state["comm"]["residual"][0]
+    assert bool(torch.isfinite(res).all()) and float(res.abs().max()) > 0
+    log(f"  {tag}: {n} ticks, comm_bytes {hist[-1]['comm_bytes']:.0f} a "
+        f"tick, residual max |r| {float(res.abs().max()):.3e}")
+    del state, res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ckpt_path_check(dev):
+    """Phase 6k: the full-width server state through a blob and back,
+    bitwise: post vmap/sgd after one round, and adam after one round (m, v
+    and t); the seconds and bytes of each save and restore; the blobs are
+    removed.  The async pool (8 slots of 1.447 GB in one leaf) exceeds a
+    msgpack bin and must be refused before anything is written."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.launch.train import build_synthetic_fed_data
+    from repro_torch.models.model import build_model
+
+    out_dir = os.path.join(HERE, "build", "ckpt_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cfg = get_arch("smollm-360m")
+    model = build_model(cfg, loss_chunk=256)
+    data = build_synthetic_fed_data(cfg, num_clients=32, examples=2048,
+                                    seq=128, iid=False)
+    try:
+        for opt in ("sgd", "adam"):
+            fed = FedConfig(algorithm="uga", meta=True, cohort=COHORT,
+                            client_lr=0.01, server_lr=0.01, meta_lr=0.01,
+                            lr_decay=0.992, fused_update=True,
+                            server_opt=opt)
+            tr = FederatedTrainer(model, fed, device=dev, seed=0)
+            tr.run(data, rounds=1, cohort=COHORT, batch=8, meta_batch=16)
+            path = os.path.join(out_dir, f"{opt}.msgpack")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.save(path, extra={"arch": cfg.name})
+            t_save = time.perf_counter() - t
+            fresh = FederatedTrainer(model, fed, device=dev, seed=1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            extra = fresh.restore(path)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t
+            la = _leaves_of(tr.checkpoint_tree())
+            lb = _leaves_of(fresh.checkpoint_tree())
+            assert [p for p, _ in la] == [p for p, _ in lb]
+            for (p, x), (_, y) in zip(la, lb):
+                assert _bitwise(x, y), p
+                assert not isinstance(y, torch.Tensor) or y.device == x.device
+            assert extra == {"arch": cfg.name} and fresh.history == tr.history
+            size = os.path.getsize(path)
+            log(f"  post vmap/{opt} after 1 round: {len(la)} leaves "
+                f"({', '.join(sorted({p.split('/')[0] for p, _ in la}))}), "
+                f"blob {size:,} bytes; save {t_save:.2f} s "
+                f"({size / t_save / 1e9:.2f} GB/s), restore {t_restore:.2f} "
+                f"s ({size / t_restore / 1e9:.2f} GB/s); bitwise equal")
+            os.remove(path)
+            del tr, fresh, la, lb
+            torch.cuda.empty_cache()
+        fed = FedConfig(algorithm="uga", meta=True, cohort=COHORT,
+                        fused_update=True, engine="buffered_async")
+        tr = FederatedTrainer(model, fed, device=dev, seed=0)
+        path = os.path.join(out_dir, "async.msgpack")
+        try:
+            tr.save(path)
+            raise AssertionError("a full-width async pool was saved")
+        except ValueError as e:
+            assert "async/pool/0" in str(e) and not os.listdir(out_dir), e
+            log(f"  full-width async state refused before writing: {e}")
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def profile_round(dev):
@@ -1715,6 +2019,149 @@ def small_reference_faults(counts_of, dev):
         f"byte-identical on the card and the CPU, slot 0 moved; card vs "
         f"CPU history <= 1e-4, counts and comm_bytes exact; params: {n_p} "
         f"elements off by more than 1e-5 (flip-aware)")
+
+
+def small_reference_async(counts_of, dev):
+    """Phase 7 for the buffered-async runtime at smoke size: (i) vmap/sgd
+    and scan/sgd, K 1, capacity 4, participation 0.75, 'flaky' with
+    garble, 4 ticks, the card against the CPU on the same draws: params
+    within 1e-5, metrics within 1e-4, the counts and the pool's host
+    vectors exactly; (ii) on the card, a save after 2 ticks restores
+    bitwise, and the run resumed from it to 4 ticks equals one that never
+    stopped: bitwise where two uninterrupted runs are, else within their
+    gap."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.launch.train import build_synthetic_fed_data
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("smollm-360m-smoke")
+    model = build_model(cfg, loss_chunk=256)
+    params = model.init(torch.Generator().manual_seed(3))
+    kw = dict(algorithm="uga", meta=True, cohort=2, local_steps=2,
+              client_lr=0.05, server_lr=0.05, meta_lr=0.05, lr_decay=0.992,
+              fused_update=True, engine="buffered_async", async_buffer=1,
+              async_capacity=4, participation=0.75, fault_profile="flaky",
+              fault_garble=0.3)
+
+    def data():
+        return build_synthetic_fed_data(cfg, num_clients=8, examples=64,
+                                        seq=32, iid=False)
+
+    def run(fed, d, rounds, tr=None):
+        tr = tr or FederatedTrainer(model, fed, device=d, params=params)
+        tr.run(data(), rounds=rounds, cohort=2, batch=4, meta_batch=8)
+        return tr
+
+    for strategy in ("vmap", "scan"):
+        fed = FedConfig(**kw, cohort_strategy=strategy)
+        counts_of.reset()
+        g = run(fed, dev, 4)
+        torch.cuda.synchronize()
+        c = counts_of.read()
+        c_ = run(fed, torch.device("cpu"), 4)
+        steps = sum(int(h["server_steps"]) for h in g.history)
+        assert c == _launches(accumulate_pass=steps, update_pass=steps), c
+        for rg, rc in zip(g.history, c_.history):
+            for k, v in rc.items():
+                if isinstance(v, list) or k not in ("client_loss",
+                                                    "grad_norm", "meta_loss"):
+                    assert rg[k] == v, (k, rg, rc)
+                else:
+                    assert abs(rg[k] - v) <= 1e-4 * abs(v) + 1e-7, (k, rg,
+                                                                    rc)
+        worst = max(rel_err(g.state["params"][k].cpu(), c_.state["params"][k])
+                    for k in c_.state["params"])
+        assert worst <= 1e-5, worst
+        ga, ca = g.state["async"], c_.state["async"]
+        for k in ("weight", "version", "deliver"):
+            assert np.array_equal(ga[k], ca[k]), k
+        assert ga["server_version"] == ca["server_version"] == steps > 0
+        stale = max(h["staleness_max"] for h in g.history)
+        log(f"  smoke async {strategy}/sgd (K 1, capacity 4, flaky, "
+            f"garble 0.3), 4 ticks: {steps} flushes, staleness up to "
+            f"{stale:g}, card vs CPU params rel "
+            f"{worst:.3e} (tol 1e-5), history <= 1e-4, counts and the "
+            f"pool's host vectors exact; launches {json.dumps(c)}")
+
+    # sign1bit with error feedback: each client that runs packs its delta
+    # and decodes it (the unpack kernel over zeros) before the pool
+    fed = FedConfig(**{**kw, "codec": "sign1bit", "error_feedback": True},
+                    cohort_strategy="scan")
+    counts_of.reset()
+    g = run(fed, dev, 4)
+    torch.cuda.synchronize()
+    c = counts_of.read()
+    ran = 0
+    for r in range(4):
+        d = g.draw_round(r, 2)
+        if np.any((d.participation > 0) & (d.faults.alive > 0)):
+            ran += 2
+    steps = sum(int(h["server_steps"]) for h in g.history)
+    assert c == _launches(sign_pack_pass=ran, sign_unpack_fma_pass=ran,
+                          accumulate_pass=steps, update_pass=steps), c
+    assert all(bool(torch.isfinite(p).all())
+               for p in g.state["params"].values())
+    log(f"  smoke async sign1bit+ef scan/sgd, 4 ticks on the card: {ran} "
+        f"clients ran, {steps} flushes; launches {json.dumps(c)}")
+
+    # (ii) save after 2 ticks, resume to 4, on the card
+    fed = FedConfig(**kw, cohort_strategy="scan")
+    out_dir = os.path.join(HERE, "build", "ckpt_smoke_async")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        refs = [run(fed, dev, 4) for _ in range(2)]
+        half = run(fed, dev, 2)
+        a = half.state["async"]
+        assert float(np.sum(a["weight"])) > 0, "no pending delta at the save"
+        path = os.path.join(out_dir, "async.msgpack")
+        half.save(path)
+        resumed = FederatedTrainer(model, fed, device=dev, params=params)
+        resumed.restore(path)
+        for (p, x), (_, y) in zip(
+                _leaves_of(half.checkpoint_tree()),
+                _leaves_of(resumed.checkpoint_tree())):
+            assert _bitwise(x, y), p
+        run(fed, dev, 4, resumed)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    def flat(tr):
+        return torch.cat([v.reshape(-1) for v in tr.state["params"].values()])
+
+    r0, r1, rr = flat(refs[0]), flat(refs[1]), flat(resumed)
+    repeat = torch.equal(r0, r1)
+    gap = rel_err(r1, r0)
+    e = min(rel_err(rr, r0), rel_err(rr, r1))
+    assert resumed.history == refs[0].history or not repeat
+    if repeat:
+        assert torch.equal(rr, r0), e
+    else:
+        assert e <= max(2 * gap, 1e-6), (e, gap)
+    log(f"  smoke async scan/sgd on the card: saved after 2 ticks with "
+        f"{int(np.sum(a['weight'] > 0))} deltas pending, restored bitwise; "
+        f"resumed to 4 ticks against a run that never stopped: "
+        f"{'bitwise equal' if torch.equal(rr, r0) else f'rel {e:.3e}'} "
+        f"(two uninterrupted runs "
+        f"{'bitwise equal' if repeat else f'rel {gap:.3e} apart'})")
+
+
+def _leaves_of(tree):
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    return tree_leaves(tree)
+
+
+def _bitwise(x, y) -> bool:
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        return (x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)))
+    return np.asarray(x).tobytes() == np.asarray(y).tobytes()
 
 
 # ---------------------------------------------------------------------------
@@ -2643,6 +3090,11 @@ def main() -> int:
     phase(f"[6f] the synchronous fault model at full width: smollm-360m "
         f"vmap/sgd, {FAULT_ROUNDS} rounds, {FAULT_KW}:")
     counts.update(fault_path(counts_of, dev))
+    phase("[6a] the buffered-async runtime at full width: smollm-360m, "
+          "UGA + FedMeta, cohort 4, client batch 8, seq 128:")
+    counts.update(async_path(counts_of, dev))
+    phase("[6k] checkpoints of the full-width server state:")
+    ckpt_path_check(dev)
 
     phase("[6b] two vmap/sgd rounds at full width, the second under "
         "torch.profiler:")
@@ -2666,6 +3118,7 @@ def main() -> int:
     small_reference_coded(dev)
     small_reference_ssm(counts_of, dev)
     small_reference_faults(counts_of, dev)
+    small_reference_async(counts_of, dev)
     small_reference_serve(dev)
 
     kernels = []

@@ -12,6 +12,11 @@ accounting.
   * The decode fuses into the accumulation and writes the accumulator in
     place; with error feedback the encode emits the residual in the same
     sweep.
+  * :func:`coded_decode_stacked` (and :func:`client_coded_decode`, one
+    client of it) is the buffered-async runtime's uplink: each client's
+    delta is encoded and decoded on its own, without an accumulation,
+    because the delta pool stores what the server received and weighs it
+    only at flush time.
 
 Error-feedback state (``state["comm"]``): ``{"residual": tuple}``, one
 ``(cohort, rows, 128)`` fp32 stack per dtype group, client k in slot k.
@@ -96,3 +101,42 @@ def coded_aggregate_stacked(codec: GradientCodec, spec: FlatSpec,
         accs, _ = client_coded_accumulate(
             codec, spec, accs, [stack[k] for stack in g_groups], w[k], res_k)
     return list(accs), (None if residuals is None else tuple(residuals))
+
+
+def client_coded_decode(codec: GradientCodec, spec: FlatSpec,
+                        g_bufs: Sequence[torch.Tensor], w: torch.Tensor,
+                        residuals: Optional[Sequence[torch.Tensor]]) -> None:
+    """One client's uplink without the accumulation: each group's delta in
+    ``g_bufs`` is encoded (against its error-feedback residual when
+    ``residuals`` is given) and replaced, in place, by its decode.  ``w``
+    (the client's weight, a device scalar) only gates the residual: a
+    client with w == 0 did not transmit and keeps its residual, by the
+    gate of :func:`client_coded_accumulate`."""
+    if residuals is None:
+        for group, g in zip(spec.groups, g_bufs):
+            g.copy_(codec.decode(group, codec.encode(group, g)))
+        return
+    t = (w > 0).to(torch.float32)
+    for group, g, res in zip(spec.groups, g_bufs, residuals):
+        payload, r_new = codec.encode_ef(group, g + res)
+        g.copy_(codec.decode(group, payload))
+        del payload
+        res.mul_(1.0 - t).add_(r_new.mul_(t))
+
+
+def coded_decode_stacked(codec: GradientCodec, spec: FlatSpec,
+                         g_groups: Sequence[torch.Tensor],
+                         client_weights: torch.Tensor,
+                         residuals: Optional[Sequence[torch.Tensor]]
+                         ) -> Tuple[List[torch.Tensor], Optional[tuple]]:
+    """The buffered-async executor's codec stage over ``(cohort, rows,
+    128)`` delta stacks: every client's delta encoded and decoded on its
+    own (:func:`client_coded_decode`), written back into its stack slot.
+    Returns (the stacks, now decoded, and the residual stacks, updated in
+    place; None without error feedback)."""
+    w = client_weights.to(torch.float32)
+    for k in range(w.shape[0]):
+        client_coded_decode(
+            codec, spec, [stack[k] for stack in g_groups], w[k],
+            None if residuals is None else [stack[k] for stack in residuals])
+    return list(g_groups), (None if residuals is None else tuple(residuals))

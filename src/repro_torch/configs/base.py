@@ -272,10 +272,20 @@ class FedConfig:
             raise ValueError(
                 f"retry_backoff={self.retry_backoff} / retry_max="
                 f"{self.retry_max} must be >= 0")
-        if (self.engine == "buffered_async" or self.async_buffer
-                or self.async_capacity or self.async_max_staleness):
-            unported.append("the buffered_async runtime "
-                            "(ROADMAP Queue 1 item 3, the async half)")
+        if self.engine == "buffered_async":
+            k = self.async_buffer or self.cohort
+            cap = self.async_capacity or 2 * self.cohort
+            if k > cap:
+                raise ValueError(
+                    f"async_buffer={k} exceeds async_capacity={cap}: the "
+                    "pool can never hold K deltas, so the server would "
+                    "never step (deadlock). Raise async_capacity or lower "
+                    "async_buffer.")
+            if self.round_deadline > 0:
+                raise ValueError(
+                    "round_deadline is a synchronous-barrier timeout; the "
+                    "buffered_async runtime has no barrier to time out — "
+                    "bound lateness with async_max_staleness instead")
         if unported:
             raise NotImplementedError(
                 "not yet ported to repro_torch: " + "; ".join(unported))

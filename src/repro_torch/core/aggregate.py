@@ -18,6 +18,11 @@ runs:
     update and feeds its gradient to the accumulate backward kernel, one
     client at a time — JAX's ``jax.checkpoint`` of the scan body.
 
+:func:`scan_cohort_deltas_flat` is the scan arm of the buffered-async
+runtime: it keeps each client's flat delta instead of accumulating it,
+writing it where the caller says (a slot of the delta pool), so no
+``(cohort, rows, 128)`` stack is made.
+
 Each arm has a coded form for a lossy uplink codec (``meta_mode='post'``
 only): :func:`cohort_gradient_stacked_coded` runs the codec stage over the
 filled stack, :func:`scan_cohort_gradient_coded` as each client's gradient
@@ -215,3 +220,41 @@ def scan_cohort_gradient_coded(client_update: Callable, w_t, cohort_batch,
         losses.append(l_k.to(torch.float32))
     return list(accs), _loss_in_client_order(wn, losses), (
         None if residuals is None else tuple(residuals))
+
+
+def scan_cohort_deltas_flat(client_update: Callable, w_t, cohort_batch,
+                            client_weights: torch.Tensor, lr, *,
+                            spec: FlatSpec, out: Callable,
+                            finish: Optional[Callable] = None
+                            ) -> torch.Tensor:
+    """Client-sequential local updates that KEEP each client's flat delta
+    (the buffered-async pool weighs every delta on its own at flush time).
+    Client k's delta is flattened into ``out(k)`` (per-group ``(rows,
+    128)`` fp32 buffers, e.g. a pool slot) or, where that is None, into a
+    scratch buffer reused across clients; ``finish(k, bufs)`` then runs on
+    it (the uplink codec).  Returns the mean client loss, weighted and
+    summed in client order as :func:`scan_cohort_gradient_flat` sums it,
+    so the fault-free tick reproduces the synchronous scan round's
+    bits.  The clients run with grad mode off, as inside that function's
+    ``_ScanCohort.forward``: on CUDA the client update's bits depend on
+    the grad mode around its ``torch.func`` transforms (4.7e-7 apart at
+    smollm-360m's full width)."""
+    w32 = client_weights.to(torch.float32)
+    wn = w32 / torch.clamp(torch.sum(w32), min=1e-30)
+    scratch = None
+    losses = []
+    for k in range(wn.shape[0]):
+        with torch.no_grad():
+            g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k),
+                                     lr, None)
+        bufs = out(k)
+        if bufs is None:
+            if scratch is None:
+                scratch = flat_mod.zeros_flat(spec, wn.device)
+            bufs = scratch
+        flat_mod.flatten_tree(spec, g_k, out=bufs)
+        del g_k
+        if finish is not None:
+            finish(k, bufs)
+        losses.append(l_k.to(torch.float32))
+    return _loss_in_client_order(wn, losses)

@@ -1,7 +1,9 @@
 """Server engines (PyTorch port of ``repro/core/engines.py``): WHAT the
 server does with an aggregate.  The port has the ``fused_flat`` engine —
 clip + optimizer + parameter write in one CUDA sweep per dtype group
-(``kernels/fused_update``).  ``legacy_tree`` (the kernel-free tree-map
+(``kernels/fused_update``) — and ``buffered_async``, which applies each
+flush of the buffered-async delta pool through the same sweep
+(``core/async_round.py``).  ``legacy_tree`` (the kernel-free tree-map
 oracle) is ROADMAP Queue 1 item 9."""
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ from repro_torch.kernels.fused_update.ops import (flat_apply_groups,
                                                   fused_apply_flat,
                                                   init_flat_opt_state)
 
-__all__ = ["ServerEngine", "FusedFlatEngine", "register_engine",
-           "get_engine", "resolve_engine"]
+__all__ = ["ServerEngine", "FusedFlatEngine", "BufferedAsyncEngine",
+           "register_engine", "get_engine", "resolve_engine"]
 
 
 class ServerEngine:
@@ -26,8 +28,11 @@ class ServerEngine:
     ``meta_capabilities`` names the FedMeta modes the engine supports;
     ``through_aggregation`` needs ``apply`` differentiable in the handle's
     weights and in ``lr``.  ``codec_capabilities`` names the uplink codecs
-    it consumes: ``lossy`` needs it to take the decoded flat buffers."""
+    it consumes: ``lossy`` needs it to take the decoded flat buffers.
+    ``is_async`` makes the round builder run the buffered-async tick
+    instead of the synchronous round."""
     name: str = "?"
+    is_async: bool = False
     meta_capabilities: frozenset = frozenset({"post"})
     codec_capabilities: frozenset = frozenset({"none"})
 
@@ -55,7 +60,7 @@ def get_engine(name: str) -> Callable:
 
 def resolve_engine(fed) -> ServerEngine:
     """``fed.engine``, else ``fused_flat`` (FedConfig refuses the unported
-    ``legacy_tree`` and ``buffered_async``)."""
+    ``legacy_tree``)."""
     return get_engine(fed.engine or "fused_flat")(fed)
 
 
@@ -90,3 +95,19 @@ class FusedFlatEngine(ServerEngine):
         return flat_apply_groups(handle.spec, handle.groups,
                                  torch.sqrt(handle.sq_norm), params,
                                  opt_state, **kw)
+
+
+@register_engine("buffered_async")
+class BufferedAsyncEngine(FusedFlatEngine):
+    """Buffered-asynchronous server engine (FedBuff-style).  Each flush's
+    apply — the staleness-weighted mean already streamed into flat
+    buffers, then clip, optimizer and parameter write — is
+    :class:`FusedFlatEngine`'s; ``is_async`` changes the round's shape:
+    the round builder runs the tick of :mod:`repro_torch.core.async_round`
+    with its delta pool (``state["async"]``).  ``meta_mode='post'`` only:
+    whether a tick flushes depends on its arrivals, so there is no fixed
+    aggregation for a hypergradient to flow through."""
+    name = "buffered_async"
+    is_async = True
+    meta_capabilities = frozenset({"post"})
+    codec_capabilities = frozenset({"none", "lossy"})

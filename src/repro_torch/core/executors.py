@@ -18,6 +18,11 @@ differentiable form ``meta_mode='through_aggregation'`` takes its
 hypergradients through: vmap runs the clients once and keeps the stack;
 scan keeps nothing and re-streams the clients under the new weights.
 
+``buffered_async`` is the buffered-async runtime's cohort stage: it runs
+the clients on a vmap or scan base and hands each client's flat delta to
+the delta pool instead of aggregating (``run_deltas``,
+``run_deltas_coded``).
+
 The ``chunked`` and ``sharded`` executors and the tree handle of the
 ``legacy_tree`` engine are ROADMAP Queue 1 items 9 and 7.
 """
@@ -28,8 +33,11 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.comm.transport import (client_coded_decode,
+                                        coded_decode_stacked)
 from repro_torch.core.aggregate import (cohort_gradient_stacked,
                                         cohort_gradient_stacked_coded,
+                                        scan_cohort_deltas_flat,
                                         scan_cohort_gradient_coded,
                                         scan_cohort_gradient_flat)
 from repro_torch.core.flat import FlatSpec, make_flat_spec
@@ -37,7 +45,8 @@ from repro_torch.core.registry import Registry
 from repro_torch.kernels.fused_update.ops import flat_weighted_aggregate
 
 __all__ = ["FlatAggregate", "ReweightableCohort", "CohortExecutor",
-           "register_executor", "get_executor", "resolve_executor"]
+           "BufferedAsyncExecutor", "register_executor", "get_executor",
+           "resolve_executor"]
 
 
 @dataclasses.dataclass
@@ -180,3 +189,103 @@ class ScanExecutor(CohortExecutor):
             return FlatAggregate(Gs, spec, sq_norm=None), loss
 
         return ReweightableCohort(aggregate=aggregate)
+
+
+@register_executor("buffered_async")
+class BufferedAsyncExecutor(CohortExecutor):
+    """The buffered-async runtime's cohort stage: the local updates run on
+    the base strategy ``fed.cohort_strategy`` (vmap or scan), and each
+    client's flat delta goes to the delta pool
+    (:mod:`repro_torch.core.async_round`) instead of into an aggregate.
+    Not a synchronous executor: :meth:`run` raises.
+
+    ``out(k)`` names where client k's delta goes: per-group ``(rows, 128)``
+    buffers (a pool slot), or None for a delta the pool does not keep.
+    The vmap base fills its ``(cohort, rows, 128)`` stack as the
+    synchronous vmap cohort does and copies each kept delta into its
+    slot; the scan base writes each delta straight into its slot as the
+    client finishes."""
+    name = "buffered_async"
+    supports_reweight = False
+    codec_capabilities = frozenset({"none", "lossy"})
+
+    def __init__(self, fed: Any, *, grad_shardings=None):
+        if grad_shardings is not None:
+            raise ValueError(
+                "the buffered_async executor keeps a replicated delta pool "
+                "(per-client staleness slots), so per-leaf grad_shardings "
+                "cannot apply; drop grad_shardings or use a synchronous "
+                "engine")
+        if getattr(fed, "cohort_chunk", None) is not None:
+            raise ValueError(
+                "cohort_chunk streams clients through an aggregate "
+                "accumulator, but the buffered_async executor must keep "
+                "every client's delta individually for the staleness pool "
+                "— there is nothing to chunk. Drop cohort_chunk or use a "
+                "synchronous engine.")
+        if fed.cohort_strategy not in ("vmap", "scan"):
+            raise ValueError(
+                "the buffered_async executor wraps a base cohort_strategy "
+                f"of 'vmap' or 'scan', got {fed.cohort_strategy!r}")
+        self._base = fed.cohort_strategy
+
+    def run(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the buffered_async executor produces per-client deltas for the "
+            "async tick (repro_torch.core.async_round), not a synchronous "
+            "aggregate; select engine='buffered_async' so the round "
+            "builder routes through it")
+
+    def run_deltas(self, client_update, params, cohort_batch,
+                   client_weights, lr, *, spec, out: Callable
+                   ) -> torch.Tensor:
+        """Run every client, each delta to ``out(k)``; returns the client
+        loss weighted by ``client_weights`` (aggregation weights are the
+        pool's, at flush time)."""
+        if self._base == "scan":
+            return scan_cohort_deltas_flat(
+                client_update, params, cohort_batch, client_weights, lr,
+                spec=spec, out=out)
+        stacks, loss = cohort_gradient_stacked(
+            client_update, params, cohort_batch, client_weights, lr,
+            spec=spec)
+        _deliver(stacks, out)
+        return loss
+
+    def run_deltas_coded(self, client_update, params, cohort_batch,
+                         client_weights, lr, *, spec, codec, comm,
+                         out: Callable) -> Tuple[torch.Tensor,
+                                                 Optional[dict]]:
+        """:meth:`run_deltas` with the lossy uplink: each delta is encoded
+        (against its ``state["comm"]`` residual, updated in place) and
+        decoded before it is pooled — the pool keeps what the server
+        received.  Returns (client loss, new comm state)."""
+        res = None if comm is None else comm["residual"]
+        new_comm = None if comm is None else {"residual": tuple(res)}
+        if self._base == "vmap":
+            stacks, loss = cohort_gradient_stacked(
+                client_update, params, cohort_batch, client_weights, lr,
+                spec=spec)
+            coded_decode_stacked(codec, spec, stacks, client_weights, res)
+            _deliver(stacks, out)
+            return loss, new_comm
+        w32 = client_weights.to(torch.float32)
+
+        def finish(k, bufs):
+            client_coded_decode(codec, spec, bufs, w32[k],
+                                None if res is None else [r[k] for r in res])
+
+        loss = scan_cohort_deltas_flat(
+            client_update, params, cohort_batch, client_weights, lr,
+            spec=spec, out=out, finish=finish)
+        return loss, new_comm
+
+
+def _deliver(stacks, out: Callable) -> None:
+    """Copy client k's slot of the ``(cohort, rows, 128)`` stacks into
+    ``out(k)`` where the pool keeps it."""
+    for k in range(stacks[0].shape[0]):
+        dest = out(k)
+        if dest is not None:
+            for d, st in zip(dest, stacks):
+                d.copy_(st[k])

@@ -28,8 +28,14 @@ weighted mean (every client still runs, as in JAX), and a lossy codec's
 error-feedback residual of such a client stays as it was.  A round in
 which every client failed is a no-op server step: nothing runs, params,
 opt, ctrl and comm stay as they were, the counter advances and
-``client_loss``, ``grad_norm`` and ``meta_loss`` read 0.  The buffered-
-async runtime is ROADMAP Queue 1 item 3 (the async half).
+``client_loss``, ``grad_norm`` and ``meta_loss`` read 0.
+
+An async engine (``engine='buffered_async'``) replaces the round's shape:
+``make_federated_round`` returns the buffered-async tick of
+:mod:`repro_torch.core.async_round`, which has ``one_round``'s signature,
+and the server state gains the delta pool, ``state["async"]``.  Its draws
+keep the fault profile's garble, which a synchronous round zeroes
+(:func:`round_faults`).
 """
 from __future__ import annotations
 
@@ -92,6 +98,11 @@ def init_server_state(model: Model, fed: FedConfig, *,
         # per-client compression residuals: zero EF memory per cohort slot
         state["comm"] = init_comm_state(
             fed, make_flat_spec(params), next(iter(params.values())).device)
+    if eng.is_async:
+        # the buffered-async delta pool and its staleness counters
+        from repro_torch.core.async_round import init_async_state
+        state["async"] = init_async_state(
+            fed, make_flat_spec(params), next(iter(params.values())).device)
     return state
 
 
@@ -130,17 +141,28 @@ def sync_faults(fed: FedConfig) -> FaultConfig:
                 f"fault_garble={fed.fault_garble} needs "
                 "engine='buffered_async': payload corruption acts on the "
                 "pooled per-client deltas, which only the async runtime "
-                "models (ROADMAP Queue 1 item 3, the async half) — "
+                "models — "
                 "synchronous engines see faults at the aggregation-weight "
-                "level (drop/crash/timeout). Drop fault_garble.")
+                "level (drop/crash/timeout). Drop fault_garble or select "
+                "engine='buffered_async'.")
         faults = dataclasses.replace(faults, garble=0.0)
     return faults
 
 
+def round_faults(fed: FedConfig) -> FaultConfig:
+    """The fault config a round of ``fed`` draws with: the profile's
+    garble kept under an async engine (it scales pooled deltas), zeroed
+    by :func:`sync_faults` otherwise."""
+    if resolve_engine(fed).is_async:
+        return resolve_faults(fed)
+    return sync_faults(fed)
+
+
 def draw_round(fed: FedConfig, seed: int, round_idx: int,
                cohort: int) -> RoundDraws:
-    """The draws round ``round_idx`` of a run seeded ``seed`` takes."""
-    faults = sync_faults(fed)
+    """The draws round (or async tick) ``round_idx`` of a run seeded
+    ``seed`` takes."""
+    faults = round_faults(fed)
     return RoundDraws(
         participation=(participation_mask(seed, round_idx, cohort,
                                           fed.participation)
@@ -150,6 +172,9 @@ def draw_round(fed: FedConfig, seed: int, round_idx: int,
 
 
 def make_federated_round(model: Model, fed: FedConfig):
+    if resolve_engine(fed).is_async:
+        from repro_torch.core.async_round import make_async_tick
+        return make_async_tick(model, fed)
     alg = get_algorithm(fed.algorithm)
     client_update = alg.build(model.loss, local_steps=fed.local_steps,
                               local_epochs=fed.local_epochs,

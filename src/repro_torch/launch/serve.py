@@ -11,7 +11,9 @@ gives GQA self-attention a ring-buffer cache (MLA writes its latent cache
 at the clamped index, as JAX does).  Weights are random from ``--seed``;
 prompts, then an encoder config's frame or patch embeddings (``enc_len``
 of ``enc_dim``, unit normal), are drawn with numpy from the same seed:
-the JAX launcher's inputs.
+the JAX launcher's inputs.  ``--ckpt`` restores the parameters from a
+bare-params blob (``repro_torch.checkpoint.save(path, params)``, or the
+JAX package's ``repro.checkpoint.save``) in place of the random ones.
 
   python -m repro_torch.launch.serve --arch smollm-360m-smoke \\
       --batch 2 --prompt-len 40 --gen 8 --device cpu [--window 16]
@@ -31,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore as ckpt_restore
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device, strict_fp32
 from repro_torch.models.model import build_model
@@ -97,15 +100,15 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: checkpoints are not yet ported to repro_torch "
-            "(ROADMAP Queue 1 item 4)")
     dev = resolve_device(args.device)
     strict_fp32()
     cfg = get_arch(args.arch)
     model = build_model(cfg, dtype=torch.float32, decode_window=args.window)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    if args.ckpt:
+        # bare parameters, as the JAX launcher restores them
+        params, extra = ckpt_restore(args.ckpt, params)
+        print(f"[serve] restored {args.ckpt} ({extra})")
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)

@@ -12,10 +12,19 @@ device (``--device cpu`` runs the kernels' plain versions on the CPU).
       [--codec int8|sign1bit|topk [--error-feedback] [--topk-ratio R]] \\
       [--participation P] [--fault-profile flaky|stragglers] \\
       [--fault-drop|--fault-crash|--fault-delay R] [--round-deadline D] \\
-      [--retry-backoff B]
+      [--retry-backoff B] \\
+      [--engine buffered_async [--async-buffer K] [--async-capacity C] \\
+       [--async-max-staleness S] [--staleness-mode none|inv|invsqrt]] \\
+      [--ckpt PATH] [--resume PATH|auto] [--run-dir DIR \\
+       [--ckpt-every N] [--keep-last N] [--keep-every N]]
 
 Every ``--arch`` trains, ``mamba2-780m`` and the ``-smoke`` SSM and hybrid
-configs included.
+configs included.  ``--engine buffered_async`` runs the buffered-async
+runtime (``core/async_round.py``): one tick a round, the server stepping
+every K arrived deltas; ``--fault-garble`` reaches it.  ``--ckpt`` saves
+the server state at the end, ``--resume`` restores one (``auto``: the
+newest blob of ``--run-dir``'s managed store, which ``--run-dir`` keeps
+under ``DIR/checkpoints``); the blobs are the JAX package's format.
 """
 from __future__ import annotations
 
@@ -78,13 +87,23 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                  fault_max_delay: int = -1, fault_garble: float = -1.0,
                  fault_garble_scale: float = -1.0,
                  fault_speed_tail: float = -1.0, round_deadline: float = 0.0,
-                 retry_backoff: int = 0, device=None, params=None,
+                 retry_backoff: int = 0, engine: Optional[str] = None,
+                 async_buffer: int = 0, async_capacity: int = 0,
+                 async_max_staleness: int = 0,
+                 staleness_mode: str = "invsqrt",
+                 ckpt_path: Optional[str] = None,
+                 resume: Optional[str] = None, run_dir: Optional[str] = None,
+                 ckpt_every: int = 0, keep_last: int = 3, keep_every: int = 0,
+                 device=None, params=None,
                  on_records: Optional[Callable] = None):
     """Assemble (model, FedConfig, FederatedData) and train.  ``params``
     starts from given parameters instead of a seeded init; ``on_records``
-    is the trainer's per-round hook.  The participation and ``fault_*``
-    knobs are those of the JAX package's ``launch/train.py``
-    (``repro_torch.sim.faults``).  Returns (state, history)."""
+    is the trainer's per-round hook.  The participation, ``fault_*``,
+    ``engine`` / ``async_*`` and checkpoint knobs are those of the JAX
+    package's ``launch/train.py``: ``resume`` is a blob ``ckpt_path``
+    wrote, or ``"auto"``, the newest blob of ``run_dir``'s managed store,
+    which saves every ``ckpt_every`` rounds (0: at run end) with
+    ``keep_last`` / ``keep_every`` retention.  Returns (state, history)."""
     dev = resolve_device(device)
     strict_fp32()
     cfg = get_arch(arch)
@@ -103,17 +122,41 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
         fault_delay=fault_delay, fault_max_delay=fault_max_delay,
         fault_garble=fault_garble, fault_garble_scale=fault_garble_scale,
         fault_speed_tail=fault_speed_tail, round_deadline=round_deadline,
-        retry_backoff=retry_backoff)
+        retry_backoff=retry_backoff, engine=engine,
+        async_buffer=async_buffer, async_capacity=async_capacity,
+        async_max_staleness=async_max_staleness,
+        staleness_mode=staleness_mode)
     data = build_synthetic_fed_data(cfg, num_clients=num_clients,
                                     examples=examples, seq=seq, iid=iid,
                                     seed=seed)
-    trainer = FederatedTrainer(model, fed, seed=seed, device=dev,
-                               params=params)
+    trainer = FederatedTrainer(
+        model, fed, seed=seed, device=dev, params=params, run_dir=run_dir,
+        checkpoint_every=ckpt_every if run_dir is not None else None,
+        keep_last=keep_last, keep_every=keep_every)
+    if resume == "auto":
+        if run_dir is None:
+            raise ValueError(
+                "--resume auto reads the managed checkpoint store and "
+                "needs --run-dir; pass an explicit checkpoint path "
+                "otherwise")
+        step = trainer.resume_latest()
+        print("[train] resume auto: "
+              + (f"round {step} from {run_dir}/checkpoints" if step
+                 is not None else "empty store, starting fresh"))
+    elif resume:
+        extra = trainer.restore(resume)
+        print(f"[train] resumed {resume} at round {trainer.round} "
+              f"(saved by arch={extra.get('arch')})")
     meta_bs = min(client_batch * 2, 32)
     history = trainer.run(data, rounds=rounds, cohort=cohort,
                           batch=client_batch, meta_batch=meta_bs,
                           share=share, log_every=log_every,
                           on_records=on_records)
+    if ckpt_path:
+        trainer.save(ckpt_path, extra={"arch": arch, "rounds": rounds,
+                                       "algorithm": algorithm})
+        print(f"[train] saved server state to {ckpt_path}")
+    trainer.finish()
     return trainer.state, history
 
 
@@ -181,9 +224,8 @@ def main(argv=None):
                     help="late reports land 1..N rounds late; <0 uses the "
                          "profile")
     ap.add_argument("--fault-garble", type=float, default=-1.0,
-                    help="P(payload corrupted) — buffered_async only (not "
-                         "ported: an explicit value raises); <0 uses the "
-                         "profile")
+                    help="P(payload corrupted) — buffered_async only; <0 "
+                         "uses the profile")
     ap.add_argument("--fault-garble-scale", type=float, default=-1.0,
                     help="corrupted payloads scale by U(-s, s); <0 uses "
                          "the profile")
@@ -196,6 +238,40 @@ def main(argv=None):
     ap.add_argument("--retry-backoff", type=int, default=0,
                     help=">0: re-enqueue failed clients after "
                          "backoff * 2^attempt rounds")
+    ap.add_argument("--engine", default=None,
+                    choices=["fused_flat", "buffered_async", "legacy_tree"],
+                    help="server-engine registry name (default: fused_flat "
+                         "with --fused); 'buffered_async' selects the "
+                         "buffered asynchronous runtime; 'legacy_tree' is "
+                         "not ported (ROADMAP Queue 1 item 9)")
+    ap.add_argument("--async-buffer", type=int, default=0,
+                    help="buffered_async: server steps every K arrived "
+                         "deltas (0: cohort)")
+    ap.add_argument("--async-capacity", type=int, default=0,
+                    help="buffered_async: delta-pool slots (0: 2*cohort)")
+    ap.add_argument("--async-max-staleness", type=int, default=0,
+                    help="buffered_async: evict deltas staler than this "
+                         "many server versions (0: unbounded)")
+    ap.add_argument("--staleness-mode", default="invsqrt",
+                    choices=["none", "inv", "invsqrt"],
+                    help="flush-weight discount of stale deltas")
+    ap.add_argument("--ckpt", default=None,
+                    help="save the server state here at the end")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint written by --ckpt to continue from, "
+                         "or 'auto': the newest blob in --run-dir's "
+                         "managed store")
+    ap.add_argument("--run-dir", default=None,
+                    help="run directory of the managed checkpoint store "
+                         "(<run-dir>/checkpoints)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="managed-store save period in rounds (needs "
+                         "--run-dir; 0: one save at run end)")
+    ap.add_argument("--keep-last", type=int, default=3,
+                    help="managed store: newest saves retained")
+    ap.add_argument("--keep-every", type=int, default=0,
+                    help="managed store: steps divisible by N are kept "
+                         "for good (0: off)")
     ap.add_argument("--num-clients", type=int, default=32)
     ap.add_argument("--examples", type=int, default=2048)
     ap.add_argument("--iid", action="store_true")
@@ -224,7 +300,13 @@ def main(argv=None):
         fault_garble_scale=args.fault_garble_scale,
         fault_speed_tail=args.fault_speed_tail,
         round_deadline=args.round_deadline,
-        retry_backoff=args.retry_backoff, device=args.device)
+        retry_backoff=args.retry_backoff, engine=args.engine,
+        async_buffer=args.async_buffer, async_capacity=args.async_capacity,
+        async_max_staleness=args.async_max_staleness,
+        staleness_mode=args.staleness_mode, ckpt_path=args.ckpt,
+        resume=args.resume, run_dir=args.run_dir, ckpt_every=args.ckpt_every,
+        keep_last=args.keep_last, keep_every=args.keep_every,
+        device=args.device)
     if args.history_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.history_out)),
                     exist_ok=True)

@@ -1,6 +1,6 @@
 """Client-behavior simulation (PyTorch port of ``repro/sim``): the seeded
-fault streams and the heavy-tail latency model of the synchronous round's
-participation and fault policy."""
+fault streams and the heavy-tail latency model of the participation and
+fault policy, synchronous and buffered-async."""
 from repro_torch.sim.faults import (FAULT_PROFILES, FaultConfig,
                                     FaultStreams, client_failed_mask,
                                     fault_streams, heavy_tail_speeds,

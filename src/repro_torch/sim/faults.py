@@ -1,17 +1,19 @@
 """Seeded client fault injection (PyTorch port of ``repro/sim/faults.py``):
-the traffic model of the synchronous round's participation and fault
-policy (the buffered-async runtime is ROADMAP Queue 1 item 3, its async
-half).
+the traffic model of the buffered-async runtime
+(``core/async_round.py``) and of the synchronous round's participation and
+fault policy.
 
 Fault taxonomy (per client, per round):
 
   * **crash** — the client dies mid-round: no local result exists at all;
   * **drop**  — local compute finishes but the uplink report is lost;
-  * **delay** — the report arrives ``1..max_delay`` rounds late (a sync
-    barrier waits, unless ``round_deadline`` times it out);
-  * **garble** — the payload arrives corrupted.  Only the buffered-async
-    delta pool models it; a synchronous round sees faults at the weight
-    level, so a profile's garble is zeroed there and an explicit
+  * **delay** — the report arrives ``1..max_delay`` rounds late (the async
+    pool delivers it that many ticks later; a sync barrier waits, unless
+    ``round_deadline`` times it out);
+  * **garble** — the payload arrives corrupted (scaled by
+    ``U(-garble_scale, garble_scale)``).  Only the buffered-async delta
+    pool models it; a synchronous round sees faults at the weight level,
+    so a profile's garble is zeroed there and an explicit
     ``fault_garble`` is a config error (``core/round.py``).
 
 Latency model (the sync deadline): client k completes at ``Exp(stagger) +
