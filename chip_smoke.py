@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      printed);
   3. hold each of the six fused-update kernels (three forward passes, three
      backward passes) against its plain PyTorch version, at the full-width
-     shapes of smollm-360m (rows = 2,826,728) and at ragged small shapes,
+     shapes of smollm-360m (rows = 2,826,728), at the paper models' (rows
+     10,848, 13,208 and 31,648; ``aggregate_pass`` at cohort 10 too) and
+     at ragged small shapes,
      for every optimizer and with a nonzero ssq cotangent, to <= 1e-6
      relative (max |a-b| over max |b|); and each of the four codec kernels
      bitwise, at the same shapes, with and without the residual, with the
@@ -26,7 +28,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      place, the main path's form, and out of place); 5b: the bounds
      of all twelve Pallas kernels and the library time of flash attention
      at S 128 (scaled_dot_product_attention); 5c: the device time of
-     one client's whole uplink for each lossy codec;
+     one client's whole uplink for each lossy codec; 5p: rows 1-3 at the
+     paper models' flat shapes, in turns with their library calls over
+     input sets rotated past the L2, with the host's time to issue a
+     call;
   6. the main path: ``repro_torch.launch.train.run_training`` on
      smollm-360m at full width (361,821,120 parameters), UGA + FedMeta,
      fused engine: 2 rounds each of vmap/sgd, scan/sgd and scan/adam with
@@ -43,8 +48,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      round for the device's busy time by kernel, its idle share and the
      host's time in operators;
   6m. training through Mamba2 layers at full width: ``run_training`` on
-     mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd and
-     scan/sgd 2 rounds each (scan/adam does not fit the card:
+     mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd 2
+     rounds and scan/sgd 1 (scan/adam does not fit the card:
      ``MAMBA_RUNS``),
      each held to exactly its cohort's
      fused-update launches and no SSD-scan launch (training runs the
@@ -71,6 +76,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      after one round saved and restored through the trainer, bitwise,
      with the seconds and bytes; the full-width async state (an 11.58 GB
      pool leaf, past msgpack's bin32) refused before anything is written;
+  6p. the paper's own models at their published widths: the CIFAR CNN,
+     the FEMNIST CNN and the Shakespeare GRU, FedMeta w/ UGA through
+     ``experiments/common.py::train_method``, cohort 10, 4 rounds each on
+     the vmap cohort (the GRU 3; the CIFAR CNN also 2 on scan, held to
+     vmap after round 0), the FEMNIST CNN also through all six methods, 2
+     rounds
+     each: each run's launches held to exactly its cohort's, finite
+     evaluations, the flat rows, round walls, peaks and eval accuracy;
   7. a reference check on a small input: the same trainer at smoke size on
      the card against the plain versions on the CPU, in both meta modes
      and with int8 and sign1bit error feedback; mamba2-780m-smoke and
@@ -79,8 +92,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      crashed (no launch, state bitwise unchanged) and one with a client
      crashed (its residual slot byte-identical); the async tick (vmap and
      scan, 'flaky' with garble) card against CPU, its sign1bit launches,
-     and an async save and resume on the card against a run that never
-     stopped;
+     an async save and resume on the card against a run that never
+     stopped, and (7p) the paper CNN with dropout under the trainer's
+     host draws and the GRU at smoke size, 3 rounds through
+     ``train_method``;
   8. one JSON line of per-kernel numbers, then the card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -293,7 +308,8 @@ def check_kernels(K, R, O, dev, rows_list):
     errs = {"aggregate_pass": 0.0, "accumulate_pass": 0.0, "update_pass": 0.0}
     gen = torch.Generator(device=dev).manual_seed(0)
     for rows in rows_list:
-        for cohort in sorted({1, COHORT}):
+        paper = {PAPER_COHORT} if rows in PAPER_ROWS.values() else set()
+        for cohort in sorted({1, COHORT} | paper):
             g = torch.randn((cohort, rows, 128), generator=gen, device=dev)
             w = O.normalize_weights(torch.rand(cohort, generator=gen,
                                                device=dev) + 0.5)
@@ -511,6 +527,119 @@ def time_kernels(K, R, dev):
             f"({r['bound_by']}, {r['bytes'] / 1e9:.3f} GB, "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound)  plain "
             f"{r['plain_ms']:.4f} ms  library {lib} ms [{r['library']}]")
+    return res
+
+
+def time_paper_kernels(K, R, dev):
+    """Rows 1-3 at the paper models' flat shapes (``PAPER_ROWS``),
+    ``aggregate_pass`` at cohort 10: each in turns with its library call
+    (``paired_ms``, 100 launches), over input sets rotated so that the
+    sets together exceed 200 MB and no launch finds its inputs in the
+    50 MB L2, as a round's first touch of the flat buffers does not.  At
+    these sizes a call's device work is shorter than the host's time to
+    issue it, so the events measure the host's rate: beside them the
+    host's issue time and the device kernels' own time (torch.profiler,
+    20 calls).  Returns {kernel: {rows: numbers}}."""
+    import itertools
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(4)
+    res = {"aggregate_pass": {}, "accumulate_pass": {},
+           "update_pass[sgd]": {}}
+    f4 = 4.0
+
+    def sets_of(make, nbytes):
+        it = itertools.cycle([make() for _ in
+                              range(max(2, math.ceil(2e8 / nbytes)))])
+        return lambda: next(it)
+
+    def issue_us(fn, iters=100):
+        """The host's time to issue one call (no synchronize inside the
+        loop): where it exceeds the device time, the events above measure
+        the host's rate."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt / iters * 1e6
+
+    def host_and_device(fn, lib):
+        """The host's issue time a call and the device time a call (the
+        device kernels' own durations, torch.profiler), kernel and
+        library."""
+        return dict(issue_us=issue_us(fn), library_issue_us=issue_us(lib),
+                    device_ms=sum(ms for _, ms in device_kernels(fn, 20)),
+                    library_device_ms=sum(ms for _, ms in
+                                          device_kernels(lib, 20)))
+
+    for name, rows in PAPER_ROWS.items():
+        n = rows * 128
+        C = PAPER_COHORT
+        w = torch.full((C,), 1.0 / C, device=dev)
+        nb = (C + 1) * n * f4
+        nxt = sets_of(lambda: torch.randn((C, rows, 128), generator=gen,
+                                             device=dev), nb)
+        ms, lib = paired_ms(lambda: K.aggregate_pass(nxt(), w),
+                            lambda: torch.tensordot(w, nxt(), dims=1), 100)
+        b, by = bound_ms(nb, (2 * C + 2) * n)
+        res["aggregate_pass"][rows] = dict(
+            ms=ms, plain_ms=cuda_ms(lambda: R.aggregate_ref(nxt(), w), 100),
+            library_ms=lib, bound_ms=b, bound_by=by, bytes=nb,
+            **host_and_device(lambda: K.aggregate_pass(nxt(), w),
+                              lambda: torch.tensordot(w, nxt(), dims=1)))
+        nb = 3 * n * f4
+        nxt = sets_of(lambda: torch.randn((2, rows, 128), generator=gen,
+                                             device=dev), nb)
+        wk = torch.tensor([0.1], device=dev)
+
+        def acc_k():
+            acc, g = nxt()
+            return K.accumulate_pass(acc, g, wk, out=acc)
+
+        def acc_l():
+            acc, g = nxt()
+            return acc.add_(g, alpha=0.1)
+
+        ms, lib = paired_ms(acc_k, acc_l, 100)
+        b, by = bound_ms(nb, 2 * n)
+        res["accumulate_pass"][rows] = dict(
+            ms=ms, plain_ms=cuda_ms(lambda: R.accumulate_ref(*nxt(), wk[0]),
+                                    100),
+            library_ms=lib, bound_ms=b, bound_by=by, bytes=nb,
+            **host_and_device(acc_k, acc_l))
+        scal = torch.tensor([1.0, 0.01, 1.0, 1.0], device=dev)
+
+        def upd_k():
+            G, p = nxt()
+            return K.update_pass(G, p, None, None, scal, opt="sgd")
+
+        def upd_l():
+            G, p = nxt()
+            return torch.add(p, G, alpha=-0.01)
+
+        ms, lib = paired_ms(upd_k, upd_l, 100)
+        b, by = bound_ms(nb, 3 * n)
+        res["update_pass[sgd]"][rows] = dict(
+            ms=ms, plain_ms=cuda_ms(lambda: R.update_ref(
+                *nxt(), None, None, scal, opt="sgd"), 100),
+            library_ms=lib, bound_ms=b, bound_by=by, bytes=nb,
+            **host_and_device(upd_k, upd_l))
+        torch.cuda.empty_cache()
+    for kname, by_rows in res.items():
+        for rows, r in by_rows.items():
+            log(f"  {kname} rows={rows:,}"
+                f"{' cohort=10' if kname == 'aggregate_pass' else ''}: "
+                f"{r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} "
+                f"us ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB, "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound), plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, library "
+                f"{r['library_ms'] * 1e3:.2f} us; host issue a call: kernel "
+                f"{r['issue_us']:.2f} us, library "
+                f"{r['library_issue_us']:.2f} us; device time a call "
+                f"(profiler): kernel {r['device_ms'] * 1e3:.2f} us "
+                f"({100 * r['bound_ms'] / r['device_ms']:.1f}% of bound), "
+                f"library {r['library_device_ms'] * 1e3:.2f} us")
     return res
 
 
@@ -1180,13 +1309,12 @@ def coded_path(counts_of, dev):
 # Phase 6m: training through Mamba2 layers at full width.  mamba2-780m
 # trains through models/ssm.py::ssd_chunked (plain PyTorch, differentiable
 # in both modes), so the SSD-scan kernel launches no time; the server step
-# runs the fused-update kernels as on smollm-360m.  vmap/sgd and scan/sgd
-# 2 rounds each (held to each other after round 1; vmap/sgd ran 3 through
-# PR 19).  scan/adam does not fit:
+# runs the fused-update kernels as on smollm-360m.  vmap/sgd 2 rounds and
+# scan/sgd 1 (held to each other after round 1).  scan/adam does not fit:
 # both sgd runs peak at 69.99 GiB, outside the aggregation (the same on
 # both cohorts), and adam's two slots (6.24 GB) ran the card out of
 # memory at 75.81 GiB allocated, 2.62 GiB more reserved, of 79.18.
-MAMBA_RUNS = {"mamba2:vmap/sgd": 2, "mamba2:scan/sgd": 2}
+MAMBA_RUNS = {"mamba2:vmap/sgd": 2, "mamba2:scan/sgd": 1}
 MAMBA_N_PARAMS = 779_841_792
 # vmap against scan after round 1: the two cohorts sum G in other orders
 # (1e-7 apart), and the FedMeta step's gradient at parameters that close
@@ -1633,6 +1761,212 @@ def ckpt_path_check(dev):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6p: the paper's own models at their published widths
+# ---------------------------------------------------------------------------
+# The CIFAR CNN, the FEMNIST CNN and the Shakespeare GRU (configs/
+# paper_models.py), FedMeta w/ UGA through experiments/common.py::
+# train_method on the synthetic stand-ins at the paper's input sizes:
+# CIFAR 32x32x3, 10 classes, 100 IID clients, E 2 local steps of B 64;
+# FEMNIST 28x28x1, 62 classes, 100 writers with Dir(0.2) label skew, E 5
+# of B 64; Shakespeare vocab 90, 80 characters, 100 roles, 4 steps of B
+# 10 (``repro_torch.experiments.paper``: 20,000 images or 10,000
+# sequences).  Cohort 10, D_meta 1% of the data; the learning rates of
+# the JAX package's benchmarks.  The CNNs' dropout masks are the trainer's host
+# draws.  Each run's launches are held to exactly its cohort's.
+PAPER_COHORT = 10
+# rounds of FedMeta w/ UGA on the vmap cohort, evaluated at the first and
+# the last; the GRU's round is a Python loop over 80 positions a pass
+# (14-24 s on the card), so it runs one steady round
+PAPER_ROUNDS = {"paper-cifar-cnn": 4, "paper-femnist-cnn": 4,
+                "paper-shakespeare-gru": 3}
+PAPER_ROWS = {"paper-cifar-cnn": 10_848, "paper-femnist-cnn": 13_208,
+              "paper-shakespeare-gru": 31_648}
+PAPER_N_PARAMS = {"paper-cifar-cnn": 1_387_786,
+                  "paper-femnist-cnn": 1_690_046,
+                  "paper-shakespeare-gru": 4_050_522}
+PAPER_EVAL = 1000                # held-out examples evaluated
+# vmap and scan differ in the order they sum G (1e-7 apart), as on
+# smollm-360m
+PAPER_VMAP_SCAN_TOL = 1e-5
+
+
+PAPER_EXAMPLES = {"paper-cifar-cnn": 20_000, "paper-femnist-cnn": 20_000,
+                  "paper-shakespeare-gru": 10_000}
+
+
+def paper_run(counts_of, dev, tag, model, data, eval_idx, method, rounds,
+              kw, strategy="vmap"):
+    """One ``train_method`` run, its own main path (counts zeroed just
+    before, read just after, held to its cohort's launches).  Returns
+    (counts, round walls, peak GiB, history, round-0 params, final
+    params)."""
+    import torch
+    from repro_torch.experiments.common import train_method
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, copy_s, keep = [time.perf_counter()], [0.0], {}
+
+    def on_records(recs, trainer):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter() - copy_s[0])
+        t = time.perf_counter()
+        snap = {k: v.detach().cpu() for k, v in
+                trainer.state["params"].items()}
+        keep.setdefault("round0", snap)
+        keep["final"] = snap
+        copy_s[0] += time.perf_counter() - t
+
+    counts_of.reset()
+    hist = train_method(model, data, method, rounds=rounds,
+                        cohort=PAPER_COHORT, eval_idx=eval_idx,
+                        eval_every=rounds, seed=0, device=dev,
+                        cohort_strategy=strategy, on_records=on_records,
+                        **kw)
+    counts = counts_of.read()
+    want = (_launches(aggregate_pass=rounds, update_pass=rounds)
+            if strategy == "vmap" else
+            _launches(accumulate_pass=rounds * PAPER_COHORT,
+                      update_pass=rounds))
+    log(f"kernels: {tag} {json.dumps(counts)}")
+    assert counts == want, (tag, counts, want)
+    for h in hist:
+        assert all(math.isfinite(v) for v in h.values()), (tag, h)
+    secs = [b - a for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return counts, secs, peak, hist, keep["round0"], keep["final"]
+
+
+def paper_path(counts_of, dev):
+    """Phase 6p: each paper model at full width, FedMeta w/ UGA on the
+    vmap cohort, ``PAPER_ROUNDS`` rounds; the CIFAR CNN also on scan (2
+    rounds, held to vmap after round 0); the FEMNIST CNN also through all
+    six methods, 2 rounds each."""
+    import numpy as np
+    import torch
+    from repro_torch.core import flat as F
+    from repro_torch.experiments.common import METHODS, evaluate
+    from repro_torch.experiments.paper import paper_setup
+
+    counts = {}
+    for name in PAPER_ROWS:
+        t = time.perf_counter()
+        model, data, eval_idx, kw = paper_setup(
+            name, n=PAPER_EXAMPLES[name], n_eval=PAPER_EVAL)
+        setup_s = time.perf_counter() - t
+        tag = f"paper:{name}:vmap"
+        c, secs, peak, hist, r0, final = paper_run(
+            counts_of, dev, tag, model, data, eval_idx, "fedmeta_uga",
+            PAPER_ROUNDS[name], kw)
+        counts[tag] = c
+        spec = F.make_flat_spec(final)
+        n = spec.groups[0].size
+        assert n == PAPER_N_PARAMS[name] and \
+            spec.groups[0].rows == PAPER_ROWS[name], (name, n)
+        params = {k: v.to(dev) for k, v in final.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev = evaluate(model, params, data, eval_idx)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        del params
+        evs = [(h["round"], round(h["acc"], 4), round(h["loss"], 4))
+               for h in hist]
+        log(f"  {tag}: params {n:,}, flat rows {spec.groups[0].rows:,} x "
+            f"128; data made in {setup_s:.2f} s; round wall s "
+            f"{[round(x, 4) for x in secs]} (round 0 includes init; rounds "
+            f"0 and {PAPER_ROUNDS[name] - 1} include an evaluation of "
+            f"{PAPER_EVAL} examples, {eval_s:.4f} s alone); steady "
+            f"{np.mean(secs[1:-1]):.4f} s; max_memory_allocated "
+            f"{peak:.3f} GiB; (round, eval acc, eval loss) {evs}; the "
+            f"evaluation of the final params again: {ev}")
+        if name == "paper-cifar-cnn":
+            stag = f"paper:{name}:scan"
+            c, secs, peak, _, s0, _ = paper_run(
+                counts_of, dev, stag, model, data, eval_idx, "fedmeta_uga",
+                2, kw, strategy="scan")
+            counts[stag] = c
+            e = max(rel_err(s0[k], r0[k]) for k in r0)
+            log(f"  {stag}: round wall s {[round(x, 4) for x in secs]}; "
+                f"max_memory_allocated {peak:.3f} GiB; params after round 0 "
+                f"against vmap's: rel {e:.3e} (tol {PAPER_VMAP_SCAN_TOL:g})")
+            assert e <= PAPER_VMAP_SCAN_TOL, e
+        if name == "paper-femnist-cnn":
+            for method in METHODS:
+                mtag = f"paper:{name}:{method}"
+                t = time.perf_counter()
+                c, secs, peak, hist, _, _ = paper_run(
+                    counts_of, dev, mtag, model, data, eval_idx, method, 2,
+                    kw)
+                counts[mtag] = c
+                log(f"  {mtag}: 2 rounds in {time.perf_counter() - t:.3f} "
+                    f"s, round wall s {[round(x, 4) for x in secs]}; "
+                    f"max_memory_allocated {peak:.3f} GiB; eval acc "
+                    f"{[round(h['acc'], 4) for h in hist]}")
+        del model, data
+        torch.cuda.empty_cache()
+    return counts
+
+
+def small_reference_paper(dev):
+    """Phase 7p: the CIFAR CNN (dropout 0.2 under the trainer's host
+    draws, which are the same bits on both devices) and the Shakespeare
+    GRU at smoke size, FedMeta w/ UGA, 3 rounds through train_method, the
+    card against the CPU plain versions from the same parameters: the
+    evaluations (loss <= 1e-4, the same count of right predictions) and
+    the parameters (<= 1e-5)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import paper_models as pm
+    from repro_torch.data.partition import partition_by_writer, partition_iid
+    from repro_torch.data.pipeline import FederatedData
+    from repro_torch.data.synthetic import synthetic_chars, synthetic_images
+    from repro_torch.experiments.common import train_method
+    from repro_torch.models.model import build_paper_cnn, build_paper_gru
+
+    rng = np.random.default_rng(1)
+    img = synthetic_images(rng, n=200, image_size=32, channels=3,
+                           num_classes=10, num_writers=10)
+    chars = synthetic_chars(rng, n=200, seq_len=21, num_roles=10)
+    meta = rng.choice(200, 16, replace=False)
+    cases = (
+        (build_paper_cnn(pm.CIFAR_CNN_SMOKE),
+         FederatedData(arrays={"x": img.x, "y": img.y},
+                       client_indices=partition_iid(rng, 200, 10),
+                       meta_indices=meta, shared_indices=meta),
+         dict(local_steps=2, batch=8, lr=0.05, uga_server_lr=0.1)),
+        (build_paper_gru(pm.SHAKESPEARE_GRU_SMOKE),
+         FederatedData(arrays={"tokens": chars.tokens},
+                       client_indices=partition_by_writer(chars.role,
+                                                          range(10)),
+                       meta_indices=meta, shared_indices=meta),
+         dict(local_steps=4, batch=8, lr=0.5, uga_server_lr=1.0,
+              clip_norm=0.5)))
+    for model, data, kw in cases:
+        params = model.init(torch.Generator().manual_seed(3))
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            final = {}
+            hist = train_method(
+                model, data, "fedmeta_uga", rounds=3, cohort=3,
+                eval_idx=np.arange(0, 200, 2), eval_every=1, device=d,
+                params=params, meta_batch=8,
+                on_records=lambda recs, tr: final.update(tr.state["params"]),
+                **kw)
+            out[d.type] = (hist, final)
+        (hg, pg), (hc, pc) = out["cuda"], out["cpu"]
+        for a, b in zip(hg, hc):
+            assert abs(a["acc"] - b["acc"]) <= 1e-6, (a, b)
+            for k in ("loss", "client_loss"):
+                assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), (a, b)
+        worst = max(rel_err(pg[k].cpu(), pc[k]) for k in pc)
+        log(f"  {model.name}, card vs CPU plain, 3 rounds: evaluations "
+            f"within 1e-4 (accuracy within 1e-6: the same count), params "
+            f"rel {worst:.3e} (tol 1e-5)")
+        assert worst <= 1e-5, worst
 
 
 def profile_round(dev):
@@ -3054,7 +3388,7 @@ def main() -> int:
 
     phase("[3,4] kernels against their plain versions (ssq, dw, dscal bitwise "
         "across launches; the codec kernels bitwise):")
-    shapes = [8, 24, 264, 4104, FULL_ROWS]
+    shapes = [8, 24, 264, 4104, *PAPER_ROWS.values(), FULL_ROWS]
     errs = check_kernels(K, R, O, dev, shapes)
     errs.update(check_bwd_kernels(K, R, O, dev, shapes))
     errs.update(check_codec_kernels(CK, CR, dev, shapes))
@@ -3065,6 +3399,9 @@ def main() -> int:
     times = time_kernels(K, R, dev)
     times.update(time_bwd_kernels(K, R, dev))
     times.update(time_codec_kernels(CK, CR, dev))
+    phase("[5p] rows 1-3 at the paper models' flat shapes (CUDA events, 100 "
+          "launches, inputs rotated past the L2):")
+    paper_times = time_paper_kernels(K, R, dev)
     phase("[5d] the prefill's kernels at the prefill's shapes (CUDA events, "
         "warm):")
     times.update(time_serve_kernels(FK, FR, SK, SR, dev))
@@ -3095,6 +3432,10 @@ def main() -> int:
     counts.update(async_path(counts_of, dev))
     phase("[6k] checkpoints of the full-width server state:")
     ckpt_path_check(dev)
+    phase(f"[6p] the paper's own models at their published widths: "
+          f"FedMeta w/ UGA through experiments/common.py::train_method, "
+          f"cohort {PAPER_COHORT}, {PAPER_ROUNDS} rounds:")
+    counts.update(paper_path(counts_of, dev))
 
     phase("[6b] two vmap/sgd rounds at full width, the second under "
         "torch.profiler:")
@@ -3119,6 +3460,7 @@ def main() -> int:
     small_reference_ssm(counts_of, dev)
     small_reference_faults(counts_of, dev)
     small_reference_async(counts_of, dev)
+    small_reference_paper(dev)
     small_reference_serve(dev)
 
     kernels = []
@@ -3134,6 +3476,10 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if "forms" in t:          # flash at every served model's prefill
             kernels[-1]["prefill_shapes"] = t["forms"]
+        paper = paper_times.get("update_pass[sgd]" if name == "update_pass"
+                                else name)
+        if paper:                 # rows 1-3 at the paper models' shapes
+            kernels[-1]["paper_shapes"] = paper
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

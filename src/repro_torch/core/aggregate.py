@@ -28,6 +28,10 @@ only): :func:`cohort_gradient_stacked_coded` runs the codec stage over the
 filled stack, :func:`scan_cohort_gradient_coded` as each client's gradient
 arrives; both accumulate with the codec's decode instead of the aggregate
 or accumulate kernel.
+
+Every arm takes ``rngs``: one client's dropout masks per cohort slot
+(:class:`repro_torch.core.dropout.ClientMasks`), handed to client k's
+update wherever it runs (the scan backward's re-run too), or None.
 """
 from __future__ import annotations
 
@@ -47,8 +51,12 @@ def _client_batch(cohort_batch: Dict[str, torch.Tensor], k: int):
     return {name: x[k] for name, x in cohort_batch.items()}
 
 
+def _client_rng(rngs, k: int):
+    return None if rngs is None else rngs[k]
+
+
 def _run_stacked(client_update: Callable, w_t, cohort_batch, lr,
-                 cohort: int, spec: FlatSpec, device
+                 cohort: int, spec: FlatSpec, device, rngs=None
                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Run every client into its slot of preallocated (cohort, rows, 128)
     stacks; returns (the stacks, the per-client losses)."""
@@ -57,7 +65,7 @@ def _run_stacked(client_update: Callable, w_t, cohort_batch, lr,
     losses = []
     for k in range(cohort):
         g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k), lr,
-                                 None)
+                                 _client_rng(rngs, k))
         flat_mod.flatten_tree(spec, g_k, out=[s[k] for s in stacks])
         losses.append(l_k)
         del g_k
@@ -66,13 +74,13 @@ def _run_stacked(client_update: Callable, w_t, cohort_batch, lr,
 
 def cohort_gradient_stacked(client_update: Callable, w_t, cohort_batch,
                             client_weights: torch.Tensor, lr, *,
-                            spec: FlatSpec
+                            spec: FlatSpec, rngs=None
                             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Run every client; returns (per-group (cohort, rows, 128) gradient
     stacks, n_k-weighted mean client loss)."""
     stacks, losses = _run_stacked(client_update, w_t, cohort_batch, lr,
                                   client_weights.shape[0], spec,
-                                  client_weights.device)
+                                  client_weights.device, rngs)
     w32 = client_weights.to(torch.float32)
     wsum = torch.clamp(torch.sum(w32), min=1e-30)
     mean_loss = torch.sum(torch.stack(losses) * w32) / wsum
@@ -82,7 +90,8 @@ def cohort_gradient_stacked(client_update: Callable, w_t, cohort_batch,
 def cohort_gradient_stacked_coded(client_update: Callable, w_t,
                                   cohort_batch, client_weights: torch.Tensor,
                                   lr, *, spec: FlatSpec, codec,
-                                  residuals: Optional[tuple] = None
+                                  residuals: Optional[tuple] = None,
+                                  rngs=None
                                   ) -> Tuple[List[torch.Tensor], torch.Tensor,
                                              Optional[tuple]]:
     """The vmap cohort with a lossy uplink codec: every client's gradient
@@ -94,7 +103,7 @@ def cohort_gradient_stacked_coded(client_update: Callable, w_t,
     updated in place.  Returns (G_groups, mean_loss, residuals)."""
     stacks, losses = _run_stacked(client_update, w_t, cohort_batch, lr,
                                   client_weights.shape[0], spec,
-                                  client_weights.device)
+                                  client_weights.device, rngs)
     G, new_res = coded_aggregate_stacked(codec, spec, stacks,
                                          client_weights, residuals)
     del stacks
@@ -122,8 +131,8 @@ class _ScanCohort(torch.autograd.Function):
     gradient: the caller weights them by the raw n_k."""
 
     @staticmethod
-    def forward(ctx, wn, client_update, w_t, cohort_batch, lr, spec):
-        ctx.args = (client_update, w_t, cohort_batch, lr, spec)
+    def forward(ctx, wn, client_update, w_t, cohort_batch, lr, spec, rngs):
+        ctx.args = (client_update, w_t, cohort_batch, lr, spec, rngs)
         ctx.save_for_backward(wn)
         cohort = wn.shape[0]
         accs = flat_mod.zeros_flat(spec, wn.device)
@@ -131,7 +140,7 @@ class _ScanCohort(torch.autograd.Function):
         losses = []
         for k in range(cohort):
             g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k),
-                                     lr, None)
+                                     lr, _client_rng(rngs, k))
             g_bufs = flat_mod.flatten_tree(spec, g_k, out=scratch)
             del g_k
             for acc, g in zip(accs, g_bufs):
@@ -143,14 +152,14 @@ class _ScanCohort(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cts):
-        client_update, w_t, cohort_batch, lr, spec = ctx.args
+        client_update, w_t, cohort_batch, lr, spec, rngs = ctx.args
         (wn,) = ctx.saved_tensors
         dGs = [d.contiguous() for d in cts[:-1]]
         scratch = [torch.empty_like(d) for d in dGs]
         dwn = []
         for k in range(wn.shape[0]):
             g_k, _ = client_update(w_t, _client_batch(cohort_batch, k), lr,
-                                   None)
+                                   _client_rng(rngs, k))
             g_bufs = flat_mod.flatten_tree(spec, g_k, out=scratch)
             del g_k
             dw = None
@@ -158,13 +167,14 @@ class _ScanCohort(torch.autograd.Function):
                 _, dw_j = K.accumulate_pass_bwd(g, wn[k:k + 1], dG)
                 dw = dw_j if dw is None else dw + dw_j
             dwn.append(dw)
-        return torch.stack(dwn), None, None, None, None, None
+        return torch.stack(dwn), None, None, None, None, None, None
 
 
 def scan_cohort_gradient_flat(client_update: Callable, w_t, cohort_batch,
                               client_weights: torch.Tensor, lr, *,
                               spec: FlatSpec,
-                              loss_weights: Optional[torch.Tensor] = None
+                              loss_weights: Optional[torch.Tensor] = None,
+                              rngs=None
                               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Client-sequential cohort fused into the flat engine.  Returns
     (G_groups, mean_loss): the Eq. (14) weighted-mean flat buffers and the
@@ -183,14 +193,14 @@ def scan_cohort_gradient_flat(client_update: Callable, w_t, cohort_batch,
         lw32 = loss_weights.to(torch.float32)
         lwn = lw32 / torch.clamp(torch.sum(lw32), min=1e-30)
     *accs, losses = _ScanCohort.apply(wn, client_update, w_t, cohort_batch,
-                                      lr, spec)
+                                      lr, spec, rngs)
     return accs, _loss_in_client_order(lwn, losses)
 
 
 def scan_cohort_gradient_coded(client_update: Callable, w_t, cohort_batch,
                                client_weights: torch.Tensor, lr, *,
                                spec: FlatSpec, codec,
-                               residuals: Optional[tuple] = None
+                               residuals: Optional[tuple] = None, rngs=None
                                ) -> Tuple[List[torch.Tensor], torch.Tensor,
                                           Optional[tuple]]:
     """:func:`scan_cohort_gradient_flat` with a lossy uplink codec
@@ -210,7 +220,7 @@ def scan_cohort_gradient_coded(client_update: Callable, w_t, cohort_batch,
     losses = []
     for k in range(wn.shape[0]):
         g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k), lr,
-                                 None)
+                                 _client_rng(rngs, k))
         g_bufs = flat_mod.flatten_tree(spec, g_k, out=scratch)
         del g_k
         res_k = (None if residuals is None
@@ -225,7 +235,7 @@ def scan_cohort_gradient_coded(client_update: Callable, w_t, cohort_batch,
 def scan_cohort_deltas_flat(client_update: Callable, w_t, cohort_batch,
                             client_weights: torch.Tensor, lr, *,
                             spec: FlatSpec, out: Callable,
-                            finish: Optional[Callable] = None
+                            finish: Optional[Callable] = None, rngs=None
                             ) -> torch.Tensor:
     """Client-sequential local updates that KEEP each client's flat delta
     (the buffered-async pool weighs every delta on its own at flush time).
@@ -246,7 +256,7 @@ def scan_cohort_deltas_flat(client_update: Callable, w_t, cohort_batch,
     for k in range(wn.shape[0]):
         with torch.no_grad():
             g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k),
-                                     lr, None)
+                                     lr, _client_rng(rngs, k))
         bufs = out(k)
         if bufs is None:
             if scratch is None:

@@ -54,7 +54,8 @@ from repro_torch.core.engines import resolve_engine
 from repro_torch.core.executors import FlatAggregate, get_executor
 from repro_torch.core.flat import LANES, FlatSpec, make_flat_spec, zeros_flat
 from repro_torch.core.meta import meta_update
-from repro_torch.core.round import decayed_lr, resolve_server_lr
+from repro_torch.core.round import (decayed_lr, dropout_rngs,
+                                    resolve_server_lr)
 from repro_torch.kernels.fused_update.ops import flat_accumulate
 from repro_torch.models.model import Model
 from repro_torch.sim.faults import resolve_faults
@@ -200,6 +201,8 @@ def make_async_tick(model: Model, fed):
         spec = make_flat_spec(params)
         dev = a["pool"][0].device
 
+        rngs, rng_m = dropout_rngs(model, fed, draws, cohort_batch,
+                                   meta_batch)
         w_in = client_weights.detach().to("cpu", torch.float32).numpy()
         delay = np.zeros((cohort,), np.int32)
         part_metrics, fault_metrics, fs = {}, {}, None
@@ -241,11 +244,12 @@ def make_async_tick(model: Model, fed):
             if codec.lossy:
                 client_loss, new_comm = exe.run_deltas_coded(
                     client_update, params, cohort_batch, w_t, lr_c,
-                    spec=spec, codec=codec, comm=state.get("comm"), out=out)
+                    spec=spec, codec=codec, comm=state.get("comm"), out=out,
+                    rngs=rngs)
             else:
                 client_loss = exe.run_deltas(client_update, params,
                                              cohort_batch, w_t, lr_c,
-                                             spec=spec, out=out)
+                                             spec=spec, out=out, rngs=rngs)
             if fs is not None and faults.garble > 0:
                 # payload corruption on the wire: after the decode, before
                 # the flush (ungarbled multipliers are 1.0, skipped)
@@ -328,7 +332,7 @@ def make_async_tick(model: Model, fed):
             if steps > 0:
                 lr_m = decayed_lr(fed.meta_lr, fed.lr_decay, tick)
                 new_params, metrics["meta_loss"] = meta_update(
-                    model.loss, new_params, meta_batch, lr_m)
+                    model.loss, new_params, meta_batch, lr_m, rng_m)
             else:
                 metrics["meta_loss"] = 0.0
 

@@ -12,8 +12,15 @@ Every strategy maps (loss_fn, w_t, client_batch, lr, rng) -> (G_k, loss):
     proximal term).
 
 Parameters are flat dicts of tensors; all updates are out of place, so the
-``torch.func`` transforms can differentiate through them.  ``rng`` is
-accepted for signature parity: the LM loss draws no randomness.
+``torch.func`` transforms can differentiate through them.
+
+``rng`` is the client's dropout masks for the round
+(:class:`repro_torch.core.dropout.ClientMasks`) or None: local step i's
+loss takes ``rng.step(i)``, wherever it is evaluated (the keep-trace
+forward, the HVP sweep), and the gradient evaluation ``rng.evaluation``,
+as JAX's ``fold_in(rng, i)`` and ``fold_in(rng, EVAL_FOLD)`` key them.
+FedAvg's final loss runs without dropout, as in JAX.  The LM losses ignore
+``rng``.
 """
 from __future__ import annotations
 
@@ -48,12 +55,21 @@ def _sgd(w: Params, g: Params, lr) -> Params:
             for k, p in w.items()}
 
 
-def _sgd_steps(loss_fn: LossFn, w: Params, mbs, lr, *, n_steps: int,
-               prox_mu: float = 0.0, w_ref: Params = None) -> Params:
+def _step_rng(rng, i: int):
+    return None if rng is None else rng.step(i)
+
+
+def _eval_rng(rng):
+    return None if rng is None else rng.evaluation
+
+
+def _sgd_steps(loss_fn: LossFn, w: Params, mbs, lr, rng=None, *,
+               n_steps: int, prox_mu: float = 0.0,
+               w_ref: Params = None) -> Params:
     steps = next(iter(mbs.values())).shape[0]
 
-    def local_loss(wi, mb):
-        l, _ = loss_fn(wi, mb, None)
+    def local_loss(wi, mb, step_rng):
+        l, _ = loss_fn(wi, mb, step_rng)
         if prox_mu > 0.0 and w_ref is not None:
             sq = sum(torch.sum(torch.square(wi[k].to(torch.float32)
                                             - w_ref[k].to(torch.float32)))
@@ -62,7 +78,8 @@ def _sgd_steps(loss_fn: LossFn, w: Params, mbs, lr, *, n_steps: int,
         return l
 
     for i in range(n_steps):
-        w = _sgd(w, grad(local_loss)(w, _microbatch_at(mbs, i, steps)), lr)
+        w = _sgd(w, grad(local_loss)(w, _microbatch_at(mbs, i, steps),
+                                     _step_rng(rng, i)), lr)
     return w
 
 
@@ -79,15 +96,15 @@ def uga_update(loss_fn: LossFn, w_t: Params, batch, lr, rng=None, *,
     Each HVP is ``torch.func.jvp`` over ``torch.func.grad``
     (forward-over-reverse): one gradient pass of memory.
     Returns (g_k fp32, eval_loss)."""
-    del rng
     n_kt = local_steps * local_epochs - 1
     mbs = _split_microbatches(batch, local_steps)
+    eval_rng = _eval_rng(rng)
 
-    def local_loss(w, mb):
-        return loss_fn(w, mb, None)[0]
+    def local_loss(w, mb, i):
+        return loss_fn(w, mb, _step_rng(rng, i))[0]
 
     def eval_loss_fn(w):
-        return loss_fn(w, batch, None)[0]
+        return loss_fn(w, batch, eval_rng)[0]
 
     if n_kt == 0:
         g, eval_loss = grad_and_value(eval_loss_fn)(w_t)
@@ -97,8 +114,8 @@ def uga_update(loss_fn: LossFn, w_t: Params, batch, lr, rng=None, *,
     w = w_t
     for i in range(n_kt):
         ws.append(w)
-        w = _sgd(w, grad(local_loss)(w, _microbatch_at(mbs, i, local_steps)),
-                 lr)
+        w = _sgd(w, grad(local_loss)(w, _microbatch_at(mbs, i, local_steps),
+                                     i), lr)
 
     v, eval_loss = grad_and_value(eval_loss_fn)(w)
     del w
@@ -108,7 +125,8 @@ def uga_update(loss_fn: LossFn, w_t: Params, batch, lr, rng=None, *,
         w_i = ws.pop()
         mb = _microbatch_at(mbs, i, local_steps)
         tangent = {k: v[k].to(p.dtype) for k, p in w_i.items()}
-        _, hvp = jvp(lambda w_: grad(local_loss)(w_, mb), (w_i,), (tangent,))
+        _, hvp = jvp(lambda w_: grad(local_loss)(w_, mb, i), (w_i,),
+                     (tangent,))
         v = {k: v[k] - lr * hvp[k].to(torch.float32) for k in v}
         del w_i, hvp, tangent
     return v, eval_loss
@@ -119,14 +137,13 @@ def uga_update_autodiff(loss_fn: LossFn, w_t: Params, batch, lr, rng=None,
                         ) -> Tuple[Params, torch.Tensor]:
     """Reference form of UGA: reverse mode straight through the keep-trace
     trajectory (a double backward).  Same math as :func:`uga_update`."""
-    del rng
     n_kt = local_steps * local_epochs - 1
     mbs = _split_microbatches(batch, local_steps)
 
     def traced_objective(w0):
-        w_k = (_sgd_steps(loss_fn, w0, mbs, lr, n_steps=n_kt) if n_kt > 0
-               else w0)
-        return loss_fn(w_k, batch, None)[0]
+        w_k = (_sgd_steps(loss_fn, w0, mbs, lr, rng, n_steps=n_kt)
+               if n_kt > 0 else w0)
+        return loss_fn(w_k, batch, _eval_rng(rng))[0]
 
     g_k, eval_loss = grad_and_value(traced_objective)(w_t)
     return g_k, eval_loss
@@ -136,12 +153,12 @@ def fedavg_update(loss_fn: LossFn, w_t: Params, batch, lr, rng=None, *,
                   local_steps: int = 2, local_epochs: int = 1,
                   prox_mu: float = 0.0) -> Tuple[Params, torch.Tensor]:
     """Vanilla FedAvg (optionally FedProx) local update.  Returns
-    (pseudo_grad = w_t - w_k, final_loss)."""
-    del rng
+    (pseudo_grad = w_t - w_k, final_loss); the final loss without
+    dropout."""
     mbs = _split_microbatches(batch, local_steps)
     with torch.no_grad():
-        w_k = _sgd_steps(loss_fn, w_t, mbs, lr, prox_mu=prox_mu, w_ref=w_t,
-                         n_steps=local_steps * local_epochs)
+        w_k = _sgd_steps(loss_fn, w_t, mbs, lr, rng, prox_mu=prox_mu,
+                         w_ref=w_t, n_steps=local_steps * local_epochs)
         l, _ = loss_fn(w_k, batch, None)
     pseudo = {k: w_t[k].to(torch.float32) - w_k[k].to(torch.float32)
               for k in w_t}

@@ -23,6 +23,9 @@ the clients on a vmap or scan base and hands each client's flat delta to
 the delta pool instead of aggregating (``run_deltas``,
 ``run_deltas_coded``).
 
+Every method takes ``rngs``, the cohort's per-slot dropout masks, or
+None (:mod:`repro_torch.core.dropout`).
+
 The ``chunked`` and ``sharded`` executors and the tree handle of the
 ``legacy_tree`` engine are ROADMAP Queue 1 items 9 and 7.
 """
@@ -76,20 +79,22 @@ class CohortExecutor:
     # {"none", "lossy"} adds run_coded, a per-client uplink (repro_torch.comm)
     codec_capabilities: frozenset = frozenset({"none"})
     # the coded cohort run_coded streams through: (client_update, params,
-    # cohort_batch, client_weights, lr, *, spec, codec, residuals) ->
+    # cohort_batch, client_weights, lr, *, spec, codec, residuals, rngs) ->
     # (G_groups, client_loss, residuals)
     coded_cohort: Optional[Callable] = None
 
     def run(self, client_update: Callable, params, cohort_batch,
-            client_weights: torch.Tensor, lr
+            client_weights: torch.Tensor, lr, rngs=None
             ) -> Tuple[FlatAggregate, torch.Tensor]:
         """Run every client and aggregate; returns (handle, client_loss).
         By default the reweightable form aggregated under the n_k."""
         return self.reweightable(client_update, params, cohort_batch,
-                                 client_weights, lr).aggregate(client_weights)
+                                 client_weights, lr, rngs
+                                 ).aggregate(client_weights)
 
     def run_coded(self, client_update: Callable, params, cohort_batch,
-                  client_weights: torch.Tensor, lr, *, codec, comm
+                  client_weights: torch.Tensor, lr, *, codec, comm,
+                  rngs=None
                   ) -> Tuple[FlatAggregate, torch.Tensor, Optional[dict]]:
         """Run every client, pass each gradient through ``codec``'s encode
         and decode (the uplink) and aggregate the decoded gradients.
@@ -104,12 +109,13 @@ class CohortExecutor:
         Gs, loss, res = self.coded_cohort(
             client_update, params, cohort_batch, client_weights, lr,
             spec=spec, codec=codec,
-            residuals=None if comm is None else comm["residual"])
+            residuals=None if comm is None else comm["residual"], rngs=rngs)
         return (FlatAggregate(Gs, spec, sq_norm=None), loss,
                 None if comm is None else {"residual": res})
 
     def reweightable(self, client_update: Callable, params, cohort_batch,
-                     client_weights: torch.Tensor, lr) -> ReweightableCohort:
+                     client_weights: torch.Tensor, lr, rngs=None
+                     ) -> ReweightableCohort:
         """Run (or prepare) the cohort so its aggregation can be repeated
         under other weights; ``client_weights`` (n_k) weight the loss."""
         raise NotImplementedError(
@@ -148,14 +154,14 @@ class VmapExecutor(CohortExecutor):
         del fed
 
     def reweightable(self, client_update, params, cohort_batch,
-                     client_weights, lr):
+                     client_weights, lr, rngs=None):
         # the clients run once here (the loss is already n_k-weighted);
         # aggregate() only re-reduces the kept stack under new weights,
         # differentiably through the aggregate kernel's backward
         spec = make_flat_spec(params)
         stacks, loss = cohort_gradient_stacked(
             client_update, params, cohort_batch, client_weights, lr,
-            spec=spec)
+            spec=spec, rngs=rngs)
 
         def aggregate(weights):
             Gs, ssq = flat_weighted_aggregate(spec, stacks, weights)
@@ -177,7 +183,7 @@ class ScanExecutor(CohortExecutor):
         del fed
 
     def reweightable(self, client_update, params, cohort_batch,
-                     client_weights, lr):
+                     client_weights, lr, rngs=None):
         # nothing is kept: each aggregate() re-streams the clients, and its
         # backward re-runs them once more (scan_cohort_gradient_flat)
         spec = make_flat_spec(params)
@@ -185,7 +191,7 @@ class ScanExecutor(CohortExecutor):
         def aggregate(weights):
             Gs, loss = scan_cohort_gradient_flat(
                 client_update, params, cohort_batch, weights, lr, spec=spec,
-                loss_weights=client_weights)
+                loss_weights=client_weights, rngs=rngs)
             return FlatAggregate(Gs, spec, sq_norm=None), loss
 
         return ReweightableCohort(aggregate=aggregate)
@@ -237,7 +243,7 @@ class BufferedAsyncExecutor(CohortExecutor):
             "builder routes through it")
 
     def run_deltas(self, client_update, params, cohort_batch,
-                   client_weights, lr, *, spec, out: Callable
+                   client_weights, lr, *, spec, out: Callable, rngs=None
                    ) -> torch.Tensor:
         """Run every client, each delta to ``out(k)``; returns the client
         loss weighted by ``client_weights`` (aggregation weights are the
@@ -245,17 +251,17 @@ class BufferedAsyncExecutor(CohortExecutor):
         if self._base == "scan":
             return scan_cohort_deltas_flat(
                 client_update, params, cohort_batch, client_weights, lr,
-                spec=spec, out=out)
+                spec=spec, out=out, rngs=rngs)
         stacks, loss = cohort_gradient_stacked(
             client_update, params, cohort_batch, client_weights, lr,
-            spec=spec)
+            spec=spec, rngs=rngs)
         _deliver(stacks, out)
         return loss
 
     def run_deltas_coded(self, client_update, params, cohort_batch,
                          client_weights, lr, *, spec, codec, comm,
-                         out: Callable) -> Tuple[torch.Tensor,
-                                                 Optional[dict]]:
+                         out: Callable, rngs=None
+                         ) -> Tuple[torch.Tensor, Optional[dict]]:
         """:meth:`run_deltas` with the lossy uplink: each delta is encoded
         (against its ``state["comm"]`` residual, updated in place) and
         decoded before it is pooled — the pool keeps what the server
@@ -265,7 +271,7 @@ class BufferedAsyncExecutor(CohortExecutor):
         if self._base == "vmap":
             stacks, loss = cohort_gradient_stacked(
                 client_update, params, cohort_batch, client_weights, lr,
-                spec=spec)
+                spec=spec, rngs=rngs)
             coded_decode_stacked(codec, spec, stacks, client_weights, res)
             _deliver(stacks, out)
             return loss, new_comm
@@ -277,7 +283,7 @@ class BufferedAsyncExecutor(CohortExecutor):
 
         loss = scan_cohort_deltas_flat(
             client_update, params, cohort_batch, client_weights, lr,
-            spec=spec, out=out, finish=finish)
+            spec=spec, out=out, finish=finish, rngs=rngs)
         return loss, new_comm
 
 

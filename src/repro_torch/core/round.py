@@ -27,8 +27,16 @@ dropped or past the round deadline gets aggregation weight 0 inside the
 weighted mean (every client still runs, as in JAX), and a lossy codec's
 error-feedback residual of such a client stays as it was.  A round in
 which every client failed is a no-op server step: nothing runs, params,
-opt, ctrl and comm stay as they were, the counter advances and
-``client_loss``, ``grad_norm`` and ``meta_loss`` read 0.
+opt, ctrl and comm stay as they were, the counter advances,
+``client_loss``, ``grad_norm`` and ``meta_loss`` read 0 and, under
+``through_aggregation``, ``ctrl_w_gnorm`` NaN, as JAX's round reports
+them.
+
+A model that draws dropout masks (``model.dropout``: the paper CNN)
+takes them from ``draws.dropout`` (:mod:`repro_torch.core.dropout`): the
+round draws them on the host before any client runs, hands client k its
+masks wherever its update runs and the FedMeta step the round's meta
+masks, as JAX splits its round key into client and meta keys.
 
 An async engine (``engine='buffered_async'``) replaces the round's shape:
 ``make_federated_round`` returns the buffered-async tick of
@@ -49,6 +57,7 @@ from repro_torch.comm import (comm_bytes_per_client, init_comm_state,
                               resolve_codec)
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.algorithms import get_algorithm
+from repro_torch.core.dropout import HostDropout, round_masks
 from repro_torch.core.engines import resolve_engine
 from repro_torch.core.executors import resolve_executor
 from repro_torch.core.flat import make_flat_spec
@@ -124,10 +133,12 @@ def participation_mask(seed: int, round_idx: int, cohort: int,
 
 class RoundDraws(NamedTuple):
     """One round's host-side draws: the participation keep mask ((cohort,)
-    f32 0/1, None at participation 1) and the fault streams (None without
-    an active fault config)."""
+    f32 0/1, None at participation 1), the fault streams (None without an
+    active fault config) and the source of the dropout masks (None for a
+    model without dropout)."""
     participation: Optional[np.ndarray] = None
     faults: Optional[FaultStreams] = None
+    dropout: Any = None
 
 
 def sync_faults(fed: FedConfig) -> FaultConfig:
@@ -159,16 +170,29 @@ def round_faults(fed: FedConfig) -> FaultConfig:
 
 
 def draw_round(fed: FedConfig, seed: int, round_idx: int,
-               cohort: int) -> RoundDraws:
+               cohort: int, *, dropout: bool = False) -> RoundDraws:
     """The draws round (or async tick) ``round_idx`` of a run seeded
-    ``seed`` takes."""
+    ``seed`` takes; ``dropout``: the model draws dropout masks."""
     faults = round_faults(fed)
     return RoundDraws(
         participation=(participation_mask(seed, round_idx, cohort,
                                           fed.participation)
                        if fed.participation < 1.0 else None),
         faults=(fault_streams(seed, round_idx, cohort, faults)
-                if faults.active else None))
+                if faults.active else None),
+        dropout=HostDropout(seed, round_idx) if dropout else None)
+
+
+def dropout_rngs(model: Model, fed: FedConfig, draws, cohort_batch,
+                 meta_batch):
+    """(per-client masks, meta masks) of a round, or (None, None) for a
+    model without dropout."""
+    if model.dropout is None:
+        return None, None
+    masks = round_masks(model.dropout,
+                        None if draws is None else draws.dropout, fed=fed,
+                        cohort_batch=cohort_batch, meta_batch=meta_batch)
+    return masks.clients(), masks.meta
 
 
 def make_federated_round(model: Model, fed: FedConfig):
@@ -260,6 +284,8 @@ def make_federated_round(model: Model, fed: FedConfig):
         params = state["params"]
         r = state["round"]
         lr_c = decayed_lr(fed.client_lr, fed.lr_decay, r)
+        rngs, rng_m = dropout_rngs(model, fed, draws, cohort_batch,
+                                   meta_batch)
         part_metrics = {}
         if needs_draws:
             client_weights, part_metrics = apply_draws(client_weights, draws)
@@ -277,10 +303,11 @@ def make_federated_round(model: Model, fed: FedConfig):
             metrics = {"client_loss": 0.0, "grad_norm": 0.0,
                        **part_metrics, **comm_metrics}
             if through_agg:
-                # no hypergradient exists: ctrl is not stepped (JAX's
-                # ctrl_w_gnorm reads NaN there, a 0/0 of the weight
-                # normalization at all-zero weights)
-                metrics.update(meta_loss=0.0, ctrl_w_gnorm=0.0,
+                # no hypergradient exists: ctrl is not stepped, and
+                # ctrl_w_gnorm reads NaN as JAX's does (its weight
+                # normalization's 0/0 at all-zero weights)
+                metrics.update(meta_loss=0.0,
+                               ctrl_w_gnorm=np.float32(np.nan),
                                ctrl_lr_grad=0.0, server_lr_eff=torch.exp(
                                    state["ctrl"]["log_lr"]))
             elif fed.meta:
@@ -289,22 +316,24 @@ def make_federated_round(model: Model, fed: FedConfig):
         meta_metrics = {}
         if through_agg:
             rw = exe.reweightable(client_update, params, cohort_batch,
-                                  client_weights, lr_c)
+                                  client_weights, lr_c, rngs)
             (new_params, opt_state, gn_post, client_loss, new_ctrl,
              meta_metrics) = meta_update_through_cohort(
                 model.loss, rw, client_weights, params, state["opt"],
-                meta_batch, state["ctrl"], engine=eng, ctrl_lr=fed.ctrl_lr)
+                meta_batch, state["ctrl"], engine=eng, ctrl_lr=fed.ctrl_lr,
+                rng=rng_m)
             del rw
         elif codec.lossy:
             handle, client_loss, new_comm = exe.run_coded(
                 client_update, params, cohort_batch, client_weights, lr_c,
-                codec=codec, comm=state.get("comm"))
+                codec=codec, comm=state.get("comm"), rngs=rngs)
             new_params, opt_state, gn_post = eng.apply(
                 params, handle, state["opt"], lr=server_lr)
             del handle
         else:
             handle, client_loss = exe.run(client_update, params,
-                                          cohort_batch, client_weights, lr_c)
+                                          cohort_batch, client_weights, lr_c,
+                                          rngs)
             new_params, opt_state, gn_post = eng.apply(
                 params, handle, state["opt"], lr=server_lr)
             del handle
@@ -313,7 +342,7 @@ def make_federated_round(model: Model, fed: FedConfig):
         if fed.meta and not through_agg:
             lr_m = decayed_lr(fed.meta_lr, fed.lr_decay, r)
             new_params, meta_loss = meta_update(model.loss, new_params,
-                                                meta_batch, lr_m)
+                                                meta_batch, lr_m, rng_m)
             metrics["meta_loss"] = meta_loss
         new_state = {"params": new_params, "opt": opt_state, "round": r + 1}
         if through_agg:

@@ -21,15 +21,17 @@ record, under a lossy codec with error feedback ``comm``, and under
 ``engine='buffered_async'`` the delta pool ``async``; a lossy codec's
 round adds ``comm_bytes``.
 
-Under ``participation < 1`` or an active fault config each round's draws
-(:meth:`FederatedTrainer.draw_round`, keyed by the trainer's seed and the
-round) go to the round, which adds ``participants`` or ``arrivals``,
-``fault_crashed``, ``fault_dropped`` and, with a deadline,
-``fault_timeout`` (an async tick: ``fault_delayed``).  With
-``retry_backoff > 0`` and crash, drop or a deadline in the config, a
-client whose report was lost is re-enqueued ``retry_backoff * 2**attempt``
-rounds later, at most ``retry_max`` consecutive failures, read off the
-same draws; the record gains ``retried``.
+Under ``participation < 1``, an active fault config or a model with
+dropout each round's draws (:meth:`FederatedTrainer.draw_round`, keyed by
+the trainer's seed and the round) go to the round.  The dropout masks are
+drawn on the host (:mod:`repro_torch.core.dropout`); participation and
+faults add ``participants`` or ``arrivals``, ``fault_crashed``,
+``fault_dropped`` and, with a deadline, ``fault_timeout`` (an async tick:
+``fault_delayed``).  With ``retry_backoff > 0`` and crash, drop or a
+deadline in the config, a client whose report was lost is re-enqueued
+``retry_backoff * 2**attempt`` rounds later, at most ``retry_max``
+consecutive failures, read off the same draws; the record gains
+``retried``.
 
 Checkpoints: :meth:`save` writes the whole server state and the run
 history in the JAX package's blob format (``repro_torch.checkpoint``),
@@ -60,7 +62,19 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.sim.faults import client_failed_mask, resolve_faults
 
-__all__ = ["FederatedTrainer"]
+__all__ = ["FederatedTrainer", "batch_to_device"]
+
+
+def batch_to_device(tree, device):
+    """Host batch -> device tensors; integer arrays (tokens, labels) become
+    int64, the index type embedding lookups and gathers take."""
+    if tree is None:
+        return None
+    out = {}
+    for k, v in tree.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t if t.is_floating_point() else t.long()).to(device)
+    return out
 
 
 class FederatedTrainer:
@@ -78,7 +92,8 @@ class FederatedTrainer:
         self.seed = seed
         self._round = make_federated_round(model, fed)
         self._faults = round_faults(fed)
-        self._draws = fed.participation < 1.0 or self._faults.active
+        self._draws = (fed.participation < 1.0 or self._faults.active
+                       or model.dropout is not None)
         # retry-with-backoff bookkeeping: failed client id -> attempts so
         # far, and due round -> ids to re-enqueue
         self._retry_attempts: Dict[int, int] = {}
@@ -162,8 +177,9 @@ class FederatedTrainer:
         self._last_managed_step = step
 
     def draw_round(self, round_idx: int, cohort: int) -> RoundDraws:
-        """Round ``round_idx``'s participation and fault draws."""
-        return draw_round(self.fed, self.seed, round_idx, cohort)
+        """Round ``round_idx``'s participation, fault and dropout draws."""
+        return draw_round(self.fed, self.seed, round_idx, cohort,
+                          dropout=self.model.dropout is not None)
 
     def _schedule_retries(self, clients, draws: RoundDraws, due, r: int,
                           rec: Dict[str, float]) -> None:
@@ -183,24 +199,16 @@ class FederatedTrainer:
             due_round = max(r + self.fed.retry_backoff * (2 ** a), r + 1)
             self._retry_due.setdefault(due_round, []).append(cid)
 
-    def _to_device(self, tree):
-        """Host batch -> device tensors; integer tokens become int64, the
-        index type embedding lookups take."""
-        if tree is None:
-            return None
-        out = {}
-        for k, v in tree.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = (t if t.is_floating_point() else t.long()).to(
-                self.device)
-        return out
-
     def run(self, data: FederatedData, *, rounds: int, cohort: int,
             batch: int, meta_batch: int = 32, share: Optional[bool] = None,
+            sample_meta: Optional[Callable] = None,
             on_records: Optional[Callable] = None, log_every: int = 0,
             log_fn: Callable = print) -> List[Dict[str, float]]:
         """Train from the current round counter up to ``rounds`` total.
-        ``on_records(recs, trainer)`` is called after every round."""
+        ``sample_meta(data, round_idx, meta_batch, sample)`` overrides the
+        D_meta sampling (default: ``data.sample_meta`` when ``fed.meta``,
+        else None); ``on_records(recs, trainer)`` is called after every
+        round."""
         share = self.fed.share if share is None else share
         f = resolve_faults(self.fed)
         retry_on = (self.fed.retry_backoff > 0 and f.active
@@ -211,13 +219,18 @@ class FederatedTrainer:
             due = self._retry_due.pop(r, None) if retry_on else None
             sample = data.sample_round(r, cohort=cohort, batch=batch,
                                        share=share, include=due)
-            meta = data.sample_meta(r, meta_batch) if self.fed.meta else None
+            if sample_meta is not None:
+                meta = sample_meta(data, r, meta_batch, sample)
+            else:
+                meta = (data.sample_meta(r, meta_batch) if self.fed.meta
+                        else None)
             weights = torch.as_tensor(sample["client_weights"]).to(
                 self.device)
             draws = self.draw_round(r, cohort) if self._draws else None
             self.state, metrics = self._round(
-                self.state, self._to_device(sample["cohort_batch"]),
-                self._to_device(meta), weights, draws)
+                self.state, batch_to_device(sample["cohort_batch"],
+                                            self.device),
+                batch_to_device(meta, self.device), weights, draws)
             rec = {name: _record_value(v) for name, v in metrics.items()}
             if retry_on:
                 self._schedule_retries(sample["clients"], draws, due, r, rec)

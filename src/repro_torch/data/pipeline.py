@@ -8,7 +8,8 @@
   - optional FedShare injection: a slice of the globally shared set is mixed
     into every client batch (Zhao et al., 2018),
   - the retry policy's re-enqueued clients (``include``) and, with
-    ``client_speeds`` set, the cohort's simulated speeds.
+    ``client_speeds`` set, the cohort's simulated speeds;
+  - ``eval_batches``: a held-out index set in order, for evaluation.
 
 Byte-identical to the JAX package's pipeline for the same arguments.
 """
@@ -113,3 +114,9 @@ class FederatedData:
         take = rng.choice(self.meta_indices, size=batch,
                           replace=self.meta_indices.size < batch)
         return self._gather(take)
+
+    def eval_batches(self, idx: np.ndarray, batch: int):
+        """The examples ``idx`` in order, ``batch`` at a time (the last
+        batch ragged)."""
+        for i in range(0, idx.size, batch):
+            yield self._gather(idx[i:i + batch])

@@ -119,3 +119,33 @@ def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
     """``jax.nn.gelu`` defaults to the tanh approximation, so this does."""
     h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
     return h @ p["w_out"] + p["b_out"]
+
+
+# ---------------------------------------------------------------------------
+# Losses (the paper models'; the LM's is ``transformer.lm_loss_chunked``)
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy; logits (..., V), labels (...) integer.  The
+    logsumexp minus the gold logit in fp32, then the mean, as JAX's
+    ``softmax_xent`` computes it (``F.cross_entropy`` rounds otherwise).
+    ``mask`` (...) in {0, 1} excludes positions (padding)."""
+    logits32 = logits.to(torch.float32)
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Share of positions whose argmax (the first index on ties, as
+    ``jnp.argmax``) is the label."""
+    hit = (torch.argmax(logits, dim=-1) == labels.long()).to(torch.float32)
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(hit * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(hit)

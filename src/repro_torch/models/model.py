@@ -8,13 +8,17 @@ or MLA attention), the stacks with Mamba2 layers (the SSM family, jamba's
 hybrid; training runs the differentiable ``models/ssm.py::ssd_chunked``,
 the prefill the SSD-scan kernel), and the encoder-decoder and
 cross-attention families (whisper, llama-3.2-vision), whose ``loss``
-takes the batch's ``enc_embeds`` and ``mask`` as JAX's does.  The paper's
-CNN/GRU wait for ROADMAP Queue 1 item 5.  Prefill and decode run under
-``torch.inference_mode()``."""
+takes the batch's ``enc_embeds`` and ``mask`` as JAX's does.  Prefill and
+decode run under ``torch.inference_mode()``.
+
+The paper's own models (:func:`build_paper_cnn`, :func:`build_paper_gru`)
+train and have no prefill or decode.  The CNN is the one model that draws
+randomness: its ``dropout`` names the masked layers, and its loss takes
+their keep masks as ``rng`` (:mod:`repro_torch.core.dropout`)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import functional_call
@@ -25,13 +29,20 @@ from repro_torch.models import transformer
 Batch = Dict[str, torch.Tensor]
 
 
+class Dropout(NamedTuple):
+    """A model's dropout: the rate and the width of each masked layer, in
+    the order the forward masks them."""
+    rate: float
+    widths: Tuple[int, ...]
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     """init(generator) -> params; loss(params, batch, rng) -> (loss,
     metrics); prefill(params, batch, cache_len) -> (last logits, cache);
     decode(params, tokens, cache) -> (logits, cache); make_cache(batch,
-    cache_len) -> cache.  ``rng`` is accepted for signature parity and
-    unused."""
+    cache_len) -> cache.  ``rng`` is the dropout keep masks of a model
+    with ``dropout`` (one per masked layer) and unused by every other."""
     name: str
     init: Callable[..., Dict[str, torch.Tensor]]
     loss: Callable[..., Any]
@@ -39,6 +50,7 @@ class Model:
     decode: Optional[Callable[..., Any]] = None
     make_cache: Optional[Callable[..., Any]] = None
     cfg: Any = None
+    dropout: Optional[Dropout] = None
 
 
 def build_model(cfg: ArchConfig, *, dtype=torch.float32,
@@ -79,3 +91,43 @@ def build_model(cfg: ArchConfig, *, dtype=torch.float32,
 
     return Model(name=cfg.name, init=init, loss=loss, prefill=prefill,
                  decode=decode, make_cache=make_cache, cfg=cfg)
+
+
+def build_paper_cnn(cfg) -> Model:
+    """The FedAvg CNN; ``loss`` -> (xent, {"xent", "acc"}), with dropout
+    when ``rng`` carries the masks."""
+    from repro_torch.configs.paper_models import CNNConfig
+    from repro_torch.models import smallnets
+    from repro_torch.models.layers import accuracy, softmax_xent
+    if not isinstance(cfg, CNNConfig):
+        raise TypeError(f"build_paper_cnn takes a CNNConfig, got {cfg!r}")
+
+    def loss(params, batch: Batch, rng=None):
+        logits = smallnets.cnn_apply(params, cfg, batch["x"], rng=rng)
+        l = softmax_xent(logits, batch["y"])
+        return l, {"xent": l, "acc": accuracy(logits, batch["y"])}
+
+    return Model(name=cfg.name, init=lambda g: smallnets.cnn_init(cfg, g),
+                 loss=loss, cfg=cfg,
+                 dropout=(Dropout(cfg.dropout, tuple(cfg.fc))
+                          if cfg.dropout > 0 and cfg.fc else None))
+
+
+def build_paper_gru(cfg) -> Model:
+    """The character-level GRU; ``loss`` -> (xent, {"xent", "acc"}) of
+    next-character prediction."""
+    from repro_torch.configs.paper_models import GRUConfig
+    from repro_torch.models import smallnets
+    from repro_torch.models.layers import accuracy, softmax_xent
+    if not isinstance(cfg, GRUConfig):
+        raise TypeError(f"build_paper_gru takes a GRUConfig, got {cfg!r}")
+
+    def loss(params, batch: Batch, rng=None):
+        tokens = batch["tokens"]
+        logits = smallnets.gru_apply(params, cfg, tokens[:, :-1])
+        l = softmax_xent(logits, tokens[:, 1:])
+        return l, {"xent": l, "acc": accuracy(logits, tokens[:, 1:])}
+
+    return Model(name=cfg.name, init=lambda g: smallnets.gru_init(cfg, g),
+                 loss=loss, cfg=cfg)
+

@@ -78,3 +78,45 @@ def assert_same_routing(jrecs, trecs):
         flips = int((te != je).sum())
         assert flips == 0, f"layer {i}: {flips} routing decisions differ"
         assert np.array_equal(tk, jk), f"layer {i}: kept entries differ"
+
+
+def jax_dropout_masks(key, widths, batch, rate):
+    """The keep masks JAX's ``cnn_apply`` draws from ``key`` for the hidden
+    fc layers of ``widths`` at batch ``batch``: one split per layer, then
+    ``bernoulli(sub, 1 - rate, (batch, width))``."""
+    import jax
+    out = []
+    for w in widths:
+        key, sub = jax.random.split(key)
+        out.append(np.array(jax.random.bernoulli(sub, 1 - rate,
+                                                 (batch, w))))
+    return out
+
+
+def jax_round_dropout(round_key, *, widths, rate, cohort, n_steps,
+                      step_batch, eval_batch, meta_batch):
+    """A round's masks as JAX's key chain draws them, as an
+    ``InjectedDropout``: the round key splits into client and meta keys,
+    the client key into ``cohort`` rows, each row folds in its local step
+    (or ``EVAL_FOLD``), and the meta step draws from the meta key."""
+    import jax
+    from repro.core.rngtags import EVAL_FOLD
+    from repro_torch.core.dropout import InjectedDropout
+    rng_c, rng_m = jax.random.split(round_key)
+    cks = jax.random.split(rng_c, cohort)
+    steps = [[[None] * n_steps for _ in range(cohort)] for _ in widths]
+    evals = [[None] * cohort for _ in widths]
+    for k in range(cohort):
+        for i in range(n_steps):
+            ms = jax_dropout_masks(jax.random.fold_in(cks[k], i), widths,
+                                   step_batch, rate)
+            for l, m in enumerate(ms):
+                steps[l][k][i] = m
+        ms = jax_dropout_masks(jax.random.fold_in(cks[k], EVAL_FOLD),
+                               widths, eval_batch, rate)
+        for l, m in enumerate(ms):
+            evals[l][k] = m
+    meta = (None if meta_batch is None
+            else jax_dropout_masks(rng_m, widths, meta_batch, rate))
+    return InjectedDropout([np.asarray(s) for s in steps],
+                           [np.asarray(e) for e in evals], meta)

@@ -377,35 +377,44 @@ def test_all_failed_round_is_a_bitwise_no_op(kw):
 
 def test_all_failed_round_matches_jax_keys_and_values():
     """JAX's round at a key whose draws fail every client: the same keys
-    and values (``ctrl_w_gnorm`` aside: JAX's reads NaN there, a 0/0 of
-    its weight normalization; the port reports 0)."""
-    kw = {**BASE, "participation": 0.5, "fault_crash": 0.5}
-    jfed = JaxFedConfig(**kw)
-    key = next(round_key(jax.random.PRNGKey(0), r) for r in range(200)
-               if not np.any(np.asarray(_jax_draws(
-                   jfed, round_key(jax.random.PRNGKey(0), r)).participation)
-                   * ~TF.client_failed_mask(_jax_draws(
-                       jfed, round_key(jax.random.PRNGKey(0), r)).faults,
-                       TF.resolve_faults(jfed))))
-    jw, tw = _params0()
-    jstate = jax_init_state(_jax_mlp(), jfed, jax.random.PRNGKey(0))
-    jstate["params"] = jw
-    data = FederatedData(**_arrays())
-    s, meta = data.sample_round(0, cohort=COHORT, batch=8), \
-        data.sample_meta(0, 8)
-    jnew, jm = jax.jit(jax_make_round(_jax_mlp(), jfed))(
-        jstate, jax.tree.map(jnp.asarray, s["cohort_batch"]),
-        jax.tree.map(jnp.asarray, meta), jnp.asarray(s["client_weights"]),
-        key)
-    tstate = init_server_state(_torch_mlp(), FedConfig(**kw), params=tw)
-    tnew, tm = make_federated_round(_torch_mlp(), FedConfig(**kw))(
-        tstate, _to_t(s["cohort_batch"]), _to_t(meta),
-        torch.from_numpy(s["client_weights"]), _jax_draws(jfed, key))
-    assert {k: float(v) for k, v in tm.items()} == {
-        k: float(v) for k, v in jm.items()}
-    for k in jw:
-        assert np.asarray(jnew["params"][k]).tobytes() == \
-            np.asarray(jw[k]).tobytes() == tnew["params"][k].numpy().tobytes()
+    and values, NaN-aware, in both meta modes (under
+    ``through_aggregation`` ``ctrl_w_gnorm`` reads NaN in both packages,
+    JAX's a 0/0 of its weight normalization at all-zero weights), and
+    the parameters byte-identical."""
+    for mode in ("post", "through_aggregation"):
+        kw = {**BASE, "participation": 0.5, "fault_crash": 0.5,
+              "meta_mode": mode}
+        jfed = JaxFedConfig(**kw)
+        key = next(round_key(jax.random.PRNGKey(0), r) for r in range(200)
+                   if not np.any(np.asarray(_jax_draws(
+                       jfed, round_key(jax.random.PRNGKey(0), r))
+                       .participation) * ~TF.client_failed_mask(_jax_draws(
+                           jfed, round_key(jax.random.PRNGKey(0), r)).faults,
+                           TF.resolve_faults(jfed))))
+        jw, tw = _params0()
+        jstate = jax_init_state(_jax_mlp(), jfed, jax.random.PRNGKey(0))
+        jstate["params"] = jw
+        data = FederatedData(**_arrays())
+        s, meta = data.sample_round(0, cohort=COHORT, batch=8), \
+            data.sample_meta(0, 8)
+        jnew, jm = jax.jit(jax_make_round(_jax_mlp(), jfed))(
+            jstate, jax.tree.map(jnp.asarray, s["cohort_batch"]),
+            jax.tree.map(jnp.asarray, meta),
+            jnp.asarray(s["client_weights"]), key)
+        tstate = init_server_state(_torch_mlp(), FedConfig(**kw), params=tw)
+        tnew, tm = make_federated_round(_torch_mlp(), FedConfig(**kw))(
+            tstate, _to_t(s["cohort_batch"]), _to_t(meta),
+            torch.from_numpy(s["client_weights"]), _jax_draws(jfed, key))
+        assert set(tm) == set(jm), mode
+        for k in jm:
+            a, b = float(tm[k]), float(jm[k])
+            assert a == b or (np.isnan(a) and np.isnan(b)), (mode, k, a, b)
+        if mode == "through_aggregation":
+            assert np.isnan(float(jm["ctrl_w_gnorm"]))
+        for k in jw:
+            assert np.asarray(jnew["params"][k]).tobytes() == \
+                np.asarray(jw[k]).tobytes() == \
+                tnew["params"][k].numpy().tobytes()
 
 
 # ---------------------------------------------------------------------------
