@@ -34,19 +34,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      call;
   6. the main path: ``repro_torch.launch.train.run_training`` on
      smollm-360m at full width (361,821,120 parameters), UGA + FedMeta,
-     fused engine: 2 rounds each of vmap/sgd, scan/sgd and scan/adam with
-     ``meta_mode='post'``, then 2 rounds each of the same three with
-     ``meta_mode='through_aggregation'``, then 2 rounds each of six runs
-     with a lossy uplink codec (int8, sign1bit, topk; with and without
-     error feedback).  The launch counts of all ten kernels are zeroed
-     just before each run and read just after, and must be exactly those
-     of its path; every metric must be finite; coded runs report the exact
-     ``comm_bytes`` and, with error feedback, a nonzero residual; vmap and
-     scan must agree after round 1 to <= 1e-5 (params under post, ctrl
-     under through_aggregation; int8 params under the flip-aware criterion
-     of ``flip_aware``).  Then one unprofiled and one profiled vmap/sgd
-     round for the device's busy time by kernel, its idle share and the
-     host's time in operators;
+     fused engine: vmap/sgd, scan/sgd and scan/adam with
+     ``meta_mode='post'``, the same three with
+     ``meta_mode='through_aggregation'``, then six runs with a lossy
+     uplink codec (int8, sign1bit, topk; with and without error
+     feedback); 1 round each, 2 for post vmap/sgd (its steady round) and
+     for the runs with error feedback (the residual carry).  The launch
+     counts of all ten kernels are zeroed just before each run and read
+     just after, and must be exactly those of its path; every metric
+     must be finite; coded runs report the exact ``comm_bytes`` and, with
+     error feedback, a nonzero residual; vmap and scan must agree after
+     round 1 to <= 1e-5 (params under post, ctrl under
+     through_aggregation; int8 params under the flip-aware criterion of
+     ``flip_aware``).  (The profiled vmap/sgd round is
+     ``tools/profile_round.py``.)
+  6c. the chunked streaming cohort and the sharded executor at full
+     width: smollm-360m, sgd, the paper's cohort of 10 in chunks of 4 (12
+     slots, 2 of them weight-0 pads): post 2 rounds, through_aggregation
+     1, int8 + error feedback 2 (the residual carry checked: every
+     client's residual nonzero after each round, moved by round 1), and
+     ``executor='sharded'`` on a world of one (NCCL) for 1 round, bitwise
+     the chunked post run's round 0; launches held exactly (one
+     accumulate pass, or one quantize and one dequant-FMA pass, per slot;
+     one accumulate backward per slot under through_aggregation), round
+     walls and peaks printed;
   6m. training through Mamba2 layers at full width: ``run_training`` on
      mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd 2
      rounds and scan/sgd 1 (scan/adam does not fit the card:
@@ -86,7 +97,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      evaluations, the flat rows, round walls, peaks and eval accuracy;
   7. a reference check on a small input: the same trainer at smoke size on
      the card against the plain versions on the CPU, in both meta modes
-     and with int8 and sign1bit error feedback; mamba2-780m-smoke and
+     and with int8 and sign1bit error feedback; (7c) the chunked cohort
+     at chunks 1, 3 and 5 against one another, chunk 1 bitwise scan,
+     chunk 5 against vmap, the sharded executor on a world of one
+     bitwise chunk 3, chunk 3 against the CPU; mamba2-780m-smoke and
      jamba-1.5-large-398b-smoke in both meta modes (routing asserted
      equal first); under int8 error feedback a round whose clients all
      crashed (no launch, state bitwise unchanged) and one with a client
@@ -169,6 +183,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+# Phase 6c's int8 + error-feedback run holds a vmapped chunk of four
+# full-width clients (55 GiB) beside a 13.5 GiB residual stack: with the
+# default fixed-size segments its second round found 10 GiB reserved but
+# unusable and ran out of memory.  Growable segments map what is asked.
+# Set before torch first touches the card; a caller's setting stands.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM, fp32 outside the tensor cores
@@ -1065,9 +1085,13 @@ def print_all_bounds():
 # the hypergradient adds one backward launch per forward launch: the scan
 # cohort's backward re-runs each client and calls accumulate_pass_bwd on
 # it.  The post-mode runs launch no backward kernel.
-ROUNDS = 2                       # post-mode runs (3 through PR 19)
-TA_ROUNDS = 2                    # through-aggregation runs
-CODED_ROUNDS = 2                 # coded-uplink runs
+# Rounds a run: the post vmap/sgd run keeps 2 (its steady round is the
+# host's yardstick across calls), a run with error feedback 2 (the
+# residual carry); every other run 1, enough for its launches and for
+# vmap against scan after round 1.
+ROUNDS = {"post:vmap/sgd": 2}
+ROUNDS_DEFAULT = 1
+CODED_ROUNDS_EF = 2
 FUSED_NAMES = ("aggregate_pass", "accumulate_pass", "update_pass",
                "accumulate_pass_bwd", "aggregate_pass_bwd",
                "update_pass_bwd")
@@ -1109,14 +1133,12 @@ def _coded_counts(r, codec):
     return _launches(**kw)
 
 
-EXPECTED_LAUNCHES = {
-    "post:vmap/sgd": _vmap_counts(ROUNDS, False),
-    "post:scan/sgd": _scan_counts(ROUNDS, False),
-    "post:scan/adam": _scan_counts(ROUNDS, False),
-    "through_aggregation:vmap/sgd": _vmap_counts(TA_ROUNDS, True),
-    "through_aggregation:scan/sgd": _scan_counts(TA_ROUNDS, True),
-    "through_aggregation:scan/adam": _scan_counts(TA_ROUNDS, True),
-}
+def rounds_of(tag) -> int:
+    if tag in CODED_RUNS and CODED_RUNS[tag][1]:
+        return CODED_ROUNDS_EF
+    return ROUNDS.get(tag, ROUNDS_DEFAULT)
+
+
 # tag -> (codec, error feedback, strategy, server optimizer)
 CODED_RUNS = {
     "int8:vmap/sgd": ("int8", False, "vmap", "sgd"),
@@ -1126,8 +1148,17 @@ CODED_RUNS = {
     "sign1bit:scan/sgd": ("sign1bit", False, "scan", "sgd"),
     "topk+ef:vmap/sgd": ("topk", True, "vmap", "sgd"),
 }
+EXPECTED_LAUNCHES = {
+    tag: counts(rounds_of(tag), mode != "post")
+    for tag, counts, mode in (
+        ("post:vmap/sgd", _vmap_counts, "post"),
+        ("post:scan/sgd", _scan_counts, "post"),
+        ("post:scan/adam", _scan_counts, "post"),
+        ("through_aggregation:vmap/sgd", _vmap_counts, "ta"),
+        ("through_aggregation:scan/sgd", _scan_counts, "ta"),
+        ("through_aggregation:scan/adam", _scan_counts, "ta"))}
 for _tag, (_codec, *_) in CODED_RUNS.items():
-    EXPECTED_LAUNCHES[_tag] = _coded_counts(CODED_ROUNDS, _codec)
+    EXPECTED_LAUNCHES[_tag] = _coded_counts(rounds_of(_tag), _codec)
 
 
 def payload_bytes(codec, n, ratio=0.01) -> int:
@@ -1170,7 +1201,7 @@ def main_path(counts_of, dev):
             continue
         mode, path = tag.split(":")
         strategy, opt = path.split("/")
-        rounds = ROUNDS if mode == "post" else TA_ROUNDS
+        rounds = rounds_of(tag)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         marks = [time.perf_counter()]
@@ -1268,7 +1299,7 @@ def coded_path(counts_of, dev):
 
         counts_of.reset()
         state, hist = run_training(
-            "smollm-360m", rounds=CODED_ROUNDS, cohort=COHORT,
+            "smollm-360m", rounds=rounds_of(tag), cohort=COHORT,
             client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
             strategy=strategy, server_opt=opt, codec=codec,
             error_feedback=ef, seed=0, log_every=1, device=dev,
@@ -1969,75 +2000,130 @@ def small_reference_paper(dev):
         assert worst <= 1e-5, worst
 
 
-def profile_round(dev):
-    """Two steady vmap/sgd rounds at full width, the second under
-    ``torch.profiler``: device busy time by kernel, the share of the
-    fused-update kernels, the device's idle share of the profiled round,
-    an estimate of it for the unprofiled round, and the host's operator
-    calls by self CPU time."""
-    import collections
+# ---------------------------------------------------------------------------
+# phase 6c: the chunked streaming cohort and the two-tier sharded executor
+# ---------------------------------------------------------------------------
+# smollm-360m at full width, UGA + FedMeta, sgd, client batch 8, seq 128,
+# the paper's cohort of 10 (arXiv:1910.08234 §4) streamed in chunks of 4:
+# three chunks, the last padded with two weight-0 replicas of its first
+# client, so 12 slots a round.  Every slot launches one accumulate_pass
+# (a pad slot adds 0 * g), and under through_aggregation its backward one
+# accumulate_pass_bwd; under int8 + error feedback every slot launches one
+# quantize_i8_pass (with residual; a pad slot codes against a zero
+# residual that stays zero) and one dequant_i8_fma_pass, and no
+# accumulate_pass.  The sharded run is a world of one (NCCL) from the
+# same state and inputs as the chunked post run's round 0, held to it
+# bitwise.
+CHUNK_COHORT, CHUNK = 10, 4
+CHUNK_SLOTS = -(-CHUNK_COHORT // CHUNK) * CHUNK          # 12
+# tag -> (rounds, meta mode, codec, error feedback, executor)
+CHUNKED_RUNS = {
+    "chunked:post": (2, "post", "none", False, None),
+    "chunked:through_aggregation": (1, "through_aggregation", "none", False,
+                                    None),
+    "chunked:int8+ef": (2, "post", "int8", True, None),
+    "sharded:post": (1, "post", "none", False, "sharded"),
+}
 
+
+def _chunked_counts(rounds, mode, codec):
+    if codec == "int8":
+        return _launches(quantize_i8_pass=rounds * CHUNK_SLOTS,
+                         dequant_i8_fma_pass=rounds * CHUNK_SLOTS,
+                         update_pass=rounds)
+    bwd = mode == "through_aggregation"
+    return _launches(accumulate_pass=rounds * CHUNK_SLOTS,
+                     update_pass=rounds,
+                     accumulate_pass_bwd=rounds * CHUNK_SLOTS if bwd else 0,
+                     update_pass_bwd=rounds if bwd else 0)
+
+
+def chunked_path(counts_of, dev):
+    """Each of the four runs is its own main path: ``run_training`` with
+    ``cohort_chunk`` (and ``executor='sharded'``), the launch counts zeroed
+    just before it and read just after, held exactly; finite metrics; the
+    round walls and the peak printed."""
+    import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import FedConfig, get_arch
-    from repro_torch.core.trainer import FederatedTrainer
-    from repro_torch.launch.train import build_synthetic_fed_data
-    from repro_torch.models.model import build_model
+    import torch.distributed as dist
+    from repro_torch.core import flat as F
+    from repro_torch.launch.train import run_training
 
-    cfg = get_arch("smollm-360m")
-    fed = FedConfig(algorithm="uga", meta=True, cohort=COHORT,
-                    client_lr=0.01, server_lr=0.01, meta_lr=0.01,
-                    lr_decay=0.992, fused_update=True)
-    trainer = FederatedTrainer(build_model(cfg, loss_chunk=256), fed,
-                               device=dev)
-    data = build_synthetic_fed_data(cfg, num_clients=32, examples=2048,
-                                    seq=128, iid=False)
-    kw = dict(cohort=COHORT, batch=8, meta_batch=16)
-    trainer.run(data, rounds=1, **kw)                  # warm-up round
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    trainer.run(data, rounds=2, **kw)                  # one unprofiled round
-    torch.cuda.synchronize()
-    plain_wall_us = (time.perf_counter() - t) * 1e6
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        trainer.run(data, rounds=3, **kw)              # one profiled round
+    counts, round0, res0 = {}, {}, {}
+    log(f"  allocated before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    for tag, (rounds, mode, codec, ef, executor) in CHUNKED_RUNS.items():
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    by_name = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
-    busy_us = sum(by_name.values())
-    ours = sum(v for k, v in by_name.items()
-               if any(n in k for n in ("aggregate_kernel", "accumulate_kernel",
-                                       "update_kernel", "reduce_partials")))
-    log(f"  profiled round wall {wall_us / 1e3:.2f} ms; device busy "
-        f"{busy_us / 1e3:.2f} ms (idle share of the profiled round "
-        f"{100 * (1 - busy_us / wall_us):.1f}%); fused-update kernels "
-        f"{ours / 1e3:.3f} ms ({100 * ours / max(busy_us, 1):.2f}% of busy)")
-    # The profiler slows the host, not the device: the busy time over the
-    # wall of the unprofiled round just before is an estimate of the idle
-    # share without the profiler (two rounds, one process).
-    log(f"  unprofiled round wall {plain_wall_us / 1e3:.2f} ms; estimated "
-        f"idle share without the profiler "
-        f"{100 * (1 - busy_us / plain_wall_us):.1f}%")
-    for name, us in by_name.most_common(10):
-        log(f"    {us / 1e3:9.3f} ms  {100 * us / busy_us:5.1f}%  {name[:90]}")
-    assert busy_us > 0, "the profiler saw no device time"
-    # The host side: time inside operators (dispatch and launch) against
-    # the round's wall time; the rest is Python and torch.func between ops.
-    avgs = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
-                  reverse=True)
-    op_us = sum(a.self_cpu_time_total for a in avgs)
-    n_aten = sum(a.count for a in avgs if a.key.startswith("aten::"))
-    log(f"  host: {n_aten} aten operator calls; self CPU time in operators "
-        f"{op_us / 1e3:.2f} ms ({100 * op_us / wall_us:.1f}% of wall); top:")
-    for a in avgs[:8]:
-        log(f"    {a.self_cpu_time_total / 1e3:9.3f} ms  {a.count:7d} calls  "
-            f"{a.key[:70]}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [time.perf_counter()]
+
+        def on_records(recs, trainer, tag=tag, ef=ef, marks=marks):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            r = recs[0]["round"]
+            if r == 0 and tag.endswith(":post"):
+                params = trainer.state["params"]
+                round0[tag] = ([b.clone() for b in F.flatten_tree(
+                    F.make_flat_spec(params), params)], dict(recs[0]))
+            if ef:
+                (res,) = trainer.state["comm"]["residual"]
+                assert res.shape == (CHUNK_COHORT, FULL_ROWS, 128), res.shape
+                nz = [float(res[k].abs().max()) for k in range(CHUNK_COHORT)]
+                assert all(math.isfinite(v) and v > 0 for v in nz), (tag, nz)
+                # every 997th row of each client's residual (14.5 MB; a
+                # whole copy, 13.5 GiB, would not fit beside the round)
+                sample = res[:, ::997].clone()
+                if r == 0:
+                    res0[tag] = sample
+                else:
+                    moved = [not torch.equal(sample[k], res0[tag][k])
+                             for k in range(CHUNK_COHORT)]
+                    assert all(moved), (tag, moved)
+                log(f"  {tag}: residual max |r| per client after round {r}: "
+                    f"{[f'{v:.3e}' for v in nz]}")
+
+        counts_of.reset()
+        state, hist = run_training(
+            "smollm-360m", rounds=rounds, cohort=CHUNK_COHORT,
+            client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
+            cohort_chunk=CHUNK, executor=executor, server_opt="sgd",
+            meta_mode=mode, codec=codec, error_feedback=ef, seed=0,
+            log_every=1, device=dev, on_records=on_records)
+        counts[tag] = counts_of.read()
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        want = _chunked_counts(rounds, mode, codec)
+        assert counts[tag] == want, (tag, counts[tag], want)
+        n_params = sum(p.numel() for p in state["params"].values())
+        assert n_params == FULL_N_VALID, n_params
+        for rec in hist:
+            for k, v in rec.items():
+                assert math.isfinite(v), (tag, rec)
+            if codec == "int8":
+                want_b = float(np.float32(payload_bytes(codec, FULL_N_VALID))
+                               * np.float32(CHUNK_COHORT))
+                assert rec["comm_bytes"] == want_b, (tag, rec, want_b)
+            if mode != "post":
+                assert rec["ctrl_w_gnorm"] > 0, (tag, rec)
+        if mode != "post":
+            assert state["ctrl"]["w_logits"].shape == (CHUNK_COHORT,)
+        secs = [b - a for a, b in zip(marks, marks[1:])]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  {tag}: round wall s {[round(x, 4) for x in secs]} (round 0 "
+            f"includes init and data)  max_memory_allocated {peak:.2f} GiB "
+            f"(reserved {torch.cuda.max_memory_reserved() / 2**30:.2f})")
+        del state
+        res0.pop(tag, None)
+        torch.cuda.empty_cache()
+        if executor == "sharded":
+            dist.destroy_process_group()
+
+    (a, ra), (b, rb) = round0["chunked:post"], round0["sharded:post"]
+    same = all(torch.equal(x, y) for x, y in zip(a, b)) and ra == rb
+    log(f"  sharded (world of 1, NCCL) vs chunked after round 0: params and "
+        f"metrics bitwise {same}")
+    assert same, (ra, rb)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2070,6 +2156,54 @@ def small_reference(dev):
             assert worst <= 1e-5, worst
             msg += f", params rel {worst:.3e} (tol 1e-5)"
         log(f"  smoke {strategy}/{opt}, card vs CPU plain: {msg}")
+
+
+def small_reference_chunked(dev):
+    """Phase 7c: the chunked cohort at smoke size (smollm-360m-smoke,
+    cohort 5, 2 post rounds): on the card chunk 1 bitwise the scan cohort,
+    chunks 1, 3 and 5 within 1e-5 of one another (params; history 1e-4),
+    chunk 5 within 1e-5 of the vmap cohort, the sharded executor on a
+    world of one (NCCL) bitwise chunk 3; chunk 3 on the card against the
+    CPU (params 1e-5, history 1e-4)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.model import build_model
+
+    params = build_model(get_arch("smollm-360m-smoke")).init(
+        torch.Generator().manual_seed(3))
+    runs = {"c1": dict(cohort_chunk=1), "c3": dict(cohort_chunk=3),
+            "c5": dict(cohort_chunk=5), "scan": dict(strategy="scan"),
+            "vmap": dict(), "sharded": dict(cohort_chunk=3,
+                                            executor="sharded")}
+    out = {}
+    for tag, kw in [*runs.items(), ("cpu", dict(cohort_chunk=3))]:
+        d = torch.device("cpu") if tag == "cpu" else dev
+        out[tag] = run_training(
+            "smollm-360m-smoke", rounds=2, cohort=5, client_batch=4, seq=32,
+            num_clients=8, examples=64, fused=True, log_every=0, device=d,
+            params=params, **kw)
+        if kw.get("executor") == "sharded":
+            dist.destroy_process_group()
+
+    def compare(x, y):
+        (sx, hx), (sy, hy) = out[x], out[y]
+        pe = max(rel_err(sx["params"][k].cpu(), sy["params"][k].cpu())
+                 for k in sy["params"])
+        he = max(abs(rx[k] - ry[k]) / max(abs(ry[k]), 1e-30)
+                 for rx, ry in zip(hx, hy) for k in ry)
+        bitwise = pe == 0 and he == 0
+        return pe, he, bitwise
+
+    for x, y, bitwise in (("c1", "scan", True), ("sharded", "c3", True),
+                          ("c1", "c3", False), ("c3", "c5", False),
+                          ("c5", "vmap", False), ("c3", "cpu", False)):
+        pe, he, same = compare(x, y)
+        log(f"  smoke chunked {x} vs {y}: params rel {pe:.3e}, history rel "
+            f"{he:.3e}, bitwise {same}"
+            + (" (required)" if bitwise else " (tol 1e-5 / 1e-4)"))
+        assert same if bitwise else (pe <= 1e-5 and he <= 1e-4), (x, y)
 
 
 def small_reference_through(dev):
@@ -3415,11 +3549,16 @@ def main() -> int:
     time_attention_library(dev)
 
     counts_of = Counts(K, CK, FK, SK)
-    phase(f"[6] main path: smollm-360m, UGA + FedMeta, fused; {ROUNDS} rounds "
-        f"each in meta_mode='post', {TA_ROUNDS} in 'through_aggregation', "
-        f"{CODED_ROUNDS} with each lossy uplink codec:")
+    phase("[6] main path: smollm-360m, UGA + FedMeta, fused; the post, "
+          "through_aggregation and lossy-uplink runs, rounds "
+          f"{ {t: rounds_of(t) for t in EXPECTED_LAUNCHES} }:")
     counts = main_path(counts_of, dev)
     counts.update(coded_path(counts_of, dev))
+    phase(f"[6c] the chunked streaming cohort and the sharded executor at "
+          f"full width: smollm-360m, UGA + FedMeta, sgd, cohort "
+          f"{CHUNK_COHORT}, chunk {CHUNK} ({CHUNK_SLOTS} slots), client "
+          f"batch 8, seq 128:")
+    counts.update(chunked_path(counts_of, dev))
     phase("[6m] training through Mamba2 layers at full width: mamba2-780m, "
         "UGA + FedMeta, fused, meta_mode='post', cohort 4, client batch 8, "
         "seq 128 (one SSD chunk):")
@@ -3437,10 +3576,6 @@ def main() -> int:
           f"cohort {PAPER_COHORT}, {PAPER_ROUNDS} rounds:")
     counts.update(paper_path(counts_of, dev))
 
-    phase("[6b] two vmap/sgd rounds at full width, the second under "
-        "torch.profiler:")
-    profile_round(dev)
-
     phase("[6s] the serving main path at full width (serve.main, batch 8, "
         "prompt 1024, 32 tokens, greedy):")
     counts.update(serve_path(counts_of, dev))
@@ -3456,6 +3591,7 @@ def main() -> int:
     phase("[7] small input, card against the CPU plain versions:")
     small_reference(dev)
     small_reference_through(dev)
+    small_reference_chunked(dev)
     small_reference_coded(dev)
     small_reference_ssm(counts_of, dev)
     small_reference_faults(counts_of, dev)

@@ -3,10 +3,11 @@ per-client encode -> decode -> Eq. (14) accumulation over the flat dtype
 group buffers, the per-client error-feedback state and the byte
 accounting.
 
-  * :func:`client_coded_accumulate` is one client's uplink, shared by both
-    cohort executors: the scan cohort calls it as each client's gradient
-    arrives (:func:`repro_torch.core.aggregate.scan_cohort_gradient_coded`),
-    the vmap cohort over its filled gradient stack
+  * :func:`client_coded_accumulate` is one client's uplink, shared by the
+    cohort executors: the chunked core (scan included) calls it as each
+    client's gradient arrives (:func:`repro_torch.core.aggregate.
+    chunked_cohort_gradient_coded`), the vmap cohort over its filled
+    gradient stack
     (:func:`coded_aggregate_stacked`), client after client in cohort order
     — what the JAX chunked core does at chunk = cohort.
   * The decode fuses into the accumulation and writes the accumulator in

@@ -174,7 +174,7 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 ALGORITHMS = ("fedavg", "fednova", "fedprox", "uga")
 SERVER_OPTS = ("sgd", "sgdm", "adam", "yogi")
-STRATEGIES = ("vmap", "scan")
+STRATEGIES = ("vmap", "scan", "chunked")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,15 +239,36 @@ class FedConfig:
         if self.local_steps < 1 or self.local_epochs < 1:
             raise ValueError(f"local_steps={self.local_steps} and "
                              f"local_epochs={self.local_epochs} must be >= 1")
+        if self.cohort_strategy not in STRATEGIES:
+            raise ValueError(
+                f"unknown cohort_strategy {self.cohort_strategy!r}; "
+                f"registered base cohort executors: {STRATEGIES} (the "
+                "'sharded' executor is selected by passing a mesh to "
+                "make_federated_round, not here)")
+        if self.cohort_chunk is not None:
+            if self.cohort_chunk < 1:
+                raise ValueError(
+                    f"cohort_chunk={self.cohort_chunk} must be >= 1: it is "
+                    "the number of clients the chunked executor vmaps per "
+                    "streaming slice (a ragged final chunk is padded with "
+                    "zero-weight clients, never truncated)")
+            if self.cohort_strategy == "scan":
+                raise ValueError(
+                    f"cohort_chunk={self.cohort_chunk} together with "
+                    "cohort_strategy='scan' is ambiguous: scan IS the "
+                    "chunked streaming core pinned at chunk=1 (one client "
+                    "alive at a time). Drop cohort_chunk to keep scan, or "
+                    "drop cohort_strategy='scan' (keep the default 'vmap' "
+                    "or set 'chunked') so cohort_chunk selects the slice "
+                    "size.")
+        elif self.cohort_strategy == "chunked":
+            raise ValueError(
+                "cohort_strategy='chunked' needs cohort_chunk set: the "
+                "chunked executor streams the cohort in cohort_chunk-client "
+                "slices. Set e.g. cohort_chunk=8, or use cohort_strategy="
+                "'vmap' / 'scan'.")
         # What the port does not run yet: each names its ROADMAP item.
         unported = []
-        if self.cohort_chunk is not None or self.cohort_strategy == "chunked":
-            unported.append("cohort_chunk / the chunked executor "
-                            "(ROADMAP Queue 1 item 9)")
-        elif self.cohort_strategy not in STRATEGIES:
-            raise ValueError(f"unknown cohort_strategy "
-                             f"{self.cohort_strategy!r}; the port runs "
-                             f"{STRATEGIES}")
         if self.engine == "legacy_tree" or (self.engine is None
                                             and not self.fused_update):
             unported.append("the legacy_tree engine; set fused_update=True "

@@ -5,7 +5,8 @@
  -> uplink            (GradientCodec: none / int8 / sign1bit / topk; a
                        lossy codec runs the executor's coded path, with
                        per-client error feedback in ``state["comm"]``)
- -> aggregation       (CohortExecutor: vmap / scan -> a flat handle)
+ -> aggregation       (CohortExecutor: vmap / scan / chunked / sharded
+                       -> a flat handle)
  -> server update     (ServerEngine: fused_flat)
  -> FedMeta step      (core/meta.py: Eq. 20 after the server step under
                        ``meta_mode='post'``; under ``'through_aggregation'``
@@ -13,9 +14,12 @@
                        hypergradient objective and ``state["ctrl"]`` is
                        stepped instead)
 
-``make_federated_round(model, fed)`` returns ``one_round(state,
-cohort_batch, meta_batch, client_weights, draws=None) -> (state,
-metrics)``.  The round counter lives on the host (``state["round"]`` is an
+``make_federated_round(model, fed, executor=None, mesh=None)`` returns
+``one_round(state, cohort_batch, meta_batch, client_weights, draws=None)
+-> (state, metrics)``.  ``executor`` names a registered cohort executor;
+a ``mesh`` (:mod:`repro_torch.launch.mesh`) selects the two-tier sharded
+one, whose processes each run a slice of the cohort and hold the whole
+server state, replicated.  The round counter lives on the host (``state["round"]`` is an
 int), so the decayed learning rates are host numbers computed in fp32 as
 the JAX round computes them on the device; metrics come back as device
 scalars.
@@ -195,15 +199,21 @@ def dropout_rngs(model: Model, fed: FedConfig, draws, cohort_batch,
     return masks.clients(), masks.meta
 
 
-def make_federated_round(model: Model, fed: FedConfig):
+def make_federated_round(model: Model, fed: FedConfig, *,
+                         executor: Optional[str] = None, mesh=None):
     if resolve_engine(fed).is_async:
+        if executor is not None or mesh is not None:
+            raise ValueError(
+                "engine='buffered_async' runs its own cohort stage (the "
+                "buffered_async executor over a vmap or scan base); drop "
+                "executor= and mesh=")
         from repro_torch.core.async_round import make_async_tick
         return make_async_tick(model, fed)
     alg = get_algorithm(fed.algorithm)
     client_update = alg.build(model.loss, local_steps=fed.local_steps,
                               local_epochs=fed.local_epochs,
                               prox_mu=fed.prox_mu)
-    exe = resolve_executor(fed)
+    exe = resolve_executor(fed, executor=executor, mesh=mesh)
     eng = resolve_engine(fed)
     server_lr = resolve_server_lr(fed)
     through_agg = fed.meta and fed.meta_mode == "through_aggregation"
@@ -220,7 +230,8 @@ def make_federated_round(model: Model, fed: FedConfig):
         raise ValueError(
             f"meta_mode='through_aggregation' needs a cohort executor that "
             f"supports reweightable aggregation, but {exe.name!r} does "
-            "not. Use the vmap or scan executor or meta_mode='post'.")
+            "not. Use the vmap, scan, chunked or sharded executor or "
+            "meta_mode='post'.")
     codec = resolve_codec(fed)
     if codec.lossy:
         # FedConfig checks these too; re-check against the resolved plugins
@@ -237,8 +248,8 @@ def make_federated_round(model: Model, fed: FedConfig):
             raise ValueError(
                 f"codec={fed.codec!r} needs a cohort executor declaring "
                 f"the 'lossy' codec capability, but {exe.name!r} declares "
-                f"{sorted(exe.codec_capabilities)}. Use the vmap or scan "
-                "executor or codec='none'.")
+                f"{sorted(exe.codec_capabilities)}. Use the vmap, scan, "
+                "chunked or sharded executor or codec='none'.")
         if "lossy" not in eng.codec_capabilities:
             raise ValueError(
                 f"codec={fed.codec!r} needs a server engine declaring the "

@@ -33,6 +33,10 @@ deadline in the config, a client whose report was lost is re-enqueued
 consecutive failures, read off the same draws; the record gains
 ``retried``.
 
+Under the sharded executor (``mesh=``, :mod:`repro_torch.launch.mesh`)
+every process runs the trainer on its slice of the cohort and holds the
+whole server state; only the mesh's rank 0 logs and writes checkpoints.
+
 Checkpoints: :meth:`save` writes the whole server state and the run
 history in the JAX package's blob format (``repro_torch.checkpoint``),
 :meth:`restore` reads it back; with ``checkpoint_every`` and a
@@ -85,12 +89,19 @@ class FederatedTrainer:
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  run_dir: Optional[str] = None,
                  checkpoint_every: Optional[int] = None,
-                 keep_last: int = 3, keep_every: int = 0):
+                 keep_last: int = 3, keep_every: int = 0,
+                 executor: Optional[str] = None, mesh=None):
         self.model = model
         self.fed = fed
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device)
         self.seed = seed
-        self._round = make_federated_round(model, fed)
+        self.mesh = mesh
+        # the process that logs and writes: every process of a mesh holds
+        # the same state
+        self.is_main = mesh is None or mesh.rank == 0
+        self._round = make_federated_round(model, fed, executor=executor,
+                                           mesh=mesh)
         self._faults = round_faults(fed)
         self._draws = (fed.participation < 1.0 or self._faults.active
                        or model.dropout is not None)
@@ -140,8 +151,9 @@ class FederatedTrainer:
         """The whole server state and the run history, so :meth:`restore`
         continues mid-run with the optimizer state, ``ctrl``, the
         residuals, the delta pool and the metrics curve."""
-        ckpt_save(path, self.checkpoint_tree(),
-                  extra={**(extra or {}), "history": self.history})
+        if self.is_main:
+            ckpt_save(path, self.checkpoint_tree(),
+                      extra={**(extra or {}), "history": self.history})
 
     def restore(self, path: str) -> dict:
         """Resume from a blob :meth:`save` wrote (or the JAX trainer's, of
@@ -172,8 +184,9 @@ class FederatedTrainer:
             self.manager.close()
 
     def _save_managed(self, step: int) -> None:
-        self.manager.save(step, self.checkpoint_tree(),
-                          extra={"history": self.history})
+        if self.is_main:
+            self.manager.save(step, self.checkpoint_tree(),
+                              extra={"history": self.history})
         self._last_managed_step = step
 
     def draw_round(self, round_idx: int, cohort: int) -> RoundDraws:
@@ -237,7 +250,8 @@ class FederatedTrainer:
             rec["round"] = r
             run_history.append(rec)
             self.history.append(rec)
-            if log_every and (r % log_every == 0 or r == rounds - 1):
+            if log_every and self.is_main and (r % log_every == 0
+                                               or r == rounds - 1):
                 log_fn(f"[round {r}] " + " ".join(
                     f"{k}={_fmt(v)}" for k, v in rec.items()
                     if k != "round"))

@@ -7,8 +7,9 @@ device (``--device cpu`` runs the kernels' plain versions on the CPU).
 
   python -m repro_torch.launch.train --arch smollm-360m --fused \\
       --algorithm uga --meta --rounds 3 --cohort 4 --client-batch 8 \\
-      --seq 128 [--strategy scan] [--server-opt adam] \\
-      [--meta-mode through_aggregation] \\
+      --seq 128 [--strategy scan | --cohort-chunk C] \\
+      [--executor chunked|sharded|vmap|scan [--mesh-model 1]] \\
+      [--server-opt adam] [--meta-mode through_aggregation] \\
       [--codec int8|sign1bit|topk [--error-feedback] [--topk-ratio R]] \\
       [--participation P] [--fault-profile flaky|stragglers] \\
       [--fault-drop|--fault-crash|--fault-delay R] [--round-deadline D] \\
@@ -17,6 +18,14 @@ device (``--device cpu`` runs the kernels' plain versions on the CPU).
        [--async-max-staleness S] [--staleness-mode none|inv|invsqrt]] \\
       [--ckpt PATH] [--resume PATH|auto] [--run-dir DIR \\
        [--ckpt-every N] [--keep-last N] [--keep-every N]]
+
+``--cohort-chunk C`` streams the cohort through the chunked executor, C
+clients vmapped at a time; ``--executor sharded`` splits the cohort over
+the processes of a ``torch.distributed`` job (``torchrun --nproc-per-node
+N -m repro_torch.launch.train --executor sharded ...``; without torchrun
+a world of one) and sums their partial aggregates; only rank 0 prints
+and writes.  ``--mesh-model`` above 1 (tensor-parallel client compute)
+is ROADMAP Queue 1 item 7b and raises.
 
 Every ``--arch`` trains, ``mamba2-780m`` and the ``-smoke`` SSM and hybrid
 configs included.  ``--engine buffered_async`` runs the buffered-async
@@ -39,6 +48,7 @@ import torch
 from repro_torch.comm.codecs import available_codecs
 from repro_torch.configs import FedConfig, get_arch
 from repro_torch.configs.base import ALGORITHMS, SERVER_OPTS, STRATEGIES
+from repro_torch.core.executors import available_executors
 from repro_torch.core.trainer import FederatedTrainer
 from repro_torch.data.partition import partition_iid
 from repro_torch.data.pipeline import FederatedData
@@ -78,7 +88,9 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                  meta_lr: Optional[float] = None, server_opt: str = "sgd",
                  num_clients: int = 32, examples: int = 2048,
                  iid: bool = False, seed: int = 0, log_every: int = 10,
-                 strategy: str = "vmap", fused: bool = False,
+                 strategy: str = "vmap", cohort_chunk: Optional[int] = None,
+                 executor: Optional[str] = None, mesh_model: int = 1,
+                 fused: bool = False,
                  meta_mode: str = "post", ctrl_lr: float = 0.01,
                  codec: str = "none", error_feedback: bool = False,
                  topk_ratio: float = 0.01, participation: float = 1.0,
@@ -103,7 +115,18 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
     package's ``launch/train.py``: ``resume`` is a blob ``ckpt_path``
     wrote, or ``"auto"``, the newest blob of ``run_dir``'s managed store,
     which saves every ``ckpt_every`` rounds (0: at run end) with
-    ``keep_last`` / ``keep_every`` retention.  Returns (state, history)."""
+    ``keep_last`` / ``keep_every`` retention.  ``cohort_chunk``,
+    ``executor`` and ``mesh_model`` are those of the JAX package's too:
+    ``executor='sharded'`` builds a (data, model) mesh over every process
+    of the job (:func:`repro_torch.launch.mesh.make_auto_mesh`).  Returns
+    (state, history)."""
+    if mesh_model != 1:
+        raise NotImplementedError(
+            f"--mesh-model {mesh_model}: tensor-parallel client compute "
+            "over the mesh's model axis (param_spec, set_activation_spec, "
+            "set_expert_axis, constrain_groups, with_pspecs) is not yet "
+            "ported to repro_torch (ROADMAP Queue 1 item 7b); use "
+            "--mesh-model 1")
     dev = resolve_device(device)
     strict_fp32()
     cfg = get_arch(arch)
@@ -116,7 +139,8 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
         meta_lr=meta_lr if meta_lr is not None else client_lr,
         server_opt=server_opt, meta_mode=meta_mode, ctrl_lr=ctrl_lr,
         codec=codec, error_feedback=error_feedback, topk_ratio=topk_ratio,
-        cohort_strategy=strategy, lr_decay=0.992, fused_update=fused,
+        cohort_strategy=strategy, cohort_chunk=cohort_chunk,
+        lr_decay=0.992, fused_update=fused,
         participation=participation, fault_profile=fault_profile,
         fault_drop=fault_drop, fault_crash=fault_crash,
         fault_delay=fault_delay, fault_max_delay=fault_max_delay,
@@ -129,10 +153,21 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
     data = build_synthetic_fed_data(cfg, num_clients=num_clients,
                                     examples=examples, seq=seq, iid=iid,
                                     seed=seed)
+    mesh = None
+    if executor == "sharded":
+        # two-tier aggregation over every process of the job: the cohort
+        # splits across the mesh's data axis, each process streams its
+        # clients through the chunked core, one all_reduce sums the
+        # partials
+        from repro_torch.launch.mesh import make_auto_mesh
+        mesh = make_auto_mesh(mesh_model, device=dev)
+        if mesh.rank == 0:
+            print(f"[train] sharded executor on mesh {dict(mesh.shape)}")
     trainer = FederatedTrainer(
         model, fed, seed=seed, device=dev, params=params, run_dir=run_dir,
         checkpoint_every=ckpt_every if run_dir is not None else None,
-        keep_last=keep_last, keep_every=keep_every)
+        keep_last=keep_last, keep_every=keep_every,
+        executor=None if mesh is not None else executor, mesh=mesh)
     if resume == "auto":
         if run_dir is None:
             raise ValueError(
@@ -140,13 +175,15 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                 "needs --run-dir; pass an explicit checkpoint path "
                 "otherwise")
         step = trainer.resume_latest()
-        print("[train] resume auto: "
-              + (f"round {step} from {run_dir}/checkpoints" if step
-                 is not None else "empty store, starting fresh"))
+        if trainer.is_main:
+            print("[train] resume auto: "
+                  + (f"round {step} from {run_dir}/checkpoints" if step
+                     is not None else "empty store, starting fresh"))
     elif resume:
         extra = trainer.restore(resume)
-        print(f"[train] resumed {resume} at round {trainer.round} "
-              f"(saved by arch={extra.get('arch')})")
+        if trainer.is_main:
+            print(f"[train] resumed {resume} at round {trainer.round} "
+                  f"(saved by arch={extra.get('arch')})")
     meta_bs = min(client_batch * 2, 32)
     history = trainer.run(data, rounds=rounds, cohort=cohort,
                           batch=client_batch, meta_batch=meta_bs,
@@ -155,7 +192,8 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
     if ckpt_path:
         trainer.save(ckpt_path, extra={"arch": arch, "rounds": rounds,
                                        "algorithm": algorithm})
-        print(f"[train] saved server state to {ckpt_path}")
+        if trainer.is_main:
+            print(f"[train] saved server state to {ckpt_path}")
     trainer.finish()
     return trainer.state, history
 
@@ -183,6 +221,23 @@ def main(argv=None):
     ap.add_argument("--strategy", default="vmap", choices=STRATEGIES,
                     help="cohort executor: client-parallel stack (vmap) or "
                          "client-sequential streaming (scan)")
+    ap.add_argument("--cohort-chunk", type=int, default=None,
+                    help="stream the cohort through the chunked executor "
+                         "in slices of this many clients (vmapped) — peak "
+                         "gradient memory is one chunk, and the "
+                         "accumulation order is the same for every chunk "
+                         "size")
+    ap.add_argument("--executor", default=None,
+                    choices=[n for n in available_executors()
+                             if n != "buffered_async"],
+                    help="cohort-executor registry name; 'sharded' builds "
+                         "a (data, model) mesh over every process of the "
+                         "job (torchrun; a world of one without it) and "
+                         "runs the two-tier aggregation")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model-axis size of the --executor sharded mesh "
+                         "(the data axis takes the remaining processes); "
+                         "above 1 is not ported (ROADMAP Queue 1 item 7b)")
     ap.add_argument("--fused", action="store_true",
                     help="fused flat-buffer CUDA server engine (the only "
                          "engine ported so far; required)")
@@ -291,6 +346,8 @@ def main(argv=None):
         meta_lr=args.meta_lr, server_opt=args.server_opt,
         num_clients=args.num_clients, examples=args.examples, iid=args.iid,
         seed=args.seed, log_every=args.log_every, strategy=args.strategy,
+        cohort_chunk=args.cohort_chunk, executor=args.executor,
+        mesh_model=args.mesh_model,
         fused=args.fused, meta_mode=args.meta_mode, ctrl_lr=args.ctrl_lr,
         codec=args.codec, error_feedback=args.error_feedback,
         topk_ratio=args.topk_ratio, participation=args.participation,
@@ -307,7 +364,9 @@ def main(argv=None):
         resume=args.resume, run_dir=args.run_dir, ckpt_every=args.ckpt_every,
         keep_last=args.keep_last, keep_every=args.keep_every,
         device=args.device)
-    if args.history_out:
+    main_rank = (not torch.distributed.is_initialized()
+                 or torch.distributed.get_rank() == 0)
+    if args.history_out and main_rank:
         os.makedirs(os.path.dirname(os.path.abspath(args.history_out)),
                     exist_ok=True)
         with open(args.history_out, "w") as f:

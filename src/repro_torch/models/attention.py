@@ -13,7 +13,10 @@ Three forms of one function:
     prefill reaches ``flash_attention`` / ``chunked_attention``, the same
     online-softmax function.
   * ``decode_attention`` — one new token against the cache, plain
-    PyTorch as in JAX (ring-buffer validity under a decode window).
+    PyTorch as in JAX (ring-buffer validity under a decode window);
+    ``flash_decode_partial`` and ``combine_partials`` are its form over a
+    cache sharded along the sequence across processes
+    (``sharding/longctx.py``).
 
 MLA (DeepSeek-V2's multi-head latent attention): ``mla_attention`` expands
 the latent kv and attends with Dk = head_dim + rope_head_dim (192 at
@@ -100,6 +103,45 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(B, H, Dv)
+
+
+def flash_decode_partial(q: torch.Tensor, k_shard: torch.Tensor,
+                         v_shard: torch.Tensor, index, shard_offset):
+    """Online-softmax partials of one shard of a sequence-sharded decode
+    cache.  q: (B, H, Dk); k/v_shard: (B, S_loc, Hkv, D*); shard_offset:
+    the absolute position of the shard's first cache slot.  Returns (m,
+    l, o): (B, H), (B, H), (B, H, Dv) fp32 — combine them with
+    :func:`combine_partials`."""
+    B, S_loc, Hkv, Dk = k_shard.shape
+    H = q.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, Dk)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_shard).to(
+        torch.float32) / math.sqrt(Dk)
+    pos = shard_offset + torch.arange(S_loc, device=q.device)
+    s = torch.where((pos <= index)[None, None, None, :], s, NEG_INF)
+    m = torch.amax(s, dim=-1)                                  # (B,Hkv,G)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_shard.dtype), v_shard)
+    Dv = v_shard.shape[-1]
+    return (m.reshape(B, H), l.reshape(B, H),
+            o.reshape(B, H, Dv).to(torch.float32))
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                     group=None) -> torch.Tensor:
+    """Combine :func:`flash_decode_partial`'s partials over the processes
+    of ``group`` (``torch.distributed``; JAX's ``pmax`` / ``psum`` over
+    the sequence-sharding axis become ``all_reduce`` MAX / SUM)."""
+    import torch.distributed as dist
+    m_g = m.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - m_g)
+    l_g = l * corr
+    o_g = o * corr[..., None]
+    dist.all_reduce(l_g, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(o_g, op=dist.ReduceOp.SUM, group=group)
+    return o_g / torch.clamp(l_g, min=1e-30)[..., None]
 
 
 # ---------------------------------------------------------------------------

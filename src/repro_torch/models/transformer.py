@@ -367,7 +367,7 @@ class Transformer(nn.Module):
         cfg = self.cfg
         B, S = tokens.shape
         P = period_of(cfg)
-        h = self.embed[tokens]
+        h = F.embedding(tokens, self.embed)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         if cfg.rope_theta <= 0:          # whisper: absolute sinusoidal
             h = h + sinusoidal_positions(positions[0], cfg.d_model,

@@ -76,13 +76,27 @@ def test_rng_tags_match_jax():
 
 @pytest.mark.parametrize("kw", [
     pytest.param(dict(engine="legacy_tree"), id="legacy_tree"),
-    dict(cohort_chunk=2), dict(fused_update=False),
+    dict(fused_update=False),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_raise_naming_the_roadmap(kw):
     base = dict(fused_update=True)
     base.update(kw)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         FedConfig(**base)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cohort_chunk=2), dict(cohort_strategy="chunked", cohort_chunk=2),
+], ids=lambda kw: next(iter(kw)))
+def test_chunked_features_are_accepted(kw):
+    """The chunked executor is ported: ``cohort_chunk`` builds a config
+    equal to the JAX package's, and its round."""
+    from repro_torch.core.round import make_federated_round
+    from repro_torch.models.model import build_model
+    cfg = FedConfig(fused_update=True, **kw)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        JaxFedConfig(fused_update=True, **kw))
+    make_federated_round(build_model(get_arch("smollm-360m-smoke")), cfg)
 
 
 @pytest.mark.parametrize("kw", [
