@@ -1856,7 +1856,7 @@ def paper_run(counts_of, dev, tag, model, data, eval_idx, method, rounds,
                         cohort=PAPER_COHORT, eval_idx=eval_idx,
                         eval_every=rounds, seed=0, device=dev,
                         cohort_strategy=strategy, on_records=on_records,
-                        **kw)
+                        rounds_per_call=1, **kw)
     counts = counts_of.read()
     want = (_launches(aggregate_pass=rounds, update_pass=rounds)
             if strategy == "vmap" else
@@ -1984,7 +1984,7 @@ def small_reference_paper(dev):
             hist = train_method(
                 model, data, "fedmeta_uga", rounds=3, cohort=3,
                 eval_idx=np.arange(0, 200, 2), eval_every=1, device=d,
-                params=params, meta_batch=8,
+                params=params, meta_batch=8, rounds_per_call=1,
                 on_records=lambda recs, tr: final.update(tr.state["params"]),
                 **kw)
             out[d.type] = (hist, final)
@@ -2123,6 +2123,278 @@ def chunked_path(counts_of, dev):
     log(f"  sharded (world of 1, NCCL) vs chunked after round 0: params and "
         f"metrics bitwise {same}")
     assert same, (ra, rb)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6g: the legacy tree engine at full width
+# ---------------------------------------------------------------------------
+# smollm-360m at full width, UGA + FedMeta post, cohort 4, client batch 8,
+# seq 128: phase 6's setup.  legacy_tree (the launcher's engine without
+# --fused) aggregates and steps with tree maps.  Under the vmap cohort its
+# weighted mean over the (cohort, *shape) stack launches no kernel at all;
+# the scan cohort streams its clients through accumulate_pass into the flat
+# buffers and views them as a tree, so one accumulate_pass per client a
+# round and no update_pass.  Each legacy run is held to the fused_flat run
+# of the same config in the same process at the JAX suite's
+# legacy-vs-fused tolerances (tests/test_fused_update.py:180-188): params
+# and optimizer slots 1e-5, metrics 1e-4.  scan/adam runs one round from a
+# warm state (t = 5, random m, v > 0; ROADMAP Queue 3 item 1).  vmap/sgd
+# runs through run_training as the launcher does (fused=False / True).
+LEGACY_TOL, LEGACY_TOL_METRIC = 1e-5, 1e-4
+LEGACY_VMAP_ROUNDS = 2
+
+
+def _full_fed(**kw):
+    """The FedConfig run_training builds for phase 6's runs."""
+    from repro_torch.configs import FedConfig
+    base = dict(algorithm="uga", meta=True, cohort=COHORT, local_steps=2,
+                client_lr=0.01, server_lr=0.01, meta_lr=0.01,
+                lr_decay=0.992)
+    return FedConfig(**{**base, **kw})
+
+
+def _full_train(dev, fed, rounds, *, k=1, warm=None, on_records=None):
+    """A FederatedTrainer on full-width smollm-360m with run_training's
+    data and batch sizes; ``warm(state)`` edits the state before the run.
+    Returns (trainer, history, per-call walls, run wall, peak GiB above
+    what was allocated when the run started: the trainer's state and
+    anything the caller keeps)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.launch.train import build_synthetic_fed_data
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("smollm-360m")
+    tr = FederatedTrainer(build_model(cfg, dtype=torch.float32,
+                                      loss_chunk=256), fed,
+                          rounds_per_call=k, seed=0, device=dev)
+    if warm is not None:
+        warm(tr.state)
+    data = build_synthetic_fed_data(cfg, num_clients=32, examples=2048,
+                                    seq=128, iid=False, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    marks = [time.perf_counter()]
+
+    def mark(recs, trainer):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if on_records is not None:
+            on_records(recs, trainer)
+
+    hist = tr.run(data, rounds=rounds, cohort=COHORT, batch=8,
+                  meta_batch=16, on_records=mark)
+    walls = [b - a for a, b in zip(marks, marks[1:])]
+    return (tr, hist, walls, marks[-1] - marks[0],
+            (torch.cuda.max_memory_allocated() - base) / 2**30)
+
+
+def _warm_adam(state, fused):
+    """t = 5, m ~ 0.01 N(0, 1), v ~ 1e-3 U(0, 1) + 1e-4, drawn per leaf
+    on the card from one seed (the same values for either engine)."""
+    import torch
+    from repro_torch.core import flat as F
+    params = state["params"]
+    gen = torch.Generator(device=params[next(iter(params))].device)
+    gen.manual_seed(5)
+    m = {k: 0.01 * torch.randn(p.shape, generator=gen, device=p.device)
+         for k, p in params.items()}
+    v = {k: 1e-3 * torch.rand(p.shape, generator=gen, device=p.device)
+         + 1e-4 for k, p in params.items()}
+    t = torch.tensor(5, dtype=torch.int32, device=state["opt"]["t"].device)
+    if fused:
+        spec = F.make_flat_spec(params)
+        state["opt"] = {"m": tuple(F.flatten_tree(spec, m)),
+                        "v": tuple(F.flatten_tree(spec, v)), "t": t}
+    else:
+        state["opt"] = {"m": m, "v": v, "t": t}
+
+
+def _tree_opt(state, spec):
+    """An optimizer state's m and v as trees (the fused one unflattened)."""
+    from repro_torch.core import flat as F
+    return {s: (F.unflatten_tree(spec, state["opt"][s])
+                if isinstance(state["opt"][s], tuple) else state["opt"][s])
+            for s in ("m", "v") if s in state["opt"]}
+
+
+def _hold(tag, a_state, a_hist, b_state, b_hist, tol, tol_metric):
+    """Params, optimizer slots and history of run a against run b."""
+    from repro_torch.core import flat as F
+    pe = max(rel_err(a_state["params"][k], b_state["params"][k])
+             for k in b_state["params"])
+    spec = F.make_flat_spec(b_state["params"])
+    oa, ob = _tree_opt(a_state, spec), _tree_opt(b_state, spec)
+    oe = max([rel_err(oa[s][k], ob[s][k]) for s in ob for k in ob[s]],
+             default=0.0)
+    he = max(abs(ra[k] - rb[k]) / max(abs(rb[k]), 1e-30)
+             for ra, rb in zip(a_hist, b_hist) for k in rb if k != "round")
+    log(f"  {tag}: params rel {pe:.3e}, optimizer slots {oe:.3e} (tol "
+        f"{tol:g}), history {he:.3e} (tol {tol_metric:g})")
+    assert len(a_hist) == len(b_hist)
+    assert pe <= tol and oe <= tol and he <= tol_metric, (tag, pe, oe, he)
+
+
+def time_server_step(params, dev):
+    """The server step alone at full width, CUDA events: legacy_tree's
+    engine.apply (the tree-map norm, sgd or adam over the dicts) against
+    fused_flat's (the plain norm over the flat buffers, then the
+    update-kernel sweep), on one random aggregate, clip off as in the
+    runs."""
+    import torch
+    from repro_torch.core import flat as F
+    from repro_torch.core.engines import resolve_engine
+    from repro_torch.core.executors import FlatAggregate, TreeAggregate
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    G = {k: 1e-3 * torch.randn(p.shape, generator=gen, device=dev)
+         for k, p in params.items()}
+    spec = F.make_flat_spec(params)
+    Gf = F.flatten_tree(spec, G)
+    for opt in ("sgd", "adam"):
+        leg = resolve_engine(_full_fed(server_opt=opt))
+        fus = resolve_engine(_full_fed(server_opt=opt, fused_update=True))
+        ls, fs = leg.init_state(params), fus.init_state(params)
+        ms_l, ms_f = paired_ms(
+            lambda: leg.apply(params, TreeAggregate(G), ls, lr=0.01),
+            lambda: fus.apply(params, FlatAggregate(Gf, spec), fs, lr=0.01))
+        log(f"  server step alone, {opt}: legacy_tree {ms_l:.4f} ms, "
+            f"fused_flat {ms_f:.4f} ms ({ms_l / ms_f:.2f}x)")
+    del G, Gf
+    torch.cuda.empty_cache()
+
+
+def legacy_path(counts_of, dev):
+    """Phase 6g: each run its own main path (counts zeroed just before,
+    read just after); legacy against fused in the same process."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import run_training
+
+    counts, keep = {}, {}
+    for fused in (False, True):
+        tag = f"6g:{'fused' if fused else 'legacy'}:vmap/sgd"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        marks = [time.perf_counter()]
+
+        def on_records(recs, trainer, marks=marks):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        counts_of.reset()
+        state, hist = run_training(
+            "smollm-360m", rounds=LEGACY_VMAP_ROUNDS, cohort=COHORT,
+            client_batch=8, seq=128, algorithm="uga", meta=True,
+            fused=fused, seed=0, log_every=1, device=dev,
+            on_records=on_records)
+        counts[tag] = counts_of.read()
+        want = (_vmap_counts(LEGACY_VMAP_ROUNDS, False) if fused
+                else _launches())
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        assert counts[tag] == want, (tag, counts[tag], want)
+        secs = [b - a for a, b in zip(marks, marks[1:])]
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  {tag}: round wall s {[round(s, 4) for s in secs]} (round 0 "
+            f"includes init and data; steady {np.mean(secs[1:]):.4f} s); "
+            f"peak {peak:.2f} GiB above what the phase held before it")
+        keep[fused] = ({"params": state["params"], "opt": state["opt"]},
+                       hist)
+        del state
+        torch.cuda.empty_cache()
+    _hold("6g vmap/sgd, legacy vs fused after 2 rounds", *keep[False],
+          *keep[True], LEGACY_TOL, LEGACY_TOL_METRIC)
+    params = keep[True][0]["params"]
+    keep.clear()
+    time_server_step(params, dev)
+    del params
+    torch.cuda.empty_cache()
+
+    for fused in (False, True):
+        tag = f"6g:{'fused' if fused else 'legacy'}:scan/adam-warm"
+        fed = _full_fed(server_opt="adam", cohort_strategy="scan",
+                        fused_update=fused)
+        counts_of.reset()
+        tr, hist, walls, _, peak = _full_train(
+            dev, fed, 1, warm=lambda st, f=fused: _warm_adam(st, f))
+        counts[tag] = counts_of.read()
+        want = (_scan_counts(1, False) if fused
+                else _launches(accumulate_pass=COHORT))
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        assert counts[tag] == want, (tag, counts[tag], want)
+        assert int(tr.state["opt"]["t"]) == 6
+        for rec in hist:
+            assert all(math.isfinite(v) for v in rec.values()), (tag, rec)
+        log(f"  {tag}: round wall s {round(walls[0], 4)} (warm state set "
+            f"before the run); peak {peak:.2f} GiB above the state")
+        keep[fused] = (tr.state, hist)
+        del tr
+        torch.cuda.empty_cache()
+    _hold("6g scan/adam (warm), legacy vs fused after 1 round",
+          *keep[False], *keep[True], LEGACY_TOL, LEGACY_TOL_METRIC)
+    keep.clear()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6r: multi-round calls at full width
+# ---------------------------------------------------------------------------
+# smollm-360m at full width, UGA + FedMeta post, cohort 4, client batch 8,
+# seq 128.  4 fused vmap/sgd rounds as one K = 4 call against 4 calls of
+# K = 1, and 2 buffered_async ticks (defaults: K = cohort = 4, capacity 8,
+# fault-free: one flush a tick) as one K = 2 call against 2 calls of
+# K = 1, each pair in this process.  The same operations run in the same
+# order, so state and records are held bitwise; the launches are K times
+# a round's: per sync round one aggregate_pass and one update_pass, per
+# tick one accumulate_pass per flushed delta and one update_pass.
+RPC_SYNC_ROUNDS, RPC_ASYNC_TICKS = 4, 2
+
+
+def rounds_per_call_path(counts_of, dev):
+    """Phase 6r: each run its own main path; the two forms bitwise."""
+    import torch
+
+    counts = {}
+    for name, rounds, fed, per_round in (
+            ("vmap/sgd", RPC_SYNC_ROUNDS, _full_fed(fused_update=True),
+             _vmap_counts(1, False)),
+            ("async", RPC_ASYNC_TICKS,
+             _full_fed(fused_update=True, engine="buffered_async"),
+             _launches(accumulate_pass=COHORT, update_pass=1))):
+        keep = {}
+        for k in (1, rounds):
+            tag = f"6r:{name} K={k}"
+            counts_of.reset()
+            tr, hist, w, total, peak = _full_train(dev, fed, rounds, k=k)
+            counts[tag] = counts_of.read()
+            want = {n: c * rounds for n, c in per_round.items()}
+            log(f"kernels: {tag} {json.dumps(counts[tag])}")
+            assert counts[tag] == want, (tag, counts[tag], want)
+            for rec in hist:
+                assert all(math.isfinite(v) for v in
+                           (rec[x] for x in ("client_loss", "grad_norm",
+                                             "meta_loss"))), (tag, rec)
+            log(f"  {tag}: {len(w)} call(s), wall s "
+                f"{[round(x, 4) for x in w]}, per round {total / rounds:.4f}"
+                f" s (every round included); peak {peak:.2f} GiB above the "
+                f"state and the kept K=1 run's")
+            keep[k] = (dict(_leaves_of(tr.state)), hist)
+            del tr
+            torch.cuda.empty_cache()
+        (la, ha), (lb, hb) = keep[1], keep[rounds]
+        assert set(la) == set(lb)
+        diff = [p for p in la if not _bitwise(la[p], lb[p])]
+        log(f"  6r {name}: K={rounds} against K=1: {len(la)} state leaves, "
+            f"{len(diff)} differ; records equal: {ha == hb} (bitwise "
+            f"required)")
+        assert not diff and ha == hb, (name, diff[:5])
+        keep.clear()
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -2307,6 +2579,128 @@ def small_reference_coded(dev):
         log(f"  smoke {codec}+ef {strategy}/{opt}, card vs CPU plain: "
             f"history <= 1e-4, comm_bytes exact; params: {n_p} elements "
             f"off by more than 1e-5, residuals: {n_r} (flip-aware)")
+
+
+def small_reference_legacy_rpc(counts_of, dev):
+    """Phase 7g / 7r at smoke size, the card against the CPU plain
+    versions from the same parameters (params <= 1e-5, history <= 1e-4):
+    legacy_tree on the vmap and scan cohorts (3 sgd rounds through
+    run_training with fused=False; on the card the vmap run launches no
+    kernel, the scan run one accumulate_pass per client a round); 3 fused
+    rounds at K = 2 (a call of 2 and a tail of 1), on the card also
+    bitwise against K = 1; the launcher with ``--plugin
+    examples.plugins.fedagg_torch --algorithm fedagg``; and train_method
+    at its JAX defaults (fused, K = 4) and with fused=False on the CIFAR
+    CNN smoke (5 rounds: calls of 4 and 1, evaluations at rounds 3 and
+    4)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import paper_models as pm
+    from repro_torch.data.partition import partition_iid
+    from repro_torch.data.pipeline import FederatedData
+    from repro_torch.data.synthetic import synthetic_images
+    from repro_torch.experiments.common import train_method
+    from repro_torch.launch import train as T
+    from repro_torch.models.model import build_model, build_paper_cnn
+
+    params = build_model(get_arch("smollm-360m-smoke")).init(
+        torch.Generator().manual_seed(3))
+    smoke = dict(rounds=3, cohort=2, client_batch=4, seq=32, num_clients=8,
+                 examples=64, log_every=0, params=params)
+
+    def both(tag, **kw):
+        """(the card's run, the CPU's run, the card's launches)."""
+        out = []
+        for d in (dev, torch.device("cpu")):
+            counts_of.reset()
+            out.append(T.run_training("smollm-360m-smoke", device=d,
+                                      **smoke, **kw))
+            out.append(counts_of.read())
+        (sg, hg), _, (sc, hc), _ = out
+        tp = {k: t.cpu() for k, t in sg["params"].items()}
+        pe = max(rel_err(tp[k], sc["params"][k]) for k in sc["params"])
+        he = max(abs(rg[k] - rc[k]) / max(abs(rc[k]), 1e-30)
+                 for rg, rc in zip(hg, hc) for k in rc if k != "round")
+        if kw.get("codec", "none") == "none":
+            held = f"params rel {pe:.3e} (tol 1e-5)"
+            assert pe <= 1e-5, (tag, pe)
+        else:   # a codec's flips, as phase 7's coded runs hold them
+            n = params_flip_aware(tp, sc["params"], f"smoke {tag}")
+            held = (f"params: {n} elements off by more than 1e-5 "
+                    f"(flip-aware; max rel {pe:.3e})")
+        log(f"  smoke {tag}, card vs CPU plain: {held}, history {he:.3e} "
+            f"(tol 1e-4)")
+        assert len(hg) == len(hc) == smoke["rounds"]
+        assert he <= 1e-4, (tag, he)
+        return out[0], out[1]
+
+    for strategy in ("vmap", "scan"):
+        _, counts = both(f"legacy_tree {strategy}/sgd", fused=False,
+                         strategy=strategy)
+        want = (_launches() if strategy == "vmap" else
+                _launches(accumulate_pass=smoke["rounds"] * smoke["cohort"]))
+        assert counts == want, (strategy, counts, want)
+    (s2, h2), _ = both("fused vmap/sgd K=2", fused=True, rounds_per_call=2)
+    s1, h1 = T.run_training("smollm-360m-smoke", device=dev, fused=True,
+                            **smoke)
+    same = h1 == h2 and all(_bitwise(s1["params"][k], s2["params"][k])
+                            for k in s1["params"])
+    log(f"  smoke fused vmap/sgd on the card, K=2 against K=1: bitwise "
+        f"{same} (required)")
+    assert same
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the launcher on the card, its init from the card's generator
+        path = os.path.join(tmp, "hist.json")
+        T.main(["--plugin", "examples.plugins.fedagg_torch", "--algorithm",
+                "fedagg", "--arch", "smollm-360m-smoke", "--rounds", "2",
+                "--cohort", "2", "--client-batch", "4", "--seq", "32",
+                "--no-meta", "--fused", "--codec", "int8",
+                "--error-feedback", "--rounds-per-call", "2",
+                "--log-every", "0", "--device", str(dev), "--history-out",
+                path])
+        with open(path) as f:
+            hist = json.load(f)
+    assert [r["round"] for r in hist] == [0, 1], hist
+    assert all(math.isfinite(v) for r in hist for v in r.values()), hist
+    # the plugin's algorithm, registered by the launcher's import, card
+    # against CPU from the same parameters (the codec's flips held by the
+    # history tolerance, as phase 7's coded runs hold them)
+    both("fedagg (the --plugin example) int8 + ef vmap/sgd K=2",
+         algorithm="fedagg", meta=False, fused=True, codec="int8",
+         error_feedback=True, rounds_per_call=2)
+    log("  smoke --plugin examples.plugins.fedagg_torch --algorithm fedagg "
+        "(int8 + ef, K=2) through the launcher on the card: 2 finite "
+        "records")
+
+    rng = np.random.default_rng(1)
+    img = synthetic_images(rng, n=200, image_size=32, channels=3,
+                           num_classes=10, num_writers=10)
+    meta = rng.choice(200, 16, replace=False)
+    data = FederatedData(arrays={"x": img.x, "y": img.y},
+                         client_indices=partition_iid(rng, 200, 10),
+                         meta_indices=meta, shared_indices=meta)
+    model = build_paper_cnn(pm.CIFAR_CNN_SMOKE)
+    cnn_params = model.init(torch.Generator().manual_seed(3))
+    for fused in (True, False):
+        hg, hc = (
+            train_method(
+                model, data, "fedmeta_uga", rounds=5, cohort=3,
+                local_steps=2, batch=8, lr=0.05, uga_server_lr=0.1,
+                eval_idx=np.arange(0, 200, 2), eval_every=2, device=d,
+                params=cnn_params, meta_batch=8, fused=fused)
+            for d in (dev, torch.device("cpu")))
+        assert [h["round"] for h in hg] == [h["round"] for h in hc] == [3, 4]
+        for a, b in zip(hg, hc):
+            assert abs(a["acc"] - b["acc"]) <= 1e-6, (a, b)
+            for k in ("loss", "client_loss"):
+                assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), (a, b)
+        log(f"  smoke CIFAR CNN train_method(fused={fused}, "
+            f"rounds_per_call=4), card vs CPU: evaluations at rounds 3 and "
+            f"4 within 1e-4 (accuracy within 1e-6)")
 
 
 # Rounds and tolerance (history and params, max |a-b| over max |b|) of
@@ -3571,6 +3965,16 @@ def main() -> int:
     counts.update(async_path(counts_of, dev))
     phase("[6k] checkpoints of the full-width server state:")
     ckpt_path_check(dev)
+    phase("[6g] the legacy tree engine at full width: smollm-360m, UGA + "
+          "FedMeta post, cohort 4, client batch 8, seq 128; legacy_tree "
+          f"vmap/sgd {LEGACY_VMAP_ROUNDS} rounds and scan/adam (warm) 1 "
+          "round, each against fused_flat in this process:")
+    counts.update(legacy_path(counts_of, dev))
+    phase(f"[6r] multi-round calls at full width: {RPC_SYNC_ROUNDS} fused "
+          f"vmap/sgd rounds as one K={RPC_SYNC_ROUNDS} call and "
+          f"{RPC_ASYNC_TICKS} buffered_async ticks as one "
+          f"K={RPC_ASYNC_TICKS} call, each against K=1 calls, bitwise:")
+    counts.update(rounds_per_call_path(counts_of, dev))
     phase(f"[6p] the paper's own models at their published widths: "
           f"FedMeta w/ UGA through experiments/common.py::train_method, "
           f"cohort {PAPER_COHORT}, {PAPER_ROUNDS} rounds:")
@@ -3597,6 +4001,7 @@ def main() -> int:
     small_reference_faults(counts_of, dev)
     small_reference_async(counts_of, dev)
     small_reference_paper(dev)
+    small_reference_legacy_rpc(counts_of, dev)
     small_reference_serve(dev)
 
     kernels = []

@@ -172,9 +172,7 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 # Federated configuration (the paper's knobs)
 # ---------------------------------------------------------------------------
-ALGORITHMS = ("fedavg", "fednova", "fedprox", "uga")
 SERVER_OPTS = ("sgd", "sgdm", "adam", "yogi")
-STRATEGIES = ("vmap", "scan", "chunked")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,9 +222,12 @@ class FedConfig:
     retry_max: int = 3
 
     def __post_init__(self):
-        if self.algorithm not in ALGORITHMS:
-            raise ValueError(f"unknown client algorithm {self.algorithm!r}; "
-                             f"registered: {ALGORITHMS}")
+        # registry-backed, as the JAX package validates (lazy imports: the
+        # registries' modules import this one): a plugin's algorithm or
+        # executor is valid once its module has registered it
+        from repro_torch.core.algorithms import get_algorithm
+        from repro_torch.core.executors import available_executors
+        get_algorithm(self.algorithm)          # raises naming the registry
         if self.server_opt not in SERVER_OPTS:
             raise ValueError(f"unknown server_opt {self.server_opt!r}; "
                              f"expected one of {SERVER_OPTS}")
@@ -239,10 +240,14 @@ class FedConfig:
         if self.local_steps < 1 or self.local_epochs < 1:
             raise ValueError(f"local_steps={self.local_steps} and "
                              f"local_epochs={self.local_epochs} must be >= 1")
-        if self.cohort_strategy not in STRATEGIES:
+        # 'sharded' is selected by a mesh, wrapping this field's executor
+        # as its base; it is not a base strategy itself
+        base_strategies = tuple(n for n in available_executors()
+                                if n != "sharded")
+        if self.cohort_strategy not in base_strategies:
             raise ValueError(
                 f"unknown cohort_strategy {self.cohort_strategy!r}; "
-                f"registered base cohort executors: {STRATEGIES} (the "
+                f"registered base cohort executors: {base_strategies} (the "
                 "'sharded' executor is selected by passing a mesh to "
                 "make_federated_round, not here)")
         if self.cohort_chunk is not None:
@@ -267,14 +272,6 @@ class FedConfig:
                 "chunked executor streams the cohort in cohort_chunk-client "
                 "slices. Set e.g. cohort_chunk=8, or use cohort_strategy="
                 "'vmap' / 'scan'.")
-        # What the port does not run yet: each names its ROADMAP item.
-        unported = []
-        if self.engine == "legacy_tree" or (self.engine is None
-                                            and not self.fused_update):
-            unported.append("the legacy_tree engine; set fused_update=True "
-                            "(ROADMAP Queue 1 item 9)")
-        elif self.engine not in (None, "fused_flat", "buffered_async"):
-            raise ValueError(f"unknown server engine {self.engine!r}")
         # the fault-injection knobs: resolve_faults validates the rates
         # and shapes (raises naming the bad field), as in the JAX package
         from repro_torch.sim.faults import resolve_faults
@@ -307,21 +304,18 @@ class FedConfig:
                     "round_deadline is a synchronous-barrier timeout; the "
                     "buffered_async runtime has no barrier to time out — "
                     "bound lateness with async_max_staleness instead")
-        if unported:
-            raise NotImplementedError(
-                "not yet ported to repro_torch: " + "; ".join(unported))
         if self.meta_mode == "through_aggregation":
             # The mode is a capability the server engine declares; the
             # round re-checks it against the resolved engine.
-            from repro_torch.core.engines import get_engine
-            eng = get_engine(self.engine or "fused_flat")
+            from repro_torch.core.engines import resolve_engine
+            eng = resolve_engine(self)
             if "through_aggregation" not in eng.meta_capabilities:
                 raise ValueError(
                     f"meta_mode='through_aggregation' needs a server engine "
                     f"declaring the capability, but {eng.name!r} declares "
                     f"{sorted(eng.meta_capabilities)}; set "
-                    "fused_update=True (the fused_flat engine) or use "
-                    "meta_mode='post'")
+                    "fused_update=True (the fused_flat engine's custom "
+                    "VJP) or use meta_mode='post'")
             if not self.server_lr > 0:
                 raise ValueError(
                     "meta_mode='through_aggregation' seeds the controllable "
@@ -347,8 +341,8 @@ class FedConfig:
                     "'through_aggregation': the hypergradient would "
                     "differentiate through a non-differentiable quantizer. "
                     "Lossy codecs are meta_mode='post' only.")
-            from repro_torch.core.engines import get_engine
-            eng = get_engine(self.engine or "fused_flat")
+            from repro_torch.core.engines import resolve_engine
+            eng = resolve_engine(self)
             if "lossy" not in eng.codec_capabilities:
                 raise ValueError(
                     f"codec={self.codec!r} needs a server engine declaring "

@@ -1,5 +1,5 @@
 """Unbiased weighted aggregation over the cohort (Eq. 14) — PyTorch port of
-the forward arms of ``repro/core/aggregate.py`` that the fused engine runs:
+the forward arms of ``repro/core/aggregate.py``.  The fused engine runs:
 
   * :func:`cohort_gradient_stacked` — the vmap (client-parallel) arm with
     ``aggregate=False``: every client's flat gradient lands in its slot of
@@ -23,6 +23,11 @@ the forward arms of ``repro/core/aggregate.py`` that the fused engine runs:
   * :func:`scan_cohort_gradient_flat` — the client-sequential (scan) arm:
     the chunked core at chunk = 1, each client run unbatched, one
     client's gradient alive at a time.
+
+:func:`cohort_gradient` and :func:`weighted_mean` are Eq. (14) in tree
+form, with no kernel: the ``legacy_tree`` engine's aggregate under the
+vmap cohort (the stack, then the weighted mean) and the scan arm written
+out as a tree-map accumulation.
 
 :func:`scan_cohort_deltas_flat` is the scan arm of the buffered-async
 runtime: it keeps each client's flat delta instead of accumulating it,
@@ -92,6 +97,78 @@ def cohort_gradient_stacked(client_update: Callable, w_t, cohort_batch,
     wsum = torch.clamp(torch.sum(w32), min=1e-30)
     mean_loss = torch.sum(torch.stack(losses) * w32) / wsum
     return stacks, mean_loss
+
+
+def weighted_mean(trees: Dict[str, torch.Tensor], weights: torch.Tensor,
+                  dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Eq. (14) in tree form: ``trees`` has a leading cohort axis on every
+    leaf, ``weights`` are the (cohort,) n_k.  Each leaf is summed in fp32
+    as ``sum_k x_k * w_k``, a temporary of the leaf's stack at a time."""
+    w = weights.to(torch.float32)
+    w = w / torch.clamp(torch.sum(w), min=1e-30)
+
+    def agg(x):
+        wx = w.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.sum(x.to(torch.float32) * wx, dim=0).to(dtype)
+
+    return {k: agg(x) for k, x in trees.items()}
+
+
+def cohort_gradient(client_update: Callable, w_t, cohort_batch,
+                    client_weights: torch.Tensor, lr, *,
+                    strategy: str = "vmap", agg_dtype=torch.float32,
+                    aggregate: bool = True, rngs=None):
+    """Run every client and aggregate Eq. (14) in tree form, with no
+    kernel; returns (G, n_k-weighted mean client loss).
+
+    ``vmap``: every client's gradient tree fills its slot of a
+    ``(cohort, *shape)`` stack per leaf (the clients run one after
+    another, as the flat vmap cohort runs them, so both see the same
+    client gradients), then :func:`weighted_mean`; ``aggregate=False``
+    returns the stack instead of G.  ``scan``: one client alive at a
+    time, ``G += (w_k / sum w) * g_k`` in fp32 in client order, the
+    clients run with grad off as the flat scan cohort runs them."""
+    cohort = client_weights.shape[0]
+    w32 = client_weights.to(torch.float32)
+    wsum = torch.clamp(torch.sum(w32), min=1e-30)
+    if strategy == "vmap":
+        stacks, losses = None, []
+        for k in range(cohort):
+            g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k), lr,
+                                     _client_rng(rngs, k))
+            if stacks is None:
+                stacks = {n: torch.empty((cohort,) + g.shape, dtype=g.dtype,
+                                         device=g.device)
+                          for n, g in g_k.items()}
+            for n, g in g_k.items():
+                stacks[n][k].copy_(g)
+            losses.append(l_k)
+            del g_k
+        mean_loss = torch.sum(torch.stack(losses) * w32) / wsum
+        if not aggregate:
+            return stacks, mean_loss
+        return weighted_mean(stacks, client_weights, agg_dtype), mean_loss
+    if strategy == "scan":
+        if not aggregate:
+            raise NotImplementedError(
+                "stacked gradients defeat the point of the scan strategy "
+                "(one client trajectory alive at a time); the fused engine "
+                "streams the accumulation instead — use "
+                "scan_cohort_gradient_flat")
+        G = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in w_t.items()}
+        l_acc = torch.zeros((), dtype=torch.float32, device=w32.device)
+        with torch.no_grad():
+            for k in range(cohort):
+                g_k, l_k = client_update(w_t, _client_batch(cohort_batch, k),
+                                         lr, _client_rng(rngs, k))
+                wk = w32[k] / wsum
+                for n, g in g_k.items():
+                    G[n] = G[n] + wk * g.to(torch.float32)
+                l_acc = l_acc + wk * l_k
+                del g_k
+        return {n: g.to(agg_dtype) for n, g in G.items()}, l_acc
+    raise ValueError(strategy)
 
 
 def cohort_gradient_stacked_coded(client_update: Callable, w_t,

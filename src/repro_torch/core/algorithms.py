@@ -4,7 +4,11 @@ A :class:`ClientAlgorithm` bundles the client-update factory with its
 aggregation semantics: ``pseudo_gradient=True`` means G_k is a parameter
 delta, so a plain-SGD server forces lr = 1 (see
 :func:`repro_torch.core.round.resolve_server_lr`).  Built-ins: uga,
-fedavg, fedprox, fednova.
+fedavg, fedprox, fednova.  A plugin registers its own with
+:func:`register_algorithm` (``examples/plugins/fedagg_torch.py``; the
+launcher's ``--plugin`` imports it before ``--algorithm``'s choices are
+read).  ``build(loss_fn, *, local_steps, local_epochs, prox_mu)`` returns
+``client_update(w_t, batch, lr, rng) -> (G_k, client_loss)``.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from repro_torch.core.client import fedavg_update, uga_update
 from repro_torch.core.registry import Registry
 
 __all__ = ["ClientAlgorithm", "register_algorithm", "get_algorithm",
-           "fednova_update"]
+           "available_algorithms", "fednova_update"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +47,10 @@ def register_algorithm(name: str, *, pseudo_gradient: bool = False,
 
 def get_algorithm(name: str) -> ClientAlgorithm:
     return _ALGORITHMS.get(name)
+
+
+def available_algorithms() -> tuple:
+    return _ALGORITHMS.names()
 
 
 @register_algorithm("uga", pseudo_gradient=False,

@@ -42,7 +42,7 @@ gives the pool in logical order, JAX's checkpoint layout.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -163,18 +163,20 @@ def _insert(a: State, w_in: np.ndarray, delay: np.ndarray, tick: int,
     return pw, cand_v[keep], cand_d[keep], slot, dest, overflow
 
 
-def make_async_tick(model: Model, fed):
+def make_async_tick(model: Model, fed, *, engine: Optional[str] = None):
     """Build ``one_tick(state, cohort_batch, meta_batch, client_weights,
     draws=None) -> (state, metrics)``, the synchronous ``one_round``'s
     signature.  ``draws`` (:class:`repro_torch.core.round.RoundDraws`)
     carries the tick's participation mask and fault streams, garble
-    included."""
+    included.  ``client_weights`` may lie on the host: the pool's
+    bookkeeping reads them there.  ``engine`` overrides ``fed``'s, as in
+    ``make_federated_round``."""
     alg = get_algorithm(fed.algorithm)
     client_update = alg.build(model.loss, local_steps=fed.local_steps,
                               local_epochs=fed.local_epochs,
                               prox_mu=fed.prox_mu)
     exe = get_executor("buffered_async")(fed)
-    eng = resolve_engine(fed)
+    eng = resolve_engine(fed, engine=engine)
     faults = resolve_faults(fed)
     codec = resolve_codec(fed)
     use_ef = codec.lossy and fed.error_feedback

@@ -163,3 +163,14 @@ def fedavg_update(loss_fn: LossFn, w_t: Params, batch, lr, rng=None, *,
     pseudo = {k: w_t[k].to(torch.float32) - w_k[k].to(torch.float32)
               for k in w_t}
     return pseudo, l
+
+
+def make_client_update(algorithm: str, loss_fn: LossFn, *, local_steps: int,
+                       local_epochs: int = 1, prox_mu: float = 0.0):
+    """Bind a strategy: ``(w_t, batch, lr, rng) -> (G_k, client_loss)``,
+    for any algorithm registered in :mod:`repro_torch.core.algorithms`
+    (the built-ins and plugins)."""
+    from repro_torch.core.algorithms import get_algorithm  # import cycle
+    return get_algorithm(algorithm).build(
+        loss_fn, local_steps=local_steps, local_epochs=local_epochs,
+        prox_mu=prox_mu)

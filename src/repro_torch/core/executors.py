@@ -1,6 +1,17 @@
-"""Cohort executors (PyTorch port of the flat arms of
-``repro/core/executors.py``): HOW a round runs its cohort.  Each yields the
-uniform :class:`FlatAggregate` handle the fused engine consumes.
+"""Cohort executors (PyTorch port of ``repro/core/executors.py``): HOW a
+round runs its cohort.  Each yields a uniform aggregate handle, of a kind
+the round asks for from those it ``produces``:
+
+  * :class:`FlatAggregate` — the Eq. (14) mean in the flat layout the
+    fused engine consumes;
+  * :class:`TreeAggregate` — the mean as a dict of tensors, which the
+    ``legacy_tree`` engine consumes.  The vmap executor's tree form is
+    :func:`repro_torch.core.aggregate.cohort_gradient` (the stack and a
+    tree-map weighted mean, no kernel); the chunked, scan and sharded
+    executors' is their streamed flat buffers viewed as a tree in the
+    aggregation dtype, so the accumulate kernel runs under it too.
+
+The executors:
 
   * ``chunked`` — the chunked streaming core (``FedConfig.cohort_chunk``):
     ``torch.func.vmap`` over a chunk of clients, each client's flat
@@ -40,14 +51,13 @@ Every method takes ``rngs``, the cohort's per-slot dropout masks, or
 None (:mod:`repro_torch.core.dropout`).  A factory takes ``(fed)``; the
 mesh-aware ones (all the built-in executors) also ``mesh=``.
 
-The tree handle of the ``legacy_tree`` engine is ROADMAP Queue 1 item 9;
-the sharded executor's model axis (tensor-parallel client compute) is
-item 7b.
+The sharded executor's model axis (tensor-parallel client compute) is
+ROADMAP Queue 1 item 7b.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,15 +65,17 @@ from repro_torch.comm.transport import (client_coded_decode,
                                         coded_decode_stacked)
 from repro_torch.core.aggregate import (CohortPart,
                                         chunked_cohort_gradient_coded,
+                                        cohort_gradient,
                                         chunked_cohort_gradient_flat,
                                         cohort_gradient_stacked,
                                         cohort_gradient_stacked_coded,
                                         scan_cohort_deltas_flat)
-from repro_torch.core.flat import FlatSpec, make_flat_spec
+from repro_torch.core.flat import FlatSpec, make_flat_spec, unflatten_tree
 from repro_torch.core.registry import Registry
 from repro_torch.kernels.fused_update.ops import flat_weighted_aggregate
 
-__all__ = ["FlatAggregate", "ReweightableCohort", "CohortExecutor",
+__all__ = ["FlatAggregate", "TreeAggregate", "ReweightableCohort",
+           "CohortExecutor",
            "ChunkedExecutor", "ShardedExecutor", "BufferedAsyncExecutor",
            "register_executor", "get_executor", "available_executors",
            "resolve_executor"]
@@ -78,6 +90,17 @@ class FlatAggregate:
 
 
 @dataclasses.dataclass
+class TreeAggregate:
+    """Eq. (14) weighted mean as a dict of tensors (the parameters'
+    names), in the aggregation dtype."""
+    tree: Dict[str, torch.Tensor]
+
+
+def _agg_dtype(fed) -> torch.dtype:
+    return getattr(torch, fed.grad_agg_dtype)
+
+
+@dataclasses.dataclass
 class ReweightableCohort:
     """A cohort whose aggregation can be re-run under other weights.
 
@@ -89,18 +112,25 @@ class ReweightableCohort:
 
 
 class CohortExecutor:
-    """Protocol.  Subclass and register a factory ``factory(fed)``."""
+    """Protocol.  Subclass and register a factory ``factory(fed)``.
+    ``produces`` names the handle kinds ``run`` can return; the default
+    ``run`` gives the flat one."""
     name: str = "?"
+    produces: frozenset = frozenset({"flat"})
     supports_reweight: bool = False
     # the codecs this executor runs: {"none"} is the plain path only;
     # {"none", "lossy"} adds run_coded, a per-client uplink (repro_torch.comm)
     codec_capabilities: frozenset = frozenset({"none"})
 
     def run(self, client_update: Callable, params, cohort_batch,
-            client_weights: torch.Tensor, lr, rngs=None
-            ) -> Tuple[FlatAggregate, torch.Tensor]:
-        """Run every client and aggregate; returns (handle, client_loss).
-        By default the reweightable form aggregated under the n_k."""
+            client_weights: torch.Tensor, lr, rngs=None, *,
+            kind: str = "flat") -> Tuple[Any, torch.Tensor]:
+        """Run every client and aggregate; returns (handle, client_loss),
+        the handle of ``kind`` (one of ``produces``).  By default the
+        reweightable form aggregated under the n_k."""
+        if kind != "flat":
+            raise ValueError(f"cohort executor {self.name!r} produces "
+                             f"{sorted(self.produces)}, not {kind!r}")
         return self.reweightable(client_update, params, cohort_batch,
                                  client_weights, lr, rngs
                                  ).aggregate(client_weights)
@@ -196,11 +226,23 @@ class VmapExecutor(CohortExecutor):
     """Client-parallel: the whole cohort's gradients stacked, then one
     aggregate-kernel sweep that also reduces ||G||^2 for the clip."""
     name = "vmap"
+    produces = frozenset({"flat", "tree"})
     supports_reweight = True
     codec_capabilities = frozenset({"none", "lossy"})
 
     def __init__(self, fed: Any, *, mesh=None):
-        del fed, mesh
+        del mesh
+        self._agg_dtype = _agg_dtype(fed)
+
+    def run(self, client_update, params, cohort_batch, client_weights, lr,
+            rngs=None, *, kind="flat"):
+        if kind == "tree":
+            G, loss = cohort_gradient(
+                client_update, params, cohort_batch, client_weights, lr,
+                strategy="vmap", agg_dtype=self._agg_dtype, rngs=rngs)
+            return TreeAggregate(G), loss
+        return super().run(client_update, params, cohort_batch,
+                           client_weights, lr, rngs)
 
     def _coded(self, client_update, params, cohort_batch, client_weights,
                lr, *, spec, codec, residuals, rngs):
@@ -235,11 +277,13 @@ class ChunkedExecutor(CohortExecutor):
     re-streams the chunks, and its backward re-runs them once more, one
     chunk at a time.  scan and sharded subclass it."""
     name = "chunked"
+    produces = frozenset({"flat", "tree"})
     supports_reweight = True
     codec_capabilities = frozenset({"none", "lossy"})
 
     def __init__(self, fed: Any, *, mesh=None):
         del mesh
+        self._agg_dtype = _agg_dtype(fed)
         self._chunk = (None if fed.cohort_chunk is None
                        else int(fed.cohort_chunk))
 
@@ -262,10 +306,15 @@ class ChunkedExecutor(CohortExecutor):
             codec=codec, residuals=residuals, rngs=rngs)
 
     def run(self, client_update, params, cohort_batch, client_weights, lr,
-            rngs=None):
+            rngs=None, *, kind="flat"):
         spec = make_flat_spec(params)
         Gs, loss = self._flat(client_update, params, cohort_batch,
                               client_weights, lr, spec=spec, rngs=rngs)
+        if kind == "tree":
+            # the same streamed fp32 buffers, viewed as a tree in the
+            # aggregation dtype
+            return TreeAggregate({n: g.to(self._agg_dtype) for n, g in
+                                  unflatten_tree(spec, Gs).items()}), loss
         return FlatAggregate(Gs, spec, sq_norm=None), loss
 
     def reweightable(self, client_update, params, cohort_batch,
@@ -403,6 +452,7 @@ class BufferedAsyncExecutor(CohortExecutor):
     slot; the scan base writes each delta straight into its slot as the
     client finishes."""
     name = "buffered_async"
+    produces = frozenset({"flat"})
     supports_reweight = False
     codec_capabilities = frozenset({"none", "lossy"})
 

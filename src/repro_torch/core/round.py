@@ -1,13 +1,16 @@
-"""One federated round (PyTorch port of the synchronous arm of
-``repro/core/round.py``), composed from the registries:
+"""One federated round (PyTorch port of ``repro/core/round.py``), composed
+from the registries:
 
-    local updating    (ClientAlgorithm: uga / fedavg / fedprox / fednova)
+    local updating    (ClientAlgorithm: uga / fedavg / fedprox / fednova /
+                       a plugin's)
  -> uplink            (GradientCodec: none / int8 / sign1bit / topk; a
                        lossy codec runs the executor's coded path, with
                        per-client error feedback in ``state["comm"]``)
  -> aggregation       (CohortExecutor: vmap / scan / chunked / sharded
-                       -> a flat handle)
- -> server update     (ServerEngine: fused_flat)
+                       -> an aggregate handle of a kind the engine accepts:
+                       ``produces & accepts``, the engine's preferred kind
+                       first)
+ -> server update     (ServerEngine: legacy_tree / fused_flat)
  -> FedMeta step      (core/meta.py: Eq. 20 after the server step under
                        ``meta_mode='post'``; under ``'through_aggregation'``
                        the aggregation and server step run inside the
@@ -16,7 +19,8 @@
 
 ``make_federated_round(model, fed, executor=None, mesh=None)`` returns
 ``one_round(state, cohort_batch, meta_batch, client_weights, draws=None)
--> (state, metrics)``.  ``executor`` names a registered cohort executor;
+-> (state, metrics)``.  ``executor`` and ``engine`` name registered
+plugins that override the ones ``fed`` selects;
 a ``mesh`` (:mod:`repro_torch.launch.mesh`) selects the two-tier sharded
 one, whose processes each run a slice of the cohort and hold the whole
 server state, replicated.  The round counter lives on the host (``state["round"]`` is an
@@ -48,6 +52,17 @@ An async engine (``engine='buffered_async'``) replaces the round's shape:
 and the server state gains the delta pool, ``state["async"]``.  Its draws
 keep the fault profile's garble, which a synchronous round zeroes
 (:func:`round_faults`).
+
+``rounds_per_call=K`` makes the function run K rounds (or async ticks)
+back to back over K-stacked inputs (:func:`stack_round_inputs`: cohort
+batches ``(K, cohort, ...)``, meta batches ``(K, ...)``, weights ``(K,
+cohort)`` and a list of K draws, all sampled on the host before the
+call), and return metrics stacked with a leading K axis, each where it
+was computed: nothing is read back to the host during the call.  (A
+synchronous round under participation or faults still reads one scalar
+a round, whether any client arrived.)  K = 1 is the one-round function
+itself.  :class:`RoundFnCache` keeps one function per K, for drivers
+that mix full chunks with a tail.
 """
 from __future__ import annotations
 
@@ -62,7 +77,7 @@ from repro_torch.comm import (comm_bytes_per_client, init_comm_state,
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.algorithms import get_algorithm
 from repro_torch.core.dropout import HostDropout, round_masks
-from repro_torch.core.engines import resolve_engine
+from repro_torch.core.engines import resolve_engine, tree_global_norm
 from repro_torch.core.executors import resolve_executor
 from repro_torch.core.flat import make_flat_spec
 from repro_torch.core.meta import meta_update, meta_update_through_cohort
@@ -86,16 +101,17 @@ def resolve_server_lr(fed: FedConfig) -> float:
 
 def init_server_state(model: Model, fed: FedConfig, *,
                       generator: Optional[torch.Generator] = None,
-                      params: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> State:
+                      params: Optional[Dict[str, torch.Tensor]] = None,
+                      engine: Optional[str] = None) -> State:
     """Server state from given ``params`` (e.g. bridged from the JAX
-    package) or from ``model.init(generator)``."""
+    package) or from ``model.init(generator)``; ``engine`` overrides the
+    engine ``fed`` selects, as in :func:`make_federated_round`."""
     if params is None:
         if generator is None:
             raise ValueError("init_server_state needs params= or "
                              "generator=")
         params = model.init(generator)
-    eng = resolve_engine(fed)
+    eng = resolve_engine(fed, engine=engine)
     state = {"params": params, "opt": eng.init_state(params), "round": 0}
     if fed.meta and fed.meta_mode == "through_aggregation":
         # controllable aggregation: per-client log weight multipliers and
@@ -117,6 +133,10 @@ def init_server_state(model: Model, fed: FedConfig, *,
         state["async"] = init_async_state(
             fed, make_flat_spec(params), next(iter(params.values())).device)
     return state
+
+
+# the pre-registry name of the tree norm
+grad_global_norm = tree_global_norm
 
 
 def decayed_lr(base: float, decay: float, round_idx: int) -> float:
@@ -200,21 +220,31 @@ def dropout_rngs(model: Model, fed: FedConfig, draws, cohort_batch,
 
 
 def make_federated_round(model: Model, fed: FedConfig, *,
-                         executor: Optional[str] = None, mesh=None):
-    if resolve_engine(fed).is_async:
+                         executor: Optional[str] = None, mesh=None,
+                         engine: Optional[str] = None,
+                         rounds_per_call: int = 1):
+    eng = resolve_engine(fed, engine=engine)
+    if eng.is_async:
         if executor is not None or mesh is not None:
             raise ValueError(
                 "engine='buffered_async' runs its own cohort stage (the "
                 "buffered_async executor over a vmap or scan base); drop "
                 "executor= and mesh=")
         from repro_torch.core.async_round import make_async_tick
-        return make_async_tick(model, fed)
+        return _chunk_rounds(make_async_tick(model, fed, engine=engine),
+                             rounds_per_call)
     alg = get_algorithm(fed.algorithm)
     client_update = alg.build(model.loss, local_steps=fed.local_steps,
                               local_epochs=fed.local_epochs,
                               prox_mu=fed.prox_mu)
     exe = resolve_executor(fed, executor=executor, mesh=mesh)
-    eng = resolve_engine(fed)
+    kinds = exe.produces & eng.accepts
+    if not kinds:
+        raise ValueError(
+            f"cohort executor {exe.name!r} produces {sorted(exe.produces)} "
+            f"but server engine {eng.name!r} accepts {sorted(eng.accepts)}: "
+            "no common aggregate-handle kind")
+    kind = eng.preferred if eng.preferred in kinds else sorted(kinds)[0]
     server_lr = resolve_server_lr(fed)
     through_agg = fed.meta and fed.meta_mode == "through_aggregation"
     if through_agg and "through_aggregation" not in eng.meta_capabilities:
@@ -223,9 +253,10 @@ def make_federated_round(model: Model, fed: FedConfig, *,
         raise ValueError(
             f"meta_mode='through_aggregation' needs a server engine "
             f"declaring the 'through_aggregation' capability, but "
-            f"{eng.name!r} declares {sorted(eng.meta_capabilities)}. Set "
-            "FedConfig(fused_update=True) (the fused_flat engine) or use "
-            "meta_mode='post'.")
+            f"{eng.name!r} declares {sorted(eng.meta_capabilities)}: the "
+            "hypergradients flow through the fused engine's custom VJP. "
+            "Set FedConfig(fused_update=True) (the fused_flat engine) or "
+            "use meta_mode='post'.")
     if through_agg and not exe.supports_reweight:
         raise ValueError(
             f"meta_mode='through_aggregation' needs a cohort executor that "
@@ -241,9 +272,11 @@ def make_federated_round(model: Model, fed: FedConfig, *,
             raise ValueError(
                 f"codec={fed.codec!r} with "
                 "meta_mode='through_aggregation' would differentiate "
-                "through a non-differentiable quantizer. Lossy codecs are "
-                "meta_mode='post' only. Use meta_mode='post' or "
-                "codec='none'.")
+                "through a non-differentiable quantizer (the hypergradient "
+                "would silently treat the decoded gradients as exact). "
+                "Lossy codecs are meta_mode='post' only for now — a "
+                "straight-through codec VJP is a ROADMAP follow-up. Use "
+                "meta_mode='post' or codec='none'.")
         if "lossy" not in exe.codec_capabilities:
             raise ValueError(
                 f"codec={fed.codec!r} needs a cohort executor declaring "
@@ -255,8 +288,9 @@ def make_federated_round(model: Model, fed: FedConfig, *,
                 f"codec={fed.codec!r} needs a server engine declaring the "
                 f"'lossy' codec capability, but {eng.name!r} declares "
                 f"{sorted(eng.codec_capabilities)}: lossy codecs decode "
-                "into the flat buffers the fused engine consumes. Set "
-                "FedConfig(fused_update=True) or use codec='none'.")
+                "into the flat dtype-group buffers the fused engine "
+                "consumes. Set FedConfig(fused_update=True) (the fused_flat "
+                "engine) or use codec='none'.")
     use_ef = codec.lossy and fed.error_feedback
     faults = sync_faults(fed)
     needs_draws = fed.participation < 1.0 or faults.active
@@ -344,7 +378,7 @@ def make_federated_round(model: Model, fed: FedConfig, *,
         else:
             handle, client_loss = exe.run(client_update, params,
                                           cohort_batch, client_weights, lr_c,
-                                          rngs)
+                                          rngs, kind=kind)
             new_params, opt_state, gn_post = eng.apply(
                 params, handle, state["opt"], lr=server_lr)
             del handle
@@ -362,4 +396,110 @@ def make_federated_round(model: Model, fed: FedConfig, *,
             new_state["comm"] = new_comm
         return new_state, metrics
 
-    return one_round
+    return _chunk_rounds(one_round, rounds_per_call)
+
+
+def _index(tree, j: int):
+    return None if tree is None else {k: v[j] for k, v in tree.items()}
+
+
+def _stack_metrics(per_round) -> Dict[str, torch.Tensor]:
+    """K rounds' metrics -> each metric with a leading K axis, stacked
+    where it was computed: on the device if any round computed it there
+    (a host number beside it is copied up), else on the host.  Nothing is
+    read back."""
+    out = {}
+    for name in per_round[0]:
+        vals = [m[name] for m in per_round]
+        dev = next((v for v in vals if isinstance(v, torch.Tensor)), None)
+        if dev is None:
+            out[name] = torch.from_numpy(np.stack([np.asarray(v)
+                                                   for v in vals]))
+        else:
+            out[name] = torch.stack([
+                v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                    v, dtype=dev.dtype, device=dev.device) for v in vals])
+    return out
+
+
+def _chunk_rounds(one_round, rounds_per_call: int):
+    """The ``rounds_per_call`` wrapper shared by the synchronous round and
+    the async tick: K rounds back to back over K-stacked inputs."""
+    if rounds_per_call == 1:
+        return one_round
+    if rounds_per_call < 1:
+        raise ValueError(f"rounds_per_call={rounds_per_call} must be >= 1")
+
+    def round_fn(state: State, cohort_batches, meta_batches,
+                 client_weights: torch.Tensor, draws=None):
+        per_round = []
+        for j in range(rounds_per_call):
+            state, m = one_round(state, _index(cohort_batches, j),
+                                 _index(meta_batches, j), client_weights[j],
+                                 None if draws is None else draws[j])
+            per_round.append(m)
+        return state, _stack_metrics(per_round)
+
+    return round_fn
+
+
+class RoundFnCache:
+    """Round functions keyed by ``rounds_per_call``, for drivers that mix
+    full chunks of K rounds with a tail: ``cache(k)`` is
+    ``make_federated_round(model, fed, rounds_per_call=k, **round_kwargs)``,
+    built once.  The JAX package's ``donate`` has no torch meaning, so
+    there is none: a K-round call's input state stays alive until the call
+    returns (its caller holds it), one parameter set more than a K = 1
+    call holds from its second round on.
+    ``sanitize=True`` (NaN/Inf probes on the flat buffers) is ROADMAP
+    Queue 1 item 8 and raises."""
+
+    def __init__(self, model: Model, fed: FedConfig, *,
+                 sanitize: bool = False, **round_kwargs):
+        if sanitize:
+            raise NotImplementedError(
+                "RoundFnCache(sanitize=True): the round sanitizer "
+                "(core/sanitize.py) is not yet ported to repro_torch "
+                "(ROADMAP Queue 1 item 8)")
+        self._make = lambda k: make_federated_round(
+            model, fed, rounds_per_call=k, **round_kwargs)
+        self._fns: Dict[int, Any] = {}
+
+    def __call__(self, k: int):
+        if k not in self._fns:
+            self._fns[k] = self._make(k)
+        return self._fns[k]
+
+
+def batch_to_device(tree, device):
+    """Host batch -> device tensors; integer arrays (tokens, labels) become
+    int64, the index type embedding lookups and gathers take."""
+    if tree is None:
+        return None
+    out = {}
+    for k, v in tree.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t if t.is_floating_point() else t.long()).to(device)
+    return out
+
+
+def stack_round_inputs(cohort_batches, meta_batches, client_weights,
+                       draws=None, *, device=None, weights_device=None):
+    """K per-round host samples -> the inputs of a ``rounds_per_call=K``
+    round function: each batch leaf stacked on a leading K axis on the
+    host and sent to ``device`` in one copy (integers as int64), the
+    weights ``(K, cohort)`` fp32 on ``weights_device`` (default:
+    ``device``), and the K draws as a list (None if there are none)."""
+    def stack(trees):
+        if trees[0] is None:
+            return None
+        return batch_to_device({k: np.stack([t[k] for t in trees])
+                                for k in trees[0]}, device)
+
+    w = torch.from_numpy(np.stack([np.asarray(x, np.float32)
+                                   for x in client_weights]))
+    draws = None if draws is None or all(d is None for d in draws) \
+        else list(draws)
+    return (stack(list(cohort_batches)), stack(list(meta_batches)),
+            w.to(device if weights_device is None else weights_device),
+            draws)

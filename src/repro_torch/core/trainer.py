@@ -1,19 +1,26 @@
 """FederatedTrainer — the driver loop (PyTorch port of
-``repro/core/trainer.py::FederatedTrainer``, one round per call, with the
+``repro/core/trainer.py::FederatedTrainer``, with multi-round calls, the
 retry-with-backoff policy and checkpoints, without observability; that is
 ROADMAP Queue 1 item 8).
 
-    trainer = FederatedTrainer(model, fed, seed=0, device="cuda")
+    trainer = FederatedTrainer(model, fed, seed=0, device="cuda",
+                               rounds_per_call=4)
     trainer.restore(path)                      # optional resume
-    history = trainer.run(data, rounds=3, cohort=4, batch=8)
+    history = trainer.run(data, rounds=10, cohort=4, batch=8)
     trainer.save(path)
     trainer.finish()
 
-``run`` samples each round on the host from a
-:class:`~repro_torch.data.pipeline.FederatedData`, moves it to the device,
-runs the round and returns one record per round (``{"round": r,
-**metrics}``), the JAX package's record format; a vector metric (the
-buffered-async tick's ``staleness_hist``) becomes a list.  The server
+``run`` goes in chunks of ``rounds_per_call`` = K rounds, the last one
+shorter when K does not divide what is left: it samples the chunk's K
+rounds on the host from a
+:class:`~repro_torch.data.pipeline.FederatedData` (batches, D_meta and
+draws), sends them to the device in one stacked copy
+(:func:`~repro_torch.core.round.stack_round_inputs`), runs the K-round
+function and reads the metrics back once, after it.  It returns one
+record per round (``{"round": r, **metrics}``), the JAX package's record
+format, the same at every K; a vector metric (the buffered-async tick's
+``staleness_hist``) becomes a list.  ``on_records(recs, trainer)`` is
+called once a chunk, with its K records.  The server
 state carries from round to round whole: params, the flat optimizer
 state, under ``meta_mode='through_aggregation'`` ``ctrl``, whose round
 adds ``ctrl_w_gnorm``, ``ctrl_lr_grad`` and ``server_lr_eff`` to the
@@ -31,7 +38,8 @@ faults add ``participants`` or ``arrivals``, ``fault_crashed``,
 deadline in the config, a client whose report was lost is re-enqueued
 ``retry_backoff * 2**attempt`` rounds later, at most ``retry_max``
 consecutive failures, read off the same draws; the record gains
-``retried``.
+``retried``.  A chunk's cohorts are sampled before it runs, so a retry
+falls due no earlier than the next chunk (at K = 1, the next round).
 
 Under the sharded executor (``mesh=``, :mod:`repro_torch.launch.mesh`)
 every process runs the trainer on its slice of the cohort and holds the
@@ -41,8 +49,9 @@ Checkpoints: :meth:`save` writes the whole server state and the run
 history in the JAX package's blob format (``repro_torch.checkpoint``),
 :meth:`restore` reads it back; with ``checkpoint_every`` and a
 ``run_dir`` a :class:`~repro_torch.checkpoint.CheckpointManager` keeps a
-store in ``run_dir/checkpoints`` (a save every N rounds and at run end;
-0: at run end only) that :meth:`resume_latest` resumes from.
+store in ``run_dir/checkpoints`` (a save whenever a chunk crosses a
+multiple of N rounds, and at run end; 0: at run end only) that
+:meth:`resume_latest` resumes from.
 """
 from __future__ import annotations
 
@@ -58,9 +67,11 @@ from repro_torch.checkpoint import save as ckpt_save
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.async_round import (async_checkpoint_view,
                                           async_from_checkpoint)
-from repro_torch.core.round import (RoundDraws, draw_round,
-                                    init_server_state, make_federated_round,
-                                    round_faults)
+from repro_torch.core.engines import resolve_engine
+from repro_torch.core.round import (RoundDraws, RoundFnCache,
+                                    batch_to_device, draw_round,
+                                    init_server_state, round_faults,
+                                    stack_round_inputs)
 from repro_torch.data.pipeline import FederatedData
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
@@ -69,23 +80,11 @@ from repro_torch.sim.faults import client_failed_mask, resolve_faults
 __all__ = ["FederatedTrainer", "batch_to_device"]
 
 
-def batch_to_device(tree, device):
-    """Host batch -> device tensors; integer arrays (tokens, labels) become
-    int64, the index type embedding lookups and gathers take."""
-    if tree is None:
-        return None
-    out = {}
-    for k, v in tree.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = (t if t.is_floating_point() else t.long()).to(device)
-    return out
-
-
 class FederatedTrainer:
     """Owns the server state and the round function."""
 
-    def __init__(self, model: Model, fed: FedConfig, *, seed: int = 0,
-                 device=None,
+    def __init__(self, model: Model, fed: FedConfig, *,
+                 rounds_per_call: int = 1, seed: int = 0, device=None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  run_dir: Optional[str] = None,
                  checkpoint_every: Optional[int] = None,
@@ -93,6 +92,7 @@ class FederatedTrainer:
                  executor: Optional[str] = None, mesh=None):
         self.model = model
         self.fed = fed
+        self.rounds_per_call = max(int(rounds_per_call), 1)
         self.device = resolve_device(device if mesh is None
                                      else mesh.device)
         self.seed = seed
@@ -100,8 +100,12 @@ class FederatedTrainer:
         # the process that logs and writes: every process of a mesh holds
         # the same state
         self.is_main = mesh is None or mesh.rank == 0
-        self._round = make_federated_round(model, fed, executor=executor,
-                                           mesh=mesh)
+        self._cache = RoundFnCache(model, fed, executor=executor, mesh=mesh)
+        # the async tick keeps its pool's bookkeeping on the host and reads
+        # the weights there: they stay on the host, so no tick waits on
+        # the device for them
+        self._weights_device = ("cpu" if resolve_engine(fed).is_async
+                                else self.device)
         self._faults = round_faults(fed)
         self._draws = (fed.participation < 1.0 or self._faults.active
                        or model.dropout is not None)
@@ -194,23 +198,48 @@ class FederatedTrainer:
         return draw_round(self.fed, self.seed, round_idx, cohort,
                           dropout=self.model.dropout is not None)
 
-    def _schedule_retries(self, clients, draws: RoundDraws, due, r: int,
-                          rec: Dict[str, float]) -> None:
-        """Re-enqueue the clients whose report this round lost, with
-        exponential backoff, from the draws the round took."""
-        failed = client_failed_mask(draws.faults, self._faults)
-        clients = np.asarray(clients)
-        rec["retried"] = float(len(set(due or []) & set(clients.tolist())))
-        for cid in clients[~failed]:
-            self._retry_attempts.pop(int(cid), None)
-        for cid in clients[failed]:
-            cid = int(cid)
-            a = self._retry_attempts.get(cid, 0)
-            if a >= self.fed.retry_max:
-                continue
-            self._retry_attempts[cid] = a + 1
-            due_round = max(r + self.fed.retry_backoff * (2 ** a), r + 1)
-            self._retry_due.setdefault(due_round, []).append(cid)
+    def _schedule_retries(self, samples, draws, recs, due, r: int,
+                          k: int) -> None:
+        """Re-enqueue the clients whose report a round of the chunk
+        ``[r, r + k)`` lost, with exponential backoff, from the draws the
+        round took, no earlier than the next chunk (its cohorts are
+        already sampled)."""
+        for j in range(k):
+            failed = client_failed_mask(draws[j].faults, self._faults)
+            clients = np.asarray(samples[j]["clients"])
+            recs[j]["retried"] = float(len(set(due[j] or [])
+                                           & set(clients.tolist())))
+            for cid in clients[~failed]:
+                self._retry_attempts.pop(int(cid), None)
+            for cid in clients[failed]:
+                cid = int(cid)
+                a = self._retry_attempts.get(cid, 0)
+                if a >= self.fed.retry_max:
+                    continue
+                self._retry_attempts[cid] = a + 1
+                due_round = max(r + j + self.fed.retry_backoff * (2 ** a),
+                                r + k)
+                self._retry_due.setdefault(due_round, []).append(cid)
+
+    def _dispatch(self, k: int, samples, metas, draws) -> list:
+        """Run the chunk's k rounds as one call; returns their records
+        (metrics only), read back once after the call."""
+        if k == 1:
+            weights = torch.as_tensor(samples[0]["client_weights"]).to(
+                self._weights_device)
+            self.state, metrics = self._cache(1)(
+                self.state, batch_to_device(samples[0]["cohort_batch"],
+                                            self.device),
+                batch_to_device(metas[0], self.device), weights, draws[0])
+            return [{name: _record_value(v) for name, v in metrics.items()}]
+        staged = stack_round_inputs(
+            [s["cohort_batch"] for s in samples], metas,
+            [s["client_weights"] for s in samples], draws,
+            device=self.device, weights_device=self._weights_device)
+        self.state, metrics = self._cache(k)(self.state, *staged)
+        host = {name: v.cpu().numpy() for name, v in metrics.items()}
+        return [{name: _record_value(a[j]) for name, a in host.items()}
+                for j in range(k)]
 
     def run(self, data: FederatedData, *, rounds: int, cohort: int,
             batch: int, meta_batch: int = 32, share: Optional[bool] = None,
@@ -221,7 +250,7 @@ class FederatedTrainer:
         ``sample_meta(data, round_idx, meta_batch, sample)`` overrides the
         D_meta sampling (default: ``data.sample_meta`` when ``fed.meta``,
         else None); ``on_records(recs, trainer)`` is called after every
-        round."""
+        chunk of ``rounds_per_call`` rounds with its records."""
         share = self.fed.share if share is None else share
         f = resolve_faults(self.fed)
         retry_on = (self.fed.retry_backoff > 0 and f.active
@@ -229,37 +258,37 @@ class FederatedTrainer:
         run_history: List[Dict[str, Any]] = []
         while self.round < rounds:
             r = self.round
-            due = self._retry_due.pop(r, None) if retry_on else None
-            sample = data.sample_round(r, cohort=cohort, batch=batch,
-                                       share=share, include=due)
+            k = min(self.rounds_per_call, rounds - r)
+            due = [self._retry_due.pop(r + j, None) if retry_on else None
+                   for j in range(k)]
+            samples = [data.sample_round(r + j, cohort=cohort, batch=batch,
+                                         share=share, include=due[j])
+                       for j in range(k)]
             if sample_meta is not None:
-                meta = sample_meta(data, r, meta_batch, sample)
+                metas = [sample_meta(data, r + j, meta_batch, samples[j])
+                         for j in range(k)]
             else:
-                meta = (data.sample_meta(r, meta_batch) if self.fed.meta
-                        else None)
-            weights = torch.as_tensor(sample["client_weights"]).to(
-                self.device)
-            draws = self.draw_round(r, cohort) if self._draws else None
-            self.state, metrics = self._round(
-                self.state, batch_to_device(sample["cohort_batch"],
-                                            self.device),
-                batch_to_device(meta, self.device), weights, draws)
-            rec = {name: _record_value(v) for name, v in metrics.items()}
+                metas = [data.sample_meta(r + j, meta_batch) if self.fed.meta
+                         else None for j in range(k)]
+            draws = [self.draw_round(r + j, cohort) if self._draws else None
+                     for j in range(k)]
+            recs = self._dispatch(k, samples, metas, draws)
             if retry_on:
-                self._schedule_retries(sample["clients"], draws, due, r, rec)
-            rec["round"] = r
-            run_history.append(rec)
-            self.history.append(rec)
-            if log_every and self.is_main and (r % log_every == 0
-                                               or r == rounds - 1):
-                log_fn(f"[round {r}] " + " ".join(
-                    f"{k}={_fmt(v)}" for k, v in rec.items()
-                    if k != "round"))
+                self._schedule_retries(samples, draws, recs, due, r, k)
+            for j, rec in enumerate(recs):
+                rec["round"] = r + j
+                run_history.append(rec)
+                self.history.append(rec)
+                if log_every and self.is_main and ((r + j) % log_every == 0
+                                                   or r + j == rounds - 1):
+                    log_fn(f"[round {r + j}] " + " ".join(
+                        f"{n}={_fmt(v)}" for n, v in rec.items()
+                        if n != "round"))
             if on_records is not None:
-                on_records([rec], self)
+                on_records(recs, self)
             if self.manager is not None and self._ckpt_every \
-                    and self.round % self._ckpt_every == 0:
-                self._save_managed(self.round)
+                    and (r + k) // self._ckpt_every > r // self._ckpt_every:
+                self._save_managed(r + k)
         if self.manager is not None and self._last_managed_step != self.round:
             self._save_managed(self.round)
         return run_history

@@ -7,14 +7,15 @@ A paper table or figure builds a (model, FederatedData) pair and calls
   FedAvg | FedProx | FedShare | UGA | FedMeta | FedMeta w/ UGA
 
 ``train_method`` maps a method onto a :class:`FedConfig` with the JAX
-package's defaults, trains through :class:`FederatedTrainer` (fused
-engine, one round a call) and evaluates on held-out examples every
-``eval_every`` rounds and at the end.  The legacy tree engine
-(``fused=False``) and multi-round programs (``rounds_per_call != 1``; the
-JAX default is 4) are ROADMAP Queue 1 item 9, metric trackers item 8;
-each raises ``NotImplementedError`` naming its item.  The JAX file's
-report writers (``bench_tracker``, ``write_bench_report``,
-``peak_memory_bytes``) belong to item 8 too.
+package's defaults, trains through :class:`FederatedTrainer` — the fused
+engine and 4 rounds a call by default, as the JAX paper tables run;
+``fused=False, rounds_per_call=1`` is the legacy tree engine's exact
+round-by-round loop — and evaluates on held-out examples after each call
+that reaches a multiple of ``eval_every`` or the last round, so under K
+rounds a call the evaluations land on call boundaries, as in JAX.  Metric
+trackers are ROADMAP Queue 1 item 8 and raise ``NotImplementedError``
+naming it; so do the JAX file's report writers (``bench_tracker``,
+``write_bench_report``, ``peak_memory_bytes``), which are not ported.
 """
 from __future__ import annotations
 
@@ -65,7 +66,7 @@ def train_method(model, data: FederatedData, method: str, *, rounds: int,
                  lr_decay: float = 0.996, meta_batch: int = 32,
                  prox_mu: float = 2e-4, uga_server_lr: Optional[float] = None,
                  clip_norm: float = 2.0, fused: bool = True,
-                 rounds_per_call: int = 1, tracker=None, device=None,
+                 rounds_per_call: int = 4, tracker=None, device=None,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  cohort_strategy: str = "vmap",
                  on_records: Optional[Callable] = None
@@ -79,18 +80,11 @@ def train_method(model, data: FederatedData, method: str, *, rounds: int,
     tames the HVP amplification the paper notes in §4.5.1.  ``params``:
     the initial parameters (e.g. bridged from the JAX package), else
     ``model.init`` from ``seed``; ``device``: as every entry point's, the
-    card unless the caller names another.  ``cohort_strategy``: the vmap
-    or scan cohort; ``on_records(recs, trainer)``: called after every
-    round, after its evaluation."""
-    if not fused:
-        raise NotImplementedError(
-            "train_method(fused=False) runs the legacy tree engine, not "
-            "yet ported to repro_torch (ROADMAP Queue 1 item 9)")
-    if rounds_per_call != 1:
-        raise NotImplementedError(
-            f"train_method(rounds_per_call={rounds_per_call}): multi-round "
-            "programs are not yet ported to repro_torch (ROADMAP Queue 1 "
-            "item 9); pass rounds_per_call=1")
+    card unless the caller names another.  ``fused``: the fused flat
+    engine, else ``legacy_tree``; ``rounds_per_call``: the trainer's K, the
+    evaluations on call boundaries.  ``cohort_strategy``: the vmap or scan
+    cohort; ``on_records(recs, trainer)``: called after every call, after
+    its evaluation."""
     if tracker is not None:
         raise NotImplementedError(
             "train_method(tracker=...): metric trackers are not yet ported "
@@ -104,8 +98,8 @@ def train_method(model, data: FederatedData, method: str, *, rounds: int,
                     server_lr=uga_server_lr, meta_lr=lr, lr_decay=lr_decay,
                     prox_mu=prox_mu, clip_norm=clip_norm, fused_update=fused,
                     cohort_strategy=cohort_strategy)
-    trainer = FederatedTrainer(model, fed, seed=seed, device=device,
-                               params=params)
+    trainer = FederatedTrainer(model, fed, rounds_per_call=rounds_per_call,
+                               seed=seed, device=device, params=params)
 
     def sample_meta(d, r, mb_size, sample):
         if not kw["meta"]:

@@ -2,12 +2,13 @@
 ``repro/launch/train.py``, with the flags the port implements).
 
 Runs real federated rounds — host data pipeline, UGA/FedAvg clients,
-fused flat server update on the CUDA kernels, FedMeta step — on one CUDA
-device (``--device cpu`` runs the kernels' plain versions on the CPU).
+the server update (the fused flat sweep on the CUDA kernels, or the
+legacy tree-map engine), FedMeta step — on one CUDA device (``--device
+cpu`` runs the kernels' plain versions on the CPU).
 
-  python -m repro_torch.launch.train --arch smollm-360m --fused \\
+  python -m repro_torch.launch.train --arch smollm-360m [--fused] \\
       --algorithm uga --meta --rounds 3 --cohort 4 --client-batch 8 \\
-      --seq 128 [--strategy scan | --cohort-chunk C] \\
+      --seq 128 [--rounds-per-call K] [--strategy scan | --cohort-chunk C] \\
       [--executor chunked|sharded|vmap|scan [--mesh-model 1]] \\
       [--server-opt adam] [--meta-mode through_aggregation] \\
       [--codec int8|sign1bit|topk [--error-feedback] [--topk-ratio R]] \\
@@ -17,7 +18,18 @@ device (``--device cpu`` runs the kernels' plain versions on the CPU).
       [--engine buffered_async [--async-buffer K] [--async-capacity C] \\
        [--async-max-staleness S] [--staleness-mode none|inv|invsqrt]] \\
       [--ckpt PATH] [--resume PATH|auto] [--run-dir DIR \\
-       [--ckpt-every N] [--keep-last N] [--keep-every N]]
+       [--ckpt-every N] [--keep-last N] [--keep-every N]] \\
+      [--plugin MODULE ...]
+
+Without ``--fused`` the server step is the ``legacy_tree`` engine (the
+tree-map stages, no kernel), as in the JAX launcher; ``--fused`` selects
+``fused_flat``, and ``--engine NAME`` any registered engine.
+``--rounds-per-call K`` runs K rounds a call, sampled on the host up
+front and read back once (a K that does not divide ``--rounds`` leaves a
+shorter last call).  ``--plugin MODULE`` imports a module before the
+other flags are parsed, so the algorithms, executors and engines it
+registers are valid choices (``--plugin examples.plugins.fedagg_torch
+--algorithm fedagg``, with the repository root on ``PYTHONPATH``).
 
 ``--cohort-chunk C`` streams the cohort through the chunked executor, C
 clients vmapped at a time; ``--executor sharded`` splits the cohort over
@@ -38,6 +50,7 @@ under ``DIR/checkpoints``); the blobs are the JAX package's format.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 from typing import Callable, Optional
@@ -47,7 +60,9 @@ import torch
 
 from repro_torch.comm.codecs import available_codecs
 from repro_torch.configs import FedConfig, get_arch
-from repro_torch.configs.base import ALGORITHMS, SERVER_OPTS, STRATEGIES
+from repro_torch.configs.base import SERVER_OPTS
+from repro_torch.core.algorithms import available_algorithms
+from repro_torch.core.engines import available_engines
 from repro_torch.core.executors import available_executors
 from repro_torch.core.trainer import FederatedTrainer
 from repro_torch.data.partition import partition_iid
@@ -90,7 +105,7 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                  iid: bool = False, seed: int = 0, log_every: int = 10,
                  strategy: str = "vmap", cohort_chunk: Optional[int] = None,
                  executor: Optional[str] = None, mesh_model: int = 1,
-                 fused: bool = False,
+                 fused: bool = False, rounds_per_call: int = 1,
                  meta_mode: str = "post", ctrl_lr: float = 0.01,
                  codec: str = "none", error_feedback: bool = False,
                  topk_ratio: float = 0.01, participation: float = 1.0,
@@ -118,8 +133,9 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
     ``keep_last`` / ``keep_every`` retention.  ``cohort_chunk``,
     ``executor`` and ``mesh_model`` are those of the JAX package's too:
     ``executor='sharded'`` builds a (data, model) mesh over every process
-    of the job (:func:`repro_torch.launch.mesh.make_auto_mesh`).  Returns
-    (state, history)."""
+    of the job (:func:`repro_torch.launch.mesh.make_auto_mesh`).
+    ``fused=False`` with no ``engine`` runs ``legacy_tree``;
+    ``rounds_per_call`` is the trainer's K.  Returns (state, history)."""
     if mesh_model != 1:
         raise NotImplementedError(
             f"--mesh-model {mesh_model}: tensor-parallel client compute "
@@ -164,7 +180,8 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
         if mesh.rank == 0:
             print(f"[train] sharded executor on mesh {dict(mesh.shape)}")
     trainer = FederatedTrainer(
-        model, fed, seed=seed, device=dev, params=params, run_dir=run_dir,
+        model, fed, rounds_per_call=rounds_per_call, seed=seed, device=dev,
+        params=params, run_dir=run_dir,
         checkpoint_every=ckpt_every if run_dir is not None else None,
         keep_last=keep_last, keep_every=keep_every,
         executor=None if mesh is not None else executor, mesh=mesh)
@@ -199,13 +216,28 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    # --plugin modules import (and register) before the main parser reads
+    # the registries for --algorithm's and --engine's choices
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--plugin", action="append", default=[],
+                     help="module to import before parsing the remaining "
+                          "flags — its register_algorithm/executor/engine "
+                          "calls make the names selectable (repeatable)")
+    plug_args, _ = pre.parse_known_args(argv)
+    for mod in plug_args.plugin:
+        importlib.import_module(mod)
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
+                                 parents=[pre])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--rounds", type=int, default=50)
     ap.add_argument("--cohort", type=int, default=4)
     ap.add_argument("--client-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--algorithm", default="uga", choices=ALGORITHMS)
+    ap.add_argument("--algorithm", default="uga",
+                    choices=list(available_algorithms()),
+                    help="any registered client algorithm "
+                         "(repro_torch.core.algorithms)")
     ap.add_argument("--meta", action="store_true")
     ap.add_argument("--no-meta", dest="meta", action="store_false")
     ap.set_defaults(meta=True)
@@ -218,9 +250,10 @@ def main(argv=None):
     ap.add_argument("--meta-lr", type=float, default=None,
                     help="eta_meta (default: --client-lr)")
     ap.add_argument("--server-opt", default="sgd", choices=SERVER_OPTS)
-    ap.add_argument("--strategy", default="vmap", choices=STRATEGIES,
-                    help="cohort executor: client-parallel stack (vmap) or "
-                         "client-sequential streaming (scan)")
+    ap.add_argument("--strategy", default="vmap",
+                    help="cohort executor: client-parallel stack (vmap), "
+                         "client-sequential streaming (scan), or any "
+                         "registered executor name")
     ap.add_argument("--cohort-chunk", type=int, default=None,
                     help="stream the cohort through the chunked executor "
                          "in slices of this many clients (vmapped) — peak "
@@ -239,8 +272,11 @@ def main(argv=None):
                          "(the data axis takes the remaining processes); "
                          "above 1 is not ported (ROADMAP Queue 1 item 7b)")
     ap.add_argument("--fused", action="store_true",
-                    help="fused flat-buffer CUDA server engine (the only "
-                         "engine ported so far; required)")
+                    help="fused flat-buffer CUDA server engine (default: "
+                         "the legacy_tree engine)")
+    ap.add_argument("--rounds-per-call", type=int, default=1,
+                    help="run K rounds a call, sampled up front and read "
+                         "back once")
     ap.add_argument("--meta-mode", default="post",
                     choices=["post", "through_aggregation"],
                     help="FedMeta step: post-aggregation parameter step, or "
@@ -294,11 +330,11 @@ def main(argv=None):
                     help=">0: re-enqueue failed clients after "
                          "backoff * 2^attempt rounds")
     ap.add_argument("--engine", default=None,
-                    choices=["fused_flat", "buffered_async", "legacy_tree"],
-                    help="server-engine registry name (default: fused_flat "
-                         "with --fused); 'buffered_async' selects the "
-                         "buffered asynchronous runtime; 'legacy_tree' is "
-                         "not ported (ROADMAP Queue 1 item 9)")
+                    choices=list(available_engines()),
+                    help="server-engine registry name (default derives "
+                         "legacy_tree/fused_flat from --fused); "
+                         "'buffered_async' selects the buffered "
+                         "asynchronous runtime")
     ap.add_argument("--async-buffer", type=int, default=0,
                     help="buffered_async: server steps every K arrived "
                          "deltas (0: cohort)")
@@ -347,8 +383,9 @@ def main(argv=None):
         num_clients=args.num_clients, examples=args.examples, iid=args.iid,
         seed=args.seed, log_every=args.log_every, strategy=args.strategy,
         cohort_chunk=args.cohort_chunk, executor=args.executor,
-        mesh_model=args.mesh_model,
-        fused=args.fused, meta_mode=args.meta_mode, ctrl_lr=args.ctrl_lr,
+        mesh_model=args.mesh_model, fused=args.fused,
+        rounds_per_call=args.rounds_per_call, meta_mode=args.meta_mode,
+        ctrl_lr=args.ctrl_lr,
         codec=args.codec, error_feedback=args.error_feedback,
         topk_ratio=args.topk_ratio, participation=args.participation,
         fault_profile=args.fault_profile, fault_drop=args.fault_drop,

@@ -9,6 +9,15 @@ fp32 rounding of zero once a deep model sums in another order.)
 import numpy as np
 import torch
 
+# One intra-op thread in every port test process, set once at import (every
+# ``test_torch_*.py`` file imports this module; so does the rank body of the
+# spawned gloo jobs).  The test run puts several worker processes on the
+# CPU's cores, and torch's default of one thread per core in each made them
+# contend: six copies of one port file at once ran 4x slower than with one
+# thread each, at the same results.  It also fixes the CPU's reductions to
+# one order, which the port's bitwise comparisons within a process rely on.
+torch.set_num_threads(1)
+
 SMOKE = "smollm-360m-smoke"
 
 

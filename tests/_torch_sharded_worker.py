@@ -77,7 +77,7 @@ def main(rank: int, world: int, port: int, out: str) -> None:
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
-    torch.set_num_threads(1)           # an MLP: spare the other processes
+    import _torch_parity  # noqa: F401  (one torch thread a rank)
     import torch.distributed as dist
     from repro_torch.configs import FedConfig
     from repro_torch.core.executors import get_executor

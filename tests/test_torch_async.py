@@ -388,9 +388,16 @@ def test_async_executor_refusals_and_engine():
         exe(ns(), grad_shardings=object())
     with pytest.raises(NotImplementedError, match="engine='buffered_async'"):
         exe(ns()).run()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FedConfig(**{**BASE, "engine": "legacy_tree"})
-    from repro_torch.core.engines import get_engine
+    # engine='legacy_tree' builds the config the JAX package builds, and
+    # resolves to its synchronous tree engine
+    from repro.core.engines import resolve_engine as jax_resolve_engine
+    from repro_torch.core.engines import get_engine, resolve_engine
+    legacy = {**BASE, "engine": "legacy_tree"}
+    assert dataclasses.asdict(FedConfig(**legacy)) == dataclasses.asdict(
+        JaxFedConfig(**legacy))
+    for e in (resolve_engine(FedConfig(**legacy)),
+              jax_resolve_engine(JaxFedConfig(**legacy))):
+        assert e.name == "legacy_tree" and not e.is_async
     eng = get_engine("buffered_async")
     assert eng.is_async and eng.meta_capabilities == {"post"}
     # an explicit garble reaches the async engine and is kept in its draws

@@ -54,16 +54,6 @@ TOL_METRIC = 1e-4
 TOL_VMAP_WIDTH = 1e-6
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The MLP's products are tiny: one intra-op thread spares the other
-    test workers the contention (restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _jax_mlp():
     def init(k):
         k1, k2 = jax.random.split(k)

@@ -387,8 +387,17 @@ def test_train_cli_ckpt_resume_and_run_dir(tmp_path, capsys):
     assert len(json.load(open(hist))) == 1
     with pytest.raises(ValueError, match="--run-dir"):
         ttrain.main(TRAIN + ["--rounds", "1", "--resume", "auto"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttrain.main(TRAIN + ["--rounds", "1", "--engine", "legacy_tree"])
+    # --engine legacy_tree overrides --fused and runs, as in the JAX
+    # launcher; its blob holds the tree engine's server state
+    ttrain.main(TRAIN + ["--rounds", "1", "--engine", "legacy_tree",
+                         "--server-opt", "sgdm", "--ckpt", ckpt,
+                         "--history-out", hist])
+    (rec,) = json.load(open(hist))
+    assert rec["round"] == 0 and np.isfinite(rec["grad_norm"])
+    with open(ckpt, "rb") as f:
+        paths = list(msgpack.unpackb(f.read())["leaves"])
+    assert any(k.startswith("opt/m/blocks/") for k in paths)
+    assert not any(k.startswith(("opt/v", "opt/t")) for k in paths)
 
 
 def test_serve_ckpt_restores_bare_params(tmp_path, capsys):

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no JAX, no reference-package imports, no
 ``msgpack`` (the card's machine has none; the checkpoint blobs are written
 by the port's own packer), no silent CPU fallback, and loud errors for
-what is not ported yet (the other synchronous arms)."""
+what is not ported yet."""
 import ast
 import dataclasses
 import pathlib
@@ -20,7 +20,8 @@ from repro_torch.device import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    ROOT / "chip_smoke.py", ROOT / "examples" / "plugins" / "fedagg_torch.py"
+] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imported_modules(path):
@@ -79,10 +80,21 @@ def test_rng_tags_match_jax():
     dict(fused_update=False),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_features_raise_naming_the_roadmap(kw):
+    """Once refused as not ported, the legacy tree engine now builds what
+    the JAX package builds for the same input: the same config, the
+    ``legacy_tree`` engine, and a round."""
+    from repro.core.engines import resolve_engine as jax_resolve_engine
+    from repro_torch.core.engines import resolve_engine
+    from repro_torch.core.round import make_federated_round
+    from repro_torch.models.model import build_model
     base = dict(fused_update=True)
     base.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        FedConfig(**base)
+    cfg = FedConfig(**base)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        JaxFedConfig(**base))
+    assert resolve_engine(cfg).name == jax_resolve_engine(
+        JaxFedConfig(**base)).name == "legacy_tree"
+    make_federated_round(build_model(get_arch("smollm-360m-smoke")), cfg)
 
 
 @pytest.mark.parametrize("kw", [

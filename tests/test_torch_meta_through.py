@@ -1,6 +1,9 @@
 """Controllable meta updating through the aggregation
 (``meta_mode='through_aggregation'``) in the port against the JAX package,
-at smoke size.
+at smoke size.  The 3-round trainer parity is
+``test_torch_meta_through_rounds.py`` and
+``test_torch_meta_through_rounds_scan.py``, in files of their own so that
+a parallel run (``-n N --dist loadfile``) puts them on separate workers.
 
 The same numpy inputs, and parameters and server state bridged from the
 JAX package, go through both.  Tolerances (max |a-b| over max |b| per
@@ -24,12 +27,10 @@ from _torch_parity import (SMOKE, jax_params_to_torch, max_tree_rel_err,
                            rel_err)
 from repro.configs import FedConfig as JaxFedConfig
 from repro.configs import get_arch as jax_get_arch
-from repro.core import FederatedTrainer as JaxTrainer
 from repro.core import meta as JM
 from repro.core.algorithms import get_algorithm as jax_get_algorithm
 from repro.core.engines import resolve_engine as jax_resolve_engine
 from repro.core.executors import resolve_executor as jax_resolve_executor
-from repro.launch.train import build_synthetic_fed_data as jax_fed_data
 from repro.models.model import build_model as jax_build_model
 from repro_torch import bridge
 from repro_torch.configs import FedConfig, get_arch
@@ -39,8 +40,7 @@ from repro_torch.core.engines import resolve_engine
 from repro_torch.core.executors import (CohortExecutor, register_executor,
                                         resolve_executor)
 from repro_torch.core.round import init_server_state, make_federated_round
-from repro_torch.core.trainer import FederatedTrainer
-from repro_torch.launch.train import build_synthetic_fed_data, main
+from repro_torch.launch.train import main
 from repro_torch.models.model import build_model
 
 TOL = 1e-5
@@ -212,47 +212,6 @@ def test_reference_scan_form_equals_round_form(lm):
     for k in CTRL_KEYS:
         assert torch.equal(a[4][k], b[4][k]), k
     assert all(torch.equal(a[0][k], b[0][k]) for k in tp)
-
-
-@pytest.mark.parametrize("strategy,opt,warm", [
-    ("vmap", "sgd", False), ("scan", "adam", True)],
-    ids=["vmap-sgd", "scan-adam-warm"])
-def test_three_rounds_match_jax_trainer(strategy, opt, warm):
-    kw = _fed_kw(strategy, opt)
-    kw.update(cohort=2, server_lr=0.01, ctrl_lr=0.01, lr_decay=0.992)
-    data_kw = dict(num_clients=8, examples=64, seq=32, iid=False, seed=0)
-    run_kw = dict(rounds=3, cohort=2, batch=4, meta_batch=8)
-    jt = JaxTrainer(jax_build_model(jax_get_arch(SMOKE), dtype=jnp.float32,
-                                    loss_chunk=256), JaxFedConfig(**kw),
-                    seed=0)
-    tt = FederatedTrainer(build_model(get_arch(SMOKE), loss_chunk=256),
-                          FedConfig(**kw), device="cpu",
-                          params=jax_params_to_torch(jt.state["params"]))
-    if warm:
-        rows = jt.state["opt"]["m"][0].shape[0]
-        opt_np = _flat_state(opt, rows, 5)
-        jt.state["opt"], _ = _jax_state(opt_np, {})
-        tt.state["opt"] = bridge.server_state_to_torch(opt_np)["opt"]
-    tt.state["ctrl"] = bridge.server_state_to_torch(
-        {}, jax.tree.map(np.asarray, jt.state["ctrl"]))["ctrl"]
-    jh = jt.run(jax_fed_data(jax_get_arch(SMOKE), **data_kw), **run_kw)
-    th = tt.run(build_synthetic_fed_data(get_arch(SMOKE), **data_kw),
-                **run_kw)
-    assert [r["round"] for r in th] == [0, 1, 2]
-    for jr, tr in zip(jh, th):
-        assert set(tr) == set(jr) == {"round", "client_loss", "grad_norm",
-                                      *META_KEYS}
-        for k in set(jr) - {"round"}:
-            assert abs(tr[k] - jr[k]) <= TOL_METRIC * abs(jr[k]), (k, tr, jr)
-    for k in CTRL_KEYS:
-        assert rel_err(tt.state["ctrl"][k],
-                       np.asarray(jt.state["ctrl"][k])) <= TOL, k
-    assert max_tree_rel_err(tt.state["params"],
-                            jax_params_to_torch(jt.state["params"])) <= TOL
-    for slot in ("m", "v"):
-        if slot in jt.state["opt"]:
-            assert rel_err(tt.state["opt"][slot][0],
-                           np.asarray(jt.state["opt"][slot][0])) <= TOL
 
 
 def test_scan_hypergrads_match_vmap_in_the_port(lm):

@@ -241,7 +241,7 @@ def test_train_method_matches_benchmarks_train_method(method):
     jh = jax_train_method(jmodel, data, method, fused=True,
                           rounds_per_call=1, **common)
     th = train_method(build_paper_gru(cfg), data, method, device="cpu",
-                      params=jax_params_to_torch(
+                      rounds_per_call=1, params=jax_params_to_torch(
                           jmodel.init(jax.random.PRNGKey(0))), **common)
     assert [h["round"] for h in th] == [h["round"] for h in jh] == [0, 2, 3]
     n = eval_idx.size
@@ -256,19 +256,21 @@ def test_train_method_matches_benchmarks_train_method(method):
 
 
 def test_train_method_refuses_what_is_not_ported():
-    """Unported arms name their ROADMAP item; without a card, the entry
-    points raise unless given the CPU."""
+    """Unported arms name their ROADMAP item (trackers, item 8); the
+    legacy engine and multi-round calls, once refused, run as JAX's
+    ``train_method`` runs them; without a card, the entry points raise
+    unless given the CPU."""
     cfg = PM.SHAKESPEARE_GRU_SMOKE
     common = dict(rounds=1, cohort=COHORT, batch=BATCH, local_steps=4,
                   lr=0.5, eval_idx=np.arange(4), device="cpu")
     model, data = build_paper_gru(cfg), _char_data(cfg)
     assert list(METHODS) == ["fedavg", "fedprox", "fedshare", "uga",
                              "fedmeta", "fedmeta_uga"]
-    for kw, item in ((dict(fused=False), "item 9"),
-                     (dict(rounds_per_call=4), "item 9"),
-                     (dict(tracker="jsonl"), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_method(model, data, "uga", **common, **kw)
+    for kw in (dict(fused=False), dict(rounds_per_call=4)):
+        (h,) = train_method(model, data, "uga", **common, **kw)
+        assert h["round"] == 0 and np.isfinite(h["loss"]), (kw, h)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        train_method(model, data, "uga", **common, tracker="jsonl")
     if not torch.cuda.is_available():
         # the entry points run on the card unless asked for the CPU
         from repro_torch.experiments import paper

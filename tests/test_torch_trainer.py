@@ -40,10 +40,18 @@ def _warm_state(rows):
     return m, v
 
 
+@pytest.fixture(scope="module")
+def jax_round_fns():
+    """The JAX trainers' compiled round programs, one per config: the cold
+    and the warm scan/adam cases run the same program (the state differs,
+    not the config), so it compiles once for the module."""
+    return {}
+
+
 @pytest.mark.parametrize("strategy,opt,warm", [
     ("vmap", "sgd", False), ("scan", "adam", False), ("scan", "adam", True),
 ], ids=["vmap-sgd", "scan-adam-cold", "scan-adam-warm"])
-def test_three_rounds_match_jax_trainer(strategy, opt, warm):
+def test_three_rounds_match_jax_trainer(strategy, opt, warm, jax_round_fns):
     kw = dict(algorithm="uga", meta=True, cohort=COHORT, local_steps=2,
               client_lr=0.01, server_lr=0.01, meta_lr=0.01, server_opt=opt,
               cohort_strategy=strategy, lr_decay=0.992, fused_update=True)
@@ -54,6 +62,7 @@ def test_three_rounds_match_jax_trainer(strategy, opt, warm):
     jt = JaxTrainer(jax_build_model(jax_get_arch(SMOKE), dtype=jnp.float32,
                                     loss_chunk=256),
                     JaxFedConfig(**kw), seed=0)
+    jt._cache = jax_round_fns.setdefault((strategy, opt), jt._cache)
     p0 = jax_params_to_torch(jt.state["params"])
     tt = FederatedTrainer(build_model(get_arch(SMOKE), loss_chunk=256),
                           FedConfig(**kw), device="cpu", params=p0)
