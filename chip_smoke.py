@@ -48,6 +48,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      through_aggregation; int8 params under the flip-aware criterion of
      ``flip_aware``).  (The profiled vmap/sgd round is
      ``tools/profile_round.py``.)
+  6o. the tracked run: phase 6's post vmap/sgd run again through
+     ``run_training`` with ``tracker="jsonl,csv"``, a run directory, the
+     round sanitizer and a ``torch.profiler`` window over round 1 with
+     its trace summary: params and history bitwise phase 6's, launches
+     equal; ``metrics.jsonl``'s records equal to the history, each
+     round's sample_stack / dispatch / device_sync spans, the profiler
+     and run events, the summary's keys, ``busy_frac`` in (0, 1), the
+     aggregate and update kernels among its device ops, dispatch and
+     device_sync among its phases, the csv header equal to
+     ``round_metric_keys``, ``python -m repro_torch.obs report`` exit 0;
+     the spans, the round walls, the trace's size, export and summary
+     seconds, the top five device ops, and the probe's and the trackers'
+     own cost printed.  Phase 6g holds its legacy vmap/sgd run to phase
+     6's fused run too;
   6c. the chunked streaming cohort and the sharded executor at full
      width: smollm-360m, sgd, the paper's cohort of 10 in chunks of 4 (12
      slots, 2 of them weight-0 pads): post 2 rounds, through_aggregation
@@ -107,9 +121,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      crashed (its residual slot byte-identical); the async tick (vmap and
      scan, 'flaky' with garble) card against CPU, its sign1bit launches,
      an async save and resume on the card against a run that never
-     stopped, and (7p) the paper CNN with dropout under the trainer's
+     stopped, (7p) the paper CNN with dropout under the trainer's
      host draws and the GRU at smoke size, 3 rounds through
-     ``train_method``;
+     ``train_method``, and (7o) the launcher's ``--sanitize`` on an async
+     run whose payloads are all garbled by U(-inf, inf) raising
+     ``SanitizeError`` (the same run unsanitized ends with non-finite
+     parameters), a clean sanitized K = 2 run bitwise the unsanitized one
+     on the card and within 1e-5 of the CPU's, and a profiled smoke
+     round's trace categories;
   8. one JSON line of per-kernel numbers, then the card line, then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1188,7 +1207,9 @@ class Counts:
 
 def main_path(counts_of, dev):
     """Each of the six runs is its own main path: the launch counts are
-    zeroed just before its ``run_training`` call and read just after."""
+    zeroed just before its ``run_training`` call and read just after.
+    Returns the counts and the post vmap/sgd run's final parameters (on
+    the host) and history, which phases 6o and 6g hold their runs to."""
     import torch
     from repro_torch.core import flat as F
     from repro_torch.launch.train import run_training
@@ -1243,6 +1264,10 @@ def main_path(counts_of, dev):
         log(f"  {tag}: params {n_params:,}  round wall s "
             f"{[round(s, 4) for s in secs]} (round 0 includes init and "
             f"data)  max_memory_allocated {peak:.2f} GiB")
+        if tag == "post:vmap/sgd":
+            ref = dict(params={k: v.cpu() for k, v in
+                               state["params"].items()},
+                       hist=hist, counts=counts[tag], walls=secs)
         del state
         torch.cuda.empty_cache()
 
@@ -1260,7 +1285,182 @@ def main_path(counts_of, dev):
         log(f"  through_aggregation: vmap vs scan ctrl.{k} after round 1: "
             f"rel {e:.3e} (tol 1e-5); vmap {ca[k].tolist()}")
         assert e <= 1e-5, (k, e)
-    return counts
+    return counts, ref
+
+
+def post_vmap_reference(counts_of, dev):
+    """Phase 6's post vmap/sgd run alone, as ``main_path`` keeps it, for
+    the tools that run phases 6o or 6g without phase 6."""
+    import torch
+    from repro_torch.launch.train import run_training
+    marks = [time.perf_counter()]
+
+    def on_records(recs, trainer):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    counts_of.reset()
+    state, hist = run_training(
+        "smollm-360m", rounds=rounds_of("post:vmap/sgd"), cohort=COHORT,
+        client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
+        strategy="vmap", server_opt="sgd", meta_mode="post", seed=0,
+        log_every=1, device=dev, on_records=on_records)
+    counts = counts_of.read()
+    assert counts == EXPECTED_LAUNCHES["post:vmap/sgd"], counts
+    ref = dict(params={k: v.cpu() for k, v in state["params"].items()},
+               hist=hist, counts=counts,
+               walls=[b - a for a, b in zip(marks, marks[1:])])
+    del state
+    torch.cuda.empty_cache()
+    return ref
+
+
+# ---------------------------------------------------------------------------
+# phase 6o: the tracked, profiled, sanitized run at full width
+# ---------------------------------------------------------------------------
+# Phase 6's post vmap/sgd run again through run_training, with the jsonl
+# and csv trackers, the round sanitizer and a torch.profiler window over
+# round 1 summarized into a profile_summary event.  None of these may
+# change a bit: params and history are held bitwise to phase 6's run in
+# this process, its launches exactly.  The trace summary's table is
+# asked for every op, so the fused-update kernels are found in it.
+TRACKED_TOP_K = 100_000
+# the device names of the two kernels the tracked run launches (rows 1, 3)
+TRACKED_KERNELS = ("aggregate_kernel", "update_kernel")
+
+
+def tracked_path(counts_of, dev, ref):
+    """Phase 6o: returns its launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.flat import make_flat_spec
+    from repro_torch.core.sanitize import check_flat_groups, probe_log
+    from repro_torch.launch.train import run_training
+    from repro_torch.obs import (PROFILE_SUMMARY_EVENT_KEYS,
+                                 find_trace_file, resolve_tracker,
+                                 round_metric_keys)
+
+    tag = "6o:post:vmap/sgd tracked"
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    run_dir = tempfile.mkdtemp(prefix="obs_smoke_",
+                               dir=os.path.join(HERE, "build"))
+    marks = [time.perf_counter()]
+
+    def on_records(recs, trainer):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    counts_of.reset()
+    state, hist = run_training(
+        "smollm-360m", rounds=len(ref["hist"]), cohort=COHORT,
+        client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
+        seed=0, log_every=1, device=dev, tracker="jsonl,csv",
+        run_dir=run_dir, sanitize=True, profile=1, profile_start=1,
+        trace_summary=True, trace_top_k=TRACKED_TOP_K,
+        on_records=on_records)
+    counts = counts_of.read()
+    log(f"kernels: {tag} {json.dumps(counts)}")
+    assert counts == ref["counts"], (counts, ref["counts"])
+    diff = [k for k, v in ref["params"].items()
+            if not _bitwise(state["params"][k].cpu(), v)]
+    log(f"  6o: against phase 6's post vmap/sgd run: {len(ref['params'])} "
+        f"parameter leaves, {len(diff)} differ; records equal: "
+        f"{hist == ref['hist']} (bitwise required)")
+    assert not diff and hist == ref["hist"], diff[:5]
+
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    recs = [{k: v for k, v in ln.items() if k != "kind"} for ln in lines
+            if ln["kind"] == "metrics"]
+    assert recs == hist, (recs, hist)
+    events = [ln for ln in lines if ln["kind"] == "event"]
+    names = [e["event"] for e in events]
+    assert names[0] == "run_start" and names[-1] == "run_finish", names
+    for e in ("profile_start", "profile_stop", "profile_summary"):
+        assert names.count(e) == 1, (e, names)
+    spans = {}
+    for e in events:
+        if e["event"] == "phase":
+            spans.setdefault(e["round"], {})[e["phase"]] = e
+    for r in range(len(hist)):
+        assert {"sample_stack", "dispatch", "device_sync"} <= set(spans[r])
+    (summ,) = [e for e in events if e["event"] == "profile_summary"]
+    payload = {k: v for k, v in summ.items()
+               if k not in ("kind", "event", "t")}
+    assert set(payload) == set(PROFILE_SUMMARY_EVENT_KEYS), sorted(payload)
+    assert 0 < payload["busy_frac"] < 1, payload["busy_frac"]
+    ops = [o["op"] for o in payload["top_ops"]]
+    for kern in TRACKED_KERNELS:
+        assert any(kern in o for o in ops), (kern, ops[:20])
+    for p in ("dispatch", "device_sync"):
+        assert p in payload["phase_self_us"], payload["phase_self_us"]
+    with open(os.path.join(run_dir, "metrics.csv")) as f:
+        header = f.readline().strip().split(",")
+    want = round_metric_keys(_full_fed(fused_update=True))
+    assert set(header) == set(want), (header, sorted(want))
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "report", run_dir],
+        capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src")})
+    assert rep.returncode == 0, rep.stderr
+
+    # what each round's spans read, and what the window cost
+    t_of = {e["event"] if e["event"] != "phase" else
+            (e["phase"], e["round"]): e["t"] for e in events}
+    trace = find_trace_file(run_dir)
+    walls = [b - a for a, b in zip(marks, marks[1:])]
+    for r in range(len(hist)):
+        sp = spans[r]
+        log(f"  6o round {r}: sample_stack {sp['sample_stack']['dur_s']:.4f}"
+            f" s, dispatch {sp['dispatch']['dur_s']:.4f} s, device_sync "
+            f"{sp['device_sync']['dur_s']:.4f} s; round wall "
+            f"{walls[r]:.4f} s{' (profiled)' if r == 1 else ''}")
+    log(f"  6o trace {os.path.relpath(trace, run_dir)}: "
+        f"{os.path.getsize(trace) / 2**20:.1f} MiB, exported in "
+        f"{t_of['profile_stop'] - t_of[('device_sync', 1)]:.2f} s, "
+        f"summarized in {t_of['profile_summary'] - t_of['profile_stop']:.2f}"
+        f" s; {payload['n_op_events']} device ops of {payload['n_ops']} "
+        f"kinds, busy {payload['busy_us'] / 1e3:.2f} ms of a "
+        f"{payload['wall_us'] / 1e3:.2f} ms device window: busy_frac "
+        f"{payload['busy_frac']:.4f}")
+    log(f"  6o device self time by phase (ms): " + ", ".join(
+        f"{k} {v / 1e3:.2f}" for k, v in payload["phase_self_us"].items()))
+    for o in payload["top_ops"][:5]:
+        log(f"    {o['self_us'] / 1e3:9.3f} ms  x{o['count']:<5d} "
+            f"{o['op'][:90]}")
+    for kern in TRACKED_KERNELS:
+        mine = [o for o in payload["top_ops"] if kern in o["op"]]
+        log(f"    {kern}: {sum(o['self_us'] for o in mine) / 1e3:.3f} ms "
+            f"x{sum(o['count'] for o in mine)}")
+
+    # the probe alone, and the file trackers' cost a record
+    params = state["params"]
+    spec = make_flat_spec(params)
+    groups = [[params[lf.name] for lf in g.leaves] for g in spec.groups]
+    t = time.perf_counter()
+    for _ in range(5):
+        check_flat_groups(spec, groups, "6o timing")    # read back each
+    probe_ms = (time.perf_counter() - t) / 5 * 1e3
+    with probe_log():                                   # read once, after
+        dev_ms = cuda_ms(
+            lambda: check_flat_groups(spec, groups, "6o timing"), 5, 1)
+    trk = resolve_tracker("jsonl,csv", run_dir=os.path.join(run_dir, "t"))
+    t = time.perf_counter()
+    for i in range(200):
+        trk.log_metrics(i, {**hist[0], "round": i})
+    trk.finish()
+    rec_ms = (time.perf_counter() - t) / 200 * 1e3
+    log(f"  6o sanitizer probe over the 1.447 GB of parameters: "
+        f"{dev_ms:.3f} ms of device time (CUDA events, no read), "
+        f"{probe_ms:.3f} ms host wall with its read; jsonl + csv trackers "
+        f"{rec_ms:.4f} ms a record")
+    del state, params, groups
+    shutil.rmtree(run_dir)
+    torch.cuda.empty_cache()
+    return {tag: counts}
 
 
 def coded_path(counts_of, dev):
@@ -2267,53 +2467,55 @@ def time_server_step(params, dev):
     torch.cuda.empty_cache()
 
 
-def legacy_path(counts_of, dev):
+def legacy_path(counts_of, dev, ref):
     """Phase 6g: each run its own main path (counts zeroed just before,
-    read just after); legacy against fused in the same process."""
+    read just after); legacy against fused in the same process.  The
+    legacy vmap/sgd run is held to phase 6's post vmap/sgd run (``ref``:
+    the same run_training call with fused=True)."""
     import numpy as np
     import torch
     from repro_torch.launch.train import run_training
 
-    counts, keep = {}, {}
-    for fused in (False, True):
-        tag = f"6g:{'fused' if fused else 'legacy'}:vmap/sgd"
+    counts = {}
+    tag = "6g:legacy:vmap/sgd"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    marks = [time.perf_counter()]
+
+    def on_records(recs, trainer):
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        marks = [time.perf_counter()]
+        marks.append(time.perf_counter())
 
-        def on_records(recs, trainer, marks=marks):
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-
-        counts_of.reset()
-        state, hist = run_training(
-            "smollm-360m", rounds=LEGACY_VMAP_ROUNDS, cohort=COHORT,
-            client_batch=8, seq=128, algorithm="uga", meta=True,
-            fused=fused, seed=0, log_every=1, device=dev,
-            on_records=on_records)
-        counts[tag] = counts_of.read()
-        want = (_vmap_counts(LEGACY_VMAP_ROUNDS, False) if fused
-                else _launches())
-        log(f"kernels: {tag} {json.dumps(counts[tag])}")
-        assert counts[tag] == want, (tag, counts[tag], want)
-        secs = [b - a for a, b in zip(marks, marks[1:])]
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        log(f"  {tag}: round wall s {[round(s, 4) for s in secs]} (round 0 "
-            f"includes init and data; steady {np.mean(secs[1:]):.4f} s); "
-            f"peak {peak:.2f} GiB above what the phase held before it")
-        keep[fused] = ({"params": state["params"], "opt": state["opt"]},
-                       hist)
-        del state
-        torch.cuda.empty_cache()
-    _hold("6g vmap/sgd, legacy vs fused after 2 rounds", *keep[False],
-          *keep[True], LEGACY_TOL, LEGACY_TOL_METRIC)
-    params = keep[True][0]["params"]
-    keep.clear()
+    counts_of.reset()
+    state, hist = run_training(
+        "smollm-360m", rounds=LEGACY_VMAP_ROUNDS, cohort=COHORT,
+        client_batch=8, seq=128, algorithm="uga", meta=True, fused=False,
+        seed=0, log_every=1, device=dev, on_records=on_records)
+    counts[tag] = counts_of.read()
+    log(f"kernels: {tag} {json.dumps(counts[tag])}")
+    assert counts[tag] == _launches(), (tag, counts[tag])
+    secs = [b - a for a, b in zip(marks, marks[1:])]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"  {tag}: round wall s {[round(s, 4) for s in secs]} (round 0 "
+        f"includes init and data; steady {np.mean(secs[1:]):.4f} s; phase "
+        f"6's fused run {[round(s, 4) for s in ref['walls']]}); peak "
+        f"{peak:.2f} GiB above what the phase held before it")
+    assert len(ref["hist"]) == LEGACY_VMAP_ROUNDS
+    legacy = {"params": {k: v.cpu() for k, v in state["params"].items()},
+              "opt": state["opt"]}
+    del state
+    torch.cuda.empty_cache()
+    _hold("6g vmap/sgd, legacy vs phase 6's fused run after 2 rounds",
+          legacy, hist, {"params": ref["params"], "opt": {}}, ref["hist"],
+          LEGACY_TOL, LEGACY_TOL_METRIC)
+    del legacy
+    params = {k: v.to(dev) for k, v in ref["params"].items()}
     time_server_step(params, dev)
     del params
     torch.cuda.empty_cache()
 
+    keep = {}
     for fused in (False, True):
         tag = f"6g:{'fused' if fused else 'legacy'}:scan/adam-warm"
         fed = _full_fed(server_opt="adam", cohort_strategy="scan",
@@ -2701,6 +2903,98 @@ def small_reference_legacy_rpc(counts_of, dev):
         log(f"  smoke CIFAR CNN train_method(fused={fused}, "
             f"rounds_per_call=4), card vs CPU: evaluations at rounds 3 and "
             f"4 within 1e-4 (accuracy within 1e-6)")
+
+
+def small_reference_obs(counts_of, dev):
+    """Phase 7o at smoke size on the card: (i) an async ``--sanitize``
+    run through the launcher (the probes and anomaly mode) with every
+    payload garbled by U(-inf, inf) raises ``SanitizeError`` naming the
+    flat group, and nothing else is caught; (ii) the same config
+    unsanitized completes with non-finite parameters; (iii) a clean
+    sanitized K = 2 run is bitwise the unsanitized one on the card, and
+    within 1e-5 (params) and 1e-4 (history) of the CPU's; (iv) a profiled
+    round through the trainer on the card: the device categories of the
+    trace, its summary naming the fused-update kernels."""
+    import collections
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sanitize import SanitizeError
+    from repro_torch.launch import train as T
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import find_trace_file
+    from repro_torch.obs.trace_analysis import load_trace
+
+    smoke = ["--arch", "smollm-360m-smoke", "--rounds", "2", "--cohort",
+             "2", "--client-batch", "4", "--seq", "32", "--fused",
+             "--log-every", "0", "--device", str(dev)]
+    garble = ["--engine", "buffered_async", "--fault-garble", "1.0",
+              "--fault-garble-scale", "inf"]
+    try:
+        T.main(smoke + garble + ["--sanitize"])
+    except SanitizeError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("the garbled --sanitize run did not raise")
+    assert "flat group 0" in msg and "round 0" in msg, msg
+    log(f"  7o --sanitize, async, garble U(-inf, inf): SanitizeError: "
+        f"{msg[:150]}...")
+    state, _ = T.run_training(
+        "smollm-360m-smoke", rounds=2, cohort=2, client_batch=4, seq=32,
+        fused=True, log_every=0, device=dev, engine="buffered_async",
+        fault_garble=1.0, fault_garble_scale=float("inf"))
+    bad = sum(int((~torch.isfinite(v)).sum())
+              for v in state["params"].values())
+    log(f"  7o the same run unsanitized: completes, {bad} non-finite "
+        f"parameters")
+    assert bad > 0
+
+    params = build_model(get_arch("smollm-360m-smoke")).init(
+        torch.Generator().manual_seed(3))
+    kw = dict(rounds=3, cohort=2, client_batch=4, seq=32, num_clients=8,
+              examples=64, log_every=0, params=params, fused=True,
+              rounds_per_call=2)
+    runs = {}
+    for d, san in ((dev, False), (dev, True), (torch.device("cpu"), True)):
+        counts_of.reset()
+        runs[d.type, san] = T.run_training("smollm-360m-smoke", device=d,
+                                           sanitize=san, **kw)
+    (sa, ha), (sb, hb) = runs["cuda", False], runs["cuda", True]
+    same = ha == hb and all(_bitwise(sa["params"][k], sb["params"][k])
+                            for k in sa["params"])
+    sc, hc = runs["cpu", True]
+    pe = max(rel_err(sb["params"][k].cpu(), sc["params"][k])
+             for k in sc["params"])
+    he = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+             for a, b in zip(hb, hc) for k in b if k != "round")
+    log(f"  7o clean sanitized K=2 on the card: bitwise the unsanitized run "
+        f"{same} (required); against the CPU's: params rel {pe:.3e} (tol "
+        f"1e-5), history {he:.3e} (tol 1e-4)")
+    assert same and pe <= 1e-5 and he <= 1e-4, (same, pe, he)
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as d:
+        T.run_training("smollm-360m-smoke", device=dev, tracker="jsonl",
+                       run_dir=d, profile=1, profile_start=1,
+                       trace_summary=True, trace_top_k=TRACKED_TOP_K,
+                       **{**kw, "rounds_per_call": 1})
+        trace = load_trace(find_trace_file(d))
+        cats = collections.Counter(
+            e.get("cat") for e in trace["traceEvents"]
+            if isinstance(e, dict) and e.get("ph") == "X")
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            (summ,) = [r for r in map(json.loads, f)
+                       if r.get("event") == "profile_summary"]
+    log(f"  7o profiled smoke round on the card: trace categories "
+        f"{dict(sorted(cats.items(), key=str))}; busy_frac "
+        f"{summ['busy_frac']:.4f}; device self time by phase (us) "
+        f"{summ['phase_self_us']}")
+    assert cats["kernel"] > 0 and summ["n_op_events"] <= sum(
+        cats[c] for c in ("kernel", "gpu_memcpy", "gpu_memset"))
+    ops = [o["op"] for o in summ["top_ops"]]
+    for kern in TRACKED_KERNELS:
+        assert any(kern in o for o in ops), (kern, ops[:20])
 
 
 # Rounds and tolerance (history and params, max |a-b| over max |b|) of
@@ -3946,7 +4240,11 @@ def main() -> int:
     phase("[6] main path: smollm-360m, UGA + FedMeta, fused; the post, "
           "through_aggregation and lossy-uplink runs, rounds "
           f"{ {t: rounds_of(t) for t in EXPECTED_LAUNCHES} }:")
-    counts = main_path(counts_of, dev)
+    counts, ref = main_path(counts_of, dev)
+    phase("[6o] the tracked run at full width: phase 6's post vmap/sgd run "
+          "with the jsonl and csv trackers, the sanitizer and a profiled, "
+          "summarized round 1, held bitwise to it:")
+    counts.update(tracked_path(counts_of, dev, ref))
     counts.update(coded_path(counts_of, dev))
     phase(f"[6c] the chunked streaming cohort and the sharded executor at "
           f"full width: smollm-360m, UGA + FedMeta, sgd, cohort "
@@ -3967,9 +4265,10 @@ def main() -> int:
     ckpt_path_check(dev)
     phase("[6g] the legacy tree engine at full width: smollm-360m, UGA + "
           "FedMeta post, cohort 4, client batch 8, seq 128; legacy_tree "
-          f"vmap/sgd {LEGACY_VMAP_ROUNDS} rounds and scan/adam (warm) 1 "
-          "round, each against fused_flat in this process:")
-    counts.update(legacy_path(counts_of, dev))
+          f"vmap/sgd {LEGACY_VMAP_ROUNDS} rounds against phase 6's fused "
+          "run, and scan/adam (warm) 1 round against fused_flat:")
+    counts.update(legacy_path(counts_of, dev, ref))
+    del ref
     phase(f"[6r] multi-round calls at full width: {RPC_SYNC_ROUNDS} fused "
           f"vmap/sgd rounds as one K={RPC_SYNC_ROUNDS} call and "
           f"{RPC_ASYNC_TICKS} buffered_async ticks as one "
@@ -4002,6 +4301,7 @@ def main() -> int:
     small_reference_async(counts_of, dev)
     small_reference_paper(dev)
     small_reference_legacy_rpc(counts_of, dev)
+    small_reference_obs(counts_of, dev)
     small_reference_serve(dev)
 
     kernels = []

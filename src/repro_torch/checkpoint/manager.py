@@ -10,7 +10,9 @@ layout, so either package reads the other's store):
 copy of every leaf, since the round writes parameters and residuals in
 place and a CPU tensor's ``.cpu()`` is the same storage — and deep-copies
 ``extra``, then hands the blob, the manifest and the pruning to one
-daemon writer thread, so writes land in submission order.  A failed write
+daemon writer thread, so writes land in submission order
+(``background=False``: the caller's thread writes them before ``save``
+returns).  A failed write
 is raised on the next :meth:`save`, :meth:`wait` or :meth:`close`, and its
 step is dropped from the index so ``latest()`` never names a blob that was
 not written.
@@ -60,10 +62,11 @@ def host_copy(tree: Any) -> Any:
 class CheckpointManager:
     """Background-thread checkpoint store with retention over one
     directory.  ``keep_last`` newest saves survive pruning; steps
-    divisible by ``keep_every`` (when > 0) are kept for good."""
+    divisible by ``keep_every`` (when > 0) are kept for good;
+    ``background=False`` writes each save in the caller's thread."""
 
     def __init__(self, directory: str, *, keep_last: int = 3,
-                 keep_every: int = 0):
+                 keep_every: int = 0, background: bool = True):
         if keep_last < 1:
             raise ValueError(
                 f"keep_last={keep_last} must be >= 1: retention always "
@@ -77,12 +80,15 @@ class CheckpointManager:
         self.keep_every = int(keep_every)
         os.makedirs(directory, exist_ok=True)
         self._manifest = self._read_manifest()
+        self._background = bool(background)
         self._queue: "queue.Queue" = queue.Queue()
         self._error: Optional[Tuple[int, Exception]] = None
         self._closed = False
-        self._worker: Optional[threading.Thread] = threading.Thread(
-            target=self._drain, name="ckpt-manager", daemon=True)
-        self._worker.start()
+        self._worker: Optional[threading.Thread] = None
+        if self._background:
+            self._worker = threading.Thread(target=self._drain,
+                                            name="ckpt-manager", daemon=True)
+            self._worker.start()
 
     # ---- public API -------------------------------------------------------
     def save(self, step: int, tree: Any,
@@ -102,7 +108,10 @@ class CheckpointManager:
         host = host_copy(tree)
         # a deep copy: the trainer keeps appending to the history it passes
         snapshot = copy.deepcopy(extra) if extra else {}
-        self._queue.put((step, host, snapshot))
+        if self._background:
+            self._queue.put((step, host, snapshot))
+        else:
+            self._write(step, host, snapshot)
         # latest() reflects pending saves; the manifest on disk follows
         # when the worker has written the blob
         steps.append(int(step))
@@ -130,7 +139,8 @@ class CheckpointManager:
     def wait(self) -> None:
         """Block until every queued save is on disk; raise a writer
         failure."""
-        self._queue.join()
+        if self._background:
+            self._queue.join()
         self._raise_pending()
 
     def close(self) -> None:

@@ -56,6 +56,7 @@ from repro_torch.core.flat import LANES, FlatSpec, make_flat_spec, zeros_flat
 from repro_torch.core.meta import meta_update
 from repro_torch.core.round import (decayed_lr, dropout_rngs,
                                     resolve_server_lr)
+from repro_torch.core.sanitize import check_flat_groups
 from repro_torch.kernels.fused_update.ops import flat_accumulate
 from repro_torch.models.model import Model
 from repro_torch.sim.faults import resolve_faults
@@ -163,14 +164,17 @@ def _insert(a: State, w_in: np.ndarray, delay: np.ndarray, tick: int,
     return pw, cand_v[keep], cand_d[keep], slot, dest, overflow
 
 
-def make_async_tick(model: Model, fed, *, engine: Optional[str] = None):
+def make_async_tick(model: Model, fed, *, engine: Optional[str] = None,
+                    sanitize: bool = False):
     """Build ``one_tick(state, cohort_batch, meta_batch, client_weights,
     draws=None) -> (state, metrics)``, the synchronous ``one_round``'s
     signature.  ``draws`` (:class:`repro_torch.core.round.RoundDraws`)
     carries the tick's participation mask and fault streams, garble
     included.  ``client_weights`` may lie on the host: the pool's
     bookkeeping reads them there.  ``engine`` overrides ``fed``'s, as in
-    ``make_federated_round``."""
+    ``make_federated_round``; ``sanitize`` probes the deltas the tick
+    writes into the pool (:func:`repro_torch.core.sanitize.
+    check_flat_groups`)."""
     alg = get_algorithm(fed.algorithm)
     client_update = alg.build(model.loss, local_steps=fed.local_steps,
                               local_epochs=fed.local_epochs,
@@ -260,6 +264,14 @@ def make_async_tick(model: Model, fed, *, engine: Optional[str] = None):
                     if m != 1.0:
                         for g in pool:
                             g[p].mul_(m)
+            if sanitize and dest:
+                # the decoded (and possibly garbled) deltas as they enter
+                # the pool: a NaN caught here names the uplink, not a
+                # server step several flushes later
+                check_flat_groups(
+                    spec, [[g[p] for p in dest.values()] for g in pool],
+                    "decoded client deltas before pool insert (async tick)",
+                    round_idx=tick)
         if codec.lossy:
             comm_metrics["comm_bytes"] = np.float32(comm_bytes_per_client(
                 codec, spec)) * np.float32(np.sum(w_in > 0))

@@ -53,6 +53,12 @@ and the server state gains the delta pool, ``state["async"]``.  Its draws
 keep the fault profile's garble, which a synchronous round zeroes
 (:func:`round_faults`).
 
+``sanitize=True`` plants :func:`repro_torch.core.sanitize.
+check_flat_groups` on the post-round server parameters (an async tick:
+on the decoded deltas it writes into its pool); the probes' counts stay
+on the device until :class:`RoundFnCache`'s sanitized call reads them
+back, once, after the call.
+
 ``rounds_per_call=K`` makes the function run K rounds (or async ticks)
 back to back over K-stacked inputs (:func:`stack_round_inputs`: cohort
 batches ``(K, cohort, ...)``, meta batches ``(K, ...)``, weights ``(K,
@@ -82,6 +88,7 @@ from repro_torch.core.executors import resolve_executor
 from repro_torch.core.flat import make_flat_spec
 from repro_torch.core.meta import meta_update, meta_update_through_cohort
 from repro_torch.core.rngtags import PARTICIPATION_FOLD
+from repro_torch.core.sanitize import check_flat_groups, sanitize_round
 from repro_torch.models.model import Model
 from repro_torch.sim.faults import (FaultConfig, FaultStreams,
                                     client_failed_mask, fault_streams,
@@ -222,7 +229,7 @@ def dropout_rngs(model: Model, fed: FedConfig, draws, cohort_batch,
 def make_federated_round(model: Model, fed: FedConfig, *,
                          executor: Optional[str] = None, mesh=None,
                          engine: Optional[str] = None,
-                         rounds_per_call: int = 1):
+                         rounds_per_call: int = 1, sanitize: bool = False):
     eng = resolve_engine(fed, engine=engine)
     if eng.is_async:
         if executor is not None or mesh is not None:
@@ -231,7 +238,8 @@ def make_federated_round(model: Model, fed: FedConfig, *,
                 "buffered_async executor over a vmap or scan base); drop "
                 "executor= and mesh=")
         from repro_torch.core.async_round import make_async_tick
-        return _chunk_rounds(make_async_tick(model, fed, engine=engine),
+        return _chunk_rounds(make_async_tick(model, fed, engine=engine,
+                                             sanitize=sanitize),
                              rounds_per_call)
     alg = get_algorithm(fed.algorithm)
     client_update = alg.build(model.loss, local_steps=fed.local_steps,
@@ -396,6 +404,22 @@ def make_federated_round(model: Model, fed: FedConfig, *,
             new_state["comm"] = new_comm
         return new_state, metrics
 
+    if sanitize:
+        step = one_round
+
+        def one_round(state, *args, **kwargs):
+            new_state, metrics = step(state, *args, **kwargs)
+            # the post-round server params (an all-failed round's
+            # unchanged ones too); a group's leaves stand for its flat
+            # buffer (the zero pad is finite), so nothing is copied
+            spec = make_flat_spec(new_state["params"])
+            check_flat_groups(
+                spec, [[new_state["params"][lf.name] for lf in g.leaves]
+                       for g in spec.groups],
+                "post-round server params (sync round)",
+                round_idx=state["round"])
+            return new_state, metrics
+
     return _chunk_rounds(one_round, rounds_per_call)
 
 
@@ -451,18 +475,18 @@ class RoundFnCache:
     there is none: a K-round call's input state stays alive until the call
     returns (its caller holds it), one parameter set more than a K = 1
     call holds from its second round on.
-    ``sanitize=True`` (NaN/Inf probes on the flat buffers) is ROADMAP
-    Queue 1 item 8 and raises."""
+    ``sanitize=True`` builds each function with the NaN/Inf probes and
+    wraps it in :func:`repro_torch.core.sanitize.sanitize_round`: the
+    call raises :class:`~repro_torch.core.sanitize.SanitizeError` after
+    it returns, naming the flat group and the round."""
 
     def __init__(self, model: Model, fed: FedConfig, *,
                  sanitize: bool = False, **round_kwargs):
-        if sanitize:
-            raise NotImplementedError(
-                "RoundFnCache(sanitize=True): the round sanitizer "
-                "(core/sanitize.py) is not yet ported to repro_torch "
-                "(ROADMAP Queue 1 item 8)")
-        self._make = lambda k: make_federated_round(
-            model, fed, rounds_per_call=k, **round_kwargs)
+        def make(k):
+            fn = make_federated_round(model, fed, rounds_per_call=k,
+                                      sanitize=sanitize, **round_kwargs)
+            return sanitize_round(fn) if sanitize else fn
+        self._make = make
         self._fns: Dict[int, Any] = {}
 
     def __call__(self, k: int):

@@ -1,10 +1,11 @@
 """FederatedTrainer — the driver loop (PyTorch port of
-``repro/core/trainer.py::FederatedTrainer``, with multi-round calls, the
-retry-with-backoff policy and checkpoints, without observability; that is
-ROADMAP Queue 1 item 8).
+``repro/core/trainer.py::FederatedTrainer``: multi-round calls, the
+retry-with-backoff policy, checkpoints, observability and the sanitizer;
+the JAX trainer's ``roofline=True`` is ROADMAP Queue 1 item 8 and raises).
 
     trainer = FederatedTrainer(model, fed, seed=0, device="cuda",
-                               rounds_per_call=4)
+                               rounds_per_call=4, tracker="jsonl",
+                               run_dir="runs/exp0")
     trainer.restore(path)                      # optional resume
     history = trainer.run(data, rounds=10, cohort=4, batch=8)
     trainer.save(path)
@@ -43,7 +44,28 @@ falls due no earlier than the next chunk (at K = 1, the next round).
 
 Under the sharded executor (``mesh=``, :mod:`repro_torch.launch.mesh`)
 every process runs the trainer on its slice of the cohort and holds the
-whole server state; only the mesh's rank 0 logs and writes checkpoints.
+whole server state; only the mesh's rank 0 logs, profiles and writes
+trackers and checkpoints (the others track to ``noop``).
+
+Observability (:mod:`repro_torch.obs`), as in the JAX trainer: every
+record goes to the trainer's :class:`~repro_torch.obs.MetricsTracker`
+(``tracker=``: a registry name, an instance or a comma list; default
+``noop``; ``run(..., tracker=)`` overrides it for one call, and
+``log_every`` composes a ``console`` tracker in).  Each chunk's host
+phases are ``phase`` events: ``sample_stack`` (sampling and the stacked
+copy to the device), ``dispatch`` (the K-round call: host issue time,
+since CUDA work is queued), ``device_sync`` (``torch.cuda.synchronize()``
+on a card: the device's drain tail; next to nothing on the CPU) and
+``checkpoint``, between ``run_start`` and ``run_finish`` events.
+``profile=N`` captures a ``torch.profiler`` trace of rounds
+``[profile_start, profile_start + N)`` into ``run_dir/profile``, with
+dispatch and device_sync also marked as ``repro.phase.<name>`` ranges,
+and ``trace_summary=True`` parses the closed capture into a
+``profile_summary`` event (:mod:`repro_torch.obs.trace_analysis`).
+``sanitize=True`` builds the rounds with NaN/Inf probes
+(:mod:`repro_torch.core.sanitize`), read back once a chunk, after its
+device sync.  None of these changes a round's bits: they read what the
+trainer already holds on the host.
 
 Checkpoints: :meth:`save` writes the whole server state and the run
 history in the JAX package's blob format (``repro_torch.checkpoint``),
@@ -55,6 +77,7 @@ multiple of N rounds, and at run end; 0: at run end only) that
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Callable, Dict, List, Optional
 
@@ -72,9 +95,13 @@ from repro_torch.core.round import (RoundDraws, RoundFnCache,
                                     batch_to_device, draw_round,
                                     init_server_state, round_faults,
                                     stack_round_inputs)
+from repro_torch.core.sanitize import probe_log
 from repro_torch.data.pipeline import FederatedData
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
+from repro_torch.obs.profiler import RoundProfiler
+from repro_torch.obs.trackers import (CompositeTracker, ConsoleTracker,
+                                      resolve_tracker, span)
 from repro_torch.sim.faults import client_failed_mask, resolve_faults
 
 __all__ = ["FederatedTrainer", "batch_to_device"]
@@ -89,7 +116,19 @@ class FederatedTrainer:
                  run_dir: Optional[str] = None,
                  checkpoint_every: Optional[int] = None,
                  keep_last: int = 3, keep_every: int = 0,
-                 executor: Optional[str] = None, mesh=None):
+                 executor: Optional[str] = None, mesh=None,
+                 sanitize: bool = False, tracker=None, profile: int = 0,
+                 profile_start: int = 0, trace_summary: bool = False,
+                 trace_top_k: int = 15, roofline: bool = False):
+        if roofline:
+            raise NotImplementedError(
+                "roofline=True: the live roofline event (roofline/) is "
+                "not yet ported to repro_torch (ROADMAP Queue 1 item 8)")
+        if trace_summary and profile <= 0:
+            raise ValueError(
+                "trace_summary summarizes the profiler's capture and needs "
+                "an open window; pass profile=N (train.py --profile N) "
+                "alongside trace_summary")
         self.model = model
         self.fed = fed
         self.rounds_per_call = max(int(rounds_per_call), 1)
@@ -100,7 +139,9 @@ class FederatedTrainer:
         # the process that logs and writes: every process of a mesh holds
         # the same state
         self.is_main = mesh is None or mesh.rank == 0
-        self._cache = RoundFnCache(model, fed, executor=executor, mesh=mesh)
+        self._sanitize = bool(sanitize)
+        self._cache = RoundFnCache(model, fed, executor=executor, mesh=mesh,
+                                   sanitize=sanitize)
         # the async tick keeps its pool's bookkeeping on the host and reads
         # the weights there: they stay on the host, so no tick waits on
         # the device for them
@@ -120,6 +161,15 @@ class FederatedTrainer:
                                        params=params)
         self.history: List[Dict[str, Any]] = []
         self.run_dir = run_dir
+        # ---- observability: the main process's sinks, noop elsewhere ----
+        self.tracker = resolve_tracker(tracker if self.is_main else None,
+                                       run_dir=run_dir)
+        self.profiler = RoundProfiler(
+            run_dir, start=profile_start,
+            rounds=profile if self.is_main else 0, tracker=self.tracker,
+            device=self.device)
+        self._trace_summary = bool(trace_summary)
+        self._trace_top_k = int(trace_top_k)
         self._ckpt_every = checkpoint_every
         self.manager: Optional[CheckpointManager] = None
         if checkpoint_every is not None:
@@ -183,7 +233,15 @@ class FederatedTrainer:
         return step
 
     def finish(self) -> None:
-        """Drain and close the checkpoint store (idempotent)."""
+        """Close the profiler (a window still open is written and, with
+        ``trace_summary``, summarized), then the tracker, then the
+        checkpoint store (idempotent).  Callers that passed a shared
+        tracker instance may close it themselves instead."""
+        was_active = self.profiler.active
+        self.profiler.close()
+        if was_active:
+            self._emit_trace_summary(self.tracker)
+        self.tracker.finish()
         if self.manager is not None:
             self.manager.close()
 
@@ -221,76 +279,147 @@ class FederatedTrainer:
                                 r + k)
                 self._retry_due.setdefault(due_round, []).append(cid)
 
-    def _dispatch(self, k: int, samples, metas, draws) -> list:
-        """Run the chunk's k rounds as one call; returns their records
-        (metrics only), read back once after the call."""
-        if k == 1:
+    def _stage(self, samples, metas, draws) -> tuple:
+        """The chunk's inputs on the device: the one round's batches for
+        k = 1, else the K-stacked copy (:func:`stack_round_inputs`)."""
+        if len(samples) == 1:
             weights = torch.as_tensor(samples[0]["client_weights"]).to(
                 self._weights_device)
-            self.state, metrics = self._cache(1)(
-                self.state, batch_to_device(samples[0]["cohort_batch"],
-                                            self.device),
-                batch_to_device(metas[0], self.device), weights, draws[0])
-            return [{name: _record_value(v) for name, v in metrics.items()}]
-        staged = stack_round_inputs(
+            return (batch_to_device(samples[0]["cohort_batch"], self.device),
+                    batch_to_device(metas[0], self.device), weights,
+                    draws[0])
+        return stack_round_inputs(
             [s["cohort_batch"] for s in samples], metas,
             [s["client_weights"] for s in samples], draws,
             device=self.device, weights_device=self._weights_device)
-        self.state, metrics = self._cache(k)(self.state, *staged)
+
+    @staticmethod
+    def _records(k: int, metrics) -> list:
+        """The chunk's k records (metrics only), read back once."""
+        if k == 1:
+            return [{name: _record_value(v) for name, v in metrics.items()}]
         host = {name: v.cpu().numpy() for name, v in metrics.items()}
         return [{name: _record_value(a[j]) for name, a in host.items()}
                 for j in range(k)]
+
+    def _phase_annotation(self, name: str):
+        """The trace twin of the ``span()`` event: while the profiler is
+        capturing, a ``repro.phase.<name>`` range, so
+        :mod:`repro_torch.obs.trace_analysis` can credit device time to
+        phases.  A no-op context outside the window."""
+        if self.profiler.active:
+            return torch.profiler.record_function(f"repro.phase.{name}")
+        return contextlib.nullcontext()
+
+    def _emit_trace_summary(self, trk) -> None:
+        if not self._trace_summary:
+            return
+        from repro_torch.obs.trace_analysis import emit_profile_summary
+        emit_profile_summary(trk, self.profiler.trace_dir,
+                             top_k=self._trace_top_k)
 
     def run(self, data: FederatedData, *, rounds: int, cohort: int,
             batch: int, meta_batch: int = 32, share: Optional[bool] = None,
             sample_meta: Optional[Callable] = None,
             on_records: Optional[Callable] = None, log_every: int = 0,
-            log_fn: Callable = print) -> List[Dict[str, float]]:
+            log_fn: Callable = print,
+            tracker=None) -> List[Dict[str, float]]:
         """Train from the current round counter up to ``rounds`` total.
         ``sample_meta(data, round_idx, meta_batch, sample)`` overrides the
         D_meta sampling (default: ``data.sample_meta`` when ``fed.meta``,
         else None); ``on_records(recs, trainer)`` is called after every
-        chunk of ``rounds_per_call`` rounds with its records."""
+        chunk of ``rounds_per_call`` rounds with its records.  Returns
+        this call's records (also appended to ``self.history`` and fed to
+        the tracker).  ``tracker=`` overrides the trainer's sink for this
+        call; ``log_every`` composes a ``console`` tracker in.  The
+        trackers this call builds are finished before it returns."""
         share = self.fed.share if share is None else share
+        owned: List[Any] = []
+        trk = self.tracker
+        if tracker is not None and self.is_main:
+            trk = resolve_tracker(tracker, run_dir=self.run_dir, owned=owned)
+        if log_every and self.is_main:
+            console = ConsoleTracker(every=log_every, log_fn=log_fn)
+            owned.append(console)
+            trk = CompositeTracker([trk, console])
+        try:
+            return self._run_tracked(
+                data, trk, rounds=rounds, cohort=cohort, batch=batch,
+                meta_batch=meta_batch, share=share, sample_meta=sample_meta,
+                on_records=on_records)
+        finally:
+            for t in owned:
+                t.finish()
+
+    def _run_tracked(self, data: FederatedData, trk, *, rounds: int,
+                     cohort: int, batch: int, meta_batch: int, share: bool,
+                     sample_meta: Optional[Callable],
+                     on_records: Optional[Callable]
+                     ) -> List[Dict[str, Any]]:
         f = resolve_faults(self.fed)
         retry_on = (self.fed.retry_backoff > 0 and f.active
                     and (f.crash > 0 or f.drop > 0 or f.deadline > 0))
         run_history: List[Dict[str, Any]] = []
+        trk.log_event("run_start", {
+            "start_round": self.round, "rounds": rounds,
+            "final_round": rounds - 1, "cohort": cohort, "batch": batch,
+            "rounds_per_call": self.rounds_per_call})
         while self.round < rounds:
             r = self.round
             k = min(self.rounds_per_call, rounds - r)
-            due = [self._retry_due.pop(r + j, None) if retry_on else None
-                   for j in range(k)]
-            samples = [data.sample_round(r + j, cohort=cohort, batch=batch,
-                                         share=share, include=due[j])
-                       for j in range(k)]
-            if sample_meta is not None:
-                metas = [sample_meta(data, r + j, meta_batch, samples[j])
-                         for j in range(k)]
-            else:
-                metas = [data.sample_meta(r + j, meta_batch) if self.fed.meta
+            with span(trk, "sample_stack", round=r, k=k):
+                due = [self._retry_due.pop(r + j, None) if retry_on
+                       else None for j in range(k)]
+                samples = [data.sample_round(r + j, cohort=cohort,
+                                             batch=batch, share=share,
+                                             include=due[j])
+                           for j in range(k)]
+                if sample_meta is not None:
+                    metas = [sample_meta(data, r + j, meta_batch,
+                                         samples[j]) for j in range(k)]
+                else:
+                    metas = [data.sample_meta(r + j, meta_batch)
+                             if self.fed.meta else None for j in range(k)]
+                draws = [self.draw_round(r + j, cohort) if self._draws
                          else None for j in range(k)]
-            draws = [self.draw_round(r + j, cohort) if self._draws else None
-                     for j in range(k)]
-            recs = self._dispatch(k, samples, metas, draws)
+                staged = self._stage(samples, metas, draws)
+            self.profiler.maybe_start(r, k)
+            # a sanitized chunk's probes are read once, after its sync
+            with (probe_log() if self._sanitize
+                  else contextlib.nullcontext()):
+                with span(trk, "dispatch", round=r, k=k), \
+                        self._phase_annotation("dispatch"):
+                    # the chunk's k rounds as one call; the metrics stay
+                    # where the round left them until the records
+                    self.state, metrics = self._cache(k)(self.state,
+                                                         *staged)
+                with span(trk, "device_sync", round=r, k=k), \
+                        self._phase_annotation("device_sync"):
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+            was_profiling = self.profiler.active
+            self.profiler.maybe_stop(r + k)
+            if was_profiling and not self.profiler.active:
+                self._emit_trace_summary(trk)
+            recs = self._records(k, metrics)
             if retry_on:
                 self._schedule_retries(samples, draws, recs, due, r, k)
             for j, rec in enumerate(recs):
                 rec["round"] = r + j
                 run_history.append(rec)
                 self.history.append(rec)
-                if log_every and self.is_main and ((r + j) % log_every == 0
-                                                   or r + j == rounds - 1):
-                    log_fn(f"[round {r + j}] " + " ".join(
-                        f"{n}={_fmt(v)}" for n, v in rec.items()
-                        if n != "round"))
+                trk.log_metrics(r + j, rec)
             if on_records is not None:
                 on_records(recs, self)
             if self.manager is not None and self._ckpt_every \
                     and (r + k) // self._ckpt_every > r // self._ckpt_every:
-                self._save_managed(r + k)
+                with span(trk, "checkpoint", round=r + k - 1):
+                    self._save_managed(r + k)
         if self.manager is not None and self._last_managed_step != self.round:
-            self._save_managed(self.round)
+            with span(trk, "checkpoint", round=self.round - 1):
+                self._save_managed(self.round)
+        trk.log_event("run_finish", {"final_round": rounds - 1,
+                                     "rounds_completed": len(run_history)})
         return run_history
 
 
@@ -299,9 +428,3 @@ def _record_value(v):
     a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
         else np.asarray(v)
     return float(a) if a.ndim == 0 else a.astype(float).tolist()
-
-
-def _fmt(v) -> str:
-    if isinstance(v, list):
-        return "[" + ",".join(f"{x:g}" for x in v) + "]"
-    return f"{v:.5g}"

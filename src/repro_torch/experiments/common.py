@@ -12,10 +12,13 @@ engine and 4 rounds a call by default, as the JAX paper tables run;
 ``fused=False, rounds_per_call=1`` is the legacy tree engine's exact
 round-by-round loop — and evaluates on held-out examples after each call
 that reaches a multiple of ``eval_every`` or the last round, so under K
-rounds a call the evaluations land on call boundaries, as in JAX.  Metric
-trackers are ROADMAP Queue 1 item 8 and raise ``NotImplementedError``
-naming it; so do the JAX file's report writers (``bench_tracker``,
-``write_bench_report``, ``peak_memory_bytes``), which are not ported.
+rounds a call the evaluations land on call boundaries, as in JAX.
+``tracker=`` (a :mod:`repro_torch.obs` tracker, name or instance) receives
+each method's records and the trainer's events, and ``run_methods``
+brackets each method with ``method_start`` / ``method_finish`` events.
+The JAX file's report writers (``bench_tracker``, ``write_bench_report``,
+``peak_memory_bytes``) write ``BENCH_*.json`` files and wait for the
+port's own benchmark (ROADMAP).
 """
 from __future__ import annotations
 
@@ -84,11 +87,9 @@ def train_method(model, data: FederatedData, method: str, *, rounds: int,
     engine, else ``legacy_tree``; ``rounds_per_call``: the trainer's K, the
     evaluations on call boundaries.  ``cohort_strategy``: the vmap or scan
     cohort; ``on_records(recs, trainer)``: called after every call, after
-    its evaluation."""
-    if tracker is not None:
-        raise NotImplementedError(
-            "train_method(tracker=...): metric trackers are not yet ported "
-            "to repro_torch (ROADMAP Queue 1 item 8)")
+    its evaluation.  ``tracker``: the run's sink, as the JAX function's
+    (an instance stays open for the caller; a name is built, with no run
+    directory, and finished here)."""
     kw = METHODS[method]
     if uga_server_lr is None:
         uga_server_lr = 2 * local_steps * lr
@@ -121,7 +122,8 @@ def train_method(model, data: FederatedData, method: str, *, rounds: int,
 
     trainer.run(data, rounds=rounds, cohort=cohort, batch=batch,
                 meta_batch=meta_batch, share=kw["share"],
-                sample_meta=sample_meta, on_records=evaluate_some)
+                sample_meta=sample_meta, on_records=evaluate_some,
+                tracker=tracker)
     trainer.finish()
     return history
 
@@ -137,15 +139,23 @@ def rounds_to_accuracy(history: Sequence[Dict], target: float
 
 def run_methods(model, data, *, methods: Sequence[str], rounds: int,
                 cohort: int, batch: int, local_steps: int, lr: float,
-                eval_idx: np.ndarray, seed: int = 0, **kw
+                eval_idx: np.ndarray, seed: int = 0, tracker=None, **kw
                 ) -> Dict[str, List[Dict]]:
     """:func:`train_method` for each method in turn; ``out[m]`` its history,
-    ``out[m + "__wall_s"]`` its wall seconds."""
+    ``out[m + "__wall_s"]`` its wall seconds.  A ``tracker`` instance gets
+    every method's records between its ``method_start`` and
+    ``method_finish`` events."""
     out = {}
     for m in methods:
+        if tracker is not None:
+            tracker.log_event("method_start", {"method": m, "rounds": rounds})
         t0 = time.time()
         out[m] = train_method(model, data, m, rounds=rounds, cohort=cohort,
                               batch=batch, local_steps=local_steps, lr=lr,
-                              eval_idx=eval_idx, seed=seed, **kw)
+                              eval_idx=eval_idx, seed=seed, tracker=tracker,
+                              **kw)
         out[m + "__wall_s"] = time.time() - t0
+        if tracker is not None:
+            tracker.log_event("method_finish",
+                              {"method": m, "wall_s": out[m + "__wall_s"]})
     return out

@@ -19,6 +19,8 @@ cpu`` runs the kernels' plain versions on the CPU).
        [--async-max-staleness S] [--staleness-mode none|inv|invsqrt]] \\
       [--ckpt PATH] [--resume PATH|auto] [--run-dir DIR \\
        [--ckpt-every N] [--keep-last N] [--keep-every N]] \\
+      [--tracker jsonl,csv,console] [--profile N [--profile-start R] \\
+       [--trace-summary [--trace-top-k N]]] [--sanitize] \\
       [--plugin MODULE ...]
 
 Without ``--fused`` the server step is the ``legacy_tree`` engine (the
@@ -46,10 +48,21 @@ every K arrived deltas; ``--fault-garble`` reaches it.  ``--ckpt`` saves
 the server state at the end, ``--resume`` restores one (``auto``: the
 newest blob of ``--run-dir``'s managed store, which ``--run-dir`` keeps
 under ``DIR/checkpoints``); the blobs are the JAX package's format.
+
+Observability (``repro_torch.obs``): ``--tracker`` writes the round
+records and the trainer's events (``metrics.jsonl``, ``metrics.csv``,
+...) under ``--run-dir``; ``--profile N`` captures a ``torch.profiler``
+trace of N rounds from ``--profile-start`` into ``<run-dir>/profile``,
+and ``--trace-summary`` parses it into a ``profile_summary`` event;
+``python -m repro_torch.obs report <run-dir>`` summarizes a run.
+``--sanitize`` probes the flat buffers for NaN/Inf each round and trains
+under autograd's anomaly mode (``repro_torch.core.sanitize``).
+``--roofline`` is ROADMAP Queue 1 item 8 and raises.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import os
@@ -121,6 +134,9 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                  ckpt_path: Optional[str] = None,
                  resume: Optional[str] = None, run_dir: Optional[str] = None,
                  ckpt_every: int = 0, keep_last: int = 3, keep_every: int = 0,
+                 sanitize: bool = False, tracker=None, profile: int = 0,
+                 profile_start: int = 0, trace_summary: bool = False,
+                 trace_top_k: int = 15, roofline: bool = False,
                  device=None, params=None,
                  on_records: Optional[Callable] = None):
     """Assemble (model, FedConfig, FederatedData) and train.  ``params``
@@ -135,7 +151,14 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
     ``executor='sharded'`` builds a (data, model) mesh over every process
     of the job (:func:`repro_torch.launch.mesh.make_auto_mesh`).
     ``fused=False`` with no ``engine`` runs ``legacy_tree``;
-    ``rounds_per_call`` is the trainer's K.  Returns (state, history)."""
+    ``rounds_per_call`` is the trainer's K.  ``sanitize``, ``tracker``,
+    ``profile``, ``profile_start`` and ``trace_summary`` are the JAX
+    launcher's observability knobs (the trainer's, writing under
+    ``run_dir``; ``trace_top_k``: the summary's table length);
+    ``roofline`` is ROADMAP Queue 1 item 8 and raises.  (The CLI's
+    ``--sanitize`` also runs this under ``torch.autograd.detect_anomaly``;
+    ``sanitize`` here plants the probes only: see
+    :mod:`repro_torch.core.sanitize`.)  Returns (state, history)."""
     if mesh_model != 1:
         raise NotImplementedError(
             f"--mesh-model {mesh_model}: tensor-parallel client compute "
@@ -143,6 +166,11 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
             "set_expert_axis, constrain_groups, with_pspecs) is not yet "
             "ported to repro_torch (ROADMAP Queue 1 item 7b); use "
             "--mesh-model 1")
+    if roofline:
+        raise NotImplementedError(
+            "--roofline: the live roofline event (roofline/, the cost "
+            "model over a traced round) is not yet ported to repro_torch "
+            "(ROADMAP Queue 1 item 8)")
     dev = resolve_device(device)
     strict_fp32()
     cfg = get_arch(arch)
@@ -184,7 +212,10 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
         params=params, run_dir=run_dir,
         checkpoint_every=ckpt_every if run_dir is not None else None,
         keep_last=keep_last, keep_every=keep_every,
-        executor=None if mesh is not None else executor, mesh=mesh)
+        executor=None if mesh is not None else executor, mesh=mesh,
+        sanitize=sanitize, tracker=tracker, profile=profile,
+        profile_start=profile_start, trace_summary=trace_summary,
+        trace_top_k=trace_top_k)
     if resume == "auto":
         if run_dir is None:
             raise ValueError(
@@ -353,8 +384,46 @@ def main(argv=None):
                          "or 'auto': the newest blob in --run-dir's "
                          "managed store")
     ap.add_argument("--run-dir", default=None,
-                    help="run directory of the managed checkpoint store "
-                         "(<run-dir>/checkpoints)")
+                    help="run directory for tracker files, profiler "
+                         "traces, and the managed checkpoint store")
+    from repro_torch.obs import available_trackers
+
+    def tracker_spec(value: str) -> str:
+        # a comma list of registered names (--plugin's included)
+        bad = [n for n in (p.strip() for p in value.split(","))
+               if n and n not in available_trackers()]
+        if bad:
+            raise argparse.ArgumentTypeError(
+                f"unknown metrics tracker(s) {bad}; choose from "
+                f"{', '.join(available_trackers())}")
+        return value
+
+    ap.add_argument("--tracker", default=None, type=tracker_spec,
+                    help="metrics-tracker registry name or comma list "
+                         f"(repro_torch.obs): "
+                         f"{', '.join(available_trackers())}; file "
+                         "trackers write under --run-dir (default: noop)")
+    ap.add_argument("--profile", type=int, default=0,
+                    help="capture a torch.profiler trace for N rounds into "
+                         "<run-dir>/profile (0: off)")
+    ap.add_argument("--profile-start", type=int, default=0,
+                    help="first round of the --profile capture window")
+    ap.add_argument("--trace-summary", action="store_true",
+                    help="when the --profile window closes, parse the "
+                         "trace into a profile_summary tracker event "
+                         "(top ops by self time, busy/gap, per-phase "
+                         "attribution); needs --profile N")
+    ap.add_argument("--trace-top-k", type=int, default=15,
+                    help="rows of the profile_summary's top-ops table "
+                         "(the trainer's trace_top_k)")
+    ap.add_argument("--roofline", action="store_true",
+                    help="the JAX launcher's roofline tracker event; not "
+                         "ported (ROADMAP Queue 1 item 8), raises")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="debug mode: torch.autograd.detect_anomaly("
+                         "check_nan=True) + NaN/Inf probes on the flat "
+                         "buffers of every round, read back once a call "
+                         "(repro_torch.core.sanitize)")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="managed-store save period in rounds (needs "
                          "--run-dir; 0: one save at run end)")
@@ -373,34 +442,47 @@ def main(argv=None):
                          "kernels' plain versions)")
     ap.add_argument("--history-out", default=None)
     args = ap.parse_args(argv)
-    _, history = run_training(
-        args.arch, rounds=args.rounds, cohort=args.cohort,
-        client_batch=args.client_batch, seq=args.seq,
-        algorithm=args.algorithm, meta=args.meta, share=args.share,
-        local_steps=args.local_steps, local_epochs=args.local_epochs,
-        client_lr=args.client_lr, server_lr=args.server_lr,
-        meta_lr=args.meta_lr, server_opt=args.server_opt,
-        num_clients=args.num_clients, examples=args.examples, iid=args.iid,
-        seed=args.seed, log_every=args.log_every, strategy=args.strategy,
-        cohort_chunk=args.cohort_chunk, executor=args.executor,
-        mesh_model=args.mesh_model, fused=args.fused,
-        rounds_per_call=args.rounds_per_call, meta_mode=args.meta_mode,
-        ctrl_lr=args.ctrl_lr,
-        codec=args.codec, error_feedback=args.error_feedback,
-        topk_ratio=args.topk_ratio, participation=args.participation,
-        fault_profile=args.fault_profile, fault_drop=args.fault_drop,
-        fault_crash=args.fault_crash, fault_delay=args.fault_delay,
-        fault_max_delay=args.fault_max_delay, fault_garble=args.fault_garble,
-        fault_garble_scale=args.fault_garble_scale,
-        fault_speed_tail=args.fault_speed_tail,
-        round_deadline=args.round_deadline,
-        retry_backoff=args.retry_backoff, engine=args.engine,
-        async_buffer=args.async_buffer, async_capacity=args.async_capacity,
-        async_max_staleness=args.async_max_staleness,
-        staleness_mode=args.staleness_mode, ckpt_path=args.ckpt,
-        resume=args.resume, run_dir=args.run_dir, ckpt_every=args.ckpt_every,
-        keep_last=args.keep_last, keep_every=args.keep_every,
-        device=args.device)
+    # --sanitize's counterpart of jax_debug_nans: autograd's anomaly mode
+    # names the backward function that first returns a NaN
+    with (torch.autograd.detect_anomaly(check_nan=True) if args.sanitize
+          else contextlib.nullcontext()):
+        _, history = run_training(
+            args.arch, rounds=args.rounds, cohort=args.cohort,
+            client_batch=args.client_batch, seq=args.seq,
+            algorithm=args.algorithm, meta=args.meta, share=args.share,
+            local_steps=args.local_steps, local_epochs=args.local_epochs,
+            client_lr=args.client_lr, server_lr=args.server_lr,
+            meta_lr=args.meta_lr, server_opt=args.server_opt,
+            num_clients=args.num_clients, examples=args.examples,
+            iid=args.iid, seed=args.seed, log_every=args.log_every,
+            strategy=args.strategy,
+            cohort_chunk=args.cohort_chunk, executor=args.executor,
+            mesh_model=args.mesh_model, fused=args.fused,
+            rounds_per_call=args.rounds_per_call, meta_mode=args.meta_mode,
+            ctrl_lr=args.ctrl_lr,
+            codec=args.codec, error_feedback=args.error_feedback,
+            topk_ratio=args.topk_ratio, participation=args.participation,
+            fault_profile=args.fault_profile, fault_drop=args.fault_drop,
+            fault_crash=args.fault_crash, fault_delay=args.fault_delay,
+            fault_max_delay=args.fault_max_delay,
+            fault_garble=args.fault_garble,
+            fault_garble_scale=args.fault_garble_scale,
+            fault_speed_tail=args.fault_speed_tail,
+            round_deadline=args.round_deadline,
+            retry_backoff=args.retry_backoff, engine=args.engine,
+            async_buffer=args.async_buffer,
+            async_capacity=args.async_capacity,
+            async_max_staleness=args.async_max_staleness,
+            staleness_mode=args.staleness_mode, ckpt_path=args.ckpt,
+            resume=args.resume, run_dir=args.run_dir,
+            ckpt_every=args.ckpt_every,
+            keep_last=args.keep_last, keep_every=args.keep_every,
+            sanitize=args.sanitize, tracker=args.tracker,
+            profile=args.profile,
+            profile_start=args.profile_start,
+            trace_summary=args.trace_summary,
+            trace_top_k=args.trace_top_k, roofline=args.roofline,
+            device=args.device)
     main_rank = (not torch.distributed.is_initialized()
                  or torch.distributed.get_rank() == 0)
     if args.history_out and main_rank:
@@ -408,6 +490,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.history_out, "w") as f:
             json.dump(history, f, indent=1)
+
 
 
 if __name__ == "__main__":

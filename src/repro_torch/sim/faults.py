@@ -152,8 +152,12 @@ def fault_streams(seed: int, round_idx: int, cohort: int, fc: FaultConfig
     late = rng.integers(1, max(fc.max_delay, 1) + 1, cohort)
     delay = np.where(delayed, late, 0).astype(np.int32)
     garbled = (rng.random(cohort) < fc.garble) & alive_b
-    scale = rng.uniform(-fc.garble_scale, fc.garble_scale,
-                        cohort).astype(np.float32)
+    # U(-s, s) as Generator.uniform computes it (low + range * a double),
+    # written out so an infinite scale gives NaN multipliers, as
+    # jax.random.uniform's does, where uniform refuses the range
+    lo, hi = np.float64(-fc.garble_scale), np.float64(fc.garble_scale)
+    with np.errstate(invalid="ignore"):
+        scale = (lo + (hi - lo) * rng.random(cohort)).astype(np.float32)
     garble_mult = np.where(garbled, scale, np.float32(1.0))
     compute = np.exp(np.float32(fc.speed_tail)
                      * rng.standard_normal(cohort, dtype=np.float32))

@@ -255,11 +255,19 @@ def test_train_method_matches_benchmarks_train_method(method):
             METRIC_TOL * abs(b["client_loss"])
 
 
-def test_train_method_refuses_what_is_not_ported():
-    """Unported arms name their ROADMAP item (trackers, item 8); the
-    legacy engine and multi-round calls, once refused, run as JAX's
-    ``train_method`` runs them; without a card, the entry points raise
-    unless given the CPU."""
+def test_train_method_refuses_what_is_not_ported(tmp_path):
+    """The arms once refused run as JAX's ``train_method`` runs them: the
+    legacy engine, multi-round calls, and trackers (a tracker name with
+    no run directory raises as JAX's does; an instance through
+    ``run_methods`` receives each method's records and events between its
+    ``method_start`` and ``method_finish``); without a card, the entry
+    points raise unless given the CPU."""
+    import json
+
+    from benchmarks.common import METHODS as JAX_METHODS
+    from repro.obs import resolve_tracker as jax_resolve_tracker
+    from repro_torch.experiments.common import run_methods
+    from repro_torch.obs import resolve_tracker
     cfg = PM.SHAKESPEARE_GRU_SMOKE
     common = dict(rounds=1, cohort=COHORT, batch=BATCH, local_steps=4,
                   lr=0.5, eval_idx=np.arange(4), device="cpu")
@@ -269,8 +277,28 @@ def test_train_method_refuses_what_is_not_ported():
     for kw in (dict(fused=False), dict(rounds_per_call=4)):
         (h,) = train_method(model, data, "uga", **common, **kw)
         assert h["round"] == 0 and np.isfinite(h["loss"]), (kw, h)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="needs a run directory"):
         train_method(model, data, "uga", **common, tracker="jsonl")
+    with pytest.raises(ValueError, match="needs a run directory"):
+        jax_resolve_tracker("jsonl")      # where JAX's trainer refuses it
+    assert list(JAX_METHODS) == list(METHODS)
+    trk = resolve_tracker("jsonl", run_dir=str(tmp_path))
+    out = run_methods(model, data, methods=["uga", "fedavg"], tracker=trk,
+                      **{**common, "rounds": 2})
+    trk.finish()
+    with open(tmp_path / "metrics.jsonl") as f:
+        lines = [json.loads(ln) for ln in f]
+    seq = [ln.get("event", "metrics") for ln in lines
+           if ln.get("phase") is None]
+    one = ["method_start", "run_start", "metrics", "metrics", "run_finish",
+           "method_finish"]
+    assert seq == one + one, seq
+    starts = [ln for ln in lines if ln.get("event") == "method_start"]
+    assert [e["method"] for e in starts] == ["uga", "fedavg"]
+    assert all(e["rounds"] == 2 for e in starts)
+    assert {ln["phase"] for ln in lines if "phase" in ln} == {
+        "sample_stack", "dispatch", "device_sync"}
+    assert [h["round"] for h in out["uga"]] == [1]
     if not torch.cuda.is_available():
         # the entry points run on the card unless asked for the CPU
         from repro_torch.experiments import paper

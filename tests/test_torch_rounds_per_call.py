@@ -194,13 +194,17 @@ def test_managed_checkpoints_on_chunk_boundaries(tmp_path):
 def test_round_fn_cache_and_stacked_inputs():
     """``RoundFnCache`` builds one function per K; ``stack_round_inputs``
     stacks K samples on a leading axis (integers as int64) and keeps the
-    draws a list; a K-round function returns metrics with a leading K."""
+    draws a list; a K-round function returns metrics with a leading K.
+    ``sanitize=True`` builds probed rounds, as JAX's builds checkified
+    ones: bitwise the plain call on clean inputs, and a ``SanitizeError``
+    naming the flat group and the round on non-finite parameters."""
+    from repro_torch.core.sanitize import SanitizeError
     model = _torch_mlp()
     fed = FedConfig(**BASE)
     cache = RoundFnCache(model, fed)
     assert cache(1) is cache(1) and cache(3) is cache(3)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RoundFnCache(model, fed, sanitize=True)
+    probed = RoundFnCache(model, fed, sanitize=True)
+    assert probed(3) is probed(3) and probed(3) is not cache(3)
     with pytest.raises(ValueError, match="rounds_per_call"):
         make_federated_round(model, fed, rounds_per_call=0)
     data = FederatedData(**_arrays())
@@ -219,6 +223,16 @@ def test_round_fn_cache_and_stacked_inputs():
     state, m = cache(3)(state, cb, mb, w, draws)
     assert state["round"] == 3
     assert all(v.shape[0] == 3 for v in m.values()), m
+    ps, pm = probed(3)(init_server_state(model, fed, params=_params0()[1]),
+                       cb, mb, w, draws)
+    assert all(_bitwise(a, b) for a, b in zip(_leaves(ps).values(),
+                                              _leaves(state).values()))
+    assert all(torch.equal(pm[k], m[k]) for k in m)
+    bad = {k: v.clone() for k, v in _params0()[1].items()}
+    bad["w2"][0, 0] = float("nan")
+    with pytest.raises(SanitizeError, match="flat group 0 .* round 0"):
+        probed(3)(init_server_state(model, fed, params=bad), cb, mb, w,
+                  draws)
 
 
 def _jax_with_acc(m):

@@ -2,7 +2,8 @@
 """The legacy tree engine and multi-round calls on one NVIDIA GPU: the
 fused-update kernels built and checked at smollm-360m's full-width flat
 shape, then ``chip_smoke.py``'s phases 6g (legacy_tree against fused_flat
-at full width, the server step alone timed), 6r (K-round calls against
+at full width — the fused vmap/sgd run is phase 6's post vmap/sgd run,
+run here first — the server step alone timed), 6r (K-round calls against
 K = 1, bitwise) and its phase-7 check of the legacy engine, K = 2, the
 ``--plugin`` launcher and ``train_method``'s defaults at smoke size, card
 against CPU; then the sync pair of 6r again in turns (K = 1, K = 4,
@@ -43,7 +44,7 @@ def main() -> int:
     CK.LIB.build(True)
     cs.check_kernels(K, R, O, dev, [cs.FULL_ROWS])
     counts_of = cs.Counts(K, CK, FK, SK)
-    cs.legacy_path(counts_of, dev)
+    cs.legacy_path(counts_of, dev, cs.post_vmap_reference(counts_of, dev))
     cs.rounds_per_call_path(counts_of, dev)
     cs.small_reference_legacy_rpc(counts_of, dev)
     per_round = {1: [], 4: []}
