@@ -8,7 +8,11 @@ layers, the SSM family (mamba2-780m) and the hybrid
 (jamba-1.5-large-398b), and the encoder / cross-attention families
 (whisper-large-v3, llama-3.2-vision-90b), whose loss takes
 ``enc_embeds`` and ``mask`` batches as JAX's does (no data pipeline of
-either package makes such batches)."""
+either package makes such batches).
+
+``SHAPES`` (the JAX package's four input shapes), ``SKIPS`` and
+:func:`matrix` are the dry run's (architecture, shape) pairs
+(:mod:`repro_torch.launch.dryrun`), a copy of the JAX package's data."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_v2_lite_16b, jamba_1_5_large_398b,
@@ -16,7 +20,8 @@ from repro_torch.configs import (deepseek_v2_lite_16b, jamba_1_5_large_398b,
                                  mamba2_780m, minicpm_2b, phi3_medium_14b,
                                  phi3_mini_3_8b, smollm_360m,
                                  whisper_large_v3)
-from repro_torch.configs.base import ArchConfig, FedConfig
+from repro_torch.configs.base import (SHAPES, ArchConfig, FedConfig,
+                                      ShapeConfig)
 
 _MODULES = {
     "smollm-360m": smollm_360m,
@@ -32,6 +37,14 @@ _MODULES = {
 }
 
 ARCHS = tuple(_MODULES.keys())
+
+
+# (arch, shape) pairs the dry run leaves out, with the JAX package's reason
+SKIPS = {
+    ("whisper-large-v3", "long_500k"):
+        "encoder-decoder audio model: 500k-token transcript decode is not "
+        "meaningful and the decoder is full-attention by construction",
+}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -50,4 +63,17 @@ def get_smoke(name: str) -> ArchConfig:
     return _MODULES[name].SMOKE
 
 
-__all__ = ["ArchConfig", "FedConfig", "ARCHS", "get_arch", "get_smoke"]
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise ValueError(f"unknown shape {name!r}; one of {tuple(SHAPES)}")
+    return SHAPES[name]
+
+
+def matrix():
+    """All (arch, shape) pairs the dry run covers: ARCHS x SHAPES less
+    SKIPS."""
+    return [(a, s) for a in ARCHS for s in SHAPES if (a, s) not in SKIPS]
+
+
+__all__ = ["ArchConfig", "FedConfig", "ShapeConfig", "SHAPES", "ARCHS",
+           "SKIPS", "get_arch", "get_smoke", "get_shape", "matrix"]

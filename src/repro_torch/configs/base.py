@@ -170,6 +170,25 @@ class ArchConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes: the JAX package's four, the dry run's matrix
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # Federated configuration (the paper's knobs)
 # ---------------------------------------------------------------------------
 SERVER_OPTS = ("sgd", "sgdm", "adam", "yogi")

@@ -1,7 +1,7 @@
 """FederatedTrainer — the driver loop (PyTorch port of
 ``repro/core/trainer.py::FederatedTrainer``: multi-round calls, the
-retry-with-backoff policy, checkpoints, observability and the sanitizer;
-the JAX trainer's ``roofline=True`` is ROADMAP Queue 1 item 8 and raises).
+retry-with-backoff policy, checkpoints, observability, the sanitizer and
+the live roofline event).
 
     trainer = FederatedTrainer(model, fed, seed=0, device="cuda",
                                rounds_per_call=4, tracker="jsonl",
@@ -64,7 +64,17 @@ and ``trace_summary=True`` parses the closed capture into a
 ``profile_summary`` event (:mod:`repro_torch.obs.trace_analysis`).
 ``sanitize=True`` builds the rounds with NaN/Inf probes
 (:mod:`repro_torch.core.sanitize`), read back once a chunk, after its
-device sync.  None of these changes a round's bits: they read what the
+device sync.  ``roofline=True`` traces each distinct K-round function
+once on fake stand-ins of the staged inputs (:mod:`repro_torch.
+roofline.live`), before its
+first dispatch and outside the profiler window and the phase spans, and
+emits at run end one ``roofline`` event per K with the measured rounds/s
+of the dispatch + device-sync spans beside the prediction.  It is refused
+where the round reads a device value on the host, which a trace cannot
+follow: under participation < 1 or an active fault config (the
+all-failed check's ``bool(sum(weights) > 0)``) and on the buffered-async
+engine (the tick reads its weights into numpy).  A sanitized round
+emits no event.  None of these changes a round's bits: they read what the
 trainer already holds on the host.
 
 Checkpoints: :meth:`save` writes the whole server state and the run
@@ -79,6 +89,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -120,10 +131,16 @@ class FederatedTrainer:
                  sanitize: bool = False, tracker=None, profile: int = 0,
                  profile_start: int = 0, trace_summary: bool = False,
                  trace_top_k: int = 15, roofline: bool = False):
-        if roofline:
-            raise NotImplementedError(
-                "roofline=True: the live roofline event (roofline/) is "
-                "not yet ported to repro_torch (ROADMAP Queue 1 item 8)")
+        if roofline and (fed.participation < 1.0
+                         or round_faults(fed).active
+                         or resolve_engine(fed).is_async):
+            raise ValueError(
+                "roofline=True traces the round on fake tensors, and this "
+                "round reads a device value on the host: under "
+                "participation < 1 or an active fault config the all-failed "
+                "check (core/round.py: bool(sum(weights) > 0)), on the "
+                "buffered-async engine the tick's weights (core/"
+                "async_round.py: .numpy()); drop roofline or those options")
         if trace_summary and profile <= 0:
             raise ValueError(
                 "trace_summary summarizes the profiler's capture and needs "
@@ -170,6 +187,11 @@ class FederatedTrainer:
             device=self.device)
         self._trace_summary = bool(trace_summary)
         self._trace_top_k = int(trace_top_k)
+        self._roofline = bool(roofline) and self.is_main
+        self._roofline_events: Dict[int, Optional[dict]] = {}
+        # the traces' whole summaries (kernel launches, bytes read and
+        # written), keyed by K, for callers that check more than the event
+        self.roofline_summaries: Dict[int, dict] = {}
         self._ckpt_every = checkpoint_every
         self.manager: Optional[CheckpointManager] = None
         if checkpoint_every is not None:
@@ -318,6 +340,40 @@ class FederatedTrainer:
         emit_profile_summary(trk, self.profiler.trace_dir,
                              top_k=self._trace_top_k)
 
+    def _prepare_roofline(self, k: int, staged) -> None:
+        """Trace the K-round function on fake stand-ins of the state and
+        the staged inputs and keep its event payload.  Runs once per
+        distinct k, before that function's first dispatch, outside the
+        profiler window and the phase spans."""
+        from repro_torch.roofline.live import (roofline_event,
+                                               round_cost_summary)
+        fn = self._cache(k)
+        if getattr(fn, "sanitized", False):
+            # the probes' counts are read on the host: no trace, no event
+            self._roofline_events[k] = None
+            return
+        t0 = time.perf_counter()
+        s = round_cost_summary(fn, (self.state, *staged), device=self.device)
+        self.roofline_summaries[k] = s
+        self._roofline_events[k] = roofline_event(
+            s, rounds_per_call=k, analysis_s=time.perf_counter() - t0)
+
+    def _emit_roofline(self, trk, loop_s: float, rounds_measured: int
+                       ) -> None:
+        """One ``roofline`` event per traced K, with this run's measured
+        dispatch + device-sync throughput beside the prediction."""
+        for k in sorted(self._roofline_events):
+            ev = self._roofline_events[k]
+            if ev is None:
+                continue
+            payload = dict(ev)
+            payload["rounds_measured"] = rounds_measured
+            payload["measured_s_per_round"] = \
+                (loop_s / rounds_measured) if rounds_measured else 0.0
+            payload["measured_rounds_per_s"] = \
+                (rounds_measured / loop_s) if loop_s > 0 else 0.0
+            trk.log_event("roofline", payload)
+
     def run(self, data: FederatedData, *, rounds: int, cohort: int,
             batch: int, meta_batch: int = 32, share: Optional[bool] = None,
             sample_meta: Optional[Callable] = None,
@@ -360,6 +416,7 @@ class FederatedTrainer:
         retry_on = (self.fed.retry_backoff > 0 and f.active
                     and (f.crash > 0 or f.drop > 0 or f.deadline > 0))
         run_history: List[Dict[str, Any]] = []
+        loop_s, rounds_measured = 0.0, 0
         trk.log_event("run_start", {
             "start_round": self.round, "rounds": rounds,
             "final_round": rounds - 1, "cohort": cohort, "batch": batch,
@@ -383,20 +440,24 @@ class FederatedTrainer:
                 draws = [self.draw_round(r + j, cohort) if self._draws
                          else None for j in range(k)]
                 staged = self._stage(samples, metas, draws)
+            if self._roofline and k not in self._roofline_events:
+                self._prepare_roofline(k, staged)
             self.profiler.maybe_start(r, k)
             # a sanitized chunk's probes are read once, after its sync
             with (probe_log() if self._sanitize
                   else contextlib.nullcontext()):
-                with span(trk, "dispatch", round=r, k=k), \
+                with span(trk, "dispatch", round=r, k=k) as sp_d, \
                         self._phase_annotation("dispatch"):
                     # the chunk's k rounds as one call; the metrics stay
                     # where the round left them until the records
                     self.state, metrics = self._cache(k)(self.state,
                                                          *staged)
-                with span(trk, "device_sync", round=r, k=k), \
+                with span(trk, "device_sync", round=r, k=k) as sp_s, \
                         self._phase_annotation("device_sync"):
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
+            loop_s += sp_d["dur_s"] + sp_s["dur_s"]
+            rounds_measured += k
             was_profiling = self.profiler.active
             self.profiler.maybe_stop(r + k)
             if was_profiling and not self.profiler.active:
@@ -418,6 +479,8 @@ class FederatedTrainer:
         if self.manager is not None and self._last_managed_step != self.round:
             with span(trk, "checkpoint", round=self.round - 1):
                 self._save_managed(self.round)
+        if self._roofline:
+            self._emit_roofline(trk, loop_s, rounds_measured)
         trk.log_event("run_finish", {"final_round": rounds - 1,
                                      "rounds_completed": len(run_history)})
         return run_history

@@ -12,6 +12,12 @@ changed source never loads a stale library.  The library is loaded with
 ``argtypes`` and ``restype``.  Nothing is built when a module is imported:
 only a launch on a CUDA tensor (or an explicit :meth:`CudaLibrary.build`)
 calls ``nvcc``.
+
+Each kernel also declares its cost as a function of its shapes
+(:class:`KernelCost`: the counts its bound is computed from).  Under the
+cost counter of :mod:`repro_torch.roofline.cost` a wrapper given fake
+tensors charges that cost (:func:`charge`) instead of launching; see
+:func:`traced`.
 """
 from __future__ import annotations
 
@@ -20,9 +26,10 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 LANES = 128           # last axis of every flat buffer (repro_torch.core.flat)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -77,6 +84,39 @@ class CudaLibrary:
                 self._bind(lib)
                 self._lib = lib
             return self._lib
+
+
+class KernelCost(NamedTuple):
+    """One launch's work: fp32 operations, tensor-core operations (3xTF32:
+    three TF32 products for each fp32 product), bytes read, bytes
+    written."""
+    flops: float
+    tc_flops: float
+    bytes_read: float
+    bytes_written: float
+
+
+# the cost counters open now, innermost last (repro_torch.roofline.cost)
+COST_COUNTERS: List = []
+
+
+def traced(*ts: Optional[torch.Tensor]) -> bool:
+    """Whether this call is traced by a cost counter that charges the
+    kernels' declared costs.  False for real tensors, and for fake ones
+    under a counter that traces the plain versions; raises for a fake
+    tensor with no counter open (nothing could launch on it)."""
+    if not any(t is not None and is_fake(t) for t in ts):
+        return False
+    if not COST_COUNTERS:
+        raise RuntimeError(
+            "a fake tensor reached a kernel wrapper with no cost counter "
+            "open: trace the call with repro_torch.roofline.trace_cost")
+    return COST_COUNTERS[-1].charge_kernels
+
+
+def charge(fn, cost: KernelCost) -> None:
+    """Charge one launch of kernel ``fn`` to the open counter."""
+    COST_COUNTERS[-1].charge(fn.__name__, cost)
 
 
 def check_buf(name: str, t: torch.Tensor, shape: Tuple[int, ...],

@@ -32,7 +32,10 @@ is 1.447 GB, an int8 payload 0.362 GB, the sign bits 0.045 GB; H100 SXM,
     0.446 ms (0.878 ms);
   * ``sign_unpack_fma_pass``: reads 1.492 GB, writes 1.447 GB: 0.878 ms.
 
-``PERF.md`` holds their measured times.
+``PERF.md`` holds their measured times.  Each declares that work
+(``*_cost``, no operation counted), which a wrapper given fake tensors
+charges under the cost counter (:func:`repro_torch.kernels._cuda.traced`)
+instead of launching.
 """
 from __future__ import annotations
 
@@ -42,9 +45,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._cuda import (LANES, CudaLibrary, check_buf,
-                                      check_flat, check_scalar, device_of,
-                                      ptr, raise_on, stream)
+from repro_torch.kernels._cuda import (LANES, CudaLibrary, KernelCost,
+                                      charge, check_buf, check_flat,
+                                      check_scalar, device_of, ptr,
+                                      raise_on, stream, traced)
 from repro_torch.kernels.comm import ref as R
 from repro_torch.kernels.comm.ref import SIGN_PACK
 
@@ -65,6 +69,26 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 LIB = CudaLibrary("comm", SOURCE, _bind)
 build = LIB.build
+
+
+def quantize_i8_cost(rows: int, with_error: bool) -> KernelCost:
+    buf = rows * LANES * 4.0
+    return KernelCost(0.0, 0.0, buf, buf / 4 + (buf if with_error else 0))
+
+
+def dequant_i8_fma_cost(rows: int) -> KernelCost:
+    buf = rows * LANES * 4.0
+    return KernelCost(0.0, 0.0, buf + buf / 4, buf)
+
+
+def sign_pack_cost(rows: int, with_error: bool) -> KernelCost:
+    buf = rows * LANES * 4.0
+    return KernelCost(0.0, 0.0, buf, buf / 32 + (buf if with_error else 0))
+
+
+def sign_unpack_fma_cost(rows: int) -> KernelCost:
+    buf = rows * LANES * 4.0
+    return KernelCost(0.0, 0.0, buf + buf / 32, buf)
 
 
 def _check_out(out: Optional[torch.Tensor], shape) -> None:
@@ -100,6 +124,10 @@ def quantize_i8_pass(g: torch.Tensor, scalars: torch.Tensor, *,
     check_buf("g", g, shape)
     check_buf("scalars", scalars, (2,))
     dev = device_of(g, scalars)
+    if traced(g, scalars):
+        charge(quantize_i8_pass, quantize_i8_cost(shape[0], with_error))
+        q = g.new_empty(shape, dtype=torch.int8)
+        return (q, g.new_empty(shape)) if with_error else q
     if dev.type == "cpu":
         return R.quantize_i8_ref(g, scalars[0], scalars[1],
                                  with_error=with_error)
@@ -132,6 +160,9 @@ def dequant_i8_fma_pass(acc: torch.Tensor, q: torch.Tensor,
     check_scalar("scale_w", scale_w)
     _check_out(out, shape)
     dev = device_of(acc, q, scale_w, out)
+    if traced(acc, q, scale_w, out):
+        charge(dequant_i8_fma_pass, dequant_i8_fma_cost(shape[0]))
+        return acc.new_empty(shape) if out is None else out
     if dev.type == "cpu":
         res = R.dequant_i8_fma_ref(acc, q, scale_w.reshape(()))
         return res if out is None else out.copy_(res)
@@ -169,6 +200,10 @@ def sign_pack_pass(g: torch.Tensor, mu: torch.Tensor, n_valid: int, *,
     check_scalar("mu", mu)
     n_valid = _check_n_valid(n_valid, shape)
     dev = device_of(g, mu)
+    if traced(g, mu):
+        charge(sign_pack_pass, sign_pack_cost(shape[0], with_error))
+        bits = g.new_empty((shape[0] // SIGN_PACK, LANES), dtype=torch.uint8)
+        return (bits, g.new_empty(shape)) if with_error else bits
     if dev.type == "cpu":
         return R.sign_pack_ref(g, mu.reshape(()), n_valid,
                                with_error=with_error)
@@ -207,6 +242,9 @@ def sign_unpack_fma_pass(acc: torch.Tensor, packed: torch.Tensor,
     n_valid = _check_n_valid(n_valid, shape)
     _check_out(out, shape)
     dev = device_of(acc, packed, mu_w, out)
+    if traced(acc, packed, mu_w, out):
+        charge(sign_unpack_fma_pass, sign_unpack_fma_cost(shape[0]))
+        return acc.new_empty(shape) if out is None else out
     if dev.type == "cpu":
         res = R.sign_unpack_fma_ref(acc, packed, mu_w.reshape(()), n_valid)
         return res if out is None else out.copy_(res)

@@ -35,7 +35,10 @@ Bound at the serving prefill of smollm-360m (B 8, 15/5 heads, S 1024, D
 64, causal, one layer): 16.1 GFLOP of products, 83.9 MB.  As three TF32
 products on the tensor cores (495 TFLOP/s) plus the softmax at fp32's 67
 TFLOP/s: about 0.10 ms; in fp32 outside the tensor cores: 0.244 ms.
-``PERF.md`` holds the measured time.
+``PERF.md`` holds the measured time.  :func:`attention_cost` declares
+that work for any call, which the wrapper given fake tensors charges under
+the cost counter (:func:`repro_torch.kernels._cuda.traced`) instead of
+launching.
 """
 from __future__ import annotations
 
@@ -43,9 +46,11 @@ import ctypes
 import math
 import os
 
+import numpy as np
 import torch
 
-from repro_torch.kernels._cuda import CudaLibrary, device_of, raise_on, stream
+from repro_torch.kernels._cuda import (CudaLibrary, KernelCost, charge,
+                                      device_of, raise_on, stream, traced)
 from repro_torch.kernels.flash_attention import ref as R
 
 FORMS = ((64, 64), (96, 96), (128, 128), (192, 128))   # (Dk, Dv)
@@ -93,10 +98,50 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return B, H, Hkv, Sq, Skv, Dk, v.shape[-1]
 
 
-def _aligned(t: torch.Tensor) -> bool:
+def attention_pairs(Sq: int, Skv: int, *, causal: bool = True,
+                    window: int = 0) -> int:
+    """(query, key) pairs one head computes: query i against key j of
+    the same sequence, j <= i when causal, i - j < window when given."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full_like(i, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_cost(B: int, H: int, Hkv: int, Sq: int, Skv: int, Dk: int,
+                   Dv: int, *, causal: bool = True, window: int = 0,
+                   nbytes: int = 4) -> KernelCost:
+    """One call as the kernel computes it: q, k and v read once and o
+    written once; per (query, key) pair 2 Dk operations for q.k and 2 Dv
+    for p.v, each product as three TF32 tensor-core products (3xTF32),
+    and 4 fp32 operations for scale, max, exp and sum."""
+    pairs = B * H * attention_pairs(Sq, Skv, causal=causal, window=window)
+    return KernelCost(4.0 * pairs, 3.0 * pairs * (2 * Dk + 2 * Dv),
+                      float((B * H * Sq * Dk + B * Hkv * Skv * (Dk + Dv))
+                            * nbytes), float(B * H * Sq * Dv * nbytes))
+
+
+def _check_form(q, k, v, Sq: int, Dk: int, Dv: int, *, fake: bool) -> None:
+    """What the CUDA kernel takes beyond the plain version: a built
+    (Dk, Dv) form, 16-byte copies, the grid's query tiles."""
+    if (Dk, Dv) not in FORMS:
+        raise NotImplementedError(
+            f"head dims (Dk, Dv) = ({Dk}, {Dv}): the CUDA kernel is built "
+            f"for {FORMS} (other head dims: ROADMAP Queue 2 row 11)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned(t, fake=fake):
+            raise ValueError(f"{name}: the kernel copies 16 bytes at a time "
+                             "and needs a 16-byte aligned base and strides "
+                             f"that are multiples of 4, got {t.stride()}")
+    if (Sq + 63) // 64 > MAX_QUERY_TILES:
+        raise ValueError(f"Sq = {Sq} exceeds the grid's {MAX_QUERY_TILES} "
+                         "query tiles")
+
+
+def _aligned(t: torch.Tensor, *, fake: bool = False) -> bool:
     """16-byte copies: base 16-byte aligned, batch/head/seq strides whole
     float4s (the last dimension is unit stride, checked before)."""
-    return (t.data_ptr() % 16 == 0
+    return ((fake or t.data_ptr() % 16 == 0)
             and all(s % 4 == 0 for s in t.stride()[:3]))
 
 
@@ -119,24 +164,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0:
         raise ValueError(f"window={window} must be >= 0")
     dev = device_of(q, k, v)
+    if traced(q, k, v):
+        _check_form(q, k, v, Sq, Dk, Dv, fake=True)
+        charge(flash_attention_fwd, attention_cost(
+            B, H, Hkv, Sq, Skv, Dk, Dv, causal=causal, window=window))
+        return q.new_empty((B, Sq, H, Dv)).transpose(1, 2)
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev).transpose(1, 2)
     if dev.type == "cpu":
         fold = lambda t: t.reshape(-1, *t.shape[-2:])
         return o.copy_(R.attention_ref(fold(q), fold(k), fold(v),
                                        causal=causal, window=window
                                        ).view(o.shape))
-    if (Dk, Dv) not in FORMS:
-        raise NotImplementedError(
-            f"head dims (Dk, Dv) = ({Dk}, {Dv}): the CUDA kernel is built "
-            f"for {FORMS} (other head dims: ROADMAP Queue 2 row 11)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _aligned(t):
-            raise ValueError(f"{name}: the kernel copies 16 bytes at a time "
-                             "and needs a 16-byte aligned base and strides "
-                             f"that are multiples of 4, got {t.stride()}")
-    if (Sq + 63) // 64 > MAX_QUERY_TILES:
-        raise ValueError(f"Sq = {Sq} exceeds the grid's {MAX_QUERY_TILES} "
-                         "query tiles")
+    _check_form(q, k, v, Sq, Dk, Dv, fake=False)
     lib = LIB.load()
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
                                        for s in t.stride()[:3]))

@@ -31,6 +31,10 @@ is 1.447 GB; H100 SXM, 3.35 TB/s):
     8.68 GB, writes 4.34 GB.
 
 All six are bound by bytes; ``PERF.md`` holds their measured times.
+Each declares that work (``*_cost``: bytes of every fp32 buffer read once
+and written once, no operation counted), which a wrapper given fake
+tensors charges under the cost counter (:func:`repro_torch.kernels._cuda.
+traced`) instead of launching.
 ``accumulate_pass`` (four launches a scan round) reads g and writes out
 with streaming cache hints; the source's note gives the times of the forms
 ``tools/accumulate_forms.py`` compares.  The
@@ -46,9 +50,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._cuda import (LANES, CudaLibrary, check_buf,
-                                      check_flat, check_scalar, device_of,
-                                      ptr, raise_on, stream)
+from repro_torch.kernels._cuda import (LANES, CudaLibrary, KernelCost,
+                                      charge, check_buf, check_flat,
+                                      check_scalar, device_of, ptr,
+                                      raise_on, stream, traced)
 from repro_torch.kernels.fused_update import ref as R
 
 OPT_CODES = {"sgd": 0, "sgdm": 1, "adam": 2, "yogi": 3}
@@ -81,6 +86,45 @@ build = LIB.build
 _load = LIB.load
 
 
+_SLOTS = {"sgd": 0, "sgdm": 1, "adam": 2, "yogi": 2}
+
+
+def _buf(rows: int) -> float:
+    """Bytes of one fp32 flat buffer of ``rows`` rows."""
+    return rows * LANES * 4.0
+
+
+def aggregate_cost(cohort: int, rows: int) -> KernelCost:
+    return KernelCost(0.0, 0.0, cohort * _buf(rows), _buf(rows))
+
+
+def accumulate_cost(rows: int) -> KernelCost:
+    return KernelCost(0.0, 0.0, 2 * _buf(rows), _buf(rows))
+
+
+def update_cost(opt: str, rows: int) -> KernelCost:
+    """G and p read, p written, and each optimizer slot read and written."""
+    k = _SLOTS[opt]
+    return KernelCost(0.0, 0.0, (2 + k) * _buf(rows), (1 + k) * _buf(rows))
+
+
+def accumulate_bwd_cost(rows: int) -> KernelCost:
+    return KernelCost(0.0, 0.0, 2 * _buf(rows), _buf(rows))
+
+
+def aggregate_bwd_cost(cohort: int, rows: int) -> KernelCost:
+    return KernelCost(0.0, 0.0, (cohort + 2) * _buf(rows),
+                      cohort * _buf(rows))
+
+
+def update_bwd_cost(opt: str, rows: int) -> KernelCost:
+    """G, each slot and the cotangent of p and of each slot read; the
+    cotangents of G and of each slot written."""
+    k = _SLOTS[opt]
+    return KernelCost(0.0, 0.0, (2 + 2 * k) * _buf(rows),
+                      (1 + k) * _buf(rows))
+
+
 def _nblocks(n: int) -> int:
     """The fixed grid of a kernel that sums over ``n`` floats."""
     return max(1, min(-(-(n // 4) // AGG_THREADS), AGG_MAX_BLOCKS))
@@ -102,6 +146,9 @@ def aggregate_pass(g_stack: torch.Tensor, w_norm: torch.Tensor
     check_buf("g_stack", g_stack, (cohort, rows, LANES))
     check_buf("w_norm", w_norm, (cohort,))
     dev = device_of(g_stack, w_norm)
+    if traced(g_stack, w_norm):
+        charge(aggregate_pass, aggregate_cost(cohort, rows))
+        return g_stack.new_empty((rows, LANES)), g_stack.new_empty(())
     if dev.type == "cpu":
         return R.aggregate_ref(g_stack, w_norm)
     lib = _load()
@@ -141,6 +188,9 @@ def accumulate_pass(acc: torch.Tensor, g: torch.Tensor, w: torch.Tensor, *,
     if out is not None:
         check_buf("out", out, shape)
     dev = device_of(acc, g, w, out)
+    if traced(acc, g, w, out):
+        charge(accumulate_pass, accumulate_cost(shape[0]))
+        return acc.new_empty(shape) if out is None else out
     if dev.type == "cpu":
         res = R.accumulate_ref(acc, g, w.reshape(()))
         if out is None:
@@ -182,6 +232,10 @@ def update_pass(G: torch.Tensor, p: torch.Tensor, m: Optional[torch.Tensor],
     need_m, need_v = _check_slots(opt, shape, m=m, v=v)
     check_buf("scalars", scalars, (4,))
     dev = device_of(G, p, m, v, scalars)
+    if traced(G, p, m, v, scalars):
+        charge(update_pass, update_cost(opt, shape[0]))
+        return (p.new_empty(shape), p.new_empty(shape) if need_m else None,
+                p.new_empty(shape) if need_v else None)
     if dev.type == "cpu":
         return R.update_ref(G, p, m, v, scalars, opt=opt, momentum=momentum,
                             b1=b1, b2=b2, eps=eps)
@@ -234,6 +288,9 @@ def accumulate_pass_bwd(g: torch.Tensor, w: torch.Tensor,
     check_buf("d_out", d_out, shape)
     check_scalar("w", w)
     dev = device_of(g, w, d_out)
+    if traced(g, w, d_out):
+        charge(accumulate_pass_bwd, accumulate_bwd_cost(shape[0]))
+        return g.new_empty(shape), g.new_empty(())
     if dev.type == "cpu":
         return R.accumulate_bwd_ref(g, w.reshape(()), d_out)
     lib = _load()
@@ -278,6 +335,9 @@ def aggregate_pass_bwd(g_stack: torch.Tensor, w_norm: torch.Tensor,
     check_buf("dG", dG, (rows, LANES))
     check_scalar("dssq", dssq)
     dev = device_of(g_stack, w_norm, G, dG, dssq)
+    if traced(g_stack, w_norm, G, dG, dssq):
+        charge(aggregate_pass_bwd, aggregate_bwd_cost(cohort, rows))
+        return g_stack.new_empty(g_stack.shape), g_stack.new_empty((cohort,))
     if dev.type == "cpu":
         return R.aggregate_bwd_ref(g_stack, w_norm, G, dG, dssq.reshape(()))
     lib = _load()
@@ -326,6 +386,10 @@ def update_pass_bwd(G: torch.Tensor, m: Optional[torch.Tensor],
                                   d_new_v=d_new_v)
     check_buf("scalars", scalars, (4,))
     dev = device_of(G, m, v, scalars, d_new_p, d_new_m, d_new_v)
+    if traced(G, m, v, scalars, d_new_p, d_new_m, d_new_v):
+        charge(update_pass_bwd, update_bwd_cost(opt, shape[0]))
+        return (G.new_empty(shape), G.new_empty(shape) if need_m else None,
+                G.new_empty(shape) if need_v else None, G.new_empty((4,)))
     if dev.type == "cpu":
         return R.update_bwd_ref(G, m, v, scalars, d_new_p, d_new_m, d_new_v,
                                 opt=opt, momentum=momentum, b1=b1, b2=b2,

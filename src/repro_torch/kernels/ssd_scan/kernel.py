@@ -46,6 +46,9 @@ Bound at the serving prefill of mamba2-780m (B 8, 48 heads, one group, S
 once for the group, bound by operations: 0.123 ms as the kernel computes
 it (3xTF32 products at the H100's 495 TFLOP/s, the rest at fp32's 67),
 0.297 ms in fp32.  ``PERF.md`` holds the measured time.
+:func:`ssd_cost` declares that work for any call, which the wrapper given
+fake tensors charges under the cost counter
+(:func:`repro_torch.kernels._cuda.traced`) instead of launching.
 """
 from __future__ import annotations
 
@@ -55,8 +58,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._cuda import (CudaLibrary, device_of, raise_on,
-                                      stream)
+from repro_torch.kernels._cuda import (CudaLibrary, KernelCost, charge,
+                                      device_of, raise_on, stream, traced)
 from repro_torch.kernels.ssd_scan import ref as R
 
 HEAD_DIM = 64
@@ -77,6 +80,50 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 LIB = CudaLibrary("ssd_scan", SOURCE, _bind)
 build = LIB.build
+
+
+def ssd_cost(B: int, H: int, S: int, P: int, N: int, chunk: int,
+             G=None, nbytes: int = 4) -> KernelCost:
+    """One call at chunk L = min(chunk, S): x, dt, a, B and C read once, y
+    written once.  Per head and chunk: the causal half of C.B^T and of
+    M.(x dt) (2N + 2P + 3 a pair), the carried state's term (2NP + N a
+    position) and the state update (2NP + N a position, NP a chunk).  The
+    matrix products (C.B^T and M.(x dt) over the causal half, C.h and the
+    state update) are three TF32 tensor-core products each (3xTF32), the
+    decays and masks fp32.
+
+    With ``G`` groups given, what the kernel computes: C.B^T once per
+    group (the heads of a group share B and C), B and C read once per
+    group, and h_final written; without, every term per head, as the
+    Pallas kernel takes them."""
+    L = min(chunk, S)
+    nc = -(-S // L)
+    pairs = L * (L + 1) // 2
+    per_head = pairs * (2 * P + 3) + L * (4 * N * P + 2 * N + P + 1) + N * P
+    products = B * nc * (H * (pairs * 2 * P + L * 4 * N * P)
+                         + (G or H) * pairs * 2 * N)
+    if G is None:
+        ops = B * H * nc * (per_head + pairs * 2 * N)
+        written = B * H * S * P
+        read = B * H * S * (P + 2 + 2 * N)
+    else:
+        ops = B * nc * (H * per_head + G * pairs * 2 * N)
+        written = B * H * S * P + B * H * N * P
+        read = B * H * S * (P + 2) + B * G * S * 2 * N
+    return KernelCost(float(ops - products), 3.0 * products,
+                      float(read * nbytes), float(written * nbytes))
+
+
+def _check_form(x, dt, A, Bm, Cm, P: int, N: int, L: int) -> None:
+    """What the CUDA kernel takes beyond the plain version."""
+    if P != HEAD_DIM or N > MAX_STATE or L > MAX_CHUNK:
+        raise NotImplementedError(
+            f"P={P}, N={N}, chunk={L}: the CUDA kernel takes P = "
+            f"{HEAD_DIM}, N <= {MAX_STATE}, chunk <= {MAX_CHUNK} (other "
+            "shapes: ROADMAP Queue 2 row 12)")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected unit stride on the last axis")
 
 
 def _check(x, dt, A, Bm, Cm, chunk) -> Tuple[int, ...]:
@@ -117,17 +164,14 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Replaces ``repro/kernels/ssd_scan/kernel.py::ssd_scan_fwd``."""
     B, S, H, P, G, N = _check(x, dt, A, Bm, Cm, chunk)
     dev = device_of(x, dt, A, Bm, Cm)
+    L = min(int(chunk), S)
+    if traced(x, dt, A, Bm, Cm):
+        _check_form(x, dt, A, Bm, Cm, P, N, L)
+        charge(ssd_scan_fwd, ssd_cost(B, H, S, P, N, int(chunk), G=G))
+        return x.new_empty((B, S, H, P)), x.new_empty((B, H, N, P))
     if dev.type == "cpu":
         return R.ssd_chunked_ref(x, dt, A, Bm, Cm, int(chunk))
-    L = min(int(chunk), S)
-    if P != HEAD_DIM or N > MAX_STATE or L > MAX_CHUNK:
-        raise NotImplementedError(
-            f"P={P}, N={N}, chunk={L}: the CUDA kernel takes P = "
-            f"{HEAD_DIM}, N <= {MAX_STATE}, chunk <= {MAX_CHUNK} (other "
-            "shapes: ROADMAP Queue 2 row 12)")
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: expected unit stride on the last axis")
+    _check_form(x, dt, A, Bm, Cm, P, N, L)
     lib = LIB.load()
     nc = -(-S // L)
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)

@@ -1,0 +1,346 @@
+"""The dry run: the cost of every (architecture x input shape) pair on
+H100 cards, without data and without a card (PyTorch port of
+``repro/launch/dryrun.py``).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh 2x1] [--out artifacts/dryrun_torch]
+
+:func:`run_one` builds the model at full width on fake ``cuda`` tensors in
+the port's fp32, then traces one call with the cost counter
+(:func:`repro_torch.roofline.cost.trace_cost`): the federated round for a
+``train`` shape, ``model.prefill`` for ``prefill`` and ``model.decode``
+over a cache of ``seq_len`` for ``decode``.  Each hand-written kernel
+charges its declared cost, so the record is the card's program even on a
+host without a card; nothing is allocated.  A form a kernel refuses (a
+flash head-dim form outside ``kernels/flash_attention/kernel.py::FORMS``,
+an SSD state too wide) fails the pair and names it.
+
+Meshes: ``--mesh 1x1`` (one H100) is the default; ``--mesh Dx1`` traces
+rank 0's slice of the cohort through the ``sharded`` executor under
+torch's ``fake`` process-group backend, so the two-tier aggregation's
+collectives are counted at their result bytes.  A model axis above 1,
+``--multi-pod``, ``--both-meshes`` and ``--expert-axis`` are tensor
+parallelism and the JAX package's production meshes: ROADMAP Queue 1
+item 7b.
+
+The record has the JAX dry run's keys where they mean something —
+``arch``, ``shape``, ``mesh``, ``chips``, ``algorithm``,
+``cohort_strategy``, ``cohort``, ``decode_window``, ``memory``, ``cost``,
+``collectives``, ``roofline_raw``, ``roofline`` and ``hlo_cost`` — and
+adds ``trace_s`` (in place of ``lower_s`` / ``compile_s``), ``launches``
+(per kernel) and ``fits`` (the per-device arguments plus temp under 80
+GiB).  ``roofline_raw`` and ``roofline`` are equal: JAX's raw one reads
+XLA's ``cost_analysis``, which counts a loop body once, and its other one
+the trip-count-aware walk; an eager trace dispatches every iteration, so
+the port has one count.  As in the JAX package a failing pair is
+recorded, the sweep goes on, and the run exits 1.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import traceback
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.configs import (ARCHS, SHAPES, SKIPS, FedConfig, get_arch,
+                                 get_shape)
+from repro_torch.roofline.analysis import (model_flops_per_round,
+                                           roofline_terms)
+from repro_torch.roofline.cost import trace_cost, trace_device
+
+# archs whose parameter count forces the client-sequential cohort strategy
+SCAN_THRESHOLD = 20e9
+CARD_BYTES = 80 * 2**30        # one H100's device memory
+META_BATCH = 64                # the JAX dry run's D_meta sequences
+
+
+def pick_strategy(arch_cfg) -> str:
+    return "scan" if arch_cfg.param_count() > SCAN_THRESHOLD else "vmap"
+
+
+def fed_for(arch_cfg, data: int, *, algorithm="uga", meta=True,
+            strategy: Optional[str] = None, local_steps=2,
+            agg_dtype="float32") -> FedConfig:
+    """JAX's rule: a vmap cohort is one client per data-axis device, a
+    scan cohort 16."""
+    strategy = strategy or pick_strategy(arch_cfg)
+    cohort = data if strategy == "vmap" else 16
+    return FedConfig(algorithm=algorithm, meta=meta, cohort=cohort,
+                     local_steps=local_steps, cohort_strategy=strategy,
+                     grad_agg_dtype=agg_dtype, fused_update=True)
+
+
+def decode_window_for(arch_cfg, shape) -> int:
+    """long_500k uses the sliding-window variant for dense/VLM/moe attention
+    archs; jamba/mamba2 use their native constant-state / full-cache path."""
+    if shape.name == "long_500k" and arch_cfg.family not in ("ssm", "hybrid"):
+        return arch_cfg.sliding_window
+    return 0
+
+
+def parse_mesh(mesh: str) -> Tuple[int, int]:
+    try:
+        data, model = (int(x) for x in mesh.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {mesh!r}: expected DATAxMODEL, e.g. 1x1")
+    if data < 1 or model < 1:
+        raise ValueError(f"--mesh {mesh!r}: axes must be >= 1")
+    if model > 1:
+        raise NotImplementedError(
+            f"--mesh {mesh}: a model axis of {model} is tensor-parallel "
+            "client compute (param_spec, set_activation_spec, "
+            "set_expert_axis), not yet ported to repro_torch (ROADMAP "
+            "Queue 1 item 7b); use --mesh Dx1")
+    return data, model
+
+
+def _param_stand_ins(cfg, dev):
+    """Every parameter leaf at full width as an empty tensor (fake inside
+    the caller's fake mode), shapes from the module on the meta device."""
+    from repro_torch.models.transformer import Transformer
+    return {k: torch.empty(tuple(v.shape), dtype=torch.float32, device=dev)
+            for k, v in Transformer(cfg).named_parameters()}
+
+
+def _enc(cfg, lead, dev):
+    e = cfg.encoder
+    return torch.empty(tuple(lead) + (e.enc_len, e.enc_dim),
+                       dtype=torch.float32, device=dev)
+
+
+def _fake_mesh(data: int, dev):
+    """Rank 0 of a (data, 1) mesh under torch's ``fake`` backend: every
+    collective dispatches, none communicates."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import _mesh
+    if dist.is_initialized():
+        raise RuntimeError("--mesh Dx1 with D > 1 starts a fake process "
+                           "group; a process group is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=data)
+    return _mesh(data, 1, dev)
+
+
+def _train_call(cfg, shape, fed, mesh, dev, loss_chunk):
+    from repro_torch.core.round import (init_server_state,
+                                        make_federated_round)
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, dtype=torch.float32, loss_chunk=loss_chunk)
+    cohort, seq = fed.cohort, shape.seq_len
+    per_client = shape.global_batch // cohort
+    if per_client < fed.local_steps:
+        raise ValueError(f"{cfg.name}/{shape.name}: per-client batch "
+                         f"{per_client} < local_steps {fed.local_steps}")
+    state = init_server_state(model, fed, params=_param_stand_ins(cfg, dev))
+    cohort_batch = {"tokens": torch.empty((cohort, per_client, seq + 1),
+                                          dtype=torch.int64, device=dev)}
+    meta_batch = {"tokens": torch.empty((META_BATCH, seq + 1),
+                                        dtype=torch.int64, device=dev)}
+    if cfg.encoder is not None:
+        cohort_batch["enc_embeds"] = _enc(cfg, (cohort, per_client), dev)
+        meta_batch["enc_embeds"] = _enc(cfg, (META_BATCH,), dev)
+    weights = torch.empty((cohort,), dtype=torch.float32, device=dev)
+    fn = make_federated_round(model, fed, mesh=mesh)
+    return fn, (state, cohort_batch, meta_batch, weights)
+
+
+def _prefill_call(cfg, shape, dev):
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, dtype=torch.float32)
+    batch = {"tokens": torch.empty((shape.global_batch, shape.seq_len),
+                                   dtype=torch.int64, device=dev)}
+    if cfg.encoder is not None:
+        batch["enc_embeds"] = _enc(cfg, (shape.global_batch,), dev)
+    return model.prefill, (_param_stand_ins(cfg, dev), batch)
+
+
+def _decode_call(cfg, shape, dev, window):
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, dtype=torch.float32, decode_window=window)
+    B = shape.global_batch
+    cache = model.make_cache(B, shape.seq_len, device=dev)
+    toks = torch.empty((B,), dtype=torch.int64, device=dev)
+    return model.decode, (_param_stand_ins(cfg, dev), toks, cache)
+
+
+def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
+            algorithm: str = "uga", strategy: Optional[str] = None,
+            local_steps: int = 2, agg_dtype: str = "float32",
+            loss_chunk: int = 2048, moe_impl: str = "einsum",
+            verbose: bool = True) -> Dict[str, Any]:
+    """One pair's record (module docstring)."""
+    from repro_torch.models import moe as moe_lib
+    arch_cfg = get_arch(arch_name)
+    shape = get_shape(shape_name)
+    data, _ = parse_mesh(mesh)
+    device = torch.device("cuda")
+    rec: Dict[str, Any] = {"arch": arch_name, "shape": shape_name,
+                           "mesh": f"{data}x1", "chips": data,
+                           "algorithm": algorithm}
+    fed = None
+    prev_impl = moe_lib.MOE_IMPL
+    moe_lib.set_moe_impl(moe_impl)
+    fmode = FakeTensorMode(allow_non_fake_inputs=False)
+    dev = trace_device(device)
+    mesh_obj = None
+    try:
+        with fmode:
+            if data > 1:
+                mesh_obj = _fake_mesh(data, dev)
+            if shape.kind == "train":
+                fed = fed_for(arch_cfg, data, algorithm=algorithm,
+                              strategy=strategy, local_steps=local_steps,
+                              agg_dtype=agg_dtype)
+                rec["cohort_strategy"] = fed.cohort_strategy
+                rec["cohort"] = fed.cohort
+                fn, args = _train_call(arch_cfg, shape, fed, mesh_obj, dev,
+                                       loss_chunk)
+            elif data > 1:
+                raise NotImplementedError(
+                    f"--mesh {mesh} on a {shape.kind} shape: serving over "
+                    "several cards is tensor parallelism (ROADMAP Queue 1 "
+                    "item 7b)")
+            elif shape.kind == "prefill":
+                fn, args = _prefill_call(arch_cfg, shape, dev)
+            else:
+                window = decode_window_for(arch_cfg, shape)
+                rec["decode_window"] = window
+                fn, args = _decode_call(arch_cfg, shape, dev, window)
+        cost, _ = trace_cost(fn, args, device=device, mode=fmode)
+    finally:
+        moe_lib.set_moe_impl(prev_impl)
+        if mesh_obj is not None:
+            torch.distributed.destroy_process_group()
+    rec["trace_s"] = round(cost.trace_s, 2)
+    rec["memory"] = dict(cost.memory)
+    rec["cost"] = {"flops": cost.flops, "tc_flops": cost.tc_flops,
+                   "bytes accessed": cost.bytes,
+                   "bytes read": cost.bytes_read,
+                   "bytes written": cost.bytes_written,
+                   "aten ops": float(cost.n_ops)}
+    rec["collectives"] = {**cost.per_collective,
+                          "_counts": dict(cost.collective_counts)}
+    mf = model_flops_per_round(arch_cfg, shape, fed)
+    rl = roofline_terms(cost.flops, cost.bytes, cost.collective_bytes,
+                        model_flops_global=mf, chips=data,
+                        tc_flops_per_chip=cost.tc_flops)
+    rec["roofline_raw"] = rl.to_dict()
+    rec["roofline"] = rl.to_dict()
+    rec["hlo_cost"] = {"flops": cost.flops,
+                       "bytes_written": cost.bytes_written,
+                       "collective_bytes": cost.collective_bytes,
+                       "per_collective": dict(cost.per_collective),
+                       "loop_ratio": 1.0}
+    rec["launches"] = dict(cost.launches)
+    need = (cost.memory["argument_size_in_bytes"]
+            + cost.memory["temp_size_in_bytes"])
+    rec["fits"] = bool(need < CARD_BYTES)
+    if verbose:
+        print(f"[dryrun] {arch_name} x {shape_name} mesh={rec['mesh']} "
+              f"trace={rec['trace_s']}s flops/dev={cost.flops:.3e} "
+              f"bytes/dev={cost.bytes:.3e} "
+              f"coll/dev={cost.collective_bytes:.3e} "
+              f"peak={need / 2**30:.2f}GiB fits={rec['fits']} "
+              f"bottleneck={rl.bottleneck} launches={rec['launches']}",
+              flush=True)
+    return rec
+
+
+def _pair(a: str, s: str, path: str, kw: Dict[str, Any]) -> Optional[str]:
+    """Trace one pair and write its record; the failure's cause, or
+    None."""
+    try:
+        rec = run_one(a, s, **kw)
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+        return None
+    except Exception as e:  # noqa: BLE001 — record and continue
+        print(f"[dryrun] FAIL {os.path.basename(path)[:-5]}: "
+              f"{type(e).__name__}: {e}", flush=True)
+        traceback.print_exc()
+        return f"{type(e).__name__}: {e}"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAx1: one H100 (1x1) or rank 0 of D cards")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--expert-axis", default=None)
+    ap.add_argument("--algorithm", default="uga",
+                    choices=["uga", "fedavg", "fedprox"])
+    ap.add_argument("--strategy", default=None, choices=[None, "vmap", "scan"])
+    ap.add_argument("--local-steps", type=int, default=2)
+    ap.add_argument("--agg-dtype", default="float32")
+    ap.add_argument("--loss-chunk", type=int, default=2048)
+    ap.add_argument("--moe-impl", default="einsum",
+                    choices=["gather", "einsum"])
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="pairs traced at once, each in a process of its "
+                         "own (a trace is host work)")
+    ap.add_argument("--out", default="artifacts/dryrun_torch")
+    ap.add_argument("--skip-existing", action="store_true")
+    args = ap.parse_args(argv)
+    for flag, on in (("--multi-pod", args.multi_pod),
+                     ("--both-meshes", args.both_meshes),
+                     ("--expert-axis", args.expert_axis is not None)):
+        if on:
+            raise NotImplementedError(
+                f"{flag}: the JAX package's production meshes (16x16, "
+                "2x16x16) and their expert axis are tensor parallelism, "
+                "not yet ported to repro_torch (ROADMAP Queue 1 item 7b)")
+    parse_mesh(args.mesh)
+    if args.all:
+        pairs = [(a, s) for a in ARCHS for s in SHAPES if (a, s) not in SKIPS]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch/--shape or --all")
+        pairs = [(args.arch, args.shape)]
+    kw = dict(mesh=args.mesh, algorithm=args.algorithm,
+              strategy=args.strategy, local_steps=args.local_steps,
+              agg_dtype=args.agg_dtype, loss_chunk=args.loss_chunk,
+              moe_impl=args.moe_impl)
+
+    os.makedirs(args.out, exist_ok=True)
+    todo = []
+    for a, s in pairs:
+        tag = f"{a}__{s}__{args.mesh}"
+        path = os.path.join(args.out, tag + ".json")
+        if args.skip_existing and os.path.exists(path):
+            print(f"[dryrun] skip existing {tag}")
+            continue
+        todo.append((tag, a, s, path))
+    if args.jobs > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(
+                args.jobs, mp_context=multiprocessing.get_context("spawn"),
+                max_tasks_per_child=1) as pool:
+            futs = [(tag, pool.submit(_pair, a, s, path, kw))
+                    for tag, a, s, path in todo]
+            causes = [(tag, f.result()) for tag, f in futs]
+    else:
+        causes = [(tag, _pair(a, s, path, kw)) for tag, a, s, path in todo]
+    failures = [(tag, e) for tag, e in causes if e is not None]
+    if failures:
+        print(f"\n{len(failures)} FAILURES:")
+        for t, e in failures:
+            print(" ", t, e)
+        return 1
+    print("\nall dry-runs passed")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

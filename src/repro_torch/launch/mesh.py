@@ -10,9 +10,10 @@ free ``localhost`` port.  The backend follows the device: NCCL on
 ``cuda``, gloo on ``cpu``.  A group that cannot start raises; nothing
 falls back to one process.
 
-``make_production_mesh`` (the JAX package's v5e pod shapes) has no
-meaning on H100 processes and goes with the dry run, ROADMAP Queue 1
-item 8.
+``make_production_mesh`` (the JAX package's v5e pod shapes: a model
+axis of 16, which is tensor parallelism) goes with ROADMAP Queue 1 item
+7b; the port's dry run (``launch/dryrun.py``) takes ``Dx1`` meshes of
+H100 cards.
 """
 from __future__ import annotations
 

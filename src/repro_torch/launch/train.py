@@ -57,7 +57,10 @@ and ``--trace-summary`` parses it into a ``profile_summary`` event;
 ``python -m repro_torch.obs report <run-dir>`` summarizes a run.
 ``--sanitize`` probes the flat buffers for NaN/Inf each round and trains
 under autograd's anomaly mode (``repro_torch.core.sanitize``).
-``--roofline`` is ROADMAP Queue 1 item 8 and raises.
+``--roofline`` traces each distinct round function once on fake tensors
+(``repro_torch.roofline``) and emits a ``roofline`` event, the cost
+model's per-round prediction beside the measured rounds/s;
+``python -m repro_torch.roofline.report <run-dir>`` prints it.
 """
 from __future__ import annotations
 
@@ -155,7 +158,7 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
     ``profile``, ``profile_start`` and ``trace_summary`` are the JAX
     launcher's observability knobs (the trainer's, writing under
     ``run_dir``; ``trace_top_k``: the summary's table length);
-    ``roofline`` is ROADMAP Queue 1 item 8 and raises.  (The CLI's
+    ``roofline`` emits the trainer's ``roofline`` event.  (The CLI's
     ``--sanitize`` also runs this under ``torch.autograd.detect_anomaly``;
     ``sanitize`` here plants the probes only: see
     :mod:`repro_torch.core.sanitize`.)  Returns (state, history)."""
@@ -166,11 +169,6 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
             "set_expert_axis, constrain_groups, with_pspecs) is not yet "
             "ported to repro_torch (ROADMAP Queue 1 item 7b); use "
             "--mesh-model 1")
-    if roofline:
-        raise NotImplementedError(
-            "--roofline: the live roofline event (roofline/, the cost "
-            "model over a traced round) is not yet ported to repro_torch "
-            "(ROADMAP Queue 1 item 8)")
     dev = resolve_device(device)
     strict_fp32()
     cfg = get_arch(arch)
@@ -215,7 +213,7 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
         executor=None if mesh is not None else executor, mesh=mesh,
         sanitize=sanitize, tracker=tracker, profile=profile,
         profile_start=profile_start, trace_summary=trace_summary,
-        trace_top_k=trace_top_k)
+        trace_top_k=trace_top_k, roofline=roofline)
     if resume == "auto":
         if run_dir is None:
             raise ValueError(
@@ -417,8 +415,12 @@ def main(argv=None):
                     help="rows of the profile_summary's top-ops table "
                          "(the trainer's trace_top_k)")
     ap.add_argument("--roofline", action="store_true",
-                    help="the JAX launcher's roofline tracker event; not "
-                         "ported (ROADMAP Queue 1 item 8), raises")
+                    help="trace each distinct round function once on fake "
+                         "tensors and emit a roofline tracker event "
+                         "(predicted compute/memory/collective seconds and "
+                         "rounds/s on the H100 hardware model beside the "
+                         "measured rounds/s); python -m "
+                         "repro_torch.roofline.report <run-dir> prints it")
     ap.add_argument("--sanitize", action="store_true",
                     help="debug mode: torch.autograd.detect_anomaly("
                          "check_nan=True) + NaN/Inf probes on the flat "

@@ -5,16 +5,26 @@ Tokens are grouped (``group_size`` per group; a one-token decode step is a
 group of its own, so a batch of decode steps never competes for one
 group's capacity); each expert takes ``capacity = ceil(top_k * group_size
 / E * capacity_factor)`` tokens a group, in order of (k, token), and the
-rest are dropped.  Two forms of one function:
+rest are dropped.  Two forms of one function, selected by
+:func:`set_moe_impl` (the JAX package's ``MOE_IMPL`` selector; both give
+the same routing and outputs):
 
-  * :func:`moe_ffn` — the model's path, the gather dispatch of JAX's
+  * :func:`moe_ffn_gather` — the gather dispatch of JAX's
     ``moe_ffn_gather``: each expert's slots are filled by integer indices
     (a scatter of token ids, then a gather of the tokens), the experts'
     SwiGLU products are ``torch.bmm`` over ``(E, G*C, d)``, and each token
     gathers its K outputs back.  Memory O(G E C d), no dispatch products.
   * :func:`moe_ffn_einsum` — the dense one-hot einsum (Switch
     Transformer) form of JAX's ``moe_ffn_einsum``: two ``(G, S, E, C)``
-    tensors, so the tests use it and the model never does.
+    tensors and the dispatch and combine products over them.
+
+:func:`moe_ffn` dispatches on ``MOE_IMPL``.  The port's default is
+``"gather"``, where JAX's is ``"einsum"``: the einsum form's two
+``(G, S, E, C)`` tensors are why the model never uses it, and the gather
+form is the one that serves deepseek-v2-lite-16b at full width on one
+card.  The dry run's ``--moe-impl`` defaults to ``einsum``, as JAX's CLI
+does, so its cost is the program JAX's dry run compiles; the trainer and
+the server run ``gather``.
 
 No in-place ops on differentiable tensors and no ``torch.compile``: the
 UGA client update takes jvp-of-grad through the MoE with ``torch.func``
@@ -35,6 +45,17 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import dense_init, swiglu
 
 LEAVES = ("router", "w_down", "w_gate", "w_up")
+
+# Dispatch selector ("gather" | "einsum"), a module-level hint as in the
+# JAX package: a property of the launch, not of the model
+MOE_IMPL = "gather"
+
+
+def set_moe_impl(impl: str) -> None:
+    global MOE_IMPL
+    if impl not in ("gather", "einsum"):
+        raise ValueError(f"moe impl {impl!r}: one of 'gather', 'einsum'")
+    MOE_IMPL = impl
 
 
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -63,6 +84,14 @@ def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
     return p
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)``'s int64 values without its range check, which
+    on the CPU reads the indices' min and max on the host (a read the
+    roofline trace on fake tensors cannot follow; the CUDA path skips
+    it)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def _route(xg: torch.Tensor, p, cfg: MoEConfig):
     """Routing of grouped tokens xg (G, S, d).  Returns (gate_vals,
     expert_idx, pos_in_e, keep, probs, C): the renormalized top-k gates
@@ -81,7 +110,7 @@ def _route(xg: torch.Tensor, p, cfg: MoEConfig):
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(dim=-1, keepdim=True), 1e-9)
     C = max(int(math.ceil(K * S / E * cfg.capacity_factor)), 1)
-    onehot = F.one_hot(expert_idx, E)                         # (G,S,K,E)
+    onehot = _one_hot(expert_idx, E)                          # (G,S,K,E)
     oh_flat = onehot.permute(0, 2, 1, 3).reshape(G, K * S, E)
     pos_flat = torch.cumsum(oh_flat, dim=1) - oh_flat
     pos = pos_flat.reshape(G, K, S, E).permute(0, 2, 1, 3)    # (G,S,K,E)
@@ -96,7 +125,7 @@ def _aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
     averaged over groups, times ``aux_loss_coef``."""
     E = cfg.num_experts
     me = probs.mean(dim=1)                                    # (G, E)
-    ce = F.one_hot(expert_idx[..., 0], E).to(torch.float32).mean(dim=1)
+    ce = _one_hot(expert_idx[..., 0], E).to(torch.float32).mean(dim=1)
     return cfg.aux_loss_coef * E * (me * ce).sum(dim=-1).mean()
 
 
@@ -125,6 +154,14 @@ def _ungroup(y: torch.Tensor, T: int, pad: int, shape) -> torch.Tensor:
 
 def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch per the ``MOE_IMPL`` selector."""
+    if MOE_IMPL == "einsum":
+        return moe_ffn_einsum(x, p, cfg)
+    return moe_ffn_gather(x, p, cfg)
+
+
+def moe_ffn_gather(x: torch.Tensor, p, cfg: MoEConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather dispatch.  x: (..., S, d) -> (same shape, aux loss).  ``p``
     is one layer's MoE tree."""
     xg, T, pad = _group(x, cfg)
@@ -164,15 +201,15 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig
 
 def moe_ffn_einsum(x: torch.Tensor, p, cfg: MoEConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense one-hot einsum dispatch: the oracle :func:`moe_ffn` is held
-    to."""
+    """Dense one-hot einsum dispatch: the oracle :func:`moe_ffn_gather`
+    is held to."""
     xg, T, pad = _group(x, cfg)
     E = cfg.num_experts
     gate_vals, expert_idx, pos_in_e, keep, probs, C = _route(xg, p, cfg)
     gate_vals = gate_vals * keep.to(gate_vals.dtype)
-    onehot = F.one_hot(expert_idx, E).to(torch.float32)
+    onehot = _one_hot(expert_idx, E).to(torch.float32)
     # a dropped entry's place (>= C) is clamped, then zeroed by keep
-    slot_oh = (F.one_hot(torch.clamp(pos_in_e, max=C - 1), C)
+    slot_oh = (_one_hot(torch.clamp(pos_in_e, max=C - 1), C)
                .to(torch.float32) * keep[..., None])
     combine = torch.einsum("gske,gskc->gsec", onehot * gate_vals[..., None],
                            slot_oh)

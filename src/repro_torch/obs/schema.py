@@ -63,10 +63,9 @@ VECTOR_METRICS: FrozenSet[str] = frozenset({"staleness_hist"})
 # envelope ("kind"/"event"/"t") on top of these payload keys.
 # ---------------------------------------------------------------------------
 
-# one per compiled round program in the JAX package (trainer
-# roofline=True): the cost model's per-round prediction plus the measured
-# rounds/s.  Kept here as data; the port does not emit it yet (ROADMAP
-# Queue 1 item 8, with roofline/)
+# one per round function (trainer roofline=True; the JAX package: per
+# compiled round program): the cost model's per-round prediction plus the
+# measured rounds/s (repro_torch.roofline.live)
 ROOFLINE_EVENT_KEYS: FrozenSet[str] = frozenset({
     "rounds_per_call", "flops_per_round", "bytes_per_round",
     "collective_bytes_per_round", "per_collective", "compute_s_per_round",

@@ -1,8 +1,8 @@
 """Observability in the port (``repro_torch.obs``) against the JAX
 package's (``repro.obs``): the tracker registry and its error messages,
 the file trackers, spans, the trainer's event stream, the per-call
-override, ``CheckpointManager(background=False)``, the refusals that name
-ROADMAP item 8, and ``round_metric_keys`` over a grid of configs.
+override, ``CheckpointManager(background=False)``, the refusals, and
+``round_metric_keys`` over a grid of configs.
 
 Mirrors ``tests/test_obs.py``.  The trainer runs use the small MLP of
 ``test_torch_faults.py`` (parameters from the JAX init), one JAX trainer
@@ -348,12 +348,16 @@ def test_profiler_opens_on_chunk_overlapping_window(tmp_path):
 def test_profile_without_run_dir_and_roofline_are_actionable():
     with pytest.raises(ValueError, match="run "):
         _port_trainer(profile=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port_trainer(roofline=True)
+    # the roofline trace cannot follow a round that reads a device value
+    # on the host (the all-failed check under participation or faults)
+    fed = FedConfig(**{**BASE, "participation": 0.75})
+    with pytest.raises(ValueError, match="host"):
+        FederatedTrainer(_torch_mlp(), fed, device="cpu",
+                         params=_params0()[1], roofline=True)
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="host"):
         main(["--arch", "smollm-360m-smoke", "--rounds", "1", "--device",
-              "cpu", "--roofline"])
+              "cpu", "--roofline", "--participation", "0.75"])
 
 
 # ---------------------------------------------------------------------------

@@ -42,8 +42,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
 
 ROWS = 2_826_728                # smollm-360m's flat layout (rows, 128)
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 SOURCE = os.path.join(HERE, "csrc", "accumulate_forms.cu")
+
+
+def kernel_bound_ms(kc) -> float:
+    """A kernel's declared cost (``kernels/*/kernel.py``'s ``*_cost``) over
+    the H100 SXM rates of ``repro_torch/roofline/analysis.py``."""
+    from repro_torch.roofline.analysis import bound_s
+    return bound_s(kc.bytes_read + kc.bytes_written, kc.flops,
+                   kc.tc_flops)[0] * 1e3
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -151,7 +158,7 @@ def main() -> int:
     print("every form bitwise the port's kernel, in place and out of place",
           flush=True)
 
-    bound = 3 * n * 4 / HBM_BYTES_PER_S * 1e3
+    bound = kernel_bound_ms(K.accumulate_cost(ROWS))
     results = {"card": card, "bound_ms": bound, "rows": ROWS}
     for mode in ("in place", "out of place"):
         dst = (lambda: acc) if mode == "in place" else (lambda: out)

@@ -48,7 +48,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
 
-from accumulate_forms import HBM_BYTES_PER_S, ROWS, in_turns  # noqa: E402
+from accumulate_forms import ROWS, in_turns, kernel_bound_ms  # noqa: E402
 
 SOURCE = os.path.join(HERE, "csrc", "update_forms.cu")
 OPT_CODES = {"sgd": 0, "sgdm": 1, "adam": 2, "yogi": 3}
@@ -147,7 +147,6 @@ def main() -> int:
                for name, fn in forms.items()}
         fns["port kernel (fused_update.cu)"] = (
             lambda: K.update_pass(G, p, mm, vv, scal, opt=opt, **HYPER))
-        nbytes = {"sgd": 3, "sgdm": 5, "adam": 7, "yogi": 7}[opt] * n * 4
         if opt == "sgd":
             fns["library: torch.add(p, G, alpha=-lr)"] = (
                 lambda: torch.add(p, G, alpha=-lr))
@@ -170,7 +169,7 @@ def main() -> int:
         # the second copies of forms 0 and 1, far from the first ones
         fns[FORMS[1] + " (second copy)"] = fns[FORMS[1]]
         fns[FORMS[0] + " (second copy)"] = fns[FORMS[0]]
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = kernel_bound_ms(K.update_cost(opt, ROWS))
         got = in_turns(fns)
         results[opt] = {"bound_ms": bound}
         print(f"update_pass[{opt}] (bound {bound:.4f} ms, bytes):",
