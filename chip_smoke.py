@@ -9,6 +9,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build the fused-update and the codec kernels from ``src/repro_torch``,
      one nvcc for each source, both started together (``-Xptxas -v``
      printed);
+  2b. the port's static analyzer, ``python -m repro_torch.analysis.fedlint
+     src/repro_torch``, clean (exit 0);
   3. hold each of the six fused-update kernels (three forward passes, three
      backward passes) against its plain PyTorch version, at the full-width
      shapes of smollm-360m (rows = 2,826,728), at the paper models' (rows
@@ -71,8 +73,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      predicted memory against ``max_memory_allocated`` printed.  Traces
      without a run of post scan/adam, through_aggregation vmap/sgd and
      scan/adam, int8 + ef scan/adam and sign1bit + ef vmap/sgd (each in a
-     process of its own, ``chip_smoke.py --trace-only TAG``), each held to
+     process of its own, ``chip_smoke.py --trace-only TAG``, started
+     before phase 6 and tracing beside it), each held to
      one round's launches, no allocation and no real launch; the dry run
+     (``chip_smoke.py --dry-only``, started with them)
      (``repro_torch.launch.dryrun.run_one``) of smollm-360m on its four
      shapes and mamba2-780m on prefill_32k, flash charged 32 launches and
      the SSD scan 48, each record printed;
@@ -135,7 +139,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      crashed (its residual slot byte-identical); the async tick (vmap and
      scan, 'flaky' with garble) card against CPU, its sign1bit launches,
      an async save and resume on the card against a run that never
-     stopped, (7p) the paper CNN with dropout under the trainer's
+     stopped, (7r) ``roofline=True`` under participation 0.5, under the
+     'flaky' fault profile and on the buffered-async engine, one event
+     each and the first call's trace charging exactly the launches that
+     call made, (7p) the paper CNN with dropout under the trainer's
      host draws and the GRU at smoke size, 3 rounds through
      ``train_method``, and (7o) the launcher's ``--sanitize`` on an async
      run whose payloads are all garbled by U(-inf, inf) raising
@@ -159,14 +166,18 @@ The serving path (``repro_torch.launch.serve``) adds, beside these:
       shapes, N 10 to 128, chunk 32 to 256, G 1, 2 and 4, and on strided
       views), then each at the prefill's shapes
       (the SSD scan in both decay regimes, so the state carried across
-      chunks is held at full width); flash at all four of its (Dk, Dv)
-      forms, (96, 96) and (192, 128) beside (64, 64) and (128, 128), and
-      at every served prefill's call shape (``flash_calls``: the
+      chunks is held at full width); the SSD scan at head dim 128 on one
+      jamba mamba layer (``SSD_JAMBA_LAYER``), each 64-column half bitwise
+      the head-dim-64 call, and at head dim 64 the bits of the kernel
+      before its head dim was tiled (``SSD_P64_DIGESTS``); flash at all
+      four of its (Dk, Dv) forms, (96, 96) and (192, 128) beside (64,
+      64) and (128, 128), and at every served prefill's call shape (``flash_calls``: the
       decoder-only models' causal S 1024, whisper-large-v3's encoder,
       decoder self- and cross-attention, llama-3.2-vision-90b's
       cross-attention);
   5d. their times at the prefill's shapes beside bound, plain and library
-      (flash attention on the prefill's (B, S, H, D) tensors, in turns
+      (the SSD scan at head dim 128 too, on the jamba layer; flash
+      attention on the prefill's (B, S, H, D) tensors, in turns
       with scaled_dot_product_attention on the same views); both bounds
       as the kernels compute, 3xTF32 on the tensor cores, and beside them
       fp32's; the device kernels one SSD call launches and their times
@@ -804,8 +815,7 @@ def check_codec_kernels(CK, CR, dev, rows_list):
             scal = torch.tensor(sc, device=dev)
             for err in (False, True):
                 out = CK.quantize_i8_pass(g, scal, with_error=err)
-                ref = CR.quantize_i8_ref(g, scal[0], scal[1],
-                                         with_error=err)
+                ref = CR.quantize_i8_ref(g, scal, with_error=err)
                 for what, a, b in (zip(("q", "residual"), out, ref) if err
                                    else [("q", out, ref)]):
                     same("quantize_i8_pass", what, a, b)
@@ -871,7 +881,7 @@ def time_codec_kernels(CK, CR, dev):
         res[tag] = dict(
             ms=cuda_ms(lambda: CK.quantize_i8_pass(g, scal, with_error=err)),
             plain_ms=cuda_ms(lambda: CR.quantize_i8_ref(
-                g, scal[0], scal[1], with_error=err)),
+                g, scal, with_error=err)),
             library_ms=None, library=none + " (torch.quantize_per_tensor "
             "divides by the scale and clips to [-128, 127])",
             bound_ms=b, bound_by=by, bytes=nbytes)
@@ -1471,9 +1481,9 @@ def tracked_path(counts_of, dev, ref):
 # round of five more of phase 6's configurations, each in a process of
 # its own, in parallel (a trace is host work), held to the launches of
 # one round of their path: with the live run every fused-update and codec
-# kernel is charged.  Meanwhile the dry run in this process: smollm-360m
-# on the four shapes and mamba2-780m's prefill, flash charged 32 launches
-# and the SSD scan 48.
+# kernel is charged.  The dry run in a process of its own too:
+# smollm-360m on the four shapes and mamba2-780m's prefill, flash charged
+# 32 launches and the SSD scan 48.  All six start before phase 6.
 ROOFLINE_TRACED = ("post:scan/adam", "through_aggregation:vmap/sgd",
                    "through_aggregation:scan/adam", "int8+ef:scan/adam",
                    "sign1bit+ef:vmap/sgd")
@@ -1544,23 +1554,53 @@ def trace_only(tag, dev) -> dict:
             "memory": s["memory"]}
 
 
-def roofline_path(counts_of, dev, ref):
-    """Phase 6l: returns its launch counts."""
+DRY = "dryrun"
+
+
+def dry_only() -> dict:
+    """Phase 6l's dry-run worker: the records of ``ROOFLINE_DRY``."""
+    from repro_torch.launch.dryrun import run_one
+    t = time.perf_counter()
+    recs = {f"{a} x {s}": run_one(a, s, verbose=False)
+            for a, s in ROOFLINE_DRY}
+    return {"records": recs, "seconds": time.perf_counter() - t}
+
+
+def start_roofline_traces() -> dict:
+    """Phase 6l's traces without a run and its dry run, each in a process
+    of its own at a lower priority and on one thread, started before
+    phase 6 so that they trace beside phases 6 and 6o and this process's
+    live run (each trace holds its trainer's state on the card, 27 GB for
+    the five, beside phase 6's peaks of at most 34 GiB)."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py")]
+    procs = {t: subprocess.Popen(
+        cmd + ["--trace-only", t], stdout=subprocess.PIPE, text=True,
+        env=env, preexec_fn=lambda: os.nice(10)) for t in ROOFLINE_TRACED}
+    procs[DRY] = subprocess.Popen(cmd + ["--dry-only"],
+                                  stdout=subprocess.PIPE, text=True, env=env,
+                                  preexec_fn=lambda: os.nice(10))
+    return procs
+
+
+def stop(procs: dict) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def roofline_path(counts_of, dev, ref, procs):
+    """Phase 6l, with the trace processes ``start_roofline_traces``
+    started: returns its launch counts."""
     import shutil
     import tempfile
 
     import torch
-    from repro_torch.launch.dryrun import run_one
     from repro_torch.launch.train import run_training
     from repro_torch.obs import ROOFLINE_EVENT_KEYS
 
     tag = "6l:post:vmap/sgd roofline"
-    # the traces without a run, each in a process of its own at a lower
-    # priority, beside this process's live run and dry run
-    procs = {t: subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
-         "--trace-only", t], stdout=subprocess.PIPE, text=True,
-        preexec_fn=lambda: os.nice(10)) for t in ROOFLINE_TRACED}
     try:
         os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
         run_dir = tempfile.mkdtemp(prefix="roofline_smoke_",
@@ -1630,16 +1670,20 @@ def roofline_path(counts_of, dev, ref):
         shutil.rmtree(run_dir)
         torch.cuda.empty_cache()
 
-        t = time.perf_counter()
+        out, _ = procs[DRY].communicate(timeout=600)
+        assert procs[DRY].returncode == 0, procs[DRY].returncode
+        dry = json.loads(out.strip().splitlines()[-1])
         for (arch, shape), want in ROOFLINE_DRY.items():
-            rec = run_one(arch, shape, verbose=False)
+            rec = dry["records"][f"{arch} x {shape}"]
             log(f"  6l dryrun {arch} x {shape}: {json.dumps(rec)}")
             assert rec["launches"] == want, (arch, shape, rec["launches"])
             assert rec["roofline"]["bottleneck"] in (
                 "compute", "memory", "collective"), rec["roofline"]
         log(f"  6l dryrun: {len(ROOFLINE_DRY)} pairs in "
-            f"{time.perf_counter() - t:.1f} s")
+            f"{dry['seconds']:.1f} s (a process of its own)")
         for t, p in procs.items():
+            if t == DRY:
+                continue
             out, _ = p.communicate(timeout=600)
             assert p.returncode == 0, (t, p.returncode)
             got = json.loads(out.strip().splitlines()[-1])
@@ -1653,10 +1697,7 @@ def roofline_path(counts_of, dev, ref):
                 f"traced in {got['trace_s']:.1f} s")
             assert have == one_round_counts(t), (t, have)
     finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop(procs)
     return {tag: counts}
 
 
@@ -2207,9 +2248,9 @@ def ckpt_path_check(dev):
 PAPER_COHORT = 10
 # rounds of FedMeta w/ UGA on the vmap cohort, evaluated at the first and
 # the last; the GRU's round is a Python loop over 80 positions a pass
-# (14-24 s on the card), so it runs one steady round
+# (14-24 s on the card), so it runs two, both evaluated
 PAPER_ROUNDS = {"paper-cifar-cnn": 4, "paper-femnist-cnn": 4,
-                "paper-shakespeare-gru": 3}
+                "paper-shakespeare-gru": 2}
 PAPER_ROWS = {"paper-cifar-cnn": 10_848, "paper-femnist-cnn": 13_208,
               "paper-shakespeare-gru": 31_648}
 PAPER_N_PARAMS = {"paper-cifar-cnn": 1_387_786,
@@ -2308,7 +2349,8 @@ def paper_path(counts_of, dev):
             f"{[round(x, 4) for x in secs]} (round 0 includes init; rounds "
             f"0 and {PAPER_ROUNDS[name] - 1} include an evaluation of "
             f"{PAPER_EVAL} examples, {eval_s:.4f} s alone); steady "
-            f"{np.mean(secs[1:-1]):.4f} s; max_memory_allocated "
+            + (f"{np.mean(secs[1:-1]):.4f} s" if len(secs) > 2 else
+               "none (every round evaluated)") + "; max_memory_allocated "
             f"{peak:.3f} GiB; (round, eval acc, eval loss) {evs}; the "
             f"evaluation of the final params again: {ev}")
         if name == "paper-cifar-cnn":
@@ -2744,14 +2786,14 @@ def legacy_path(counts_of, dev, ref):
 # phase 6r: multi-round calls at full width
 # ---------------------------------------------------------------------------
 # smollm-360m at full width, UGA + FedMeta post, cohort 4, client batch 8,
-# seq 128.  4 fused vmap/sgd rounds as one K = 4 call against 4 calls of
+# seq 128.  2 fused vmap/sgd rounds as one K = 2 call against 2 calls of
 # K = 1, and 2 buffered_async ticks (defaults: K = cohort = 4, capacity 8,
 # fault-free: one flush a tick) as one K = 2 call against 2 calls of
 # K = 1, each pair in this process.  The same operations run in the same
 # order, so state and records are held bitwise; the launches are K times
 # a round's: per sync round one aggregate_pass and one update_pass, per
 # tick one accumulate_pass per flushed delta and one update_pass.
-RPC_SYNC_ROUNDS, RPC_ASYNC_TICKS = 4, 2
+RPC_SYNC_ROUNDS, RPC_ASYNC_TICKS = 2, 2
 
 
 def rounds_per_call_path(counts_of, dev):
@@ -3503,6 +3545,83 @@ def small_reference_async(counts_of, dev):
         f"{'bitwise equal' if repeat else f'rel {gap:.3e} apart'})")
 
 
+# Phase 7r: FederatedTrainer(roofline=True) under draws at smoke size
+# (smollm-360m-smoke, cohort 4, client batch 4, seq 32, 1 round a run):
+# participation 0.5, the 'flaky' fault profile with a deadline, and the
+# buffered-async engine (K 1, capacity 4: each arrival is flushed) under
+# participation 0.75 and 'flaky'.  Each run emits one roofline event
+# with ROOFLINE_EVENT_KEYS, and the trace of its first call (before that
+# call's dispatch, on the same staged inputs and draws) charges exactly
+# the launches the call then makes.
+ROOFLINE_DRAWS = {
+    "participation 0.5": dict(participation=0.5),
+    "flaky, deadline 3": dict(fault_profile="flaky", round_deadline=3.0),
+    "buffered_async": dict(engine="buffered_async", cohort_strategy="scan",
+                           async_buffer=1, async_capacity=4,
+                           participation=0.75, fault_profile="flaky"),
+}
+
+
+def small_reference_roofline_draws(counts_of, dev):
+    """Phase 7r (``ROOFLINE_DRAWS``)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.core.trainer import FederatedTrainer
+    from repro_torch.launch.train import build_synthetic_fed_data
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import ROOFLINE_EVENT_KEYS
+
+    cfg = get_arch("smollm-360m-smoke")
+    model = build_model(cfg, loss_chunk=256)
+    params = model.init(torch.Generator().manual_seed(3))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    for name, extra in ROOFLINE_DRAWS.items():
+        fed = FedConfig(algorithm="uga", meta=True, cohort=4, local_steps=2,
+                        client_lr=0.01, server_lr=0.01, meta_lr=0.01,
+                        fused_update=True, **extra)
+        run_dir = tempfile.mkdtemp(prefix="roofline_draws_",
+                                   dir=os.path.join(HERE, "build"))
+        tr = FederatedTrainer(model, fed, device=dev, params=params,
+                              tracker="jsonl", run_dir=run_dir,
+                              roofline=True)
+        first = {}
+
+        def on_records(recs, trainer):
+            if not first:
+                torch.cuda.synchronize()
+                first.update(counts_of.read())
+
+        counts_of.reset()
+        hist = tr.run(build_synthetic_fed_data(cfg, num_clients=8,
+                                               examples=64, seq=32,
+                                               iid=False),
+                      rounds=1, cohort=4, batch=4, meta_batch=8,
+                      on_records=on_records)
+        tr.finish()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            events = [json.loads(ln) for ln in f]
+        rl = [{k: v for k, v in e.items() if k not in ("kind", "event",
+                                                        "t")}
+              for e in events if e.get("event") == "roofline"]
+        assert len(rl) == 1 and set(rl[0]) == set(ROOFLINE_EVENT_KEYS), rl
+        traced = _launches(**tr.roofline_summaries[1]["launches"])
+        assert traced == first, (name, traced, first)
+        drawn = {k: [rec[k] for rec in hist] for k in
+                 ("participants", "arrivals", "fault_crashed",
+                  "server_steps") if k in hist[0]}
+        log(f"  7r roofline=True under {name}: one roofline event "
+            f"({rl[0]['flops_per_round']:.4e} FLOP a round, analysis_s "
+            f"{rl[0]['analysis_s']:.2f}); round 0's trace charges "
+            f"{tr.roofline_summaries[1]['launches']}, the launches its call "
+            f"made (required); draws {drawn}")
+        shutil.rmtree(run_dir)
+        del tr
+    torch.cuda.empty_cache()
+
+
 def _leaves_of(tree):
     from repro_torch.checkpoint.ckpt import tree_leaves
     return tree_leaves(tree)
@@ -3538,6 +3657,16 @@ def _bitwise(x, y) -> bool:
 FLASH_TOL = 1e-5
 SSD_TOL = 1e-5
 SSD_SEQ_TOL = {"init": 2e-3, "slow": 1e-5}
+# one jamba-1.5-large-398b mamba layer (d_head 128, d_state 128, chunk
+# 256, one group) over a 4096-token prefill: x alone is 268 MB
+SSD_JAMBA_LAYER = dict(B=1, S=4096, H=128, G=1, N=128)
+# sha256 (first 16 hex digits) of y and h_final of the P = 64 call at the
+# prefill's shape (B 8, 48 heads, one group, S 1024, N 128, chunk 256) on
+# inputs from a generator seeded 12, made by the kernel before its head
+# dim was tiled (tools/ssd_check.py --parent; NVIDIA H100 80GB HBM3,
+# 700.00 W), and the toolchain they were made under
+SSD_P64_DIGESTS = {"init": "050512613d46ff50", "slow": "64fdd11da472d034"}
+SSD_DIGEST_TOOLCHAIN = ("2.11.0+cu128", "cuda_12.9")
 SSD_EDGE_SHAPES = [(1, 256, 1, 128), (63, 32, 2, 16), (200, 128, 1, 128),
                    (300, 64, 4, 16), (150, 32, 2, 16), (100, 32, 4, 12),
                    (130, 64, 1, 10), (257, 256, 4, 100)]
@@ -3644,14 +3773,15 @@ def flash_inputs(gen, dev, c) -> tuple:
     return q, k, v
 
 
-def ssd_inputs(gen, dev, B, S, H, G, N, regime):
-    """x, dt, A, B, C of an SSD call.  "init": A = -linspace(1, 16) (the
-    model's A_log init) and dt = softplus(unit normal) (its projection of
-    a unit-RMS input); "slow": A = -exp(0.3 normal), dt a hundredth of
-    that, so the state carries across chunks."""
+def ssd_inputs(gen, dev, B, S, H, G, N, regime, P=64):
+    """x, dt, A, B, C of an SSD call at head dim ``P``.  "init": A =
+    -linspace(1, 16) (the model's A_log init) and dt = softplus(unit
+    normal) (its projection of a unit-RMS input); "slow": A = -exp(0.3
+    normal), dt a hundredth of that, so the state carries across
+    chunks."""
     import torch
     import torch.nn.functional as F
-    x = torch.randn((B, S, H, 64), generator=gen, device=dev)
+    x = torch.randn((B, S, H, P), generator=gen, device=dev)
     dt = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
     if regime == "init":
         A = -torch.linspace(1.0, 16.0, H, device=dev)
@@ -3761,9 +3891,78 @@ def check_serve_kernels(FK, FR, SK, SR, dev):
             f"N 128, 1 group, chunk 256, {regime} decays): rel y {ey:.3e}, "
             f"h_final {eh:.3e} (tol {SSD_TOL:g})")
         del x, dt, A, Bm, Cm, y, h, ry, rh
+    errs["ssd_scan_fwd"] = max(errs["ssd_scan_fwd"], check_ssd_p128(SK, SR,
+                                                                    dev))
+    check_ssd_p64_bits(SK, dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return errs
+
+
+def check_ssd_p128(SK, SR, dev) -> float:
+    """Phase 3b at head dim 128: one jamba mamba layer
+    (``SSD_JAMBA_LAYER``) in both decay regimes against the plain version,
+    y and h_final at ``SSD_TOL``, and each 64-column half bitwise the P =
+    64 call on its columns.  Returns the largest absolute error."""
+    import torch
+    j = SSD_JAMBA_LAYER
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = 0.0
+    for regime in SSD_SEQ_TOL:
+        x, dt, A, Bm, Cm = ssd_inputs(gen, dev, j["B"], j["S"], j["H"],
+                                      j["G"], j["N"], regime, P=128)
+        y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256)
+        ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 256)
+        ey, eh = rel_err(y, ry), rel_err(h, rh)
+        assert ey <= SSD_TOL and eh <= SSD_TOL, (regime, ey, eh)
+        worst = max(worst, max_abs_err(y, ry), max_abs_err(h, rh))
+        del ry, rh
+        halves = True
+        for p0 in (0, 64):
+            hy, hh = SK.ssd_scan_fwd(x[..., p0:p0 + 64], dt, A, Bm, Cm,
+                                     chunk=256)
+            halves &= torch.equal(hy, y[..., p0:p0 + 64]) and torch.equal(
+                hh, h[..., p0:p0 + 64])
+        assert halves, regime
+        log(f"  ssd_scan_fwd at P 128, one jamba mamba layer (B 1, 128 "
+            f"heads, P 128, N 128, 1 group, S 4096, chunk 256, {regime} "
+            f"decays): rel y {ey:.3e}, h_final {eh:.3e} (tol {SSD_TOL:g}); "
+            f"each 64-column half bitwise the P 64 call on its columns")
+        del x, dt, A, Bm, Cm, y, h
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_ssd_p64_bits(SK, dev) -> None:
+    """Phase 3b: P = 64 at the prefill's shape gives the bits of the
+    kernel before its head dim was tiled (``SSD_P64_DIGESTS``), where this
+    run's torch and CUDA are the ones the digests were made under (other
+    versions draw other inputs or compile other code)."""
+    import hashlib
+
+    import torch
+    from repro_torch.kernels._cuda import _nvcc
+    nvcc = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                          text=True).stdout
+    same = (torch.__version__ == SSD_DIGEST_TOOLCHAIN[0]
+            and SSD_DIGEST_TOOLCHAIN[1] in nvcc)
+    for regime, want in SSD_P64_DIGESTS.items():
+        g = torch.Generator(device=dev).manual_seed(12)
+        x, dt, A, Bm, Cm = ssd_inputs(g, dev, 8, 1024, 48, 1, 128, regime)
+        y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256)
+        d = hashlib.sha256()
+        for t in (y, h):
+            d.update(t.contiguous().cpu().numpy().tobytes())
+        got = d.hexdigest()[:16]
+        log(f"  ssd_scan_fwd P 64 at the prefill's shape, {regime} decays, "
+            f"seed 12: sha256 {got}, the kernel before the head-dim tiling "
+            f"{want}: " + ("bitwise equal (required)" if same else
+                           f"not comparable under torch {torch.__version__}"
+                           f" and this nvcc (made under "
+                           f"{SSD_DIGEST_TOOLCHAIN})"))
+        if same:
+            assert got == want, (regime, got, want)
+        del x, dt, A, Bm, Cm, y, h
 
 
 def check_flash_forms(FK, FR, dev) -> float:
@@ -3925,6 +4124,22 @@ def time_serve_kernels(FK, FR, SK, SR, dev):
         bound_ms=b, bound_by=by, bytes=rw, flops=ops)
     ssd_kernels = device_kernels(ssd)
     del x, dt, A, Bm, Cm
+    j = SSD_JAMBA_LAYER
+    x, dt, A, Bm, Cm = ssd_inputs(gen, dev, j["B"], j["S"], j["H"], j["G"],
+                                  j["N"], "init", P=128)
+    rw, _, _ = ssd_bound_tc(B=j["B"], H=j["H"], S=j["S"], P=128, N=j["N"],
+                            G=j["G"])
+    b128, by128 = bound_ms(*ssd_bound_tc(B=j["B"], H=j["H"], S=j["S"],
+                                         P=128, N=j["N"], G=j["G"]))
+    res["ssd_scan_fwd"]["p128"] = dict(
+        shape="one jamba mamba layer: B 1, 128 heads, P 128, N 128, 1 "
+        "group, S 4096, chunk 256",
+        ms=cuda_ms(lambda: SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256),
+                   iters=20, warmup=3),
+        plain_ms=cuda_ms(lambda: SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 256),
+                         iters=3),
+        bound_ms=b128, bound_by=by128, bytes=rw)
+    del x, dt, A, Bm, Cm
     torch.cuda.empty_cache()
     for name, r in res.items():
         lib = ("" if r["library_ms"] is None
@@ -3954,6 +4169,11 @@ def time_serve_kernels(FK, FR, SK, SR, dev):
         f"as PRs 14-15 did: 3xTF32 {ssd_b_head[1]:.4f} ms "
         f"({100 * ssd_b_head[1] / r['ms']:.1f}%), fp32 {ssd_b_head[0]:.4f} "
         f"ms ({100 * ssd_b_head[0] / r['ms']:.1f}%)")
+    p = r["p128"]
+    log(f"  ssd_scan_fwd at P 128 ({p['shape']}): {p['ms']:.4f} ms, its "
+        f"3xTF32 bound {p['bound_ms']:.4f} ms ({p['bound_by']}, "
+        f"{100 * p['bound_ms'] / p['ms']:.1f}% of it); plain "
+        f"{p['plain_ms']:.4f} ms")
     total = sum(ms for _, ms in ssd_kernels)
     log(f"  ssd_scan_fwd: one call launches {len(ssd_kernels)} device "
         f"kernels (torch.profiler): " + "; ".join(
@@ -4372,18 +4592,38 @@ def small_reference_serve(dev):
             cfg.name, e_pre, e_cache, e_dec)
 
 
+def lint_check() -> None:
+    """Phase 2b: ``python -m repro_torch.analysis.fedlint src/repro_torch``
+    must report a clean tree (exit 0): the round bodies read no device
+    value on the host, every kernel pass dispatches on its tensors' device
+    beside a same-signature oracle, the registries declare their
+    capabilities."""
+    t = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.fedlint",
+         os.path.join(HERE, "src", "repro_torch")], capture_output=True,
+        text=True, env={**os.environ,
+                        "PYTHONPATH": os.path.join(HERE, "src")})
+    log("  " + (p.stdout + p.stderr).strip().replace("\n", "\n  ")
+        + f" (exit {p.returncode}, {time.perf_counter() - t:.1f} s)")
+    assert p.returncode == 0 and "clean" in p.stdout, p.stdout
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--trace-only"]:
-        # phase 6l's worker: one of phase 6's rounds traced, not run
+    if sys.argv[1:2] in (["--trace-only"], ["--dry-only"]):
+        # phase 6l's workers: one of phase 6's rounds traced, not run; the
+        # dry run
         from repro_torch.device import strict_fp32
+        torch.set_num_threads(1)
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
         strict_fp32()
-        print(json.dumps(trace_only(sys.argv[2], dev)))
+        print(json.dumps(trace_only(sys.argv[2], dev)
+                         if sys.argv[1] == "--trace-only" else dry_only()))
         return 0
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4422,6 +4662,8 @@ def main() -> int:
         f"parallel); nvcc -Xptxas -v:")
     for lib in libs:
         log(lib.build_log.strip())
+    phase("[2b] the port's static analyzer over src/repro_torch:")
+    lint_check()
 
     phase("[3,4] kernels against their plain versions (ssq, dw, dscal bitwise "
         "across launches; the codec kernels bitwise):")
@@ -4452,19 +4694,26 @@ def main() -> int:
     time_attention_library(dev)
 
     counts_of = Counts(K, CK, FK, SK)
-    phase("[6] main path: smollm-360m, UGA + FedMeta, fused; the post, "
-          "through_aggregation and lossy-uplink runs, rounds "
-          f"{ {t: rounds_of(t) for t in EXPECTED_LAUNCHES} }:")
-    counts, ref = main_path(counts_of, dev)
-    phase("[6o] the tracked run at full width: phase 6's post vmap/sgd run "
-          "with the jsonl and csv trackers, the sanitizer and a profiled, "
-          "summarized round 1, held bitwise to it:")
-    counts.update(tracked_path(counts_of, dev, ref))
-    phase("[6l] the live roofline and the dry run: phase 6's post vmap/sgd "
-          "run with roofline=True, held bitwise to it; traces of five more "
-          "of phase 6's rounds without a run; the dry run of smollm-360m's "
-          "four shapes and mamba2-780m's prefill:")
-    counts.update(roofline_path(counts_of, dev, ref))
+    traces = start_roofline_traces()
+    try:
+        phase("[6] main path: smollm-360m, UGA + FedMeta, fused; the post, "
+              "through_aggregation and lossy-uplink runs, rounds "
+              f"{ {t: rounds_of(t) for t in EXPECTED_LAUNCHES} }; phase "
+              f"6l's traces of {len(traces)} rounds without a run started "
+              "beside it:")
+        counts, ref = main_path(counts_of, dev)
+        phase("[6o] the tracked run at full width: phase 6's post vmap/sgd "
+              "run with the jsonl and csv trackers, the sanitizer and a "
+              "profiled, summarized round 1, held bitwise to it:")
+        counts.update(tracked_path(counts_of, dev, ref))
+        phase("[6l] the live roofline and the dry run: phase 6's post "
+              "vmap/sgd run with roofline=True, held bitwise to it; the "
+              "traces of five more of phase 6's rounds without a run; the "
+              "dry run of smollm-360m's four shapes and mamba2-780m's "
+              "prefill:")
+        counts.update(roofline_path(counts_of, dev, ref, traces))
+    finally:
+        stop(traces)
     counts.update(coded_path(counts_of, dev))
     phase(f"[6c] the chunked streaming cohort and the sharded executor at "
           f"full width: smollm-360m, UGA + FedMeta, sgd, cohort "
@@ -4522,6 +4771,7 @@ def main() -> int:
     small_reference_paper(dev)
     small_reference_legacy_rpc(counts_of, dev)
     small_reference_obs(counts_of, dev)
+    small_reference_roofline_draws(counts_of, dev)
     small_reference_serve(dev)
 
     kernels = []
@@ -4537,6 +4787,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if "forms" in t:          # flash at every served model's prefill
             kernels[-1]["prefill_shapes"] = t["forms"]
+        if "p128" in t:           # the SSD scan at jamba's head dim
+            kernels[-1]["p128"] = t["p128"]
         paper = paper_times.get("update_pass[sgd]" if name == "update_pass"
                                 else name)
         if paper:                 # rows 1-3 at the paper models' shapes

@@ -307,14 +307,15 @@ def _stream_flat_chunks(client_update: Callable, w_t, cohort_batch, lr,
         g, losses = _run_chunk(client_update, w_t, cohort_batch, lr, rngs,
                                members)
         # the flattening buffer lives between a chunk's run and the next
-        # one's, not through it: the clients' run is the peak
+        # one's, not through it: the clients' run is the peak (no name
+        # holds it past the chunk)
         scratch = [torch.empty_like(a) for a in accs]
         for i, (s, _) in enumerate(members):
             g_bufs = flat_mod.flatten_tree(spec, g[i], out=scratch)
             w_s = _slot_weight(wn, s, zero)
             if codec is None:
-                for acc, gb in zip(accs, g_bufs):
-                    flat_accumulate(acc, gb, w_s, out=acc)
+                for j, acc in enumerate(accs):
+                    flat_accumulate(acc, g_bufs[j], w_s, out=acc)
             else:
                 res_s = None
                 if residuals is not None:
@@ -328,7 +329,7 @@ def _stream_flat_chunks(client_update: Callable, w_t, cohort_batch, lr,
                                                   w_s.reshape(()), res_s)
             l_acc = l_acc + _slot_weight(lwn, s, zero).reshape(()) * \
                 losses[i].to(torch.float32)
-        del g, losses, scratch
+        del g, losses, scratch, g_bufs
     return list(accs), l_acc
 
 
@@ -374,13 +375,13 @@ class _ChunkedCohort(torch.autograd.Function):
             for i, (s, _) in enumerate(members):
                 g_bufs = flat_mod.flatten_tree(spec, g[i], out=scratch)
                 dw = None
-                for gb, dG in zip(g_bufs, dGs):
+                for j, dG in enumerate(dGs):
                     _, dw_j = K.accumulate_pass_bwd(
-                        gb, _slot_weight(wn, s, zero), dG)
+                        g_bufs[j], _slot_weight(wn, s, zero), dG)
                     dw = dw_j if dw is None else dw + dw_j
                 if s is not None:
                     dwn.append(dw)
-            del g, scratch
+            del g, scratch, g_bufs
         dwn = torch.stack(dwn)
         if part is not None:
             dwn = part.gather(dwn)

@@ -55,7 +55,7 @@ from repro_torch.core.executors import FlatAggregate, get_executor
 from repro_torch.core.flat import LANES, FlatSpec, make_flat_spec, zeros_flat
 from repro_torch.core.meta import meta_update
 from repro_torch.core.round import (decayed_lr, dropout_rngs,
-                                    resolve_server_lr)
+                                    host_weights, resolve_server_lr)
 from repro_torch.core.sanitize import check_flat_groups
 from repro_torch.kernels.fused_update.ops import flat_accumulate
 from repro_torch.models.model import Model
@@ -170,8 +170,9 @@ def make_async_tick(model: Model, fed, *, engine: Optional[str] = None,
     draws=None) -> (state, metrics)``, the synchronous ``one_round``'s
     signature.  ``draws`` (:class:`repro_torch.core.round.RoundDraws`)
     carries the tick's participation mask and fault streams, garble
-    included.  ``client_weights`` may lie on the host: the pool's
-    bookkeeping reads them there.  ``engine`` overrides ``fed``'s, as in
+    included.  ``client_weights``: a host fp32 array, or a tensor read back
+    once (:func:`repro_torch.core.round.host_weights`); the pool's
+    bookkeeping reads them on the host.  ``engine`` overrides ``fed``'s, as in
     ``make_federated_round``; ``sanitize`` probes the deltas the tick
     writes into the pool (:func:`repro_torch.core.sanitize.
     check_flat_groups`)."""
@@ -197,9 +198,8 @@ def make_async_tick(model: Model, fed, *, engine: Optional[str] = None,
     needs_draws = fed.participation < 1.0 or faults.active
     slot_idx = np.arange(cap, dtype=np.int64)
 
-    def one_tick(state: State, cohort_batch, meta_batch,
-                 client_weights: torch.Tensor, draws=None
-                 ) -> Tuple[State, Dict[str, Any]]:
+    def one_tick(state: State, cohort_batch, meta_batch, client_weights,
+                 draws=None) -> Tuple[State, Dict[str, Any]]:
         params = state["params"]
         a = state["async"]
         tick = state["round"]
@@ -209,7 +209,7 @@ def make_async_tick(model: Model, fed, *, engine: Optional[str] = None,
 
         rngs, rng_m = dropout_rngs(model, fed, draws, cohort_batch,
                                    meta_batch)
-        w_in = client_weights.detach().to("cpu", torch.float32).numpy()
+        w_in = host_weights(client_weights)
         delay = np.zeros((cohort,), np.int32)
         part_metrics, fault_metrics, fs = {}, {}, None
         if needs_draws:

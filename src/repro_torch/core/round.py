@@ -19,8 +19,12 @@ from the registries:
 
 ``make_federated_round(model, fed, executor=None, mesh=None)`` returns
 ``one_round(state, cohort_batch, meta_batch, client_weights, draws=None)
--> (state, metrics)``.  ``executor`` and ``engine`` name registered
-plugins that override the ones ``fed`` selects;
+-> (state, metrics)``.  ``client_weights`` (cohort,) is a host fp32 array
+(numpy, what the trainer passes) or a tensor: the round's host tests read
+the weights on the host (:func:`host_weights`), so a tensor on the card
+costs one read back where the round needs draws, and a host array none.
+``executor`` and ``engine`` name registered plugins that override the
+ones ``fed`` selects;
 a ``mesh`` (:mod:`repro_torch.launch.mesh`) selects the two-tier sharded
 one, whose processes each run a slice of the cohort and hold the whole
 server state, replicated.  The round counter lives on the host (``state["round"]`` is an
@@ -64,9 +68,9 @@ back to back over K-stacked inputs (:func:`stack_round_inputs`: cohort
 batches ``(K, cohort, ...)``, meta batches ``(K, ...)``, weights ``(K,
 cohort)`` and a list of K draws, all sampled on the host before the
 call), and return metrics stacked with a leading K axis, each where it
-was computed: nothing is read back to the host during the call.  (A
-synchronous round under participation or faults still reads one scalar
-a round, whether any client arrived.)  K = 1 is the one-round function
+was computed: nothing is read back to the host during the call, under
+participation and faults too (whether any client arrived is a host test
+of the host weights and draws).  K = 1 is the one-round function
 itself.  :class:`RoundFnCache` keeps one function per K, for drivers
 that mix full chunks with a tail.
 """
@@ -150,6 +154,15 @@ def decayed_lr(base: float, decay: float, round_idx: int) -> float:
     """``base * decay ** round`` in fp32, as the JAX round traces it."""
     return float(np.float32(base)
                  * np.power(np.float32(decay), np.float32(round_idx)))
+
+
+def host_weights(client_weights) -> np.ndarray:
+    """A round's client weights as a host fp32 array: a numpy array (or a
+    sequence) as it is, a tensor read back (on the card a device sync: the
+    trainer hands the round host arrays, so its rounds read nothing)."""
+    if isinstance(client_weights, torch.Tensor):
+        client_weights = client_weights.detach().cpu().numpy()
+    return np.asarray(client_weights, np.float32)
 
 
 def participation_mask(seed: int, round_idx: int, cohort: int,
@@ -303,36 +316,33 @@ def make_federated_round(model: Model, fed: FedConfig, *,
     faults = sync_faults(fed)
     needs_draws = fed.participation < 1.0 or faults.active
 
-    def apply_draws(client_weights: torch.Tensor, draws: RoundDraws):
-        """Zero the weights of the clients masked out or failed; returns
-        (weights, the participation and fault metrics), JAX's keys."""
+    def apply_draws(w: np.ndarray, draws: RoundDraws):
+        """Zero the host weights of the clients masked out or failed;
+        returns (weights, the participation and fault metrics), JAX's
+        keys.  The products are by 0 or 1, exact in fp32."""
         if draws is None:
             raise ValueError(
                 "participation < 1 or an active fault config: the round "
                 "needs this round's draws (draws=RoundDraws(...), e.g. "
                 "from draw_round)")
         metrics = {}
-        dev = client_weights.device
         if fed.participation < 1.0:
             mask = np.asarray(draws.participation, np.float32)
-            client_weights = client_weights * torch.tensor(mask, device=dev)
+            w = w * mask
             metrics["participants"] = np.sum(mask, dtype=np.float32)
         if faults.active:
             fs = draws.faults
-            alive = (~client_failed_mask(fs, faults)).astype(np.float32)
-            client_weights = client_weights * torch.tensor(alive, device=dev)
-            metrics["arrivals"] = torch.sum(
-                (client_weights > 0).to(torch.float32))
+            w = w * (~client_failed_mask(fs, faults)).astype(np.float32)
+            metrics["arrivals"] = np.sum(w > 0, dtype=np.float32)
             metrics["fault_crashed"] = np.sum(fs.crashed, dtype=np.float32)
             metrics["fault_dropped"] = np.sum(fs.dropped, dtype=np.float32)
             if faults.deadline > 0:
                 metrics["fault_timeout"] = np.sum(timed_out(fs, faults),
                                                   dtype=np.float32)
-        return client_weights, metrics
+        return w, metrics
 
     def one_round(state: State, cohort_batch, meta_batch,
-                  client_weights: torch.Tensor,
-                  draws: Optional[RoundDraws] = None
+                  client_weights, draws: Optional[RoundDraws] = None
                   ) -> Tuple[State, Dict[str, torch.Tensor]]:
         params = state["params"]
         r = state["round"]
@@ -340,8 +350,15 @@ def make_federated_round(model: Model, fed: FedConfig, *,
         rngs, rng_m = dropout_rngs(model, fed, draws, cohort_batch,
                                    meta_batch)
         part_metrics = {}
+        stepped = True
         if needs_draws:
-            client_weights, part_metrics = apply_draws(client_weights, draws)
+            # JAX's sum(w * mask) > 0, on the host weights: a zero base
+            # weight beside the survivors counts, which the draws alone
+            # would miss
+            w, part_metrics = apply_draws(host_weights(client_weights),
+                                          draws)
+            stepped = np.sum(w, dtype=np.float32) > 0
+            client_weights = w
         # uplink bytes: one client's payload times the clients that
         # reported (participants; the whole cohort at participation 1), in
         # fp32 as the JAX round computes them
@@ -349,7 +366,7 @@ def make_federated_round(model: Model, fed: FedConfig, *,
             codec, make_flat_spec(params))) * np.float32(
                 part_metrics.get("participants", client_weights.shape[0]))}
             if codec.lossy else {})
-        if needs_draws and not bool(torch.sum(client_weights) > 0):
+        if not stepped:
             # every client failed: a no-op server step (JAX keeps the old
             # state by a select after the fact; here nothing runs, so no
             # kernel launches and no buffer is written)
@@ -366,6 +383,10 @@ def make_federated_round(model: Model, fed: FedConfig, *,
             elif fed.meta:
                 metrics["meta_loss"] = 0.0
             return {**state, "round": r + 1}, metrics
+        if not isinstance(client_weights, torch.Tensor):
+            client_weights = torch.tensor(
+                host_weights(client_weights),
+                device=next(iter(params.values())).device)
         meta_metrics = {}
         if through_agg:
             rw = exe.reweightable(client_update, params, cohort_batch,
@@ -455,7 +476,7 @@ def _chunk_rounds(one_round, rounds_per_call: int):
         raise ValueError(f"rounds_per_call={rounds_per_call} must be >= 1")
 
     def round_fn(state: State, cohort_batches, meta_batches,
-                 client_weights: torch.Tensor, draws=None):
+                 client_weights, draws=None):
         per_round = []
         for j in range(rounds_per_call):
             state, m = one_round(state, _index(cohort_batches, j),

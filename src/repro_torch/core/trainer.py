@@ -69,13 +69,13 @@ once on fake stand-ins of the staged inputs (:mod:`repro_torch.
 roofline.live`), before its
 first dispatch and outside the profiler window and the phase spans, and
 emits at run end one ``roofline`` event per K with the measured rounds/s
-of the dispatch + device-sync spans beside the prediction.  It is refused
-where the round reads a device value on the host, which a trace cannot
-follow: under participation < 1 or an active fault config (the
-all-failed check's ``bool(sum(weights) > 0)``) and on the buffered-async
-engine (the tick reads its weights into numpy).  A sanitized round
-emits no event.  None of these changes a round's bits: they read what the
-trainer already holds on the host.
+of the dispatch + device-sync spans beside the prediction, under
+participation < 1, faults and the buffered-async engine too: the trainer
+hands the round its weights on the host, so the all-failed test and the
+tick's pool bookkeeping read no device value.  A trace takes the draws
+of the chunk it precedes.  A sanitized round emits no event.  None of
+these changes a round's bits: they read what the trainer already holds
+on the host.
 
 Checkpoints: :meth:`save` writes the whole server state and the run
 history in the JAX package's blob format (``repro_torch.checkpoint``),
@@ -101,7 +101,6 @@ from repro_torch.checkpoint import save as ckpt_save
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.async_round import (async_checkpoint_view,
                                           async_from_checkpoint)
-from repro_torch.core.engines import resolve_engine
 from repro_torch.core.round import (RoundDraws, RoundFnCache,
                                     batch_to_device, draw_round,
                                     init_server_state, round_faults,
@@ -131,16 +130,6 @@ class FederatedTrainer:
                  sanitize: bool = False, tracker=None, profile: int = 0,
                  profile_start: int = 0, trace_summary: bool = False,
                  trace_top_k: int = 15, roofline: bool = False):
-        if roofline and (fed.participation < 1.0
-                         or round_faults(fed).active
-                         or resolve_engine(fed).is_async):
-            raise ValueError(
-                "roofline=True traces the round on fake tensors, and this "
-                "round reads a device value on the host: under "
-                "participation < 1 or an active fault config the all-failed "
-                "check (core/round.py: bool(sum(weights) > 0)), on the "
-                "buffered-async engine the tick's weights (core/"
-                "async_round.py: .numpy()); drop roofline or those options")
         if trace_summary and profile <= 0:
             raise ValueError(
                 "trace_summary summarizes the profiler's capture and needs "
@@ -159,11 +148,6 @@ class FederatedTrainer:
         self._sanitize = bool(sanitize)
         self._cache = RoundFnCache(model, fed, executor=executor, mesh=mesh,
                                    sanitize=sanitize)
-        # the async tick keeps its pool's bookkeeping on the host and reads
-        # the weights there: they stay on the host, so no tick waits on
-        # the device for them
-        self._weights_device = ("cpu" if resolve_engine(fed).is_async
-                                else self.device)
         self._faults = round_faults(fed)
         self._draws = (fed.participation < 1.0 or self._faults.active
                        or model.dropout is not None)
@@ -302,18 +286,20 @@ class FederatedTrainer:
                 self._retry_due.setdefault(due_round, []).append(cid)
 
     def _stage(self, samples, metas, draws) -> tuple:
-        """The chunk's inputs on the device: the one round's batches for
-        k = 1, else the K-stacked copy (:func:`stack_round_inputs`)."""
+        """The chunk's batches on the device: the one round's for k = 1,
+        else the K-stacked copy (:func:`stack_round_inputs`).  The weights
+        stay on the host: the round's host tests read them there, and the
+        round sends them up itself."""
         if len(samples) == 1:
-            weights = torch.as_tensor(samples[0]["client_weights"]).to(
-                self._weights_device)
             return (batch_to_device(samples[0]["cohort_batch"], self.device),
-                    batch_to_device(metas[0], self.device), weights,
+                    batch_to_device(metas[0], self.device),
+                    np.asarray(samples[0]["client_weights"], np.float32),
                     draws[0])
-        return stack_round_inputs(
+        cb, mb, w, draws = stack_round_inputs(
             [s["cohort_batch"] for s in samples], metas,
             [s["client_weights"] for s in samples], draws,
-            device=self.device, weights_device=self._weights_device)
+            device=self.device, weights_device="cpu")
+        return cb, mb, w.numpy(), draws
 
     @staticmethod
     def _records(k: int, metrics) -> list:

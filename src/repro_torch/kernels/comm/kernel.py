@@ -129,8 +129,7 @@ def quantize_i8_pass(g: torch.Tensor, scalars: torch.Tensor, *,
         q = g.new_empty(shape, dtype=torch.int8)
         return (q, g.new_empty(shape)) if with_error else q
     if dev.type == "cpu":
-        return R.quantize_i8_ref(g, scalars[0], scalars[1],
-                                 with_error=with_error)
+        return R.quantize_i8_ref(g, scalars, with_error=with_error)
     lib = LIB.load()
     q = torch.empty(shape, dtype=torch.int8, device=dev)
     err = torch.empty_like(g) if with_error else None

@@ -43,8 +43,11 @@ def valid_mask(shape: Tuple[int, int], n_valid: int,
     return row * lanes + lane < n_valid
 
 
-def quantize_i8_ref(g: torch.Tensor, inv_scale: torch.Tensor,
-                    scale: torch.Tensor, *, with_error: bool = False):
+def quantize_i8_ref(g: torch.Tensor, scalars: torch.Tensor, *,
+                    with_error: bool = False):
+    """``scalars``: (2,) fp32 ``[inv_scale, scale]``, the wrapper's
+    form."""
+    inv_scale, scale = scalars[0], scalars[1]
     q = torch.clamp(torch.round(g * inv_scale), -127.0, 127.0)
     q8 = q.to(torch.int8)
     if not with_error:

@@ -7,8 +7,8 @@
 //   dividing H, any strides but unit stride on the last axis; head h reads
 //   group h / (H / G), so the groups are never repeated in memory.
 //   y (B, S, H, P) and h_final (B, H, N, P) contiguous; the scan starts
-//   from a zero state, as the prefill does.  P = 64, N <= 128, chunk
-//   L <= 256.
+//   from a zero state, as the prefill does.  P = 64 or 128, N <= 128,
+//   chunk L <= 256.
 //
 // What bounds it.  At the serving prefill of mamba2-780m (B 8, 48 heads,
 // one group, S 1024, P 64, N 128, chunk 256) one call needs 19.9 GFLOP
@@ -93,6 +93,23 @@
 // Where N is not a multiple of 64 the state dimension is padded with zeros
 // in shared memory (N <= 64 runs as 64, N <= 128 as 128).
 //
+// The head dim P.  Every block works on 64 columns of P: the columns of
+// the scan are independent (the state is N x P and column p of x feeds
+// only column p of y and of h), so P = 128 (jamba's mamba layers) runs
+// each state and output block twice over, at p0 = 0 and p0 = 64, the
+// third dimension of the output grid, and C B^T, which does not depend
+// on P, is still taken once per group.  A block's tiles, shared memory
+// (35.0 KB for a state block, 64.0 KB for a C B^T block and 66.0 KB for
+// an output block at N 128) and registers stay those of P = 64, so three
+// blocks still share an SM; a 64 x 128 tile a block would double the
+// accumulators (64 more registers a thread: two blocks an SM, or spills)
+// and C's staging is the only work the second pass repeats.  P = 64 runs
+// one pass, each block's operations in the order an unsplit kernel takes
+// them, so tiling P changes none of its bits.  At one jamba layer (B 1,
+// 128 heads, S 4096, chunk 256) a P = 128 call takes 1.83 ms on an
+// NVIDIA H100 80GB HBM3 at 700.00 W against its 3xTF32 bound of 0.32 ms
+// (tools/ssd_check.py); making it fast is work of its own.
+//
 // Plain C interface (loaded with ctypes): ssd_forward launches the two
 // kernels on the given stream, allocates nothing, does not synchronise,
 // and returns cudaGetLastError() after each launch so a refused launch is
@@ -103,7 +120,7 @@
 
 namespace {
 
-constexpr int kP = 64;             // head dim
+constexpr int kP = 64;             // head-dim columns of a block
 constexpr int kMaxN = 128;         // state dim
 constexpr int kMaxL = 256;         // chunk length
 constexpr int kBT = 64;            // t rows of an output block (a warpgroup)
@@ -115,6 +132,7 @@ struct Args {
   const float *x, *dt, *A, *Bm, *Cm;
   float *y, *hT, *states, *acum, *cb;
   int S, H, G, N, L, nc, nT, nS;
+  int P, nP;                       // head dim, its 64-column tiles
   int units_g;                     // B G nchunks
   int vecB, vecC;                  // B / C rows loadable as float4
   int64_t sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, sbg, scb, scs, scg;
@@ -409,7 +427,8 @@ __device__ __forceinline__ void state_block(const Args& a, int blk,
   float* Blo = Bhi + 64 * kBS1;
 
   const int halves = (a.N + 63) / 64;
-  const int bh = blk / halves, n0 = (blk % halves) * 64;
+  const int bh = blk / (a.nP * halves), rem = blk % (a.nP * halves);
+  const int p0 = (rem / halves) * kP, n0 = (rem % halves) * 64;
   const int b = bh / a.H, h = bh % a.H, gi = h / (a.H / a.G);
   const int L = a.L, N = a.N, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -423,7 +442,7 @@ __device__ __forceinline__ void state_block(const Args& a, int blk,
   for (int c = 0; c < a.nc; ++c) {
     const int c0 = c * L, npos = min(L, a.S - c0);
     const int64_t unit = (int64_t)bh * a.nc + c;
-    const float* xb = a.x + b * a.sxb + h * a.sxh + c0 * a.sxs;
+    const float* xb = a.x + b * a.sxb + h * a.sxh + c0 * a.sxs + p0;
     const float* dtb = a.dt + b * a.sdb + h * a.sdh + c0 * a.sds;
     const float* Bb = a.Bm + b * a.sbb + gi * a.sbg + c0 * a.sbs + n0;
     // the chunk's first tiles, in flight during the cumsum
@@ -446,10 +465,10 @@ __device__ __forceinline__ void state_block(const Args& a, int blk,
     __syncthreads();
     const float aL = acum[L - 1];
     for (int s = tid; s < kMaxL; s += kThreads) {
-      if (n0 == 0 && s < L) a.acum[unit * L + s] = acum[s];
+      if (n0 == 0 && p0 == 0 && s < L) a.acum[unit * L + s] = acum[s];
       dte[s] = s < L ? expf(aL - acum[s]) : 0.f;
     }
-    float* st = a.states + unit * kP * N;
+    float* st = a.states + (unit * a.P + p0) * N;
     if (c > 0) {                   // chunk 0's zero state is implied
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -503,15 +522,15 @@ __device__ __forceinline__ void state_block(const Args& a, int blk,
         hs[j][e] = __fadd_rn(__fmul_rn(eL, hs[j][e]), acc[j][e]);
   }
 
-  // h_final (N, P)
-  float* out = a.hT + (int64_t)bh * N * kP;
+  // h_final (N, P), columns [p0, p0 + 64)
+  float* out = a.hT + (int64_t)bh * N * a.P + p0;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int p = warp * 16 + g + 8 * (e >> 1);
       const int n = n0 + j * 8 + 2 * t + (e & 1);
-      if (n < N) out[n * kP + p] = hs[j][e];
+      if (n < N) out[n * a.P + p] = hs[j][e];
     }
 }
 
@@ -647,7 +666,8 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_out_kernel(const Args a) {
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;              // the thread's rows r0, r0 + 8
-  const float* xb = a.x + u.b * a.sxb + u.h * a.sxh + u.c0 * a.sxs;
+  const int p0 = blockIdx.z * kP;            // the block's head-dim columns
+  const float* xb = a.x + u.b * a.sxb + u.h * a.sxh + u.c0 * a.sxs + p0;
   const float* dtb = a.dt + u.b * a.sdb + u.h * a.sdh + u.c0 * a.sds;
   const float* Cb = a.Cm + u.b * a.scb + u.g * a.scg + u.c0 * a.scs;
 
@@ -663,7 +683,7 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_out_kernel(const Args a) {
     // columns at a time; big += c_hi.h_hi, small += c_lo.h_hi + c_hi.h_lo
     // C's tile and the state's first 64 columns in flight together, the
     // next 64 columns during the products
-    const float* st = a.states + (int64_t)u.unit * kP * a.N;
+    const float* st = a.states + ((int64_t)u.unit * a.P + p0) * a.N;
     const bool vec_st = (a.N & 3) == 0;
     RowTile<kP, 64, false, kThreads> ht;
     uint32_t chi[KN][4];
@@ -778,8 +798,9 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_out_kernel(const Args a) {
       for (int e = 0; e < 4; ++e) yacc[q][e] += part[q][e];
   }
 
-  const int64_t sys = (int64_t)a.H * kP;
-  float* yb = a.y + ((int64_t)u.b * a.S + u.c0) * sys + (int64_t)u.h * kP;
+  const int64_t sys = (int64_t)a.H * a.P;
+  float* yb = a.y + ((int64_t)u.b * a.S + u.c0) * sys + (int64_t)u.h * a.P +
+              p0;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int tl = t0 + r0 + 8 * hr;
@@ -823,14 +844,15 @@ cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
                              out_smem<NP>());
   if (err != cudaSuccess) return err;
   const int64_t units = (int64_t)bh * a.nc;
-  const int64_t first = (int64_t)bh * (NP / 64) + (int64_t)a.units_g * a.nT;
+  const int64_t state_blocks = (int64_t)bh * a.nP * (NP / 64);
+  const int64_t first = state_blocks + (int64_t)a.units_g * a.nT;
   if (units > 0x7fffffff || first > 0x7fffffff)
     return cudaErrorInvalidConfiguration;
   ssd_states_cb_kernel<NP><<<(unsigned)first, kThreads, first_smem, stream>>>(
-      a, bh * (NP / 64));
+      a, (int)state_blocks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_out_kernel<NP><<<dim3((unsigned)units, a.nT), kThreads, out_smem<NP>(),
-                       stream>>>(a);
+  ssd_out_kernel<NP><<<dim3((unsigned)units, a.nT, a.nP), kThreads,
+                       out_smem<NP>(), stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -846,8 +868,8 @@ extern "C" int ssd_forward(const float* x, const float* dt, const float* A,
                            int64_t sds, int64_t sdh, int64_t sbb, int64_t sbs,
                            int64_t sbg, int64_t scb, int64_t scs, int64_t scg,
                            cudaStream_t stream) {
-  if (P != kP || N < 1 || N > kMaxN || L < 1 || L > kMaxL || G < 1 ||
-      H % G != 0)
+  if ((P != kP && P != 2 * kP) || N < 1 || N > kMaxN || L < 1 ||
+      L > kMaxL || G < 1 || H % G != 0)
     return (int)cudaErrorInvalidValue;
   if (Bsz <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
   // B and C rows as float4: 16-byte aligned bases and strides, N % 4 == 0
@@ -857,7 +879,8 @@ extern "C" int ssd_forward(const float* x, const float* dt, const float* A,
   };
   const int nc = (S + L - 1) / L;
   const Args a{x, dt, A, Bm, Cm, y, hT, states, acum, cb, S, H, G, N, L,
-               nc, (L + kBT - 1) / kBT, (L + kBS - 1) / kBS, Bsz * G * nc,
+               nc, (L + kBT - 1) / kBT, (L + kBS - 1) / kBS, P, P / kP,
+               Bsz * G * nc,
                vec(Bm, sbb, sbs, sbg), vec(Cm, scb, scs, scg),
                sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, sbg, scb, scs, scg};
   return (int)(N <= 64 ? launch<64>(a, Bsz * H, stream)

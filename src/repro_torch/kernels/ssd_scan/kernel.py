@@ -25,8 +25,8 @@ G)).  Besides y, it writes the final state: the JAX prefill takes
 ``h_final`` from ``ssd_chunked`` for the decode cache (the Pallas kernel
 writes y only).  Like both, it starts from a zero state.  No backward: a
 tensor that requires a gradient is refused (SSM-family training is a
-ROADMAP item).  P = 64, N <= 128, chunk <= 256, fp32 (bf16 inputs:
-ROADMAP Queue 2 row 12).
+ROADMAP item).  P = 64 or 128, N <= 128, chunk <= 256, fp32 (bf16
+inputs: ROADMAP Queue 2 row 12).
 
 The design (``csrc/ssd_scan.cu`` has it in full): SSD's chunk-parallel
 algorithm in two device kernels a call, every product 3xTF32 on the
@@ -34,9 +34,11 @@ tensor cores (``wgmma``) at fp32 accuracy: (1) per (b, h), the chunks'
 cumsums (sequential in index order, the bits ``torch.cumsum`` gives on
 the card) and states, and the state passed across the chunks, with, in
 the same launch, C B^T once per group (the heads of a group share B and
-C); (2) each chunk's outputs, independently.  The wrapper hands them
+C); (2) each chunk's outputs, independently.  A block takes 64 columns of
+P, so P = 128 (jamba's mamba layers) runs the state and output blocks
+at two column offsets, C B^T still once per group.  The wrapper hands them
 their scratch (``torch.empty``): the states entering the chunks (B H
-nchunks x 64 x N fp32, 50 MB at the prefill), the cumsums and the C B^T
+nchunks x P x N fp32, 50 MB at the prefill), the cumsums and the C B^T
 tiles (8 MB).
 ``launches`` counts calls; :func:`kernels_per_call` says how many device
 kernels each one runs.
@@ -62,7 +64,7 @@ from repro_torch.kernels._cuda import (CudaLibrary, KernelCost, charge,
                                       device_of, raise_on, stream, traced)
 from repro_torch.kernels.ssd_scan import ref as R
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)
 MAX_STATE = 128
 MAX_CHUNK = 256
 
@@ -116,10 +118,10 @@ def ssd_cost(B: int, H: int, S: int, P: int, N: int, chunk: int,
 
 def _check_form(x, dt, A, Bm, Cm, P: int, N: int, L: int) -> None:
     """What the CUDA kernel takes beyond the plain version."""
-    if P != HEAD_DIM or N > MAX_STATE or L > MAX_CHUNK:
+    if P not in HEAD_DIMS or N > MAX_STATE or L > MAX_CHUNK:
         raise NotImplementedError(
-            f"P={P}, N={N}, chunk={L}: the CUDA kernel takes P = "
-            f"{HEAD_DIM}, N <= {MAX_STATE}, chunk <= {MAX_CHUNK} (other "
+            f"P={P}, N={N}, chunk={L}: the CUDA kernel takes P in "
+            f"{HEAD_DIMS}, N <= {MAX_STATE}, chunk <= {MAX_CHUNK} (other "
             "shapes: ROADMAP Queue 2 row 12)")
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.stride(-1) != 1:

@@ -35,10 +35,28 @@ XLA's ``cost_analysis``, which counts a loop body once, and its other one
 the trip-count-aware walk; an eager trace dispatches every iteration, so
 the port has one count.  As in the JAX package a failing pair is
 recorded, the sweep goes on, and the run exits 1.
+
+The scan cohort's shortcut.  A train pair on the ``scan`` strategy (the
+configs past 20 B parameters: a cohort of 16 clients run one after
+another) is traced at cohorts 1 and 2 with the per-client batch of the
+full cohort, and every counted quantity at cohort C is taken as ``c1 +
+(C - 1) (c2 - c1)``: FLOPs, bytes read and written, collective bytes and
+counts, each kernel's launches, the aten op count and the four memory
+sizes.  The scan loop runs the same ops for every client (the same
+shapes, one accumulate pass each), so each count is linear in the cohort;
+the temp peak is one client's working set plus what grows a client at a
+time, linear too.  ``tools/roofline_check.py --shortcut-check`` holds
+this to a full trace of a scan pair on the card's host.  The record says
+so under ``extrapolated`` (the cohorts traced and the rule; False for a
+pair traced whole).  ``--no-extrapolate`` traces the whole cohort, and a
+``Dx1`` mesh always does.  It is what makes jamba-1.5-large-398b x
+train_4k affordable: 16 clients through 63 mamba layers' chunk loops
+trace past 3000 s, cohorts 1 and 2 in about a fifth of that.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import traceback
@@ -51,12 +69,13 @@ from repro_torch.configs import (ARCHS, SHAPES, SKIPS, FedConfig, get_arch,
                                  get_shape)
 from repro_torch.roofline.analysis import (model_flops_per_round,
                                            roofline_terms)
-from repro_torch.roofline.cost import trace_cost, trace_device
+from repro_torch.roofline.cost import Cost, trace_cost, trace_device
 
 # archs whose parameter count forces the client-sequential cohort strategy
 SCAN_THRESHOLD = 20e9
 CARD_BYTES = 80 * 2**30        # one H100's device memory
 META_BATCH = 64                # the JAX dry run's D_meta sequences
+SHORTCUT_COHORTS = (1, 2)      # the scan cohorts the shortcut traces
 
 
 def pick_strategy(arch_cfg) -> str:
@@ -128,13 +147,17 @@ def _fake_mesh(data: int, dev):
     return _mesh(data, 1, dev)
 
 
-def _train_call(cfg, shape, fed, mesh, dev, loss_chunk):
+def _train_call(cfg, shape, fed, mesh, dev, loss_chunk, per_client=None):
+    """The round and its stand-in inputs; ``per_client`` (default: the
+    shape's global batch over the cohort) fixes each client's batch when
+    the shortcut traces a smaller cohort."""
     from repro_torch.core.round import (init_server_state,
                                         make_federated_round)
     from repro_torch.models.model import build_model
     model = build_model(cfg, dtype=torch.float32, loss_chunk=loss_chunk)
     cohort, seq = fed.cohort, shape.seq_len
-    per_client = shape.global_batch // cohort
+    if per_client is None:
+        per_client = shape.global_batch // cohort
     if per_client < fed.local_steps:
         raise ValueError(f"{cfg.name}/{shape.name}: per-client batch "
                          f"{per_client} < local_steps {fed.local_steps}")
@@ -149,6 +172,46 @@ def _train_call(cfg, shape, fed, mesh, dev, loss_chunk):
     weights = torch.empty((cohort,), dtype=torch.float32, device=dev)
     fn = make_federated_round(model, fed, mesh=mesh)
     return fn, (state, cohort_batch, meta_batch, weights)
+
+
+def train_cost(cfg, shape, fed, *, per_client=None, loss_chunk=2048,
+               device="cuda") -> Cost:
+    """One trace of the round of ``fed`` on full-width stand-ins, in a
+    fake mode of its own."""
+    device = torch.device(device)
+    fmode = FakeTensorMode(allow_non_fake_inputs=False)
+    with fmode:
+        fn, args = _train_call(cfg, shape, fed, None, trace_device(device),
+                               loss_chunk, per_client)
+    return trace_cost(fn, args, device=device, mode=fmode)[0]
+
+
+def _line(c1: float, c2: float, cohort: int):
+    return c1 + (cohort - 1) * (c2 - c1)
+
+
+def extrapolate_cost(c1: Cost, c2: Cost, cohort: int) -> Cost:
+    """The cost at ``cohort`` from the traces at cohorts 1 and 2: each
+    count ``c1 + (cohort - 1) (c2 - c1)``, integers kept integers (the
+    module docstring says why it is exact)."""
+    def line_dict(a, b):
+        return {k: _line(a.get(k, 0), b.get(k, 0), cohort)
+                for k in sorted(set(a) | set(b))}
+    return Cost(
+        flops=_line(c1.flops, c2.flops, cohort),
+        tc_flops=_line(c1.tc_flops, c2.tc_flops, cohort),
+        bytes_read=_line(c1.bytes_read, c2.bytes_read, cohort),
+        bytes_written=_line(c1.bytes_written, c2.bytes_written, cohort),
+        collective_bytes=_line(c1.collective_bytes, c2.collective_bytes,
+                               cohort),
+        per_collective=line_dict(c1.per_collective, c2.per_collective),
+        collective_counts=line_dict(c1.collective_counts,
+                                    c2.collective_counts),
+        launches={k: v for k, v in line_dict(c1.launches,
+                                             c2.launches).items() if v},
+        n_ops=_line(c1.n_ops, c2.n_ops, cohort),
+        memory=line_dict(c1.memory, c2.memory),
+        trace_s=c1.trace_s + c2.trace_s)
 
 
 def _prefill_call(cfg, shape, dev):
@@ -174,8 +237,10 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
             algorithm: str = "uga", strategy: Optional[str] = None,
             local_steps: int = 2, agg_dtype: str = "float32",
             loss_chunk: int = 2048, moe_impl: str = "einsum",
-            verbose: bool = True) -> Dict[str, Any]:
-    """One pair's record (module docstring)."""
+            extrapolate: bool = True, verbose: bool = True
+            ) -> Dict[str, Any]:
+    """One pair's record (module docstring); ``extrapolate`` takes a scan
+    cohort's train pair by the shortcut."""
     from repro_torch.models import moe as moe_lib
     arch_cfg = get_arch(arch_name)
     shape = get_shape(shape_name)
@@ -190,6 +255,8 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
     fmode = FakeTensorMode(allow_non_fake_inputs=False)
     dev = trace_device(device)
     mesh_obj = None
+    rec["extrapolated"] = False
+    shortcut = None
     try:
         with fmode:
             if data > 1:
@@ -200,8 +267,12 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
                               agg_dtype=agg_dtype)
                 rec["cohort_strategy"] = fed.cohort_strategy
                 rec["cohort"] = fed.cohort
-                fn, args = _train_call(arch_cfg, shape, fed, mesh_obj, dev,
-                                       loss_chunk)
+                if (extrapolate and data == 1 and fed.cohort_strategy ==
+                        "scan" and fed.cohort > max(SHORTCUT_COHORTS)):
+                    shortcut = shape.global_batch // fed.cohort
+                else:
+                    fn, args = _train_call(arch_cfg, shape, fed, mesh_obj,
+                                           dev, loss_chunk)
             elif data > 1:
                 raise NotImplementedError(
                     f"--mesh {mesh} on a {shape.kind} shape: serving over "
@@ -213,7 +284,16 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
                 window = decode_window_for(arch_cfg, shape)
                 rec["decode_window"] = window
                 fn, args = _decode_call(arch_cfg, shape, dev, window)
-        cost, _ = trace_cost(fn, args, device=device, mode=fmode)
+        if shortcut is None:
+            cost, _ = trace_cost(fn, args, device=device, mode=fmode)
+        else:
+            c1, c2 = (train_cost(arch_cfg, shape,
+                                 dataclasses.replace(fed, cohort=c),
+                                 per_client=shortcut, loss_chunk=loss_chunk,
+                                 device=device) for c in SHORTCUT_COHORTS)
+            cost = extrapolate_cost(c1, c2, fed.cohort)
+            rec["extrapolated"] = {"from_cohorts": list(SHORTCUT_COHORTS),
+                                   "rule": "c1 + (cohort - 1) * (c2 - c1)"}
     finally:
         moe_lib.set_moe_impl(prev_impl)
         if mesh_obj is not None:
@@ -248,8 +328,9 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
               f"bytes/dev={cost.bytes:.3e} "
               f"coll/dev={cost.collective_bytes:.3e} "
               f"peak={need / 2**30:.2f}GiB fits={rec['fits']} "
-              f"bottleneck={rl.bottleneck} launches={rec['launches']}",
-              flush=True)
+              f"bottleneck={rl.bottleneck} launches={rec['launches']}"
+              + (" extrapolated from cohorts 1, 2" if rec["extrapolated"]
+                 else ""), flush=True)
     return rec
 
 
@@ -291,6 +372,9 @@ def main(argv=None) -> int:
                          "own (a trace is host work)")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--no-extrapolate", action="store_true",
+                    help="trace a scan cohort whole, not by the cohort 1 "
+                         "and 2 shortcut")
     args = ap.parse_args(argv)
     for flag, on in (("--multi-pod", args.multi_pod),
                      ("--both-meshes", args.both_meshes),
@@ -310,7 +394,7 @@ def main(argv=None) -> int:
     kw = dict(mesh=args.mesh, algorithm=args.algorithm,
               strategy=args.strategy, local_steps=args.local_steps,
               agg_dtype=args.agg_dtype, loss_chunk=args.loss_chunk,
-              moe_impl=args.moe_impl)
+              moe_impl=args.moe_impl, extrapolate=not args.no_extrapolate)
 
     os.makedirs(args.out, exist_ok=True)
     todo = []

@@ -345,19 +345,23 @@ def test_profiler_opens_on_chunk_overlapping_window(tmp_path):
     assert not p.maybe_start(8, 4)       # one window a run
 
 
-def test_profile_without_run_dir_and_roofline_are_actionable():
+def test_profile_without_run_dir_and_roofline_are_actionable(tmp_path):
     with pytest.raises(ValueError, match="run "):
         _port_trainer(profile=2)
-    # the roofline trace cannot follow a round that reads a device value
-    # on the host (the all-failed check under participation or faults)
+    # the roofline trace follows a round under participation or faults:
+    # its all-failed test reads the host weights, not a device value
     fed = FedConfig(**{**BASE, "participation": 0.75})
-    with pytest.raises(ValueError, match="host"):
-        FederatedTrainer(_torch_mlp(), fed, device="cpu",
-                         params=_params0()[1], roofline=True)
+    assert FederatedTrainer(_torch_mlp(), fed, device="cpu",
+                            params=_params0()[1], roofline=True)._roofline
     from repro_torch.launch.train import main
-    with pytest.raises(ValueError, match="host"):
-        main(["--arch", "smollm-360m-smoke", "--rounds", "1", "--device",
-              "cpu", "--roofline", "--participation", "0.75"])
+    d = str(tmp_path / "run")
+    main(["--arch", "smollm-360m-smoke", "--rounds", "1", "--cohort", "2",
+          "--client-batch", "4", "--seq", "32", "--device", "cpu",
+          "--tracker", "jsonl", "--run-dir", d, "--roofline",
+          "--participation", "0.75"])
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        assert sum(json.loads(ln).get("event") == "roofline"
+                   for ln in f) == 1
 
 
 # ---------------------------------------------------------------------------
