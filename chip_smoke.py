@@ -90,6 +90,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      accumulate pass, or one quantize and one dequant-FMA pass, per slot;
      one accumulate backward per slot under through_aggregation), round
      walls and peaks printed;
+  6x. the model axis (tensor-parallel client compute): 6c's chunked post
+     run on a (1, 2) mesh, two processes under torchrun on the one card
+     (gloo, the mesh's shared-card rule), ``run_training`` with
+     ``executor='sharded'``, ``mesh_model=2``, 2 rounds in chunks of 2;
+     after each round params within 1e-5 and metrics within 1e-4 of
+     6c's, the ranks' params bitwise equal; each rank's launches held
+     exactly (10 accumulate passes and one update pass a round, the
+     update on its 1,413,364 rows); round walls, peaks and the time in
+     the model-axis collectives printed.  Started before phase 7 and
+     joined after it (phase 3 also holds rows 1-3 at 1,413,364 rows);
   6m. training through Mamba2 layers at full width: ``run_training`` on
      mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd 2
      rounds and scan/sgd 1 (scan/adam does not fit the card:
@@ -99,8 +109,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      differentiable ``models/ssm.py::ssd_chunked``), finite metrics, vmap
      and scan within 1e-5 after round 1, the flat rows, the steady round
      wall and the peak printed;
-  6f. the synchronous fault model at full width: smollm-360m vmap/sgd, 3
-     rounds, participation 0.75, the 'flaky' profile, a deadline of 3 and
+  6f. the synchronous fault model at full width: smollm-360m vmap/sgd, 2
+     rounds (a client failed in round 0 is retried in round 1),
+     participation 0.75, the 'flaky' profile, a deadline of 3 and
      retry with backoff 1: each round's launches (one aggregate and one
      update pass, none when every client failed) and its participation
      and fault metrics held to what the round's draws give;
@@ -224,6 +235,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -1865,7 +1877,8 @@ def mamba_path(counts_of, dev):
 # vmap/sgd: participation 0.75, the 'flaky' fault profile (crash 0.05,
 # drop 0.08, delay 0.15 up to 3 rounds; its garble zeroed on a sync
 # round), a deadline of 3 round-units and retry with a backoff of 1.
-FAULT_ROUNDS = 3
+# Two rounds: a client that fails in round 0 is retried in round 1.
+FAULT_ROUNDS = 2
 FAULT_KW = dict(participation=0.75, fault_profile="flaky",
                 round_deadline=3.0, retry_backoff=1)
 
@@ -2477,21 +2490,26 @@ def _chunked_counts(rounds, mode, codec):
                      update_pass_bwd=rounds if bwd else 0)
 
 
-def chunked_path(counts_of, dev):
-    """Each of the four runs is its own main path: ``run_training`` with
-    ``cohort_chunk`` (and ``executor='sharded'``), the launch counts zeroed
-    just before it and read just after, held exactly; finite metrics; the
-    round walls and the peak printed."""
+def chunked_path(counts_of, dev, runs=None):
+    """Each of the four runs (``runs``: those tags only) is its own main
+    path: ``run_training`` with ``cohort_chunk`` (and
+    ``executor='sharded'``), the launch counts zeroed just before it and
+    read just after, held exactly; finite metrics; the round walls and
+    the peak printed.  Returns the counts and the chunked post run's
+    flat parameters (on the host) and record after each round, which
+    phase 6x holds its model axis to."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.core import flat as F
     from repro_torch.launch.train import run_training
 
-    counts, round0, res0 = {}, {}, {}
+    counts, round0, res0, post_rounds = {}, {}, {}, []
     log(f"  allocated before the phase: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     for tag, (rounds, mode, codec, ef, executor) in CHUNKED_RUNS.items():
+        if runs is not None and tag not in runs:
+            continue
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2505,6 +2523,10 @@ def chunked_path(counts_of, dev):
                 params = trainer.state["params"]
                 round0[tag] = ([b.clone() for b in F.flatten_tree(
                     F.make_flat_spec(params), params)], dict(recs[0]))
+            if tag == "chunked:post":
+                params = trainer.state["params"]
+                (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
+                post_rounds.append((flat.cpu(), dict(recs[0])))
             if ef:
                 (res,) = trainer.state["comm"]["residual"]
                 assert res.shape == (CHUNK_COHORT, FULL_ROWS, 128), res.shape
@@ -2557,11 +2579,258 @@ def chunked_path(counts_of, dev):
         if executor == "sharded":
             dist.destroy_process_group()
 
-    (a, ra), (b, rb) = round0["chunked:post"], round0["sharded:post"]
-    same = all(torch.equal(x, y) for x, y in zip(a, b)) and ra == rb
-    log(f"  sharded (world of 1, NCCL) vs chunked after round 0: params and "
-        f"metrics bitwise {same}")
-    assert same, (ra, rb)
+    if "sharded:post" in round0:
+        (a, ra), (b, rb) = round0["chunked:post"], round0["sharded:post"]
+        same = all(torch.equal(x, y) for x, y in zip(a, b)) and ra == rb
+        log(f"  sharded (world of 1, NCCL) vs chunked after round 0: params "
+            f"and metrics bitwise {same}")
+        assert same, (ra, rb)
+    return counts, post_rounds
+
+
+# ---------------------------------------------------------------------------
+# phase 6x: the model axis — tensor-parallel client compute, two ranks on
+# the one card
+# ---------------------------------------------------------------------------
+# Phase 6c's chunked post run (smollm-360m at full width, cohort 10,
+# client batch 8, seq 128, sgd, 2 rounds) again on a (1, 2) mesh: two
+# processes under torchrun (python -m torch.distributed.run
+# --nproc-per-node 2 chip_smoke.py --model-axis-rank REF CHUNK), both on
+# cuda:0 over gloo by the mesh's shared-card rule, each running
+# run_training with executor='sharded', mesh_model=2.  Each client update
+# runs on the rank's parameter shards (wq 960 -> 480 columns, wk / wv
+# 320 -> 160: the split cuts through a head), the gradient goes into the
+# global flat layout by its owner, one accumulate_pass a slot runs over
+# all 2,826,728 rows, one model-axis sum a round makes G whole, and one
+# update_pass a round runs on the rank's 1,413,364 rows before an
+# all-gather.  The ranks stream the cohort in chunks of 2 (10 slots a
+# round): at 6c's chunks of 4 a rank peaks near 35 GiB and two ran the
+# card out of memory (PERF.md §5); at 2 each peaks at 19.67.  The
+# accumulation order does not depend on the chunk, so the rounds are
+# held to 6c's all the same: after each round params within 1e-5 and
+# metrics within 1e-4 of 6c's chunked post run (rank 0 against the host
+# copy 6c kept), the two ranks' params bitwise equal (rank 0's
+# broadcast, compared on each), each rank's launches exactly (10
+# accumulate_pass and 1 update_pass a round, the update on 1,413,364
+# rows).  Printed: the round walls, each rank's peak, and each rank's
+# time in the model-axis collectives.  The ranks run beside phase 7
+# (smoke size, a few GiB): started before it, joined after it.
+MODEL_AXIS = 2
+MODEL_AXIS_CHUNK = 2
+MODEL_AXIS_ROUNDS = 2
+MODEL_AXIS_ROWS = FULL_ROWS // MODEL_AXIS                # 1,413,364
+MODEL_AXIS_TIMEOUT = 600
+
+
+def model_axis_rank(ref_path: str, chunk: int = MODEL_AXIS_CHUNK) -> int:
+    """One rank of phase 6x (``--model-axis-rank REF [CHUNK]``, under
+    torchrun): prints one ``{"model_axis_rank": ...}`` line; exits 1 if a
+    check fails."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import flat as F
+    from repro_torch.device import strict_fp32
+    from repro_torch.kernels.comm import kernel as CK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.fused_update import kernel as K
+    from repro_torch.kernels.fused_update import ops as O
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.launch.train import run_training
+    from repro_torch.sharding import tensor_parallel as TP
+
+    torch.set_num_threads(2)
+    strict_fp32()
+    rank = int(os.environ["RANK"])
+    ref = torch.load(ref_path, weights_only=False) if rank == 0 else None
+    # the time in the model-axis collectives, each call synchronized; the
+    # flat buffers' (G's sum, the updated rows' gather) apart
+    coll = {k: [0, 0, 0.0] for k in ("all_reduce", "all_gather",
+                                     "flat all_reduce", "flat all_gather")}
+
+    def timed(kind, fn):
+        def call(x, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(x, *a, **k)
+            torch.cuda.synchronize()
+            c = coll[("flat " if x.numel() >= MODEL_AXIS_ROWS * 128 else "")
+                     + kind]
+            c[0], c[1] = c[0] + 1, c[1] + x.numel() * x.element_size()
+            c[2] += time.perf_counter() - t
+            return out
+        return call
+    TP.all_reduce_copy = timed("all_reduce", TP.all_reduce_copy)
+    TP.all_gather_cat = timed("all_gather", TP.all_gather_cat)
+    # the rows of each update_pass: the engine calls the kernel module
+    # through ops.K, which becomes a view of it with a recording
+    # update_pass in front (the kernel's own launch count is untouched)
+    update_rows = []
+
+    def spy_update(G, *a, **k):
+        update_rows.append(int(G.shape[0]))
+        return K.update_pass(G, *a, **k)
+    O.K = types.SimpleNamespace(**{**vars(K), "update_pass": spy_update})
+
+    out = {"rank": rank, "errs": [], "metric_errs": [], "bitwise": [],
+           "walls": []}
+    marks = [time.perf_counter()]
+
+    def on_records(recs, trainer):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        r = recs[0]["round"]
+        params = trainer.state["params"]
+        (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
+        theirs = flat.clone()
+        dist.broadcast(theirs, src=0)
+        same = torch.tensor([int(torch.equal(theirs, flat))])
+        dist.all_reduce(same, op=dist.ReduceOp.MIN)
+        out["bitwise"].append(bool(same.item()))
+        if rank == 0:
+            want, rec = ref[r]
+            out["errs"].append(rel_err(flat, want.to(flat.device)))
+            out["metric_errs"].append({
+                k: rel_err(torch.tensor(float(recs[0][k])),
+                           torch.tensor(float(v)))
+                for k, v in rec.items() if k != "round"})
+        del flat, theirs
+
+    counts_of = Counts(K, CK, FK, SK)
+    torch.cuda.reset_peak_memory_stats()
+    counts_of.reset()
+    state, hist = run_training(
+        "smollm-360m", rounds=MODEL_AXIS_ROUNDS, cohort=CHUNK_COHORT,
+        client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
+        cohort_chunk=chunk, executor="sharded", mesh_model=MODEL_AXIS,
+        server_opt="sgd", meta_mode="post", seed=0, log_every=1,
+        device="cuda", on_records=on_records)
+    out["counts"] = counts_of.read()
+    out["update_rows"] = update_rows
+    out["walls"] = [b - a for a, b in zip(marks, marks[1:])]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["collectives"] = coll
+    out["hist"] = hist
+    out["device"] = str(state["params"]["embed"].device)
+    print(json.dumps({"model_axis_rank": out}), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_model_axis(post_rounds, chunk: int = MODEL_AXIS_CHUNK) -> dict:
+    """Phase 6x's two ranks under torchrun, started in the background
+    (their output to files under build/); ``post_rounds``: phase 6c's
+    chunked post run, from :func:`chunked_path`.  Join with
+    :func:`finish_model_axis`."""
+    import torch
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    paths = {k: os.path.join(HERE, "build", f"model_axis_{k}")
+             for k in ("ref.pt", "out.txt", "err.txt")}
+    torch.save(post_rounds, paths["ref.pt"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  6x: this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB ({torch.cuda.memory_reserved() / 2**30:.2f} reserved) on the "
+        "card")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MODEL_AXIS),
+           os.path.join(HERE, "chip_smoke.py"), "--model-axis-rank",
+           paths["ref.pt"], str(chunk)]
+    files = {k: open(paths[k], "w") for k in ("out.txt", "err.txt")}
+    proc = subprocess.Popen(cmd, stdout=files["out.txt"],
+                            stderr=files["err.txt"], text=True,
+                            env={**os.environ, "OMP_NUM_THREADS": "2"})
+    return {"proc": proc, "paths": paths, "files": files, "chunk": chunk,
+            "t0": time.perf_counter()}
+
+
+def stop_model_axis(job: dict) -> None:
+    """Kill the ranks if they still run; close and remove the files."""
+    p = job["proc"]
+    if p.poll() is None:
+        p.kill()
+        p.wait()
+    for f in job["files"].values():
+        f.close()
+    for path in job["paths"].values():
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def finish_model_axis(job: dict) -> dict:
+    """Phase 6x's checks, once its ranks end; returns their launch
+    counts."""
+    p, chunk = job["proc"], job["chunk"]
+    try:
+        p.wait(timeout=max(1.0, MODEL_AXIS_TIMEOUT
+                           - (time.perf_counter() - job["t0"])))
+        for f in job["files"].values():
+            f.flush()
+        with open(job["paths"]["out.txt"]) as f:
+            stdout = f.read()
+        with open(job["paths"]["err.txt"]) as f:
+            stderr = f.read()
+    finally:
+        stop_model_axis(job)
+    p = subprocess.CompletedProcess(p.args, p.returncode, stdout, stderr)
+    secs = time.perf_counter() - job["t0"]
+    lines = p.stdout.splitlines()
+    for l in lines:
+        if not l.startswith('{"model_axis_rank"'):
+            log(f"  6x| {l}")
+    if p.returncode != 0:
+        # each rank's traceback (torchrun prefixes its lines), then the
+        # launcher's summary
+        for r in range(MODEL_AXIS):
+            mine = [l for l in p.stderr.splitlines()
+                    if l.startswith(f"[rank{r}]:")]
+            log("\n".join(mine[-40:]))
+        log(p.stderr[-1500:])
+        raise AssertionError(f"phase 6x: torchrun exited {p.returncode}")
+    ranks = sorted((json.loads(l)["model_axis_rank"] for l in lines
+                    if l.startswith('{"model_axis_rank"')),
+                   key=lambda r: r["rank"])
+    assert [r["rank"] for r in ranks] == list(range(MODEL_AXIS)), ranks
+    slots = -(-CHUNK_COHORT // chunk) * chunk
+    want = _launches(accumulate_pass=MODEL_AXIS_ROUNDS * slots,
+                     update_pass=MODEL_AXIS_ROUNDS)
+    counts = {}
+    for r in ranks:
+        tag = f"model_axis:post[rank{r['rank']}]"
+        counts[tag] = r["counts"]
+        c = r["collectives"]
+        log(f"kernels: {tag} {json.dumps(r['counts'])}")
+        log(f"  6x rank {r['rank']} on {r['device']}: round wall s "
+            f"{[round(x, 4) for x in r['walls']]} (round 0 includes init "
+            f"and data)  max_memory_allocated {r['peak_gib']:.2f} GiB; "
+            f"model-axis collectives: all_reduce {c['all_reduce'][0]} calls "
+            f"{c['all_reduce'][1] / 1e9:.3f} GB {c['all_reduce'][2]:.3f} s, "
+            f"all_gather {c['all_gather'][0]} calls "
+            f"{c['all_gather'][1] / 1e9:.3f} GB {c['all_gather'][2]:.3f} s; "
+            f"of the flat buffers: all_reduce {c['flat all_reduce'][0]} "
+            f"calls {c['flat all_reduce'][2]:.3f} s, all_gather "
+            f"{c['flat all_gather'][0]} calls {c['flat all_gather'][2]:.3f} "
+            f"s; update_pass rows {r['update_rows']}")
+    for r in ranks:
+        tag = f"model_axis:post[rank{r['rank']}]"
+        assert r["counts"] == want, (tag, r["counts"], want)
+        assert r["update_rows"] == [MODEL_AXIS_ROWS] * MODEL_AXIS_ROUNDS, \
+            (tag, r["update_rows"])
+        assert r["device"] == "cuda:0", r["device"]
+        assert all(r["bitwise"]) and len(r["bitwise"]) == \
+            MODEL_AXIS_ROUNDS, (tag, r["bitwise"])
+        for rec in r["hist"]:
+            assert all(math.isfinite(v) for v in rec.values()), rec
+    r0 = ranks[0]
+    log(f"  6x vs 6c's chunked post run after each round: params rel "
+        f"{[f'{e:.3e}' for e in r0['errs']]}, metrics rel "
+        f"{[{k: f'{v:.2e}' for k, v in m.items()} for m in r0['metric_errs']]}"
+        f"; ranks' params bitwise equal after each round: "
+        f"{ranks[1]['bitwise']}; chunk {chunk}; torchrun wall {secs:.1f} s")
+    assert len(r0["errs"]) == MODEL_AXIS_ROUNDS
+    assert all(e <= 1e-5 for e in r0["errs"]), r0["errs"]
+    assert all(v <= 1e-4 for m in r0["metric_errs"] for v in m.values()), \
+        r0["metric_errs"]
     return counts
 
 
@@ -4614,6 +4883,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        # one rank of phase 6x, under torchrun
+        return model_axis_rank(sys.argv[2], *map(int, sys.argv[3:4]))
     if sys.argv[1:2] in (["--trace-only"], ["--dry-only"]):
         # phase 6l's workers: one of phase 6's rounds traced, not run; the
         # dry run
@@ -4668,7 +4940,8 @@ def main() -> int:
     phase("[3,4] kernels against their plain versions (ssq, dw, dscal bitwise "
         "across launches; the codec kernels bitwise):")
     shapes = [8, 24, 264, 4104, *PAPER_ROWS.values(), FULL_ROWS]
-    errs = check_kernels(K, R, O, dev, shapes)
+    # rows 1-3 also at the rows a rank of phase 6x updates
+    errs = check_kernels(K, R, O, dev, shapes + [MODEL_AXIS_ROWS])
     errs.update(check_bwd_kernels(K, R, O, dev, shapes))
     errs.update(check_codec_kernels(CK, CR, dev, shapes))
     phase("[3b] the serving prefill's kernels against their plain versions:")
@@ -4719,7 +4992,8 @@ def main() -> int:
           f"full width: smollm-360m, UGA + FedMeta, sgd, cohort "
           f"{CHUNK_COHORT}, chunk {CHUNK} ({CHUNK_SLOTS} slots), client "
           f"batch 8, seq 128:")
-    counts.update(chunked_path(counts_of, dev))
+    chunked_counts, post_rounds = chunked_path(counts_of, dev)
+    counts.update(chunked_counts)
     phase("[6m] training through Mamba2 layers at full width: mamba2-780m, "
         "UGA + FedMeta, fused, meta_mode='post', cohort 4, client batch 8, "
         "seq 128 (one SSD chunk):")
@@ -4760,19 +5034,30 @@ def main() -> int:
     counts.update(serve_flash_models(counts_of, dev,
                                      times["flash_attention_fwd"]["forms"]))
 
-    phase("[7] small input, card against the CPU plain versions:")
-    small_reference(dev)
-    small_reference_through(dev)
-    small_reference_chunked(dev)
-    small_reference_coded(dev)
-    small_reference_ssm(counts_of, dev)
-    small_reference_faults(counts_of, dev)
-    small_reference_async(counts_of, dev)
-    small_reference_paper(dev)
-    small_reference_legacy_rpc(counts_of, dev)
-    small_reference_obs(counts_of, dev)
-    small_reference_roofline_draws(counts_of, dev)
-    small_reference_serve(dev)
+    phase(f"[6x] the model axis: phase 6c's chunked post run on a (1, "
+          f"{MODEL_AXIS}) mesh, two ranks on the one card (torchrun, gloo), "
+          f"{MODEL_AXIS_ROUNDS} rounds in chunks of {MODEL_AXIS_CHUNK}, held "
+          "to 6c after each round; started here, run beside phase 7:")
+    model_axis = start_model_axis(post_rounds)
+    del post_rounds
+    try:
+        phase("[7] small input, card against the CPU plain versions:")
+        small_reference(dev)
+        small_reference_through(dev)
+        small_reference_chunked(dev)
+        small_reference_coded(dev)
+        small_reference_ssm(counts_of, dev)
+        small_reference_faults(counts_of, dev)
+        small_reference_async(counts_of, dev)
+        small_reference_paper(dev)
+        small_reference_legacy_rpc(counts_of, dev)
+        small_reference_obs(counts_of, dev)
+        small_reference_roofline_draws(counts_of, dev)
+        small_reference_serve(dev)
+        phase("[6x] joined: the model axis's ranks after phase 7:")
+        counts.update(finish_model_axis(model_axis))
+    finally:
+        stop_model_axis(model_axis)
 
     kernels = []
     for name in KERNEL_NAMES:

@@ -209,11 +209,19 @@ class CohortPart(NamedTuple):
     processes' (:class:`repro_torch.core.executors.ShardedExecutor`, tier
     2): ``reduce(tensors)`` sums each tensor over the processes in place;
     ``gather(dw)`` returns every slot's ``dw`` in slot order from this
-    process's ``(stop - start,)``."""
+    process's ``(stop - start,)``.
+
+    On a model axis above 1 (tensor-parallel client compute) a client's
+    gradient is this process's shards: ``flatten(spec, g, out)`` writes
+    them into the global flat layout (every element by its owner, zero
+    elsewhere) and ``reduce_model(accs)`` sums the accumulators over the
+    model axis in place, once, after tier 2."""
     start: int
     stop: int
     reduce: Callable
     gather: Callable
+    flatten: Callable = flat_mod.flatten_tree
+    reduce_model: Optional[Callable] = None
 
 
 def _chunk_cohort_inputs(cohort: int, n_slots: int, chunk: int,
@@ -280,7 +288,8 @@ def _slot_weight(wn: torch.Tensor, slot: Optional[int], zero: torch.Tensor
 def _stream_flat_chunks(client_update: Callable, w_t, cohort_batch, lr,
                         rngs, chunks: List[list], wn: torch.Tensor,
                         lwn: torch.Tensor, *, spec: FlatSpec, codec=None,
-                        residuals: Optional[tuple] = None
+                        residuals: Optional[tuple] = None,
+                        flatten: Callable = flat_mod.flatten_tree
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The chunked streaming core (JAX's ``_stream_flat_chunks``), shared
     by the chunked and scan executors and by each process of the sharded
@@ -298,7 +307,9 @@ def _stream_flat_chunks(client_update: Callable, w_t, cohort_batch, lr,
     ``wn`` / ``lwn``: the normalized aggregation / loss weights of every
     slot.  A chunk's pad member weighs 0 and, under error feedback, codes
     against a zero residual that the codec's transmitted-gate leaves
-    zero.  Returns (accs, loss)."""
+    zero.  ``flatten(spec, g, out)`` writes a client's gradient into the
+    flat layout (:attr:`CohortPart.flatten` under a model axis).  Returns
+    (accs, loss)."""
     accs = flat_mod.zeros_flat(spec, wn.device)
     zero = wn.new_zeros((1,))
     zero_res = None
@@ -311,7 +322,7 @@ def _stream_flat_chunks(client_update: Callable, w_t, cohort_batch, lr,
         # holds it past the chunk)
         scratch = [torch.empty_like(a) for a in accs]
         for i, (s, _) in enumerate(members):
-            g_bufs = flat_mod.flatten_tree(spec, g[i], out=scratch)
+            g_bufs = flatten(spec, g[i], out=scratch)
             w_s = _slot_weight(wn, s, zero)
             if codec is None:
                 for j, acc in enumerate(accs):
@@ -352,11 +363,14 @@ class _ChunkedCohort(torch.autograd.Function):
         ctx.args = (client_update, w_t, cohort_batch, lr, spec, rngs,
                     chunks, part)
         ctx.save_for_backward(wn)
-        accs, loss = _stream_flat_chunks(client_update, w_t, cohort_batch,
-                                         lr, rngs, chunks, wn, lwn,
-                                         spec=spec)
+        accs, loss = _stream_flat_chunks(
+            client_update, w_t, cohort_batch, lr, rngs, chunks, wn, lwn,
+            spec=spec, flatten=(flat_mod.flatten_tree if part is None
+                                else part.flatten))
         if part is not None:
             part.reduce(accs + [loss])
+            if part.reduce_model is not None:
+                part.reduce_model(accs)
         ctx.mark_non_differentiable(loss)
         return (*accs, loss)
 

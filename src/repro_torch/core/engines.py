@@ -171,7 +171,7 @@ class FusedFlatEngine(ServerEngine):
                             f"TreeAggregate, got {type(handle).__name__}")
         if handle.sq_norm is None:          # scan cohort: no pass-1 ssq
             return fused_apply_flat(params, handle.groups, opt_state,
-                                    spec=handle.spec, **kw)
+                                    spec=handle.spec, mesh=handle.mesh, **kw)
         return flat_apply_groups(handle.spec, handle.groups,
                                  torch.sqrt(handle.sq_norm), params,
                                  opt_state, **kw)

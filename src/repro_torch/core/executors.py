@@ -51,8 +51,14 @@ Every method takes ``rngs``, the cohort's per-slot dropout masks, or
 None (:mod:`repro_torch.core.dropout`).  A factory takes ``(fed)``; the
 mesh-aware ones (all the built-in executors) also ``mesh=``.
 
-The sharded executor's model axis (tensor-parallel client compute) is
-ROADMAP Queue 1 item 7b.
+The sharded executor also runs a model axis above 1: tensor-parallel
+client compute (:mod:`repro_torch.sharding.tensor_parallel`), each
+client's update on the model group's parameter shards, its gradient
+written into the global flat layout by the owner of each element, and
+one model-axis sum of the accumulators a round; the server step then
+runs on this process's rows (:class:`FlatAggregate`'s ``mesh``).  Its
+coded, reweightable and tree forms on that axis are ROADMAP Queue 1 item
+7c.
 """
 from __future__ import annotations
 
@@ -70,7 +76,8 @@ from repro_torch.core.aggregate import (CohortPart,
                                         cohort_gradient_stacked,
                                         cohort_gradient_stacked_coded,
                                         scan_cohort_deltas_flat)
-from repro_torch.core.flat import FlatSpec, make_flat_spec, unflatten_tree
+from repro_torch.core.flat import (FlatSpec, make_flat_spec, unflatten_tree,
+                                   with_pspecs)
 from repro_torch.core.registry import Registry
 from repro_torch.kernels.fused_update.ops import flat_weighted_aggregate
 
@@ -83,10 +90,15 @@ __all__ = ["FlatAggregate", "TreeAggregate", "ReweightableCohort",
 
 @dataclasses.dataclass
 class FlatAggregate:
-    """Eq. (14) weighted mean in the fused engine's flat layout."""
+    """Eq. (14) weighted mean in the fused engine's flat layout.  With a
+    ``mesh`` whose model axis is above 1 the buffers are whole on every
+    process and ``spec`` carries each group's row slice
+    (:func:`repro_torch.core.flat.with_pspecs`): the server step updates
+    this process's rows and gathers the rest."""
     groups: List[torch.Tensor]         # per-dtype-group (rows, 128) fp32
     spec: FlatSpec
     sq_norm: Optional[torch.Tensor] = None   # ||G||^2 if pass 1 reduced it
+    mesh: Any = None
 
 
 @dataclasses.dataclass
@@ -355,6 +367,20 @@ class ShardedExecutor(ChunkedExecutor):
     the partials sum to Eq. (14) exactly.  Tier 2: one ``all_reduce(SUM)``
     of each flat group and of the loss over the data axis.
 
+    On a mesh whose model axis is above 1 the processes of a model group
+    run the same clients tensor-parallel (:mod:`repro_torch.sharding.
+    tensor_parallel`; the round binds the :class:`~repro_torch.sharding.
+    tensor_parallel.ModelAxis` with :meth:`bind_model_axis`): each client
+    update runs on this process's parameter shards, its gradient goes
+    into the GLOBAL flat layout with every element written by its owner
+    only (a replicated leaf by model coordinate 0, zero elsewhere), the
+    accumulate kernel adds it over all rows, and after tier 2 one sum
+    over the model axis makes the aggregate whole and exact (x + 0 = x).
+    One sum a round, not one a client: a client's sum would carry the
+    whole flat buffer across the axis per slot.  The server step then
+    runs on this process's rows (:class:`FlatAggregate`).  Post mode, no
+    codec, the flat handle; the rest is ROADMAP Queue 1 item 7c.
+
     Because tier 1 is the chunked core, the topology supports what the
     chunked executor does: ``through_aggregation`` (G is replicated after
     tier 2, so is dG; each process re-runs its own clients for their
@@ -364,21 +390,35 @@ class ShardedExecutor(ChunkedExecutor):
     holds the cohort's residual state in cohort order for the server
     state and checkpoints).
 
-    A model axis of more than one process (tensor-parallel client
-    compute) is ROADMAP Queue 1 item 7b and raises.  Without a mesh the
-    executor is the chunked core of one process, as in the JAX package."""
+    Without a mesh the executor is the chunked core of one process, as in
+    the JAX package."""
     name = "sharded"
 
     def __init__(self, fed: Any, *, mesh=None):
         super().__init__(fed)
         self._mesh = mesh
-        if mesh is not None and mesh.shape.get("model", 1) > 1:
+        self._axis = None
+
+    def bind_model_axis(self, axis) -> None:
+        """The :class:`~repro_torch.sharding.tensor_parallel.ModelAxis`
+        the round's client update runs over (the mesh's model axis)."""
+        self._axis = axis
+
+    def _tensor_parallel(self, what: str) -> bool:
+        from repro_torch.sharding.specs import model_size
+        if model_size(self._mesh) <= 1:
+            return False
+        if what != "flat":
             raise NotImplementedError(
-                f"--executor sharded on a mesh with model axis "
-                f"{mesh.shape['model']}: tensor-parallel client compute "
-                "(param_spec, set_activation_spec, set_expert_axis, "
-                "constrain_groups, with_pspecs) is not yet ported to "
-                "repro_torch (ROADMAP Queue 1 item 7b); use --mesh-model 1")
+                f"the sharded executor's {what} form on a model axis above "
+                "1 is not yet ported to repro_torch (ROADMAP Queue 1 item "
+                "7c)")
+        if self._axis is None:
+            raise ValueError(
+                "a model axis above 1 runs the client update on parameter "
+                "shards; build the round with make_federated_round(..., "
+                "mesh=), which binds the model axis")
+        return True
 
     def _part(self, cohort: int):
         """(n_slots, CohortPart) of this process's data coordinate."""
@@ -398,7 +438,12 @@ class ShardedExecutor(ChunkedExecutor):
             torch.distributed.all_gather(parts, dw.contiguous(), group=group)
             return torch.cat(parts)
 
-        return n_slots, CohortPart(start, start + per_shard, reduce, gather)
+        if not self._tensor_parallel("flat"):
+            return n_slots, CohortPart(start, start + per_shard, reduce,
+                                       gather)
+        return n_slots, CohortPart(start, start + per_shard, reduce, gather,
+                                   flatten=self._axis.flatten_into,
+                                   reduce_model=self._axis.all_reduce_)
 
     def _flat(self, client_update, params, cohort_batch, client_weights,
               lr, *, spec, loss_weights=None, rngs=None):
@@ -408,14 +453,35 @@ class ShardedExecutor(ChunkedExecutor):
                                  loss_weights=loss_weights, rngs=rngs)
         cohort = client_weights.shape[0]
         n_slots, part = self._part(cohort)
+        if part.reduce_model is not None:       # this process's shards
+            params = self._axis.shard(params)
         return chunked_cohort_gradient_flat(
             client_update, params, cohort_batch, client_weights, lr,
             spec=spec, chunk=self._chunk_for(cohort),
             loss_weights=loss_weights, rngs=rngs, n_slots=n_slots,
             part=part)
 
+    def run(self, client_update, params, cohort_batch, client_weights, lr,
+            rngs=None, *, kind="flat"):
+        if not self._tensor_parallel(kind):
+            return super().run(client_update, params, cohort_batch,
+                               client_weights, lr, rngs, kind=kind)
+        from repro_torch.sharding.specs import flat_group_pspecs
+        spec = make_flat_spec(params)
+        Gs, loss = self._flat(client_update, params, cohort_batch,
+                              client_weights, lr, spec=spec, rngs=rngs)
+        spec = with_pspecs(spec, flat_group_pspecs(spec, self._mesh))
+        return FlatAggregate(Gs, spec, sq_norm=None, mesh=self._mesh), loss
+
+    def reweightable(self, client_update, params, cohort_batch,
+                     client_weights, lr, rngs=None):
+        self._tensor_parallel("reweightable")
+        return super().reweightable(client_update, params, cohort_batch,
+                                    client_weights, lr, rngs)
+
     def _coded(self, client_update, params, cohort_batch, client_weights,
                lr, *, spec, codec, residuals, rngs):
+        self._tensor_parallel("coded")
         if self._mesh is None:
             return super()._coded(client_update, params, cohort_batch,
                                   client_weights, lr, spec=spec, codec=codec,

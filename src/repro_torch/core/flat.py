@@ -16,7 +16,7 @@ names component by component, numeric components as integers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +40,7 @@ class GroupSpec:
     leaves: Tuple[LeafSpec, ...]
     size: int                      # total elements (before padding)
     rows: int                      # padded row count: rows * LANES >= size
+    pspec: Any = None              # this process's row slice (with_pspecs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +138,44 @@ def unflatten_tree(spec: FlatSpec, bufs: Sequence[torch.Tensor]) -> Params:
             x = flat[leaf.offset:leaf.offset + leaf.size].view(leaf.shape)
             out[leaf.name] = x.to(leaf.dtype)
     return {name: out[name] for name in spec.names}
+
+
+def with_pspecs(spec: FlatSpec, pspecs: Sequence[slice]) -> FlatSpec:
+    """Attach one row slice per dtype group, the rows this process holds
+    over the model axis (:func:`repro_torch.sharding.specs.
+    flat_group_pspecs`); every consumer of the group buffers can recover
+    the placement from the spec, as JAX's spec carries its
+    ``PartitionSpec``."""
+    assert len(pspecs) == len(spec.groups), (len(pspecs), len(spec.groups))
+    return FlatSpec(names=spec.names, groups=tuple(
+        dataclasses.replace(g, pspec=p) for g, p in zip(spec.groups, pspecs)))
+
+
+def constrain_groups(spec: FlatSpec, bufs: Sequence[torch.Tensor],
+                     mesh=None) -> List[torch.Tensor]:
+    """This process's rows of each group buffer (a view), by the group's
+    row slice; a group without one, or no mesh, stays whole.  JAX's
+    ``with_sharding_constraint`` keeps the rows partitioned; here the
+    process holds them."""
+    if mesh is None:
+        return list(bufs)
+    return [b if g.pspec is None else b[g.pspec]
+            for g, b in zip(spec.groups, bufs)]
+
+
+def gather_groups(spec: FlatSpec, parts: Sequence[torch.Tensor],
+                  mesh=None) -> List[torch.Tensor]:
+    """:func:`constrain_groups`' inverse: each group's rows from every
+    process of the model axis, concatenated in coordinate order, so every
+    process holds the whole buffers, bitwise the same.  A group whose
+    slice is all its rows (the axis does not divide them) is whole
+    already."""
+    if mesh is None:
+        return list(parts)
+    from repro_torch.sharding.tensor_parallel import all_gather_cat
+    return [p if g.pspec is None or p.shape[0] == g.rows
+            else all_gather_cat(p, 0, mesh.groups["model"])
+            for g, p in zip(spec.groups, parts)]
 
 
 def flat_sq_norm(bufs: Sequence[torch.Tensor]) -> torch.Tensor:

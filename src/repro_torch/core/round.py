@@ -27,7 +27,11 @@ costs one read back where the round needs draws, and a host array none.
 ones ``fed`` selects;
 a ``mesh`` (:mod:`repro_torch.launch.mesh`) selects the two-tier sharded
 one, whose processes each run a slice of the cohort and hold the whole
-server state, replicated.  The round counter lives on the host (``state["round"]`` is an
+server state, replicated; on a model axis above 1 the processes of a
+model group run each client tensor-parallel over their parameter shards
+(:mod:`repro_torch.sharding.tensor_parallel`: the dense GQA stacks,
+``meta_mode='post'``, no codec, the ``fused_flat`` engine; the rest
+raises naming ROADMAP Queue 1 item 7c).  The round counter lives on the host (``state["round"]`` is an
 int), so the decayed learning rates are host numbers computed in fp32 as
 the JAX round computes them on the device; metrics come back as device
 scalars.
@@ -77,6 +81,7 @@ that mix full chunks with a tail.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -93,7 +98,9 @@ from repro_torch.core.flat import make_flat_spec
 from repro_torch.core.meta import meta_update, meta_update_through_cohort
 from repro_torch.core.rngtags import PARTICIPATION_FOLD
 from repro_torch.core.sanitize import check_flat_groups, sanitize_round
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, param_shapes
+from repro_torch.sharding.specs import model_size
+from repro_torch.sharding.tensor_parallel import check_supported, model_axis
 from repro_torch.sim.faults import (FaultConfig, FaultStreams,
                                     client_failed_mask, fault_streams,
                                     resolve_faults, timed_out)
@@ -244,6 +251,9 @@ def make_federated_round(model: Model, fed: FedConfig, *,
                          engine: Optional[str] = None,
                          rounds_per_call: int = 1, sanitize: bool = False):
     eng = resolve_engine(fed, engine=engine)
+    tensor_parallel = model_size(mesh) > 1
+    if tensor_parallel:
+        check_supported(model, fed, engine=eng, codec=resolve_codec(fed))
     if eng.is_async:
         if executor is not None or mesh is not None:
             raise ValueError(
@@ -255,10 +265,18 @@ def make_federated_round(model: Model, fed: FedConfig, *,
                                              sanitize=sanitize),
                              rounds_per_call)
     alg = get_algorithm(fed.algorithm)
-    client_update = alg.build(model.loss, local_steps=fed.local_steps,
+    loss_fn = model.loss
+    if tensor_parallel:
+        # the loss over this process's parameter shards; the (sharded)
+        # executor is told which axis they split over
+        axis = model_axis(mesh, param_shapes(model))
+        loss_fn = partial(model.loss, tp=axis)
+    client_update = alg.build(loss_fn, local_steps=fed.local_steps,
                               local_epochs=fed.local_epochs,
                               prox_mu=fed.prox_mu)
     exe = resolve_executor(fed, executor=executor, mesh=mesh)
+    if tensor_parallel:
+        exe.bind_model_axis(axis)
     kinds = exe.produces & eng.accepts
     if not kinds:
         raise ValueError(

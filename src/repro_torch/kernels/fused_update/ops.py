@@ -177,13 +177,18 @@ def _scalar(x, device) -> torch.Tensor:
 def flat_apply_groups(spec: FlatSpec, G_groups, gn: torch.Tensor,
                       params: Params, opt_state: Dict, *, opt: str, lr,
                       clip_norm: float = 0.0, momentum: float = 0.9,
-                      b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8
-                      ) -> Tuple[Params, Dict, torch.Tensor]:
+                      b1: float = 0.9, b2: float = 0.99, eps: float = 1e-8,
+                      mesh=None) -> Tuple[Params, Dict, torch.Tensor]:
     """Pass 2: clip scale + optimizer + param write over aggregated flat
     buffers, with the pre-clip global norm ``gn`` (a device scalar) from
     the caller.  Differentiable in ``G_groups``, ``gn``, ``lr`` (a tensor
-    or a number), the parameters and the optimizer state.  Returns
-    (new_params, new_opt_state, gn_after_clip)."""
+    or a number), the parameters and the optimizer state.  With a
+    ``mesh`` (a model axis above 1; ``spec`` carries each group's row
+    slice, :func:`repro_torch.core.flat.with_pspecs`) the update kernel
+    runs on this process's rows of the whole buffers and an all-gather
+    over the model axis returns the whole new parameters and slots to
+    every process, bitwise the same; no backward.  Returns (new_params,
+    new_opt_state, gn_after_clip)."""
     device = gn.device
     p_groups = flat_mod.flatten_tree(spec, params)
     if clip_norm > 0:
@@ -203,12 +208,19 @@ def flat_apply_groups(spec: FlatSpec, G_groups, gn: torch.Tensor,
     ms = opt_state.get("m", (None,) * len(spec.groups))
     vs = opt_state.get("v", (None,) * len(spec.groups))
     hp = dict(opt=opt, momentum=momentum, b1=b1, b2=b2, eps=eps)
+    rows = lambda bufs: (bufs if mesh is None or bufs[0] is None else
+                         flat_mod.constrain_groups(spec, bufs, mesh))
     new_p, new_m, new_v = [], [], []
-    for G, p, m, v in zip(G_groups, p_groups, ms, vs):
+    for G, p, m, v in zip(rows(G_groups), rows(p_groups), rows(ms),
+                          rows(vs)):
         np_, nm, nv = _Update.apply(G, p, scalars, m, v, hp)
         new_p.append(np_)
         new_m.append(nm)
         new_v.append(nv)
+    if mesh is not None:
+        whole = lambda bufs: (bufs if bufs[0] is None else
+                              flat_mod.gather_groups(spec, bufs, mesh))
+        new_p, new_m, new_v = whole(new_p), whole(new_m), whole(new_v)
     new_params = dict(zip(spec.names, _Unflatten.apply(spec, *new_p)))
     if opt == "sgd":
         new_state: Dict = {}
@@ -223,17 +235,18 @@ def fused_apply_flat(params: Params, G_groups, opt_state: Dict, *,
                      opt: str = "sgd", lr, clip_norm: float = 0.0,
                      momentum: float = 0.9, b1: float = 0.9,
                      b2: float = 0.99, eps: float = 1e-8,
-                     spec: Optional[FlatSpec] = None
+                     spec: Optional[FlatSpec] = None, mesh=None
                      ) -> Tuple[Params, Dict, torch.Tensor]:
     """Pass 2 over ALREADY-aggregated buffers (the scan cohort's entry
     point): ||G||^2 is reduced here with plain PyTorch, as the JAX package
-    reduces it with plain jnp."""
+    reduces it with plain jnp — over the whole buffers, so each parameter
+    counts once under a ``mesh`` too (:func:`flat_apply_groups`)."""
     if spec is None:
         spec = flat_mod.make_flat_spec(params)
     gn = torch.sqrt(flat_mod.flat_sq_norm(G_groups))
     return flat_apply_groups(spec, G_groups, gn, params, opt_state, opt=opt,
                              lr=lr, clip_norm=clip_norm, momentum=momentum,
-                             b1=b1, b2=b2, eps=eps)
+                             b1=b1, b2=b2, eps=eps, mesh=mesh)
 
 
 def fused_server_update(params: Params, grad_stack: Params,

@@ -19,10 +19,12 @@ an SSD state too wide) fails the pair and names it.
 Meshes: ``--mesh 1x1`` (one H100) is the default; ``--mesh Dx1`` traces
 rank 0's slice of the cohort through the ``sharded`` executor under
 torch's ``fake`` process-group backend, so the two-tier aggregation's
-collectives are counted at their result bytes.  A model axis above 1,
-``--multi-pod``, ``--both-meshes`` and ``--expert-axis`` are tensor
-parallelism and the JAX package's production meshes: ROADMAP Queue 1
-item 7b.
+collectives are counted at their result bytes.  The trainer runs a
+model axis above 1 (tensor-parallel client compute,
+``repro_torch.sharding.tensor_parallel``); the dry run of it, of
+``--multi-pod``, ``--both-meshes`` and ``--expert-axis`` (the JAX
+package's production meshes, which ``launch/mesh.py::
+make_production_mesh`` builds) is ROADMAP Queue 1 item 7c.
 
 The record has the JAX dry run's keys where they mean something —
 ``arch``, ``shape``, ``mesh``, ``chips``, ``algorithm``,
@@ -111,10 +113,10 @@ def parse_mesh(mesh: str) -> Tuple[int, int]:
         raise ValueError(f"--mesh {mesh!r}: axes must be >= 1")
     if model > 1:
         raise NotImplementedError(
-            f"--mesh {mesh}: a model axis of {model} is tensor-parallel "
-            "client compute (param_spec, set_activation_spec, "
-            "set_expert_axis), not yet ported to repro_torch (ROADMAP "
-            "Queue 1 item 7b); use --mesh Dx1")
+            f"--mesh {mesh}: the dry run of a model axis of {model} "
+            "(tensor-parallel client compute, which the trainer runs) is "
+            "not yet ported to repro_torch (ROADMAP Queue 1 item 7c); use "
+            "--mesh Dx1")
     return data, model
 
 
@@ -277,7 +279,7 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
                 raise NotImplementedError(
                     f"--mesh {mesh} on a {shape.kind} shape: serving over "
                     "several cards is tensor parallelism (ROADMAP Queue 1 "
-                    "item 7b)")
+                    "item 7c)")
             elif shape.kind == "prefill":
                 fn, args = _prefill_call(arch_cfg, shape, dev)
             else:
@@ -381,9 +383,11 @@ def main(argv=None) -> int:
                      ("--expert-axis", args.expert_axis is not None)):
         if on:
             raise NotImplementedError(
-                f"{flag}: the JAX package's production meshes (16x16, "
-                "2x16x16) and their expert axis are tensor parallelism, "
-                "not yet ported to repro_torch (ROADMAP Queue 1 item 7b)")
+                f"{flag}: the dry run on the JAX package's production "
+                "meshes (16x16, 2x16x16; launch/mesh.py::"
+                "make_production_mesh builds them) and their expert axis "
+                "is not yet ported to repro_torch (ROADMAP Queue 1 item "
+                "7c)")
     parse_mesh(args.mesh)
     if args.all:
         pairs = [(a, s) for a in ARCHS for s in SHAPES if (a, s) not in SKIPS]

@@ -4,22 +4,37 @@ importing this module starts no process group.
 
 Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the
 rendezvous address in the environment) the default process group is
-initialized from ``env://``, each process on ``cuda:LOCAL_RANK``.
-Without a launcher the process makes a world of one in-process, at a
-free ``localhost`` port.  The backend follows the device: NCCL on
-``cuda``, gloo on ``cpu``.  A group that cannot start raises; nothing
-falls back to one process.
+initialized from ``env://``.  Without a launcher the process makes a
+world of one in-process, at a free ``localhost`` port.  A group that
+cannot start raises; nothing falls back to one process.
 
-``make_production_mesh`` (the JAX package's v5e pod shapes: a model
-axis of 16, which is tensor parallelism) goes with ROADMAP Queue 1 item
-7b; the port's dry run (``launch/dryrun.py``) takes ``Dx1`` meshes of
-H100 cards.
+The backend rule, chosen up front (nothing tries NCCL and catches its
+failure):
+
+  * on the CPU, gloo;
+  * on ``cuda`` with a card for each of the node's ranks
+    (``LOCAL_WORLD_SIZE <= torch.cuda.device_count()``), NCCL, each rank
+    on ``cuda:LOCAL_RANK``;
+  * on ``cuda`` with more ranks on the node than cards, the ranks share
+    the cards round-robin (``cuda:LOCAL_RANK % device_count``) and the
+    group is gloo, which carries CUDA tensors through host memory (NCCL
+    refuses two ranks on one card).  A (1, 2) mesh of two processes runs
+    on one H100 so.
+
+Rank 0 of a launched job prints the rule it chose.
+
+:func:`make_production_mesh` is the JAX package's v5e pod shapes, (16,
+16) and (2, 16, 16), as rank 0 of torch's ``fake`` backend: every
+collective dispatches and none communicates, which is what a dry run on
+those meshes traces (the port's dry run takes them in ROADMAP Queue 1
+item 7c).
 """
 from __future__ import annotations
 
+import math
 import os
 import socket
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,18 +51,40 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def backend_rule(dev: torch.device, local_rank: int, local_world: int
+                 ) -> Tuple[str, torch.device, str]:
+    """(backend, this rank's device, why) for a rank of a job with
+    ``local_world`` ranks on this node."""
+    if dev.type != "cuda":
+        return "gloo", dev, f"gloo on {dev.type}"
+    n = torch.cuda.device_count()
+    if local_world > n:
+        return ("gloo", torch.device("cuda", local_rank % n),
+                f"gloo: {local_world} ranks on this node share {n} card(s), "
+                f"rank r on cuda:(r % {n}); CUDA tensors cross through host "
+                "memory")
+    return ("nccl", torch.device("cuda", local_rank),
+            f"nccl: one card a rank ({local_world} ranks, {n} cards)")
+
+
 def init_process_group(device=None) -> torch.device:
     """Start the default process group if none is running; returns this
-    process's device (``cuda:LOCAL_RANK`` under ``torchrun``)."""
+    process's device (by :func:`backend_rule` under ``torchrun``)."""
     dev = resolve_device(device)
     launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
-    if dev.type == "cuda":
-        if launched and dev.index is None:
-            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-        if dev.index is not None:
-            torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if launched:
+        local_world = int(os.environ.get(
+            "LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+        backend, placed, why = backend_rule(
+            dev, int(os.environ.get("LOCAL_RANK", 0)), local_world)
+        if dev.index is None:         # a card the caller named stays
+            dev = placed
+        if int(os.environ["RANK"]) == 0 and not dist.is_initialized():
+            print(f"[mesh] backend {why}", flush=True)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
     if not dist.is_initialized():
-        backend = "nccl" if dev.type == "cuda" else "gloo"
         if launched:
             dist.init_process_group(backend, init_method="env://")
         else:
@@ -57,29 +94,51 @@ def init_process_group(device=None) -> torch.device:
     return dev
 
 
-def _mesh(data: int, model: int, dev: torch.device) -> Mesh:
-    """The (data, model) mesh over the default group's ranks, row-major.
-    Every process builds every axis group, in the same order, as
-    ``dist.new_group`` requires."""
+def _grid_mesh(axes: Sequence[str], sizes: Sequence[int], dev: torch.device,
+               *, all_groups: bool = True) -> Mesh:
+    """The mesh of ``axes`` x ``sizes`` over the default group's ranks,
+    row-major.  Each axis's group holds the ranks that share this one's
+    other coordinates.  Every process builds every axis group, in the
+    same order, as ``dist.new_group`` requires; ``all_groups=False``
+    builds only this process's (a fake group, where no other process
+    calls)."""
+    axes, sizes = tuple(axes), tuple(int(s) for s in sizes)
     rank = dist.get_rank()
-    coords = {"data": rank // model, "model": rank % model}
+    coords, rem = {}, rank
+    for a, n in reversed(list(zip(axes, sizes))):
+        coords[a] = rem % n
+        rem //= n
+    coords = {a: coords[a] for a in axes}
+    strides = {a: math.prod(sizes[i + 1:]) for i, a in enumerate(axes)}
     groups = {}
-    for d in range(data):                         # model-axis groups
-        g = dist.new_group([d * model + m for m in range(model)])
-        if d == coords["data"]:
-            groups["model"] = g
-    for m in range(model):                        # data-axis groups
-        g = dist.new_group([d * model + m for d in range(data)])
-        if m == coords["model"]:
-            groups["data"] = g
-    return Mesh(AXES, {"data": data, "model": model}, coords, groups, dev)
+    for i, a in enumerate(axes):
+        others = [(b, n) for b, n in zip(axes, sizes) if b != a]
+        for flat in range(math.prod(n for _, n in others)):
+            c, rem = {}, flat
+            for b, n in reversed(others):
+                c[b] = rem % n
+                rem //= n
+            mine = all(c[b] == coords[b] for b, _ in others)
+            if not (all_groups or mine):
+                continue
+            base = sum(c[b] * strides[b] for b, _ in others)
+            g = dist.new_group([base + k * strides[a]
+                                for k in range(sizes[i])])
+            if mine:
+                groups[a] = g
+    return Mesh(axes, dict(zip(axes, sizes)), coords, groups, dev)
+
+
+def _mesh(data: int, model: int, dev: torch.device) -> Mesh:
+    """The (data, model) mesh over the default group's ranks, row-major."""
+    return _grid_mesh(AXES, (data, model), dev)
 
 
 def make_auto_mesh(model: int = 1, *, device=None) -> Mesh:
     """Every process of the job as one (data, model) mesh — the default
     for ``train.py --executor sharded``: the data axis (the cohort split
     of the two-tier aggregation) takes every process the model axis
-    does not."""
+    (tensor-parallel client compute) does not."""
     dev = init_process_group(device)
     n = dist.get_world_size()
     if model < 1 or n % model:
@@ -100,3 +159,21 @@ def make_debug_mesh(data: int = 1, model: int = 1, *,
             f"job has {n} (launch it with torchrun --nproc-per-node "
             f"{data * model})")
     return _mesh(data, model, dev)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production v5e meshes: one pod = 256 chips as (data=16,
+    model=16); two pods = 512 as (pod=2, data=16, model=16) — as rank 0
+    of torch's ``fake`` process-group backend, which it starts (every
+    collective dispatches, none communicates).  Raises if a process group
+    is already running."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"make_production_mesh starts a fake process group of "
+            f"{math.prod(shape)} ranks; a process group is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    return _grid_mesh(axes, shape, torch.device("cpu"), all_groups=False)

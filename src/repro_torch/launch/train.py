@@ -38,8 +38,15 @@ clients vmapped at a time; ``--executor sharded`` splits the cohort over
 the processes of a ``torch.distributed`` job (``torchrun --nproc-per-node
 N -m repro_torch.launch.train --executor sharded ...``; without torchrun
 a world of one) and sums their partial aggregates; only rank 0 prints
-and writes.  ``--mesh-model`` above 1 (tensor-parallel client compute)
-is ROADMAP Queue 1 item 7b and raises.
+and writes.  ``--mesh-model M`` above 1 makes the mesh (N / M, M): the
+M processes of a model group run each client tensor-parallel over their
+parameter shards and the server step over their rows of the flat
+buffers (``python -m torch.distributed.run --nproc-per-node 2 -m
+repro_torch.launch.train --arch smollm-360m --fused --executor sharded
+--mesh-model 2``; on one card the two ranks share it over gloo, by the
+mesh's backend rule).  The dense GQA stacks run so, under
+``meta_mode='post'``, no codec, the fused engine; the rest raises naming
+ROADMAP Queue 1 item 7c.
 
 Every ``--arch`` trains, ``mamba2-780m`` and the ``-smoke`` SSM and hybrid
 configs included.  ``--engine buffered_async`` runs the buffered-async
@@ -74,11 +81,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.comm import resolve_codec
 from repro_torch.comm.codecs import available_codecs
 from repro_torch.configs import FedConfig, get_arch
 from repro_torch.configs.base import SERVER_OPTS
 from repro_torch.core.algorithms import available_algorithms
-from repro_torch.core.engines import available_engines
+from repro_torch.core.engines import available_engines, resolve_engine
 from repro_torch.core.executors import available_executors
 from repro_torch.core.trainer import FederatedTrainer
 from repro_torch.data.partition import partition_iid
@@ -86,6 +94,7 @@ from repro_torch.data.pipeline import FederatedData
 from repro_torch.data.synthetic import synthetic_tokens
 from repro_torch.device import resolve_device, strict_fp32
 from repro_torch.models.model import build_model
+from repro_torch.sharding.tensor_parallel import check_supported
 from repro_torch.sim.faults import FAULT_PROFILES
 
 
@@ -162,13 +171,10 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
     ``--sanitize`` also runs this under ``torch.autograd.detect_anomaly``;
     ``sanitize`` here plants the probes only: see
     :mod:`repro_torch.core.sanitize`.)  Returns (state, history)."""
-    if mesh_model != 1:
-        raise NotImplementedError(
-            f"--mesh-model {mesh_model}: tensor-parallel client compute "
-            "over the mesh's model axis (param_spec, set_activation_spec, "
-            "set_expert_axis, constrain_groups, with_pspecs) is not yet "
-            "ported to repro_torch (ROADMAP Queue 1 item 7b); use "
-            "--mesh-model 1")
+    if mesh_model != 1 and executor != "sharded":
+        raise ValueError(
+            f"--mesh-model {mesh_model} sets the model axis of the "
+            "--executor sharded mesh; add --executor sharded")
     dev = resolve_device(device)
     strict_fp32()
     cfg = get_arch(arch)
@@ -196,6 +202,9 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                                     examples=examples, seq=seq, iid=iid,
                                     seed=seed)
     mesh = None
+    if mesh_model > 1:              # before any process group starts
+        check_supported(model, fed, engine=resolve_engine(fed),
+                        codec=resolve_codec(fed))
     if executor == "sharded":
         # two-tier aggregation over every process of the job: the cohort
         # splits across the mesh's data axis, each process streams its
@@ -298,8 +307,10 @@ def main(argv=None):
                          "runs the two-tier aggregation")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="model-axis size of the --executor sharded mesh "
-                         "(the data axis takes the remaining processes); "
-                         "above 1 is not ported (ROADMAP Queue 1 item 7b)")
+                         "(the data axis takes the remaining processes): "
+                         "tensor-parallel client compute on the dense GQA "
+                         "stacks, post mode, no codec, --fused; the rest "
+                         "is ROADMAP Queue 1 item 7c")
     ap.add_argument("--fused", action="store_true",
                     help="fused flat-buffer CUDA server engine (default: "
                          "the legacy_tree engine)")

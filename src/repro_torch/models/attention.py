@@ -53,12 +53,30 @@ def gqa_init(gen: torch.Generator, d_model: int, num_heads: int,
 
 
 def gqa_project_qkv(x: torch.Tensor, wq, wk, wv, num_heads: int,
-                    num_kv_heads: int, head_dim: int):
+                    num_kv_heads: int, head_dim: int, tp=None):
+    """q, k, v of shapes (B, S, heads, head_dim).  With ``tp`` (a
+    :class:`repro_torch.sharding.tensor_parallel.ModelAxis`) each of
+    ``wq``/``wk``/``wv`` is this process's column part or whole: the
+    split ones' products are gathered to whole heads in one all-gather
+    (a column split can cut through a head, and rope and softmax need
+    whole heads), the whole ones computed whole; attention then runs
+    replicated on every process of the axis."""
     B, S, _ = x.shape
-    q = (x @ wq).reshape(B, S, num_heads, head_dim)
-    k = (x @ wk).reshape(B, S, num_kv_heads, head_dim)
-    v = (x @ wv).reshape(B, S, num_kv_heads, head_dim)
-    return q, k, v
+    ws = (wq, wk, wv)
+    heads = (num_heads, num_kv_heads, num_kv_heads)
+    split = [tp is not None and tp.is_split(w.shape[-1], h * head_dim)
+             for w, h in zip(ws, heads)]
+    outs = [None if s else x @ w for w, s in zip(ws, split)]
+    if any(split):
+        xs = tp.copy(x)
+        loc = [xs @ w for w, s in zip(ws, split) if s]
+        widths = [t.shape[-1] for t in loc]
+        whole = tp.gather(torch.cat(loc, -1), -1).reshape(
+            B, S, tp.size, sum(widths))
+        parts = iter(torch.split(whole, widths, dim=-1))
+        outs = [next(parts).reshape(B, S, -1) if s else o
+                for o, s in zip(outs, split)]
+    return tuple(o.reshape(B, S, h, head_dim) for o, h in zip(outs, heads))
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

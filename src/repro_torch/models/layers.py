@@ -106,6 +106,26 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def swiglu_parallel(x: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor, tp
+                    ) -> torch.Tensor:
+    """:func:`swiglu` over the model axis ``tp``
+    (:class:`repro_torch.sharding.tensor_parallel.ModelAxis`): ``w_gate``
+    and ``w_up`` column-split, ``w_down`` row-split, so each process
+    computes its columns of the hidden layer whole and its partial sum of
+    the output; x enters replicated, the sum leaves replicated."""
+    return tp.reduce(swiglu(tp.copy(x), w_gate, w_up, w_down))
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``a @ w`` for a replicated ``a``; where ``tp`` splits ``w``'s rows,
+    each process multiplies its part of ``a``'s columns and the partial
+    sums are added over the axis."""
+    if tp is None or not tp.is_split(w.shape[0], a.shape[-1]):
+        return a @ w
+    return tp.reduce(tp.split(a, -1) @ w)
+
+
 def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, *, lead=(),
                   dtype=torch.float32) -> dict:
     lead, dev = tuple(lead), gen.device

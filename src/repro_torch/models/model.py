@@ -63,11 +63,13 @@ def build_model(cfg: ArchConfig, *, dtype=torch.float32,
     def init(gen: torch.Generator):
         return transformer.init_transformer(cfg, gen, dtype)
 
-    def loss(params, batch: Batch, rng=None):
+    def loss(params, batch: Batch, rng=None, tp=None):
+        # tp: params are this process's shards over that model axis
+        # (repro_torch.sharding.tensor_parallel)
         return transformer.lm_loss_chunked(
             module, params, batch["tokens"],
             enc_embeds=batch.get("enc_embeds"), mask=batch.get("mask"),
-            chunk=loss_chunk)
+            chunk=loss_chunk, tp=tp)
 
     @torch.inference_mode()
     def prefill(params, batch: Batch, cache_len: Optional[int] = None):
@@ -91,6 +93,14 @@ def build_model(cfg: ArchConfig, *, dtype=torch.float32,
 
     return Model(name=cfg.name, init=init, loss=loss, prefill=prefill,
                  decode=decode, make_cache=make_cache, cfg=cfg)
+
+
+def param_shapes(model: Model) -> Dict[str, torch.Tensor]:
+    """The transformer's parameters as ``meta`` tensors (names and
+    shapes of ``model.init``'s, nothing allocated)."""
+    if not isinstance(model.cfg, ArchConfig):
+        raise TypeError(f"{model.name}: not a transformer config")
+    return dict(transformer.Transformer(model.cfg).named_parameters())
 
 
 def build_paper_cnn(cfg) -> Model:

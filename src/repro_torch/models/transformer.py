@@ -61,9 +61,12 @@ from repro_torch.models.attention import (MLA_LEAVES, attend,
                                           decode_attention, gqa_init,
                                           gqa_project_qkv, mla_attention,
                                           mla_decode_absorbed, mla_init)
+from repro_torch.sharding.tensor_parallel import vocab_embed, vocab_xent
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        gelu_mlp, gelu_mlp_init, layernorm,
-                                       rmsnorm, sinusoidal_positions, swiglu)
+                                       rmsnorm, row_parallel,
+                                       sinusoidal_positions, swiglu,
+                                       swiglu_parallel)
 
 Params = Dict[str, torch.Tensor]
 ATTN_LEAVES = ("wq", "wk", "wv", "wo")
@@ -288,8 +291,9 @@ def encode(get, enc_embeds: torch.Tensor, cfg: ArchConfig, attn_fn
     return h
 
 
-def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int):
-    """The layer's MLP or MoE on the residual stream; returns (h, aux)."""
+def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int, tp=None):
+    """The layer's MLP or MoE on the residual stream; returns (h, aux).
+    ``tp``: the model axis the MLP's weights are split over, or None."""
     if "mlp" not in lp:
         return h, None
     x2 = rmsnorm(h, lp["norm2"], cfg.norm_eps)
@@ -297,18 +301,30 @@ def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int):
         y2, aux = moe_lib.moe_ffn(x2, lp["mlp"], cfg.moe)
         return h + y2, aux
     m = lp["mlp"]
+    if tp is not None and tp.is_split(m["w_gate"].shape[-1], cfg.d_ff):
+        return h + swiglu_parallel(x2, m["w_gate"], m["w_up"], m["w_down"],
+                                   tp), None
     return h + swiglu(x2, m["w_gate"], m["w_up"], m["w_down"]), None
 
 
 def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
                  positions: torch.Tensor, enc_out: Optional[torch.Tensor],
-                 collect_cache: bool):
-    """One layer over the full sequence.  Returns (h, aux, cache_entry)."""
+                 collect_cache: bool, tp=None):
+    """One layer over the full sequence.  Returns (h, aux, cache_entry).
+    ``tp``: the model axis (:class:`repro_torch.sharding.tensor_parallel.
+    ModelAxis`) whose shards ``lp`` holds — GQA self-attention layers
+    only, in training."""
     B, S, _ = h.shape
     x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
     ce = None
     hd = cfg.resolved_head_dim
     kind = cfg.layer_kinds()[j]
+    if tp is not None and (kind != ATTN or _is_mla(cfg, kind)
+                           or collect_cache):
+        raise NotImplementedError(
+            f"{cfg.name}: a {kind} layer (or the prefill) over a model axis "
+            "above 1 is not yet ported to repro_torch (ROADMAP Queue 1 "
+            "item 7c)")
     attn_fn = flash_attention if collect_cache else attend
     if kind == MAMBA:
         y = ssm.mamba_block(x, lp["mamba"], cfg.ssm,
@@ -334,13 +350,14 @@ def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
     else:
         a_p = lp["attn"]
         q, k, v = gqa_project_qkv(x, a_p["wq"], a_p["wk"], a_p["wv"],
-                                  cfg.num_heads, cfg.num_kv_heads, hd)
+                                  cfg.num_heads, cfg.num_kv_heads, hd, tp)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        y = attn_fn(q, k, v, causal=True).reshape(B, S, -1) @ a_p["wo"]
+        y = row_parallel(attn_fn(q, k, v, causal=True).reshape(B, S, -1),
+                         a_p["wo"], tp)
         if collect_cache:
             ce = {"k": k, "v": v}
-    h, aux = _ffn(h + y, lp, cfg, j)
+    h, aux = _ffn(h + y, lp, cfg, j, tp)
     return h, aux, ce
 
 
@@ -359,15 +376,22 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 enc_embeds: Optional[torch.Tensor] = None,
-                collect_cache: bool = False):
+                collect_cache: bool = False, tp=None):
         """tokens: (B, S) int; ``enc_embeds`` (B, L, enc_dim) where the
         config has an encoder -> (pre-head hidden state (B, S, d), the MoE
         aux loss summed over layers (0 without MoE)), and with
-        ``collect_cache`` (the prefill) also the decode cache."""
+        ``collect_cache`` (the prefill) also the decode cache.  ``tp``:
+        the model axis whose shards the parameters are (tensor-parallel
+        client compute, :mod:`repro_torch.sharding.tensor_parallel`); the
+        hidden state comes back whole on every process."""
         cfg = self.cfg
         B, S = tokens.shape
         P = period_of(cfg)
-        h = F.embedding(tokens, self.embed)
+        if tp is not None and tp.is_split(self.embed.shape[0],
+                                          cfg.vocab_size):
+            h = vocab_embed(tokens, self.embed, tp)
+        else:
+            h = F.embedding(tokens, self.embed)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         if cfg.rope_theta <= 0:          # whisper: absolute sinusoidal
             h = h + sinusoidal_positions(positions[0], cfg.d_model,
@@ -385,7 +409,7 @@ class Transformer(nn.Module):
         for i, lp in enumerate(_layers(
                 lambda path: attrgetter(path)(self.blocks), cfg)):
             h, a, ce = _apply_layer(h, lp, cfg, i % P, positions, enc_out,
-                                    collect_cache)
+                                    collect_cache, tp)
             if a is not None:
                 aux = aux + a
             entries[i % P].append(ce)
@@ -479,32 +503,40 @@ def head_of(cfg: ArchConfig, params: Params) -> torch.Tensor:
 
 def lm_loss_chunked(module: Transformer, params: Params, tokens: torch.Tensor,
                     *, enc_embeds: Optional[torch.Tensor] = None,
-                    mask: Optional[torch.Tensor] = None, chunk: int = 2048
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                    mask: Optional[torch.Tensor] = None, chunk: int = 2048,
+                    tp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss with the vocab projection and cross-entropy taken
     over sequence chunks (the last one ragged), so the (B, S, V) logits
     never exist at once; plus the MoE aux loss.  ``mask`` (B, S) in {0,
     1}, aligned with ``tokens``, drops the positions it zeroes (shifted by
     one with the labels): cross-entropy and accuracy are means over the
-    kept labels.  Returns (xent + aux, {"xent", "aux", "acc"})."""
+    kept labels.  ``tp``: ``params`` are this process's shards over that
+    model axis, the head's vocab split across it
+    (:func:`repro_torch.sharding.tensor_parallel.vocab_xent`).  Returns
+    (xent + aux, {"xent", "aux", "acc"})."""
     cfg = module.cfg
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     m = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
          if mask is None else mask[:, 1:].to(torch.float32))
     h, aux = functional_call(module, params, (inputs,),
-                             {"enc_embeds": enc_embeds})
+                             {"enc_embeds": enc_embeds, "tp": tp})
     head = head_of(cfg, params)
+    vocab_split = tp is not None and tp.is_split(head.shape[-1],
+                                                 cfg.vocab_size)
     S = h.shape[1]
     C = min(chunk, S)
     nll = hit = None
     for s0 in range(0, S, C):
-        logits = (h[:, s0:s0 + C] @ head).to(torch.float32)
         lc, mc = labels[:, s0:s0 + C], m[:, s0:s0 + C]
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
-        n = torch.sum((logz - gold) * mc)
-        c = torch.sum((torch.argmax(logits, dim=-1) == lc).to(torch.float32)
-                      * mc)
+        if vocab_split:
+            n, c = vocab_xent(h[:, s0:s0 + C], head, lc, mc, tp)
+        else:
+            logits = (h[:, s0:s0 + C] @ head).to(torch.float32)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+            n = torch.sum((logz - gold) * mc)
+            c = torch.sum((torch.argmax(logits, dim=-1) == lc).to(
+                torch.float32) * mc)
         nll = n if nll is None else nll + n
         hit = c if hit is None else hit + c
     cnt = torch.clamp(torch.sum(m), min=1.0)

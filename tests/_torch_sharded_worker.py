@@ -6,8 +6,8 @@ It imports torch and the port only, never JAX.
 Each rank runs the sharded round (2 chained rounds of a small MLP at
 cohort 5, chunk 3) in three modes, rank 0 also the single-process
 chunked round on the same inputs, then ``sharded_flash_decode`` over its
-half of a cache, and, on a world of two, the (1, 2) mesh the sharded
-executor must refuse.  Results go to ``<out>/rank<r>.pt``."""
+half of a cache, and, on a world of two, a round of the MLP on a (1, 2)
+mesh, which must refuse (the model axis runs the dense GQA stacks).  Results go to ``<out>/rank<r>.pt``."""
 import os
 
 import numpy as np
@@ -80,7 +80,6 @@ def main(rank: int, world: int, port: int, out: str) -> None:
     import _torch_parity  # noqa: F401  (one torch thread a rank)
     import torch.distributed as dist
     from repro_torch.configs import FedConfig
-    from repro_torch.core.executors import get_executor
     from repro_torch.launch.mesh import make_auto_mesh, make_debug_mesh
     from repro_torch.sharding.longctx import sharded_flash_decode
 
@@ -97,9 +96,14 @@ def main(rank: int, world: int, port: int, out: str) -> None:
     res["decode"] = sharded_flash_decode(
         q, k[:, sl], v[:, sl], torch.tensor(DECODE["index"]), mesh=mesh)
     if world == 2:
+        # the model axis runs the dense GQA stacks; a round of this MLP on
+        # a (1, 2) mesh still refuses
+        from repro_torch.core.round import make_federated_round
+        from repro_torch.models.model import Model
         try:
-            get_executor("sharded")(FedConfig(**fed_kw()),
-                                    mesh=make_debug_mesh(1, 2, device="cpu"))
+            make_federated_round(Model(name="mlp", init=None, loss=mlp_loss),
+                                 FedConfig(**fed_kw()),
+                                 mesh=make_debug_mesh(1, 2, device="cpu"))
             res["model_axis"] = "accepted"
         except NotImplementedError as e:
             res["model_axis"] = str(e)

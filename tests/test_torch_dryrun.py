@@ -135,8 +135,10 @@ def test_two_card_mesh_counts_collectives():
 
 
 def test_model_axis_raises_naming_item_7b(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    """The dry run of a model axis is what still refuses (the trainer runs
+    it): item 7c."""
+    with pytest.raises(NotImplementedError, match="item 7c"):
         run_one("smollm-360m-smoke", "train_4k", mesh="1x2", verbose=False)
     p = _cli(tmp_path, "--arch", "smollm-360m", "--shape", "train_4k",
              "--mesh", "1x2")
-    assert p.returncode != 0 and "item 7b" in p.stderr
+    assert p.returncode != 0 and "item 7c" in p.stderr

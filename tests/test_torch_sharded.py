@@ -117,11 +117,14 @@ def test_sharded_flash_decode_matches_jax(two_ranks, one_rank):
 
 
 def test_model_axis_raises_naming_item_7b(two_ranks):
+    """What still refuses a model axis above 1 names item 7c: a model that
+    is not a dense GQA stack (the MLP in the ranks; mamba2 from the CLI,
+    before any process group starts)."""
     for res in two_ranks:
-        assert "ROADMAP Queue 1 item 7b" in res["model_axis"]
+        assert "ROADMAP Queue 1 item 7c" in res["model_axis"]
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        main(["--arch", "smollm-360m-smoke", "--fused", "--rounds", "1",
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        main(["--arch", "mamba2-780m-smoke", "--fused", "--rounds", "1",
               "--cohort", "2", "--client-batch", "4", "--seq", "8",
               "--device", "cpu", "--executor", "sharded",
               "--mesh-model", "2"])
