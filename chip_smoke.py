@@ -90,16 +90,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      accumulate pass, or one quantize and one dequant-FMA pass, per slot;
      one accumulate backward per slot under through_aggregation), round
      walls and peaks printed;
-  6x. the model axis (tensor-parallel client compute): 6c's chunked post
-     run on a (1, 2) mesh, two processes under torchrun on the one card
-     (gloo, the mesh's shared-card rule), ``run_training`` with
-     ``executor='sharded'``, ``mesh_model=2``, 2 rounds in chunks of 2;
-     after each round params within 1e-5 and metrics within 1e-4 of
-     6c's, the ranks' params bitwise equal; each rank's launches held
-     exactly (10 accumulate passes and one update pass a round, the
-     update on its 1,413,364 rows); round walls, peaks and the time in
-     the model-axis collectives printed.  Started before phase 7 and
-     joined after it (phase 3 also holds rows 1-3 at 1,413,364 rows);
+  6x, 6y. the model axis (tensor-parallel client compute) at full width,
+     depth cut (``MODEL_AXIS_RUNS``): 6x smollm-360m at 8 of 32 layers,
+     the paper's cohort of 10 (q/k/v gathered to whole heads, attention
+     whole on both ranks); 6y the layer kinds at cohort 4:
+     deepseek-v2-lite-16b at 1 layer (MLA on each rank's heads, 32 of
+     the 64 experts a rank), mamba2-780m at 4 layers (the mixer on each
+     rank's 24 heads), whisper-large-v3 at 2 decoder and 2 encoder layers
+     over 1500 frames; 2 rounds in chunks of 2.  Each run's world of one
+     in this process (``executor='sharded'``, NCCL), then all runs in
+     turn on a (1, 2) mesh, two processes of one torchrun job on the one
+     card (gloo, the mesh's shared-card rule), ``mesh_model=2``; after
+     each round params within 1e-5 and metrics within 1e-4 of the world
+     of one, the ranks' params bitwise equal (a 64-bit hash of the
+     bits); each rank's launches held exactly (one accumulate pass a
+     slot, one update pass a round on its half of the rows); deepseek's
+     routing in one forward bitwise the world of one's; round walls,
+     peaks and the time in the model-axis collectives printed.  The job
+     is started before phase 7 and joined after it (phase 3 also holds
+     rows 1-3 at each run's rank rows);
   6m. training through Mamba2 layers at full width: ``run_training`` on
      mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd 2
      rounds and scan/sgd 1 (scan/adam does not fit the card:
@@ -2495,16 +2504,14 @@ def chunked_path(counts_of, dev, runs=None):
     path: ``run_training`` with ``cohort_chunk`` (and
     ``executor='sharded'``), the launch counts zeroed just before it and
     read just after, held exactly; finite metrics; the round walls and
-    the peak printed.  Returns the counts and the chunked post run's
-    flat parameters (on the host) and record after each round, which
-    phase 6x holds its model axis to."""
+    the peak printed.  Returns the counts."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.core import flat as F
     from repro_torch.launch.train import run_training
 
-    counts, round0, res0, post_rounds = {}, {}, {}, []
+    counts, round0, res0 = {}, {}, {}
     log(f"  allocated before the phase: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     for tag, (rounds, mode, codec, ef, executor) in CHUNKED_RUNS.items():
@@ -2523,10 +2530,6 @@ def chunked_path(counts_of, dev, runs=None):
                 params = trainer.state["params"]
                 round0[tag] = ([b.clone() for b in F.flatten_tree(
                     F.make_flat_spec(params), params)], dict(recs[0]))
-            if tag == "chunked:post":
-                params = trainer.state["params"]
-                (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
-                post_rounds.append((flat.cpu(), dict(recs[0])))
             if ef:
                 (res,) = trainer.state["comm"]["residual"]
                 assert res.shape == (CHUNK_COHORT, FULL_ROWS, 128), res.shape
@@ -2585,47 +2588,230 @@ def chunked_path(counts_of, dev, runs=None):
         log(f"  sharded (world of 1, NCCL) vs chunked after round 0: params "
             f"and metrics bitwise {same}")
         assert same, (ra, rb)
-    return counts, post_rounds
+    return counts
 
 
 # ---------------------------------------------------------------------------
-# phase 6x: the model axis — tensor-parallel client compute, two ranks on
-# the one card
+# phases 6x and 6y: the model axis — tensor-parallel client compute, two
+# ranks on the one card
 # ---------------------------------------------------------------------------
-# Phase 6c's chunked post run (smollm-360m at full width, cohort 10,
-# client batch 8, seq 128, sgd, 2 rounds) again on a (1, 2) mesh: two
-# processes under torchrun (python -m torch.distributed.run
-# --nproc-per-node 2 chip_smoke.py --model-axis-rank REF CHUNK), both on
-# cuda:0 over gloo by the mesh's shared-card rule, each running
-# run_training with executor='sharded', mesh_model=2.  Each client update
-# runs on the rank's parameter shards (wq 960 -> 480 columns, wk / wv
-# 320 -> 160: the split cuts through a head), the gradient goes into the
-# global flat layout by its owner, one accumulate_pass a slot runs over
-# all 2,826,728 rows, one model-axis sum a round makes G whole, and one
-# update_pass a round runs on the rank's 1,413,364 rows before an
-# all-gather.  The ranks stream the cohort in chunks of 2 (10 slots a
-# round): at 6c's chunks of 4 a rank peaks near 35 GiB and two ran the
-# card out of memory (PERF.md §5); at 2 each peaks at 19.67.  The
-# accumulation order does not depend on the chunk, so the rounds are
-# held to 6c's all the same: after each round params within 1e-5 and
-# metrics within 1e-4 of 6c's chunked post run (rank 0 against the host
-# copy 6c kept), the two ranks' params bitwise equal (rank 0's
-# broadcast, compared on each), each rank's launches exactly (10
-# accumulate_pass and 1 update_pass a round, the update on 1,413,364
-# rows).  Printed: the round walls, each rank's peak, and each rank's
-# time in the model-axis collectives.  The ranks run beside phase 7
-# (smoke size, a few GiB): started before it, joined after it.
+# Each run of MODEL_AXIS_RUNS at full width, only its depth cut (the
+# layers listed there), UGA + FedMeta post, client batch 8, seq 128, sgd,
+# 2 rounds, the cohort streamed in chunks of 2.  First a world of one in
+# this process (run_training with executor='sharded', mesh_model=1: NCCL,
+# one process), whose flat parameters after each round go to build/ and
+# whose records are kept; then, once this process has released the card,
+# the same runs on a (1, 2) mesh: two processes of one torchrun job
+# (python -m torch.distributed.run --nproc-per-node 2 chip_smoke.py
+# --model-axis-rank DIR), both on cuda:0 over gloo by the mesh's
+# shared-card rule, every run in turn (the spawn paid once), each rank's
+# client compute on its parameter shards.  After each round: params
+# within 1e-5 and metrics within 1e-4 of the world of one (rank 0 against
+# the saved flat buffer), the two ranks' params bitwise equal (a 64-bit
+# hash of the flat buffer's bits, odd weights by position, all-gathered:
+# two buffers that differ in one element always hash apart), each rank's
+# launches exactly (one accumulate_pass a slot over all rows, one
+# update_pass a round on its half of the rows).  A MoE run's routing
+# (every layer's expert indices and capacity keeps) in one forward of a
+# seeded init on a fixed batch is held bitwise to the world of one's.
+# Printed: the round walls, each rank's peak, each rank's time in the
+# model-axis collectives by kind.
+#   6x: smollm-360m (15 / 5 heads do not split in 2: q/k/v gathered,
+#       attention whole on both ranks; the MLP and the vocab split) at the
+#       paper's cohort of 10.  Cut to 8 of 32 layers so that 6y fits
+#       the call (at 32 layers 6x alone took 169.8 s);
+#   6y: the layer kinds, cohort 4: deepseek-v2-lite-16b, 1 of 27 layers
+#       (MLA on each rank's 8 of 16 heads, 32 of the 64 experts a rank,
+#       the shared experts split); mamba2-780m, 4 of 48 layers (the mixer
+#       on each rank's 24 of 48 heads); whisper-large-v3, 2 decoder
+#       layers (self, then cross) and 2 of 32 encoder layers over 1500
+#       frames (10 of 20 heads a rank, the GELU MLP split).
+# Client (and so server and meta) lr 0.01, the launcher's default, but
+# mamba2-780m's 0.001 at 4 layers.  A mamba2-780m run's own trajectory
+# is too sensitive deeper or faster to be held to 1e-5 / 1e-4 by any
+# implementation: perturbing only its init by 1e-7 moves its world of one
+# (tools/sensitivity_check.py) by params 1.2e-5 and 2.5e-3 after rounds
+# 0 and 1 at 8 layers and lr 0.01, grad_norm 9.3e-4 at 8 layers and lr
+# 0.001, params 2.3e-5 at 16 layers and lr 0.001; at 4 layers and lr
+# 0.001 by params 1.3e-7 and grad_norm 1.1e-5, as the other runs (params
+# 2.4e-7).
+# The job runs beside phase 7: started before it, joined after it.
 MODEL_AXIS = 2
-MODEL_AXIS_CHUNK = 2
 MODEL_AXIS_ROUNDS = 2
-MODEL_AXIS_ROWS = FULL_ROWS // MODEL_AXIS                # 1,413,364
-MODEL_AXIS_TIMEOUT = 600
+MODEL_AXIS_TIMEOUT = 700
+# tag -> (arch, layers, cohort, chunk, client lr)
+MODEL_AXIS_RUNS = {
+    "6x:smollm-360m": ("smollm-360m", 8, CHUNK_COHORT, 2, 0.01),
+    "6y:deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 1, 4, 2, 0.01),
+    "6y:mamba2-780m": ("mamba2-780m", 4, 4, 2, 0.001),
+    "6y:whisper-large-v3": ("whisper-large-v3", 2, 4, 2, 0.01),
+}
+MODEL_AXIS_DIR = os.path.join(HERE, "build", "model_axis")
+HASH_CHUNK = 1 << 26             # elements a step of flat_hash / flat_err
 
 
-def model_axis_rank(ref_path: str, chunk: int = MODEL_AXIS_CHUNK) -> int:
-    """One rank of phase 6x (``--model-axis-rank REF [CHUNK]``, under
-    torchrun): prints one ``{"model_axis_rank": ...}`` line; exits 1 if a
-    check fails."""
+def axis_rows(arch, layers) -> tuple:
+    """(the flat rows of ``arch`` cut to ``layers``, a rank's share)."""
+    from repro_torch.configs import get_arch, with_depth
+    from repro_torch.core.flat import make_flat_spec
+    from repro_torch.models.transformer import Transformer
+    cfg = with_depth(get_arch(arch), layers)
+    spec = make_flat_spec(dict(Transformer(cfg).named_parameters()))
+    rows = spec.groups[0].rows
+    return rows, rows // MODEL_AXIS
+
+
+def axis_run(spec, dev, mesh_model, on_records):
+    """One run of MODEL_AXIS_RUNS through ``run_training``."""
+    from repro_torch.launch.train import run_training
+    arch, layers, cohort, chunk, lr = spec
+    return run_training(
+        arch, layers=layers, rounds=MODEL_AXIS_ROUNDS, cohort=cohort,
+        client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
+        client_lr=lr,
+        cohort_chunk=chunk, executor="sharded", mesh_model=mesh_model,
+        server_opt="sgd", meta_mode="post", seed=0, log_every=1,
+        device=dev, on_records=on_records)
+
+
+def route_probe(arch, layers, dev, mesh=None) -> list:
+    """Every MoE layer's (expert indices, keeps), on the host, in one
+    forward of a seeded init (seed 0) on fixed tokens (8 x 129); over
+    ``mesh``'s model axis where given.  None for a config without MoE."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, with_depth
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.tensor_parallel import model_axis
+    cfg = with_depth(get_arch(arch), layers)
+    if cfg.moe is None:
+        return None
+    model = build_model(cfg, dtype=torch.float32, loss_chunk=256)
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (8, 129))).to(dev)
+    recs, orig = [], MOE._route
+
+    def route(xg, p, c):
+        out = orig(xg, p, c)
+        recs.append((out[1].cpu(), out[3].cpu()))
+        return out
+    MOE._route = route
+    try:
+        with torch.no_grad():
+            if mesh is None:
+                model.loss(params, {"tokens": tokens})
+            else:
+                axis = model_axis(mesh, params)
+                model.loss(axis.shard(params), {"tokens": tokens}, tp=axis)
+    finally:
+        MOE._route = orig
+    del params
+    return recs
+
+
+def flat_hash(flat):
+    """A 64-bit hash of a flat buffer's bits: sum of bits x (2i + 1) and
+    sum of bits, in int64 (wrapping)."""
+    import torch
+    bits = flat.reshape(-1).view(torch.int32)
+    out = torch.zeros(2, dtype=torch.int64, device=flat.device)
+    for i in range(0, bits.numel(), HASH_CHUNK):
+        b = bits[i:i + HASH_CHUNK].long()
+        w = torch.arange(i, i + b.numel(), device=flat.device) * 2 + 1
+        out += torch.stack([(b * w).sum(), b.sum()])
+    return out
+
+
+def flat_err(flat, ref) -> float:
+    """max |flat - ref| over max |ref|; ``ref`` a host array (a memmap)."""
+    import numpy as np
+    import torch
+    a = flat.reshape(-1)
+    diff = top = 0.0
+    for i in range(0, a.numel(), HASH_CHUNK):
+        b = torch.from_numpy(np.ascontiguousarray(
+            ref.reshape(-1)[i:i + HASH_CHUNK])).to(a.device)
+        diff = max(diff, float((a[i:i + b.numel()] - b).abs().max()))
+        top = max(top, float(b.abs().max()))
+    return diff / max(top, 1e-30)
+
+
+def _slug(tag) -> str:
+    return tag.replace(":", "_")
+
+
+def model_axis_refs(counts_of, dev, runs=MODEL_AXIS_RUNS) -> dict:
+    """Each run's world of one in this process, each its own main path
+    (the counts zeroed just before it, read just after, held exactly):
+    the flat parameters after each round to ``MODEL_AXIS_DIR/<tag>_r<n>.npy``,
+    the records and the MoE routing to ``<tag>.pt``, the runs to
+    ``runs.json``.  Returns the counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import flat as F
+    os.makedirs(MODEL_AXIS_DIR, exist_ok=True)
+    counts = {}
+    for tag, spec in runs.items():
+        arch, layers, cohort, chunk, lr = spec
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        routes = route_probe(arch, layers, dev)
+        torch.cuda.empty_cache()
+        records, marks = [], [time.perf_counter()]
+
+        def on_records(recs, trainer, tag=tag, records=records,
+                       marks=marks):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            params = trainer.state["params"]
+            (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
+            np.save(os.path.join(MODEL_AXIS_DIR, f"{_slug(tag)}_r"
+                                 f"{recs[0]['round']}.npy"),
+                    flat.cpu().numpy())
+            records.append(dict(recs[0]))
+            del flat
+
+        counts_of.reset()
+        state, hist = axis_run(spec, dev, 1, on_records)
+        counts[f"model_axis_ref:{tag}"] = c = counts_of.read()
+        slots = -(-cohort // chunk) * chunk
+        want = _launches(accumulate_pass=MODEL_AXIS_ROUNDS * slots,
+                         update_pass=MODEL_AXIS_ROUNDS)
+        log(f"kernels: model_axis_ref:{tag} {json.dumps(c)}")
+        assert c == want, (tag, c, want)
+        rows = axis_rows(arch, layers)[0]
+        n = sum(p.numel() for p in state["params"].values())
+        for rec in hist:
+            assert all(math.isfinite(v) for v in rec.values()), (tag, rec)
+        log(f"  {tag} world of one: {arch} at {layers} layers, {n:,} "
+            f"parameters ({rows:,} flat rows), cohort {cohort} in chunks "
+            f"of {chunk}, lr {lr}: round wall s "
+            f"{[round(b - a, 4) for a, b in zip(marks, marks[1:])]} "
+            f"(round 0 includes init and data; each includes the host copy "
+            f"of the flat parameters)  max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; routing "
+            f"probe: {'none' if routes is None else len(routes)} MoE layers")
+        torch.save({"records": records, "routes": routes},
+                   os.path.join(MODEL_AXIS_DIR, f"{_slug(tag)}.pt"))
+        del state
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    with open(os.path.join(MODEL_AXIS_DIR, "runs.json"), "w") as f:
+        json.dump(runs, f)
+    return counts
+
+
+def model_axis_rank(ref_dir: str) -> int:
+    """The body of one rank of phases 6x and 6y (``--model-axis-rank
+    DIR``, under torchrun): every run of ``DIR/runs.json`` in turn, one
+    ``{"model_axis_rank": ...}`` line each; exits 1 if a check fails."""
+    import gc
+
+    import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.core import flat as F
@@ -2635,17 +2821,23 @@ def model_axis_rank(ref_path: str, chunk: int = MODEL_AXIS_CHUNK) -> int:
     from repro_torch.kernels.fused_update import kernel as K
     from repro_torch.kernels.fused_update import ops as O
     from repro_torch.kernels.ssd_scan import kernel as SK
-    from repro_torch.launch.train import run_training
+    from repro_torch.launch.mesh import make_auto_mesh
     from repro_torch.sharding import tensor_parallel as TP
 
     torch.set_num_threads(2)
     strict_fp32()
     rank = int(os.environ["RANK"])
-    ref = torch.load(ref_path, weights_only=False) if rank == 0 else None
+    with open(os.path.join(ref_dir, "runs.json")) as f:
+        runs = json.load(f)
     # the time in the model-axis collectives, each call synchronized; the
     # flat buffers' (G's sum, the updated rows' gather) apart
-    coll = {k: [0, 0, 0.0] for k in ("all_reduce", "all_gather",
-                                     "flat all_reduce", "flat all_gather")}
+    coll, flat_numel = {}, [0]
+
+    def reset_coll():
+        coll.clear()
+        coll.update({k: [0, 0, 0.0] for k in (
+            "all_reduce", "all_gather", "flat all_reduce",
+            "flat all_gather")})
 
     def timed(kind, fn):
         def call(x, *a, **k):
@@ -2653,8 +2845,7 @@ def model_axis_rank(ref_path: str, chunk: int = MODEL_AXIS_CHUNK) -> int:
             t = time.perf_counter()
             out = fn(x, *a, **k)
             torch.cuda.synchronize()
-            c = coll[("flat " if x.numel() >= MODEL_AXIS_ROWS * 128 else "")
-                     + kind]
+            c = coll[("flat " if x.numel() >= flat_numel[0] else "") + kind]
             c[0], c[1] = c[0] + 1, c[1] + x.numel() * x.element_size()
             c[2] += time.perf_counter() - t
             return out
@@ -2670,82 +2861,95 @@ def model_axis_rank(ref_path: str, chunk: int = MODEL_AXIS_CHUNK) -> int:
         update_rows.append(int(G.shape[0]))
         return K.update_pass(G, *a, **k)
     O.K = types.SimpleNamespace(**{**vars(K), "update_pass": spy_update})
-
-    out = {"rank": rank, "errs": [], "metric_errs": [], "bitwise": [],
-           "walls": []}
-    marks = [time.perf_counter()]
-
-    def on_records(recs, trainer):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        r = recs[0]["round"]
-        params = trainer.state["params"]
-        (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
-        theirs = flat.clone()
-        dist.broadcast(theirs, src=0)
-        same = torch.tensor([int(torch.equal(theirs, flat))])
-        dist.all_reduce(same, op=dist.ReduceOp.MIN)
-        out["bitwise"].append(bool(same.item()))
-        if rank == 0:
-            want, rec = ref[r]
-            out["errs"].append(rel_err(flat, want.to(flat.device)))
-            out["metric_errs"].append({
-                k: rel_err(torch.tensor(float(recs[0][k])),
-                           torch.tensor(float(v)))
-                for k, v in rec.items() if k != "round"})
-        del flat, theirs
-
     counts_of = Counts(K, CK, FK, SK)
-    torch.cuda.reset_peak_memory_stats()
-    counts_of.reset()
-    state, hist = run_training(
-        "smollm-360m", rounds=MODEL_AXIS_ROUNDS, cohort=CHUNK_COHORT,
-        client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
-        cohort_chunk=chunk, executor="sharded", mesh_model=MODEL_AXIS,
-        server_opt="sgd", meta_mode="post", seed=0, log_every=1,
-        device="cuda", on_records=on_records)
-    out["counts"] = counts_of.read()
-    out["update_rows"] = update_rows
-    out["walls"] = [b - a for a, b in zip(marks, marks[1:])]
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["collectives"] = coll
-    out["hist"] = hist
-    out["device"] = str(state["params"]["embed"].device)
-    print(json.dumps({"model_axis_rank": out}), flush=True)
-    dist.barrier()
+
+    for tag, spec in runs.items():
+        arch, layers = spec[:2]
+        slug = os.path.join(ref_dir, _slug(tag))
+        ref = torch.load(slug + ".pt", weights_only=False)
+        flat_numel[0] = axis_rows(arch, layers)[1] * 128
+        out = {"rank": rank, "tag": tag, "errs": [], "metric_errs": [],
+               "bitwise": [], "walls": []}
+        reset_coll()
+        if ref["routes"] is not None:
+            mine = route_probe(arch, layers, "cuda",
+                               make_auto_mesh(MODEL_AXIS, device="cuda"))
+            out["routes_equal"] = len(mine) == len(ref["routes"]) and all(
+                torch.equal(a, c) and torch.equal(b, d)
+                for (a, b), (c, d) in zip(mine, ref["routes"]))
+            torch.cuda.empty_cache()
+        reset_coll()
+        update_rows.clear()
+        marks = [time.perf_counter()]
+
+        def on_records(recs, trainer, slug=slug, ref=ref, out=out,
+                       marks=marks):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            r = recs[0]["round"]
+            params = trainer.state["params"]
+            (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
+            h = flat_hash(flat)
+            hs = [torch.empty_like(h) for _ in range(dist.get_world_size())]
+            dist.all_gather(hs, h)
+            out["bitwise"].append(all(torch.equal(x, hs[0]) for x in hs))
+            if rank == 0:
+                out["errs"].append(flat_err(flat, np.load(
+                    f"{slug}_r{r}.npy", mmap_mode="r")))
+                out["metric_errs"].append({
+                    k: rel_err(torch.tensor(float(recs[0][k])),
+                               torch.tensor(float(v)))
+                    for k, v in ref["records"][r].items() if k != "round"})
+            del flat
+
+        torch.cuda.reset_peak_memory_stats()
+        counts_of.reset()
+        state, hist = axis_run(spec, "cuda", MODEL_AXIS, on_records)
+        out["counts"] = counts_of.read()
+        out["update_rows"] = list(update_rows)
+        out["walls"] = [b - a for a, b in zip(marks, marks[1:])]
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["collectives"] = {k: list(v) for k, v in coll.items()}
+        out["hist"] = hist
+        out["device"] = str(state["params"]["embed"].device)
+        print(json.dumps({"model_axis_rank": out}), flush=True)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
     dist.destroy_process_group()
     return 0
 
 
-def start_model_axis(post_rounds, chunk: int = MODEL_AXIS_CHUNK) -> dict:
-    """Phase 6x's two ranks under torchrun, started in the background
-    (their output to files under build/); ``post_rounds``: phase 6c's
-    chunked post run, from :func:`chunked_path`.  Join with
+def start_model_axis(runs=MODEL_AXIS_RUNS) -> dict:
+    """The model axis's two ranks under torchrun, started in the
+    background over ``runs``, whose references :func:`model_axis_refs`
+    wrote (their output to files under build/).  Join with
     :func:`finish_model_axis`."""
     import torch
-    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     paths = {k: os.path.join(HERE, "build", f"model_axis_{k}")
-             for k in ("ref.pt", "out.txt", "err.txt")}
-    torch.save(post_rounds, paths["ref.pt"])
+             for k in ("out.txt", "err.txt")}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"  6x: this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
-        f" GiB ({torch.cuda.memory_reserved() / 2**30:.2f} reserved) on the "
-        "card")
+    log(f"  6x/6y: this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) on the card")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(MODEL_AXIS),
            os.path.join(HERE, "chip_smoke.py"), "--model-axis-rank",
-           paths["ref.pt"], str(chunk)]
+           MODEL_AXIS_DIR]
     files = {k: open(paths[k], "w") for k in ("out.txt", "err.txt")}
     proc = subprocess.Popen(cmd, stdout=files["out.txt"],
                             stderr=files["err.txt"], text=True,
                             env={**os.environ, "OMP_NUM_THREADS": "2"})
-    return {"proc": proc, "paths": paths, "files": files, "chunk": chunk,
+    return {"proc": proc, "paths": paths, "files": files, "runs": runs,
             "t0": time.perf_counter()}
 
 
 def stop_model_axis(job: dict) -> None:
-    """Kill the ranks if they still run; close and remove the files."""
+    """Kill the ranks if they still run; close and remove the files and
+    the references."""
+    import shutil
     p = job["proc"]
     if p.poll() is None:
         p.kill()
@@ -2755,12 +2959,13 @@ def stop_model_axis(job: dict) -> None:
     for path in job["paths"].values():
         if os.path.exists(path):
             os.remove(path)
+    shutil.rmtree(MODEL_AXIS_DIR, ignore_errors=True)
 
 
 def finish_model_axis(job: dict) -> dict:
-    """Phase 6x's checks, once its ranks end; returns their launch
+    """Phases 6x and 6y's checks, once the ranks end; returns their launch
     counts."""
-    p, chunk = job["proc"], job["chunk"]
+    p, runs = job["proc"], job["runs"]
     try:
         p.wait(timeout=max(1.0, MODEL_AXIS_TIMEOUT
                            - (time.perf_counter() - job["t0"])))
@@ -2777,7 +2982,7 @@ def finish_model_axis(job: dict) -> dict:
     lines = p.stdout.splitlines()
     for l in lines:
         if not l.startswith('{"model_axis_rank"'):
-            log(f"  6x| {l}")
+            log(f"  6x/6y| {l}")
     if p.returncode != 0:
         # each rank's traceback (torchrun prefixes its lines), then the
         # launcher's summary
@@ -2786,51 +2991,63 @@ def finish_model_axis(job: dict) -> dict:
                     if l.startswith(f"[rank{r}]:")]
             log("\n".join(mine[-40:]))
         log(p.stderr[-1500:])
-        raise AssertionError(f"phase 6x: torchrun exited {p.returncode}")
-    ranks = sorted((json.loads(l)["model_axis_rank"] for l in lines
-                    if l.startswith('{"model_axis_rank"')),
-                   key=lambda r: r["rank"])
-    assert [r["rank"] for r in ranks] == list(range(MODEL_AXIS)), ranks
-    slots = -(-CHUNK_COHORT // chunk) * chunk
-    want = _launches(accumulate_pass=MODEL_AXIS_ROUNDS * slots,
-                     update_pass=MODEL_AXIS_ROUNDS)
+        raise AssertionError(f"phases 6x/6y: torchrun exited {p.returncode}")
+    outs = [json.loads(l)["model_axis_rank"] for l in lines
+            if l.startswith('{"model_axis_rank"')]
     counts = {}
-    for r in ranks:
-        tag = f"model_axis:post[rank{r['rank']}]"
-        counts[tag] = r["counts"]
-        c = r["collectives"]
-        log(f"kernels: {tag} {json.dumps(r['counts'])}")
-        log(f"  6x rank {r['rank']} on {r['device']}: round wall s "
-            f"{[round(x, 4) for x in r['walls']]} (round 0 includes init "
-            f"and data)  max_memory_allocated {r['peak_gib']:.2f} GiB; "
-            f"model-axis collectives: all_reduce {c['all_reduce'][0]} calls "
-            f"{c['all_reduce'][1] / 1e9:.3f} GB {c['all_reduce'][2]:.3f} s, "
-            f"all_gather {c['all_gather'][0]} calls "
-            f"{c['all_gather'][1] / 1e9:.3f} GB {c['all_gather'][2]:.3f} s; "
-            f"of the flat buffers: all_reduce {c['flat all_reduce'][0]} "
-            f"calls {c['flat all_reduce'][2]:.3f} s, all_gather "
-            f"{c['flat all_gather'][0]} calls {c['flat all_gather'][2]:.3f} "
-            f"s; update_pass rows {r['update_rows']}")
-    for r in ranks:
-        tag = f"model_axis:post[rank{r['rank']}]"
-        assert r["counts"] == want, (tag, r["counts"], want)
-        assert r["update_rows"] == [MODEL_AXIS_ROWS] * MODEL_AXIS_ROUNDS, \
-            (tag, r["update_rows"])
-        assert r["device"] == "cuda:0", r["device"]
-        assert all(r["bitwise"]) and len(r["bitwise"]) == \
-            MODEL_AXIS_ROUNDS, (tag, r["bitwise"])
-        for rec in r["hist"]:
-            assert all(math.isfinite(v) for v in rec.values()), rec
-    r0 = ranks[0]
-    log(f"  6x vs 6c's chunked post run after each round: params rel "
-        f"{[f'{e:.3e}' for e in r0['errs']]}, metrics rel "
-        f"{[{k: f'{v:.2e}' for k, v in m.items()} for m in r0['metric_errs']]}"
-        f"; ranks' params bitwise equal after each round: "
-        f"{ranks[1]['bitwise']}; chunk {chunk}; torchrun wall {secs:.1f} s")
-    assert len(r0["errs"]) == MODEL_AXIS_ROUNDS
-    assert all(e <= 1e-5 for e in r0["errs"]), r0["errs"]
-    assert all(v <= 1e-4 for m in r0["metric_errs"] for v in m.values()), \
-        r0["metric_errs"]
+    for tag, (arch, layers, cohort, chunk, _) in runs.items():
+        ranks = sorted((o for o in outs if o["tag"] == tag),
+                       key=lambda o: o["rank"])
+        assert [r["rank"] for r in ranks] == list(range(MODEL_AXIS)), \
+            (tag, ranks)
+        slots = -(-cohort // chunk) * chunk
+        want = _launches(accumulate_pass=MODEL_AXIS_ROUNDS * slots,
+                         update_pass=MODEL_AXIS_ROUNDS)
+        rank_rows = axis_rows(arch, layers)[1]
+        for r in ranks:
+            name = f"model_axis:{tag}[rank{r['rank']}]"
+            counts[name] = r["counts"]
+            c = r["collectives"]
+            walls = r["walls"]
+            log(f"kernels: {name} {json.dumps(r['counts'])}")
+            log(f"  {tag} rank {r['rank']} on {r['device']}: round wall s "
+                f"{[round(x, 4) for x in walls]} (steady {walls[-1]:.4f}; "
+                f"round 0 includes init and data)  max_memory_allocated "
+                f"{r['peak_gib']:.2f} GiB; model-axis collectives: "
+                f"all_reduce {c['all_reduce'][0]} calls "
+                f"{c['all_reduce'][1] / 1e9:.3f} GB "
+                f"{c['all_reduce'][2]:.3f} s, all_gather "
+                f"{c['all_gather'][0]} calls {c['all_gather'][1] / 1e9:.3f}"
+                f" GB {c['all_gather'][2]:.3f} s; of the flat buffers: "
+                f"all_reduce {c['flat all_reduce'][0]} calls "
+                f"{c['flat all_reduce'][2]:.3f} s, all_gather "
+                f"{c['flat all_gather'][0]} calls "
+                f"{c['flat all_gather'][2]:.3f} s; update_pass rows "
+                f"{r['update_rows']}")
+        for r in ranks:
+            name = f"model_axis:{tag}[rank{r['rank']}]"
+            assert r["counts"] == want, (name, r["counts"], want)
+            assert r["update_rows"] == [rank_rows] * MODEL_AXIS_ROUNDS, \
+                (name, r["update_rows"], rank_rows)
+            assert r["device"] == "cuda:0", r["device"]
+            assert all(r["bitwise"]) and len(r["bitwise"]) == \
+                MODEL_AXIS_ROUNDS, (name, r["bitwise"])
+            for rec in r["hist"]:
+                assert all(math.isfinite(v) for v in rec.values()), rec
+        r0 = ranks[0]
+        routed = ("; MoE routing bitwise the world of one's: "
+                  f"{r0['routes_equal']}" if "routes_equal" in r0 else "")
+        log(f"  {tag} vs its world of one after each round: params rel "
+            f"{[f'{e:.3e}' for e in r0['errs']]}, metrics rel "
+            f"{[{k: f'{v:.2e}' for k, v in m.items()} for m in r0['metric_errs']]}"
+            f"; ranks' params bitwise equal after each round: "
+            f"{ranks[1]['bitwise']}{routed}")
+        assert len(r0["errs"]) == MODEL_AXIS_ROUNDS
+        assert all(e <= 1e-5 for e in r0["errs"]), (tag, r0["errs"])
+        assert all(v <= 1e-4 for m in r0["metric_errs"]
+                   for v in m.values()), (tag, r0["metric_errs"])
+        assert r0.get("routes_equal", True), tag
+    log(f"  6x/6y: torchrun wall {secs:.1f} s from start to join")
     return counts
 
 
@@ -4884,8 +5101,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--model-axis-rank"]:
-        # one rank of phase 6x, under torchrun
-        return model_axis_rank(sys.argv[2], *map(int, sys.argv[3:4]))
+        # one rank of phases 6x and 6y, under torchrun
+        return model_axis_rank(sys.argv[2])
     if sys.argv[1:2] in (["--trace-only"], ["--dry-only"]):
         # phase 6l's workers: one of phase 6's rounds traced, not run; the
         # dry run
@@ -4940,8 +5157,9 @@ def main() -> int:
     phase("[3,4] kernels against their plain versions (ssq, dw, dscal bitwise "
         "across launches; the codec kernels bitwise):")
     shapes = [8, 24, 264, 4104, *PAPER_ROWS.values(), FULL_ROWS]
-    # rows 1-3 also at the rows a rank of phase 6x updates
-    errs = check_kernels(K, R, O, dev, shapes + [MODEL_AXIS_ROWS])
+    # rows 1-3 also at the rows a rank of phases 6x and 6y updates
+    errs = check_kernels(K, R, O, dev, shapes + sorted(
+        {axis_rows(*spec[:2])[1] for spec in MODEL_AXIS_RUNS.values()}))
     errs.update(check_bwd_kernels(K, R, O, dev, shapes))
     errs.update(check_codec_kernels(CK, CR, dev, shapes))
     phase("[3b] the serving prefill's kernels against their plain versions:")
@@ -4992,8 +5210,7 @@ def main() -> int:
           f"full width: smollm-360m, UGA + FedMeta, sgd, cohort "
           f"{CHUNK_COHORT}, chunk {CHUNK} ({CHUNK_SLOTS} slots), client "
           f"batch 8, seq 128:")
-    chunked_counts, post_rounds = chunked_path(counts_of, dev)
-    counts.update(chunked_counts)
+    counts.update(chunked_path(counts_of, dev))
     phase("[6m] training through Mamba2 layers at full width: mamba2-780m, "
         "UGA + FedMeta, fused, meta_mode='post', cohort 4, client batch 8, "
         "seq 128 (one SSD chunk):")
@@ -5034,12 +5251,15 @@ def main() -> int:
     counts.update(serve_flash_models(counts_of, dev,
                                      times["flash_attention_fwd"]["forms"]))
 
-    phase(f"[6x] the model axis: phase 6c's chunked post run on a (1, "
-          f"{MODEL_AXIS}) mesh, two ranks on the one card (torchrun, gloo), "
-          f"{MODEL_AXIS_ROUNDS} rounds in chunks of {MODEL_AXIS_CHUNK}, held "
-          "to 6c after each round; started here, run beside phase 7:")
-    model_axis = start_model_axis(post_rounds)
-    del post_rounds
+    phase(f"[6x, 6y] the model axis, {MODEL_AXIS_ROUNDS} rounds each at "
+          "full width, depth cut: "
+          + ", ".join(f"{a} at {n} layers (cohort {c}, chunks of {k}, lr "
+                      f"{lr})" for a, n, c, k, lr in MODEL_AXIS_RUNS.values())
+          + "; each run's world of one in this process, then a (1, "
+          f"{MODEL_AXIS}) mesh, two ranks on the one card (one torchrun "
+          "job, gloo) started here and run beside phase 7:")
+    counts.update(model_axis_refs(counts_of, dev))
+    model_axis = start_model_axis()
     try:
         phase("[7] small input, card against the CPU plain versions:")
         small_reference(dev)
@@ -5054,7 +5274,7 @@ def main() -> int:
         small_reference_obs(counts_of, dev)
         small_reference_roofline_draws(counts_of, dev)
         small_reference_serve(dev)
-        phase("[6x] joined: the model axis's ranks after phase 7:")
+        phase("[6x, 6y] joined: the model axis's ranks after phase 7:")
         counts.update(finish_model_axis(model_axis))
     finally:
         stop_model_axis(model_axis)

@@ -7,13 +7,17 @@ phi3-medium-14b), the MoE family with MLA or GQA attention
 layers, the SSM family (mamba2-780m) and the hybrid
 (jamba-1.5-large-398b), and the encoder / cross-attention families
 (whisper-large-v3, llama-3.2-vision-90b), whose loss takes
-``enc_embeds`` and ``mask`` batches as JAX's does (no data pipeline of
-either package makes such batches).
+``enc_embeds`` and ``mask`` batches as JAX's does (the port's launcher
+draws seeded ``enc_embeds`` for them, ``data/synthetic.py::SeededFrames``;
+JAX's makes none).  :func:`with_depth` cuts a config's depth, never its
+widths.
 
 ``SHAPES`` (the JAX package's four input shapes), ``SKIPS`` and
 :func:`matrix` are the dry run's (architecture, shape) pairs
 (:mod:`repro_torch.launch.dryrun`), a copy of the JAX package's data."""
 from __future__ import annotations
+
+import dataclasses
 
 from repro_torch.configs import (deepseek_v2_lite_16b, jamba_1_5_large_398b,
                                  llama4_scout_17b_a16e, llama32_vision_90b,
@@ -54,6 +58,19 @@ def get_arch(name: str) -> ArchConfig:
         raise ValueError(f"unknown arch {name!r}; the port registers "
                          f"{ARCHS} (and their -smoke variants)")
     return _MODULES[name].CONFIG
+
+
+def with_depth(cfg: ArchConfig, layers: int) -> ArchConfig:
+    """``cfg`` with ``layers`` decoder layers (a multiple of its period)
+    and at most as many encoder layers; the widths are the config's.
+    ``layers`` 0 is the config itself."""
+    if not layers:
+        return cfg
+    enc = cfg.encoder
+    if enc is not None:
+        enc = dataclasses.replace(enc, enc_layers=min(enc.enc_layers,
+                                                      layers))
+    return dataclasses.replace(cfg, num_layers=layers, encoder=enc)
 
 
 def get_smoke(name: str) -> ArchConfig:

@@ -25,9 +25,11 @@ TAGS = {
 }
 
 # the port's own host-stream components (JAX has no counterpart: its
-# dropout masks come from the client and meta keys)
+# dropout masks come from the client and meta keys, and its launcher
+# makes no encoder inputs)
 DROPOUT_SEED = 0xD20B0
-PORT_TAGS = {"DROPOUT_SEED": DROPOUT_SEED}
+FRAMES_TAG = 0xE1C
+PORT_TAGS = {"DROPOUT_SEED": DROPOUT_SEED, "FRAMES_TAG": FRAMES_TAG}
 
 _ALL = {**TAGS, **PORT_TAGS}
 assert len(set(_ALL.values())) == len(_ALL), "rng tag collision"

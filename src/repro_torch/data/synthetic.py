@@ -11,13 +11,17 @@ ratios) are testable:
     yields non-IID clients, like FEMNIST's handwriting;
   * ``synthetic_chars``   — per-role Markov chains over a 90-char alphabet
     (Shakespeare stand-in): extreme non-IID, as in LEAF;
-  * ``synthetic_tokens``  — integer LM streams for the transformer archs.
+  * ``synthetic_tokens``  — integer LM streams for the transformer archs;
+  * ``SeededFrames``      — an encoder's precomputed frame or patch
+    embeddings (the port's own: JAX's launcher trains no encoder config).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+from repro_torch.core.rngtags import FRAMES_TAG
 
 
 @dataclasses.dataclass
@@ -94,3 +98,27 @@ def synthetic_chars(rng: np.random.Generator, *, n: int, seq_len: int,
         c = cum[role, toks[:, t - 1]]                  # (n, vocab)
         toks[:, t] = (u[:, t, None] < c).argmax(axis=-1)
     return CharDataset(tokens=toks, role=role)
+
+
+
+class SeededFrames:
+    """``(n, length, dim)`` float32 standard normals, an encoder config's
+    ``enc_embeds`` for ``n`` examples: example ``i`` is drawn from its own
+    generator, ``default_rng((seed, FRAMES_TAG, i))``.  Indexed by an
+    array of example ids it draws those rows only, so a full-width
+    encoder's inputs (whisper-large-v3: 1500 x 1280 an example, 7.7 MB)
+    are never held for the whole dataset."""
+
+    def __init__(self, n: int, length: int, dim: int, seed: int):
+        self.shape = (n, length, dim)
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, idx) -> np.ndarray:
+        idx = np.asarray(idx)
+        rows = [np.random.default_rng((self.seed, FRAMES_TAG, int(i)))
+                .standard_normal(self.shape[1:], dtype=np.float32)
+                for i in idx.reshape(-1)]
+        return np.stack(rows).reshape(idx.shape + self.shape[1:])

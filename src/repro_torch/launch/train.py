@@ -44,12 +44,12 @@ parameter shards and the server step over their rows of the flat
 buffers (``python -m torch.distributed.run --nproc-per-node 2 -m
 repro_torch.launch.train --arch smollm-360m --fused --executor sharded
 --mesh-model 2``; on one card the two ranks share it over gloo, by the
-mesh's backend rule).  The dense GQA stacks run so, under
+mesh's backend rule).  Every architecture runs so, under
 ``meta_mode='post'``, no codec, the fused engine; the rest raises naming
 ROADMAP Queue 1 item 7c.
 
 Every ``--arch`` trains, ``mamba2-780m`` and the ``-smoke`` SSM and hybrid
-configs included.  ``--engine buffered_async`` runs the buffered-async
+configs included, the encoder configs on seeded ``enc_embeds``.  ``--engine buffered_async`` runs the buffered-async
 runtime (``core/async_round.py``): one tick a round, the server stepping
 every K arrived deltas; ``--fault-garble`` reaches it.  ``--ckpt`` saves
 the server state at the end, ``--resume`` restores one (``auto``: the
@@ -83,7 +83,7 @@ import torch
 
 from repro_torch.comm import resolve_codec
 from repro_torch.comm.codecs import available_codecs
-from repro_torch.configs import FedConfig, get_arch
+from repro_torch.configs import FedConfig, get_arch, with_depth
 from repro_torch.configs.base import SERVER_OPTS
 from repro_torch.core.algorithms import available_algorithms
 from repro_torch.core.engines import available_engines, resolve_engine
@@ -91,7 +91,7 @@ from repro_torch.core.executors import available_executors
 from repro_torch.core.trainer import FederatedTrainer
 from repro_torch.data.partition import partition_iid
 from repro_torch.data.pipeline import FederatedData
-from repro_torch.data.synthetic import synthetic_tokens
+from repro_torch.data.synthetic import SeededFrames, synthetic_tokens
 from repro_torch.device import resolve_device, strict_fp32
 from repro_torch.models.model import build_model
 from repro_torch.sharding.tensor_parallel import check_supported
@@ -102,11 +102,18 @@ def build_synthetic_fed_data(cfg, *, num_clients: int, examples: int,
                              seq: int, iid: bool, seed: int = 0,
                              meta_fraction: float = 0.01) -> FederatedData:
     """Byte-identical to the JAX package's synthetic federated data for
-    the same arguments."""
+    the same arguments; a config with an encoder also gets seeded
+    ``enc_embeds`` (:class:`repro_torch.data.synthetic.SeededFrames`, the
+    port's own: JAX's launcher makes none and trains no encoder config),
+    drawn apart from the tokens' generator."""
     rng = np.random.default_rng(seed)
     ds = synthetic_tokens(rng, n=examples, seq_len=seq + 1,
                           vocab=cfg.vocab_size, num_clients=num_clients)
     arrays = {"tokens": ds.tokens}
+    if getattr(cfg, "encoder", None) is not None:
+        e = cfg.encoder
+        arrays["enc_embeds"] = SeededFrames(examples, e.enc_len, e.enc_dim,
+                                            seed)
     if iid:
         parts = partition_iid(rng, examples, num_clients)
     else:
@@ -149,7 +156,7 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                  sanitize: bool = False, tracker=None, profile: int = 0,
                  profile_start: int = 0, trace_summary: bool = False,
                  trace_top_k: int = 15, roofline: bool = False,
-                 device=None, params=None,
+                 device=None, params=None, layers: int = 0,
                  on_records: Optional[Callable] = None):
     """Assemble (model, FedConfig, FederatedData) and train.  ``params``
     starts from given parameters instead of a seeded init; ``on_records``
@@ -167,7 +174,9 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
     ``profile``, ``profile_start`` and ``trace_summary`` are the JAX
     launcher's observability knobs (the trainer's, writing under
     ``run_dir``; ``trace_top_k``: the summary's table length);
-    ``roofline`` emits the trainer's ``roofline`` event.  (The CLI's
+    ``roofline`` emits the trainer's ``roofline`` event; ``layers`` cuts
+    the config's depth (:func:`repro_torch.configs.with_depth`; 0 keeps
+    it).  (The CLI's
     ``--sanitize`` also runs this under ``torch.autograd.detect_anomaly``;
     ``sanitize`` here plants the probes only: see
     :mod:`repro_torch.core.sanitize`.)  Returns (state, history)."""
@@ -177,7 +186,7 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
             "--executor sharded mesh; add --executor sharded")
     dev = resolve_device(device)
     strict_fp32()
-    cfg = get_arch(arch)
+    cfg = with_depth(get_arch(arch), layers)
     model = build_model(cfg, dtype=torch.float32, loss_chunk=256)
     fed = FedConfig(
         algorithm=algorithm, meta=meta, share=share, cohort=cohort,
@@ -308,9 +317,9 @@ def main(argv=None):
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="model-axis size of the --executor sharded mesh "
                          "(the data axis takes the remaining processes): "
-                         "tensor-parallel client compute on the dense GQA "
-                         "stacks, post mode, no codec, --fused; the rest "
-                         "is ROADMAP Queue 1 item 7c")
+                         "tensor-parallel client compute, post mode, no "
+                         "codec, --fused; the rest is ROADMAP Queue 1 "
+                         "item 7c")
     ap.add_argument("--fused", action="store_true",
                     help="fused flat-buffer CUDA server engine (default: "
                          "the legacy_tree engine)")

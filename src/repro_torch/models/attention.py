@@ -31,7 +31,8 @@ import math
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import (apply_rope, column_products,
+                                       dense_init, row_parallel)
 
 NEG_INF = -1e30
 
@@ -54,29 +55,70 @@ def gqa_init(gen: torch.Generator, d_model: int, num_heads: int,
 
 def gqa_project_qkv(x: torch.Tensor, wq, wk, wv, num_heads: int,
                     num_kv_heads: int, head_dim: int, tp=None):
-    """q, k, v of shapes (B, S, heads, head_dim).  With ``tp`` (a
-    :class:`repro_torch.sharding.tensor_parallel.ModelAxis`) each of
-    ``wq``/``wk``/``wv`` is this process's column part or whole: the
-    split ones' products are gathered to whole heads in one all-gather
-    (a column split can cut through a head, and rope and softmax need
-    whole heads), the whole ones computed whole; attention then runs
-    replicated on every process of the axis."""
+    """q, k, v of shapes (B, S, heads, head_dim), whole heads.  With
+    ``tp`` (a :class:`repro_torch.sharding.tensor_parallel.ModelAxis`)
+    each of ``wq``/``wk``/``wv`` is this process's column part or whole:
+    the split ones' products are gathered to whole heads in one
+    all-gather (a column split can cut through a head, and rope and
+    softmax need whole heads), the whole ones computed whole; attention
+    then runs replicated on every process of the axis."""
     B, S, _ = x.shape
-    ws = (wq, wk, wv)
     heads = (num_heads, num_kv_heads, num_kv_heads)
-    split = [tp is not None and tp.is_split(w.shape[-1], h * head_dim)
-             for w, h in zip(ws, heads)]
-    outs = [None if s else x @ w for w, s in zip(ws, split)]
-    if any(split):
-        xs = tp.copy(x)
-        loc = [xs @ w for w, s in zip(ws, split) if s]
-        widths = [t.shape[-1] for t in loc]
-        whole = tp.gather(torch.cat(loc, -1), -1).reshape(
-            B, S, tp.size, sum(widths))
-        parts = iter(torch.split(whole, widths, dim=-1))
-        outs = [next(parts).reshape(B, S, -1) if s else o
-                for o, s in zip(outs, split)]
+    outs = column_products(x, (wq, wk, wv), [h * head_dim for h in heads],
+                           tp)
     return tuple(o.reshape(B, S, h, head_dim) for o, h in zip(outs, heads))
+
+
+def heads_split(tp, w_cols: int, num_heads: int, head_dim: int) -> bool:
+    """Whether a projection of ``num_heads`` heads, ``w_cols`` of whose
+    columns this process holds, gives it whole heads of its own: the
+    axis splits the columns and divides the heads."""
+    return (tp is not None and num_heads % tp.size == 0
+            and tp.is_split(w_cols, num_heads * head_dim))
+
+
+def gqa_attention(x: torch.Tensor, p, *, num_heads: int, num_kv_heads: int,
+                  head_dim: int, causal: bool, attn_fn=None, positions=None,
+                  rope_theta: float = 0.0, kv_x=None, tp=None):
+    """GQA attention of x (B, S, d) over itself, or over ``kv_x`` (B, L,
+    d) (a cross layer's encoder output), RoPE on q and k at
+    ``positions`` where given.  Returns (y (B, S, d), k, v).
+
+    Over the model axis ``tp``: where it divides the query and KV heads
+    (``heads_split``), each process projects, attends and multiplies
+    ``wo``'s rows for its own heads, x (and ``kv_x``) entering through
+    ``tp.copy`` and the partial outputs summed over the axis (k and v
+    are then its heads only); else q/k/v are gathered to whole heads
+    (:func:`gqa_project_qkv`), attention runs whole on every process,
+    and ``wo`` goes through ``row_parallel``."""
+    B, S, _ = x.shape
+    attn_fn = attn_fn or attend
+    L = (x if kv_x is None else kv_x).shape[1]
+    if (heads_split(tp, p["wq"].shape[-1], num_heads, head_dim)
+            and heads_split(tp, p["wk"].shape[-1], num_kv_heads, head_dim)):
+        xs = tp.copy(x)
+        ss = xs if kv_x is None else tp.copy(kv_x)
+        q = (xs @ p["wq"]).reshape(B, S, -1, head_dim)
+        k = (ss @ p["wk"]).reshape(B, L, -1, head_dim)
+        v = (ss @ p["wv"]).reshape(B, L, -1, head_dim)
+        out_proj = lambda a: tp.reduce(a @ p["wo"])
+    else:
+        if kv_x is None:
+            q, k, v = gqa_project_qkv(x, p["wq"], p["wk"], p["wv"],
+                                      num_heads, num_kv_heads, head_dim, tp)
+        else:
+            (q,) = column_products(x, (p["wq"],), (num_heads * head_dim,),
+                                   tp)
+            k, v = column_products(kv_x, (p["wk"], p["wv"]),
+                                   (num_kv_heads * head_dim,) * 2, tp)
+            q = q.reshape(B, S, num_heads, head_dim)
+            k, v = (t.reshape(B, L, num_kv_heads, head_dim) for t in (k, v))
+        out_proj = lambda a: row_parallel(a, p["wo"], tp)
+    if positions is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    y = out_proj(attn_fn(q, k, v, causal=causal).reshape(B, S, -1))
+    return y, k, v
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -194,27 +236,48 @@ def mla_init(gen: torch.Generator, d_model: int, num_heads: int,
 
 def mla_attention(x: torch.Tensor, p, positions: torch.Tensor, *,
                   num_heads: int, head_dim: int, rope_head_dim: int,
-                  rope_theta: float, attn_fn=None):
+                  rope_theta: float, attn_fn=None, tp=None):
     """Training / prefill MLA: expand the latent kv and attend with Dk =
     head_dim + rope_head_dim, Dv = head_dim.  The query RoPE applies to
     the last ``rope_head_dim`` columns only; the key RoPE slice is one
     head, broadcast to all.  ``attn_fn(q, k, v)`` is the causal attention
     (``attend`` by default; the prefill passes the flash kernel's op).
     Returns (out (B, S, d_model), and the decode cache's latent ``ckv``
-    (B, S, r) and roped ``krope`` (B, S, rd))."""
+    (B, S, r) and roped ``krope`` (B, S, rd)).
+
+    Over the model axis ``tp``: where it splits ``w_uk``/``w_uv``'s heads
+    (then ``wq``'s columns and ``wo``'s rows split at whole heads too),
+    each process attends with its own heads: the latent ``ckv`` and the
+    rope key, column-split products of a dim the heads share, are
+    gathered whole and enter the heads through ``tp.copy``, and the
+    partial outputs are summed over the axis.  Else every product is
+    gathered whole, attention runs whole, ``wo`` through
+    ``row_parallel``."""
     B, S, _ = x.shape
-    ckv = x @ p["w_dkv"]
+    H, hd, rd = num_heads, head_dim, rope_head_dim
+    r = p["w_uk"].shape[-3]
+    heads = tp is not None and tp.is_split(p["w_uk"].shape[-2], H)
+    if heads:
+        xs = tp.copy(x)
+        ckv, kr = (tp.copy(t) for t in column_products(
+            x, (p["w_dkv"], p["w_kr"]), (r, rd), tp, xs=xs))
+        q = xs @ p["wq"]
+    else:
+        q, ckv, kr = column_products(
+            x, (p["wq"], p["w_dkv"], p["w_kr"]), (H * (hd + rd), r, rd), tp)
+    h_loc = p["w_uk"].shape[-2]
     # one key head, shared by all (JAX's apply_rope_1h)
-    krope = apply_rope(x @ p["w_kr"], positions, rope_theta)
+    krope = apply_rope(kr, positions, rope_theta)
     k_nope = torch.einsum("bsr,rhd->bshd", ckv, p["w_uk"])
     v = torch.einsum("bsr,rhd->bshd", ckv, p["w_uv"])
-    q = (x @ p["wq"]).reshape(B, S, num_heads, head_dim + rope_head_dim)
-    q_rope = apply_rope(q[..., head_dim:], positions, rope_theta)
-    q = torch.cat([q[..., :head_dim], q_rope], dim=-1)
+    q = q.reshape(B, S, h_loc, hd + rd)
+    q_rope = apply_rope(q[..., hd:], positions, rope_theta)
+    q = torch.cat([q[..., :hd], q_rope], dim=-1)
     k = torch.cat([k_nope, krope[:, :, None, :].expand(
-        B, S, num_heads, rope_head_dim)], dim=-1)
-    out = (attn_fn or attend)(q, k, v)
-    return out.reshape(B, S, num_heads * head_dim) @ p["wo"], ckv, krope
+        B, S, h_loc, rd)], dim=-1)
+    out = (attn_fn or attend)(q, k, v).reshape(B, S, h_loc * hd)
+    y = tp.reduce(out @ p["wo"]) if heads else row_parallel(out, p["wo"], tp)
+    return y, ckv, krope
 
 
 def mla_decode_absorbed(x: torch.Tensor, p, ckv_cache: torch.Tensor,

@@ -117,6 +117,32 @@ def swiglu_parallel(x: torch.Tensor, w_gate: torch.Tensor,
     return tp.reduce(swiglu(tp.copy(x), w_gate, w_up, w_down))
 
 
+def column_products(x: torch.Tensor, ws, fulls, tp=None, xs=None) -> list:
+    """``[x @ w for w in ws]``, each whole on every process of the model
+    axis ``tp``: a column-split ``w`` (``tp.is_split(w.shape[-1], full)``
+    for its entry of ``fulls``) multiplies ``tp.copy(x)`` (or ``xs``, a
+    copy the caller made) and the split products are gathered in one
+    all-gather (a column split can cut through a head); a whole ``w``
+    multiplies ``x`` as it is.  The results are replicated compute whose
+    cotangents must be whole on every process: where they feed a
+    process's own part of the work (its heads, its experts), they enter
+    it through ``tp.copy``."""
+    split = [tp is not None and tp.is_split(w.shape[-1], f)
+             for w, f in zip(ws, fulls)]
+    outs = [None if s else x @ w for w, s in zip(ws, split)]
+    if any(split):
+        xs = tp.copy(x) if xs is None else xs
+        loc = [xs @ w for w, s in zip(ws, split) if s]
+        widths = [t.shape[-1] for t in loc]
+        lead = loc[0].shape[:-1]
+        whole = tp.gather(torch.cat(loc, -1), -1).reshape(
+            *lead, tp.size, sum(widths))
+        parts = iter(torch.split(whole, widths, dim=-1))
+        outs = [next(parts).reshape(*lead, -1) if s else o
+                for o, s in zip(outs, split)]
+    return outs
+
+
 def row_parallel(a: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     """``a @ w`` for a replicated ``a``; where ``tp`` splits ``w``'s rows,
     each process multiplies its part of ``a``'s columns and the partial
@@ -135,10 +161,20 @@ def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, *, lead=(),
             "b_out": torch.zeros(lead + (d,), dtype=dtype, device=dev)}
 
 
-def gelu_mlp(x: torch.Tensor, p) -> torch.Tensor:
-    """``jax.nn.gelu`` defaults to the tanh approximation, so this does."""
-    h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-    return h @ p["w_out"] + p["b_out"]
+def gelu_mlp(x: torch.Tensor, p, tp=None) -> torch.Tensor:
+    """``jax.nn.gelu`` defaults to the tanh approximation, so this does.
+    Over the model axis ``tp`` where it splits ``w_in``'s columns and
+    ``w_out``'s rows: each process adds its part of the whole ``b_in``
+    (through ``tp.split``, whose backward gathers the bias's gradient
+    whole on every process) and its partial sum of the output is reduced
+    before ``b_out``, added once."""
+    if tp is None or not tp.is_split(p["w_in"].shape[-1],
+                                     p["b_in"].shape[-1]):
+        h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+        return h @ p["w_out"] + p["b_out"]
+    h = F.gelu(tp.copy(x) @ p["w_in"] + tp.split(p["b_in"], -1),
+               approximate="tanh")
+    return tp.reduce(h @ p["w_out"]) + p["b_out"]
 
 
 # ---------------------------------------------------------------------------

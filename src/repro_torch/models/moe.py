@@ -11,9 +11,10 @@ the same routing and outputs):
 
   * :func:`moe_ffn_gather` — the gather dispatch of JAX's
     ``moe_ffn_gather``: each expert's slots are filled by integer indices
-    (a scatter of token ids, then a gather of the tokens), the experts'
-    SwiGLU products are ``torch.bmm`` over ``(E, G*C, d)``, and each token
-    gathers its K outputs back.  Memory O(G E C d), no dispatch products.
+    (the tokens scattered into their slots, so that the backward is a
+    gather, deterministic on the card), the experts' SwiGLU products are
+    ``torch.bmm`` over ``(E, G*C, d)``, and each token gathers its K
+    outputs back.  Memory O(G E C d), no dispatch products.
   * :func:`moe_ffn_einsum` — the dense one-hot einsum (Switch
     Transformer) form of JAX's ``moe_ffn_einsum``: two ``(G, S, E, C)``
     tensors and the dispatch and combine products over them.
@@ -32,6 +33,13 @@ UGA client update takes jvp-of-grad through the MoE with ``torch.func``
 are the JAX layout: ``router`` (d, E) fp32, ``w_gate`` / ``w_up`` (E, d,
 de), ``w_down`` (E, de, d) and, with shared experts, a ``shared`` dict of
 ``w_gate`` / ``w_up`` (d, de * num_shared) and ``w_down``.
+
+Over a model axis (``tp``, tensor-parallel client compute) the experts
+split: each process holds ``E / M`` of them, computes the whole routing
+from the gathered router weight (so it is bitwise the unsharded one), runs
+its own experts' slots and the partial outputs are summed over the axis
+(:func:`_experts`, :func:`_finish`).  This is the eager meaning of JAX's
+``set_expert_axis``: the experts' placement, not an all-to-all.
 """
 from __future__ import annotations
 
@@ -142,9 +150,53 @@ def _group(x: torch.Tensor, cfg: MoEConfig):
     return tokens.reshape(-1, gs, d), T, pad
 
 
-def _shared(xg: torch.Tensor, p) -> torch.Tensor:
-    sp = p["shared"]
-    return swiglu(xg, sp["w_gate"], sp["w_up"], sp["w_down"])
+def _experts(xg: torch.Tensor, p, cfg: MoEConfig, tp):
+    """The routing, replicated, and this process's share of the experts.
+    Returns (route (gate_vals, expert_idx, pos_in_e, keep, probs, C), the
+    first expert this process holds, how many, the tokens and the gates
+    as its experts take them, whether the experts are split).
+
+    Over the model axis ``tp`` where it splits the experts (``router``'s
+    E columns and the ``(E, ., .)`` stacks), the router WEIGHT is gathered
+    whole and the logits computed at the unsharded shape, so the discrete
+    routing (top-k, capacity slots) is bitwise that of the unsharded run;
+    every process routes every token (the tokens are replicated, so no
+    all-to-all) and keeps the entries of its own experts.  The tokens and
+    the gates enter the experts through ``tp.copy``: each process's
+    cotangent of them covers its own experts only, and the copy's
+    backward sums them, so the router's gradient is whole again."""
+    E = cfg.num_experts
+    e_loc = p["w_gate"].shape[-3]
+    split = tp is not None and tp.is_split(e_loc, E)
+    router = tp.gather(p["router"], -1) if split else p["router"]
+    route = _route(xg, {"router": router}, cfg)
+    if not split:
+        return route, 0, E, xg, route[0], False
+    return route, tp.coord * e_loc, e_loc, tp.copy(xg), tp.copy(route[0]), \
+        True
+
+
+def _finish(y: torch.Tensor, xg: torch.Tensor, xs: torch.Tensor, p,
+            cfg: MoEConfig, tp, split: bool) -> torch.Tensor:
+    """The experts' output ``y`` (this process's partial sum where
+    ``split``; ``xs`` the tokens as they entered its experts) plus the
+    shared experts, whole on every process.  The shared experts split
+    like the dense MLP (``w_gate``/``w_up`` columns, ``w_down`` rows)
+    where the axis divides their width; a split one's partial sum joins
+    the experts' before the one reduce."""
+    sp = p.get("shared")
+    ds = p["w_gate"].shape[-1] * cfg.num_shared
+    sh_split = (sp is not None and tp is not None
+                and tp.is_split(sp["w_gate"].shape[-1], ds))
+    if sh_split:
+        part = swiglu(xs if split else tp.copy(xg), sp["w_gate"],
+                      sp["w_up"], sp["w_down"])
+        y = y + part if split else y + tp.reduce(part)
+    if split:
+        y = tp.reduce(y)
+    if sp is not None and not sh_split:
+        y = y + swiglu(xg, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return y
 
 
 def _ungroup(y: torch.Tensor, T: int, pad: int, shape) -> torch.Tensor:
@@ -152,37 +204,44 @@ def _ungroup(y: torch.Tensor, T: int, pad: int, shape) -> torch.Tensor:
     return (y[:T] if pad else y).reshape(shape)
 
 
-def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig
+def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch per the ``MOE_IMPL`` selector."""
+    """Dispatch per the ``MOE_IMPL`` selector.  ``tp``: the model axis
+    (:class:`repro_torch.sharding.tensor_parallel.ModelAxis`) whose
+    shards ``p`` holds: each process runs its own experts
+    (:func:`_experts`), the outputs summed over the axis."""
     if MOE_IMPL == "einsum":
-        return moe_ffn_einsum(x, p, cfg)
-    return moe_ffn_gather(x, p, cfg)
+        return moe_ffn_einsum(x, p, cfg, tp)
+    return moe_ffn_gather(x, p, cfg, tp)
 
 
-def moe_ffn_gather(x: torch.Tensor, p, cfg: MoEConfig
+def moe_ffn_gather(x: torch.Tensor, p, cfg: MoEConfig, tp=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather dispatch.  x: (..., S, d) -> (same shape, aux loss).  ``p``
     is one layer's MoE tree."""
     xg, T, pad = _group(x, cfg)
     G, S, d = xg.shape
-    E, K = cfg.num_experts, cfg.top_k
-    gate_vals, expert_idx, pos_in_e, keep, probs, C = _route(xg, p, cfg)
-    gate_vals = gate_vals * keep.to(gate_vals.dtype)
+    K = cfg.top_k
+    route, lo, E, xe_in, gate_vals, split = _experts(xg, p, cfg, tp)
+    _, expert_idx, pos_in_e, keep, probs, C = route
+    # this process's experts [lo, lo + E): the others' entries are dropped
+    # here (gate 0, dispatched to the scratch slot) and summed in by their
+    # own process
+    mine = (expert_idx >= lo) & (expert_idx < lo + E)
+    keep_l = keep & mine
+    e_l = torch.where(mine, expert_idx - lo, 0)
+    gate_vals = gate_vals * keep_l.to(gate_vals.dtype)
 
-    # dispatch: token ids (+1; 0 marks an empty slot) scattered into the
-    # (G, E, C) slots by max, dropped entries to a scratch slot as 0
-    pos_w = torch.where(keep, pos_in_e, C - 1)
-    g_idx = torch.arange(G, device=x.device)[:, None, None]
-    s_idx = torch.arange(S, device=x.device)[None, :, None].expand(G, S, K)
-    slot = ((g_idx * E + expert_idx) * C + pos_w).reshape(-1)
-    src = torch.where(keep, s_idx + 1, 0).reshape(-1)
-    slot_src = torch.zeros(G * E * C, dtype=src.dtype, device=x.device
-                           ).scatter_reduce(0, slot, src, reduce="amax")
-    slot_src = slot_src.reshape(G, E * C)
-    slot_tok = torch.clamp_min(slot_src - 1, 0)
-    xe = torch.gather(xg, 1, slot_tok[..., None].expand(G, E * C, d))
-    xe = xe * (slot_src > 0)[..., None].to(xe.dtype)          # (G, EC, d)
+    # dispatch: each kept (token, k) entry's token written to its slot by
+    # a scatter, whose backward is a gather (a gather dispatch's backward
+    # would sum a token's K slots by atomic adds, in an order that changes
+    # the bits from run to run); the dropped entries go to a scratch slot
+    # past the last, cut off; an empty slot stays zero
+    pos_w = torch.where(keep_l, pos_in_e, C - 1)
+    dest = torch.where(keep_l, e_l * C + pos_in_e, E * C).reshape(G, S * K, 1)
+    src = xe_in[:, :, None, :].expand(G, S, K, d).reshape(G, S * K, d)
+    xe = torch.zeros((G, E * C + 1, d), dtype=xg.dtype, device=x.device
+                     ).scatter(1, dest.expand(G, S * K, d), src)[:, :E * C]
 
     # the experts: (E, G*C, d) x (E, d, de)
     xe_f = xe.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
@@ -191,34 +250,33 @@ def moe_ffn_gather(x: torch.Tensor, p, cfg: MoEConfig
     ye = ye_f.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
 
     # combine: each token's K expert outputs, weighted by its gates
-    flat_slot = (expert_idx * C + pos_w).reshape(G, S * K)
+    flat_slot = (e_l * C + pos_w).reshape(G, S * K)
     yk = torch.gather(ye, 1, flat_slot[..., None].expand(G, S * K, d))
     y = (yk.reshape(G, S, K, d) * gate_vals[..., None].to(yk.dtype)).sum(2)
-    if "shared" in p:
-        y = y + _shared(xg, p)
+    y = _finish(y, xg, xe_in, p, cfg, tp, split)
     return _ungroup(y, T, pad, x.shape), _aux_loss(probs, expert_idx, cfg)
 
 
-def moe_ffn_einsum(x: torch.Tensor, p, cfg: MoEConfig
+def moe_ffn_einsum(x: torch.Tensor, p, cfg: MoEConfig, tp=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense one-hot einsum dispatch: the oracle :func:`moe_ffn_gather`
     is held to."""
     xg, T, pad = _group(x, cfg)
-    E = cfg.num_experts
-    gate_vals, expert_idx, pos_in_e, keep, probs, C = _route(xg, p, cfg)
+    route, lo, E, xe_in, gate_vals, split = _experts(xg, p, cfg, tp)
+    _, expert_idx, pos_in_e, keep, probs, C = route
     gate_vals = gate_vals * keep.to(gate_vals.dtype)
-    onehot = _one_hot(expert_idx, E).to(torch.float32)
+    # this process's experts [lo, lo + E): another's index one-hots to 0
+    onehot = _one_hot(expert_idx - lo, E).to(torch.float32)
     # a dropped entry's place (>= C) is clamped, then zeroed by keep
     slot_oh = (_one_hot(torch.clamp(pos_in_e, max=C - 1), C)
                .to(torch.float32) * keep[..., None])
     combine = torch.einsum("gske,gskc->gsec", onehot * gate_vals[..., None],
                            slot_oh)
     dispatch = (combine > 0).to(xg.dtype)                     # (G,S,E,C)
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xe_in)
     h = (F.silu(torch.einsum("gecd,edf->gecf", xe, p["w_gate"]))
          * torch.einsum("gecd,edf->gecf", xe, p["w_up"]))
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
     y = torch.einsum("gsec,gecd->gsd", combine.to(ye.dtype), ye)
-    if "shared" in p:
-        y = y + _shared(xg, p)
+    y = _finish(y, xg, xe_in, p, cfg, tp, split)
     return _ungroup(y, T, pad, x.shape), _aux_loss(probs, expert_idx, cfg)

@@ -32,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import (column_products, dense_init,
+                                       row_parallel)
 
 LEAVES = ("A_log", "D", "conv_w", "dt_bias", "in_proj", "out_proj")
 
@@ -170,23 +171,52 @@ def _split_proj(zxbcdt: torch.Tensor, d_in: int, G: int, N: int, H: int):
 
 
 def mamba_block(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: SSMConfig,
-                *, collect_cache: bool = False):
+                *, collect_cache: bool = False, tp=None):
     """u: (B, S, d_model) -> (B, S, d_model), the full sequence, through
     :func:`ssd_chunked` (training).  With ``collect_cache`` (the prefill)
     the scan is the kernel's, and the block also returns the
     end-of-sequence decode cache ``{"ssm": h_final, "conv": the last
-    d_conv - 1 conv inputs}``, as the JAX ``_mamba_prefill`` returns it."""
+    d_conv - 1 conv inputs}``, as the JAX ``_mamba_prefill`` returns it.
+
+    Over the model axis ``tp`` (training): ``in_proj``'s split columns and
+    ``conv_w``'s split channels cut through the x segment, so the
+    projection is gathered whole and the conv weight too.  Where the axis
+    divides the heads, each process then convolves, scans and gates its
+    own heads' channels of x / z / dt, with B and C whole (the gathered
+    tensors enter its heads through ``tp.copy``; ``A_log``, ``D`` and
+    ``dt_bias``, whole leaves, through ``tp.split``, so their gradients
+    come back whole on every process), multiplies its rows of
+    ``out_proj`` and the partial outputs are summed over the axis.  Else
+    the mixer runs whole on every process and ``out_proj`` goes through
+    ``row_parallel``."""
     B_, S, d_model = u.shape
-    d_in, H, _ = dims(d_model, cfg)
+    d_in, H, conv_dim = dims(d_model, cfg)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.d_head
-    z, xr, Bm, Cm, dt = _split_proj(u @ p["in_proj"], d_in, G, N, H)
+    (zxbcdt,) = column_products(u, (p["in_proj"],),
+                                (2 * d_in + 2 * G * N + H,), tp)
+    conv_w = p["conv_w"]
+    if tp is not None and tp.is_split(conv_w.shape[-1], conv_dim):
+        conv_w = tp.gather(conv_w, -1)
+    heads = tp is not None and H % tp.size == 0
+    if heads:
+        zxbcdt, conv_w = tp.copy(zxbcdt), tp.copy(conv_w)
+    z, xr, Bm, Cm, dt = _split_proj(zxbcdt, d_in, G, N, H)
+    A_log, D, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    if heads:
+        n, h = d_in // tp.size, H // tp.size
+        z, xr = z.narrow(-1, tp.coord * n, n), xr.narrow(-1, tp.coord * n, n)
+        dt = dt.narrow(-1, tp.coord * h, h)
+        conv_w = torch.cat([conv_w.narrow(-1, tp.coord * n, n),
+                            conv_w[..., d_in:]], dim=-1)
+        A_log, D, dt_bias = (tp.split(t, -1) for t in (A_log, D, dt_bias))
+        d_in, H = n, h
     xbc_in = torch.cat([xr, Bm, Cm], dim=-1)
-    xbc, _ = causal_conv(xbc_in, p["conv_w"])
+    xbc, _ = causal_conv(xbc_in, conv_w)
     xbc = F.silu(xbc)
     xr, Bm, Cm = (xbc[..., :d_in], xbc[..., d_in:d_in + G * N],
                   xbc[..., d_in + G * N:])
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt = F.softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log)
     x_h = xr.reshape(B_, S, H, P)
     if collect_cache:
         y, h_final = ssd_scan_fwd(x_h, dt, A, Bm.reshape(B_, S, G, N),
@@ -196,8 +226,10 @@ def mamba_block(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: SSMConfig,
         B_h = Bm.reshape(B_, S, G, N).repeat_interleave(rep, dim=2)
         C_h = Cm.reshape(B_, S, G, N).repeat_interleave(rep, dim=2)
         y, _ = ssd_chunked(x_h, dt, A, B_h, C_h, cfg.chunk)
-    y = y + x_h * p["D"][None, None, :, None].to(y.dtype)
-    out = (y.reshape(B_, S, d_in) * F.silu(z)) @ p["out_proj"]
+    y = y + x_h * D[None, None, :, None].to(y.dtype)
+    y = y.reshape(B_, S, d_in) * F.silu(z)
+    out = tp.reduce(y @ p["out_proj"]) if heads else row_parallel(
+        y, p["out_proj"], tp)
     if not collect_cache:
         return out
     # a copy: a view of the slice would keep the layer's whole (B, S, C)

@@ -58,13 +58,14 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.attention import (MLA_LEAVES, attend,
-                                          decode_attention, gqa_init,
-                                          gqa_project_qkv, mla_attention,
+                                          decode_attention, gqa_attention,
+                                          gqa_init, mla_attention,
                                           mla_decode_absorbed, mla_init)
-from repro_torch.sharding.tensor_parallel import vocab_embed, vocab_xent
-from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
-                                       gelu_mlp, gelu_mlp_init, layernorm,
-                                       rmsnorm, row_parallel,
+from repro_torch.sharding.tensor_parallel import (ITEM_7C, vocab_embed,
+                                                  vocab_xent)
+from repro_torch.models.layers import (apply_rope, column_products,
+                                       dense_init, embed_init, gelu_mlp,
+                                       gelu_mlp_init, layernorm, rmsnorm,
                                        sinusoidal_positions, swiglu,
                                        swiglu_parallel)
 
@@ -261,44 +262,47 @@ def _layers(get, cfg: ArchConfig) -> List[dict]:
     return per_layer
 
 
-def encode(get, enc_embeds: torch.Tensor, cfg: ArchConfig, attn_fn
-           ) -> torch.Tensor:
+def encode(get, enc_embeds: torch.Tensor, cfg: ArchConfig, attn_fn,
+           tp=None) -> torch.Tensor:
     """enc_embeds: (B, L, enc_dim), the precomputed frame or patch
     embeddings (the modality frontend is a stub, as in JAX) -> (B, L,
     d_model).  ``get(path)`` returns the leaf ``encoder.<path>``;
     ``attn_fn(q, k, v, causal=False)`` is ``attend`` in training and the
-    flash kernel's op in the prefill."""
+    flash kernel's op in the prefill.  ``tp``: the model axis whose
+    shards the leaves are (attention on each process's heads where the
+    axis divides them, the GELU MLP split, the projection's columns
+    gathered); the output comes back whole on every process."""
     e = cfg.encoder
     h = enc_embeds
     if e.enc_layers > 0:
-        B, L, _ = h.shape
+        L = h.shape[1]
         hd = e.enc_dim // e.enc_heads
         h = h + sinusoidal_positions(torch.arange(L, device=h.device),
                                      e.enc_dim, h.dtype)[None]
         for lp in _unstack(lambda path: get(f"layers.{path}"),
                            ENC_LAYER_LEAVES, e.enc_layers):
-            a_p = lp["attn"]
             x = layernorm(h, lp["ln1_s"], lp["ln1_b"], cfg.norm_eps)
-            q, k, v = gqa_project_qkv(x, a_p["wq"], a_p["wk"], a_p["wv"],
-                                      e.enc_heads, e.enc_heads, hd)
-            h = h + attn_fn(q, k, v, causal=False).reshape(B, L, -1) \
-                @ a_p["wo"]
+            y, _, _ = gqa_attention(x, lp["attn"], num_heads=e.enc_heads,
+                                    num_kv_heads=e.enc_heads, head_dim=hd,
+                                    causal=False, attn_fn=attn_fn, tp=tp)
+            h = h + y
             x = layernorm(h, lp["ln2_s"], lp["ln2_b"], cfg.norm_eps)
-            h = h + gelu_mlp(x, lp["mlp"])
+            h = h + gelu_mlp(x, lp["mlp"], tp)
         h = layernorm(h, get("ln_f_s"), get("ln_f_b"), cfg.norm_eps)
     if e.enc_dim != cfg.d_model:
-        h = h @ get("proj")
+        (h,) = column_products(h, (get("proj"),), (cfg.d_model,), tp)
     return h
 
 
 def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int, tp=None):
     """The layer's MLP or MoE on the residual stream; returns (h, aux).
-    ``tp``: the model axis the MLP's weights are split over, or None."""
+    ``tp``: the model axis the MLP's or the MoE's weights are split over,
+    or None."""
     if "mlp" not in lp:
         return h, None
     x2 = rmsnorm(h, lp["norm2"], cfg.norm_eps)
     if _has_moe(cfg, j):
-        y2, aux = moe_lib.moe_ffn(x2, lp["mlp"], cfg.moe)
+        y2, aux = moe_lib.moe_ffn(x2, lp["mlp"], cfg.moe, tp)
         return h + y2, aux
     m = lp["mlp"]
     if tp is not None and tp.is_split(m["w_gate"].shape[-1], cfg.d_ff):
@@ -312,49 +316,37 @@ def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
                  collect_cache: bool, tp=None):
     """One layer over the full sequence.  Returns (h, aux, cache_entry).
     ``tp``: the model axis (:class:`repro_torch.sharding.tensor_parallel.
-    ModelAxis`) whose shards ``lp`` holds — GQA self-attention layers
-    only, in training."""
-    B, S, _ = h.shape
+    ModelAxis`) whose shards ``lp`` holds, in training (the prefill over
+    the axis raises)."""
     x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
     ce = None
     hd = cfg.resolved_head_dim
     kind = cfg.layer_kinds()[j]
-    if tp is not None and (kind != ATTN or _is_mla(cfg, kind)
-                           or collect_cache):
+    if tp is not None and collect_cache:
         raise NotImplementedError(
-            f"{cfg.name}: a {kind} layer (or the prefill) over a model axis "
-            "above 1 is not yet ported to repro_torch (ROADMAP Queue 1 "
-            "item 7c)")
+            f"{cfg.name}: the prefill over a model axis above 1 is not yet "
+            f"ported to repro_torch ({ITEM_7C})")
     attn_fn = flash_attention if collect_cache else attend
     if kind == MAMBA:
         y = ssm.mamba_block(x, lp["mamba"], cfg.ssm,
-                            collect_cache=collect_cache)
+                            collect_cache=collect_cache, tp=tp)
         if collect_cache:
             y, ce = y
     elif _is_mla(cfg, kind):
         y, ckv, krope = mla_attention(
             x, lp["attn"], positions, num_heads=cfg.num_heads, head_dim=hd,
             rope_head_dim=cfg.mla.rope_head_dim, rope_theta=cfg.rope_theta,
-            attn_fn=partial(attn_fn, causal=True))
+            attn_fn=partial(attn_fn, causal=True), tp=tp)
         if collect_cache:
             ce = {"ckv": ckv, "krope": krope}
-    elif kind == CROSS:
-        a_p = lp["attn"]
-        L = enc_out.shape[1]
-        q = (x @ a_p["wq"]).reshape(B, S, cfg.num_heads, hd)
-        k = (enc_out @ a_p["wk"]).reshape(B, L, cfg.num_kv_heads, hd)
-        v = (enc_out @ a_p["wv"]).reshape(B, L, cfg.num_kv_heads, hd)
-        y = attn_fn(q, k, v, causal=False).reshape(B, S, -1) @ a_p["wo"]
-        if collect_cache:
-            ce = {"k": k, "v": v}
     else:
-        a_p = lp["attn"]
-        q, k, v = gqa_project_qkv(x, a_p["wq"], a_p["wk"], a_p["wv"],
-                                  cfg.num_heads, cfg.num_kv_heads, hd, tp)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        y = row_parallel(attn_fn(q, k, v, causal=True).reshape(B, S, -1),
-                         a_p["wo"], tp)
+        cross = kind == CROSS
+        y, k, v = gqa_attention(
+            x, lp["attn"], num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=hd, causal=not cross,
+            attn_fn=attn_fn, positions=None if cross else positions,
+            rope_theta=cfg.rope_theta, kv_x=enc_out if cross else None,
+            tp=tp)
         if collect_cache:
             ce = {"k": k, "v": v}
     h, aux = _ffn(h + y, lp, cfg, j, tp)
@@ -403,7 +395,7 @@ class Transformer(nn.Module):
                                  "needs 'enc_embeds'")
             enc_out = encode(lambda path: attrgetter(path)(self.encoder),
                              enc_embeds, cfg,
-                             flash_attention if collect_cache else attend)
+                             flash_attention if collect_cache else attend, tp)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         entries = [[] for _ in range(P)]
         for i, lp in enumerate(_layers(

@@ -45,11 +45,23 @@ into the global flat layout, each element by its owner only
 (:meth:`ModelAxis.flatten_into`): a replicated leaf by model coordinate
 0, so the sum over the model axis is exact (x + 0 = x).
 
-Supported: the dense GQA stacks (smollm-360m, minicpm-2b, phi3-mini-3.8b,
-phi3-medium-14b) under ``meta_mode='post'`` with no codec on a
-synchronous engine.  MoE, MLA, Mamba, cross and encoder layers,
-``through_aggregation``, codecs and the buffered-async runtime raise
-(:func:`check_supported`), naming ROADMAP Queue 1 item 7c.
+Every layer kind of the LM stack runs on the axis (the models' docstrings
+say how): GQA attention on each process's heads where the axis divides
+them, else q/k/v gathered to whole heads; MLA on each process's heads;
+the MoE experts split, the routing replicated from the gathered router
+weight; the Mamba2 mixer on each process's heads, its projection and
+conv weight gathered whole; the encoder and the cross layers; the GELU
+MLP split.  A leaf the axis leaves whole (a dim it does not divide, as
+JAX's ``_maybe`` leaves it) runs whole.  One rule keeps the gradients of
+whole leaves exact: replicated compute that feeds a process's own part
+of the work (its heads, its experts) enters it through ``copy`` (or, a
+whole leaf sliced to that part, ``split``), so its cotangent, and every
+whole leaf's gradient upstream of it, is whole on every process.
+Supported under ``meta_mode='post'`` with no codec on the synchronous
+``fused_flat`` engine; ``through_aggregation``, codecs, ``legacy_tree``,
+the buffered-async runtime and the prefill over the axis raise
+(:func:`check_supported`, ``transformer._apply_layer``), naming ROADMAP
+Queue 1 item 7c.
 
 On two processes sharing a card (the mesh's shared-card rule) the group
 is gloo, which carries CUDA tensors through host memory itself: every
@@ -414,16 +426,11 @@ def vocab_xent(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 def check_supported(model, fed, *, engine, codec) -> None:
     """Raise, naming ROADMAP Queue 1 item 7c, for what tensor-parallel
     client compute does not run yet."""
-    from repro_torch.configs.base import ATTN, ArchConfig
+    from repro_torch.configs.base import ArchConfig
     cfg = getattr(model, "cfg", None)
     what = None
     if not isinstance(cfg, ArchConfig):
         what = f"model {model.name!r} (not a transformer config)"
-    elif (cfg.moe is not None or cfg.mla is not None or cfg.ssm is not None
-          or cfg.encoder is not None
-          or any(k != ATTN for k in cfg.layer_kinds())):
-        what = (f"{cfg.name} (MoE, MLA, Mamba, cross and encoder layers; "
-                "the dense GQA stacks run)")
     elif fed.meta and fed.meta_mode != "post":
         what = f"meta_mode={fed.meta_mode!r} (post runs)"
     elif codec.lossy:

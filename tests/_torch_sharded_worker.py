@@ -96,8 +96,8 @@ def main(rank: int, world: int, port: int, out: str) -> None:
     res["decode"] = sharded_flash_decode(
         q, k[:, sl], v[:, sl], torch.tensor(DECODE["index"]), mesh=mesh)
     if world == 2:
-        # the model axis runs the dense GQA stacks; a round of this MLP on
-        # a (1, 2) mesh still refuses
+        # the model axis runs the transformer configs; a round of this MLP
+        # on a (1, 2) mesh still refuses
         from repro_torch.core.round import make_federated_round
         from repro_torch.models.model import Model
         try:

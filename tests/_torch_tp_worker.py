@@ -10,7 +10,8 @@ Jobs by world size (the mesh is (world / model, model)):
     computation (value, ``grad``, ``jvp`` of ``grad``, ``vmap``), the
     vocab-split cross-entropy and argmax, the model (loss, gradient, one
     ``uga_update`` on smollm-360m-smoke's shards), the (1, 2) rounds, a
-    checkpoint, and the refusals that name item 7c;
+    checkpoint, the layer kinds that build and the refusals that name
+    item 7c;
   * 3, model 3 — the model (M = 3 leaves ``wk``/``wv``, the MLP and the
     vocab whole);
   * 4, model 2 — the (2, 2) rounds.
@@ -155,8 +156,8 @@ def model(inputs, mesh, axis):
 
 
 def refusals(mesh, p0):
-    """What still refuses on a model axis above 1: each must name item
-    7c."""
+    """What the model axis builds and what still refuses on it: the
+    layer kinds build (``"accepted"``), the rest must name item 7c."""
     from repro_torch.configs import FedConfig, get_arch
     from repro_torch.core.round import make_federated_round
     from repro_torch.models.model import build_model
