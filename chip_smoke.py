@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      src/repro_torch``, clean (exit 0);
   3. hold each of the six fused-update kernels (three forward passes, three
      backward passes) against its plain PyTorch version, at the full-width
-     shapes of smollm-360m (rows = 2,826,728), at the paper models' (rows
+     shapes of smollm-360m (rows = 2,826,728; 983,168 at the main path's
+     8 layers), at the paper models' (rows
      10,848, 13,208 and 31,648; ``aggregate_pass`` at cohort 10 too) and
      at ragged small shapes,
      for every optimizer and with a nonzero ssq cotangent, to <= 1e-6
@@ -35,7 +36,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      input sets rotated past the L2, with the host's time to issue a
      call;
   6. the main path: ``repro_torch.launch.train.run_training`` on
-     smollm-360m at full width (361,821,120 parameters), UGA + FedMeta,
+     smollm-360m at full width cut to ``MAIN_LAYERS`` = 8 of its 32
+     layers (125,845,440 parameters; phases 6l to 6r the same, 6o at
+     all 32),
+     UGA + FedMeta,
      fused engine: vmap/sgd, scan/sgd and scan/adam with
      ``meta_mode='post'``, the same three with
      ``meta_mode='through_aggregation'``, then six runs with a lossy
@@ -50,11 +54,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      through_aggregation; int8 params under the flip-aware criterion of
      ``flip_aware``).  (The profiled vmap/sgd round is
      ``tools/profile_round.py``.)
-  6o. the tracked run: phase 6's post vmap/sgd run again through
+  6o. the tracked run: phase 6's post vmap/sgd run at all 32 layers
+     (``TRACKED_LAYERS``), once plain, then again through
      ``run_training`` with ``tracker="jsonl,csv"``, a run directory, the
      round sanitizer and a ``torch.profiler`` window over round 1 with
-     its trace summary: params and history bitwise phase 6's, launches
-     equal; ``metrics.jsonl``'s records equal to the history, each
+     its trace summary: params and history bitwise the plain run's,
+     launches equal; ``metrics.jsonl``'s records equal to the history, each
      round's sample_stack / dispatch / device_sync spans, the profiler
      and run events, the summary's keys, ``busy_frac`` in (0, 1), the
      aggregate and update kernels among its device ops, dispatch and
@@ -90,29 +95,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      accumulate pass, or one quantize and one dequant-FMA pass, per slot;
      one accumulate backward per slot under through_aggregation), round
      walls and peaks printed;
-  6x, 6y. the model axis (tensor-parallel client compute) at full width,
-     depth cut (``MODEL_AXIS_RUNS``): 6x smollm-360m at 8 of 32 layers,
-     the paper's cohort of 10 (q/k/v gathered to whole heads, attention
-     whole on both ranks); 6y the layer kinds at cohort 4:
+  6x, 6y, 6z. the model axis (tensor-parallel client compute) at full
+     width, depth cut (``MODEL_AXIS_RUNS``): 6x smollm-360m at 2 of 32
+     layers, the paper's cohort of 10 (q/k/v gathered to whole heads,
+     attention whole on both ranks); 6y the layer kinds at cohort 4:
      deepseek-v2-lite-16b at 1 layer (MLA on each rank's heads, 32 of
      the 64 experts a rank), mamba2-780m at 4 layers (the mixer on each
      rank's 24 heads), whisper-large-v3 at 2 decoder and 2 encoder layers
-     over 1500 frames; 2 rounds in chunks of 2.  Each run's world of one
-     in this process (``executor='sharded'``, NCCL), then all runs in
-     turn on a (1, 2) mesh, two processes of one torchrun job on the one
-     card (gloo, the mesh's shared-card rule), ``mesh_model=2``; after
-     each round params within 1e-5 and metrics within 1e-4 of the world
-     of one, the ranks' params bitwise equal (a 64-bit hash of the
-     bits); each rank's launches held exactly (one accumulate pass a
-     slot, one update pass a round on its half of the rows); deepseek's
+     over 1500 frames; 6z the modes on smollm-360m at 2 layers, cohort
+     4: through_aggregation (sgd), int8 and sign1bit with error
+     feedback, topk at 0.01, the ``legacy_tree`` engine; 2 rounds in
+     chunks of 2.  Each run's world of one in this process
+     (``executor='sharded'``, NCCL), then all runs in turn on a (1, 2)
+     mesh, two processes of one torchrun job on the one card (gloo, the
+     mesh's shared-card rule), ``mesh_model=2``; after each round params
+     within 1e-5 (the codecs: the flip-aware criterion) and metrics
+     within 1e-4 of the world of one, ``ctrl`` within 1e-5, the
+     residual stacks by the flip-aware criterion, the ranks' whole state
+     bitwise equal (a 64-bit hash of the bits); each rank's launches
+     held exactly (one accumulate pass a slot, or one encode and one
+     decode pass; one accumulate backward a slot under
+     through_aggregation; one update pass and its backward a round on
+     its half of the rows, none under ``legacy_tree``); deepseek's
      routing in one forward bitwise the world of one's; round walls,
      peaks and the time in the model-axis collectives printed.  The job
      is started before phase 7 and joined after it (phase 3 also holds
-     rows 1-3 at each run's rank rows);
+     rows 1-3 at each run's rank rows, rows 4-6 at 6z's);
   6m. training through Mamba2 layers at full width: ``run_training`` on
-     mamba2-780m (779,841,792 parameters), the same shape: vmap/sgd 2
-     rounds and scan/sgd 1 (scan/adam does not fit the card:
-     ``MAMBA_RUNS``),
+     mamba2-780m cut to ``MAMBA_LAYERS`` = 12 of its 48 layers
+     (252,884,160 parameters), the same shape: vmap/sgd 2 rounds and
+     scan/sgd 1 (``MAMBA_RUNS``),
      each held to exactly its cohort's
      fused-update launches and no SSD-scan launch (training runs the
      differentiable ``models/ssm.py::ssd_chunked``), finite metrics, vmap
@@ -136,9 +148,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      feedback on scan, 2 ticks (one quantize launch per client, no
      dequant-FMA launch);
   6k. checkpoints at full width: the post vmap/sgd and vmap/adam states
-     after one round saved and restored through the trainer, bitwise,
-     with the seconds and bytes; the full-width async state (an 11.58 GB
-     pool leaf, past msgpack's bin32) refused before anything is written;
+     after one round (at ``MAIN_LAYERS``) saved and restored through the
+     trainer, bitwise, with the seconds and bytes; the async state at
+     all 32 layers (an 11.58 GB pool leaf, past msgpack's bin32) refused
+     before anything is written;
   6p. the paper's own models at their published widths: the CIFAR CNN,
      the FEMNIST CNN and the Shakespeare GRU, FedMeta w/ UGA through
      ``experiments/common.py::train_method``, cohort 10, 4 rounds each on
@@ -259,6 +272,16 @@ TOL = 1e-6
 FULL_ROWS = 2_826_728            # smollm-360m flat layout (rows, 128)
 COHORT = 4
 FULL_N_VALID = 361_821_120      # its true element count (the pad is 64)
+# Phases 6 to 6r (this process's smollm-360m training runs) run
+# smollm-360m at its full width (d 960, GQA 15/5, vocab 49152, tied) cut
+# to MAIN_LAYERS of its 32 decoder layers, so that the script stays well
+# inside its time limit on a slow host.  Phase 6o keeps all 32
+# (TRACKED_LAYERS), as does 6k's async state (its pool must exceed a
+# msgpack bin); the kernel phases time the full model's flat shape and
+# check the cut one's.
+MAIN_LAYERS = 8
+MAIN_ROWS = 983_168
+MAIN_N_VALID = 125_845_440      # the pad is 64, as at 32 layers
 SOURCES = {"fused_update": "src/repro_torch/kernels/fused_update/csrc/"
                            "fused_update.cu",
            "comm": "src/repro_torch/kernels/comm/csrc/comm.cu",
@@ -813,7 +836,8 @@ def check_codec_kernels(CK, CR, dev, rows_list):
     """Phase 3 for the four codec kernels: every output bitwise equal to the
     plain version's (the kernels round each operation as it does), int8
     scales exact and inexact, the pad mask equal to and below the buffer
-    (at full width the model's own 361,821,120), with and without the
+    (at full width the model's own 361,821,120, or 125,845,440 at the
+    main path's depth), with and without the
     residual, out of place and in place."""
     import torch
     errs = dict.fromkeys(CODEC_NAMES, 0.0)
@@ -829,7 +853,8 @@ def check_codec_kernels(CK, CR, dev, rows_list):
 
     for rows in rows_list:
         n = rows * 128
-        cuts = (n, FULL_N_VALID if rows == FULL_ROWS else n - 77)
+        cuts = (n, {FULL_ROWS: FULL_N_VALID,
+                    MAIN_ROWS: MAIN_N_VALID}.get(rows, n - 77))
         g = _codec_input(rows, gen, dev)
         s = float(g.abs().max()) * 1.37 / 127        # an inexact scale
         for sc in ((16.0, 1 / 16), (1 / s, s)):
@@ -1168,16 +1193,17 @@ def _scan_counts(r, bwd):
                      update_pass_bwd=r if bwd else 0)
 
 
-def _coded_counts(r, codec):
-    """A lossy codec replaces pass 1 on both cohorts: per client one encode
-    and one decode-FMA launch (one dtype group), none for topk (plain
-    PyTorch, as in the JAX package); the update pass stays."""
+def _coded_counts(r, codec, slots=COHORT):
+    """A lossy codec replaces pass 1 on both cohorts: per client (per slot
+    of a chunked cohort) one encode and one decode-FMA launch (one dtype
+    group), none for topk (plain PyTorch, as in the JAX package); the
+    update pass stays."""
     enc, dec = {"int8": ("quantize_i8_pass", "dequant_i8_fma_pass"),
                 "sign1bit": ("sign_pack_pass", "sign_unpack_fma_pass"),
                 "topk": (None, None)}[codec]
     kw = {"update_pass": r}
     if enc:
-        kw.update({enc: r * COHORT, dec: r * COHORT})
+        kw.update({enc: r * slots, dec: r * slots})
     return _launches(**kw)
 
 
@@ -1273,7 +1299,8 @@ def main_path(counts_of, dev):
 
         counts_of.reset()
         state, hist = run_training(
-            "smollm-360m", rounds=rounds, cohort=COHORT, client_batch=8,
+            "smollm-360m", layers=MAIN_LAYERS, rounds=rounds, cohort=COHORT,
+            client_batch=8,
             seq=128, algorithm="uga", meta=True, fused=True,
             strategy=strategy, server_opt=opt, meta_mode=mode, seed=0,
             log_every=1, device=dev, on_records=on_records)
@@ -1281,7 +1308,7 @@ def main_path(counts_of, dev):
         log(f"kernels: {tag} {json.dumps(counts[tag])}")
         assert counts[tag] == want, (tag, counts[tag], want)
         n_params = sum(p.numel() for p in state["params"].values())
-        assert n_params == 361_821_120, n_params
+        assert n_params == MAIN_N_VALID, n_params
         for rec in hist:
             for k, v in rec.items():
                 assert math.isfinite(v), (tag, rec)
@@ -1296,7 +1323,8 @@ def main_path(counts_of, dev):
         if tag == "post:vmap/sgd":
             ref = dict(params={k: v.cpu() for k, v in
                                state["params"].items()},
-                       hist=hist, counts=counts[tag], walls=secs)
+                       hist=hist, counts=counts[tag], walls=secs,
+                       peak_gib=peak)
         del state
         torch.cuda.empty_cache()
 
@@ -1317,9 +1345,10 @@ def main_path(counts_of, dev):
     return counts, ref
 
 
-def post_vmap_reference(counts_of, dev):
-    """Phase 6's post vmap/sgd run alone, as ``main_path`` keeps it, for
-    the tools that run phases 6o or 6g without phase 6."""
+def post_vmap_reference(counts_of, dev, layers=MAIN_LAYERS):
+    """Phase 6's post vmap/sgd run alone (at ``layers``), as ``main_path``
+    keeps it: phase 6o's reference, and for the tools that run phases
+    6l or 6g without phase 6."""
     import torch
     from repro_torch.launch.train import run_training
     marks = [time.perf_counter()]
@@ -1328,9 +1357,12 @@ def post_vmap_reference(counts_of, dev):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     counts_of.reset()
     state, hist = run_training(
-        "smollm-360m", rounds=rounds_of("post:vmap/sgd"), cohort=COHORT,
+        "smollm-360m", layers=layers, rounds=rounds_of("post:vmap/sgd"),
+        cohort=COHORT,
         client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
         strategy="vmap", server_opt="sgd", meta_mode="post", seed=0,
         log_every=1, device=dev, on_records=on_records)
@@ -1338,7 +1370,8 @@ def post_vmap_reference(counts_of, dev):
     assert counts == EXPECTED_LAUNCHES["post:vmap/sgd"], counts
     ref = dict(params={k: v.cpu() for k, v in state["params"].items()},
                hist=hist, counts=counts,
-               walls=[b - a for a, b in zip(marks, marks[1:])])
+               walls=[b - a for a, b in zip(marks, marks[1:])],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del state
     torch.cuda.empty_cache()
     return ref
@@ -1350,16 +1383,22 @@ def post_vmap_reference(counts_of, dev):
 # Phase 6's post vmap/sgd run again through run_training, with the jsonl
 # and csv trackers, the round sanitizer and a torch.profiler window over
 # round 1 summarized into a profile_summary event.  None of these may
-# change a bit: params and history are held bitwise to phase 6's run in
-# this process, its launches exactly.  The trace summary's table is
-# asked for every op, so the fused-update kernels are found in it.
+# change a bit: params and history are held bitwise to the same run
+# without them in this process (post_vmap_reference), its launches
+# exactly.  The trace summary's table is asked for every op, so the
+# fused-update kernels are found in it.  Both runs keep all 32 layers:
+# the summary must credit device time to the device_sync phase, which
+# needs the card still busy when the host syncs, as it is at 32 layers
+# (3.07 ms of device time in it on an H100) and not always at 8.
+TRACKED_LAYERS = 0
 TRACKED_TOP_K = 100_000
 # the device names of the two kernels the tracked run launches (rows 1, 3)
 TRACKED_KERNELS = ("aggregate_kernel", "update_kernel")
 
 
 def tracked_path(counts_of, dev, ref):
-    """Phase 6o: returns its launch counts."""
+    """Phase 6o against ``ref``, ``post_vmap_reference`` at
+    ``TRACKED_LAYERS``: returns its launch counts."""
     import shutil
     import tempfile
 
@@ -1384,7 +1423,8 @@ def tracked_path(counts_of, dev, ref):
     torch.cuda.synchronize()
     counts_of.reset()
     state, hist = run_training(
-        "smollm-360m", rounds=len(ref["hist"]), cohort=COHORT,
+        "smollm-360m", layers=TRACKED_LAYERS, rounds=len(ref["hist"]),
+        cohort=COHORT,
         client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
         seed=0, log_every=1, device=dev, tracker="jsonl,csv",
         run_dir=run_dir, sanitize=True, profile=1, profile_start=1,
@@ -1395,7 +1435,7 @@ def tracked_path(counts_of, dev, ref):
     assert counts == ref["counts"], (counts, ref["counts"])
     diff = [k for k, v in ref["params"].items()
             if not _bitwise(state["params"][k].cpu(), v)]
-    log(f"  6o: against phase 6's post vmap/sgd run: {len(ref['params'])} "
+    log(f"  6o: against the same run untracked: {len(ref['params'])} "
         f"parameter leaves, {len(diff)} differ; records equal: "
         f"{hist == ref['hist']} (bitwise required)")
     assert not diff and hist == ref["hist"], diff[:5]
@@ -1482,7 +1522,9 @@ def tracked_path(counts_of, dev, ref):
         trk.log_metrics(i, {**hist[0], "round": i})
     trk.finish()
     rec_ms = (time.perf_counter() - t) / 200 * 1e3
-    log(f"  6o sanitizer probe over the 1.447 GB of parameters: "
+    log(f"  6o sanitizer probe over the "
+        f"{sum(g.rows for g in spec.groups) * 512 / 1e9:.3f} GB of "
+        f"parameters: "
         f"{dev_ms:.3f} ms of device time (CUDA events, no read), "
         f"{probe_ms:.3f} ms host wall with its read; jsonl + csv trackers "
         f"{rec_ms:.4f} ms a record")
@@ -1544,7 +1586,7 @@ def trace_only(tag, dev) -> dict:
     leave the card's allocation and the kernels' real launch counts where
     they were."""
     import torch
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import get_arch, with_depth
     from repro_torch.core.trainer import FederatedTrainer
     from repro_torch.kernels.comm import kernel as CK
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -1554,7 +1596,7 @@ def trace_only(tag, dev) -> dict:
     from repro_torch.models.model import build_model
     from repro_torch.roofline.live import round_cost_summary
 
-    cfg = get_arch("smollm-360m")
+    cfg = with_depth(get_arch("smollm-360m"), MAIN_LAYERS)
     tr = FederatedTrainer(build_model(cfg, dtype=torch.float32,
                                       loss_chunk=256), _phase6_fed(tag),
                           seed=0, device=dev)
@@ -1637,7 +1679,8 @@ def roofline_path(counts_of, dev, ref, procs):
         base = torch.cuda.memory_allocated()
         counts_of.reset()
         state, hist = run_training(
-            "smollm-360m", rounds=len(ref["hist"]), cohort=COHORT,
+            "smollm-360m", layers=MAIN_LAYERS, rounds=len(ref["hist"]),
+            cohort=COHORT,
             client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
             seed=0, log_every=1, device=dev, tracker="jsonl", run_dir=run_dir,
             roofline=True, on_records=on_records)
@@ -1747,7 +1790,7 @@ def coded_path(counts_of, dev):
                 return
             if ef:
                 (res,) = trainer.state["comm"]["residual"]
-                assert res.shape == (COHORT, FULL_ROWS, 128), res.shape
+                assert res.shape == (COHORT, MAIN_ROWS, 128), res.shape
                 nz = [float(res[k].abs().max()) for k in range(COHORT)]
                 assert all(v > 0 for v in nz), (tag, nz)
                 log(f"  {tag}: residual max |r| per client after round 1: "
@@ -1758,7 +1801,8 @@ def coded_path(counts_of, dev):
 
         counts_of.reset()
         state, hist = run_training(
-            "smollm-360m", rounds=rounds_of(tag), cohort=COHORT,
+            "smollm-360m", layers=MAIN_LAYERS, rounds=rounds_of(tag),
+            cohort=COHORT,
             client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
             strategy=strategy, server_opt=opt, codec=codec,
             error_feedback=ef, seed=0, log_every=1, device=dev,
@@ -1768,9 +1812,9 @@ def coded_path(counts_of, dev):
         want = EXPECTED_LAUNCHES[tag]
         assert counts[tag] == want, (tag, counts[tag], want)
         n_params = sum(p.numel() for p in state["params"].values())
-        assert n_params == FULL_N_VALID, n_params
+        assert n_params == MAIN_N_VALID, n_params
         assert F.make_flat_spec(state["params"]).groups[0].size == n_params
-        comm_bytes = float(np.float32(payload_bytes(codec, FULL_N_VALID))
+        comm_bytes = float(np.float32(payload_bytes(codec, MAIN_N_VALID))
                            * np.float32(COHORT))
         for rec in hist:
             for k, v in rec.items():
@@ -1800,12 +1844,13 @@ def coded_path(counts_of, dev):
 # trains through models/ssm.py::ssd_chunked (plain PyTorch, differentiable
 # in both modes), so the SSD-scan kernel launches no time; the server step
 # runs the fused-update kernels as on smollm-360m.  vmap/sgd 2 rounds and
-# scan/sgd 1 (held to each other after round 1).  scan/adam does not fit:
-# both sgd runs peak at 69.99 GiB, outside the aggregation (the same on
-# both cohorts), and adam's two slots (6.24 GB) ran the card out of
-# memory at 75.81 GiB allocated, 2.62 GiB more reserved, of 79.18.
+# scan/sgd 1 (held to each other after round 1).  The depth is cut to 12
+# of 48 layers for the script's time (at 48 both sgd runs peaked at 69.99
+# GiB, outside the aggregation, and scan/adam ran the card out of
+# memory).
 MAMBA_RUNS = {"mamba2:vmap/sgd": 2, "mamba2:scan/sgd": 1}
-MAMBA_N_PARAMS = 779_841_792
+MAMBA_LAYERS = 12
+MAMBA_N_PARAMS = 252_884_160
 # vmap against scan after round 1: the two cohorts sum G in other orders
 # (1e-7 apart), and the FedMeta step's gradient at parameters that close
 # is ill-conditioned in a stack with mamba layers (tests/
@@ -1844,7 +1889,8 @@ def mamba_path(counts_of, dev):
 
         counts_of.reset()
         state, hist = run_training(
-            "mamba2-780m", rounds=rounds, cohort=COHORT, client_batch=8,
+            "mamba2-780m", layers=MAMBA_LAYERS, rounds=rounds,
+            cohort=COHORT, client_batch=8,
             seq=128, algorithm="uga", meta=True, fused=True,
             strategy=strategy, server_opt=opt, seed=0, log_every=1,
             device=dev, on_records=on_records)
@@ -1945,7 +1991,8 @@ def fault_path(counts_of, dev):
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     state, hist = run_training(
-        "smollm-360m", rounds=FAULT_ROUNDS, cohort=COHORT, client_batch=8,
+        "smollm-360m", layers=MAIN_LAYERS, rounds=FAULT_ROUNDS, cohort=COHORT,
+        client_batch=8,
         seq=128, algorithm="uga", meta=True, fused=True, strategy="vmap",
         server_opt="sgd", seed=0, log_every=1, device=dev,
         on_records=on_records, **FAULT_KW)
@@ -1970,21 +2017,24 @@ def fault_path(counts_of, dev):
     return counts
 
 
-# Phase 6a: the buffered-async runtime on smollm-360m at full width.  The
+# Phase 6a: the buffered-async runtime on smollm-360m at full width (at
+# MAIN_LAYERS).  The
 # pool's bookkeeping is re-derived on the host from each tick's draws
 # (``simulate_tick``: occupied slots as a list in logical order), and each
 # tick's launches follow from it: one accumulate_pass per flushed delta,
 # one update_pass per flush, no aggregate_pass (the vmap base's stack is
 # pooled, not reduced).  The defaults: K = cohort = 4, capacity 8,
-# invsqrt.  The pool is 8 x 1.447 GB = 10.78 GiB on top of the
-# synchronous vmap round's 21.04 GiB peak; copying the pool on insert, as
-# JAX's concatenate-and-gather does, would add about 16 GiB more.
+# invsqrt.  The pool (8 x 0.503 GB = 3.75 GiB at 8 layers, 8 x 1.447 GB
+# = 10.78 GiB at 32) comes on top of phase 6's synchronous vmap round's
+# peak, with ASYNC_SLACK_GIB to spare; copying the pool on insert, as
+# JAX's concatenate-and-gather does, would add one and a half pools
+# more.
 ASYNC_KW = dict(engine="buffered_async", participation=0.75,
                 fault_profile="flaky")
 ASYNC_TICKS = 4
 ASYNC_CLEAN_TICKS = 2            # fault-free K = capacity = cohort, scan
 ASYNC_CODED_TICKS = 2            # int8 with error feedback, scan
-ASYNC_PEAK_GIB = 21.04 + 10.78 + 2.0
+ASYNC_SLACK_GIB = 2.0
 
 
 def simulate_tick(pool, ver, tick, arrive, delay, K, cap):
@@ -2027,7 +2077,7 @@ def _flat_params(state):
     return F.flatten_tree(spec, state["params"])[0].clone()
 
 
-def async_path(counts_of, dev):
+def async_path(counts_of, dev, sync_peak_gib):
     """Phase 6a: (i) two synchronous scan/sgd runs of 2 rounds from the
     same init, to see whether the card repeats a round bitwise, and the
     fault-free async tick (K = capacity = cohort, scan/sgd, 2 ticks)
@@ -2037,14 +2087,17 @@ def async_path(counts_of, dev):
     ``simulate_tick`` of its draws, its wall time and the peak printed;
     (iii) int8 with error feedback on scan, 2 ticks: one quantize launch
     (with the residual) per client, no dequant-FMA launch.  Each run is
-    its own main path: counts zeroed just before, read just after."""
+    its own main path: counts zeroed just before, read just after.
+    ``sync_peak_gib`` is phase 6's post vmap/sgd peak, which (ii)'s peak
+    may exceed by the pool and ``ASYNC_SLACK_GIB``."""
     import numpy as np
     import torch
     from repro_torch.core.round import draw_round
     from repro_torch.launch.train import run_training
 
-    base = dict(cohort=COHORT, client_batch=8, seq=128, algorithm="uga",
-                meta=True, fused=True, seed=0, log_every=0, device=dev)
+    base = dict(layers=MAIN_LAYERS, cohort=COHORT, client_batch=8,
+                seq=128, algorithm="uga", meta=True, fused=True, seed=0,
+                log_every=0, device=dev)
     counts, flats, hists = {}, {}, {}
     for tag, kw, n in (
             ("sync:scan/sgd#1", dict(strategy="scan"), ASYNC_CLEAN_TICKS),
@@ -2147,12 +2200,14 @@ def async_path(counts_of, dev):
         log(f"  tick {r}: {json.dumps(got)}; garbled {garbled:g}; launches "
             f"accumulate {na}, update {nu} (as the draws give); wall "
             f"{w:.4f} s")
+    pool = 2 * COHORT * MAIN_ROWS * 512 / 2**30
+    bound = sync_peak_gib + pool + ASYNC_SLACK_GIB
     log(f"  {ASYNC_TICKS} ticks (K {COHORT}, capacity {2 * COHORT}, "
         f"invsqrt; tick 0 includes init and data); max_memory_allocated "
-        f"{peak:.2f} GiB (pool {2 * COHORT * FULL_ROWS * 512 / 2**30:.2f} "
-        f"GiB; bound {ASYNC_PEAK_GIB:.2f})")
+        f"{peak:.2f} GiB (pool {pool:.2f} GiB; bound {bound:.2f}: phase "
+        f"6's sync peak {sync_peak_gib:.2f}, the pool, {ASYNC_SLACK_GIB})")
     assert steps > 0
-    assert peak <= ASYNC_PEAK_GIB, peak
+    assert peak <= bound, (peak, bound)
     del state
     torch.cuda.empty_cache()
 
@@ -2168,7 +2223,7 @@ def async_path(counts_of, dev):
     assert counts[tag] == _launches(quantize_i8_pass=COHORT * n,
                                     accumulate_pass=COHORT * n,
                                     update_pass=n), counts[tag]
-    comm_bytes = float(np.float32(payload_bytes("int8", FULL_N_VALID))
+    comm_bytes = float(np.float32(payload_bytes("int8", MAIN_N_VALID))
                        * np.float32(COHORT))          # in fp32, as JAX's
     for rec in hist:
         assert rec["comm_bytes"] == comm_bytes, rec
@@ -2183,15 +2238,16 @@ def async_path(counts_of, dev):
 
 
 def ckpt_path_check(dev):
-    """Phase 6k: the full-width server state through a blob and back,
-    bitwise: post vmap/sgd after one round, and adam after one round (m, v
-    and t); the seconds and bytes of each save and restore; the blobs are
-    removed.  The async pool (8 slots of 1.447 GB in one leaf) exceeds a
-    msgpack bin and must be refused before anything is written."""
+    """Phase 6k: the full-width server state (at ``MAIN_LAYERS``) through
+    a blob and back, bitwise: post vmap/sgd after one round, and adam
+    after one round (m, v and t); the seconds and bytes of each save and
+    restore; the blobs are removed.  At all 32 layers the async pool (8
+    slots of 1.447 GB in one leaf) exceeds a msgpack bin and must be
+    refused before anything is written."""
     import shutil
 
     import torch
-    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.configs import FedConfig, get_arch, with_depth
     from repro_torch.core.trainer import FederatedTrainer
     from repro_torch.launch.train import build_synthetic_fed_data
     from repro_torch.models.model import build_model
@@ -2199,7 +2255,7 @@ def ckpt_path_check(dev):
     out_dir = os.path.join(HERE, "build", "ckpt_smoke")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    cfg = get_arch("smollm-360m")
+    cfg = with_depth(get_arch("smollm-360m"), MAIN_LAYERS)
     model = build_model(cfg, loss_chunk=256)
     data = build_synthetic_fed_data(cfg, num_clients=32, examples=2048,
                                     seq=128, iid=False)
@@ -2240,7 +2296,9 @@ def ckpt_path_check(dev):
             torch.cuda.empty_cache()
         fed = FedConfig(algorithm="uga", meta=True, cohort=COHORT,
                         fused_update=True, engine="buffered_async")
-        tr = FederatedTrainer(model, fed, device=dev, seed=0)
+        tr = FederatedTrainer(build_model(get_arch("smollm-360m"),
+                                          loss_chunk=256), fed, device=dev,
+                              seed=0)
         path = os.path.join(out_dir, "async.msgpack")
         try:
             tr.save(path)
@@ -2532,7 +2590,7 @@ def chunked_path(counts_of, dev, runs=None):
                     F.make_flat_spec(params), params)], dict(recs[0]))
             if ef:
                 (res,) = trainer.state["comm"]["residual"]
-                assert res.shape == (CHUNK_COHORT, FULL_ROWS, 128), res.shape
+                assert res.shape == (CHUNK_COHORT, MAIN_ROWS, 128), res.shape
                 nz = [float(res[k].abs().max()) for k in range(CHUNK_COHORT)]
                 assert all(math.isfinite(v) and v > 0 for v in nz), (tag, nz)
                 # every 997th row of each client's residual (14.5 MB; a
@@ -2549,7 +2607,8 @@ def chunked_path(counts_of, dev, runs=None):
 
         counts_of.reset()
         state, hist = run_training(
-            "smollm-360m", rounds=rounds, cohort=CHUNK_COHORT,
+            "smollm-360m", layers=MAIN_LAYERS, rounds=rounds,
+            cohort=CHUNK_COHORT,
             client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
             cohort_chunk=CHUNK, executor=executor, server_opt="sgd",
             meta_mode=mode, codec=codec, error_feedback=ef, seed=0,
@@ -2559,12 +2618,12 @@ def chunked_path(counts_of, dev, runs=None):
         want = _chunked_counts(rounds, mode, codec)
         assert counts[tag] == want, (tag, counts[tag], want)
         n_params = sum(p.numel() for p in state["params"].values())
-        assert n_params == FULL_N_VALID, n_params
+        assert n_params == MAIN_N_VALID, n_params
         for rec in hist:
             for k, v in rec.items():
                 assert math.isfinite(v), (tag, rec)
             if codec == "int8":
-                want_b = float(np.float32(payload_bytes(codec, FULL_N_VALID))
+                want_b = float(np.float32(payload_bytes(codec, MAIN_N_VALID))
                                * np.float32(CHUNK_COHORT))
                 assert rec["comm_bytes"] == want_b, (tag, rec, want_b)
             if mode != "post":
@@ -2596,8 +2655,9 @@ def chunked_path(counts_of, dev, runs=None):
 # ranks on the one card
 # ---------------------------------------------------------------------------
 # Each run of MODEL_AXIS_RUNS at full width, only its depth cut (the
-# layers listed there), UGA + FedMeta post, client batch 8, seq 128, sgd,
-# 2 rounds, the cohort streamed in chunks of 2.  First a world of one in
+# layers listed there), UGA + FedMeta, client batch 8, seq 128, sgd, 2
+# rounds, the cohort streamed in chunks of 2, in the run's mode
+# (AXIS_MODES: post, or one of 6z's).  First a world of one in
 # this process (run_training with executor='sharded', mesh_model=1: NCCL,
 # one process), whose flat parameters after each round go to build/ and
 # whose records are kept; then, once this process has released the card,
@@ -2606,26 +2666,42 @@ def chunked_path(counts_of, dev, runs=None):
 # --model-axis-rank DIR), both on cuda:0 over gloo by the mesh's
 # shared-card rule, every run in turn (the spawn paid once), each rank's
 # client compute on its parameter shards.  After each round: params
-# within 1e-5 and metrics within 1e-4 of the world of one (rank 0 against
-# the saved flat buffer), the two ranks' params bitwise equal (a 64-bit
-# hash of the flat buffer's bits, odd weights by position, all-gathered:
-# two buffers that differ in one element always hash apart), each rank's
-# launches exactly (one accumulate_pass a slot over all rows, one
-# update_pass a round on its half of the rows).  A MoE run's routing
+# within 1e-5 (6z's codecs: the flip-aware criterion, leaf by leaf) and
+# metrics within 1e-4 of the world of one (rank 0 against the saved flat
+# buffer), ctrl within 1e-5, the residual stacks by the flip-aware
+# criterion, the two ranks' whole state bitwise equal (a 64-bit hash of
+# the flat parameters', ctrl's and the residual stacks' bits, odd weights
+# by position, all-gathered: two buffers that differ in one element
+# always hash apart), each rank's launches exactly (axis_launches: one
+# accumulate_pass a slot over all rows, one update_pass a round on its
+# half of the rows; through_aggregation adds one accumulate_pass_bwd a
+# slot and one update_pass_bwd a round on the same rows; a codec
+# replaces the accumulate pass by its encode and decode passes, none for
+# topk; legacy_tree runs no update pass).  A MoE run's routing
 # (every layer's expert indices and capacity keeps) in one forward of a
 # seeded init on a fixed batch is held bitwise to the world of one's.
 # Printed: the round walls, each rank's peak, each rank's time in the
 # model-axis collectives by kind.
 #   6x: smollm-360m (15 / 5 heads do not split in 2: q/k/v gathered,
 #       attention whole on both ranks; the MLP and the vocab split) at the
-#       paper's cohort of 10.  Cut to 8 of 32 layers so that 6y fits
-#       the call (at 32 layers 6x alone took 169.8 s);
+#       paper's cohort of 10.  Cut to 2 of 32 layers so that 6y and 6z fit
+#       the call (at 32 layers 6x alone took 169.8 s, at 4 the job's steady
+#       round 7.06 s);
 #   6y: the layer kinds, cohort 4: deepseek-v2-lite-16b, 1 of 27 layers
 #       (MLA on each rank's 8 of 16 heads, 32 of the 64 experts a rank,
 #       the shared experts split); mamba2-780m, 4 of 48 layers (the mixer
 #       on each rank's 24 of 48 heads); whisper-large-v3, 2 decoder
 #       layers (self, then cross) and 2 of 32 encoder layers over 1500
-#       frames (10 of 20 heads a rank, the GELU MLP split).
+#       frames (10 of 20 heads a rank, the GELU MLP split);
+#   6z: the modes, smollm-360m at 2 of 32 layers (66,851,520 parameters),
+#       cohort 4: through_aggregation with sgd (the update backward on each
+#       rank's rows, its scalar cotangents summed over the axis; each
+#       client re-run on the rank's shards, its dw summed over the axis),
+#       int8 and sign1bit with error feedback, topk at 0.01 (each group's
+#       statistic reduced over the axis; the decode and the residual
+#       masked by ownership; the residual rows summed over the axis), and
+#       the legacy_tree engine (the whole streamed buffers, the tree
+#       engine whole on both ranks).
 # Client (and so server and meta) lr 0.01, the launcher's default, but
 # mamba2-780m's 0.001 at 4 layers.  A mamba2-780m run's own trajectory
 # is too sensitive deeper or faster to be held to 1e-5 / 1e-4 by any
@@ -2638,13 +2714,26 @@ def chunked_path(counts_of, dev, runs=None):
 # The job runs beside phase 7: started before it, joined after it.
 MODEL_AXIS = 2
 MODEL_AXIS_ROUNDS = 2
-MODEL_AXIS_TIMEOUT = 700
-# tag -> (arch, layers, cohort, chunk, client lr)
+MODEL_AXIS_TIMEOUT = 800
+# mode -> run_training's keywords beside post mode on the fused engine
+AXIS_MODES = {
+    "post": {},
+    "through_aggregation": {"meta_mode": "through_aggregation"},
+    "legacy_tree": {"fused": False},
+    **{f"{codec}{'+ef' if ef else ''}": {
+        "codec": codec, "error_feedback": ef, "topk_ratio": 0.01}
+       for codec in ("int8", "sign1bit", "topk") for ef in (False, True)},
+}
+# tag -> (arch, layers, cohort, chunk, client lr, mode)
 MODEL_AXIS_RUNS = {
-    "6x:smollm-360m": ("smollm-360m", 8, CHUNK_COHORT, 2, 0.01),
-    "6y:deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 1, 4, 2, 0.01),
-    "6y:mamba2-780m": ("mamba2-780m", 4, 4, 2, 0.001),
-    "6y:whisper-large-v3": ("whisper-large-v3", 2, 4, 2, 0.01),
+    "6x:smollm-360m": ("smollm-360m", 2, CHUNK_COHORT, 2, 0.01, "post"),
+    "6y:deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 1, 4, 2, 0.01,
+                                "post"),
+    "6y:mamba2-780m": ("mamba2-780m", 4, 4, 2, 0.001, "post"),
+    "6y:whisper-large-v3": ("whisper-large-v3", 2, 4, 2, 0.01, "post"),
+    **{f"6z:{mode}": ("smollm-360m", 2, 4, 2, 0.01, mode)
+       for mode in ("through_aggregation", "int8+ef", "sign1bit+ef", "topk",
+                    "legacy_tree")},
 }
 MODEL_AXIS_DIR = os.path.join(HERE, "build", "model_axis")
 HASH_CHUNK = 1 << 26             # elements a step of flat_hash / flat_err
@@ -2664,14 +2753,30 @@ def axis_rows(arch, layers) -> tuple:
 def axis_run(spec, dev, mesh_model, on_records):
     """One run of MODEL_AXIS_RUNS through ``run_training``."""
     from repro_torch.launch.train import run_training
-    arch, layers, cohort, chunk, lr = spec
+    arch, layers, cohort, chunk, lr, mode = spec
+    kw = {"fused": True, "meta_mode": "post", **AXIS_MODES[mode]}
     return run_training(
         arch, layers=layers, rounds=MODEL_AXIS_ROUNDS, cohort=cohort,
-        client_batch=8, seq=128, algorithm="uga", meta=True, fused=True,
-        client_lr=lr,
+        client_batch=8, seq=128, algorithm="uga", meta=True, client_lr=lr,
         cohort_chunk=chunk, executor="sharded", mesh_model=mesh_model,
-        server_opt="sgd", meta_mode="post", seed=0, log_every=1,
-        device=dev, on_records=on_records)
+        server_opt="sgd", seed=0, log_every=1, device=dev,
+        on_records=on_records, **kw)
+
+
+def axis_launches(spec) -> dict:
+    """The launches of one run of MODEL_AXIS_RUNS on each rank, as of its
+    world of one (the table in the comment above)."""
+    arch, layers, cohort, chunk, lr, mode = spec
+    r, slots = MODEL_AXIS_ROUNDS, -(-cohort // chunk) * chunk
+    codec = AXIS_MODES[mode].get("codec")
+    if codec is not None:
+        return _coded_counts(r, codec, slots)
+    kw = {"accumulate_pass": r * slots}
+    if mode != "legacy_tree":
+        kw["update_pass"] = r
+    if mode == "through_aggregation":
+        kw.update(accumulate_pass_bwd=r * slots, update_pass_bwd=r)
+    return _launches(**kw)
 
 
 def route_probe(arch, layers, dev, mesh=None) -> list:
@@ -2742,45 +2847,62 @@ def _slug(tag) -> str:
     return tag.replace(":", "_")
 
 
+def _axis_state(state) -> tuple:
+    """(the flat parameters, ctrl as one vector or None, the residual
+    stack or None) of a trainer's state."""
+    import torch
+    from repro_torch.core import flat as F
+    params = state["params"]
+    (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
+    ctrl = state.get("ctrl")
+    if ctrl is not None:
+        ctrl = torch.cat([ctrl["w_logits"], ctrl["log_lr"].reshape(1)])
+    comm = state.get("comm")
+    return flat, ctrl, None if comm is None else comm["residual"][0]
+
+
 def model_axis_refs(counts_of, dev, runs=MODEL_AXIS_RUNS) -> dict:
     """Each run's world of one in this process, each its own main path
     (the counts zeroed just before it, read just after, held exactly):
-    the flat parameters after each round to ``MODEL_AXIS_DIR/<tag>_r<n>.npy``,
-    the records and the MoE routing to ``<tag>.pt``, the runs to
+    the flat parameters after each round to
+    ``MODEL_AXIS_DIR/<tag>_r<n>.npy`` (an error-feedback run's residual
+    stack to ``<tag>_res_r<n>.npy``), the records, ``ctrl`` after each
+    round and the MoE routing to ``<tag>.pt``, the runs to
     ``runs.json``.  Returns the counts."""
     import numpy as np
     import torch
     import torch.distributed as dist
-    from repro_torch.core import flat as F
     os.makedirs(MODEL_AXIS_DIR, exist_ok=True)
     counts = {}
     for tag, spec in runs.items():
-        arch, layers, cohort, chunk, lr = spec
+        arch, layers, cohort, chunk, lr, mode = spec
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         routes = route_probe(arch, layers, dev)
         torch.cuda.empty_cache()
-        records, marks = [], [time.perf_counter()]
+        records, ctrls, marks = [], [], [time.perf_counter()]
 
         def on_records(recs, trainer, tag=tag, records=records,
-                       marks=marks):
+                       ctrls=ctrls, marks=marks):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            params = trainer.state["params"]
-            (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
-            np.save(os.path.join(MODEL_AXIS_DIR, f"{_slug(tag)}_r"
-                                 f"{recs[0]['round']}.npy"),
-                    flat.cpu().numpy())
+            r = recs[0]["round"]
+            flat, ctrl, res = _axis_state(trainer.state)
+            slug = os.path.join(MODEL_AXIS_DIR, _slug(tag))
+            np.save(f"{slug}_r{r}.npy", flat.cpu().numpy())
+            if res is not None:
+                np.save(f"{slug}_res_r{r}.npy", res.cpu().numpy())
+            c = trainer.state.get("ctrl")
+            ctrls.append(None if c is None else
+                         {k: v.cpu() for k, v in c.items()})
             records.append(dict(recs[0]))
-            del flat
+            del flat, res
 
         counts_of.reset()
         state, hist = axis_run(spec, dev, 1, on_records)
         counts[f"model_axis_ref:{tag}"] = c = counts_of.read()
-        slots = -(-cohort // chunk) * chunk
-        want = _launches(accumulate_pass=MODEL_AXIS_ROUNDS * slots,
-                         update_pass=MODEL_AXIS_ROUNDS)
+        want = axis_launches(spec)
         log(f"kernels: model_axis_ref:{tag} {json.dumps(c)}")
         assert c == want, (tag, c, want)
         rows = axis_rows(arch, layers)[0]
@@ -2788,14 +2910,14 @@ def model_axis_refs(counts_of, dev, runs=MODEL_AXIS_RUNS) -> dict:
         for rec in hist:
             assert all(math.isfinite(v) for v in rec.values()), (tag, rec)
         log(f"  {tag} world of one: {arch} at {layers} layers, {n:,} "
-            f"parameters ({rows:,} flat rows), cohort {cohort} in chunks "
-            f"of {chunk}, lr {lr}: round wall s "
+            f"parameters ({rows:,} flat rows), {mode}, cohort {cohort} in "
+            f"chunks of {chunk}, lr {lr}: round wall s "
             f"{[round(b - a, 4) for a, b in zip(marks, marks[1:])]} "
             f"(round 0 includes init and data; each includes the host copy "
             f"of the flat parameters)  max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; routing "
             f"probe: {'none' if routes is None else len(routes)} MoE layers")
-        torch.save({"records": records, "routes": routes},
+        torch.save({"records": records, "ctrl": ctrls, "routes": routes},
                    os.path.join(MODEL_AXIS_DIR, f"{_slug(tag)}.pt"))
         del state
         dist.destroy_process_group()
@@ -2806,9 +2928,11 @@ def model_axis_refs(counts_of, dev, runs=MODEL_AXIS_RUNS) -> dict:
 
 
 def model_axis_rank(ref_dir: str) -> int:
-    """The body of one rank of phases 6x and 6y (``--model-axis-rank
+    """The body of one rank of phases 6x, 6y and 6z (``--model-axis-rank
     DIR``, under torchrun): every run of ``DIR/runs.json`` in turn, one
-    ``{"model_axis_rank": ...}`` line each; exits 1 if a check fails."""
+    ``{"model_axis_rank": ...}`` line each; exits 1 if a check fails
+    (the flip-aware criterion here, the rest in
+    :func:`finish_model_axis`)."""
     import gc
 
     import numpy as np
@@ -2830,7 +2954,8 @@ def model_axis_rank(ref_dir: str) -> int:
     with open(os.path.join(ref_dir, "runs.json")) as f:
         runs = json.load(f)
     # the time in the model-axis collectives, each call synchronized; the
-    # flat buffers' (G's sum, the updated rows' gather) apart
+    # flat buffers' (G's sum, the updated rows' gather, a residual row's
+    # sum) apart
     coll, flat_numel = {}, [0]
 
     def reset_coll():
@@ -2852,24 +2977,30 @@ def model_axis_rank(ref_dir: str) -> int:
         return call
     TP.all_reduce_copy = timed("all_reduce", TP.all_reduce_copy)
     TP.all_gather_cat = timed("all_gather", TP.all_gather_cat)
-    # the rows of each update_pass: the engine calls the kernel module
-    # through ops.K, which becomes a view of it with a recording
-    # update_pass in front (the kernel's own launch count is untouched)
-    update_rows = []
+    # the rows of each update_pass and update_pass_bwd: the engine calls
+    # the kernel module through ops.K, which becomes a view of it with
+    # recording passes in front (the kernels' own launch counts are
+    # untouched)
+    update_rows = {"update_pass": [], "update_pass_bwd": []}
 
-    def spy_update(G, *a, **k):
-        update_rows.append(int(G.shape[0]))
-        return K.update_pass(G, *a, **k)
-    O.K = types.SimpleNamespace(**{**vars(K), "update_pass": spy_update})
+    def spy(name):
+        def call(G, *a, **k):
+            update_rows[name].append(int(G.shape[0]))
+            return getattr(K, name)(G, *a, **k)
+        return call
+    O.K = types.SimpleNamespace(**{**vars(K), **{
+        name: spy(name) for name in update_rows}})
     counts_of = Counts(K, CK, FK, SK)
 
     for tag, spec in runs.items():
-        arch, layers = spec[:2]
+        arch, layers, mode = spec[0], spec[1], spec[5]
+        codec = AXIS_MODES[mode].get("codec")
         slug = os.path.join(ref_dir, _slug(tag))
         ref = torch.load(slug + ".pt", weights_only=False)
         flat_numel[0] = axis_rows(arch, layers)[1] * 128
         out = {"rank": rank, "tag": tag, "errs": [], "metric_errs": [],
-               "bitwise": [], "walls": []}
+               "ctrl_errs": [], "flips": [], "res_flips": [], "bitwise": [],
+               "walls": []}
         reset_coll()
         if ref["routes"] is not None:
             mine = route_probe(arch, layers, "cuda",
@@ -2879,34 +3010,58 @@ def model_axis_rank(ref_dir: str) -> int:
                 for (a, b), (c, d) in zip(mine, ref["routes"]))
             torch.cuda.empty_cache()
         reset_coll()
-        update_rows.clear()
+        for rows in update_rows.values():
+            rows.clear()
         marks = [time.perf_counter()]
 
-        def on_records(recs, trainer, slug=slug, ref=ref, out=out,
-                       marks=marks):
+        def on_records(recs, trainer, tag=tag, slug=slug, ref=ref, out=out,
+                       marks=marks, codec=codec):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             r = recs[0]["round"]
-            params = trainer.state["params"]
-            (flat,) = F.flatten_tree(F.make_flat_spec(params), params)
-            h = flat_hash(flat)
+            flat, ctrl, res = _axis_state(trainer.state)
+            h = torch.cat([flat_hash(x) for x in (flat, ctrl, res)
+                           if x is not None])
             hs = [torch.empty_like(h) for _ in range(dist.get_world_size())]
             dist.all_gather(hs, h)
             out["bitwise"].append(all(torch.equal(x, hs[0]) for x in hs))
             if rank == 0:
-                out["errs"].append(flat_err(flat, np.load(
-                    f"{slug}_r{r}.npy", mmap_mode="r")))
+                ref_flat = np.load(f"{slug}_r{r}.npy", mmap_mode="r")
+                out["errs"].append(flat_err(flat, ref_flat))
+                if codec is not None:
+                    # leaf by leaf, each against its largest entry
+                    leaves = F.make_flat_spec(
+                        trainer.state["params"]).groups[0].leaves
+                    part = lambda x, lf: x.reshape(-1)[
+                        lf.offset:lf.offset + lf.size]
+                    out["flips"].append(params_flip_aware(
+                        {lf.name: part(flat, lf) for lf in leaves},
+                        {lf.name: torch.from_numpy(np.ascontiguousarray(
+                            part(ref_flat, lf))).to(flat.device)
+                         for lf in leaves}, f"{tag} round {r}"))
+                if res is not None:
+                    out["res_flips"].append(residual_flip_aware(
+                        res, torch.from_numpy(np.load(
+                            f"{slug}_res_r{r}.npy")).to(res.device),
+                        codec, r + 1, f"{tag} round {r} residual"))
+                if ctrl is not None:
+                    # each leaf against its own size: log_lr's would hide
+                    # w_logits'
+                    c = trainer.state["ctrl"]
+                    out["ctrl_errs"].append(max(
+                        rel_err(c[k].cpu(), ref["ctrl"][r][k])
+                        for k in ("w_logits", "log_lr")))
                 out["metric_errs"].append({
                     k: rel_err(torch.tensor(float(recs[0][k])),
                                torch.tensor(float(v)))
                     for k, v in ref["records"][r].items() if k != "round"})
-            del flat
+            del flat, res
 
         torch.cuda.reset_peak_memory_stats()
         counts_of.reset()
         state, hist = axis_run(spec, "cuda", MODEL_AXIS, on_records)
         out["counts"] = counts_of.read()
-        out["update_rows"] = list(update_rows)
+        out["update_rows"] = {k: list(v) for k, v in update_rows.items()}
         out["walls"] = [b - a for a, b in zip(marks, marks[1:])]
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         out["collectives"] = {k: list(v) for k, v in coll.items()}
@@ -2931,7 +3086,7 @@ def start_model_axis(runs=MODEL_AXIS_RUNS) -> dict:
              for k in ("out.txt", "err.txt")}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    log(f"  6x/6y: this process holds "
+    log(f"  6x-6z: this process holds "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) on the card")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -2963,8 +3118,8 @@ def stop_model_axis(job: dict) -> None:
 
 
 def finish_model_axis(job: dict) -> dict:
-    """Phases 6x and 6y's checks, once the ranks end; returns their launch
-    counts."""
+    """Phases 6x, 6y and 6z's checks, once the ranks end; returns their
+    launch counts."""
     p, runs = job["proc"], job["runs"]
     try:
         p.wait(timeout=max(1.0, MODEL_AXIS_TIMEOUT
@@ -2982,7 +3137,7 @@ def finish_model_axis(job: dict) -> dict:
     lines = p.stdout.splitlines()
     for l in lines:
         if not l.startswith('{"model_axis_rank"'):
-            log(f"  6x/6y| {l}")
+            log(f"  6x-6z| {l}")
     if p.returncode != 0:
         # each rank's traceback (torchrun prefixes its lines), then the
         # launcher's summary
@@ -2991,19 +3146,23 @@ def finish_model_axis(job: dict) -> dict:
                     if l.startswith(f"[rank{r}]:")]
             log("\n".join(mine[-40:]))
         log(p.stderr[-1500:])
-        raise AssertionError(f"phases 6x/6y: torchrun exited {p.returncode}")
+        raise AssertionError(
+            f"phases 6x-6z: torchrun exited {p.returncode}")
     outs = [json.loads(l)["model_axis_rank"] for l in lines
             if l.startswith('{"model_axis_rank"')]
     counts = {}
-    for tag, (arch, layers, cohort, chunk, _) in runs.items():
+    for tag, spec in runs.items():
+        arch, layers, mode = spec[0], spec[1], spec[5]
+        codec = AXIS_MODES[mode].get("codec")
         ranks = sorted((o for o in outs if o["tag"] == tag),
                        key=lambda o: o["rank"])
         assert [r["rank"] for r in ranks] == list(range(MODEL_AXIS)), \
             (tag, ranks)
-        slots = -(-cohort // chunk) * chunk
-        want = _launches(accumulate_pass=MODEL_AXIS_ROUNDS * slots,
-                         update_pass=MODEL_AXIS_ROUNDS)
+        want = axis_launches(spec)
         rank_rows = axis_rows(arch, layers)[1]
+        want_rows = {
+            "update_pass": [rank_rows] * want["update_pass"],
+            "update_pass_bwd": [rank_rows] * want["update_pass_bwd"]}
         for r in ranks:
             name = f"model_axis:{tag}[rank{r['rank']}]"
             counts[name] = r["counts"]
@@ -3027,8 +3186,8 @@ def finish_model_axis(job: dict) -> dict:
         for r in ranks:
             name = f"model_axis:{tag}[rank{r['rank']}]"
             assert r["counts"] == want, (name, r["counts"], want)
-            assert r["update_rows"] == [rank_rows] * MODEL_AXIS_ROUNDS, \
-                (name, r["update_rows"], rank_rows)
+            assert r["update_rows"] == want_rows, \
+                (name, r["update_rows"], want_rows)
             assert r["device"] == "cuda:0", r["device"]
             assert all(r["bitwise"]) and len(r["bitwise"]) == \
                 MODEL_AXIS_ROUNDS, (name, r["bitwise"])
@@ -3037,17 +3196,37 @@ def finish_model_axis(job: dict) -> dict:
         r0 = ranks[0]
         routed = ("; MoE routing bitwise the world of one's: "
                   f"{r0['routes_equal']}" if "routes_equal" in r0 else "")
+        held = ""
+        if r0["ctrl_errs"]:
+            held += (f", ctrl rel "
+                     f"{[f'{e:.3e}' for e in r0['ctrl_errs']]}")
+        if codec is not None:
+            held += (f", parameter elements off by more than 1e-5 of their "
+                     f"leaf's largest entry {r0['flips']}")
+        if r0["res_flips"]:
+            n_res = spec[2] * axis_rows(arch, layers)[0] * 128
+            held += (f", residual elements off {r0['res_flips']} of "
+                     f"{n_res:,} (flip-aware)")
         log(f"  {tag} vs its world of one after each round: params rel "
             f"{[f'{e:.3e}' for e in r0['errs']]}, metrics rel "
             f"{[{k: f'{v:.2e}' for k, v in m.items()} for m in r0['metric_errs']]}"
-            f"; ranks' params bitwise equal after each round: "
+            f"{held}; ranks' whole state bitwise equal after each round: "
             f"{ranks[1]['bitwise']}{routed}")
         assert len(r0["errs"]) == MODEL_AXIS_ROUNDS
-        assert all(e <= 1e-5 for e in r0["errs"]), (tag, r0["errs"])
+        if codec is None:
+            assert all(e <= 1e-5 for e in r0["errs"]), (tag, r0["errs"])
+        else:
+            assert len(r0["flips"]) == MODEL_AXIS_ROUNDS, tag
+        if AXIS_MODES[mode].get("error_feedback"):
+            assert len(r0["res_flips"]) == MODEL_AXIS_ROUNDS, tag
+        if mode == "through_aggregation":
+            assert len(r0["ctrl_errs"]) == MODEL_AXIS_ROUNDS, tag
+        assert all(e <= 1e-5 for e in r0["ctrl_errs"]), \
+            (tag, r0["ctrl_errs"])
         assert all(v <= 1e-4 for m in r0["metric_errs"]
                    for v in m.values()), (tag, r0["metric_errs"])
         assert r0.get("routes_equal", True), tag
-    log(f"  6x/6y: torchrun wall {secs:.1f} s from start to join")
+    log(f"  6x-6z: torchrun wall {secs:.1f} s from start to join")
     return counts
 
 
@@ -3086,12 +3265,12 @@ def _full_train(dev, fed, rounds, *, k=1, warm=None, on_records=None):
     what was allocated when the run started: the trainer's state and
     anything the caller keeps)."""
     import torch
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import get_arch, with_depth
     from repro_torch.core.trainer import FederatedTrainer
     from repro_torch.launch.train import build_synthetic_fed_data
     from repro_torch.models.model import build_model
 
-    cfg = get_arch("smollm-360m")
+    cfg = with_depth(get_arch("smollm-360m"), MAIN_LAYERS)
     tr = FederatedTrainer(build_model(cfg, dtype=torch.float32,
                                       loss_chunk=256), fed,
                           rounds_per_call=k, seed=0, device=dev)
@@ -3214,7 +3393,8 @@ def legacy_path(counts_of, dev, ref):
 
     counts_of.reset()
     state, hist = run_training(
-        "smollm-360m", rounds=LEGACY_VMAP_ROUNDS, cohort=COHORT,
+        "smollm-360m", layers=MAIN_LAYERS, rounds=LEGACY_VMAP_ROUNDS,
+        cohort=COHORT,
         client_batch=8, seq=128, algorithm="uga", meta=True, fused=False,
         seed=0, log_every=1, device=dev, on_records=on_records)
     counts[tag] = counts_of.read()
@@ -4669,13 +4849,17 @@ def time_serve_kernels(FK, FR, SK, SR, dev):
     return res
 
 
-def device_kernels(fn, reps: int = 5, attempts: int = 3) -> list:
+def device_kernels(fn, reps: int = 5, attempts: int = 5) -> list:
     """(name, mean ms) of each device kernel one ``fn()`` call launches,
-    in launch order, from ``reps`` calls under torch.profiler.
+    in first-launch order (a kernel launched k times a call appears k
+    times), from ``reps`` calls under torch.profiler.
 
-    CUPTI can drop a kernel record (one of 20 once on an H100), and then
-    the records do not split into ``reps`` equal calls: such a profile is
-    thrown away and taken again, up to ``attempts`` times in all."""
+    CUPTI can drop kernel records on an H100 (one of 20, twice in a row
+    once) or return none at all.  So the records are grouped by kernel
+    name: a kernel's launches a call are its records over ``reps``,
+    rounded, and its time is the mean over the records kept.  A profile
+    is taken again, up to ``attempts`` times in all, when it holds no
+    record or a kernel lost more than a tenth of its records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -4685,23 +4869,27 @@ def device_kernels(fn, reps: int = 5, attempts: int = 3) -> list:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA),
-                         key=lambda e: e.time_range.start)
-        per_call = len(kernels) // reps
-        if per_call and per_call * reps == len(kernels):
+        by_name = {}
+        for e in sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start):
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        per_call = {n: round(len(v) / reps) for n, v in by_name.items()}
+        lost = {n: per_call[n] * reps - len(v) for n, v in by_name.items()}
+        ok = by_name and all(per_call.values()) and all(
+            abs(x) <= max(1, reps // 10) for x in lost.values())
+        if ok:
             break
         log(f"  device_kernels: profile {attempt} of {attempts} recorded "
-            f"{len(kernels)} device kernels for {reps} calls, not a "
-            f"multiple; profiled again")
-    assert per_call and per_call * reps == len(kernels), len(kernels)
+            f"{sum(map(len, by_name.values()))} device kernels for {reps} "
+            f"calls ({ {n: len(v) for n, v in by_name.items()} }); "
+            f"profiled again")
+    assert ok, by_name
     out = []
-    for i in range(per_call):
-        evs = kernels[i::per_call]
-        name = evs[0].name.replace("(anonymous namespace)::", "")
+    for raw, us in by_name.items():
+        name = raw.replace("(anonymous namespace)::", "")
         name = name.replace("void ", "").split("(")[0]
-        out.append((name, sum(e.time_range.elapsed_us() for e in evs)
-                    / reps / 1e3))
+        out += [(name, sum(us) / len(us) / 1e3)] * per_call[raw]
     return out
 
 
@@ -5156,11 +5344,14 @@ def main() -> int:
 
     phase("[3,4] kernels against their plain versions (ssq, dw, dscal bitwise "
         "across launches; the codec kernels bitwise):")
-    shapes = [8, 24, 264, 4104, *PAPER_ROWS.values(), FULL_ROWS]
-    # rows 1-3 also at the rows a rank of phases 6x and 6y updates
+    shapes = [8, 24, 264, 4104, *PAPER_ROWS.values(), MAIN_ROWS, FULL_ROWS]
+    # rows 1-3 also at the rows a rank of phases 6x-6z updates, the
+    # backward rows at 6z's (where through_aggregation runs them)
     errs = check_kernels(K, R, O, dev, shapes + sorted(
         {axis_rows(*spec[:2])[1] for spec in MODEL_AXIS_RUNS.values()}))
-    errs.update(check_bwd_kernels(K, R, O, dev, shapes))
+    errs.update(check_bwd_kernels(K, R, O, dev, shapes + sorted(
+        {axis_rows(*spec[:2])[1] for spec in MODEL_AXIS_RUNS.values()
+         if spec[5] != "post"})))
     errs.update(check_codec_kernels(CK, CR, dev, shapes))
     phase("[3b] the serving prefill's kernels against their plain versions:")
     errs.update(check_serve_kernels(FK, FR, SK, SR, dev))
@@ -5193,10 +5384,16 @@ def main() -> int:
               f"6l's traces of {len(traces)} rounds without a run started "
               "beside it:")
         counts, ref = main_path(counts_of, dev)
-        phase("[6o] the tracked run at full width: phase 6's post vmap/sgd "
-              "run with the jsonl and csv trackers, the sanitizer and a "
-              "profiled, summarized round 1, held bitwise to it:")
-        counts.update(tracked_path(counts_of, dev, ref))
+        phase("[6o] the tracked run at full width, all 32 layers: phase "
+              "6's post vmap/sgd run untracked, then with the jsonl and csv "
+              "trackers, the sanitizer and a profiled, summarized round 1, "
+              "held bitwise to it:")
+        ref6o = post_vmap_reference(counts_of, dev, layers=TRACKED_LAYERS)
+        counts["6o:post:vmap/sgd untracked"] = ref6o["counts"]
+        log(f"kernels: 6o:post:vmap/sgd untracked "
+            f"{json.dumps(ref6o['counts'])}")
+        counts.update(tracked_path(counts_of, dev, ref6o))
+        del ref6o
         phase("[6l] the live roofline and the dry run: phase 6's post "
               "vmap/sgd run with roofline=True, held bitwise to it; the "
               "traces of five more of phase 6's rounds without a run; the "
@@ -5211,16 +5408,17 @@ def main() -> int:
           f"{CHUNK_COHORT}, chunk {CHUNK} ({CHUNK_SLOTS} slots), client "
           f"batch 8, seq 128:")
     counts.update(chunked_path(counts_of, dev))
-    phase("[6m] training through Mamba2 layers at full width: mamba2-780m, "
-        "UGA + FedMeta, fused, meta_mode='post', cohort 4, client batch 8, "
-        "seq 128 (one SSD chunk):")
+    phase(f"[6m] training through Mamba2 layers at full width: mamba2-780m "
+          f"at {MAMBA_LAYERS} layers, UGA + FedMeta, fused, "
+          "meta_mode='post', cohort 4, client batch 8, seq 128 (one SSD "
+          "chunk):")
     counts.update(mamba_path(counts_of, dev))
     phase(f"[6f] the synchronous fault model at full width: smollm-360m "
         f"vmap/sgd, {FAULT_ROUNDS} rounds, {FAULT_KW}:")
     counts.update(fault_path(counts_of, dev))
     phase("[6a] the buffered-async runtime at full width: smollm-360m, "
           "UGA + FedMeta, cohort 4, client batch 8, seq 128:")
-    counts.update(async_path(counts_of, dev))
+    counts.update(async_path(counts_of, dev, ref["peak_gib"]))
     phase("[6k] checkpoints of the full-width server state:")
     ckpt_path_check(dev)
     phase("[6g] the legacy tree engine at full width: smollm-360m, UGA + "
@@ -5251,10 +5449,11 @@ def main() -> int:
     counts.update(serve_flash_models(counts_of, dev,
                                      times["flash_attention_fwd"]["forms"]))
 
-    phase(f"[6x, 6y] the model axis, {MODEL_AXIS_ROUNDS} rounds each at "
+    phase(f"[6x, 6y, 6z] the model axis, {MODEL_AXIS_ROUNDS} rounds each at "
           "full width, depth cut: "
           + ", ".join(f"{a} at {n} layers (cohort {c}, chunks of {k}, lr "
-                      f"{lr})" for a, n, c, k, lr in MODEL_AXIS_RUNS.values())
+                      f"{lr}, {mode})"
+                      for a, n, c, k, lr, mode in MODEL_AXIS_RUNS.values())
           + "; each run's world of one in this process, then a (1, "
           f"{MODEL_AXIS}) mesh, two ranks on the one card (one torchrun "
           "job, gloo) started here and run beside phase 7:")
@@ -5274,7 +5473,7 @@ def main() -> int:
         small_reference_obs(counts_of, dev)
         small_reference_roofline_draws(counts_of, dev)
         small_reference_serve(dev)
-        phase("[6x, 6y] joined: the model axis's ranks after phase 7:")
+        phase("[6x, 6y, 6z] joined: the model axis's ranks after phase 7:")
         counts.update(finish_model_axis(model_axis))
     finally:
         stop_model_axis(model_axis)

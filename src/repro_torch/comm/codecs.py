@@ -35,10 +35,19 @@ the k-th value is implementation-defined, here as in ``lax.top_k``.
 
 Lossy codecs run in ``meta_mode='post'`` only: the hypergradient of
 ``through_aggregation`` would differentiate through the quantizer.
+
+On a model axis above 1 (tensor-parallel client compute) a process holds
+of a client's gradient the elements it owns, zero elsewhere, and the
+executor hands ``encode`` / ``encode_ef`` the group's :class:`AxisShare`:
+the statistic is the whole group's (int8's amax reduced by MAX, exact;
+sign1bit's sum of |g| by SUM; topk's k picked from every process's
+candidates), and what a process decodes at elements it does not own is
+dropped by the caller (:func:`repro_torch.core.aggregate.
+chunked_cohort_gradient_coded`).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,8 +55,27 @@ from repro_torch.core.flat import LANES, GroupSpec
 from repro_torch.core.registry import Registry
 from repro_torch.kernels.comm import ops as C
 
-__all__ = ["GradientCodec", "register_codec", "get_codec",
+__all__ = ["GradientCodec", "AxisShare", "register_codec", "get_codec",
            "available_codecs", "resolve_codec"]
+
+
+class AxisShare(NamedTuple):
+    """One process's share of a dtype group on a model axis above 1:
+    ``own`` is the group's ``(rows, 128)`` ownership mask (1.0 where the
+    process holds the element, 0.0 elsewhere and in the pad;
+    :meth:`repro_torch.sharding.tensor_parallel.ModelAxis.ownership`);
+    ``max(x)`` / ``sum(x)`` reduce a 0-d tensor over the axis; ``gather(x)``
+    concatenates every process's ``x`` on dim 0, in coordinate order."""
+    own: torch.Tensor
+    max: Callable
+    sum: Callable
+    gather: Callable
+
+
+def share_kw(share: Optional[AxisShare]) -> dict:
+    """``encode``'s keyword for ``share``: none without a model axis, so
+    a codec that takes no share still runs there."""
+    return {} if share is None else {"share": share}
 
 
 class GradientCodec:
@@ -55,8 +83,10 @@ class GradientCodec:
     name: str = "?"
     lossy: bool = True          # False: decode(encode(g)) == g exactly
 
-    def encode(self, group: GroupSpec, g: torch.Tensor) -> Any:
-        """(rows, 128) fp32 gradient -> transport payload."""
+    def encode(self, group: GroupSpec, g: torch.Tensor,
+               share: Optional[AxisShare] = None) -> Any:
+        """(rows, 128) fp32 gradient -> transport payload; ``share`` on a
+        model axis above 1 (the module docstring)."""
         raise NotImplementedError
 
     def decode(self, group: GroupSpec, payload: Any) -> torch.Tensor:
@@ -64,12 +94,13 @@ class GradientCodec:
         index >= group.size) decode to exact zero."""
         raise NotImplementedError
 
-    def encode_ef(self, group: GroupSpec, e: torch.Tensor
+    def encode_ef(self, group: GroupSpec, e: torch.Tensor,
+                  share: Optional[AxisShare] = None
                   ) -> Tuple[Any, torch.Tensor]:
         """Encode the error-compensated gradient ``e = g + residual``;
         returns (payload, new_residual = e - decode(payload)).  Codecs
         with a fused quantize-and-residual kernel override this."""
-        payload = self.encode(group, e)
+        payload = self.encode(group, e, **share_kw(share))
         return payload, e - self.decode(group, payload)
 
     def decode_fma(self, group: GroupSpec, acc: torch.Tensor, payload: Any,
@@ -148,16 +179,18 @@ class Int8Codec(GradientCodec):
         del fed
 
     @staticmethod
-    def _scale(g):
+    def _scale(g, share=None):
         amax = torch.linalg.vector_norm(g, float("inf"))
+        if share is not None:
+            amax = share.max(amax)
         return torch.clamp(amax, min=1e-30) / 127.0
 
-    def encode(self, group, g):
-        scale = self._scale(g)
+    def encode(self, group, g, share=None):
+        scale = self._scale(g, share)
         return {"q": C.quantize_i8(g, 1.0 / scale, scale), "scale": scale}
 
-    def encode_ef(self, group, e):
-        scale = self._scale(e)
+    def encode_ef(self, group, e, share=None):
+        scale = self._scale(e, share)
         q, err = C.quantize_i8(e, 1.0 / scale, scale, with_error=True)
         return {"q": q, "scale": scale}, err
 
@@ -184,15 +217,18 @@ class Sign1BitCodec(GradientCodec):
         del fed
 
     @staticmethod
-    def _mu(group, g):
-        return torch.sum(torch.abs(g)) / float(group.size)
+    def _mu(group, g, share=None):
+        total = torch.sum(torch.abs(g))
+        if share is not None:
+            total = share.sum(total)
+        return total / float(group.size)
 
-    def encode(self, group, g):
-        mu = self._mu(group, g)
+    def encode(self, group, g, share=None):
+        mu = self._mu(group, g, share)
         return {"bits": C.sign_pack(g, mu, group.size), "mu": mu}
 
-    def encode_ef(self, group, e):
-        mu = self._mu(group, e)
+    def encode_ef(self, group, e, share=None):
+        mu = self._mu(group, e, share)
         bits, err = C.sign_pack(e, mu, group.size, with_error=True)
         return {"bits": bits, "mu": mu}, err
 
@@ -227,9 +263,22 @@ class TopKCodec(GradientCodec):
     def _k(self, group: GroupSpec) -> int:
         return max(1, min(group.size, int(round(group.size * self._ratio))))
 
-    def encode(self, group, g):
+    def encode(self, group, g, share=None):
         flat = g.reshape(-1)
-        _, idx = torch.topk(torch.abs(flat), self._k(group), sorted=False)
+        k = self._k(group)
+        if share is None:
+            _, idx = torch.topk(torch.abs(flat), k, sorted=False)
+            return {"values": flat[idx], "indices": idx}
+        # a model axis: each process's k largest |g| among the elements it
+        # owns (never one it does not: those score -1), every process's
+        # candidates gathered, and the group's k picked from them by |g|,
+        # then by global index, the same pick on every process
+        score = torch.where(share.own.reshape(-1) > 0, torch.abs(flat), -1.0)
+        top, idx = torch.topk(score, k, sorted=False)
+        top, idx = share.gather(top), share.gather(idx)
+        by_index = torch.argsort(idx, stable=True)
+        top, idx = top[by_index], idx[by_index]
+        idx = idx[torch.argsort(top, descending=True, stable=True)[:k]]
         return {"values": flat[idx], "indices": idx}
 
     def decode(self, group, payload):

@@ -31,7 +31,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.comm.codecs import GradientCodec
+from repro_torch.comm.codecs import GradientCodec, share_kw
 from repro_torch.core import flat as flat_mod
 from repro_torch.core.flat import LANES, FlatSpec
 
@@ -51,29 +51,33 @@ def comm_bytes_per_client(codec: GradientCodec, spec: FlatSpec) -> int:
 def client_coded_accumulate(codec: GradientCodec, spec: FlatSpec,
                             accs: Sequence[torch.Tensor],
                             g_bufs: Sequence[torch.Tensor], w: torch.Tensor,
-                            residuals: Optional[Sequence[torch.Tensor]]
+                            residuals: Optional[Sequence[torch.Tensor]], *,
+                            shares: Optional[Sequence] = None
                             ) -> Tuple[tuple, Optional[tuple]]:
     """One client's uplink across all dtype groups.
 
     accs / g_bufs: per-group (rows, 128) fp32 accumulators / gradient; w:
     the client's normalized aggregation weight (a device scalar);
-    residuals: per-group error-feedback memory or None.  The accumulators,
-    and the residuals with error feedback, are updated in place; returns
-    (accs, residuals).
+    residuals: per-group error-feedback memory or None; shares: per-group
+    :class:`repro_torch.comm.codecs.AxisShare` on a model axis above 1,
+    else None.  The accumulators, and the residuals with error feedback,
+    are updated in place; returns (accs, residuals).
 
     A client with w == 0 did not transmit: its contribution is zero, and
     its residual must stay unchanged (overwriting it would drop the
     decoded part of its error as if the server had received it).  The
     gate is JAX's, ``t * r_new + (1 - t) * res`` with ``t = (w > 0)``."""
     new_accs = []
+    shares = [None] * len(spec.groups) if shares is None else shares
     if residuals is None:
-        for group, acc, g in zip(spec.groups, accs, g_bufs):
-            payload = codec.encode(group, g)
+        for group, acc, g, share in zip(spec.groups, accs, g_bufs, shares):
+            payload = codec.encode(group, g, **share_kw(share))
             new_accs.append(codec.decode_fma(group, acc, payload, w))
         return tuple(new_accs), None
     t = (w > 0).to(torch.float32)
-    for group, acc, g, res in zip(spec.groups, accs, g_bufs, residuals):
-        payload, r_new = codec.encode_ef(group, g + res)
+    for group, acc, g, res, share in zip(spec.groups, accs, g_bufs,
+                                         residuals, shares):
+        payload, r_new = codec.encode_ef(group, g + res, **share_kw(share))
         new_accs.append(codec.decode_fma(group, acc, payload, w))
         del payload
         res.mul_(1.0 - t).add_(r_new.mul_(t))

@@ -37,8 +37,8 @@ writing it where the caller says (a slot of the delta pool), so no
 Each arm has a coded form for a lossy uplink codec (``meta_mode='post'``
 only): :func:`cohort_gradient_stacked_coded` runs the codec stage over the
 filled stack, :func:`chunked_cohort_gradient_coded` (the scan cohort at
-chunk = 1) as each client's gradient arrives; both accumulate with the codec's decode instead of the aggregate
-or accumulate kernel.
+chunk = 1) as each client's gradient arrives; both accumulate with the
+codec's decode instead of the aggregate or accumulate kernel.
 
 Every arm takes ``rngs``: one client's dropout masks per cohort slot
 (:class:`repro_torch.core.dropout.ClientMasks`), handed to client k's
@@ -214,14 +214,19 @@ class CohortPart(NamedTuple):
     On a model axis above 1 (tensor-parallel client compute) a client's
     gradient is this process's shards: ``flatten(spec, g, out)`` writes
     them into the global flat layout (every element by its owner, zero
-    elsewhere) and ``reduce_model(accs)`` sums the accumulators over the
-    model axis in place, once, after tier 2."""
+    elsewhere) and ``reduce_model(tensors)`` sums tensors over the model
+    axis in place: the accumulators once, after tier 2; the backward's
+    ``dw``, partial over the owned elements, before ``gather``.
+    ``shares``: one :class:`repro_torch.comm.codecs.AxisShare` per flat
+    group (the ownership mask and the statistic's reductions) for a lossy
+    codec, None without a model axis."""
     start: int
     stop: int
     reduce: Callable
     gather: Callable
     flatten: Callable = flat_mod.flatten_tree
     reduce_model: Optional[Callable] = None
+    shares: Optional[list] = None
 
 
 def _chunk_cohort_inputs(cohort: int, n_slots: int, chunk: int,
@@ -289,7 +294,8 @@ def _stream_flat_chunks(client_update: Callable, w_t, cohort_batch, lr,
                         rngs, chunks: List[list], wn: torch.Tensor,
                         lwn: torch.Tensor, *, spec: FlatSpec, codec=None,
                         residuals: Optional[tuple] = None,
-                        flatten: Callable = flat_mod.flatten_tree
+                        flatten: Callable = flat_mod.flatten_tree,
+                        shares: Optional[list] = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The chunked streaming core (JAX's ``_stream_flat_chunks``), shared
     by the chunked and scan executors and by each process of the sharded
@@ -308,7 +314,8 @@ def _stream_flat_chunks(client_update: Callable, w_t, cohort_batch, lr,
     slot.  A chunk's pad member weighs 0 and, under error feedback, codes
     against a zero residual that the codec's transmitted-gate leaves
     zero.  ``flatten(spec, g, out)`` writes a client's gradient into the
-    flat layout (:attr:`CohortPart.flatten` under a model axis).  Returns
+    flat layout (:attr:`CohortPart.flatten` under a model axis), and
+    ``shares`` go to the codec (:attr:`CohortPart.shares`).  Returns
     (accs, loss)."""
     accs = flat_mod.zeros_flat(spec, wn.device)
     zero = wn.new_zeros((1,))
@@ -337,7 +344,8 @@ def _stream_flat_chunks(client_update: Callable, w_t, cohort_batch, lr,
                     else:
                         res_s = [stack[s] for stack in residuals]
                 accs, _ = client_coded_accumulate(codec, spec, accs, g_bufs,
-                                                  w_s.reshape(()), res_s)
+                                                  w_s.reshape(()), res_s,
+                                                  shares=shares)
             l_acc = l_acc + _slot_weight(lwn, s, zero).reshape(()) * \
                 losses[i].to(torch.float32)
         del g, losses, scratch, g_bufs
@@ -354,8 +362,13 @@ class _ChunkedCohort(torch.autograd.Function):
     per client, ``dwn_s = sum over groups <g_s, dG>`` (a pad member's too,
     then dropped), so one chunk of gradients is alive in either direction
     — JAX's ``jax.checkpoint`` of each chunk body; with ``part`` the slots'
-    ``dwn`` are gathered from every process.  The loss is an output
-    without a gradient: the caller's ``lwn`` weight it."""
+    ``dwn`` are gathered from every process.  On a model axis the re-run
+    clients' gradients are this process's shards, flattened as the
+    forward flattens them, and each ``dwn_s`` is a sum over the elements
+    this process owns: the model-axis sum makes it the whole <g_s, dG>
+    (the owned elements are disjoint), and only then are the slots
+    gathered over the data axis.  The loss is an output without a
+    gradient: the caller's ``lwn`` weight it."""
 
     @staticmethod
     def forward(ctx, wn, lwn, client_update, w_t, cohort_batch, lr, spec,
@@ -379,6 +392,7 @@ class _ChunkedCohort(torch.autograd.Function):
         client_update, w_t, cohort_batch, lr, spec, rngs, chunks, part = \
             ctx.args
         (wn,) = ctx.saved_tensors
+        flatten = flat_mod.flatten_tree if part is None else part.flatten
         dGs = [d.contiguous() for d in cts[:-1]]
         zero = wn.new_zeros((1,))
         dwn = []
@@ -387,7 +401,7 @@ class _ChunkedCohort(torch.autograd.Function):
                               members)
             scratch = [torch.empty_like(d) for d in dGs]
             for i, (s, _) in enumerate(members):
-                g_bufs = flat_mod.flatten_tree(spec, g[i], out=scratch)
+                g_bufs = flatten(spec, g[i], out=scratch)
                 dw = None
                 for j, dG in enumerate(dGs):
                     _, dw_j = K.accumulate_pass_bwd(
@@ -398,6 +412,8 @@ class _ChunkedCohort(torch.autograd.Function):
             del g, scratch, g_bufs
         dwn = torch.stack(dwn)
         if part is not None:
+            if part.reduce_model is not None:
+                part.reduce_model([dwn])
             dwn = part.gather(dwn)
         return (dwn,) + (None,) * 9
 
@@ -468,17 +484,42 @@ def chunked_cohort_gradient_coded(client_update: Callable, w_t,
     updated in place as its gradient is coded (with ``part``: only this
     process's clients' rows; the caller gathers the rest).  Pad slots
     weigh 0, so the codec's transmitted-gate leaves their zero residuals
-    as they were, and no cohort row holds them.  Returns (G_groups,
-    mean_loss, residuals)."""
+    as they were, and no cohort row holds them.
+
+    On a model axis (``part.shares``) a process codes the elements it
+    owns: the residual stacks are read there only (masked by ownership
+    first, so a client's error-compensated gradient is zero elsewhere, as
+    its flattened gradient is), each group's statistic is reduced over
+    the axis by the codec, and what the decode wrote and the residual
+    kept at the other elements (sign1bit's +-mu of a zero) is dropped by
+    the same mask before the model-axis sums: of the accumulators, after
+    tier 2, and of this process's clients' residual rows, so the stacks
+    come out whole.  Returns (G_groups, mean_loss, residuals)."""
     cohort = client_weights.shape[0]
     n_slots = cohort if n_slots is None else n_slots
     wn = _pad_slots(_normalized(client_weights), n_slots)
     chunks = _chunk_cohort_inputs(cohort, n_slots, chunk, part)
-    accs, loss = _stream_flat_chunks(client_update, w_t, cohort_batch, lr,
-                                     rngs, chunks, wn, wn, spec=spec,
-                                     codec=codec, residuals=residuals)
+    shares = None if part is None else part.shares
+    if shares is not None and residuals is not None:
+        for stack, share in zip(residuals, shares):
+            stack.mul_(share.own)
+    accs, loss = _stream_flat_chunks(
+        client_update, w_t, cohort_batch, lr, rngs, chunks, wn, wn,
+        spec=spec, codec=codec, residuals=residuals,
+        flatten=flat_mod.flatten_tree if part is None else part.flatten,
+        shares=shares)
     if part is not None:
+        if shares is not None:
+            for acc, share in zip(accs, shares):
+                acc.mul_(share.own)
         part.reduce(accs + [loss])
+        if part.reduce_model is not None:
+            part.reduce_model(accs)
+            if residuals is not None:
+                mine = slice(part.start, min(part.stop, cohort))
+                for stack, share in zip(residuals, shares):
+                    stack[mine].mul_(share.own)
+                part.reduce_model([stack[mine] for stack in residuals])
     return accs, loss, None if residuals is None else tuple(residuals)
 
 

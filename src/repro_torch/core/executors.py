@@ -57,8 +57,7 @@ client's update on the model group's parameter shards, its gradient
 written into the global flat layout by the owner of each element, and
 one model-axis sum of the accumulators a round; the server step then
 runs on this process's rows (:class:`FlatAggregate`'s ``mesh``).  Its
-coded, reweightable and tree forms on that axis are ROADMAP Queue 1 item
-7c.
+coded, reweightable and tree forms run there too.
 """
 from __future__ import annotations
 
@@ -165,8 +164,12 @@ class CohortExecutor:
             client_update, params, cohort_batch, client_weights, lr,
             spec=spec, codec=codec,
             residuals=None if comm is None else comm["residual"], rngs=rngs)
-        return (FlatAggregate(Gs, spec, sq_norm=None), loss,
+        return (self._flat_handle(Gs, spec), loss,
                 None if comm is None else {"residual": res})
+
+    def _flat_handle(self, Gs, spec: FlatSpec) -> FlatAggregate:
+        """The flat handle of streamed buffers (no pass-1 ||G||^2)."""
+        return FlatAggregate(Gs, spec, sq_norm=None)
 
     def _coded(self, client_update, params, cohort_batch, client_weights,
                lr, *, spec, codec, residuals, rngs):
@@ -327,7 +330,7 @@ class ChunkedExecutor(CohortExecutor):
             # aggregation dtype
             return TreeAggregate({n: g.to(self._agg_dtype) for n, g in
                                   unflatten_tree(spec, Gs).items()}), loss
-        return FlatAggregate(Gs, spec, sq_norm=None), loss
+        return self._flat_handle(Gs, spec), loss
 
     def reweightable(self, client_update, params, cohort_batch,
                      client_weights, lr, rngs=None):
@@ -337,7 +340,7 @@ class ChunkedExecutor(CohortExecutor):
             Gs, loss = self._flat(client_update, params, cohort_batch,
                                   weights, lr, spec=spec,
                                   loss_weights=client_weights, rngs=rngs)
-            return FlatAggregate(Gs, spec, sq_norm=None), loss
+            return self._flat_handle(Gs, spec), loss
 
         return ReweightableCohort(aggregate=aggregate)
 
@@ -377,18 +380,21 @@ class ShardedExecutor(ChunkedExecutor):
     accumulate kernel adds it over all rows, and after tier 2 one sum
     over the model axis makes the aggregate whole and exact (x + 0 = x).
     One sum a round, not one a client: a client's sum would carry the
-    whole flat buffer across the axis per slot.  The server step then
-    runs on this process's rows (:class:`FlatAggregate`).  Post mode, no
-    codec, the flat handle; the rest is ROADMAP Queue 1 item 7c.
+    whole flat buffer across the axis per slot.  The flat handle then
+    has the server step run on this process's rows (:class:`FlatAggregate`);
+    the tree handle is the whole buffers viewed as a tree, which the
+    ``legacy_tree`` engine steps whole on every process.
 
     Because tier 1 is the chunked core, the topology supports what the
     chunked executor does: ``through_aggregation`` (G is replicated after
     tier 2, so is dG; each process re-runs its own clients for their
-    ``dw_k`` and an ``all_gather`` returns the cohort's in client order)
+    ``dw_k`` — on a model axis over its shards, summed over the axis
+    first — and an ``all_gather`` returns the cohort's in client order)
     and lossy codecs (a client's error-feedback residual is updated on
-    the process that runs it, then broadcast from there, so every process
-    holds the cohort's residual state in cohort order for the server
-    state and checkpoints).
+    the process that runs it — on a model axis at the elements each
+    process owns, then summed over the axis — and broadcast from there,
+    so every process holds the cohort's residual state whole, in cohort
+    order, for the server state and checkpoints).
 
     Without a mesh the executor is the chunked core of one process, as in
     the JAX package."""
@@ -398,21 +404,17 @@ class ShardedExecutor(ChunkedExecutor):
         super().__init__(fed)
         self._mesh = mesh
         self._axis = None
+        self._shares = {}
 
     def bind_model_axis(self, axis) -> None:
         """The :class:`~repro_torch.sharding.tensor_parallel.ModelAxis`
         the round's client update runs over (the mesh's model axis)."""
         self._axis = axis
 
-    def _tensor_parallel(self, what: str) -> bool:
+    def _tensor_parallel(self) -> bool:
         from repro_torch.sharding.specs import model_size
         if model_size(self._mesh) <= 1:
             return False
-        if what != "flat":
-            raise NotImplementedError(
-                f"the sharded executor's {what} form on a model axis above "
-                "1 is not yet ported to repro_torch (ROADMAP Queue 1 item "
-                "7c)")
         if self._axis is None:
             raise ValueError(
                 "a model axis above 1 runs the client update on parameter "
@@ -420,8 +422,26 @@ class ShardedExecutor(ChunkedExecutor):
                 "mesh=), which binds the model axis")
         return True
 
-    def _part(self, cohort: int):
-        """(n_slots, CohortPart) of this process's data coordinate."""
+    def _axis_shares(self, spec: FlatSpec, device) -> list:
+        """One :class:`repro_torch.comm.codecs.AxisShare` per flat group,
+        its ownership mask built once per layout."""
+        from repro_torch.comm.codecs import AxisShare
+        from repro_torch.sharding.tensor_parallel import (all_gather_cat,
+                                                          all_reduce_copy)
+        if spec not in self._shares:
+            group = self._axis.group
+            self._shares = {spec: [AxisShare(
+                own=own,
+                max=lambda x: all_reduce_copy(
+                    x, group, torch.distributed.ReduceOp.MAX),
+                sum=lambda x: all_reduce_copy(x, group),
+                gather=lambda x: all_gather_cat(x, 0, group))
+                for own in self._axis.ownership(spec, device)]}
+        return self._shares[spec]
+
+    def _part(self, cohort: int, *, spec=None, device=None):
+        """(n_slots, CohortPart) of this process's data coordinate; with
+        ``spec`` on a model axis, the codec's shares too."""
         from repro_torch.sharding.specs import cohort_split
         mesh = self._mesh
         per_shard, n_slots = cohort_split(cohort, mesh)
@@ -438,12 +458,21 @@ class ShardedExecutor(ChunkedExecutor):
             torch.distributed.all_gather(parts, dw.contiguous(), group=group)
             return torch.cat(parts)
 
-        if not self._tensor_parallel("flat"):
+        if not self._tensor_parallel():
             return n_slots, CohortPart(start, start + per_shard, reduce,
                                        gather)
-        return n_slots, CohortPart(start, start + per_shard, reduce, gather,
-                                   flatten=self._axis.flatten_into,
-                                   reduce_model=self._axis.all_reduce_)
+        return n_slots, CohortPart(
+            start, start + per_shard, reduce, gather,
+            flatten=self._axis.flatten_into,
+            reduce_model=self._axis.all_reduce_,
+            shares=None if spec is None else self._axis_shares(spec, device))
+
+    def _flat_handle(self, Gs, spec):
+        if not self._tensor_parallel():
+            return super()._flat_handle(Gs, spec)
+        from repro_torch.sharding.specs import flat_group_pspecs
+        return FlatAggregate(Gs, with_pspecs(spec, flat_group_pspecs(
+            spec, self._mesh)), sq_norm=None, mesh=self._mesh)
 
     def _flat(self, client_update, params, cohort_batch, client_weights,
               lr, *, spec, loss_weights=None, rngs=None):
@@ -461,33 +490,17 @@ class ShardedExecutor(ChunkedExecutor):
             loss_weights=loss_weights, rngs=rngs, n_slots=n_slots,
             part=part)
 
-    def run(self, client_update, params, cohort_batch, client_weights, lr,
-            rngs=None, *, kind="flat"):
-        if not self._tensor_parallel(kind):
-            return super().run(client_update, params, cohort_batch,
-                               client_weights, lr, rngs, kind=kind)
-        from repro_torch.sharding.specs import flat_group_pspecs
-        spec = make_flat_spec(params)
-        Gs, loss = self._flat(client_update, params, cohort_batch,
-                              client_weights, lr, spec=spec, rngs=rngs)
-        spec = with_pspecs(spec, flat_group_pspecs(spec, self._mesh))
-        return FlatAggregate(Gs, spec, sq_norm=None, mesh=self._mesh), loss
-
-    def reweightable(self, client_update, params, cohort_batch,
-                     client_weights, lr, rngs=None):
-        self._tensor_parallel("reweightable")
-        return super().reweightable(client_update, params, cohort_batch,
-                                    client_weights, lr, rngs)
-
     def _coded(self, client_update, params, cohort_batch, client_weights,
                lr, *, spec, codec, residuals, rngs):
-        self._tensor_parallel("coded")
         if self._mesh is None:
             return super()._coded(client_update, params, cohort_batch,
                                   client_weights, lr, spec=spec, codec=codec,
                                   residuals=residuals, rngs=rngs)
         cohort = client_weights.shape[0]
-        n_slots, part = self._part(cohort)
+        n_slots, part = self._part(cohort, spec=spec,
+                                   device=client_weights.device)
+        if part.reduce_model is not None:       # this process's shards
+            params = self._axis.shard(params)
         Gs, loss, res = chunked_cohort_gradient_coded(
             client_update, params, cohort_batch, client_weights, lr,
             spec=spec, chunk=self._chunk_for(cohort), codec=codec,

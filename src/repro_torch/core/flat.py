@@ -151,31 +151,44 @@ def with_pspecs(spec: FlatSpec, pspecs: Sequence[slice]) -> FlatSpec:
         dataclasses.replace(g, pspec=p) for g, p in zip(spec.groups, pspecs)))
 
 
+def split_groups(spec: FlatSpec) -> List[bool]:
+    """Whether each group's row slice (:func:`with_pspecs`) is a part of
+    its rows, so the group is split over the model axis; a group without
+    a slice, or whose slice is all its rows (the axis does not divide
+    them), is whole on every process."""
+    return [g.pspec is not None and len(range(g.rows)[g.pspec]) != g.rows
+            for g in spec.groups]
+
+
 def constrain_groups(spec: FlatSpec, bufs: Sequence[torch.Tensor],
                      mesh=None) -> List[torch.Tensor]:
-    """This process's rows of each group buffer (a view), by the group's
-    row slice; a group without one, or no mesh, stays whole.  JAX's
+    """This process's rows of each split group buffer (a view), by the
+    group's row slice; a whole group, or no mesh, stays whole.  JAX's
     ``with_sharding_constraint`` keeps the rows partitioned; here the
-    process holds them."""
+    process holds them.  Differentiable: the rows enter through the
+    model axis's ``split``, whose backward all-gathers their cotangents,
+    so a whole buffer's cotangent is whole on every process."""
     if mesh is None:
         return list(bufs)
-    return [b if g.pspec is None else b[g.pspec]
-            for g, b in zip(spec.groups, bufs)]
+    from repro_torch.sharding.tensor_parallel import row_axis
+    axis = row_axis(mesh)
+    return [axis.split(b, 0) if s else b
+            for s, b in zip(split_groups(spec), bufs)]
 
 
 def gather_groups(spec: FlatSpec, parts: Sequence[torch.Tensor],
                   mesh=None) -> List[torch.Tensor]:
-    """:func:`constrain_groups`' inverse: each group's rows from every
-    process of the model axis, concatenated in coordinate order, so every
-    process holds the whole buffers, bitwise the same.  A group whose
-    slice is all its rows (the axis does not divide them) is whole
-    already."""
+    """:func:`constrain_groups`' inverse: each split group's rows from
+    every process of the model axis, concatenated in coordinate order, so
+    every process holds the whole buffers, bitwise the same.
+    Differentiable: the backward of the axis's ``gather`` is this
+    process's rows of the (whole, replicated) cotangent."""
     if mesh is None:
         return list(parts)
-    from repro_torch.sharding.tensor_parallel import all_gather_cat
-    return [p if g.pspec is None or p.shape[0] == g.rows
-            else all_gather_cat(p, 0, mesh.groups["model"])
-            for g, p in zip(spec.groups, parts)]
+    from repro_torch.sharding.tensor_parallel import row_axis
+    axis = row_axis(mesh)
+    return [axis.gather(p, 0) if s else p
+            for s, p in zip(split_groups(spec), parts)]
 
 
 def flat_sq_norm(bufs: Sequence[torch.Tensor]) -> torch.Tensor:

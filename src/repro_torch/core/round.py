@@ -29,12 +29,12 @@ a ``mesh`` (:mod:`repro_torch.launch.mesh`) selects the two-tier sharded
 one, whose processes each run a slice of the cohort and hold the whole
 server state, replicated; on a model axis above 1 the processes of a
 model group run each client tensor-parallel over their parameter shards
-(:mod:`repro_torch.sharding.tensor_parallel`: the dense GQA stacks,
-``meta_mode='post'``, no codec, the ``fused_flat`` engine; the rest
-raises naming ROADMAP Queue 1 item 7c).  The round counter lives on the host (``state["round"]`` is an
-int), so the decayed learning rates are host numbers computed in fp32 as
-the JAX round computes them on the device; metrics come back as device
-scalars.
+(:mod:`repro_torch.sharding.tensor_parallel`: every transformer config,
+both meta modes, the lossy codecs, both synchronous engines; the
+buffered-async runtime raises naming ROADMAP Queue 1 item 7c).  The
+round counter lives on the host (``state["round"]`` is an int), so the
+decayed learning rates are host numbers computed in fp32 as the JAX round
+computes them on the device; metrics come back as device scalars.
 
 Partial participation and client faults: under ``fed.participation < 1``
 or an active fault config the round takes ``draws`` (:class:`RoundDraws`,
@@ -253,7 +253,7 @@ def make_federated_round(model: Model, fed: FedConfig, *,
     eng = resolve_engine(fed, engine=engine)
     tensor_parallel = model_size(mesh) > 1
     if tensor_parallel:
-        check_supported(model, fed, engine=eng, codec=resolve_codec(fed))
+        check_supported(model, engine=eng)
     if eng.is_async:
         if executor is not None or mesh is not None:
             raise ValueError(

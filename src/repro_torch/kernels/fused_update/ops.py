@@ -185,10 +185,15 @@ def flat_apply_groups(spec: FlatSpec, G_groups, gn: torch.Tensor,
     or a number), the parameters and the optimizer state.  With a
     ``mesh`` (a model axis above 1; ``spec`` carries each group's row
     slice, :func:`repro_torch.core.flat.with_pspecs`) the update kernel
-    runs on this process's rows of the whole buffers and an all-gather
+    runs on this process's rows of each split group and an all-gather
     over the model axis returns the whole new parameters and slots to
-    every process, bitwise the same; no backward.  Returns (new_params,
-    new_opt_state, gn_after_clip)."""
+    every process, bitwise the same.  The backward runs the update's
+    backward kernel on the same rows: the rows' cotangents are
+    all-gathered whole (:func:`repro_torch.core.flat.constrain_groups`),
+    and the scalars enter the split groups through the axis's ``copy``,
+    so their cotangents, partial over this process's rows, are summed
+    over the axis before they reach ``gn``, ``lr`` and, through ``gn``,
+    ``G_groups``.  Returns (new_params, new_opt_state, gn_after_clip)."""
     device = gn.device
     p_groups = flat_mod.flatten_tree(spec, params)
     if clip_norm > 0:
@@ -210,10 +215,16 @@ def flat_apply_groups(spec: FlatSpec, G_groups, gn: torch.Tensor,
     hp = dict(opt=opt, momentum=momentum, b1=b1, b2=b2, eps=eps)
     rows = lambda bufs: (bufs if mesh is None or bufs[0] is None else
                          flat_mod.constrain_groups(spec, bufs, mesh))
+    split = [False] * len(spec.groups)
+    if mesh is not None:
+        from repro_torch.sharding.tensor_parallel import row_axis
+        split = flat_mod.split_groups(spec)
+        scalars_rows = row_axis(mesh).copy(scalars)
     new_p, new_m, new_v = [], [], []
-    for G, p, m, v in zip(rows(G_groups), rows(p_groups), rows(ms),
-                          rows(vs)):
-        np_, nm, nv = _Update.apply(G, p, scalars, m, v, hp)
+    for G, p, m, v, s in zip(rows(G_groups), rows(p_groups), rows(ms),
+                             rows(vs), split):
+        np_, nm, nv = _Update.apply(G, p, scalars_rows if s else scalars, m,
+                                    v, hp)
         new_p.append(np_)
         new_m.append(nm)
         new_v.append(nv)

@@ -44,9 +44,10 @@ parameter shards and the server step over their rows of the flat
 buffers (``python -m torch.distributed.run --nproc-per-node 2 -m
 repro_torch.launch.train --arch smollm-360m --fused --executor sharded
 --mesh-model 2``; on one card the two ranks share it over gloo, by the
-mesh's backend rule).  Every architecture runs so, under
-``meta_mode='post'``, no codec, the fused engine; the rest raises naming
-ROADMAP Queue 1 item 7c.
+mesh's backend rule).  Every architecture runs so, in both meta modes,
+with or without a lossy codec (and error feedback), on either
+synchronous engine (``--fused`` or the ``legacy_tree`` default);
+``--engine buffered_async`` raises naming ROADMAP Queue 1 item 7c.
 
 Every ``--arch`` trains, ``mamba2-780m`` and the ``-smoke`` SSM and hybrid
 configs included, the encoder configs on seeded ``enc_embeds``.  ``--engine buffered_async`` runs the buffered-async
@@ -81,7 +82,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.comm import resolve_codec
 from repro_torch.comm.codecs import available_codecs
 from repro_torch.configs import FedConfig, get_arch, with_depth
 from repro_torch.configs.base import SERVER_OPTS
@@ -212,8 +212,7 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                                     seed=seed)
     mesh = None
     if mesh_model > 1:              # before any process group starts
-        check_supported(model, fed, engine=resolve_engine(fed),
-                        codec=resolve_codec(fed))
+        check_supported(model, engine=resolve_engine(fed))
     if executor == "sharded":
         # two-tier aggregation over every process of the job: the cohort
         # splits across the mesh's data axis, each process streams its
@@ -317,9 +316,10 @@ def main(argv=None):
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="model-axis size of the --executor sharded mesh "
                          "(the data axis takes the remaining processes): "
-                         "tensor-parallel client compute, post mode, no "
-                         "codec, --fused; the rest is ROADMAP Queue 1 "
-                         "item 7c")
+                         "tensor-parallel client compute under either "
+                         "meta mode, any codec and either synchronous "
+                         "engine; --engine buffered_async is ROADMAP "
+                         "Queue 1 item 7c")
     ap.add_argument("--fused", action="store_true",
                     help="fused flat-buffer CUDA server engine (default: "
                          "the legacy_tree engine)")

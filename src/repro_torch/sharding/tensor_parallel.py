@@ -57,11 +57,19 @@ whole leaves exact: replicated compute that feeds a process's own part
 of the work (its heads, its experts) enters it through ``copy`` (or, a
 whole leaf sliced to that part, ``split``), so its cotangent, and every
 whole leaf's gradient upstream of it, is whole on every process.
-Supported under ``meta_mode='post'`` with no codec on the synchronous
-``fused_flat`` engine; ``through_aggregation``, codecs, ``legacy_tree``,
-the buffered-async runtime and the prefill over the axis raise
-(:func:`check_supported`, ``transformer._apply_layer``), naming ROADMAP
-Queue 1 item 7c.
+
+Every synchronous mode runs on the axis: ``meta_mode='post'`` and
+``'through_aggregation'`` (the server step on each process's rows is
+differentiable: :func:`repro_torch.core.flat.constrain_groups` is a
+``split``, :func:`~repro_torch.core.flat.gather_groups` a ``gather``, and
+the step's scalars enter the split rows through ``copy``, so their
+cotangents, partial over a process's rows, are summed over the axis), the
+lossy uplink codecs with and without error feedback (each group's
+statistic reduced over the axis, the decode and the residual kept only
+where the process owns the element: :meth:`ModelAxis.ownership`), and
+both engines, ``fused_flat`` and ``legacy_tree``.  The buffered-async
+runtime and the prefill over the axis raise (:func:`check_supported`,
+``transformer._apply_layer``), naming ROADMAP Queue 1 item 7c.
 
 On two processes sharing a card (the mesh's shared-card rule) the group
 is gloo, which carries CUDA tensors through host memory itself: every
@@ -316,6 +324,15 @@ class ModelAxis:
                       else s.clone())
         return out
 
+    def _owned(self, leaf, flat: torch.Tensor) -> Optional[torch.Tensor]:
+        """The elements of ``leaf`` this process owns, a view into its
+        group's flat buffer ``flat``: its part of a split leaf, a
+        replicated leaf on model coordinate 0; None elsewhere."""
+        whole = flat[leaf.offset:leaf.offset + leaf.size].view(leaf.shape)
+        if any(e is not None for e in self.placements[leaf.name]):
+            return whole[self.slices(leaf.name, leaf.shape)]
+        return whole if self.coord == 0 else None
+
     def flatten_into(self, spec, shards: Dict[str, torch.Tensor],
                      out: Sequence[torch.Tensor]) -> list:
         """A client's gradient shards into the GLOBAL flat layout ``out``
@@ -327,19 +344,41 @@ class ModelAxis:
             buf.zero_()
             flat = buf.view(-1)
             for leaf in g.leaves:
-                whole = flat[leaf.offset:leaf.offset + leaf.size].view(
-                    leaf.shape)
-                if any(e is not None for e in self.placements[leaf.name]):
-                    whole[self.slices(leaf.name, leaf.shape)].copy_(
-                        shards[leaf.name])
-                elif self.coord == 0:
-                    whole.copy_(shards[leaf.name])
+                dst = self._owned(leaf, flat)
+                if dst is not None:
+                    dst.copy_(shards[leaf.name])
         return list(out)
+
+    def ownership(self, spec, device=None) -> list:
+        """One ``(rows, 128)`` fp32 buffer per flat group of ``spec``: 1
+        where :meth:`flatten_into` writes this process's elements, 0
+        elsewhere (the pad too).  The masks of the processes of a model
+        group sum to 1 at every element but the pad: what the codecs'
+        decode and residual are masked by, taken from the placement,
+        never from the values."""
+        out = []
+        for g in spec.groups:
+            buf = torch.zeros((g.rows, 128), dtype=torch.float32,
+                              device=device)
+            flat = buf.view(-1)
+            for leaf in g.leaves:
+                dst = self._owned(leaf, flat)
+                if dst is not None:
+                    dst.fill_(1.0)
+            out.append(buf)
+        return out
 
     def all_reduce_(self, tensors: Sequence[torch.Tensor]) -> None:
         """Sum each tensor over the model axis, in place."""
         for t in tensors:
             t.copy_(all_reduce_copy(t, self.group))
+
+
+def row_axis(mesh: Mesh) -> ModelAxis:
+    """``mesh``'s model axis without parameter placements: what the flat
+    buffers' row split over it (the server step's rows) needs."""
+    return ModelAxis(mesh.groups["model"], mesh.shape["model"],
+                     mesh.coords["model"])
 
 
 def _axis_mesh(axis: ModelAxis) -> Mesh:
@@ -423,20 +462,17 @@ def vocab_xent(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 # What the model axis runs
 # ---------------------------------------------------------------------------
-def check_supported(model, fed, *, engine, codec) -> None:
+def check_supported(model, *, engine) -> None:
     """Raise, naming ROADMAP Queue 1 item 7c, for what tensor-parallel
-    client compute does not run yet."""
+    client compute does not run yet: a model that is not a transformer
+    config, and the buffered-async runtime."""
     from repro_torch.configs.base import ArchConfig
     cfg = getattr(model, "cfg", None)
     what = None
     if not isinstance(cfg, ArchConfig):
         what = f"model {model.name!r} (not a transformer config)"
-    elif fed.meta and fed.meta_mode != "post":
-        what = f"meta_mode={fed.meta_mode!r} (post runs)"
-    elif codec.lossy:
-        what = f"codec={fed.codec!r} (codec='none' runs)"
-    elif engine.is_async or engine.name != "fused_flat":
-        what = f"engine {engine.name!r} (fused_flat runs)"
+    elif engine.is_async:
+        what = f"engine {engine.name!r} (the synchronous engines run)"
     if what is not None:
         raise NotImplementedError(
             f"a model axis above 1 (tensor-parallel client compute) with "

@@ -157,7 +157,8 @@ def model(inputs, mesh, axis):
 
 def refusals(mesh, p0):
     """What the model axis builds and what still refuses on it: the
-    layer kinds build (``"accepted"``), the rest must name item 7c."""
+    layer kinds, through_aggregation, a lossy codec and legacy_tree build
+    (``"accepted"``), the buffered-async runtime must name item 7c."""
     from repro_torch.configs import FedConfig, get_arch
     from repro_torch.core.round import make_federated_round
     from repro_torch.models.model import build_model

@@ -119,7 +119,7 @@ def test_sharded_flash_decode_matches_jax(two_ranks, one_rank):
 def test_model_axis_raises_naming_item_7b(two_ranks):
     """What still refuses a model axis above 1 names item 7c: a model that
     is not a transformer config (the MLP in the ranks) and, from the CLI
-    before any process group starts, the through_aggregation meta mode."""
+    before any process group starts, the buffered-async engine."""
     for res in two_ranks:
         assert "ROADMAP Queue 1 item 7c" in res["model_axis"]
     from repro_torch.launch.train import main
@@ -127,7 +127,7 @@ def test_model_axis_raises_naming_item_7b(two_ranks):
         main(["--arch", "smollm-360m-smoke", "--fused", "--rounds", "1",
               "--cohort", "2", "--client-batch", "4", "--seq", "8",
               "--device", "cpu", "--executor", "sharded",
-              "--mesh-model", "2", "--meta-mode", "through_aggregation"])
+              "--mesh-model", "2", "--engine", "buffered_async"])
 
 
 def _mesh(data, model, d, m):

@@ -24,9 +24,9 @@ two on a (1, 2) mesh, of three on (1, 3) and of four on (2, 2).
     JAX's unsharded trainer and the port's world of one: parameters and
     optimizer slots 1e-5, metrics 1e-4 (ROADMAP's tolerances); every
     rank's state bitwise the same.
-  * The layer kinds build a round on the axis; what still refuses names
-    ROADMAP Queue 1 item 7c; a (1, 2) run's checkpoint restores in a
-    world of one, bitwise.
+  * The layer kinds and the modes build a round on the axis; what still
+    refuses names ROADMAP Queue 1 item 7c; a (1, 2) run's checkpoint
+    restores in a world of one, bitwise.
 """
 import socket
 
@@ -262,12 +262,15 @@ def test_two_sharded_rounds(request, references, mesh, opt, chunk):
             assert torch.equal(torch.as_tensor(a), torch.as_tensor(b)), n
 
 
-BUILDS = ("mamba", "moe", "mla", "encoder")
+BUILDS = ("mamba", "moe", "mla", "encoder", "through_aggregation", "codec",
+          "legacy_tree")
 
 
 def test_refusals_name_item_7c(mesh_1x2):
     """Every layer kind builds a round on the axis (mamba, MoE, MLA, the
-    encoder and cross layers); what still refuses names item 7c."""
+    encoder and cross layers), and so do the modes (through_aggregation,
+    a lossy codec, the legacy_tree engine); what still refuses (the
+    buffered-async runtime) names item 7c."""
     _, ranks = mesh_1x2
     for res in ranks:
         assert set(BUILDS) < set(res["refusals"])

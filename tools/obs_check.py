@@ -89,7 +89,7 @@ def main() -> int:
         cs.log(f"obs_check: done in {time.perf_counter() - t0:.1f} s")
         return 0
     counts_of = cs.Counts(K, CK, FK, SK)
-    ref = cs.post_vmap_reference(counts_of, dev)
+    ref = cs.post_vmap_reference(counts_of, dev, layers=cs.TRACKED_LAYERS)
     cs.log(f"  phase 6's post vmap/sgd run: round walls {ref['walls']}")
     cs.log(f"[6o] at {time.perf_counter() - t0:.1f} s")
     cs.tracked_path(counts_of, dev, ref)
