@@ -84,7 +84,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (``chip_smoke.py --dry-only``, started with them)
      (``repro_torch.launch.dryrun.run_one``) of smollm-360m on its four
      shapes and mamba2-780m on prefill_32k, flash charged 32 launches and
-     the SSD scan 48, each record printed;
+     the SSD scan 48, then rank 0 of the (16, 16) production mesh:
+     smollm-360m's decode_32k and prefill_32k (flash 32 at all 15
+     heads), mamba2-780m's prefill_32k (the SSD scan 48 at 3 heads a
+     rank) and deepseek-v2-lite-16b's decode_32k, the heads each launch
+     is charged at held too, each record printed;
   6c. the chunked streaming cohort and the sharded executor at full
      width: smollm-360m, sgd, the paper's cohort of 10 in chunks of 4 (12
      slots, 2 of them weight-0 pads): post 2 rounds, through_aggregation
@@ -121,6 +125,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      peaks and the time in the model-axis collectives printed.  The job
      is started before phase 7 and joined after it (phase 3 also holds
      rows 1-3 at each run's rank rows, rows 4-6 at 6z's);
+  6v. serving over the model axis at full width, depth cut
+     (``SERVE_AXIS_RUNS``): smollm-360m at 4 layers (whole heads, the KV
+     split by sequence), deepseek-v2-lite-16b at 1 (MLA on 8 of 16 heads,
+     flash at (192, 128), the experts split), mamba2-780m at 4 (the SSD
+     scan on 24 of 48 heads) and whisper-large-v3 at 2 decoder and 2
+     encoder layers (flash on 10 of 20 heads, the cross keys split);
+     batch 8, prefill 1024 into a cache of 1040, 8 greedy decode steps;
+     each request's world of one in this process, then on the (1, 2)
+     mesh in 6x-6z's torchrun job after their runs: the prefill's and
+     each step's logits and each rank's cache part (after the prefill and
+     after the last step, by the placement rules) within 1e-5 of the
+     world of one, the greedy tokens equal, each rank's launches exactly
+     (flash one a layer of attention on its heads, the SSD scan one a
+     mamba layer, none in decode); prefill and decode walls, peaks and
+     the time in the collectives printed;
   6m. training through Mamba2 layers at full width: ``run_training`` on
      mamba2-780m cut to ``MAMBA_LAYERS`` = 12 of its 48 layers
      (252,884,160 parameters), the same shape: vmap/sgd 2 rounds and
@@ -1545,17 +1564,29 @@ def tracked_path(counts_of, dev, ref):
 # its own, in parallel (a trace is host work), held to the launches of
 # one round of their path: with the live run every fused-update and codec
 # kernel is charged.  The dry run in a process of its own too:
-# smollm-360m on the four shapes and mamba2-780m's prefill, flash charged
-# 32 launches and the SSD scan 48.  All six start before phase 6.
+# smollm-360m on the four shapes and mamba2-780m's prefill on one card,
+# flash charged 32 launches and the SSD scan 48; then rank 0 of the JAX
+# package's (16, 16) production mesh: smollm-360m's decode_32k and
+# prefill_32k (flash 32 launches at all 15 heads: 16 does not divide
+# them), mamba2-780m's prefill_32k (the SSD scan 48 at 3 heads a rank)
+# and deepseek-v2-lite-16b's decode_32k.  All six start before phase 6.
 ROOFLINE_TRACED = ("post:scan/adam", "through_aggregation:vmap/sgd",
                    "through_aggregation:scan/adam", "int8+ef:scan/adam",
                    "sign1bit+ef:vmap/sgd")
+# (arch, shape, mesh) -> (launches, the heads each launch is charged at)
 ROOFLINE_DRY = {
-    ("smollm-360m", "train_4k"): {"aggregate_pass": 1, "update_pass": 1},
-    ("smollm-360m", "prefill_32k"): {"flash_attention_fwd": 32},
-    ("smollm-360m", "decode_32k"): {},
-    ("smollm-360m", "long_500k"): {},
-    ("mamba2-780m", "prefill_32k"): {"ssd_scan_fwd": 48},
+    ("smollm-360m", "train_4k", "1x1"): ({"aggregate_pass": 1,
+                                          "update_pass": 1}, []),
+    ("smollm-360m", "prefill_32k", "1x1"): ({"flash_attention_fwd": 32},
+                                            [15]),
+    ("smollm-360m", "decode_32k", "1x1"): ({}, []),
+    ("smollm-360m", "long_500k", "1x1"): ({}, []),
+    ("mamba2-780m", "prefill_32k", "1x1"): ({"ssd_scan_fwd": 48}, [48]),
+    ("smollm-360m", "decode_32k", "16x16"): ({}, []),
+    ("smollm-360m", "prefill_32k", "16x16"): ({"flash_attention_fwd": 32},
+                                              [15]),
+    ("mamba2-780m", "prefill_32k", "16x16"): ({"ssd_scan_fwd": 48}, [3]),
+    ("deepseek-v2-lite-16b", "decode_32k", "16x16"): ({}, []),
 }
 
 
@@ -1621,11 +1652,27 @@ DRY = "dryrun"
 
 
 def dry_only() -> dict:
-    """Phase 6l's dry-run worker: the records of ``ROOFLINE_DRY``."""
+    """Phase 6l's dry-run worker: the records of ``ROOFLINE_DRY``, each
+    with the heads every kernel launch was charged at (``heads``)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.launch.dryrun import run_one
+    heads = []
+
+    def record(fn):
+        def cost(B, H, *a, **k):
+            heads.append(H)
+            return fn(B, H, *a, **k)
+        return cost
+    FK.attention_cost = record(FK.attention_cost)
+    SK.ssd_cost = record(SK.ssd_cost)
     t = time.perf_counter()
-    recs = {f"{a} x {s}": run_one(a, s, verbose=False)
-            for a, s in ROOFLINE_DRY}
+    recs = {}
+    for a, s, m in ROOFLINE_DRY:
+        heads.clear()
+        recs[f"{a} x {s} @ {m}"] = rec = run_one(a, s, mesh=m,
+                                                 verbose=False)
+        rec["heads"] = sorted(set(heads))
     return {"records": recs, "seconds": time.perf_counter() - t}
 
 
@@ -1737,10 +1784,12 @@ def roofline_path(counts_of, dev, ref, procs):
         out, _ = procs[DRY].communicate(timeout=600)
         assert procs[DRY].returncode == 0, procs[DRY].returncode
         dry = json.loads(out.strip().splitlines()[-1])
-        for (arch, shape), want in ROOFLINE_DRY.items():
-            rec = dry["records"][f"{arch} x {shape}"]
-            log(f"  6l dryrun {arch} x {shape}: {json.dumps(rec)}")
+        for (arch, shape, mesh), (want, heads) in ROOFLINE_DRY.items():
+            rec = dry["records"][f"{arch} x {shape} @ {mesh}"]
+            log(f"  6l dryrun {arch} x {shape} @ {mesh}: "
+                f"{json.dumps(rec)}")
             assert rec["launches"] == want, (arch, shape, rec["launches"])
+            assert rec["heads"] == heads, (arch, shape, mesh, rec["heads"])
             assert rec["roofline"]["bottleneck"] in (
                 "compute", "memory", "collective"), rec["roofline"]
         log(f"  6l dryrun: {len(ROOFLINE_DRY)} pairs in "
@@ -3072,13 +3121,55 @@ def model_axis_rank(ref_dir: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         dist.barrier()
+    serve_runs = os.path.join(ref_dir, "serve.json")
+    if os.path.exists(serve_runs):
+        # phase 6v: serving on the same (1, 2) mesh
+        from repro_torch.models import attention as TA
+        from repro_torch.sharding import longctx as LC
+        merge = {}
+
+        def timed_merge(fn):
+            def call(m, *a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(m, *a, **k)
+                torch.cuda.synchronize()
+                c = merge.setdefault("merge", [0, 0, 0.0])
+                c[0], c[2] = c[0] + 1, c[2] + time.perf_counter() - t
+                c[1] += sum(x.numel() * x.element_size()
+                            for x in (m, *a[:2]))
+                return out
+            return call
+        # the GQA decode merges through longctx, MLA's in attention
+        TA.combine_partials = LC.combine_partials = timed_merge(
+            TA.combine_partials)
+        flat_numel[0] = 1 << 62          # no flat buffers in serving
+        mesh = make_auto_mesh(MODEL_AXIS, device="cuda")
+
+        timer = types.SimpleNamespace(
+            clear=lambda: (reset_coll(), merge.clear()),
+            read=lambda: {k: list(v) for k, v in [*coll.items(),
+                                                  *merge.items()]})
+        with open(serve_runs) as f:
+            for tag, spec in json.load(f).items():
+                out = serve_axis_rank(tag, spec, ref_dir, mesh, counts_of,
+                                      timer)
+                # a file a rank: two ranks' long lines interleave on the
+                # shared stdout
+                with open(os.path.join(ref_dir, f"{_slug(tag)}_serve_rank"
+                                                f"{rank}.json"), "w") as f:
+                    json.dump(out, f)
+                gc.collect()
+                torch.cuda.empty_cache()
+                dist.barrier()
     dist.destroy_process_group()
     return 0
 
 
-def start_model_axis(runs=MODEL_AXIS_RUNS) -> dict:
+def start_model_axis(runs=MODEL_AXIS_RUNS, serve=None) -> dict:
     """The model axis's two ranks under torchrun, started in the
-    background over ``runs``, whose references :func:`model_axis_refs`
+    background over ``runs`` and then the serving requests ``serve``,
+    whose references :func:`model_axis_refs` and :func:`serve_axis_refs`
     wrote (their output to files under build/).  Join with
     :func:`finish_model_axis`."""
     import torch
@@ -3098,7 +3189,7 @@ def start_model_axis(runs=MODEL_AXIS_RUNS) -> dict:
                             stderr=files["err.txt"], text=True,
                             env={**os.environ, "OMP_NUM_THREADS": "2"})
     return {"proc": proc, "paths": paths, "files": files, "runs": runs,
-            "t0": time.perf_counter()}
+            "serve": serve or {}, "t0": time.perf_counter()}
 
 
 def stop_model_axis(job: dict) -> None:
@@ -3130,6 +3221,14 @@ def finish_model_axis(job: dict) -> dict:
             stdout = f.read()
         with open(job["paths"]["err.txt"]) as f:
             stderr = f.read()
+        serves = []
+        for tag in job["serve"]:
+            for r in range(MODEL_AXIS):
+                path = os.path.join(MODEL_AXIS_DIR,
+                                    f"{_slug(tag)}_serve_rank{r}.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        serves.append(json.load(f))
     finally:
         stop_model_axis(job)
     p = subprocess.CompletedProcess(p.args, p.returncode, stdout, stderr)
@@ -3226,7 +3325,269 @@ def finish_model_axis(job: dict) -> dict:
         assert all(v <= 1e-4 for m in r0["metric_errs"]
                    for v in m.values()), (tag, r0["metric_errs"])
         assert r0.get("routes_equal", True), tag
-    log(f"  6x-6z: torchrun wall {secs:.1f} s from start to join")
+    log(f"  6x-6z, 6v: torchrun wall {secs:.1f} s from start to join")
+    counts.update(finish_serve_axis(serves, job["serve"]))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6v: serving over the model axis, two ranks on the one card
+# ---------------------------------------------------------------------------
+# Each model at full width, only its depth cut (the layers listed here),
+# seeded init (seed 0) on the card, batch 8 of seeded prompts (numpy,
+# seed 0; whisper's 1500 encoder frames after them from the same
+# generator), prefill 1024 into a cache of 1040 slots, then 8 greedy
+# decode steps.  First its world of one in this process (no mesh: the
+# plain serving path), whose prefill logits, cache, each step's logits and
+# tokens and last cache go to build/model_axis/<tag>_serve.pt; then, in
+# the torchrun job of phases 6x-6z after their runs (two ranks on cuda:0,
+# gloo), the same request on a (1, 2) mesh: each rank's shards of the
+# same init (serve_axis), its part of the cache as cache_shardings
+# places it (the sequence over model: 520 slots a rank).  Held, on each
+# rank: the prefill's and every step's logits and each rank's cache
+# (after the prefill, and after the last step) within 1e-5 of the world
+# of one's (max |a-b| over max |b|; the cache against its part of the
+# whole cache by the placement rules), the greedy tokens equal, and the
+# launches exactly: the prefill's flash one a layer of attention (the
+# encoder's too) on the rank's heads, the SSD scan one a mamba layer on
+# its heads, none in decode.
+#   smollm-360m, 4 of 32 layers: 15 / 5 heads do not split in 2 (q/k/v
+#       gathered whole, flash on all 15 heads on both ranks), the KV split
+#       by sequence;
+#   deepseek-v2-lite-16b, 1 of 27 layers: MLA on each rank's 8 of 16
+#       heads, flash at (192, 128), 32 of the 64 experts a rank, the
+#       absorbed decode's partials over each rank's 520 latent slots;
+#   mamba2-780m, 4 of 48 layers: the SSD scan on each rank's 24 of 48
+#       heads, the conv state of its 1664 of 3328 channels;
+#   whisper-large-v3, 2 decoder and 2 encoder layers: flash on 10 of 20
+#       heads in the encoder, the self and the cross layer; the cross
+#       layer's 1500 encoder keys split 750 a rank.
+SERVE_AXIS_RUNS = {
+    "6v:smollm-360m": ("smollm-360m", 4),
+    "6v:deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 1),
+    "6v:mamba2-780m": ("mamba2-780m", 4),
+    "6v:whisper-large-v3": ("whisper-large-v3", 2),
+}
+SERVE_AXIS_SHAPE = dict(batch=8, prompt=1024, cache=1040, steps=8)
+
+
+def serve_axis_request(arch, layers, dev):
+    """(config, model, seeded parameters, seeded batch) of one 6v run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, with_depth
+    from repro_torch.models.model import build_model
+    cfg = with_depth(get_arch(arch), layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    B, S = SERVE_AXIS_SHAPE["batch"], SERVE_AXIS_SHAPE["prompt"]
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S))).to(dev)}
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        batch["enc_embeds"] = torch.from_numpy(rng.normal(
+            0, 1, (B, e.enc_len, e.enc_dim)).astype(np.float32)).to(dev)
+    return cfg, model, params, batch
+
+
+def serve_axis_launches(cfg) -> dict:
+    """A 6v prefill's launches, on the world of one and on each rank:
+    flash one a layer of attention (an encoder's layers included), the
+    SSD scan one a mamba layer; a decode step launches none."""
+    from repro_torch.configs.base import MAMBA
+    kinds = cfg.layer_kinds()
+    mamba = sum(k == MAMBA for k in kinds)
+    flash = len(kinds) - mamba + (cfg.encoder.enc_layers
+                                  if cfg.encoder is not None else 0)
+    return _launches(flash_attention_fwd=flash, ssd_scan_fwd=mamba)
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_host(v) for v in tree)
+    return tree.detach().to("cpu", copy=True)
+
+
+def serve_axis_refs(counts_of, dev, runs=None) -> dict:
+    """Phase 6v's worlds of one, each its own main path (counts zeroed
+    just before the prefill, read after it and after the last step, held
+    exactly): the request's results to ``MODEL_AXIS_DIR/<tag>_serve.pt``,
+    the runs to ``serve.json``.  Returns the counts."""
+    import torch
+    runs = runs or SERVE_AXIS_RUNS
+    os.makedirs(MODEL_AXIS_DIR, exist_ok=True)
+    counts = {}
+    for tag, (arch, layers) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, model, params, batch = serve_axis_request(arch, layers, dev)
+        want = serve_axis_launches(cfg)
+        counts_of.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, batch,
+                                      SERVE_AXIS_SHAPE["cache"])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        assert counts_of.read() == want, (tag, counts_of.read(), want)
+        ref = {"prefill": _host(logits), "cache": _host(cache), "steps": [],
+               "tokens": []}
+        tok = logits.argmax(-1)
+        t = time.perf_counter()
+        for _ in range(SERVE_AXIS_SHAPE["steps"]):
+            ref["tokens"].append(tok.cpu())
+            logits, cache = model.decode(params, tok, cache)
+            ref["steps"].append(logits.cpu())
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        counts[f"serve_axis_ref:{tag}"] = c = counts_of.read()
+        log(f"kernels: serve_axis_ref:{tag} {json.dumps(c)}")
+        assert c == want, (tag, c, want)
+        assert all(bool(torch.isfinite(x).all()) for x in ref["steps"])
+        ref["cache_end"] = _host(cache)
+        torch.save(ref, os.path.join(MODEL_AXIS_DIR,
+                                     f"{_slug(tag)}_serve.pt"))
+        log(f"  {tag} world of one: {arch} at {layers} layers, prefill "
+            f"(B {SERVE_AXIS_SHAPE['batch']}, S "
+            f"{SERVE_AXIS_SHAPE['prompt']}) {prefill_s:.4f} s, "
+            f"{SERVE_AXIS_SHAPE['steps']} "
+            f"decode steps {decode_s:.4f} s, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params, cache, logits, batch, model, ref
+        torch.cuda.empty_cache()
+    with open(os.path.join(MODEL_AXIS_DIR, "serve.json"), "w") as f:
+        json.dump(runs, f)
+    return counts
+
+
+def cache_part(cache, mesh, rows):
+    """A rank's part of a whole cache tree (on the host) by the placement
+    rules (``sharding/specs.py``: ``cache_shardings``, ``local_slices``),
+    its batch dim the rank's ``rows``."""
+    from repro_torch.sharding.specs import cache_shardings, local_slices
+
+    def part(t, placement, bdim):
+        sl = list(local_slices(placement, tuple(t.shape), mesh))
+        sl[bdim] = rows
+        return t[tuple(sl)]
+    pl = cache_shardings(cache, mesh)
+    out = {"layers": tuple({k: part(v, p[k], 1) for k, v in e.items()}
+                           for e, p in zip(cache["layers"], pl["layers"]))}
+    if "enc_out" in cache:
+        out["enc_out"] = part(cache["enc_out"], pl["enc_out"], 0)
+    return out
+
+
+def _tree_err(got, want) -> float:
+    if isinstance(want, dict):
+        return max(_tree_err(got[k], v) for k, v in want.items())
+    if isinstance(want, (tuple, list)):
+        return max(_tree_err(g, w) for g, w in zip(got, want))
+    assert tuple(got.shape) == tuple(want.shape), (got.shape, want.shape)
+    return rel_err(got.cpu(), want)
+
+
+def serve_axis_rank(tag, spec, ref_dir, mesh, counts_of, coll) -> dict:
+    """One 6v request on this rank of the (1, 2) mesh, held to its world
+    of one (:func:`serve_axis_refs`); ``coll`` times the collectives
+    (``clear()``, ``read()``)."""
+    import torch
+    from repro_torch.sharding.tensor_parallel import serve_axis
+    arch, layers = spec
+    ref = torch.load(os.path.join(ref_dir, f"{_slug(tag)}_serve.pt"),
+                     weights_only=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, batch = serve_axis_request(arch, layers, "cuda")
+    tp = serve_axis(mesh, params, batch=SERVE_AXIS_SHAPE["batch"],
+                    cache_len=SERVE_AXIS_SHAPE["cache"])
+    shards = tp.shard(params)
+    del params
+    rows = tp.serving.batch_rows()
+    mine = {k: v[rows] for k, v in batch.items()}
+    out = {"rank": mesh.rank, "tag": tag, "step_errs": [],
+           "tokens_equal": []}
+    coll.clear()
+    torch.cuda.synchronize()
+    counts_of.reset()
+    t = time.perf_counter()
+    logits, cache = model.prefill(shards, mine, SERVE_AXIS_SHAPE["cache"],
+                                  tp=tp)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t
+    out["prefill_counts"] = counts_of.read()
+    out["prefill_coll"] = coll.read()
+    coll.clear()
+    out["prefill_err"] = rel_err(logits.cpu(), ref["prefill"][rows])
+    out["cache_err"] = _tree_err(
+        {k: v for k, v in cache.items() if k != "index"},
+        cache_part(ref["cache"], mesh, rows))
+    out["cache_shapes"] = [{k: list(v.shape) for k, v in e.items()}
+                           for e in cache["layers"]]
+    tok = logits.argmax(-1)
+    t = time.perf_counter()
+    for i in range(SERVE_AXIS_SHAPE["steps"]):
+        out["tokens_equal"].append(bool(torch.equal(
+            tok.cpu(), ref["tokens"][i][rows])))
+        logits, cache = model.decode(shards, tok, cache, tp=tp)
+        out["step_errs"].append(rel_err(logits.cpu(),
+                                        ref["steps"][i][rows]))
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t
+    out["decode_coll"] = coll.read()
+    out["counts"] = counts_of.read()
+    out["cache_end_err"] = _tree_err(cache["layers"], cache_part(
+        ref["cache_end"], mesh, rows)["layers"])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["want"] = serve_axis_launches(cfg)
+    del shards, cache, logits, batch, mine, ref
+    return out
+
+
+def finish_serve_axis(outs, runs) -> dict:
+    """Phase 6v's checks on the ranks' lines for ``runs``; returns their
+    counts."""
+    counts = {}
+    for tag, (arch, layers) in runs.items():
+        ranks = sorted((o for o in outs if o["tag"] == tag),
+                       key=lambda o: o["rank"])
+        assert [r["rank"] for r in ranks] == list(range(MODEL_AXIS)), \
+            (tag, ranks)
+        for r in ranks:
+            name = f"model_axis_serve:{tag}[rank{r['rank']}]"
+            counts[name] = r["counts"]
+            log(f"kernels: {name} {json.dumps(r['counts'])}")
+
+            def coll(c):
+                return ", ".join(f"{k} {v[0]} calls {v[1] / 1e6:.1f} MB "
+                                 f"{v[2]:.3f} s" for k, v in c.items()
+                                 if v[0])
+            log(f"  {tag} rank {r['rank']}: {arch} at {layers} layers; "
+                f"prefill {r['prefill_s']:.4f} s (collectives: "
+                f"{coll(r['prefill_coll'])}), "
+                f"{SERVE_AXIS_SHAPE['steps']} decode steps "
+                f"{r['decode_s']:.4f} s (collectives: "
+                f"{coll(r['decode_coll'])}); max_memory_allocated "
+                f"{r['peak_gib']:.2f} GiB; cache parts {r['cache_shapes']}; "
+                f"vs the world of one: prefill logits rel "
+                f"{r['prefill_err']:.3e}, cache {r['cache_err']:.3e}, steps "
+                f"{[f'{e:.2e}' for e in r['step_errs']]}, last cache "
+                f"{r['cache_end_err']:.3e}, greedy tokens equal "
+                f"{all(r['tokens_equal'])}")
+            assert r["prefill_counts"] == r["want"], (name, r)
+            assert r["counts"] == r["want"], (name, r["counts"], r["want"])
+            assert r["prefill_err"] <= 1e-5, (name, r["prefill_err"])
+            assert r["cache_err"] <= 1e-5, (name, r["cache_err"])
+            assert r["cache_end_err"] <= 1e-5, (name, r["cache_end_err"])
+            assert len(r["step_errs"]) == SERVE_AXIS_SHAPE["steps"]
+            assert all(e <= 1e-5 for e in r["step_errs"]), name
+            assert all(r["tokens_equal"]), (name, r["tokens_equal"])
     return counts
 
 
@@ -5458,7 +5819,14 @@ def main() -> int:
           f"{MODEL_AXIS}) mesh, two ranks on the one card (one torchrun "
           "job, gloo) started here and run beside phase 7:")
     counts.update(model_axis_refs(counts_of, dev))
-    model_axis = start_model_axis()
+    phase("[6v] serving over the model axis at full width, depth cut: "
+          + ", ".join(f"{a} at {n} layers" for a, n in
+                      SERVE_AXIS_RUNS.values())
+          + "; batch 8, prefill 1024 into a cache of 1040, 8 greedy decode "
+          "steps; each request's world of one here, then on the (1, 2) "
+          "mesh in the same torchrun job, after 6x-6z's runs:")
+    counts.update(serve_axis_refs(counts_of, dev))
+    model_axis = start_model_axis(serve=SERVE_AXIS_RUNS)
     try:
         phase("[7] small input, card against the CPU plain versions:")
         small_reference(dev)
@@ -5473,7 +5841,8 @@ def main() -> int:
         small_reference_obs(counts_of, dev)
         small_reference_roofline_draws(counts_of, dev)
         small_reference_serve(dev)
-        phase("[6x, 6y, 6z] joined: the model axis's ranks after phase 7:")
+        phase("[6x, 6y, 6z, 6v] joined: the model axis's ranks after phase "
+              "7:")
         counts.update(finish_model_axis(model_axis))
     finally:
         stop_model_axis(model_axis)

@@ -442,11 +442,15 @@ class ShardedExecutor(ChunkedExecutor):
     def _part(self, cohort: int, *, spec=None, device=None):
         """(n_slots, CohortPart) of this process's data coordinate; with
         ``spec`` on a model axis, the codec's shares too."""
-        from repro_torch.sharding.specs import cohort_split
+        from repro_torch.sharding.specs import (axis_size, batch_axes,
+                                                batch_coord, cohort_split)
+        from repro_torch.sharding.tensor_parallel import axis_group
         mesh = self._mesh
         per_shard, n_slots = cohort_split(cohort, mesh)
-        start = mesh.coords["data"] * per_shard
-        group = mesh.groups["data"]
+        start = batch_coord(mesh) * per_shard
+        # the batch axes: data, or (pod, data) on a multi-pod mesh
+        ba = batch_axes(mesh)
+        group = axis_group(mesh, ba)
 
         def reduce(tensors):
             for t in tensors:
@@ -454,7 +458,8 @@ class ShardedExecutor(ChunkedExecutor):
                     t, op=torch.distributed.ReduceOp.SUM, group=group)
 
         def gather(dw):
-            parts = [torch.empty_like(dw) for _ in range(mesh.shape["data"])]
+            parts = [torch.empty_like(dw)
+                     for _ in range(axis_size(mesh, ba))]
             torch.distributed.all_gather(parts, dw.contiguous(), group=group)
             return torch.cat(parts)
 
@@ -507,12 +512,15 @@ class ShardedExecutor(ChunkedExecutor):
             residuals=residuals, rngs=rngs, n_slots=n_slots, part=part)
         if res is not None:
             # each client's row from the process that coded it, in place
+            from repro_torch.sharding.specs import batch_axes, batch_rank
+            from repro_torch.sharding.tensor_parallel import axis_group
             mesh, per_shard = self._mesh, part.stop - part.start
+            group = axis_group(mesh, batch_axes(mesh))
             for k in range(cohort):
-                src = mesh.rank_of(data=k // per_shard)
+                src = batch_rank(mesh, k // per_shard)
                 for stack in res:
                     torch.distributed.broadcast(stack[k], src=src,
-                                                group=mesh.groups["data"])
+                                                group=group)
         return Gs, loss, res
 
 

@@ -30,8 +30,9 @@ one, whose processes each run a slice of the cohort and hold the whole
 server state, replicated; on a model axis above 1 the processes of a
 model group run each client tensor-parallel over their parameter shards
 (:mod:`repro_torch.sharding.tensor_parallel`: every transformer config,
-both meta modes, the lossy codecs, both synchronous engines; the
-buffered-async runtime raises naming ROADMAP Queue 1 item 7c).  The
+both meta modes, the lossy codecs, both synchronous engines).  The
+buffered-async runtime runs on no mesh, as in the JAX package
+(:func:`refuse_async_on_mesh`).  The
 round counter lives on the host (``state["round"]`` is an int), so the
 decayed learning rates are host numbers computed in fp32 as the JAX round
 computes them on the device; metrics come back as device scalars.
@@ -246,24 +247,39 @@ def dropout_rngs(model: Model, fed: FedConfig, draws, cohort_batch,
     return masks.clients(), masks.meta
 
 
+def refuse_async_on_mesh(engine) -> None:
+    """The JAX package's refusal (``repro/core/round.py``,
+    ``make_federated_round``): its sharded executor always sets
+    ``grad_shardings``, and an async engine refuses them, so JAX runs the
+    buffered-async runtime on no mesh; neither does the port, at any
+    model-axis size."""
+    raise ValueError(
+        f"engine={engine.name!r} keeps a replicated delta pool (per-client "
+        "staleness slots), so the sharded executor's per-leaf "
+        "grad_shardings cannot apply; drop the mesh (--executor sharded) "
+        "or use a synchronous engine")
+
+
 def make_federated_round(model: Model, fed: FedConfig, *,
                          executor: Optional[str] = None, mesh=None,
                          engine: Optional[str] = None,
                          rounds_per_call: int = 1, sanitize: bool = False):
     eng = resolve_engine(fed, engine=engine)
     tensor_parallel = model_size(mesh) > 1
-    if tensor_parallel:
-        check_supported(model, engine=eng)
     if eng.is_async:
-        if executor is not None or mesh is not None:
+        if mesh is not None:
+            refuse_async_on_mesh(eng)
+        if executor is not None:
             raise ValueError(
                 "engine='buffered_async' runs its own cohort stage (the "
                 "buffered_async executor over a vmap or scan base); drop "
-                "executor= and mesh=")
+                "executor=")
         from repro_torch.core.async_round import make_async_tick
         return _chunk_rounds(make_async_tick(model, fed, engine=engine,
                                              sanitize=sanitize),
                              rounds_per_call)
+    if tensor_parallel:
+        check_supported(model)
     alg = get_algorithm(fed.algorithm)
     loss_fn = model.loss
     if tensor_parallel:

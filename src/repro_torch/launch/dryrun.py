@@ -16,15 +16,26 @@ host without a card; nothing is allocated.  A form a kernel refuses (a
 flash head-dim form outside ``kernels/flash_attention/kernel.py::FORMS``,
 an SSD state too wide) fails the pair and names it.
 
-Meshes: ``--mesh 1x1`` (one H100) is the default; ``--mesh Dx1`` traces
-rank 0's slice of the cohort through the ``sharded`` executor under
-torch's ``fake`` process-group backend, so the two-tier aggregation's
-collectives are counted at their result bytes.  The trainer runs a
-model axis above 1 (tensor-parallel client compute,
-``repro_torch.sharding.tensor_parallel``); the dry run of it, of
-``--multi-pod``, ``--both-meshes`` and ``--expert-axis`` (the JAX
-package's production meshes, which ``launch/mesh.py::
-make_production_mesh`` builds) is ROADMAP Queue 1 item 7c.
+Meshes: ``--mesh 1x1`` (one H100) is the default.  ``--mesh DxM`` traces
+rank 0 of a (data, model) mesh under torch's ``fake`` process-group
+backend (``launch/mesh.py::fake_mesh``: every collective dispatches, none
+communicates, each counted at its result bytes), and ``--multi-pod`` /
+``--both-meshes`` take the JAX package's meaning: rank 0 of
+``make_production_mesh``'s (16, 16), and of its (2, 16, 16), tagged as
+JAX tags them (``__16x16``, ``__2x16x16``).  On a mesh a ``train`` pair
+runs the round through the ``sharded`` executor, the cohort over the
+batch axes and each client tensor-parallel over the model axis; a
+``prefill`` or ``decode`` pair runs on rank 0's parameter shards, its
+rows of the batch (``simple_batch_shardings``) and its part of the cache
+(``cache_shardings``).  The per-device memory is the port's placement,
+which the record states under ``placement``: parameters split over
+``model`` and kept whole over the batch axes (``param_spec``'s FSDP
+entries are ROADMAP Queue 1 item 7d), the residual stream replicated over
+``model`` (``--act-spec on``, JAX's ``set_activation_spec``, raises
+naming item 7d), the experts over ``model`` (``--expert-axis model``, the
+one axis the port splits them over; another raises).  ``fits`` says
+whether that placement fits one card; no pair is skipped for not
+fitting.
 
 The record has the JAX dry run's keys where they mean something —
 ``arch``, ``shape``, ``mesh``, ``chips``, ``algorithm``,
@@ -51,7 +62,7 @@ time, linear too.  ``tools/roofline_check.py --shortcut-check`` holds
 this to a full trace of a scan pair on the card's host.  The record says
 so under ``extrapolated`` (the cohorts traced and the rule; False for a
 pair traced whole).  ``--no-extrapolate`` traces the whole cohort, and a
-``Dx1`` mesh always does.  It is what makes jamba-1.5-large-398b x
+mesh always does.  It is what makes jamba-1.5-large-398b x
 train_4k affordable: 16 clients through 63 mamba layers' chunk loops
 trace past 3000 s, cohorts 1 and 2 in about a fifth of that.
 """
@@ -60,8 +71,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import traceback
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -76,6 +89,17 @@ from repro_torch.roofline.cost import Cost, trace_cost, trace_device
 # archs whose parameter count forces the client-sequential cohort strategy
 SCAN_THRESHOLD = 20e9
 CARD_BYTES = 80 * 2**30        # one H100's device memory
+ITEM_7D = "ROADMAP Queue 1 item 7d"
+# what a process of a mesh holds (the record's "placement")
+PLACEMENT = {
+    "params": "param_spec's model-axis part on each process; the FSDP "
+              f"entries kept whole over the batch axes ({ITEM_7D})",
+    "batch": "rank 0's rows: the cohort over the batch axes (train), "
+             "simple_batch_shardings (prefill, decode)",
+    "cache": "rank 0's part, as cache_shardings places it",
+    "experts": "split over model (models/moe.py::_experts)",
+    "activations": f"replicated over model (--act-spec off; {ITEM_7D})",
+}
 META_BATCH = 64                # the JAX dry run's D_meta sequences
 SHORTCUT_COHORTS = (1, 2)      # the scan cohorts the shortcut traces
 
@@ -87,8 +111,8 @@ def pick_strategy(arch_cfg) -> str:
 def fed_for(arch_cfg, data: int, *, algorithm="uga", meta=True,
             strategy: Optional[str] = None, local_steps=2,
             agg_dtype="float32") -> FedConfig:
-    """JAX's rule: a vmap cohort is one client per data-axis device, a
-    scan cohort 16."""
+    """JAX's rule: a vmap cohort is one client per device of the batch
+    axes (``data``: their size), a scan cohort 16."""
     strategy = strategy or pick_strategy(arch_cfg)
     cohort = data if strategy == "vmap" else 16
     return FedConfig(algorithm=algorithm, meta=meta, cohort=cohort,
@@ -104,20 +128,40 @@ def decode_window_for(arch_cfg, shape) -> int:
     return 0
 
 
-def parse_mesh(mesh: str) -> Tuple[int, int]:
+def parse_mesh(mesh: str) -> Tuple[int, ...]:
+    """``DATAxMODEL`` (e.g. 1x1, 16x16) or ``PODxDATAxMODEL`` (2x16x16)
+    -> the axis sizes."""
     try:
-        data, model = (int(x) for x in mesh.lower().split("x"))
+        sizes = tuple(int(x) for x in mesh.lower().split("x"))
     except ValueError:
-        raise ValueError(f"--mesh {mesh!r}: expected DATAxMODEL, e.g. 1x1")
-    if data < 1 or model < 1:
+        sizes = ()
+    if len(sizes) not in (2, 3):
+        raise ValueError(f"--mesh {mesh!r}: expected DATAxMODEL or "
+                         "PODxDATAxMODEL, e.g. 1x1, 16x16, 2x16x16")
+    if min(sizes) < 1:
         raise ValueError(f"--mesh {mesh!r}: axes must be >= 1")
-    if model > 1:
+    return sizes
+
+
+def check_hints(expert_axis: Optional[str], act_spec: str) -> None:
+    """JAX's two placement hints: the experts' axis is the model axis
+    (PR 28's placement, the one the port runs), and the activation
+    spec's eager meaning is not ported."""
+    if expert_axis not in (None, "model"):
+        raise ValueError(
+            f"--expert-axis {expert_axis}: the port splits the experts "
+            "over the model axis only (models/moe.py::_experts); the batch "
+            "axes' processes serve other rows and train other clients, so "
+            "experts split over them would need an all-to-all of tokens "
+            f"the port does not run ({ITEM_7D})")
+    if act_spec not in ("on", "off"):
+        raise ValueError(f"--act-spec {act_spec!r}: on or off")
+    if act_spec == "on":
         raise NotImplementedError(
-            f"--mesh {mesh}: the dry run of a model axis of {model} "
-            "(tensor-parallel client compute, which the trainer runs) is "
-            "not yet ported to repro_torch (ROADMAP Queue 1 item 7c); use "
-            "--mesh Dx1")
-    return data, model
+            "--act-spec on: JAX's set_activation_spec (the client's batch "
+            "or the residual stream split over model between the split "
+            f"products) is not yet ported to repro_torch ({ITEM_7D}); the "
+            "port keeps the residual stream replicated (--act-spec off)")
 
 
 def _param_stand_ins(cfg, dev):
@@ -134,19 +178,18 @@ def _enc(cfg, lead, dev):
                        dtype=torch.float32, device=dev)
 
 
-def _fake_mesh(data: int, dev):
-    """Rank 0 of a (data, 1) mesh under torch's ``fake`` backend: every
-    collective dispatches, none communicates."""
-    import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-
-    from repro_torch.launch.mesh import _mesh
-    if dist.is_initialized():
-        raise RuntimeError("--mesh Dx1 with D > 1 starts a fake process "
-                           "group; a process group is already running")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=data)
-    return _mesh(data, 1, dev)
+def _serve_args(cfg, dev, mesh, batch: int, cache_len: int):
+    """(the serving axis of rank 0 of ``mesh``, its parameter shards as
+    stand-ins, its rows of the batch)."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.sharding.tensor_parallel import serve_axis
+    shapes = dict(Transformer(cfg).named_parameters())
+    tp = serve_axis(mesh, shapes, batch=batch, cache_len=cache_len)
+    params = {k: torch.empty(tuple(s.stop - s.start for s in tp.slices(
+        k, v.shape)), dtype=torch.float32, device=dev)
+        for k, v in shapes.items()}
+    rows = tp.serving.batch_rows()
+    return tp, params, rows.stop - rows.start
 
 
 def _train_call(cfg, shape, fed, mesh, dev, loss_chunk, per_client=None):
@@ -216,41 +259,65 @@ def extrapolate_cost(c1: Cost, c2: Cost, cohort: int) -> Cost:
         trace_s=c1.trace_s + c2.trace_s)
 
 
-def _prefill_call(cfg, shape, dev):
+def _prefill_call(cfg, shape, dev, mesh=None):
+    """``model.prefill`` and its stand-ins: rank 0's on ``mesh``."""
     from repro_torch.models.model import build_model
     model = build_model(cfg, dtype=torch.float32)
-    batch = {"tokens": torch.empty((shape.global_batch, shape.seq_len),
-                                   dtype=torch.int64, device=dev)}
+    B = shape.global_batch
+    if mesh is None:
+        fn, params = model.prefill, _param_stand_ins(cfg, dev)
+    else:
+        tp, params, B = _serve_args(cfg, dev, mesh, B, shape.seq_len)
+        fn = partial(model.prefill, tp=tp)
+    batch = {"tokens": torch.empty((B, shape.seq_len), dtype=torch.int64,
+                                   device=dev)}
     if cfg.encoder is not None:
-        batch["enc_embeds"] = _enc(cfg, (shape.global_batch,), dev)
-    return model.prefill, (_param_stand_ins(cfg, dev), batch)
+        batch["enc_embeds"] = _enc(cfg, (B,), dev)
+    return fn, (params, batch)
 
 
-def _decode_call(cfg, shape, dev, window):
+def _decode_call(cfg, shape, dev, window, mesh=None):
+    """``model.decode`` and its stand-ins over a cache of the shape's
+    length: rank 0's on ``mesh``."""
     from repro_torch.models.model import build_model
     model = build_model(cfg, dtype=torch.float32, decode_window=window)
     B = shape.global_batch
-    cache = model.make_cache(B, shape.seq_len, device=dev)
+    cache = model.make_cache(B, shape.seq_len, device=dev, mesh=mesh)
+    if mesh is None:
+        fn, params = model.decode, _param_stand_ins(cfg, dev)
+    else:
+        tp, params, B = _serve_args(cfg, dev, mesh, B,
+                                    window or shape.seq_len)
+        fn = partial(model.decode, tp=tp)
     toks = torch.empty((B,), dtype=torch.int64, device=dev)
-    return model.decode, (_param_stand_ins(cfg, dev), toks, cache)
+    return fn, (params, toks, cache)
 
 
 def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
             algorithm: str = "uga", strategy: Optional[str] = None,
             local_steps: int = 2, agg_dtype: str = "float32",
             loss_chunk: int = 2048, moe_impl: str = "einsum",
+            expert_axis: Optional[str] = None, act_spec: str = "off",
             extrapolate: bool = True, verbose: bool = True
             ) -> Dict[str, Any]:
     """One pair's record (module docstring); ``extrapolate`` takes a scan
     cohort's train pair by the shortcut."""
+    from repro_torch.launch.mesh import fake_mesh
     from repro_torch.models import moe as moe_lib
+    check_hints(expert_axis, act_spec)
     arch_cfg = get_arch(arch_name)
     shape = get_shape(shape_name)
-    data, _ = parse_mesh(mesh)
+    sizes = parse_mesh(mesh)
+    chips = math.prod(sizes)
+    data = chips // sizes[-1]          # the batch axes' size
     device = torch.device("cuda")
     rec: Dict[str, Any] = {"arch": arch_name, "shape": shape_name,
-                           "mesh": f"{data}x1", "chips": data,
-                           "algorithm": algorithm}
+                           "mesh": "x".join(map(str, sizes)),
+                           "chips": chips, "algorithm": algorithm}
+    if chips > 1:
+        rec["placement"] = dict(PLACEMENT)
+        rec["expert_axis"] = expert_axis
+        rec["act_spec"] = act_spec
     fed = None
     prev_impl = moe_lib.MOE_IMPL
     moe_lib.set_moe_impl(moe_impl)
@@ -261,33 +328,33 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
     shortcut = None
     try:
         with fmode:
-            if data > 1:
-                mesh_obj = _fake_mesh(data, dev)
+            if chips > 1:
+                mesh_obj = fake_mesh(sizes, dev)
             if shape.kind == "train":
                 fed = fed_for(arch_cfg, data, algorithm=algorithm,
                               strategy=strategy, local_steps=local_steps,
                               agg_dtype=agg_dtype)
                 rec["cohort_strategy"] = fed.cohort_strategy
                 rec["cohort"] = fed.cohort
-                if (extrapolate and data == 1 and fed.cohort_strategy ==
+                if (extrapolate and chips == 1 and fed.cohort_strategy ==
                         "scan" and fed.cohort > max(SHORTCUT_COHORTS)):
                     shortcut = shape.global_batch // fed.cohort
                 else:
                     fn, args = _train_call(arch_cfg, shape, fed, mesh_obj,
                                            dev, loss_chunk)
-            elif data > 1:
-                raise NotImplementedError(
-                    f"--mesh {mesh} on a {shape.kind} shape: serving over "
-                    "several cards is tensor parallelism (ROADMAP Queue 1 "
-                    "item 7c)")
             elif shape.kind == "prefill":
-                fn, args = _prefill_call(arch_cfg, shape, dev)
+                fn, args = _prefill_call(arch_cfg, shape, dev, mesh_obj)
             else:
                 window = decode_window_for(arch_cfg, shape)
                 rec["decode_window"] = window
-                fn, args = _decode_call(arch_cfg, shape, dev, window)
+                fn, args = _decode_call(arch_cfg, shape, dev, window,
+                                        mesh_obj)
         if shortcut is None:
-            cost, _ = trace_cost(fn, args, device=device, mode=fmode)
+            # the model axis's client update traces without the fake
+            # dispatch cache (roofline/cost.py::trace_cost says why)
+            cost, _ = trace_cost(fn, args, device=device, mode=fmode,
+                                 fake_cache=not (shape.kind == "train"
+                                                 and sizes[-1] > 1))
         else:
             c1, c2 = (train_cost(arch_cfg, shape,
                                  dataclasses.replace(fed, cohort=c),
@@ -311,7 +378,7 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
                           "_counts": dict(cost.collective_counts)}
     mf = model_flops_per_round(arch_cfg, shape, fed)
     rl = roofline_terms(cost.flops, cost.bytes, cost.collective_bytes,
-                        model_flops_global=mf, chips=data,
+                        model_flops_global=mf, chips=chips,
                         tc_flops_per_chip=cost.tc_flops)
     rec["roofline_raw"] = rl.to_dict()
     rec["roofline"] = rl.to_dict()
@@ -357,10 +424,19 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", default="1x1",
-                    help="DATAx1: one H100 (1x1) or rank 0 of D cards")
-    ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--both-meshes", action="store_true")
-    ap.add_argument("--expert-axis", default=None)
+                    help="DATAxMODEL (or PODxDATAxMODEL): one H100 (1x1) "
+                         "or rank 0 of that mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="rank 0 of the (2, 16, 16) production mesh")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="the (16, 16) and the (2, 16, 16) production "
+                         "meshes")
+    ap.add_argument("--expert-axis", default=None,
+                    help="the experts' axis: model (the port's placement) "
+                         "or none")
+    ap.add_argument("--act-spec", default="off", choices=["on", "off"],
+                    help="JAX's activation-sharding hint (on: not yet "
+                         "ported)")
     ap.add_argument("--algorithm", default="uga",
                     choices=["uga", "fedavg", "fedprox"])
     ap.add_argument("--strategy", default=None, choices=[None, "vmap", "scan"])
@@ -378,48 +454,51 @@ def main(argv=None) -> int:
                     help="trace a scan cohort whole, not by the cohort 1 "
                          "and 2 shortcut")
     args = ap.parse_args(argv)
-    for flag, on in (("--multi-pod", args.multi_pod),
-                     ("--both-meshes", args.both_meshes),
-                     ("--expert-axis", args.expert_axis is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: the dry run on the JAX package's production "
-                "meshes (16x16, 2x16x16; launch/mesh.py::"
-                "make_production_mesh builds them) and their expert axis "
-                "is not yet ported to repro_torch (ROADMAP Queue 1 item "
-                "7c)")
-    parse_mesh(args.mesh)
+    if args.both_meshes or args.multi_pod:
+        if args.mesh != "1x1":
+            ap.error("--multi-pod and --both-meshes set the mesh; drop "
+                     "--mesh")
+        meshes = (["16x16", "2x16x16"] if args.both_meshes
+                  else ["2x16x16"])
+    else:
+        meshes = [args.mesh]
+    for m in meshes:
+        parse_mesh(m)
+    check_hints(args.expert_axis, args.act_spec)
     if args.all:
         pairs = [(a, s) for a in ARCHS for s in SHAPES if (a, s) not in SKIPS]
     else:
         if not (args.arch and args.shape):
             ap.error("--arch/--shape or --all")
         pairs = [(args.arch, args.shape)]
-    kw = dict(mesh=args.mesh, algorithm=args.algorithm,
+    kw = dict(algorithm=args.algorithm,
               strategy=args.strategy, local_steps=args.local_steps,
               agg_dtype=args.agg_dtype, loss_chunk=args.loss_chunk,
-              moe_impl=args.moe_impl, extrapolate=not args.no_extrapolate)
+              moe_impl=args.moe_impl, expert_axis=args.expert_axis,
+              act_spec=args.act_spec, extrapolate=not args.no_extrapolate)
 
     os.makedirs(args.out, exist_ok=True)
     todo = []
-    for a, s in pairs:
-        tag = f"{a}__{s}__{args.mesh}"
-        path = os.path.join(args.out, tag + ".json")
-        if args.skip_existing and os.path.exists(path):
-            print(f"[dryrun] skip existing {tag}")
-            continue
-        todo.append((tag, a, s, path))
+    for m in meshes:
+        for a, s in pairs:
+            tag = f"{a}__{s}__{m}"
+            path = os.path.join(args.out, tag + ".json")
+            if args.skip_existing and os.path.exists(path):
+                print(f"[dryrun] skip existing {tag}")
+                continue
+            todo.append((tag, a, s, path, {**kw, "mesh": m}))
     if args.jobs > 1:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
         with ProcessPoolExecutor(
                 args.jobs, mp_context=multiprocessing.get_context("spawn"),
                 max_tasks_per_child=1) as pool:
-            futs = [(tag, pool.submit(_pair, a, s, path, kw))
-                    for tag, a, s, path in todo]
+            futs = [(tag, pool.submit(_pair, a, s, path, k))
+                    for tag, a, s, path, k in todo]
             causes = [(tag, f.result()) for tag, f in futs]
     else:
-        causes = [(tag, _pair(a, s, path, kw)) for tag, a, s, path in todo]
+        causes = [(tag, _pair(a, s, path, k))
+                  for tag, a, s, path, k in todo]
     failures = [(tag, e) for tag, e in causes if e is not None]
     if failures:
         print(f"\n{len(failures)} FAILURES:")

@@ -26,8 +26,7 @@ Rank 0 of a launched job prints the rule it chose.
 :func:`make_production_mesh` is the JAX package's v5e pod shapes, (16,
 16) and (2, 16, 16), as rank 0 of torch's ``fake`` backend: every
 collective dispatches and none communicates, which is what a dry run on
-those meshes traces (the port's dry run takes them in ROADMAP Queue 1
-item 7c).
+those meshes traces (``launch/dryrun.py --mesh 16x16``, ``--multi-pod``).
 """
 from __future__ import annotations
 
@@ -98,10 +97,12 @@ def _grid_mesh(axes: Sequence[str], sizes: Sequence[int], dev: torch.device,
                *, all_groups: bool = True) -> Mesh:
     """The mesh of ``axes`` x ``sizes`` over the default group's ranks,
     row-major.  Each axis's group holds the ranks that share this one's
-    other coordinates.  Every process builds every axis group, in the
-    same order, as ``dist.new_group`` requires; ``all_groups=False``
-    builds only this process's (a fake group, where no other process
-    calls)."""
+    other coordinates; on a mesh with a ``pod`` axis the batch axes
+    ``("pod", "data")`` have a group too, keyed by that tuple (the
+    sharded executor's cohort sum runs over both).  Every process builds
+    every group, in the same order, as ``dist.new_group`` requires;
+    ``all_groups=False`` builds only this process's (a fake group, where
+    no other process calls)."""
     axes, sizes = tuple(axes), tuple(int(s) for s in sizes)
     rank = dist.get_rank()
     coords, rem = {}, rank
@@ -110,9 +111,12 @@ def _grid_mesh(axes: Sequence[str], sizes: Sequence[int], dev: torch.device,
         rem //= n
     coords = {a: coords[a] for a in axes}
     strides = {a: math.prod(sizes[i + 1:]) for i, a in enumerate(axes)}
+    size = dict(zip(axes, sizes))
+    keys = list(axes) + ([("pod", "data")] if "pod" in axes else [])
     groups = {}
-    for i, a in enumerate(axes):
-        others = [(b, n) for b, n in zip(axes, sizes) if b != a]
+    for key in keys:
+        span = (key,) if isinstance(key, str) else key
+        others = [(b, n) for b, n in zip(axes, sizes) if b not in span]
         for flat in range(math.prod(n for _, n in others)):
             c, rem = {}, flat
             for b, n in reversed(others):
@@ -122,11 +126,14 @@ def _grid_mesh(axes: Sequence[str], sizes: Sequence[int], dev: torch.device,
             if not (all_groups or mine):
                 continue
             base = sum(c[b] * strides[b] for b, _ in others)
-            g = dist.new_group([base + k * strides[a]
-                                for k in range(sizes[i])])
+            members = [base]
+            for a in span:           # row-major over the spanned axes
+                members = [m + k * strides[a] for m in members
+                           for k in range(size[a])]
+            g = dist.new_group(sorted(members))
             if mine:
-                groups[a] = g
-    return Mesh(axes, dict(zip(axes, sizes)), coords, groups, dev)
+                groups[key] = g
+    return Mesh(axes, size, coords, groups, dev)
 
 
 def _mesh(data: int, model: int, dev: torch.device) -> Mesh:
@@ -161,19 +168,30 @@ def make_debug_mesh(data: int = 1, model: int = 1, *,
     return _mesh(data, model, dev)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The production v5e meshes: one pod = 256 chips as (data=16,
-    model=16); two pods = 512 as (pod=2, data=16, model=16) — as rank 0
-    of torch's ``fake`` process-group backend, which it starts (every
-    collective dispatches, none communicates).  Raises if a process group
-    is already running."""
+def fake_mesh(sizes: Sequence[int], device=None) -> Mesh:
+    """Rank 0 of a mesh of ``sizes`` — (data, model), or (pod, data,
+    model) for three — under torch's ``fake`` process-group backend,
+    which it starts: every collective dispatches and none communicates
+    (a dry run's trace).  Raises if a process group is already
+    running."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else AXES
+    sizes = tuple(int(n) for n in sizes)
+    axes = ("pod",) + AXES if len(sizes) == 3 else AXES
+    if len(sizes) != len(axes):
+        raise ValueError(f"a mesh of {sizes}: (data, model) or (pod, data, "
+                         "model)")
     if dist.is_initialized():
         raise RuntimeError(
-            f"make_production_mesh starts a fake process group of "
-            f"{math.prod(shape)} ranks; a process group is already running")
+            f"a fake mesh of {math.prod(sizes)} ranks starts a fake process "
+            "group; a process group is already running")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=math.prod(shape))
-    return _grid_mesh(axes, shape, torch.device("cpu"), all_groups=False)
+                            world_size=math.prod(sizes))
+    return _grid_mesh(axes, sizes, torch.device(device or "cpu"),
+                      all_groups=False)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The production v5e meshes: one pod = 256 chips as (data=16,
+    model=16); two pods = 512 as (pod=2, data=16, model=16) — as rank 0
+    of torch's ``fake`` process-group backend (:func:`fake_mesh`)."""
+    return fake_mesh((2, 16, 16) if multi_pod else (16, 16), device)

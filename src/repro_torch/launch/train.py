@@ -46,8 +46,11 @@ repro_torch.launch.train --arch smollm-360m --fused --executor sharded
 --mesh-model 2``; on one card the two ranks share it over gloo, by the
 mesh's backend rule).  Every architecture runs so, in both meta modes,
 with or without a lossy codec (and error feedback), on either
-synchronous engine (``--fused`` or the ``legacy_tree`` default);
-``--engine buffered_async`` raises naming ROADMAP Queue 1 item 7c.
+synchronous engine (``--fused`` or the ``legacy_tree`` default).
+``--engine buffered_async`` with ``--executor sharded`` raises JAX's
+``ValueError`` at every ``--mesh-model``: the delta pool is replicated,
+so the sharded executor's per-leaf placements cannot apply (the JAX
+package runs the async runtime on no mesh either).
 
 Every ``--arch`` trains, ``mamba2-780m`` and the ``-smoke`` SSM and hybrid
 configs included, the encoder configs on seeded ``enc_embeds``.  ``--engine buffered_async`` runs the buffered-async
@@ -88,6 +91,7 @@ from repro_torch.configs.base import SERVER_OPTS
 from repro_torch.core.algorithms import available_algorithms
 from repro_torch.core.engines import available_engines, resolve_engine
 from repro_torch.core.executors import available_executors
+from repro_torch.core.round import refuse_async_on_mesh
 from repro_torch.core.trainer import FederatedTrainer
 from repro_torch.data.partition import partition_iid
 from repro_torch.data.pipeline import FederatedData
@@ -211,8 +215,12 @@ def run_training(arch: str, *, rounds: int, cohort: int, client_batch: int,
                                     examples=examples, seq=seq, iid=iid,
                                     seed=seed)
     mesh = None
-    if mesh_model > 1:              # before any process group starts
-        check_supported(model, engine=resolve_engine(fed))
+    if executor == "sharded":       # before any process group starts
+        eng = resolve_engine(fed)
+        if eng.is_async:
+            refuse_async_on_mesh(eng)
+        if mesh_model > 1:
+            check_supported(model)
     if executor == "sharded":
         # two-tier aggregation over every process of the job: the cohort
         # splits across the mesh's data axis, each process streams its
@@ -318,8 +326,8 @@ def main(argv=None):
                          "(the data axis takes the remaining processes): "
                          "tensor-parallel client compute under either "
                          "meta mode, any codec and either synchronous "
-                         "engine; --engine buffered_async is ROADMAP "
-                         "Queue 1 item 7c")
+                         "engine (--engine buffered_async runs on no "
+                         "mesh, as in the JAX package)")
     ap.add_argument("--fused", action="store_true",
                     help="fused flat-buffer CUDA server engine (default: "
                          "the legacy_tree engine)")

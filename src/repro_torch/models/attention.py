@@ -18,6 +18,20 @@ Three forms of one function:
     cache sharded along the sequence across processes
     (``sharding/longctx.py``).
 
+Over a mesh (serving, ``tp`` a :func:`repro_torch.sharding.tensor_parallel.
+serve_axis`), the decode cache is each process's part, placed as
+``sharding/specs.py::cache_shardings`` says: all heads at the process's
+positions.  :func:`gqa_decode_sharded`, :func:`cross_decode_sharded` and
+:func:`mla_decode_sharded` take one token against it: the new token's
+keys and values (MLA's latent and rope key) whole, written only by the
+owner of their slot; q gathered to whole heads; each process's
+online-softmax partials over its positions (:func:`flash_decode_partial`,
+MLA's :func:`mla_decode_partial`) merged by :func:`combine_partials`
+over the group the sequence is split over
+(``sharding/longctx.py::sharded_flash_decode``); then
+each process's heads of the merged output into its rows of ``wo``,
+summed over the model axis.
+
 MLA (DeepSeek-V2's multi-head latent attention): ``mla_attention`` expands
 the latent kv and attends with Dk = head_dim + rope_head_dim (192 at
 deepseek-v2-lite) and Dv = head_dim (128), through the flash kernel in the
@@ -205,6 +219,63 @@ def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Decode against a cache split over processes (serving on a mesh)
+# ---------------------------------------------------------------------------
+def write_slot(cache: torch.Tensor, pos: torch.Tensor, new: torch.Tensor,
+               seq) -> None:
+    """Write ``new`` (B, 1, ...) at the global sequence position ``pos``
+    (a 0-d int tensor) of this process's part ``cache`` (B, S_loc, ...)
+    of a cache split as ``seq`` (a :class:`repro_torch.sharding.
+    tensor_parallel.SeqSplit`), in place, where this process owns
+    ``pos``; elsewhere the slot keeps its value.  Decided on the device:
+    no host read."""
+    slot, owned = seq.slot(pos)
+    slot = slot.reshape(1).long()
+    old = cache.index_select(1, slot)
+    cache.index_copy_(1, slot, torch.where(owned, new.to(cache.dtype), old))
+
+
+def gqa_decode_sharded(x: torch.Tensor, p, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, index: torch.Tensor, *,
+                       num_heads: int, num_kv_heads: int, head_dim: int,
+                       rope_theta: float, window: int, seq, tp
+                       ) -> torch.Tensor:
+    """One token x (B, d) of a self-attention layer against this
+    process's part of its cache (split as ``seq``), written in place.
+    Returns (B, d), whole on every process of the model axis ``tp``."""
+    B = x.shape[0]
+    q, k, v = gqa_project_qkv(x[:, None], p["wq"], p["wk"], p["wv"],
+                              num_heads, num_kv_heads, head_dim, tp)
+    pos = index.reshape(1, 1).expand(B, 1)
+    q = apply_rope(q, pos, rope_theta)[:, 0]
+    k = apply_rope(k, pos, rope_theta)
+    S = seq.size * seq.local
+    slot, limit = index, index
+    if window > 0:                        # the ring of the window
+        slot, limit = index % S, torch.clamp(index, max=S - 1)
+    write_slot(k_cache, slot, k, seq)
+    write_slot(v_cache, slot, v, seq)
+    from repro_torch.sharding.longctx import sharded_flash_decode
+    a = sharded_flash_decode(q, k_cache, v_cache, limit, seq)
+    return row_parallel(a.reshape(B, -1), p["wo"], tp)
+
+
+def cross_decode_sharded(x: torch.Tensor, p, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, *, num_heads: int,
+                         head_dim: int, seq, tp) -> torch.Tensor:
+    """One token of a cross layer against this process's part of the
+    encoder's keys and values (split as ``seq``), every position valid.
+    Returns (B, d), whole on every process."""
+    B = x.shape[0]
+    (q,) = column_products(x, (p["wq"],), (num_heads * head_dim,), tp)
+    from repro_torch.sharding.longctx import sharded_flash_decode
+    last = torch.tensor(seq.size * seq.local - 1, device=x.device)
+    a = sharded_flash_decode(q.reshape(B, num_heads, head_dim), k_cache,
+                             v_cache, last, seq)
+    return row_parallel(a.reshape(B, -1), p["wo"], tp)
+
+
+# ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
 MLA_LEAVES = ("w_dkv", "w_kr", "w_uk", "w_uv", "wq", "wo")
@@ -313,3 +384,73 @@ def mla_decode_absorbed(x: torch.Tensor, p, ckv_cache: torch.Tensor,
     o_lat = torch.einsum("bhs,bsr->bhr", w.to(ckv_cache.dtype), ckv_cache)
     o = torch.einsum("bhr,rhd->bhd", o_lat, p["w_uv"])         # (B, H, hd)
     return o.reshape(B, num_heads * head_dim) @ p["wo"]
+
+
+def mla_decode_partial(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                       ckv: torch.Tensor, krope: torch.Tensor, index,
+                       shard_offset, head_dim: int, rope_head_dim: int):
+    """The absorbed MLA decode's online-softmax partials over one shard
+    of a sequence-split (ckv, krope) cache.  q_lat: (B, H, r), the query
+    through ``w_uk``; q_rope: (B, H, rd), roped; ckv / krope: (B, S_loc,
+    r) / (B, S_loc, rd); shard_offset: the position of the shard's first
+    slot; the positions up to ``index`` valid.  Returns (m, l, o_lat):
+    (B, H), (B, H), (B, H, r) fp32, merged by :func:`combine_partials`;
+    ``o_lat / l`` of the one shard of a whole cache is
+    :func:`mla_decode_absorbed`'s latent output."""
+    S_loc = ckv.shape[1]
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, ckv).to(torch.float32)
+         + torch.einsum("bhd,bsd->bhs", q_rope, krope).to(torch.float32))
+    s = s / math.sqrt(head_dim + rope_head_dim)
+    pos = shard_offset + torch.arange(S_loc, device=ckv.device)
+    s = torch.where((pos <= index)[None, None, :], s, NEG_INF)
+    m = torch.amax(s, dim=-1)
+    w = torch.exp(s - m[..., None])
+    l = torch.sum(w, dim=-1)
+    o = torch.einsum("bhs,bsr->bhr", w.to(ckv.dtype), ckv)
+    return m, l, o.to(torch.float32)
+
+
+def mla_decode_sharded(x: torch.Tensor, p, ckv_cache: torch.Tensor,
+                       krope_cache: torch.Tensor, index: torch.Tensor, *,
+                       num_heads: int, head_dim: int, rope_head_dim: int,
+                       rope_theta: float, seq, tp) -> torch.Tensor:
+    """:func:`mla_decode_absorbed` against this process's part of a
+    (ckv, krope) cache split as ``seq``, written in place at the clamped
+    ``index`` by its owner.  Where the model axis ``tp`` splits the
+    heads, each process absorbs its heads' queries, gathers them whole
+    for the partials, and takes its heads of the merged latent output
+    through ``w_uv`` and its rows of ``wo``.  Returns (B, d), whole on
+    every process."""
+    B = x.shape[0]
+    H, hd, rd = num_heads, head_dim, rope_head_dim
+    r = p["w_uk"].shape[-3]
+    pos = index.reshape(1, 1).expand(B, 1)
+    ckv_new, kr_new = column_products(x, (p["w_dkv"], p["w_kr"]), (r, rd),
+                                      tp)
+    krope_new = apply_rope(kr_new[:, None, :], pos, rope_theta)
+    slot = torch.clamp(index, max=seq.size * seq.local - 1)
+    write_slot(ckv_cache, slot, ckv_new[:, None], seq)
+    write_slot(krope_cache, slot, krope_new, seq)
+    heads = tp.is_split(p["w_uk"].shape[-2], H)
+    if heads:
+        q = x @ p["wq"]
+    else:
+        (q,) = column_products(x, (p["wq"],), (H * (hd + rd),), tp)
+    h_loc = p["w_uk"].shape[-2]
+    q = q.reshape(B, h_loc, hd + rd)
+    q_rope = apply_rope(q[:, None, :, hd:], pos, rope_theta)[:, 0]
+    q_lat = torch.einsum("bhd,rhd->bhr", q[..., :hd], p["w_uk"])
+    if heads:
+        q_lat, q_rope = torch.split(tp.gather(torch.cat(
+            [q_lat, q_rope], -1), 1), (r, rd), dim=-1)
+    m, l, o_lat = mla_decode_partial(q_lat, q_rope, ckv_cache, krope_cache,
+                                     index, seq.offset, hd, rd)
+    if seq.size == 1:
+        o_lat = o_lat / l[..., None]
+    else:
+        o_lat = combine_partials(m, l, o_lat, seq.group)
+    o_lat = o_lat.to(ckv_cache.dtype)
+    if heads:
+        o_lat = o_lat.narrow(1, tp.coord * h_loc, h_loc)
+    o = torch.einsum("bhr,rhd->bhd", o_lat, p["w_uv"]).reshape(B, -1)
+    return tp.reduce(o @ p["wo"]) if heads else row_parallel(o, p["wo"], tp)

@@ -39,9 +39,10 @@ class Dropout(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Model:
     """init(generator) -> params; loss(params, batch, rng) -> (loss,
-    metrics); prefill(params, batch, cache_len) -> (last logits, cache);
-    decode(params, tokens, cache) -> (logits, cache); make_cache(batch,
-    cache_len) -> cache.  ``rng`` is the dropout keep masks of a model
+    metrics); prefill(params, batch, cache_len, tp) -> (last logits,
+    cache); decode(params, tokens, cache, tp) -> (logits, cache);
+    make_cache(batch, cache_len, device, mesh) -> cache (``tp`` / ``mesh``:
+    serving on a mesh, ``models/transformer.py`` says how).  ``rng`` is the dropout keep masks of a model
     with ``dropout`` (one per masked layer) and unused by every other."""
     name: str
     init: Callable[..., Dict[str, torch.Tensor]]
@@ -72,24 +73,42 @@ def build_model(cfg: ArchConfig, *, dtype=torch.float32,
             chunk=loss_chunk, tp=tp)
 
     @torch.inference_mode()
-    def prefill(params, batch: Batch, cache_len: Optional[int] = None):
-        # only the last position goes through the vocab projection
+    def prefill(params, batch: Batch, cache_len: Optional[int] = None,
+                tp=None):
+        # tp: serving on a mesh (sharding.tensor_parallel.serve_axis):
+        # params this process's shards, batch its rows, and the cache its
+        # part, padded to the axis's cache length before it is placed
+        if tp is None:
+            kw = {}
+        elif cache_len not in (None, tp.serving.cache_len):
+            raise ValueError(
+                f"prefill(cache_len={cache_len}) on a mesh: the serving "
+                f"axis was built for a cache of {tp.serving.cache_len}")
+        else:
+            kw = {"tp": tp}
         h, _, cache = functional_call(
             module, params, (batch["tokens"],),
-            {"enc_embeds": batch.get("enc_embeds"), "collect_cache": True})
-        logits_last = h[:, -1] @ transformer.head_of(cfg, params)
-        if cache_len is not None:
+            {"enc_embeds": batch.get("enc_embeds"), "collect_cache": True,
+             **kw})
+        # only the last position goes through the vocab projection
+        if tp is None:
+            logits_last = h[:, -1] @ transformer.head_of(cfg, params)
+        else:
+            logits_last = transformer.logits_of(cfg, params, h[:, -1], tp)
+        if cache_len is not None and tp is None:
             cache = transformer.pad_cache(cache, cfg, cache_len)
         return logits_last, cache
 
     @torch.inference_mode()
-    def decode(params, tokens, cache):
+    def decode(params, tokens, cache, tp=None):
         return transformer.decode_step(params, tokens, cache, cfg,
-                                       window=decode_window)
+                                       window=decode_window, tp=tp)
 
-    def make_cache(batch: int, cache_len: int, device=None):
+    def make_cache(batch: int, cache_len: int, device=None, mesh=None):
+        # mesh: this process's part of the cache of a global batch
         return transformer.make_cache(cfg, batch, cache_len, dtype,
-                                      window=decode_window, device=device)
+                                      window=decode_window, device=device,
+                                      mesh=mesh)
 
     return Model(name=cfg.name, init=init, loss=loss, prefill=prefill,
                  decode=decode, make_cache=make_cache, cfg=cfg)

@@ -176,9 +176,13 @@ def mamba_block(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: SSMConfig,
     :func:`ssd_chunked` (training).  With ``collect_cache`` (the prefill)
     the scan is the kernel's, and the block also returns the
     end-of-sequence decode cache ``{"ssm": h_final, "conv": the last
-    d_conv - 1 conv inputs}``, as the JAX ``_mamba_prefill`` returns it.
+    d_conv - 1 conv inputs}``, as the JAX ``_mamba_prefill`` returns it:
+    over the model axis the SSM state of this process's heads (what
+    ``cache_shardings`` places on it where the axis divides the heads)
+    and the conv inputs of every channel, which the caller places.
 
-    Over the model axis ``tp`` (training): ``in_proj``'s split columns and
+    Over the model axis ``tp`` (training; the prefill as below, but its
+    projections whole): ``in_proj``'s split columns and
     ``conv_w``'s split channels cut through the x segment, so the
     projection is gathered whole and the conv weight too.  Where the axis
     divides the heads, each process then convolves, scans and gates its
@@ -192,8 +196,19 @@ def mamba_block(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: SSMConfig,
     B_, S, d_model = u.shape
     d_in, H, conv_dim = dims(d_model, cfg)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.d_head
-    (zxbcdt,) = column_products(u, (p["in_proj"],),
-                                (2 * d_in + 2 * G * N + H,), tp)
+    full = 2 * d_in + 2 * G * N + H
+    # the prefill over the axis: both projections whole, of the gathered
+    # weights, so that the scan's inputs and the residual stream are the
+    # world of one's bits (the chunked scan's cumulative decays turn a
+    # change in the last bit of dt into 1e-5 of the state, layer after
+    # layer); only the conv and the scan split, by heads
+    serve = collect_cache and tp is not None
+    if serve:
+        zxbcdt = u @ _whole(p["in_proj"], -1, full, tp)
+    else:
+        (zxbcdt,) = column_products(u, (p["in_proj"],), (full,), tp)
+    # the conv's inputs [x | B | C], whole: the decode cache's tail
+    xbc_whole = zxbcdt[..., d_in:d_in + conv_dim]
     conv_w = p["conv_w"]
     if tp is not None and tp.is_split(conv_w.shape[-1], conv_dim):
         conv_w = tp.gather(conv_w, -1)
@@ -228,15 +243,27 @@ def mamba_block(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: SSMConfig,
         y, _ = ssd_chunked(x_h, dt, A, B_h, C_h, cfg.chunk)
     y = y + x_h * D[None, None, :, None].to(y.dtype)
     y = y.reshape(B_, S, d_in) * F.silu(z)
-    out = tp.reduce(y @ p["out_proj"]) if heads else row_parallel(
-        y, p["out_proj"], tp)
+    if serve:
+        y = tp.gather(y, -1) if heads else y
+        out = y @ _whole(p["out_proj"], 0, y.shape[-1], tp)
+    elif heads:
+        out = tp.reduce(y @ p["out_proj"])
+    else:
+        out = row_parallel(y, p["out_proj"], tp)
     if not collect_cache:
         return out
     # a copy: a view of the slice would keep the layer's whole (B, S, C)
     # projection alive for as long as the cache lives
-    conv_cache = (xbc_in[:, -(cfg.d_conv - 1):].clone() if cfg.d_conv > 1
-                  else xbc_in.new_zeros((B_, 0, xbc_in.shape[-1])))
+    conv_cache = (xbc_whole[:, -(cfg.d_conv - 1):].clone()
+                  if cfg.d_conv > 1
+                  else xbc_whole.new_zeros((B_, 0, conv_dim)))
     return out, {"ssm": h_final, "conv": conv_cache}
+
+
+def _whole(w: torch.Tensor, dim: int, full: int, tp) -> torch.Tensor:
+    """``w`` gathered whole along ``dim`` where the model axis ``tp``
+    splits it there."""
+    return tp.gather(w, dim) if tp.is_split(w.shape[dim], full) else w
 
 
 def mamba_make_cache(batch: int, d_model: int, cfg: SSMConfig, dtype, *,
@@ -252,25 +279,57 @@ def mamba_make_cache(batch: int, d_model: int, cfg: SSMConfig, dtype, *,
 
 
 def mamba_block_decode(u: torch.Tensor, p: Dict[str, torch.Tensor],
-                       cfg: SSMConfig, cache: Dict[str, torch.Tensor]):
+                       cfg: SSMConfig, cache: Dict[str, torch.Tensor],
+                       tp=None):
     """u: (B, d_model) one token; cache: {'ssm', 'conv'}.  Returns (y,
-    the new cache entry); the given cache is not modified."""
+    the new cache entry); the given cache is not modified.
+
+    Over the model axis ``tp`` (serving), ``cache`` is this process's
+    part as ``cache_shardings`` places it: the SSM state of its heads
+    where the axis divides them, the conv state of its channels where it
+    divides them.  The projection and the conv state are gathered whole
+    (the conv needs every channel of its heads, which a channel split
+    does not give it), the conv steps every channel and this process
+    keeps its own; the SSD step runs on its heads, which multiply its
+    rows of ``out_proj``, summed over the axis (else the mixer runs
+    whole and ``out_proj`` goes through ``row_parallel``)."""
     B_, d_model = u.shape
-    d_in, H, _ = dims(d_model, cfg)
+    d_in, H, conv_dim = dims(d_model, cfg)
     G, N, P = cfg.n_groups, cfg.d_state, cfg.d_head
-    z, xr, Bm, Cm, dt = _split_proj(u @ p["in_proj"], d_in, G, N, H)
+    (zxbcdt,) = column_products(u, (p["in_proj"],),
+                                (2 * d_in + 2 * G * N + H,), tp)
+    conv_w, conv = p["conv_w"], cache["conv"]
+    if tp is not None and tp.is_split(conv_w.shape[-1], conv_dim):
+        conv_w = tp.gather(conv_w, -1)
+    c_loc = conv.shape[-1]
+    if tp is not None and tp.is_split(c_loc, conv_dim):
+        conv = tp.gather(conv, -1)
+    z, xr, Bm, Cm, dt = _split_proj(zxbcdt, d_in, G, N, H)
     xbc, conv_cache = causal_conv_step(torch.cat([xr, Bm, Cm], dim=-1),
-                                       p["conv_w"], cache["conv"])
+                                       conv_w, conv)
+    if c_loc != conv_dim:
+        conv_cache = conv_cache.narrow(-1, tp.coord * c_loc, c_loc)
     xbc = F.silu(xbc)
     xr, Bm, Cm = (xbc[..., :d_in], xbc[..., d_in:d_in + G * N],
                   xbc[..., d_in + G * N:])
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    A_log, D, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    heads = tp is not None and H % tp.size == 0 and tp.size > 1
+    if heads:
+        n, h = d_in // tp.size, H // tp.size
+        z, xr = z.narrow(-1, tp.coord * n, n), xr.narrow(-1, tp.coord * n, n)
+        dt = dt.narrow(-1, tp.coord * h, h)
+        A_log, D, dt_bias = (t.narrow(-1, tp.coord * h, h)
+                             for t in (A_log, D, dt_bias))
+        d_in, H = n, h
+    dt = F.softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log)
     rep = H // G
     x_h = xr.reshape(B_, H, P)
     B_h = Bm.reshape(B_, G, N).repeat_interleave(rep, dim=1)
     C_h = Cm.reshape(B_, G, N).repeat_interleave(rep, dim=1)
     y, ssm = ssd_decode_step(x_h, dt, A, B_h, C_h, cache["ssm"])
-    y = y + x_h * p["D"][None, :, None].to(y.dtype)
+    y = y + x_h * D[None, :, None].to(y.dtype)
     y = y.reshape(B_, d_in) * F.silu(z)
-    return y @ p["out_proj"], {"ssm": ssm, "conv": conv_cache}
+    out = tp.reduce(y @ p["out_proj"]) if heads else row_parallel(
+        y, p["out_proj"], tp)
+    return out, {"ssm": ssm, "conv": conv_cache}

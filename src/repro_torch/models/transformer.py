@@ -39,6 +39,22 @@ hd) (a cross layer's of the encoder's length L), MLA's ``{"ckv"}`` (n, B,
 S, r) and ``{"krope"}`` (n, B, S, rd), or ``{"ssm"}`` (n, B, H, N, P) and
 ``{"conv"}`` (n, B, d_conv - 1, C).  :func:`decode_step` takes one token
 per sequence against it.
+
+Serving over a mesh (``tp`` a :func:`repro_torch.sharding.tensor_parallel.
+serve_axis`, whose :class:`~repro_torch.sharding.tensor_parallel.Serving`
+names the mesh, the request's global batch and the cache's whole length):
+each process holds its rows of the batch, its model-axis shards of the
+parameters and its part of the cache, as JAX's ``cache_shardings``
+places it.  The prefill runs every layer kind as training does on the
+axis (flash attention and the SSD scan on the process's heads where the
+axis divides them), then pads each layer's self-attention entry to the
+cache's length and keeps the process's part (:func:`place_entry`: the
+keys and values of all heads at its positions, one all-gather of the
+heads where they were split; the SSM state of its heads, the conv state
+of its channels).  :func:`decode_step` runs each layer against those
+parts (``models/attention.py``'s sharded decodes, ``ssm.
+mamba_block_decode(tp=)``, the MoE on the axis), and the logits come
+back whole on every process, gathered over the vocab split.
 """
 from __future__ import annotations
 
@@ -58,10 +74,12 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.attention import (MLA_LEAVES, attend,
+                                          cross_decode_sharded,
                                           decode_attention, gqa_attention,
-                                          gqa_init, mla_attention,
-                                          mla_decode_absorbed, mla_init)
-from repro_torch.sharding.tensor_parallel import (ITEM_7C, vocab_embed,
+                                          gqa_decode_sharded, gqa_init,
+                                          mla_attention, mla_decode_absorbed,
+                                          mla_decode_sharded, mla_init)
+from repro_torch.sharding.tensor_parallel import (Serving, vocab_embed,
                                                   vocab_xent)
 from repro_torch.models.layers import (apply_rope, column_products,
                                        dense_init, embed_init, gelu_mlp,
@@ -311,21 +329,75 @@ def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int, tp=None):
     return h + swiglu(x2, m["w_gate"], m["w_up"], m["w_down"]), None
 
 
+def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int
+                 ) -> List[Dict[str, Tuple[int, ...]]]:
+    """The whole shape of every decode-cache leaf, one dict per position
+    in the period, each leaf stacked over periods: ``cache_len`` is the
+    self-attention length (the window under a sliding-window decode)."""
+    n = cfg.num_layers // period_of(cfg)
+    hd = cfg.resolved_head_dim
+    out = []
+    for kind in period_kinds(cfg):
+        if kind == MAMBA:
+            s = cfg.ssm
+            _, H, conv_dim = ssm.dims(cfg.d_model, s)
+            out.append({"ssm": (n, batch, H, s.d_state, s.d_head),
+                        "conv": (n, batch, s.d_conv - 1, conv_dim)})
+        elif _is_mla(cfg, kind):
+            out.append({"ckv": (n, batch, cache_len, cfg.mla.kv_lora_rank),
+                        "krope": (n, batch, cache_len,
+                                  cfg.mla.rope_head_dim)})
+        else:
+            L = cfg.encoder.enc_len if kind == CROSS else cache_len
+            kv = (n, batch, L, cfg.num_kv_heads, hd)
+            out.append({"k": kv, "v": kv})
+    return out
+
+
+def _serving(tp) -> Serving:
+    if tp is None or tp.serving is None:
+        raise ValueError("serving on a mesh takes the axis serve_axis "
+                         "builds (its mesh, global batch and cache length)")
+    return tp.serving
+
+
+def place_entry(ce: Dict[str, torch.Tensor], cfg: ArchConfig, j: int, tp
+                ) -> Dict[str, torch.Tensor]:
+    """One layer's prefill cache entry at position ``j`` of the period ->
+    this process's part of it (``tp.serving``): the keys and values of
+    heads the model axis split gathered whole, a self-attention entry
+    padded with zero slots to the cache's length, then every leaf sliced
+    as ``cache_shardings`` places it (a dim this process holds its part
+    of already, its heads' SSM state, stays)."""
+    sv = _serving(tp)
+    shapes = cache_shapes(cfg, sv.batch, sv.cache_len)[j]
+    kind = period_kinds(cfg)[j]
+    out = {}
+    for key, t in ce.items():
+        whole = shapes[key][1:]
+        if key in ("k", "v") and t.shape[2] != whole[2]:
+            t = tp.gather(t, 2)
+        if kind != MAMBA and kind != CROSS and t.shape[1] != whole[1]:
+            if t.shape[1] > whole[1]:
+                raise ValueError(f"{cfg.name}: a prompt of {t.shape[1]} "
+                                 f"does not fit a cache of {whole[1]}")
+            t = F.pad(t, [0, 0] * (t.dim() - 2) + [0, whole[1] - t.shape[1]])
+        out[key] = sv.place(key, t, whole)
+    return out
+
+
 def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
                  positions: torch.Tensor, enc_out: Optional[torch.Tensor],
                  collect_cache: bool, tp=None):
     """One layer over the full sequence.  Returns (h, aux, cache_entry).
     ``tp``: the model axis (:class:`repro_torch.sharding.tensor_parallel.
-    ModelAxis`) whose shards ``lp`` holds, in training (the prefill over
-    the axis raises)."""
+    ModelAxis`) whose shards ``lp`` holds; in the prefill the one
+    ``serve_axis`` builds, and the entry is this process's part of the
+    cache (:func:`place_entry`)."""
     x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
     ce = None
     hd = cfg.resolved_head_dim
     kind = cfg.layer_kinds()[j]
-    if tp is not None and collect_cache:
-        raise NotImplementedError(
-            f"{cfg.name}: the prefill over a model axis above 1 is not yet "
-            f"ported to repro_torch ({ITEM_7C})")
     attn_fn = flash_attention if collect_cache else attend
     if kind == MAMBA:
         y = ssm.mamba_block(x, lp["mamba"], cfg.ssm,
@@ -349,6 +421,8 @@ def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
             tp=tp)
         if collect_cache:
             ce = {"k": k, "v": v}
+    if collect_cache and tp is not None:
+        ce = place_entry(ce, cfg, j, tp)
     h, aux = _ffn(h + y, lp, cfg, j, tp)
     return h, aux, ce
 
@@ -375,7 +449,8 @@ class Transformer(nn.Module):
         ``collect_cache`` (the prefill) also the decode cache.  ``tp``:
         the model axis whose shards the parameters are (tensor-parallel
         client compute, :mod:`repro_torch.sharding.tensor_parallel`); the
-        hidden state comes back whole on every process."""
+        hidden state comes back whole on every process, and the prefill's
+        cache is this process's part (the module docstring)."""
         cfg = self.cfg
         B, S = tokens.shape
         P = period_of(cfg)
@@ -413,6 +488,10 @@ class Transformer(nn.Module):
         index = torch.tensor(S, dtype=torch.int32, device=tokens.device)
         cache = {"layers": layers, "index": index}
         if enc_out is not None:
+            if tp is not None:
+                enc_out = _serving(tp).place(
+                    "enc_out", enc_out, (_serving(tp).batch,)
+                    + tuple(enc_out.shape[1:]), stacked=False)
             cache["enc_out"] = enc_out
         return h, aux, cache
 
@@ -493,6 +572,25 @@ def head_of(cfg: ArchConfig, params: Params) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
+def logits_of(cfg: ArchConfig, params: Params, h: torch.Tensor, tp=None
+              ) -> torch.Tensor:
+    """h (..., d) through the vocab projection: whole on every process
+    of the model axis ``tp``, gathered where it splits the vocab."""
+    head = head_of(cfg, params)
+    logits = h @ head
+    if tp is not None and tp.is_split(head.shape[-1], cfg.vocab_size):
+        logits = tp.gather(logits, -1)
+    return logits
+
+
+def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor, tp=None
+           ) -> torch.Tensor:
+    embed = params["embed"]
+    if tp is not None and tp.is_split(embed.shape[0], cfg.vocab_size):
+        return vocab_embed(tokens, embed, tp)
+    return embed[tokens]
+
+
 def lm_loss_chunked(module: Transformer, params: Params, tokens: torch.Tensor,
                     *, enc_embeds: Optional[torch.Tensor] = None,
                     mask: Optional[torch.Tensor] = None, chunk: int = 2048,
@@ -554,40 +652,38 @@ def pad_cache(cache, cfg: ArchConfig, cache_len: int):
 
 
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int,
-               dtype=torch.float32, *, window: int = 0, device=None):
+               dtype=torch.float32, *, window: int = 0, device=None,
+               mesh=None):
     """Zero-initialized decode cache.  ``cache_len`` is the self-attention
     cache length (the window instead when a sliding-window decode is
     used); mamba layers carry constant-size state and cross layers the
-    encoder's keys and values (its ``enc_len``)."""
-    n = cfg.num_layers // period_of(cfg)
+    encoder's keys and values (its ``enc_len``).  With ``mesh``, this
+    process's part of the cache of a global ``batch``, as
+    ``cache_shardings`` places it."""
     S = window if window > 0 else cache_len
-    hd = cfg.resolved_head_dim
+    sv = None if mesh is None else Serving(mesh, batch, S)
     layers = []
-    for kind in period_kinds(cfg):
-        if kind == MAMBA:
-            layers.append(ssm.mamba_make_cache(batch, cfg.d_model, cfg.ssm,
-                                               dtype, lead=(n,),
-                                               device=device))
-            continue
-        if _is_mla(cfg, kind):
-            shapes = {"ckv": (n, batch, S, cfg.mla.kv_lora_rank),
-                      "krope": (n, batch, S, cfg.mla.rope_head_dim)}
-        else:
-            L = cfg.encoder.enc_len if kind == CROSS else S
-            kv = (n, batch, L, cfg.num_kv_heads, hd)
-            shapes = {"k": kv, "v": kv}
-        layers.append({k: torch.zeros(s, dtype=dtype, device=device)
-                       for k, s in shapes.items()})
+    for shapes in cache_shapes(cfg, batch, S):
+        layers.append({k: torch.zeros(
+            shape if sv is None else sv.local_shape(k, shape),
+            dtype=torch.float32 if k == "ssm" else dtype, device=device)
+            for k, shape in shapes.items()})
     return {"layers": tuple(layers),
             "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache,
-                cfg: ArchConfig, *, window: int = 0):
+                cfg: ArchConfig, *, window: int = 0, tp=None):
     """tokens: (B,) or (B, 1) int — one new token per sequence.  Returns
     (logits (B, V), cache with ``index + 1``).  The cache's tensors are
     updated in place (the JAX step returns new arrays; the serving loop
-    never reads an old cache again), so the step allocates no cache."""
+    never reads an old cache again), so the step allocates no cache.
+    ``tp``: serving on a mesh (``serve_axis``): ``params`` are this
+    process's shards, ``tokens`` its rows of the batch and ``cache`` its
+    part (the module docstring); the logits come back whole."""
+    if tp is not None:
+        return _decode_step_sharded(params, tokens, cache, cfg,
+                                    window=window, tp=tp)
     tokens = tokens.reshape(tokens.shape[0])
     B = tokens.shape[0]
     P = period_of(cfg)
@@ -640,3 +736,60 @@ def decode_step(params: Params, tokens: torch.Tensor, cache,
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = h @ head_of(cfg, params)
     return logits, {**cache, "index": index + 1}
+
+
+def _decode_step_sharded(params: Params, tokens: torch.Tensor, cache,
+                         cfg: ArchConfig, *, window: int, tp):
+    """:func:`decode_step` on a mesh (its ``tp``)."""
+    sv = _serving(tp)
+    tokens = tokens.reshape(tokens.shape[0])
+    P = period_of(cfg)
+    kinds = period_kinds(cfg)
+    index = cache["index"]
+    hd = cfg.resolved_head_dim
+    seqs = []
+    for j, shapes in enumerate(cache_shapes(cfg, sv.batch, sv.cache_len)):
+        ce = cache["layers"][j]
+        seqs.append({})
+        for key, shape in shapes.items():
+            if tuple(ce[key].shape[2:]) != sv.local_shape(key, shape)[2:]:
+                raise ValueError(
+                    f"{cfg.name}: cache leaf {key!r} of position {j} is "
+                    f"{tuple(ce[key].shape)}; this process's part of "
+                    f"{shape} on the mesh is {sv.local_shape(key, shape)}")
+            if kinds[j] != MAMBA:
+                seqs[j][key] = sv.seq_split(key, shape)
+    h = _embed(cfg, params, tokens, tp)
+    if cfg.rope_theta <= 0:              # the current token's position
+        h = h + sinusoidal_positions(index.reshape(1), cfg.d_model, h.dtype)
+    for i, lp in enumerate(_layers(lambda path: params[f"blocks.{path}"],
+                                   cfg)):
+        j, n = i % P, i // P
+        ce = cache["layers"][j]
+        x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
+        if kinds[j] == MAMBA:
+            y, new = ssm.mamba_block_decode(
+                x, lp["mamba"], cfg.ssm,
+                {"ssm": ce["ssm"][n], "conv": ce["conv"][n]}, tp=tp)
+            ce["ssm"][n].copy_(new["ssm"])
+            ce["conv"][n].copy_(new["conv"])
+        elif _is_mla(cfg, kinds[j]):
+            y = mla_decode_sharded(
+                x, lp["attn"], ce["ckv"][n], ce["krope"][n], index,
+                num_heads=cfg.num_heads, head_dim=hd,
+                rope_head_dim=cfg.mla.rope_head_dim,
+                rope_theta=cfg.rope_theta, seq=seqs[j]["ckv"], tp=tp)
+        elif kinds[j] == CROSS:          # every encoder position is valid
+            y = cross_decode_sharded(
+                x, lp["attn"], ce["k"][n], ce["v"][n],
+                num_heads=cfg.num_heads, head_dim=hd, seq=seqs[j]["k"],
+                tp=tp)
+        else:
+            y = gqa_decode_sharded(
+                x, lp["attn"], ce["k"][n], ce["v"][n], index,
+                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=hd, rope_theta=cfg.rope_theta, window=window,
+                seq=seqs[j]["k"], tp=tp)
+        h = _ffn((h + y)[:, None], lp, cfg, j, tp)[0][:, 0]
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return logits_of(cfg, params, h, tp), {**cache, "index": index + 1}

@@ -53,6 +53,7 @@ program.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -62,7 +63,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import (DataDependentOutputException,
-                                          FakeTensorMode, is_fake)
+                                          FakeTensorMode,
+                                          disable_fake_tensor_cache, is_fake)
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map
 from torch.utils.flop_counter import flop_registry
@@ -273,16 +275,22 @@ def trace_device(device) -> torch.device:
     return device
 
 
-def trace_cost(fn, args, *, device, mode: Optional[FakeTensorMode] = None
-               ) -> Tuple[Cost, Any]:
+def trace_cost(fn, args, *, device, mode: Optional[FakeTensorMode] = None,
+               fake_cache: bool = True) -> Tuple[Cost, Any]:
     """Run ``fn(*args)`` once on fake stand-ins and count its cost.
     Returns (:class:`Cost`, the fake result).  ``device`` is the device
     whose program is costed; ``mode`` an open fake mode whose stand-ins
-    ``args`` already hold (the dry run builds its model in one)."""
+    ``args`` already hold (the dry run builds its model in one).
+    ``fake_cache=False`` traces without the fake modes' dispatch cache,
+    which the model axis's client update needs: there an entry made for
+    a view under forward-mode AD fails a later view's check (an internal
+    assert of torch's), in the same trace or a later one, the cache
+    being class-wide.  Without it a trace takes about twice as long."""
     device = torch.device(device)
     mode = mode or FakeTensorMode(allow_non_fake_inputs=False)
     t0 = time.perf_counter()
-    with mode:
+    with mode, (contextlib.nullcontext() if fake_cache
+                else disable_fake_tensor_cache(mode)):
         def stand_in(x):
             if isinstance(x, TensorSpec):
                 return torch.empty_strided(

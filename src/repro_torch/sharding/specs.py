@@ -29,8 +29,9 @@ is replicated):
     paths in JAX's flatten order: the port's dotted parameter names
     (``blocks.0.attn.wq``, stacked ``(L, ...)``) are JAX's nested keys
     (``blocks/0/attn/wq``), so a name's rule is the JAX leaf's;
-  * :func:`batch_axes`, :func:`axis_size`, :func:`cohort_split` — the
-    sharded executor's cohort split over the batch axes.
+  * :func:`batch_axes`, :func:`axis_size`, :func:`cohort_split`,
+    :func:`batch_coord`, :func:`batch_rank` — the sharded executor's
+    cohort split over the batch axes.
 
 A "sharding" here is a placement: torch has no ``NamedSharding``, and
 the functions that return JAX's shardings return placements in the same
@@ -389,6 +390,24 @@ def cache_shardings(cache_shape, mesh: Mesh, *, seq_axes_for_b1=("data",)):
 
 def replicated(tree, mesh: Mesh):
     return _map_paths(lambda _, leaf: Placement(), tree)
+
+
+def batch_coord(mesh: Mesh) -> int:
+    """This process's coordinate over the batch axes (pod major)."""
+    c = 0
+    for a in batch_axes(mesh):
+        c = c * mesh.shape[a] + mesh.coords[a]
+    return c
+
+
+def batch_rank(mesh: Mesh, b: int) -> int:
+    """The global rank at batch coordinate ``b`` and this process's
+    model coordinate."""
+    coords = {}
+    for a in reversed(batch_axes(mesh)):
+        coords[a] = b % mesh.shape[a]
+        b //= mesh.shape[a]
+    return mesh.rank_of(**coords)
 
 
 def cohort_split(cohort: int, mesh: Mesh) -> Tuple[int, int]:

@@ -68,8 +68,22 @@ lossy uplink codecs with and without error feedback (each group's
 statistic reduced over the axis, the decode and the residual kept only
 where the process owns the element: :meth:`ModelAxis.ownership`), and
 both engines, ``fused_flat`` and ``legacy_tree``.  The buffered-async
-runtime and the prefill over the axis raise (:func:`check_supported`,
-``transformer._apply_layer``), naming ROADMAP Queue 1 item 7c.
+runtime runs on no mesh, as in the JAX package, whose
+``make_federated_round`` refuses it beside the sharded executor's
+``grad_shardings`` (:func:`repro_torch.core.round.refuse_async_on_mesh`).
+A model that is not a transformer config raises, naming ROADMAP Queue 1
+item 7d (:func:`check_supported`).
+
+Serving runs on the axis too (the prefill and the decode step of
+``models/transformer.py``, given a :class:`ModelAxis` built by
+:func:`serve_axis`): the prefill on each process's shards, as training
+runs, returning this process's part of the decode cache as
+:func:`repro_torch.sharding.specs.cache_shardings` places it; the decode
+step against that part.  :class:`Serving` holds what the placement needs
+(the mesh, the request's global batch, the cache's whole length), and
+:class:`SeqSplit` a cache's sequence axis split over processes: the
+owner of a slot, and the group over which the online-softmax partials
+of a split sequence merge (``model``, or ``data`` at B = 1).
 
 On two processes sharing a card (the mesh's shared-card rule) the group
 is gloo, which carries CUDA tensors through host memory itself: every
@@ -87,11 +101,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.sharding.specs import (Mesh, local_slices,
-                                        model_axis_placement, model_size,
-                                        param_spec, tree_paths)
+from repro_torch.sharding.specs import (Mesh, Placement, cache_shardings,
+                                        local_slices, model_axis_placement,
+                                        model_size, param_spec,
+                                        simple_batch_shardings, tree_paths)
 
-ITEM_7C = "ROADMAP Queue 1 item 7c"
+ITEM_7D = "ROADMAP Queue 1 item 7d"
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +289,7 @@ class ModelAxis:
     size: int
     coord: int
     placements: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    serving: Optional["Serving"] = None      # set by :func:`serve_axis`
 
     # -- collectives (differentiable) -----------------------------------
     def copy(self, x):
@@ -393,13 +409,16 @@ def model_axis(mesh: Optional[Mesh], params_shape) -> Optional[ModelAxis]:
     of a placement, which the model axis drops."""
     if model_size(mesh) <= 1:
         return None
-    names = {n.replace(".", "/"): n for n in params_shape}
-    placements = {}
-    for path, leaf in tree_paths(params_shape):
-        placements[names[path]] = model_axis_placement(
-            param_spec(path, tuple(leaf.shape), mesh))
     return ModelAxis(mesh.groups["model"], mesh.shape["model"],
-                     mesh.coords["model"], placements)
+                     mesh.coords["model"], _placements(mesh, params_shape))
+
+
+def _placements(mesh: Mesh, params_shape) -> Dict[str, Placement]:
+    """Each parameter's model-axis placement, by the port's name."""
+    names = {n.replace(".", "/"): n for n in params_shape}
+    return {names[path]: model_axis_placement(
+        param_spec(path, tuple(leaf.shape), mesh))
+        for path, leaf in tree_paths(params_shape)}
 
 
 def shard_params(params: Dict[str, torch.Tensor], mesh: Mesh
@@ -460,20 +479,137 @@ def vocab_xent(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Serving on a mesh: the decode cache's placement
+# ---------------------------------------------------------------------------
+def axis_group(mesh: Mesh, axes):
+    """The process group of ``axes`` (a name, or a tuple of names whose
+    group :func:`repro_torch.launch.mesh._grid_mesh` builds: the batch
+    axes)."""
+    if isinstance(axes, str) or len(axes) == 1:
+        return mesh.groups[axes if isinstance(axes, str) else axes[0]]
+    return mesh.groups[tuple(axes)]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SeqSplit:
+    """A cache's sequence axis in ``size`` contiguous parts over the
+    processes of ``group``; this process holds part ``coord``, the
+    ``local`` positions from ``offset``.  ``size`` 1: the sequence is
+    whole here (``group`` None)."""
+    group: Any
+    size: int
+    coord: int
+    local: int
+
+    @property
+    def offset(self) -> int:
+        return self.coord * self.local
+
+    def slot(self, pos: torch.Tensor):
+        """(this process's slot for the global position ``pos``, a 0-d
+        int tensor, clamped into its part; whether it owns ``pos``), both
+        on the device: the caller writes ``where(owned, new, old)``, so
+        no host read decides the owner."""
+        rel = pos - self.offset
+        owned = (rel >= 0) & (rel < self.local)
+        return torch.clamp(rel, 0, self.local - 1), owned
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """A shape, as the placement rules read a leaf (no tensor: inside a
+    traced call a tensor of a whole cache's shape would count as
+    memory)."""
+    shape: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Serving:
+    """What a process serving on ``mesh`` needs besides its parameter
+    shards: the request's global ``batch`` (the cache's placement turns
+    on it: at B = 1 the sequence goes over ``data``) and the decode
+    cache's whole self-attention length ``cache_len`` (the window under a
+    sliding-window decode).  The batch is split as
+    :func:`~repro_torch.sharding.specs.simple_batch_shardings` splits it;
+    each cache leaf as :func:`~repro_torch.sharding.specs.cache_shardings`
+    places it, its batch dim being this process's rows."""
+    mesh: Mesh
+    batch: int
+    cache_len: int
+
+    def batch_rows(self) -> slice:
+        """This process's rows of the global batch."""
+        pl = simple_batch_shardings({"t": _Leaf((self.batch,))},
+                                    self.mesh)["t"]
+        return local_slices(pl, (self.batch,), self.mesh)[0]
+
+    def placement(self, key: str, shape) -> Placement:
+        """The placement of a cache leaf ``key`` (``k``, ``v``, ``ckv``,
+        ``krope``, ``ssm``, ``conv``, ``enc_out``) of the whole (global)
+        ``shape``."""
+        return cache_shardings({key: _Leaf(tuple(shape))}, self.mesh)[key]
+
+    def local_shape(self, key: str, shape) -> Tuple[int, ...]:
+        sl = local_slices(self.placement(key, shape), shape, self.mesh)
+        return tuple(s.stop - s.start for s in sl)
+
+    def place(self, key: str, t: torch.Tensor, shape, *,
+              stacked: bool = True) -> torch.Tensor:
+        """This process's part of a cache tensor ``t`` whose global shape
+        is ``shape`` and whose batch dim (the first) holds this process's
+        rows already: one layer's entry of a leaf stacked over periods
+        (``stacked``: ``shape`` without the stack dim), or ``enc_out``.
+        A dim the placement splits is sliced where ``t`` holds it whole
+        and kept where ``t`` holds this process's part already (a head
+        split that matches the placement); every other dim must be
+        whole."""
+        shape = tuple(shape)
+        pl = (self.placement(key, (1,) + shape)[1:] if stacked
+              else self.placement(key, shape))
+        sl = list(local_slices(pl, shape, self.mesh))
+        sl[0] = slice(None)                  # this process's rows already
+        for d in range(1, len(shape)):
+            if t.shape[d] == shape[d]:
+                continue
+            if pl[d] is None or t.shape[d] != sl[d].stop - sl[d].start:
+                raise ValueError(f"cache leaf {key!r}: dim {d} of "
+                                 f"{tuple(t.shape)} against {shape} placed "
+                                 f"{pl}")
+            sl[d] = slice(None)
+        return t[tuple(sl)].contiguous()
+
+    def seq_split(self, key: str, shape) -> SeqSplit:
+        """The split of a KV-like leaf's sequence dim (dim 2 of the whole
+        ``shape``, stack dim first)."""
+        pl = self.placement(key, shape)
+        if pl[2] is None:
+            return SeqSplit(None, 1, 0, shape[2])
+        part = local_slices(pl, shape, self.mesh)[2]
+        local = part.stop - part.start
+        return SeqSplit(axis_group(self.mesh, pl[2]), shape[2] // local,
+                        part.start // local, local)
+
+
+def serve_axis(mesh: Mesh, params_shape, *, batch: int, cache_len: int
+               ) -> ModelAxis:
+    """The :class:`ModelAxis` a process serves a request of ``batch``
+    sequences with, on ``mesh``, into a decode cache of ``cache_len``
+    (:class:`Serving`); a model axis of 1 too (a mesh ``Dx1``, whose
+    processes split the batch, or the sequence at B = 1)."""
+    return ModelAxis(mesh.groups["model"], mesh.shape["model"],
+                     mesh.coords["model"], _placements(mesh, params_shape),
+                     Serving(mesh, int(batch), int(cache_len)))
+
+
+# ---------------------------------------------------------------------------
 # What the model axis runs
 # ---------------------------------------------------------------------------
-def check_supported(model, *, engine) -> None:
-    """Raise, naming ROADMAP Queue 1 item 7c, for what tensor-parallel
-    client compute does not run yet: a model that is not a transformer
-    config, and the buffered-async runtime."""
+def check_supported(model) -> None:
+    """Raise, naming ROADMAP Queue 1 item 7d, for a model the axis does
+    not split: one that is not a transformer config."""
     from repro_torch.configs.base import ArchConfig
-    cfg = getattr(model, "cfg", None)
-    what = None
-    if not isinstance(cfg, ArchConfig):
-        what = f"model {model.name!r} (not a transformer config)"
-    elif engine.is_async:
-        what = f"engine {engine.name!r} (the synchronous engines run)"
-    if what is not None:
+    if not isinstance(getattr(model, "cfg", None), ArchConfig):
         raise NotImplementedError(
             f"a model axis above 1 (tensor-parallel client compute) with "
-            f"{what} is not yet ported to repro_torch ({ITEM_7C})")
+            f"model {model.name!r} (not a transformer config) is not yet "
+            f"ported to repro_torch ({ITEM_7D})")

@@ -82,6 +82,7 @@ def main(rank: int, world: int, port: int, out: str) -> None:
     from repro_torch.configs import FedConfig
     from repro_torch.launch.mesh import make_auto_mesh, make_debug_mesh
     from repro_torch.sharding.longctx import sharded_flash_decode
+    from repro_torch.sharding.tensor_parallel import SeqSplit
 
     mesh = make_auto_mesh(device="cpu")
     res = {"mesh": (dict(mesh.shape), dict(mesh.coords))}
@@ -93,8 +94,11 @@ def main(rank: int, world: int, port: int, out: str) -> None:
     q, k, v = (torch.from_numpy(a) for a in decode_inputs())
     loc = DECODE["S"] // world
     sl = slice(rank * loc, (rank + 1) * loc)
+    # the cache's sequence split over the data axis, as cache_shardings
+    # splits it at B = 1
+    seq = SeqSplit(mesh.groups["data"], world, rank, loc)
     res["decode"] = sharded_flash_decode(
-        q, k[:, sl], v[:, sl], torch.tensor(DECODE["index"]), mesh=mesh)
+        q, k[:, sl], v[:, sl], torch.tensor(DECODE["index"]), seq)
     if world == 2:
         # the model axis runs the transformer configs; a round of this MLP
         # on a (1, 2) mesh still refuses

@@ -10,8 +10,8 @@ Jobs by world size (the mesh is (world / model, model)):
     computation (value, ``grad``, ``jvp`` of ``grad``, ``vmap``), the
     vocab-split cross-entropy and argmax, the model (loss, gradient, one
     ``uga_update`` on smollm-360m-smoke's shards), the (1, 2) rounds, a
-    checkpoint, the layer kinds that build and the refusals that name
-    item 7c;
+    checkpoint, the layer kinds that build and the buffered-async
+    runtime's refusal;
   * 3, model 3 — the model (M = 3 leaves ``wk``/``wv``, the MLP and the
     vocab whole);
   * 4, model 2 — the (2, 2) rounds.
@@ -158,7 +158,8 @@ def model(inputs, mesh, axis):
 def refusals(mesh, p0):
     """What the model axis builds and what still refuses on it: the
     layer kinds, through_aggregation, a lossy codec and legacy_tree build
-    (``"accepted"``), the buffered-async runtime must name item 7c."""
+    (``"accepted"``); the buffered-async runtime raises JAX's
+    ValueError (its replicated delta pool)."""
     from repro_torch.configs import FedConfig, get_arch
     from repro_torch.core.round import make_federated_round
     from repro_torch.models.model import build_model
@@ -179,7 +180,7 @@ def refusals(mesh, p0):
         try:
             make_federated_round(mdl, fed, mesh=mesh)
             out[name] = "accepted"
-        except NotImplementedError as e:
+        except (NotImplementedError, ValueError) as e:
             out[name] = str(e)
     return out
 

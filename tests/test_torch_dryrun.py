@@ -135,10 +135,19 @@ def test_two_card_mesh_counts_collectives():
 
 
 def test_model_axis_raises_naming_item_7b(tmp_path):
-    """The dry run of a model axis is what still refuses (the trainer runs
-    it): item 7c."""
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        run_one("smollm-360m-smoke", "train_4k", mesh="1x2", verbose=False)
+    """The dry run of a model axis traces rank 0 of the mesh (the round's
+    client update on its shards, the model axis's collectives counted);
+    what still refuses there, JAX's activation-sharding hint, names item
+    7d, from run_one and from the CLI."""
+    rec = run_one("smollm-360m-smoke", "train_4k", mesh="1x2",
+                  verbose=False)
+    assert rec["chips"] == 2 and rec["mesh"] == "1x2"
+    assert rec["launches"] == {"accumulate_pass": 1, "update_pass": 1}
+    assert rec["collectives"]["_counts"]["allgather_"] >= 1
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        run_one("smollm-360m-smoke", "train_4k", mesh="1x2",
+                act_spec="on", verbose=False)
     p = _cli(tmp_path, "--arch", "smollm-360m", "--shape", "train_4k",
-             "--mesh", "1x2")
-    assert p.returncode != 0 and "item 7c" in p.stderr
+             "--mesh", "1x2", "--act-spec", "on")
+    assert p.returncode != 0 and "item 7d" in p.stderr

@@ -117,17 +117,20 @@ def test_sharded_flash_decode_matches_jax(two_ranks, one_rank):
 
 
 def test_model_axis_raises_naming_item_7b(two_ranks):
-    """What still refuses a model axis above 1 names item 7c: a model that
-    is not a transformer config (the MLP in the ranks) and, from the CLI
-    before any process group starts, the buffered-async engine."""
+    """What still refuses a model axis above 1, a model that is not a
+    transformer config (the MLP in the ranks), names item 7d; from the
+    CLI, before any process group starts, the buffered-async engine on
+    the sharded executor raises JAX's ValueError (its replicated delta
+    pool), at every model-axis size."""
     for res in two_ranks:
-        assert "ROADMAP Queue 1 item 7c" in res["model_axis"]
+        assert "ROADMAP Queue 1 item 7d" in res["model_axis"]
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        main(["--arch", "smollm-360m-smoke", "--fused", "--rounds", "1",
-              "--cohort", "2", "--client-batch", "4", "--seq", "8",
-              "--device", "cpu", "--executor", "sharded",
-              "--mesh-model", "2", "--engine", "buffered_async"])
+    for m in ("1", "2"):
+        with pytest.raises(ValueError, match="replicated delta pool"):
+            main(["--arch", "smollm-360m-smoke", "--fused", "--rounds",
+                  "1", "--cohort", "2", "--client-batch", "4", "--seq",
+                  "8", "--device", "cpu", "--executor", "sharded",
+                  "--mesh-model", m, "--engine", "buffered_async"])
 
 
 def _mesh(data, model, d, m):

@@ -259,7 +259,9 @@ def test_production_meshes_match_jax():
             m = make_production_mesh(multi_pod=multi)
             got.append([list(m.axis_names), dict(m.shape)])
             assert m.coords == {a: 0 for a in m.axis_names}
-            assert set(m.groups) == set(m.axis_names)
+            # and, on the multi-pod mesh, the batch axes' group
+            assert set(m.groups) == set(m.axis_names) | (
+                {("pod", "data")} if multi else set())
             assert dist.get_world_size() == m.size
         finally:
             dist.destroy_process_group()

@@ -24,9 +24,9 @@ two on a (1, 2) mesh, of three on (1, 3) and of four on (2, 2).
     JAX's unsharded trainer and the port's world of one: parameters and
     optimizer slots 1e-5, metrics 1e-4 (ROADMAP's tolerances); every
     rank's state bitwise the same.
-  * The layer kinds and the modes build a round on the axis; what still
-    refuses names ROADMAP Queue 1 item 7c; a (1, 2) run's checkpoint
-    restores in a world of one, bitwise.
+  * The layer kinds and the modes build a round on the axis; the
+    buffered-async runtime refuses it with JAX's ValueError; a (1, 2)
+    run's checkpoint restores in a world of one, bitwise.
 """
 import socket
 
@@ -269,8 +269,9 @@ BUILDS = ("mamba", "moe", "mla", "encoder", "through_aggregation", "codec",
 def test_refusals_name_item_7c(mesh_1x2):
     """Every layer kind builds a round on the axis (mamba, MoE, MLA, the
     encoder and cross layers), and so do the modes (through_aggregation,
-    a lossy codec, the legacy_tree engine); what still refuses (the
-    buffered-async runtime) names item 7c."""
+    a lossy codec, the legacy_tree engine); the buffered-async runtime
+    refuses a mesh with JAX's reason, its replicated delta pool (the
+    label is item 7c's, which that refusal once named)."""
     _, ranks = mesh_1x2
     for res in ranks:
         assert set(BUILDS) < set(res["refusals"])
@@ -278,7 +279,7 @@ def test_refusals_name_item_7c(mesh_1x2):
             if name in BUILDS:
                 assert msg == "accepted", (name, msg)
             else:
-                assert "ROADMAP Queue 1 item 7c" in msg, (name, msg)
+                assert "replicated delta pool" in msg, (name, msg)
 
 
 def test_checkpoint_of_a_model_axis_restores_in_a_world_of_one(mesh_1x2):
