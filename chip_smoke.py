@@ -109,7 +109,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      over 1500 frames; 6z the modes on smollm-360m at 2 layers, cohort
      4: through_aggregation (sgd), int8 and sign1bit with error
      feedback, topk at 0.01, the ``legacy_tree`` engine; 2 rounds in
-     chunks of 2.  Each run's world of one in this process
+     chunks of 2.  6x runs smollm-360m again with each client's residual
+     stream split over the axis by its batch rows (``post+rows``,
+     ``set_activation_spec``: JAX's ``--act-spec on``), held as every
+     run is, its larger rank's peak printed beside the replicated run's.  Each run's world of one in this process
      (``executor='sharded'``, NCCL), then all runs in turn on a (1, 2)
      mesh, two processes of one torchrun job on the one card (gloo, the
      mesh's shared-card rule), ``mesh_model=2``; after each round params
@@ -266,6 +269,29 @@ The serving path (``repro_torch.launch.serve``) adds, beside these:
       equal first), whisper's (encoder, cross-attention, sinusoidal
       positions) and llama-3.2-vision's at head_dim 64.
 
+Both prefill kernels take bf16 too (q, k, v; x, B, C), the forms a model
+built at bf16 runs (JAX's dry run costs its models at ``cfg.dtype``):
+
+  3b at bf16. each against its plain version at bf16 (``FLASH_BF16_TOL``,
+      ``SSD_BF16_TOL`` say why 1e-2): flash at every form, S 1 to 1025,
+      causal on and off, window 0 and 256, group 1 and 3, non-causal at
+      ``CROSS_PAIRS``, then at every served prefill's call shape; the SSD
+      scan at S 128 to 1025, chunk 256 and 64, both decay regimes, and
+      at mamba2-780m's prefill shape;
+  5d at bf16. flash at every served prefill's call shape in turns with
+      scaled_dot_product_attention at bf16, the SSD scan at mamba2-780m's,
+      each beside its plain version at bf16 and its bound from the
+      wrapper's declared cost (flash's products at the bf16 tensor cores'
+      989 TFLOP/s);
+  6w. smollm-360m and mamba2-780m built at bf16, full width and depth,
+      batch 8, prefill 1024, 8 greedy decode steps: launches counted
+      (flash 32 or SSD 48 in the prefill, none in decode); each launch
+      against its plain version on the model's own activations; the
+      logits against the same prefill through the plain versions at
+      bf16 (``SERVE_BF16_TOL`` says how); the ``kernels`` line lists the
+      bf16 forms as ``flash_attention_fwd[bf16]`` and
+      ``ssd_scan_fwd[bf16]``, their launches phase 6w's.
+
 Exits 2 without a result when no CUDA device is present.
 """
 from __future__ import annotations
@@ -357,20 +383,23 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0) -> tuple:
+def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0,
+             bf16_flops: float = 0.0) -> tuple:
     """The larger of bytes over the memory rate and operations over their
     peak rates: ``flops`` at fp32's, ``tf32_flops`` at the TF32 tensor
-    cores' (both kinds done, so their times add); the H100 SXM constants
-    of ``repro_torch/roofline/analysis.py``."""
+    cores', ``bf16_flops`` at their bf16 rate (the kinds all done, so
+    their times add); the H100 SXM constants of
+    ``repro_torch/roofline/analysis.py``."""
     from repro_torch.roofline.analysis import bound_s
-    t, by = bound_s(nbytes, flops, tf32_flops)
+    t, by = bound_s(nbytes, flops, tf32_flops, bf16_flops)
     return t * 1e3, by
 
 
 def kernel_bound(kc) -> tuple:
     """``bound_ms`` of a kernel's declared cost (``kernels/*/kernel.py``'s
     ``*_cost``: a ``KernelCost``)."""
-    return bound_ms(kc.bytes_read + kc.bytes_written, kc.flops, kc.tc_flops)
+    return bound_ms(kc.bytes_read + kc.bytes_written, kc.flops, kc.tc_flops,
+                    kc.bf16_flops)
 
 
 def paired_ms(fn_a, fn_b, iters: int = 10) -> tuple:
@@ -1573,10 +1602,12 @@ def tracked_path(counts_of, dev, ref):
 ROOFLINE_TRACED = ("post:scan/adam", "through_aggregation:vmap/sgd",
                    "through_aggregation:scan/adam", "int8+ef:scan/adam",
                    "sign1bit+ef:vmap/sgd")
-# (arch, shape, mesh) -> (launches, the heads each launch is charged at)
+# (arch, shape, mesh) -> (launches, the heads each launch is charged at);
+# every pair in the config's dtype, bf16: a train pair's server step runs
+# one pass per flat dtype group (the bf16 leaves, the fp32 norms)
 ROOFLINE_DRY = {
-    ("smollm-360m", "train_4k", "1x1"): ({"aggregate_pass": 1,
-                                          "update_pass": 1}, []),
+    ("smollm-360m", "train_4k", "1x1"): ({"aggregate_pass": 2,
+                                          "update_pass": 2}, []),
     ("smollm-360m", "prefill_32k", "1x1"): ({"flash_attention_fwd": 32},
                                             [15]),
     ("smollm-360m", "decode_32k", "1x1"): ({}, []),
@@ -1790,6 +1821,7 @@ def roofline_path(counts_of, dev, ref, procs):
                 f"{json.dumps(rec)}")
             assert rec["launches"] == want, (arch, shape, rec["launches"])
             assert rec["heads"] == heads, (arch, shape, mesh, rec["heads"])
+            assert rec["dtype"] == "bfloat16", (arch, shape, rec["dtype"])
             assert rec["roofline"]["bottleneck"] in (
                 "compute", "memory", "collective"), rec["roofline"]
         log(f"  6l dryrun: {len(ROOFLINE_DRY)} pairs in "
@@ -2767,6 +2799,9 @@ MODEL_AXIS_TIMEOUT = 800
 # mode -> run_training's keywords beside post mode on the fused engine
 AXIS_MODES = {
     "post": {},
+    # post with each client's residual stream split over the model axis by
+    # its batch rows (set_activation_spec; JAX's --act-spec on)
+    "post+rows": {"act_rows": True},
     "through_aggregation": {"meta_mode": "through_aggregation"},
     "legacy_tree": {"fused": False},
     **{f"{codec}{'+ef' if ef else ''}": {
@@ -2776,6 +2811,8 @@ AXIS_MODES = {
 # tag -> (arch, layers, cohort, chunk, client lr, mode)
 MODEL_AXIS_RUNS = {
     "6x:smollm-360m": ("smollm-360m", 2, CHUNK_COHORT, 2, 0.01, "post"),
+    "6x:smollm-360m+rows": ("smollm-360m", 2, CHUNK_COHORT, 2, 0.01,
+                            "post+rows"),
     "6y:deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", 1, 4, 2, 0.01,
                                 "post"),
     "6y:mamba2-780m": ("mamba2-780m", 4, 4, 2, 0.001, "post"),
@@ -2802,14 +2839,19 @@ def axis_rows(arch, layers) -> tuple:
 def axis_run(spec, dev, mesh_model, on_records):
     """One run of MODEL_AXIS_RUNS through ``run_training``."""
     from repro_torch.launch.train import run_training
+    from repro_torch.sharding.tensor_parallel import set_activation_spec
     arch, layers, cohort, chunk, lr, mode = spec
     kw = {"fused": True, "meta_mode": "post", **AXIS_MODES[mode]}
-    return run_training(
-        arch, layers=layers, rounds=MODEL_AXIS_ROUNDS, cohort=cohort,
-        client_batch=8, seq=128, algorithm="uga", meta=True, client_lr=lr,
-        cohort_chunk=chunk, executor="sharded", mesh_model=mesh_model,
-        server_opt="sgd", seed=0, log_every=1, device=dev,
-        on_records=on_records, **kw)
+    set_activation_spec(kw.pop("act_rows", False))
+    try:
+        return run_training(
+            arch, layers=layers, rounds=MODEL_AXIS_ROUNDS, cohort=cohort,
+            client_batch=8, seq=128, algorithm="uga", meta=True,
+            client_lr=lr, cohort_chunk=chunk, executor="sharded",
+            mesh_model=mesh_model, server_opt="sgd", seed=0, log_every=1,
+            device=dev, on_records=on_records, **kw)
+    finally:
+        set_activation_spec(False)
 
 
 def axis_launches(spec) -> dict:
@@ -3325,6 +3367,14 @@ def finish_model_axis(job: dict) -> dict:
         assert all(v <= 1e-4 for m in r0["metric_errs"]
                    for v in m.values()), (tag, r0["metric_errs"])
         assert r0.get("routes_equal", True), tag
+    peak = {tag: max(o["peak_gib"] for o in outs if o["tag"] == tag)
+            for tag in ("6x:smollm-360m", "6x:smollm-360m+rows")
+            if tag in runs}
+    if len(peak) == 2:
+        log(f"  6x: the residual stream split by rows against replicated, "
+            f"the larger rank's max_memory_allocated: "
+            f"{peak['6x:smollm-360m+rows']:.2f} GiB against "
+            f"{peak['6x:smollm-360m']:.2f} GiB")
     log(f"  6x-6z, 6v: torchrun wall {secs:.1f} s from start to join")
     counts.update(finish_serve_axis(serves, job["serve"]))
     return counts
@@ -5210,6 +5260,360 @@ def time_serve_kernels(FK, FR, SK, SR, dev):
     return res
 
 
+# The bf16 forms of rows 11-12 against their plain versions at bf16, max
+# |a-b| over max |b|.  Both compute in fp32 from the same bf16 inputs and
+# round their output to bf16; flash also rounds P to bf16, the kernel
+# relative to each tile's running max and the plain version to the row's
+# max, so an output may land one bf16 step (2^-8 of it) apart.  Tighter
+# than the 3e-2 (flash) and 6e-2 / 3e-2 (SSD) JAX's kernel tests hold
+# their bf16 runs to (tests/test_kernels.py).
+FLASH_BF16_TOL = 1e-2
+SSD_BF16_TOL = 1e-2
+
+
+def check_bf16_kernels(FK, FR, SK, SR, dev) -> dict:
+    """Phase 3b at bf16: flash attention at each (Dk, Dv) form, S 1 to
+    1025, causal on and off, window 0 and 256, group 1 and 3, and
+    non-causal at Sq != Skv; then at every served prefill's call shape on
+    the model's (B, S, H, D) views; the SSD scan at S 128 to 1025, chunk
+    256 and 64, both decay regimes, and at mamba2-780m's prefill shape;
+    each against its plain version at bf16.  Returns the largest max
+    |a-b| of each kernel."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+    errs = dict.fromkeys(SERVE_NAMES, 0.0)
+    worst = 0.0
+
+    def flash(Sq, Skv, causal, window, G, Dk, Dv):
+        q = torch.randn((2 * 2 * G, Sq, Dk), generator=gen, device=dev)
+        k = torch.randn((2 * 2, Skv, Dk), generator=gen, device=dev)
+        v = torch.randn((2 * 2, Skv, Dv), generator=gen, device=dev)
+        q, k, v = q.to(bf), k.to(bf), v.to(bf)
+        out = FK.flash_attention_fwd(q[None], k[None], v[None],
+                                     causal=causal, window=window)[0]
+        ref = FR.attention_ref(q, k, v, causal=causal, window=window)
+        e = rel_err(out.float(), ref.float())
+        assert out.dtype == bf and out.shape == ref.shape and \
+            e <= FLASH_BF16_TOL, (Sq, Skv, causal, window, G, Dk, Dv, e)
+        return e, max_abs_err(out.float(), ref.float())
+
+    grid = list(itertools.product((1, 63, 128, 1000, 1025), (True, False),
+                                  (0, 256), (1, 3), FK.FORMS))
+    grid += [((Sq, Skv), False, 0, G, f) for (Sq, Skv), G, f in
+             itertools.product(CROSS_PAIRS, (1, 8), FK.FORMS)]
+    for S, causal, window, G, (Dk, Dv) in grid:
+        Sq, Skv = S if isinstance(S, tuple) else (S, S)
+        e, a = flash(Sq, Skv, causal, window, G, Dk, Dv)
+        worst = max(worst, e)
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], a)
+    log(f"  flash_attention_fwd at bf16, {len(grid)} shapes (S 1, 63, 128, "
+        f"1000, 1025; causal on/off; window 0/256; group 1/3; non-causal "
+        f"(Sq, Skv) {CROSS_PAIRS}, group 1/8; (Dk, Dv) {FK.FORMS}): max rel "
+        f"{worst:.3e} (tol {FLASH_BF16_TOL:g})")
+    for name, c in flash_calls().items():
+        q, k, v = (t.to(bf) for t in flash_inputs(gen, dev, c))
+        out = flash_attention(q, k, v, causal=c["causal"])
+        fold = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1],
+                                                   t.shape[-1])
+        ref = FR.attention_ref(fold(q), fold(k), fold(v), causal=c["causal"])
+        e = rel_err(fold(out).float(), ref.float())
+        assert out.dtype == bf and e <= FLASH_BF16_TOL, (name, e)
+        errs["flash_attention_fwd"] = max(
+            errs["flash_attention_fwd"],
+            max_abs_err(fold(out).float(), ref.float()))
+        log(f"  flash_attention_fwd at bf16 at {name}'s prefill "
+            f"({flash_shape(c)}): rel {e:.3e} (tol {FLASH_BF16_TOL:g})")
+        del q, k, v, out, ref
+    for regime in SSD_SEQ_TOL:
+        worst = 0.0
+        for S, chunk in itertools.product((128, 256, 1000, 1025), (256, 64)):
+            x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 2, S, 4, 2, 128, regime)
+            x, Bm, Cm = x.to(bf), Bm.to(bf), Cm.to(bf)
+            y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+            ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+            e = max(rel_err(y.float(), ry.float()), rel_err(h, rh))
+            assert y.dtype == bf and h.dtype == torch.float32 and \
+                e <= SSD_BF16_TOL, (regime, S, chunk, e)
+            worst = max(worst, e)
+            errs["ssd_scan_fwd"] = max(errs["ssd_scan_fwd"],
+                                       max_abs_err(y.float(), ry.float()),
+                                       max_abs_err(h, rh))
+        x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 8, 1024, 48, 1, 128, regime)
+        x, Bm, Cm = x.to(bf), Bm.to(bf), Cm.to(bf)
+        y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256)
+        ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 256)
+        ep = max(rel_err(y.float(), ry.float()), rel_err(h, rh))
+        assert ep <= SSD_BF16_TOL, (regime, ep)
+        errs["ssd_scan_fwd"] = max(errs["ssd_scan_fwd"],
+                                   max_abs_err(y.float(), ry.float()),
+                                   max_abs_err(h, rh))
+        log(f"  ssd_scan_fwd at bf16, {regime} decays, S 128/256/1000/1025 x "
+            f"chunk 256/64 (B 2, 4 heads, 2 groups, N 128): max rel "
+            f"{worst:.3e}; at the prefill's shape (B 8, 48 heads, S 1024, N "
+            f"128, chunk 256): {ep:.3e} (tol {SSD_BF16_TOL:g}; y bf16, "
+            f"h_final fp32)")
+        del x, dt, A, Bm, Cm, y, h, ry, rh
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def time_bf16_kernels(FK, FR, SK, SR, dev) -> dict:
+    """Phase 5d at bf16: flash attention at every served prefill's call
+    shape, as the prefill calls it, in turns with
+    scaled_dot_product_attention at bf16 on the same views; the SSD scan
+    at mamba2-780m's prefill shape; each beside its plain version at bf16
+    and its bound from the wrapper's declared cost (bf16 products at the
+    tensor cores' 989 TFLOP/s for flash; the SSD scan's 3xTF32 products,
+    its inputs at half the bytes)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for name, c in flash_calls().items():
+        H, Hkv, causal = c["H"], c["Hkv"], c["causal"]
+        q, k, v = (t.to(bf) for t in flash_inputs(gen, dev, c))
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        fold = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1],
+                                                   t.shape[-1])
+        qf, kf, vf = fold(q), fold(k), fold(v)
+        kc = FK.attention_cost(8, H, Hkv, c["Sq"], c["Skv"], c["Dk"],
+                               c["Dv"], causal=causal, nbytes=2)
+        b, by = kernel_bound(kc)
+        ms, lib = paired_ms(
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kr, vr, is_causal=causal), iters=20)
+        plain = cuda_ms(lambda: FR.attention_ref(qf, kf, vf, causal=causal),
+                        iters=5)
+        out[name] = dict(c, heads=f"{H}/{Hkv}", ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=b, bound_by=by,
+                         bytes=kc.bytes_read + kc.bytes_written,
+                         flops=kc.flops + kc.bf16_flops)
+        log(f"  flash_attention_fwd at bf16 at {name}'s prefill "
+            f"({flash_shape(c)}): {ms:.4f} ms, bound {b:.4f} ms ({by}; "
+            f"{(kc.flops + kc.bf16_flops) / 1e9:.3f} GFLOP, "
+            f"{(kc.bytes_read + kc.bytes_written) / 1e6:.1f} MB; "
+            f"{100 * b / ms:.1f}% of it); plain {plain:.4f} ms; "
+            f"scaled_dot_product_attention at bf16 {lib:.4f} ms in turns "
+            f"({lib / ms:.2f}x the kernel's time)")
+        del q, k, v, kr, vr, qf, kf, vf
+        torch.cuda.empty_cache()
+    x, dt, A, Bm, Cm = ssd_inputs(gen, dev, 8, 1024, 48, 1, 128, "init")
+    x, Bm, Cm = x.to(bf), Bm.to(bf), Cm.to(bf)
+    kc = SK.ssd_cost(8, 48, 1024, 64, 128, 256, G=1, nbytes=2)
+    b, by = kernel_bound(kc)
+    ssd = lambda: SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=256)
+    ms = cuda_ms(ssd, iters=20, warmup=3)
+    plain = cuda_ms(lambda: SR.ssd_chunked_ref(x, dt, A, Bm, Cm, 256),
+                    iters=5)
+    ssd_kernels = device_kernels(ssd)
+    out["ssd_scan_fwd"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                               bound_ms=b, bound_by=by,
+                               bytes=kc.bytes_read + kc.bytes_written,
+                               flops=kc.flops + kc.tc_flops / 3)
+    log(f"  ssd_scan_fwd at bf16 at mamba2-780m's prefill (B 8, 48 heads, S "
+        f"1024, P 64, N 128, 1 group, chunk 256): {ms:.4f} ms, bound "
+        f"{b:.4f} ms ({by}; {(kc.bytes_read + kc.bytes_written) / 1e6:.1f} "
+        f"MB; {100 * b / ms:.1f}% of it); plain {plain:.4f} ms; its device "
+        f"kernels (torch.profiler): " + "; ".join(
+            f"{name} {t:.4f} ms" for name, t in ssd_kernels))
+    assert len(ssd_kernels) == SK.kernels_per_call(), ssd_kernels
+    del x, dt, A, Bm, Cm
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 6w: serving at bf16, full width and depth: the kernel each prefill
+# layer launches
+SERVE_BF16 = {"smollm-360m": "flash_attention_fwd",
+              "mamba2-780m": "ssd_scan_fwd"}
+SERVE_BF16_SHAPE = dict(batch=8, prompt=1024, steps=8)
+# The prefill's last logits through the kernels against the same model's
+# prefill through their plain versions, both at bf16 on the card, max
+# |a-b| over max |b|.  Only the attention or scan outputs differ, by a
+# bf16 step of 2^-8 in some elements (each launch is held to its plain
+# version on the model's own activations at FLASH_BF16_TOL / SSD_BF16_TOL),
+# and every layer after carries the difference on: a random-weight stack
+# at bf16 amplifies it with depth (mamba2-780m's 48 layers turn such steps
+# into 0.1-0.3 of the logits; tools/bf16_check.py prints the probe).  So
+# the logits are held to JAX's flash bf16 tolerance, or, where the model
+# amplifies more, to the model's own sensitivity: the plain path against
+# itself with each kernel output moved one bf16 step up in a random half
+# of its elements.
+SERVE_BF16_TOL = 3e-2
+BF16 = "bf16:"                   # the tag prefix of phase 6w's runs
+
+
+class swap_prefill_kernels:
+    """Within it the prefill's flash attention (``flash(q, k, v, causal,
+    window)``, the kernel wrapper's arguments, returning o as a (B, H,
+    S, Dv) view of (B, S, H, Dv)) and SSD scan (``ssd(x, dt, A, Bm, Cm,
+    chunk)``) are the given functions; ``None`` keeps a kernel.  The
+    model reaches them through ``kernels/flash_attention/kernel.py`` and
+    ``models/ssm.py``."""
+
+    def __init__(self, flash=None, ssd=None):
+        self.flash, self.ssd = flash, ssd
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.models import ssm
+        self.saved = (FK.flash_attention_fwd, ssm.ssd_scan_fwd)
+        if self.flash is not None:
+            # the kernel wrapper counts on the module's name: a stand-in
+            # carries a count of its own, which nothing reads
+            self.flash.launches = 0
+            FK.flash_attention_fwd = self.flash
+        if self.ssd is not None:
+            ssm.ssd_scan_fwd = self.ssd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.models import ssm
+        FK.flash_attention_fwd, ssm.ssd_scan_fwd = self.saved
+
+
+def _plain_flash(q, k, v, *, causal=True, window=0):
+    from repro_torch.kernels.flash_attention import ref as FR
+    B, H, Sq, _ = q.shape
+    fold = lambda t: t.reshape(-1, *t.shape[-2:])
+    return FR.attention_ref(fold(q), fold(k), fold(v), causal=causal,
+                            window=window).view(B, H, Sq, -1)
+
+
+def _plain_ssd(x, dt, A, Bm, Cm, *, chunk):
+    from repro_torch.kernels.ssd_scan import ref as SR
+    return SR.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+
+
+def plain_prefill_kernels():
+    """The prefill's kernels replaced by their plain versions on the
+    card's tensors (no count moves)."""
+    return swap_prefill_kernels(_plain_flash, _plain_ssd)
+
+
+def checked_prefill_kernels(errs: list):
+    """The prefill's kernels, each launch held against its plain version
+    on the same inputs: max |a-b| over max |b| appended to ``errs``."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import ssm
+    fa, scan = FK.flash_attention_fwd, ssm.ssd_scan_fwd
+
+    def flash(q, k, v, *, causal=True, window=0):
+        o = fa(q, k, v, causal=causal, window=window)
+        r = _plain_flash(q, k, v, causal=causal, window=window)
+        errs.append(("flash_attention_fwd", rel_err(o.float(), r.float())))
+        return o
+
+    def ssd(x, dt, A, Bm, Cm, *, chunk):
+        y, h = scan(x, dt, A, Bm, Cm, chunk=chunk)
+        ry, rh = _plain_ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        errs.append(("ssd_scan_fwd", max(rel_err(y.float(), ry.float()),
+                                         rel_err(h, rh))))
+        return y, h
+    return swap_prefill_kernels(flash, ssd)
+
+
+def nudged_plain_kernels(gen):
+    """The plain versions, each output moved one bf16 step (2^-8 of it)
+    up at a random half of its elements: the model's sensitivity probe."""
+    import torch
+
+    def nudge(t):
+        m = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+        return torch.where(m, (t.float() * (1 + 2 ** -8)).to(t.dtype), t)
+
+    def flash(q, k, v, *, causal=True, window=0):
+        return nudge(_plain_flash(q, k, v, causal=causal, window=window))
+
+    def ssd(x, dt, A, Bm, Cm, *, chunk):
+        y, h = _plain_ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        return nudge(y), h
+    return swap_prefill_kernels(flash, ssd)
+
+
+def serve_bf16_path(counts_of, dev) -> dict:
+    """Phase 6w: smollm-360m and mamba2-780m built at bf16, full width and
+    depth, random weights from a seed: a prefill of batch 8 x 1024 tokens
+    into a cache of 1032, then 8 greedy decode steps, the counts zeroed
+    just before the prefill and read after it and after the decode (one
+    launch a layer, none in decode).  Then the same prefill with each
+    launch held to its plain version on the same inputs, through the
+    plain versions (the logits' yardstick), and through the plain versions
+    nudged one bf16 step (the model's sensitivity); ``SERVE_BF16_TOL``
+    says how the logits are held."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+    B, S, steps = (SERVE_BF16_SHAPE[k] for k in ("batch", "prompt", "steps"))
+    counts = {}
+    for arch, kernel in SERVE_BF16.items():
+        cfg = get_arch(arch)
+        model = build_model(cfg, dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(23)
+        params = model.init(gen)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device=dev)
+        batch = {"tokens": tokens}
+        torch.cuda.synchronize()
+        counts_of.reset()
+        t = time.perf_counter()
+        logits, cache = model.prefill(params, batch, S + steps)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        after_prefill = counts_of.read()
+        tok, t = logits.argmax(-1), time.perf_counter()
+        for _ in range(steps):
+            step, cache = model.decode(params, tok, cache)
+            tok = step.argmax(-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        tag = f"{BF16}serve:{arch}"
+        counts[tag] = counts_of.read()
+        log(f"kernels: {tag} {json.dumps(counts[tag])}")
+        want = _launches(**{kernel: cfg.num_layers})
+        assert after_prefill == want and counts[tag] == want, (
+            tag, after_prefill, counts[tag], want)
+        assert logits.dtype == torch.bfloat16 and step.shape == (
+            B, cfg.vocab_size) and bool(torch.isfinite(step).all())
+        del cache, step
+        per = []
+        with checked_prefill_kernels(per):
+            again, _ = model.prefill(params, batch, S + steps)
+        tol = FLASH_BF16_TOL if kernel == "flash_attention_fwd" \
+            else SSD_BF16_TOL
+        worst = max(e for _, e in per)
+        assert len(per) == cfg.num_layers and worst <= tol, (tag, per)
+        with plain_prefill_kernels():
+            ref, _ = model.prefill(params, batch, S + steps)
+        with nudged_plain_kernels(torch.Generator(device=dev).manual_seed(5)):
+            nudged, _ = model.prefill(params, batch, S + steps)
+        e, sens = (rel_err(x.float(), ref.float()) for x in (logits, nudged))
+        assert bool(torch.isfinite(logits).all()) and torch.equal(
+            again, logits) and e <= max(SERVE_BF16_TOL, sens), (tag, e, sens)
+        log(f"  {tag}: {cfg.num_layers} layers at full width, prefill (B "
+            f"{B}, S {S}) {prefill_s:.4f} s wall (synchronized, the "
+            f"process's first at bf16), {steps} decode steps {decode_s:.4f} "
+            f"s; {cfg.num_layers} {kernel} launches in the prefill, none in "
+            f"decode; each launch against its plain version on the model's "
+            f"activations: max rel {worst:.3e} (tol {tol:g}); last logits "
+            f"against the prefill through the plain versions at bf16: rel "
+            f"{e:.3e}, the plain path nudged one bf16 step: rel {sens:.3e} "
+            f"(held to the larger of {SERVE_BF16_TOL:g} and that)")
+        del params, tokens, batch, logits, again, ref, nudged
+        torch.cuda.empty_cache()
+    return counts
+
+
 def device_kernels(fn, reps: int = 5, attempts: int = 5) -> list:
     """(name, mean ms) of each device kernel one ``fn()`` call launches,
     in first-launch order (a kernel launched k times a call appears k
@@ -5712,10 +6116,12 @@ def main() -> int:
         {axis_rows(*spec[:2])[1] for spec in MODEL_AXIS_RUNS.values()}))
     errs.update(check_bwd_kernels(K, R, O, dev, shapes + sorted(
         {axis_rows(*spec[:2])[1] for spec in MODEL_AXIS_RUNS.values()
-         if spec[5] != "post"})))
+         if spec[5] not in ("post", "post+rows")})))
     errs.update(check_codec_kernels(CK, CR, dev, shapes))
     phase("[3b] the serving prefill's kernels against their plain versions:")
     errs.update(check_serve_kernels(FK, FR, SK, SR, dev))
+    phase("[3b] their bf16 forms against the plain versions at bf16:")
+    bf16_errs = check_bf16_kernels(FK, FR, SK, SR, dev)
 
     phase("[5] kernel times at full width (CUDA events, 10 launches, warm):")
     times = time_kernels(K, R, dev)
@@ -5728,6 +6134,9 @@ def main() -> int:
         "warm):")
     times.update(time_serve_kernels(FK, FR, SK, SR, dev))
     times["flash_attention_fwd"]["forms"] = time_flash_prefills(FK, FR, dev)
+    phase("[5d] their bf16 forms at the served prefill shapes (CUDA events, "
+          "warm; flash in turns with scaled_dot_product_attention at bf16):")
+    bf16_times = time_bf16_kernels(FK, FR, SK, SR, dev)
     phase("[5c] one client's uplink at full width (CUDA events, 5 launches, "
         "warm):")
     time_codec_stage(dev)
@@ -5809,6 +6218,11 @@ def main() -> int:
         "the dropless check:")
     counts.update(serve_flash_models(counts_of, dev,
                                      times["flash_attention_fwd"]["forms"]))
+    phase("[6w] serving at bf16 at full width: "
+          f"{', '.join(SERVE_BF16)} built at bf16, batch 8, prefill 1024, "
+          "8 greedy decode steps; held to the prefill through the plain "
+          "versions at bf16:")
+    counts.update(serve_bf16_path(counts_of, dev))
 
     phase(f"[6x, 6y, 6z] the model axis, {MODEL_AXIS_ROUNDS} rounds each at "
           "full width, depth cut: "
@@ -5850,7 +6264,8 @@ def main() -> int:
     kernels = []
     for name in KERNEL_NAMES:
         t = times[name]
-        by_path = {tag: c[name] for tag, c in counts.items()}
+        by_path = {tag: c[name] for tag, c in counts.items()
+                   if not tag.startswith(BF16)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[FAMILY[name]],
             "replaces": REPLACES[name],
@@ -5866,6 +6281,21 @@ def main() -> int:
                                 else name)
         if paper:                 # rows 1-3 at the paper models' shapes
             kernels[-1]["paper_shapes"] = paper
+    for name in SERVE_NAMES:      # rows 11-12's bf16 forms (phase 6w)
+        by_path = {tag: c[name] for tag, c in counts.items()
+                   if tag.startswith(BF16)}
+        t = (bf16_times[name] if name == "ssd_scan_fwd"
+             else bf16_times["smollm-360m"])
+        kernels.append({
+            "name": f"{name}[bf16]", "route": "cuda",
+            "source": SOURCES[FAMILY[name]], "replaces": REPLACES[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": bf16_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if name == "flash_attention_fwd":
+            kernels[-1]["prefill_shapes"] = {
+                k: v for k, v in bf16_times.items() if k != "ssd_scan_fwd"}
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -443,7 +443,7 @@ def chunked_cohort_gradient_flat(client_update: Callable, w_t, cohort_batch,
     invariant to the chunk size wherever a client's gradient is
     (``chunk`` clients run under ``torch.func.vmap``; on the CPU a
     vmapped client's gradient can differ from an unbatched one's in the
-    last bits, ROADMAP Queue 3 item 4).
+    last bits, ROADMAP Queue 3 item 6).
 
     Weights are normalized over the whole cohort once, outside the chunk
     loop.  Differentiable in ``client_weights`` (see

@@ -87,13 +87,15 @@ class CudaLibrary:
 
 
 class KernelCost(NamedTuple):
-    """One launch's work: fp32 operations, tensor-core operations (3xTF32:
-    three TF32 products for each fp32 product), bytes read, bytes
-    written."""
+    """One launch's work: fp32 operations, TF32 tensor-core operations
+    (3xTF32: three TF32 products for each fp32 product), bytes read, bytes
+    written, and bf16 tensor-core operations (a bf16 kernel's products,
+    one each)."""
     flops: float
     tc_flops: float
     bytes_read: float
     bytes_written: float
+    bf16_flops: float = 0.0
 
 
 # the cost counters open now, innermost last (repro_torch.roofline.cost)

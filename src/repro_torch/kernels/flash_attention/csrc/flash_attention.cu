@@ -2,7 +2,10 @@
 // Pallas kernel flash_attention_fwd in
 // src/repro/kernels/flash_attention/kernel.py, and of the online-softmax
 // scheme of src/repro/models/attention.py::_fa_fwd_inner that the JAX
-// prefill runs.  fp32 in, fp32 out, fp32 accuracy.
+// prefill runs.  One kernel, instantiated for two input types: fp32 in,
+// fp32 out, fp32 accuracy; or bf16 in, bf16 out, as JAX's kernel computes
+// at bf16 (bf16 operands into fp32 products, the softmax in fp32, P
+// rounded to bf16 before P.V, o written in bf16).
 //
 //   q (B, H, Sq, DK), k (B, Hkv, Skv, DK), v (B, Hkv, Skv, DV): strided
 //   views, the head dim at unit stride, every other stride a multiple of 4
@@ -79,6 +82,22 @@
 //   * The grid's slow axis walks the query tiles in reverse, so the
 //     longest causal rows go first and the tail of the grid is short.
 //
+// The bf16 form.  At bf16 a call of smollm-360m's prefill is 16.4 GFLOP
+// of products on 41.9 MB: 0.0166 ms at the bf16 tensor cores' 989 TFLOP/s,
+// with the softmax's 0.25 GFLOP at fp32's 67 TFLOP/s 0.0201 ms, against
+// 0.0125 ms of bytes, so it is bound by operations.  Both
+// products are one bf16 wgmma each (m64nNk16, fp32 accumulators), no
+// split: Q's A fragments come straight from global memory into registers
+// (rows g, g + 8; columns 2t, 2t + 1 and 2t + 8, 2t + 9 of each 16-column
+// k-step, two bf16 a register), K is stored unpermuted, since the
+// accumulator of q.k holds columns 2t, 2t + 1 of each 8-column group,
+// which is the A fragment of p.v as it stands (groups 2kk and 2kk + 1 make
+// k-step kk).  The core matrices hold 8 bf16 a row; the raw ring and the
+// K / V^T tiles hold bf16.  The running sum l adds the fp32 exponentials;
+// P.V takes them rounded to bf16 (JAX's p.astype(v.dtype)) and adds into
+// the output accumulator directly: the truncating adds' drift over a
+// thousand keys (about 2^-23 a key) is far below bf16's 2^-9.
+//
 // Masking follows the reference exactly: a masked score is -1e30, never
 // -inf (exp(-inf - -inf) is NaN), so a row whose first tile is wholly
 // masked accumulates exp(0) terms that the first valid tile multiplies
@@ -92,8 +111,11 @@
 // stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError() so a refused launch is reported at once.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -129,13 +151,31 @@ template <> struct Cfg<192, 128> {
   static constexpr bool kQhiInRegs = false;
 };
 
-template <int DK, int DV>
+// The bf16 form: 64 key rows a tile (32 at (192, 128), whose q.k takes
+// 48 registers of Q fragments), Q in registers.
+template <int DK, int DV> struct CfgBf16 {
+  static constexpr int kBK = DK > 128 ? 32 : 64;
+  static constexpr int kMaxHeads = Cfg<DK, DV>::kMaxHeads;
+};
+
+template <typename T>
+constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
+template <typename T, int DK, int DV>
+using CfgOf = typename std::conditional<kIsBf16<T>, CfgBf16<DK, DV>,
+                                        Cfg<DK, DV>>::type;
+
+template <typename T, int DK, int DV>
 constexpr int smem_bytes() {
-  using C = Cfg<DK, DV>;
+  using C = CfgOf<T, DK, DV>;
   constexpr int BK = C::kBK;
-  return C::kMaxHeads * (C::kQhiInRegs ? 1 : 2) * kBQ * DK * 4  // Q lo (hi)
-         + kStages * BK * (DK + 4 + DV + 4) * 4    // raw K, V ring
-         + 2 * 2 * BK * (DK + DV) * 4;             // K hi/lo, V^T hi/lo, x2
+  if constexpr (kIsBf16<T>) {
+    return kStages * BK * (DK + 8 + DV + 8) * 2    // raw K, V ring
+           + 2 * BK * (DK + DV) * 2;               // K, V^T, x2
+  } else {
+    return C::kMaxHeads * (C::kQhiInRegs ? 1 : 2) * kBQ * DK * 4  // Q lo (hi)
+           + kStages * BK * (DK + 4 + DV + 4) * 4  // raw K, V ring
+           + 2 * 2 * BK * (DK + DV) * 4;           // K hi/lo, V^T hi/lo, x2
+  }
 }
 
 struct Strides {
@@ -174,6 +214,19 @@ __device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
 __device__ __forceinline__ int cm_offset(int row, int k, int kdim) {
   return ((row >> 3) * (kdim >> 2) + (k >> 2)) * 128 + (row & 7) * 16 +
          (k & 3) * 4;
+}
+
+// The same layout at 8 bf16 a core-matrix row.
+__device__ __forceinline__ int cm_offset16(int row, int k, int kdim) {
+  return ((row >> 3) * (kdim >> 3) + (k >> 3)) * 128 + (row & 7) * 16 +
+         (k & 7) * 2;
+}
+
+// Two floats as a bf16 pair, rounded to nearest even, the first in the
+// low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // wgmma's shared-memory matrix descriptor, no swizzle: start address,
@@ -360,6 +413,114 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
         "r"(scale_d));
 }
 
+// wgmma.m64nNk16, bf16 in, fp32 accumulate, A from registers (four
+// registers of two bf16: rows g, g + 8 of the warp's 16, columns 2t, 2t + 1
+// then 2t + 8, 2t + 9), B by descriptor, K-major (imm-trans-b 0).
+#define FA_D4(i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+__device__ __forceinline__ void wgmma_bf16_n32(float (&d)[4][4],
+                                               const uint32_t a[4],
+                                               uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : FA_D4(0), FA_D4(1), FA_D4(2), FA_D4(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[8][4],
+                                               const uint32_t a[4],
+                                               uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : FA_D4(0), FA_D4(1), FA_D4(2), FA_D4(3), FA_D4(4), FA_D4(5),
+        FA_D4(6), FA_D4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n96(float (&d)[12][4],
+                                               const uint32_t a[4],
+                                               uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47},"
+      " {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : FA_D4(0), FA_D4(1), FA_D4(2), FA_D4(3), FA_D4(4), FA_D4(5),
+        FA_D4(6), FA_D4(7), FA_D4(8), FA_D4(9), FA_D4(10), FA_D4(11)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[16][4],
+                                                const uint32_t a[4],
+                                                uint64_t bdesc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : FA_D4(0), FA_D4(1), FA_D4(2), FA_D4(3), FA_D4(4), FA_D4(5),
+        FA_D4(6), FA_D4(7), FA_D4(8), FA_D4(9), FA_D4(10), FA_D4(11),
+        FA_D4(12), FA_D4(13), FA_D4(14), FA_D4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc),
+        "r"(scale_d));
+}
+#undef FA_D4
+
+// The bf16 shapes: q.k at N = the tile's keys, p.v at N = DV.
+template <int N> struct WB;
+template <> struct WB<32> {
+  static __device__ __forceinline__ void rs(float (&d)[4][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_bf16_n32(d, a, b, s);
+  }
+};
+template <> struct WB<64> {
+  static __device__ __forceinline__ void rs(float (&d)[8][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_bf16_n64(d, a, b, s);
+  }
+};
+template <> struct WB<96> {
+  static __device__ __forceinline__ void rs(float (&d)[12][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_bf16_n96(d, a, b, s);
+  }
+};
+template <> struct WB<128> {
+  static __device__ __forceinline__ void rs(float (&d)[16][4],
+                                            const uint32_t a[4], uint64_t b,
+                                            int s) {
+    wgmma_bf16_n128(d, a, b, s);
+  }
+};
+
 // The wgmma shapes the kernel uses.  q.k: N = the tile's keys, SS for
 // q_lo.k_hi and RS (q_hi from registers) for the other two products, or SS
 // for all three where q_hi stays in shared memory; p.v: N = DV, RS (P from
@@ -424,12 +585,13 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One tile's online-softmax step for the two rows (row, row + 8) a thread
-// holds a quarter of: s (accumulator fragments, keys key0 + 8j + {0, 4})
-// becomes p; m, l and the accumulator are rescaled.  kMask applies the
+// holds a quarter of: s (accumulator fragments, keys key0 + 8j + {0, ES}:
+// ES 4 where K's rows were permuted (fp32), 1 where not (bf16)) becomes
+// p; m, l and the accumulator are rescaled.  kMask applies the
 // causal and window masks and the Skv tail.  Scores are taken in base 2:
 // x = s scale log2(e) and p = 2^(x - m), one ex2 each where expf would
 // reduce its argument first; the same softmax, and -1e30 still masks.
-template <int NT, int KD, bool kMask>
+template <int NT, int KD, bool kMask, int ES>
 __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float m[2],
                                                float l[2], float (&acc)[KD][4],
                                                int row, int key0, int Skv,
@@ -445,7 +607,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float m[2],
       for (int e = 0; e < 2; ++e) {
         float x = s[j][2 * hr + e] * scale_log2;
         if (kMask) {
-          const int kc = key0 + j * 8 + 4 * e;
+          const int kc = key0 + j * 8 + ES * e;
           const int rel = qr - kc;
           if (causal && rel < 0) x = kNegInf;
           if (window > 0 && rel >= window) x = kNegInf;
@@ -463,7 +625,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float m[2],
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool ok = !kMask || key0 + j * 8 + 4 * e < Skv;
+        const bool ok = !kMask || key0 + j * 8 + ES * e < Skv;
         const float p = ok ? exp2f(s[j][2 * hr + e] - mx) : 0.f;
         s[j][2 * hr + e] = p;
         rs += p;
@@ -480,30 +642,34 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float m[2],
   }
 }
 
-template <int DK, int DV>
-__global__ void __launch_bounds__((Cfg<DK, DV>::kMaxHeads * kWarpsPerHead *
-                                   32), 1)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__((CfgOf<T, DK, DV>::kMaxHeads *
+                                   kWarpsPerHead * 32), 1)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  Strides sq, Strides sk, Strides sv, Strides so, int Hkv,
                  int Sq, int Skv, int group, int heads_per_block,
                  int chunks, float scale_log2, int causal, int window) {
-  using C = Cfg<DK, DV>;
+  using C = CfgOf<T, DK, DV>;
+  constexpr bool kB = kIsBf16<T>;
   constexpr int BK = C::kBK;
   constexpr int NT = BK / 8;         // score column groups of a tile
-  constexpr int KK = DK / 8;         // q.k k-steps
   constexpr int NV = DV / 8;         // output column groups
-  constexpr int CK = DK / 4;         // float4 chunks a K (and Q) row
+  constexpr int EL = 16 / sizeof(T);   // elements a 16-byte copy
+  constexpr int CK = DK / EL;        // 16-byte chunks a K (and Q) row
   static_assert(DV <= DK, "the K/V loader walks K's row chunks");
-  constexpr int RK = DK + 4;         // raw K row, floats
-  constexpr int RV = DV + 4;         // raw V row, floats
-  constexpr int QP = C::kQhiInRegs ? 1 : 2;   // Q parts in shared memory
+  constexpr int RK = DK + EL;        // raw K row, elements
+  constexpr int RV = DV + EL;        // raw V row, elements
   extern __shared__ float4 smem4[];
-  float* Qsm = reinterpret_cast<float*>(smem4);   // [head][lo (| hi)][64*DK]
+  // fp32: [head][lo (| hi)][64*DK] of Q; bf16: no Q in shared memory
+  constexpr int QBYTES =
+      kB ? 0 : C::kMaxHeads * (Cfg<DK, DV>::kQhiInRegs ? 1 : 2) * kBQ * DK * 4;
+  float* Qsm = reinterpret_cast<float*>(smem4);
   // [stage][K | V][BK][RK | RV]
-  float* raw = Qsm + C::kMaxHeads * QP * kBQ * DK;
-  // [buffer][K hi | K lo | V^T hi | V^T lo]
-  float* split_kv = raw + kStages * BK * (RK + RV);
+  T* raw = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + QBYTES);
+  // fp32: [buffer][K hi | K lo | V^T hi | V^T lo]; bf16: [buffer][K | V^T]
+  T* split_kv = raw + kStages * BK * (RK + RV);
+  constexpr int KV_BUF = (kB ? 1 : 2) * BK * (DK + DV);   // elements
 
   const int nthreads = blockDim.x;
   const int tid = threadIdx.x;
@@ -522,8 +688,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = hkv * group + gi;
   const int r0 = q0 + (warp % kWarpsPerHead) * 16;    // the warp's rows
 
-  const float* kb = k + b * sk.b + hkv * sk.h;
-  const float* vb = v + b * sv.b + hkv * sv.h;
+  const T* kb = k + b * sk.b + hkv * sk.h;
+  const T* vb = v + b * sv.b + hkv * sv.h;
 
   // Key tiles any row of this query tile can see.
   int kt_end = (Skv + BK - 1) / BK;
@@ -535,11 +701,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   auto issue = [&](int kt, int stage) {
-    float* dk = raw + stage * BK * (RK + RV);
-    float* dv = dk + BK * RK;
+    T* dk = raw + stage * BK * (RK + RV);
+    T* dv = dk + BK * RK;
     const int k0 = kt * BK;
     for (int i = tid; i < BK * CK; i += nthreads) {
-      const int r = i / CK, c = (i % CK) * 4;
+      const int r = i / CK, c = (i % CK) * EL;
       const bool ok = k0 + r < Skv;
       const int64_t row = ok ? k0 + r : 0;
       cp_async16(dk + r * RK + c, kb + row * sk.s + c, ok);
@@ -549,33 +715,57 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
   // Tile kt's raw stage and split buffer are (kt - kt_begin) % 2.
   auto split_tile = [&](int buf) {
-    const float* rk = raw + buf * BK * (RK + RV);
-    const float* rv = rk + BK * RK;
-    float* Khi = split_kv + buf * 2 * BK * (DK + DV);
-    float* Klo = Khi + BK * DK;
-    float* Vhi = Klo + BK * DK;
-    float* Vlo = Vhi + BK * DV;
-    // K: row r (key) fastest, so 8 neighbouring threads store the 8 rows
-    // of one core matrix; storage row permuted (C -> A fragment).
-    for (int i = tid; i < BK * CK; i += nthreads) {
-      const int r = i % BK, c = (i / BK) * 4;
-      const int rr = (r & ~7) | ((r & 3) << 1) | ((r >> 2) & 1);
-      float4 hi, lo;
-      split4(*reinterpret_cast<const float4*>(rk + r * RK + c), hi, lo);
-      const int off = cm_offset(rr, c, DK) / 4;
-      *reinterpret_cast<float4*>(Khi + off) = hi;
-      *reinterpret_cast<float4*>(Klo + off) = lo;
-    }
-    // V^T (rows d, k = keys): d fastest; four keys a thread.
-    for (int i = tid; i < DV * (BK / 4); i += nthreads) {
-      const int d = i % DV, r = (i / DV) * 4;
-      const float4 x = make_float4(rv[r * RV + d], rv[(r + 1) * RV + d],
-                                   rv[(r + 2) * RV + d], rv[(r + 3) * RV + d]);
-      float4 hi, lo;
-      split4(x, hi, lo);
-      const int off = cm_offset(d, r, BK) / 4;
-      *reinterpret_cast<float4*>(Vhi + off) = hi;
-      *reinterpret_cast<float4*>(Vlo + off) = lo;
+    const T* rk = raw + buf * BK * (RK + RV);
+    const T* rv = rk + BK * RK;
+    if constexpr (kB) {
+      char* Kt = reinterpret_cast<char*>(split_kv + buf * KV_BUF);
+      char* Vt = Kt + BK * DK * 2;
+      // K: 16-byte chunks of a row into its core-matrix row, unpermuted
+      for (int i = tid; i < BK * CK; i += nthreads) {
+        const int r = i % BK, c = (i / BK) * 8;
+        *reinterpret_cast<uint4*>(Kt + cm_offset16(r, c, DK)) =
+            *reinterpret_cast<const uint4*>(rk + r * RK + c);
+      }
+      // V^T (rows d, k = keys): d fastest; eight keys a thread.
+      const uint16_t* rv16 = reinterpret_cast<const uint16_t*>(rv);
+      for (int i = tid; i < DV * (BK / 8); i += nthreads) {
+        const int d = i % DV, r = (i / DV) * 8;
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = (uint32_t)rv16[(r + 2 * e) * RV + d] |
+                 ((uint32_t)rv16[(r + 2 * e + 1) * RV + d] << 16);
+        *reinterpret_cast<uint4*>(Vt + cm_offset16(d, r, BK)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    } else {
+      float* Khi = reinterpret_cast<float*>(split_kv + buf * KV_BUF);
+      float* Klo = Khi + BK * DK;
+      float* Vhi = Klo + BK * DK;
+      float* Vlo = Vhi + BK * DV;
+      // K: row r (key) fastest, so 8 neighbouring threads store the 8 rows
+      // of one core matrix; storage row permuted (C -> A fragment).
+      for (int i = tid; i < BK * CK; i += nthreads) {
+        const int r = i % BK, c = (i / BK) * 4;
+        const int rr = (r & ~7) | ((r & 3) << 1) | ((r >> 2) & 1);
+        float4 hi, lo;
+        split4(*reinterpret_cast<const float4*>(rk + r * RK + c), hi, lo);
+        const int off = cm_offset(rr, c, DK) / 4;
+        *reinterpret_cast<float4*>(Khi + off) = hi;
+        *reinterpret_cast<float4*>(Klo + off) = lo;
+      }
+      // V^T (rows d, k = keys): d fastest; four keys a thread.
+      for (int i = tid; i < DV * (BK / 4); i += nthreads) {
+        const int d = i % DV, r = (i / DV) * 4;
+        const float4 x = make_float4(rv[r * RV + d], rv[(r + 1) * RV + d],
+                                     rv[(r + 2) * RV + d],
+                                     rv[(r + 3) * RV + d]);
+        float4 hi, lo;
+        split4(x, hi, lo);
+        const int off = cm_offset(d, r, BK) / 4;
+        *reinterpret_cast<float4*>(Vhi + off) = hi;
+        *reinterpret_cast<float4*>(Vlo + off) = lo;
+      }
     }
     fence_proxy_async();
   };
@@ -584,50 +774,70 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     issue(kt_begin, 0);
     if (kt_begin + 1 < kt_end) issue(kt_begin + 1, 1);
   }
-  // The low part of the block's query rows, in the core-matrix layout
-  // (rows m, k = d); the high part stays in registers (below), or beside
-  // the low part where C::kQhiInRegs is false.
-  for (int i = tid; i < heads_per_block * kBQ * CK; i += nthreads) {
-    const int m = i % kBQ, c = ((i / kBQ) % CK) * 4, hq = i / (kBQ * CK);
-    const int gq = chunk * heads_per_block + hq;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gq < group && q0 + m < Sq)
-      x = *reinterpret_cast<const float4*>(
-          q + b * sq.b + (int64_t)(hkv * group + gq) * sq.h +
-          (int64_t)(q0 + m) * sq.s + c);
-    float4 hi, lo;
-    split4(x, hi, lo);
-    float* dst = Qsm + hq * QP * kBQ * DK + cm_offset(m, c, DK) / 4;
-    *reinterpret_cast<float4*>(dst) = lo;
-    if constexpr (!C::kQhiInRegs)
-      *reinterpret_cast<float4*>(dst + kBQ * DK) = hi;
+  if constexpr (!kB) {
+    // The low part of the block's query rows, in the core-matrix layout
+    // (rows m, k = d); the high part stays in registers (below), or beside
+    // the low part where C::kQhiInRegs is false.
+    constexpr int QP = C::kQhiInRegs ? 1 : 2;
+    for (int i = tid; i < heads_per_block * kBQ * CK; i += nthreads) {
+      const int m = i % kBQ, c = ((i / kBQ) % CK) * 4, hq = i / (kBQ * CK);
+      const int gq = chunk * heads_per_block + hq;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gq < group && q0 + m < Sq)
+        x = *reinterpret_cast<const float4*>(
+            q + b * sq.b + (int64_t)(hkv * group + gq) * sq.h +
+            (int64_t)(q0 + m) * sq.s + c);
+      float4 hi, lo;
+      split4(x, hi, lo);
+      float* dst = Qsm + hq * QP * kBQ * DK + cm_offset(m, c, DK) / 4;
+      *reinterpret_cast<float4*>(dst) = lo;
+      if constexpr (!C::kQhiInRegs)
+        *reinterpret_cast<float4*>(dst + kBQ * DK) = hi;
+    }
+    fence_proxy_async();
   }
-  fence_proxy_async();
   if (kt_begin < kt_end) {
     if (kt_begin + 1 < kt_end) cp_async_wait<1>(); else cp_async_wait<0>();
     __syncthreads();
     split_tile(0);
   }
-  const float* Qlo = Qsm + hw * QP * kBQ * DK;
-  const float* Qhi = Qlo + kBQ * DK;       // read only if !C::kQhiInRegs
 
-  // The warp's query rows rounded to TF32, as wgmma A fragments (rows g,
-  // g + 8; columns t, t + 4 of each k-step), in registers for the whole
-  // key loop.
-  uint32_t qhi[C::kQhiInRegs ? KK : 1][4];
-  if constexpr (C::kQhiInRegs) {
-    const float* qb = q + b * sq.b + h * sq.h;
+  // The warp's query rows as wgmma A fragments, in registers for the whole
+  // key loop: fp32, rounded to TF32 (rows g, g + 8; columns t, t + 4 of
+  // each 8-column k-step), where they fit; bf16, as they are (rows g,
+  // g + 8; columns 2t, 2t + 1 and 2t + 8, 2t + 9 of each 16-column k-step).
+  constexpr int KK = kB ? DK / 16 : DK / 8;   // q.k k-steps
+  constexpr bool kQRegs = kB || Cfg<DK, DV>::kQhiInRegs;
+  uint32_t qa[kQRegs ? KK : 1][4];
+  {
+    const T* qb = q + b * sq.b + h * sq.h;
     const bool ok0 = active && r0 + g < Sq, ok1 = active && r0 + g + 8 < Sq;
-    const float* q0p = qb + (int64_t)(r0 + g) * sq.s;
-    const float* q1p = qb + (int64_t)(r0 + g + 8) * sq.s;
+    const T* q0p = qb + (int64_t)(r0 + g) * sq.s;
+    const T* q1p = qb + (int64_t)(r0 + g + 8) * sq.s;
+    if constexpr (kB) {
+      auto pair = [&](bool ok, const T* p) {
+        return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+      };
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      qhi[kk][0] = tf32(ok0 ? q0p[kk * 8 + t] : 0.f);
-      qhi[kk][1] = tf32(ok1 ? q1p[kk * 8 + t] : 0.f);
-      qhi[kk][2] = tf32(ok0 ? q0p[kk * 8 + t + 4] : 0.f);
-      qhi[kk][3] = tf32(ok1 ? q1p[kk * 8 + t + 4] : 0.f);
+      for (int kk = 0; kk < KK; ++kk) {
+        qa[kk][0] = pair(ok0, q0p + kk * 16 + 2 * t);
+        qa[kk][1] = pair(ok1, q1p + kk * 16 + 2 * t);
+        qa[kk][2] = pair(ok0, q0p + kk * 16 + 2 * t + 8);
+        qa[kk][3] = pair(ok1, q1p + kk * 16 + 2 * t + 8);
+      }
+    } else if constexpr (kQRegs) {
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        qa[kk][0] = tf32(ok0 ? q0p[kk * 8 + t] : 0.f);
+        qa[kk][1] = tf32(ok1 ? q1p[kk * 8 + t] : 0.f);
+        qa[kk][2] = tf32(ok0 ? q0p[kk * 8 + t + 4] : 0.f);
+        qa[kk][3] = tf32(ok1 ? q1p[kk * 8 + t + 4] : 0.f);
+      }
     }
   }
+  constexpr int QP = kB ? 1 : (Cfg<DK, DV>::kQhiInRegs ? 1 : 2);
+  const float* Qlo = Qsm + hw * QP * kBQ * DK;   // fp32 only
+  const float* Qhi = Qlo + kBQ * DK;       // read only if Q's hi is shared
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[NV][4];
@@ -646,120 +856,191 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kt + 2 < kt_end) issue(kt + 2, it % 2);
     if (kt + 1 < kt_end) split_tile((it + 1) % 2);
     if (!active) continue;
-    const float* Khi = split_kv + (it % 2) * 2 * BK * (DK + DV);
-    const float* Klo = Khi + BK * DK;
-    const float* Vhi = Klo + BK * DK;
-    const float* Vlo = Vhi + BK * DV;
     const int k0 = kt * BK;
-
-    // s = q.k^T on the warpgroup's 64 rows: big += q_hi.k_hi, small +=
-    // q_lo.k_hi + q_hi.k_lo; k-step kk covers d 8kk..8kk+7, two core
-    // matrices of 128 bytes.  q_hi comes from registers (RS) where it fits:
-    // an SS product re-reads its A tile from shared memory for every 8
-    // columns of k, which at N = 32 asks more bytes a cycle than shared
-    // memory gives.
-    float s[NT][4] = {}, sl[NT][4] = {};
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      const uint64_t ql = make_desc(Qlo + kk * 64, 128, DK * 32);
-      const uint64_t kh = make_desc(Khi + kk * 64, 128, DK * 32);
-      const uint64_t kl = make_desc(Klo + kk * 64, 128, DK * 32);
-      WG<BK>::ss(sl, ql, kh, kk > 0);
-      if constexpr (C::kQhiInRegs) {
-        WG<BK>::rs(sl, qhi[kk], kl, 1);
-        WG<BK>::rs(s, qhi[kk], kh, kk > 0);
-      } else {
-        const uint64_t qh = make_desc(Qhi + kk * 64, 128, DK * 32);
-        WG<BK>::ss(sl, qh, kl, 1);
-        WG<BK>::ss(s, qh, kh, kk > 0);
-      }
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(s);
-    fence_regs(sl);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] += sl[j][c];
-
     const bool interior = (!causal || k0 + BK - 1 <= r0) &&
                           (window <= 0 || r0 + 15 - k0 < window) &&
                           k0 + BK <= Skv;
-    if (interior)
-      online_softmax<NT, NV, false>(s, m, l, acc, r0 + g, k0 + t, Skv,
-                                    scale_log2, causal, window);
-    else
-      online_softmax<NT, NV, true>(s, m, l, acc, r0 + g, k0 + t, Skv,
-                                   scale_log2, causal, window);
+    float s[NT][4] = {};
 
-    // acc += p.v: accumulator group j is the A fragment of k-step j (rows
-    // g, g + 8; keys t, t + 4), split once; the tile's product from zero.
-    uint32_t phi[NT][4], plo[NT][4];
+    if constexpr (kB) {
+      const T* Kt = split_kv + (it % 2) * KV_BUF;
+      const T* Vt = Kt + BK * DK;
+      // s = q.k^T: k-step kk covers d 16kk..16kk+15, two core matrices of
+      // 128 bytes
+      wg_fence();
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+      for (int kk = 0; kk < KK; ++kk)
+        WB<BK>::rs(s, qa[kk], make_desc(Kt + kk * 128, 128, DK * 16),
+                   kk > 0);
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      if (interior)
+        online_softmax<NT, NV, false, 1>(s, m, l, acc, r0 + g, k0 + 2 * t,
+                                         Skv, scale_log2, causal, window);
+      else
+        online_softmax<NT, NV, true, 1>(s, m, l, acc, r0 + g, k0 + 2 * t,
+                                        Skv, scale_log2, causal, window);
+      // acc += p.v: accumulator groups 2j, 2j + 1 are the A fragment of
+      // k-step j (keys 16j..16j+15), rounded to bf16
+      uint32_t pa[NT / 2][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) split(pa[c], phi[j][c], plo[j][c]);
+      for (int j = 0; j < NT / 2; ++j) {
+        pa[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+        pa[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+        pa[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+        pa[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j)
+        WB<DV>::rs(acc, pa[j], make_desc(Vt + j * 128, 128, BK * 16), 1);
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc);
+    } else {
+      const float* Khi = reinterpret_cast<const float*>(
+          split_kv + (it % 2) * KV_BUF);
+      const float* Klo = Khi + BK * DK;
+      const float* Vhi = Klo + BK * DK;
+      const float* Vlo = Vhi + BK * DV;
+
+      // s = q.k^T on the warpgroup's 64 rows: big += q_hi.k_hi, small +=
+      // q_lo.k_hi + q_hi.k_lo; k-step kk covers d 8kk..8kk+7, two core
+      // matrices of 128 bytes.  q_hi comes from registers (RS) where it
+      // fits: an SS product re-reads its A tile from shared memory for
+      // every 8 columns of k, which at N = 32 asks more bytes a cycle than
+      // shared memory gives.
+      float sl[NT][4] = {};
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        const uint64_t ql = make_desc(Qlo + kk * 64, 128, DK * 32);
+        const uint64_t kh = make_desc(Khi + kk * 64, 128, DK * 32);
+        const uint64_t kl = make_desc(Klo + kk * 64, 128, DK * 32);
+        WG<BK>::ss(sl, ql, kh, kk > 0);
+        if constexpr (kQRegs) {
+          WG<BK>::rs(sl, qa[kk], kl, 1);
+          WG<BK>::rs(s, qa[kk], kh, kk > 0);
+        } else {
+          const uint64_t qh = make_desc(Qhi + kk * 64, 128, DK * 32);
+          WG<BK>::ss(sl, qh, kl, 1);
+          WG<BK>::ss(s, qh, kh, kk > 0);
+        }
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+      fence_regs(sl);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] += sl[j][c];
+
+      if (interior)
+        online_softmax<NT, NV, false, 4>(s, m, l, acc, r0 + g, k0 + t, Skv,
+                                         scale_log2, causal, window);
+      else
+        online_softmax<NT, NV, true, 4>(s, m, l, acc, r0 + g, k0 + t, Skv,
+                                        scale_log2, causal, window);
+
+      // acc += p.v: accumulator group j is the A fragment of k-step j
+      // (rows g, g + 8; keys t, t + 4), split once; the tile's product from
+      // zero.
+      uint32_t phi[NT][4], plo[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split(pa[c], phi[j][c], plo[j][c]);
+      }
+      float part[NV][4] = {};
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint64_t vh = make_desc(Vhi + j * 64, 128, BK * 32);
+        const uint64_t vl = make_desc(Vlo + j * 64, 128, BK * 32);
+        WG<DV>::rs(part, plo[j], vh, j > 0);
+        WG<DV>::rs(part, phi[j], vl, 1);
+        WG<DV>::rs(part, phi[j], vh, 1);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(part);
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
     }
-    float part[NV][4] = {};
-    wg_fence();
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const uint64_t vh = make_desc(Vhi + j * 64, 128, BK * 32);
-      const uint64_t vl = make_desc(Vlo + j * 64, 128, BK * 32);
-      WG<DV>::rs(part, plo[j], vh, j > 0);
-      WG<DV>::rs(part, phi[j], vl, 1);
-      WG<DV>::rs(part, phi[j], vh, 1);
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(part);
-#pragma unroll
-    for (int n = 0; n < NV; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
   }
 
   if (!active) return;
-  float* ob = o + b * so.b + h * so.h;
+  T* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int qr = r0 + g + 8 * hr;
     if (qr >= Sq) continue;
     const float den = fmaxf(l[hr], 1e-30f);
-    float* orow = ob + (int64_t)qr * so.s;
+    T* orow = ob + (int64_t)qr * so.s;
 #pragma unroll
-    for (int n = 0; n < NV; ++n)
-      *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
-          make_float2(acc[n][2 * hr] / den, acc[n][2 * hr + 1] / den);
+    for (int n = 0; n < NV; ++n) {
+      const float x0 = acc[n][2 * hr] / den, x1 = acc[n][2 * hr + 1] / den;
+      if constexpr (kB)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
+            pack_bf16(x0, x1);
+      else
+        *reinterpret_cast<float2*>(orow + n * 8 + 2 * t) =
+            make_float2(x0, x1);
+    }
   }
 }
 
-template <int DK, int DV>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   Strides sq, Strides sk, Strides sv, Strides so, int B,
-                   int Hkv, int Sq, int Skv, int group, float scale,
-                   int causal, int window, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<DK, DV>();
+template <typename T, int DK, int DV>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o, Strides sq,
+                   Strides sk, Strides sv, Strides so, int B, int Hkv,
+                   int Sq, int Skv, int group, float scale, int causal,
+                   int window, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<T, DK, DV>();
   static_assert(bytes <= 232448, "over the 227 KB a block may use");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_kernel<T, DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  constexpr int kMaxHeads = Cfg<DK, DV>::kMaxHeads;
+  constexpr int kMaxHeads = CfgOf<T, DK, DV>::kMaxHeads;
   const int chunks = (group + kMaxHeads - 1) / kMaxHeads;
   const int heads_per_block = (group + chunks - 1) / chunks;
   const int64_t gx = (int64_t)B * Hkv * chunks;
   const int64_t gy = (Sq + kBQ - 1) / kBQ;
   if (gx > 0x7fffffff || gy > 65535) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)gx, (unsigned)gy);
-  flash_fwd_kernel<DK, DV><<<grid, heads_per_block * kWarpsPerHead * 32,
-                             bytes, stream>>>(
+  flash_fwd_kernel<T, DK, DV><<<grid, heads_per_block * kWarpsPerHead * 32,
+                                bytes, stream>>>(
       q, k, v, o, sq, sk, sv, so, Hkv, Sq, Skv, group, heads_per_block,
       chunks, scale * kLog2e, causal, window);
   return cudaGetLastError();
+}
+
+template <typename T>
+int forward(const T* q, const T* k, const T* v, T* o, const int64_t* strides,
+            int B, int Hkv, int Sq, int Skv, int Dk, int Dv, int group,
+            float scale, int causal, int window, cudaStream_t stream) {
+  if (B <= 0 || Hkv <= 0 || group <= 0 || Sq <= 0 || Skv <= 0)
+    return (int)cudaSuccess;
+  const Strides sq{strides[0], strides[1], strides[2]};
+  const Strides sk{strides[3], strides[4], strides[5]};
+  const Strides sv{strides[6], strides[7], strides[8]};
+  const Strides so{strides[9], strides[10], strides[11]};
+#define FA_FORM(DK, DV)                                                    \
+  if (Dk == DK && Dv == DV)                                                \
+    return (int)launch<T, DK, DV>(q, k, v, o, sq, sk, sv, so, B, Hkv, Sq,  \
+                                  Skv, group, scale, causal, window,       \
+                                  stream);
+  FA_FORM(64, 64)
+  FA_FORM(96, 96)
+  FA_FORM(128, 128)
+  FA_FORM(192, 128)
+#undef FA_FORM
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -769,20 +1050,16 @@ extern "C" int fa_forward(const float* q, const float* k, const float* v,
                           int Sq, int Skv, int Dk, int Dv, int group,
                           float scale, int causal, int window,
                           cudaStream_t stream) {
-  if (B <= 0 || Hkv <= 0 || group <= 0 || Sq <= 0 || Skv <= 0)
-    return (int)cudaSuccess;
-  const Strides sq{strides[0], strides[1], strides[2]};
-  const Strides sk{strides[3], strides[4], strides[5]};
-  const Strides sv{strides[6], strides[7], strides[8]};
-  const Strides so{strides[9], strides[10], strides[11]};
-#define FA_FORM(DK, DV)                                                     \
-  if (Dk == DK && Dv == DV)                                                 \
-    return (int)launch<DK, DV>(q, k, v, o, sq, sk, sv, so, B, Hkv, Sq, Skv, \
-                               group, scale, causal, window, stream);
-  FA_FORM(64, 64)
-  FA_FORM(96, 96)
-  FA_FORM(128, 128)
-  FA_FORM(192, 128)
-#undef FA_FORM
-  return (int)cudaErrorInvalidValue;
+  return forward<float>(q, k, v, o, strides, B, Hkv, Sq, Skv, Dk, Dv, group,
+                        scale, causal, window, stream);
+}
+
+extern "C" int fa_forward_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                               const __nv_bfloat16* v, __nv_bfloat16* o,
+                               const int64_t* strides, int B, int Hkv,
+                               int Sq, int Skv, int Dk, int Dv, int group,
+                               float scale, int causal, int window,
+                               cudaStream_t stream) {
+  return forward<__nv_bfloat16>(q, k, v, o, strides, B, Hkv, Sq, Skv, Dk, Dv,
+                                group, scale, causal, window, stream);
 }

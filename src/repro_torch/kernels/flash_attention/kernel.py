@@ -28,13 +28,19 @@ The kernel has no backward: a tensor that requires a gradient is refused
 (training attends through the plain ``models.attention.attend``).  The
 built forms (key head dim, value head dim) are :data:`FORMS`: 64, 96 and
 128 for both (the dense configs), and (192, 128), MLA's prefill, whose
-keys are wider than its values; fp32 only (bf16 inputs are ROADMAP Queue
-2 row 11's open part).
+keys are wider than its values; fp32 and bf16 (q, k and v of one dtype).
+At bf16 both products are bf16 ``wgmma`` into fp32, the softmax fp32, P
+rounded to bf16 before P.V and o written in bf16, as JAX's kernel does
+(``repro/kernels/flash_attention/kernel.py``: bf16 operands into the MXU
+at fp32, ``p.astype(v.dtype)``, o in the input dtype).
 
 Bound at the serving prefill of smollm-360m (B 8, 15/5 heads, S 1024, D
 64, causal, one layer): 16.1 GFLOP of products, 83.9 MB.  As three TF32
 products on the tensor cores (495 TFLOP/s) plus the softmax at fp32's 67
-TFLOP/s: about 0.10 ms; in fp32 outside the tensor cores: 0.244 ms.
+TFLOP/s: about 0.10 ms; in fp32 outside the tensor cores: 0.244 ms.  At
+bf16 the same call is 16.374 GFLOP at 989 TFLOP/s (0.0166 ms) plus the
+softmax's 0.252 GFLOP at 67 (0.0038 ms) against 41.9 MB (0.0125 ms):
+bound by operations at 0.0201 ms.
 ``PERF.md`` holds the measured time.  :func:`attention_cost` declares
 that work for any call, which the wrapper given fake tensors charges under
 the cost counter (:func:`repro_torch.kernels._cuda.traced`) instead of
@@ -60,11 +66,15 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "flash_attention.cu")
 
 
+DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fa_forward.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
-                               ctypes.c_float, I, I, P]
-    lib.fa_forward.restype = ctypes.c_int
+    for fn in (lib.fa_forward, lib.fa_forward_bf16):
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, I,
+                       I, P]
+        fn.restype = ctypes.c_int
 
 
 LIB = CudaLibrary("flash_attention", SOURCE, _bind)
@@ -73,9 +83,11 @@ build = LIB.build
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected torch.float32, got {t.dtype} "
-                            "(bf16 inputs: ROADMAP Queue 2 row 11)")
+        if t.dtype not in DTYPES or t.dtype != q.dtype:
+            raise TypeError(
+                f"{name}: expected q, k and v of one dtype among {DTYPES}, "
+                f"got {q.dtype}, {k.dtype}, {v.dtype} (the kernel of "
+                "ROADMAP Queue 2 row 11)")
         if t.dim() != 4:
             raise ValueError(f"{name}: expected (B, heads, S, D), got "
                              f"{tuple(t.shape)}")
@@ -112,13 +124,18 @@ def attention_cost(B: int, H: int, Hkv: int, Sq: int, Skv: int, Dk: int,
                    Dv: int, *, causal: bool = True, window: int = 0,
                    nbytes: int = 4) -> KernelCost:
     """One call as the kernel computes it: q, k and v read once and o
-    written once; per (query, key) pair 2 Dk operations for q.k and 2 Dv
-    for p.v, each product as three TF32 tensor-core products (3xTF32),
-    and 4 fp32 operations for scale, max, exp and sum."""
+    written once, ``nbytes`` an element; per (query, key) pair 2 Dk
+    operations for q.k and 2 Dv for p.v, and 4 fp32 operations for scale,
+    max, exp and sum.  At fp32 (``nbytes`` 4) each product is three TF32
+    tensor-core products (3xTF32); at bf16 (``nbytes`` 2) one bf16
+    tensor-core product."""
     pairs = B * H * attention_pairs(Sq, Skv, causal=causal, window=window)
-    return KernelCost(4.0 * pairs, 3.0 * pairs * (2 * Dk + 2 * Dv),
-                      float((B * H * Sq * Dk + B * Hkv * Skv * (Dk + Dv))
-                            * nbytes), float(B * H * Sq * Dv * nbytes))
+    products = pairs * (2 * Dk + 2 * Dv)
+    read = float((B * H * Sq * Dk + B * Hkv * Skv * (Dk + Dv)) * nbytes)
+    written = float(B * H * Sq * Dv * nbytes)
+    if nbytes == 2:
+        return KernelCost(4.0 * pairs, 0.0, read, written, float(products))
+    return KernelCost(4.0 * pairs, 3.0 * products, read, written)
 
 
 def _check_form(q, k, v, Sq: int, Dk: int, Dv: int, *, fake: bool) -> None:
@@ -140,16 +157,17 @@ def _check_form(q, k, v, Sq: int, Dk: int, Dv: int, *, fake: bool) -> None:
 
 def _aligned(t: torch.Tensor, *, fake: bool = False) -> bool:
     """16-byte copies: base 16-byte aligned, batch/head/seq strides whole
-    float4s (the last dimension is unit stride, checked before)."""
+    16-byte chunks (the last dimension is unit stride, checked before)."""
+    per = 16 // t.element_size()
     return ((fake or t.data_ptr() % 16 == 0)
-            and all(s % 4 == 0 for s in t.stride()[:3]))
+            and all(s % per == 0 for s in t.stride()[:3]))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    """q: (B, H, Sq, Dk); k: (B, Hkv, Skv, Dk); v: (B, Hkv, Skv, Dv), fp32,
-    any strides with the last dimension at unit stride; query head h reads
+    """q: (B, H, Sq, Dk); k: (B, Hkv, Skv, Dk); v: (B, Hkv, Skv, Dv), fp32
+    or bf16 (one dtype; o in it too), any strides with the last dimension at unit stride; query head h reads
     key/value head h // (H / Hkv); scores scaled by 1 / sqrt(Dk).  The
     folded form, (BH, Sq, Dk) and (BHkv, Skv, Dk | Dv) with heads ordered
     (b, h), is the case B = 1 (``unsqueeze(0)``).  Any Sq and Skv.
@@ -167,7 +185,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if traced(q, k, v):
         _check_form(q, k, v, Sq, Dk, Dv, fake=True)
         charge(flash_attention_fwd, attention_cost(
-            B, H, Hkv, Sq, Skv, Dk, Dv, causal=causal, window=window))
+            B, H, Hkv, Sq, Skv, Dk, Dv, causal=causal, window=window,
+            nbytes=q.element_size()))
         return q.new_empty((B, Sq, H, Dv)).transpose(1, 2)
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev).transpose(1, 2)
     if dev.type == "cpu":
@@ -179,8 +198,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = LIB.load()
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
                                        for s in t.stride()[:3]))
+    fwd = lib.fa_forward if q.dtype == torch.float32 else lib.fa_forward_bf16
     with torch.cuda.device(dev):
-        code = lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        code = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               o.data_ptr(), strides, B, Hkv, Sq, Skv, Dk,
                               Dv, H // Hkv, 1.0 / math.sqrt(Dk),
                               int(bool(causal)), window, stream(dev))

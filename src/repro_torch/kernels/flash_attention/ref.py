@@ -4,7 +4,13 @@
 mask, softmax, einsum.  The CPU path and the tests run it; on the card it
 is only the yardstick the kernel is held to.  Values may be narrower than
 keys (MLA: Dk 192, Dv 128); scores are scaled by 1 / sqrt(Dk), as JAX's
-``simple_attention`` scales them."""
+``simple_attention`` scales them.
+
+At bf16 it makes the kernel's roundings: q.k of the bf16 operands taken
+in fp32 (their products are exact there), the softmax in fp32 with its
+sum of the unrounded exponentials, the exponentials rounded to bf16
+before p.v (in fp32), o divided by the sum and rounded to bf16, as JAX's
+kernel does at bf16."""
 from __future__ import annotations
 
 import math
@@ -25,6 +31,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     group = BH // BHkv
     k = k.repeat_interleave(group, dim=0)
     v = v.repeat_interleave(group, dim=0)
+    half = v.dtype != torch.float32
+    if half:
+        q, k = q.float(), k.float()
     s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) / math.sqrt(D)
     rel = (torch.arange(Sq, device=q.device)[:, None]
            - torch.arange(Skv, device=q.device)[None, :])
@@ -32,5 +41,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(rel >= 0, s, NEG_INF)
     if window > 0:
         s = torch.where(rel < window, s, NEG_INF)
+    if half:
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.einsum("bqk,bkd->bqd", e.to(v.dtype).float(), v.float())
+        return (o / e.sum(dim=-1, keepdim=True)).to(v.dtype)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v).to(v.dtype)

@@ -115,6 +115,7 @@
 // and returns cudaGetLastError() after each launch so a refused launch is
 // reported at once.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,13 +129,20 @@ constexpr int kBS = 32;            // s columns of an output tile
 constexpr int kBS1 = 32;           // s rows of a state tile
 constexpr int kThreads = 128;         // one warpgroup
 
-struct Args {
-  const float *x, *dt, *A, *Bm, *Cm;
-  float *y, *hT, *states, *acum, *cb;
+// T: the type of x, B, C and y (float, or __nv_bfloat16 converted to fp32
+// as it is loaded and rounded from it as y is stored); dt, A, h_final and
+// the scratch are fp32.
+template <typename T>
+struct ArgsT {
+  const T* x;
+  const float *dt, *A;
+  const T *Bm, *Cm;
+  T* y;
+  float *hT, *states, *acum, *cb;
   int S, H, G, N, L, nc, nT, nS;
   int P, nP;                       // head dim, its 64-column tiles
   int units_g;                     // B G nchunks
-  int vecB, vecC;                  // B / C rows loadable as float4
+  int vecB, vecC;                  // B / C rows loadable 4 at a time
   int64_t sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, sbg, scb, scs, scg;
 };
 
@@ -289,6 +297,30 @@ __device__ __forceinline__ void zero(float (&d)[R][4]) {
     for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
 }
 
+// One value, or four neighbours (16 bytes of fp32, 8 of bf16), from
+// global memory through the read-only path, as fp32.
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void ldg4(const float* p, float (&v)[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+__device__ __forceinline__ void ldg4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(q.x << 16), v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16), v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+// Two neighbouring outputs, rounded to nearest even at bf16.
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // Staging a tile: every thread first issues all its global loads (into
 // registers), then splits and stores them, so a tile costs one round trip
 // to L2 or memory, not one per load.
@@ -310,7 +342,8 @@ struct RowTile {
     r = (i / (8 * C4)) * 8 + (i & 7);
     c = ((i >> 3) % C4) * 4;
   }
-  __device__ __forceinline__ void load(const float* src, int64_t stride,
+  template <typename S>
+  __device__ __forceinline__ void load(const S* src, int64_t stride,
                                        int r0, int nrows, int n0, int ncols,
                                        bool vec) {
 #pragma unroll
@@ -320,16 +353,13 @@ struct RowTile {
       const int rg = r0 + r, n = n0 + c;
       v[it][0] = v[it][1] = v[it][2] = v[it][3] = 0.f;
       if (rg < nrows) {
-        const float* p = src + (int64_t)rg * stride + n;
+        const S* p = src + (int64_t)rg * stride + n;
         if (vec) {
-          if (n < ncols) {
-            const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-            v[it][0] = q.x, v[it][1] = q.y, v[it][2] = q.z, v[it][3] = q.w;
-          }
+          if (n < ncols) ldg4(p, v[it]);
         } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
-            if (n + q < ncols) v[it][q] = __ldg(p + q);
+            if (n + q < ncols) v[it][q] = ldg1(p + q);
         }
       }
     }
@@ -361,7 +391,8 @@ struct PosTile {
   static_assert(COLS * (BS / 4) % NT == 0, "whole iterations");
   float v[IT][4];
 
-  __device__ __forceinline__ void load(const float* src, int64_t stride,
+  template <typename S>
+  __device__ __forceinline__ void load(const S* src, int64_t stride,
                                        int s0, int npos, int ncols) {
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
@@ -371,7 +402,7 @@ struct PosTile {
       for (int q = 0; q < 4; ++q) {
         const int s = s0 + s4 + q;
         v[it][q] = (s < npos && col < ncols)
-                       ? __ldg(src + (int64_t)s * stride + col)
+                       ? ldg1(src + (int64_t)s * stride + col)
                        : 0.f;
       }
     }
@@ -399,7 +430,8 @@ struct Unit {
   int unit, bh, b, h, g, c, c0, npos;   // npos: valid positions of the chunk
 };
 
-__device__ __forceinline__ Unit unit_of(const Args& a, int unit) {
+template <typename T>
+__device__ __forceinline__ Unit unit_of(const ArgsT<T>& a, int unit) {
   Unit u;
   u.unit = unit;
   u.c = unit % a.nc;
@@ -416,7 +448,8 @@ __device__ __forceinline__ Unit unit_of(const Args& a, int unit) {
 // 1. acum, the chunk states and the state passed across the chunks: one
 // warpgroup per (b, h, 64 state columns) walks the chunks in order
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void state_block(const Args& a, int blk,
+template <typename T>
+__device__ __forceinline__ void state_block(const ArgsT<T>& a, int blk,
                                             float* smem) {
   float* dts = smem;
   float* acum = dts + kMaxL;
@@ -442,9 +475,9 @@ __device__ __forceinline__ void state_block(const Args& a, int blk,
   for (int c = 0; c < a.nc; ++c) {
     const int c0 = c * L, npos = min(L, a.S - c0);
     const int64_t unit = (int64_t)bh * a.nc + c;
-    const float* xb = a.x + b * a.sxb + h * a.sxh + c0 * a.sxs + p0;
+    const T* xb = a.x + b * a.sxb + h * a.sxh + c0 * a.sxs + p0;
     const float* dtb = a.dt + b * a.sdb + h * a.sdh + c0 * a.sds;
-    const float* Bb = a.Bm + b * a.sbb + gi * a.sbg + c0 * a.sbs + n0;
+    const T* Bb = a.Bm + b * a.sbb + gi * a.sbg + c0 * a.sbs + n0;
     // the chunk's first tiles, in flight during the cumsum
     PosTile<kP, kBS1, kThreads> xt;
     PosTile<64, kBS1, kThreads> bt;
@@ -553,8 +586,8 @@ __device__ __forceinline__ void load_chi(const float* work,
 // C's rows [t0, t0 + 64) of a chunk, split: the low part to Clo (the SS
 // operand), the high part through `work` into registers.  Ends with a
 // barrier; `work` is free again once the caller syncs.
-template <int NP>
-__device__ __forceinline__ void stage_c(const Args& a, const float* Cb,
+template <typename T, int NP>
+__device__ __forceinline__ void stage_c(const ArgsT<T>& a, const T* Cb,
                                         int t0, int npos, float* work,
                                         float* Clo,
                                         uint32_t (&chi)[NP / 8][4]) {
@@ -570,7 +603,9 @@ __device__ __forceinline__ void stage_c(const Args& a, const float* Cb,
 
 // The scratch tile of C B^T for (b, g, chunk), 64-row tile tt, 32-column
 // tile j: 2048 floats, each thread's 16 accumulator values contiguous.
-__device__ __forceinline__ float4* cb_tile(const Args& a, int64_t ug, int tt,
+template <typename T>
+__device__ __forceinline__ float4* cb_tile(const ArgsT<T>& a, int64_t ug,
+                                           int tt,
                                            int j) {
   return reinterpret_cast<float4*>(
       a.cb + ((ug * a.nT + tt) * a.nS + j) * (kBT * kBS));
@@ -581,8 +616,8 @@ __device__ __forceinline__ float4* cb_tile(const Args& a, int64_t ug, int tt,
 // product is taken once per (b, g, chunk, 64-row tile) and every head's
 // output block reads it, in the accumulator layout, from the scratch
 // ---------------------------------------------------------------------------
-template <int NP>
-__device__ __forceinline__ void cb_block(const Args& a, int blk,
+template <typename T, int NP>
+__device__ __forceinline__ void cb_block(const ArgsT<T>& a, int blk,
                                          float* smem) {
   constexpr int KN = NP / 8;                 // k-steps over the state dim
   float* Clo = smem;                         // C, (t, n)
@@ -596,11 +631,11 @@ __device__ __forceinline__ void cb_block(const Args& a, int blk,
   const int b = bg / a.G, gi = bg % a.G;
   const int c0 = c * a.L, npos = min(a.L, a.S - c0);
   const int s_end = min(t0 + kBT, a.L);
-  const float* Bb = a.Bm + b * a.sbb + gi * a.sbg + c0 * a.sbs;
-  const float* Cb = a.Cm + b * a.scb + gi * a.scg + c0 * a.scs;
+  const T* Bb = a.Bm + b * a.sbb + gi * a.sbg + c0 * a.sbs;
+  const T* Cb = a.Cm + b * a.scb + gi * a.scg + c0 * a.scs;
 
   uint32_t chi[KN][4];
-  stage_c<NP>(a, Cb, t0, npos, work, Clo, chi);
+  stage_c<T, NP>(a, Cb, t0, npos, work, Clo, chi);
   for (int s0 = 0, j = 0; s0 < s_end; s0 += kBS, ++j) {
     RowTile<kBS, NP, true, kThreads> bt;
     bt.load(Bb, a.sbs, s0, npos, 0, a.N, a.vecB);
@@ -633,22 +668,23 @@ __device__ __forceinline__ void cb_block(const Args& a, int blk,
 
 // Kernels 1 and 2 in one launch: the state blocks first, then the C B^T
 // blocks, which the card runs in the state blocks' tail.
-template <int NP>
+template <typename T, int NP>
 __global__ void __launch_bounds__(kThreads, 3)
-ssd_states_cb_kernel(const Args a, int state_blocks) {
+ssd_states_cb_kernel(const ArgsT<T> a, int state_blocks) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   if ((int)blockIdx.x < state_blocks)
     state_block(a, blockIdx.x, smem);
   else
-    cb_block<NP>(a, blockIdx.x - state_blocks, smem);
+    cb_block<T, NP>(a, blockIdx.x - state_blocks, smem);
 }
 
 // ---------------------------------------------------------------------------
 // 3. the outputs of one 64-row tile of a chunk, one head
 // ---------------------------------------------------------------------------
-template <int NP>
-__global__ void __launch_bounds__(kThreads, 3) ssd_out_kernel(const Args a) {
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads, 3)
+ssd_out_kernel(const ArgsT<T> a) {
   constexpr int KN = NP / 8;                 // k-steps over the state dim
   extern __shared__ float4 smem4[];
   float* acum = reinterpret_cast<float*>(smem4);
@@ -667,9 +703,9 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_out_kernel(const Args a) {
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;              // the thread's rows r0, r0 + 8
   const int p0 = blockIdx.z * kP;            // the block's head-dim columns
-  const float* xb = a.x + u.b * a.sxb + u.h * a.sxh + u.c0 * a.sxs + p0;
+  const T* xb = a.x + u.b * a.sxb + u.h * a.sxh + u.c0 * a.sxs + p0;
   const float* dtb = a.dt + u.b * a.sdb + u.h * a.sdh + u.c0 * a.sds;
-  const float* Cb = a.Cm + u.b * a.scb + u.g * a.scg + u.c0 * a.scs;
+  const T* Cb = a.Cm + u.b * a.scb + u.g * a.scg + u.c0 * a.scs;
 
   for (int s = tid; s < kMaxL; s += kThreads) {
     if (s < s_end) acum[s] = a.acum[(int64_t)u.unit * L + s];
@@ -799,17 +835,15 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_out_kernel(const Args a) {
   }
 
   const int64_t sys = (int64_t)a.H * a.P;
-  float* yb = a.y + ((int64_t)u.b * a.S + u.c0) * sys + (int64_t)u.h * a.P +
-              p0;
+  T* yb = a.y + ((int64_t)u.b * a.S + u.c0) * sys + (int64_t)u.h * a.P + p0;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int tl = t0 + r0 + 8 * hr;
     if (tl >= u.npos) continue;
-    float* row = yb + tl * sys;
+    T* row = yb + tl * sys;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<float2*>(row + j * 8 + 2 * t) =
-          make_float2(yacc[j][2 * hr], yacc[j][2 * hr + 1]);
+      st2(row + j * 8 + 2 * t, yacc[j][2 * hr], yacc[j][2 * hr + 1]);
   }
 }
 
@@ -828,18 +862,18 @@ constexpr int out_smem() {
   return (2 * kMaxL + kBT * NP + work_floats<NP>()) * 4;
 }
 
-template <int NP>
-cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
+template <typename T, int NP>
+cudaError_t launch(const ArgsT<T>& a, int bh, cudaStream_t stream) {
   static_assert(work_floats<NP>() >= 2 * kBS * NP &&
                     work_floats<NP>() >= 2 * kP * kBS,
                 "the work tile holds B's and x dt's hi and lo");
   constexpr int first_smem =
       kStateSmem > cb_smem<NP>() ? kStateSmem : cb_smem<NP>();
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_states_cb_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      first_smem);
+      ssd_states_cb_kernel<T, NP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, first_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ssd_out_kernel<NP>,
+  err = cudaFuncSetAttribute(ssd_out_kernel<T, NP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              out_smem<NP>());
   if (err != cudaSuccess) return err;
@@ -848,18 +882,48 @@ cudaError_t launch(const Args& a, int bh, cudaStream_t stream) {
   const int64_t first = state_blocks + (int64_t)a.units_g * a.nT;
   if (units > 0x7fffffff || first > 0x7fffffff)
     return cudaErrorInvalidConfiguration;
-  ssd_states_cb_kernel<NP><<<(unsigned)first, kThreads, first_smem, stream>>>(
-      a, (int)state_blocks);
+  ssd_states_cb_kernel<T, NP>
+      <<<(unsigned)first, kThreads, first_smem, stream>>>(a,
+                                                          (int)state_blocks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_out_kernel<NP><<<dim3((unsigned)units, a.nT, a.nP), kThreads,
-                       out_smem<NP>(), stream>>>(a);
+  ssd_out_kernel<T, NP><<<dim3((unsigned)units, a.nT, a.nP), kThreads,
+                          out_smem<NP>(), stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+int forward(const T* x, const float* dt, const float* A, const T* Bm,
+            const T* Cm, T* y, float* hT, float* states, float* acum,
+            float* cb, int Bsz, int S, int H, int G, int N, int P, int L,
+            int64_t sxb, int64_t sxs, int64_t sxh, int64_t sdb, int64_t sds,
+            int64_t sdh, int64_t sbb, int64_t sbs, int64_t sbg, int64_t scb,
+            int64_t scs, int64_t scg, cudaStream_t stream) {
+  if ((P != kP && P != 2 * kP) || N < 1 || N > kMaxN || L < 1 ||
+      L > kMaxL || G < 1 || H % G != 0)
+    return (int)cudaErrorInvalidValue;
+  if (Bsz <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
+  // B and C rows 4 values at a time: bases aligned to 4 values and
+  // strides of whole fours, N % 4 == 0
+  auto vec = [&](const T* p, int64_t s0, int64_t s1, int64_t s2) {
+    return (int)((((uintptr_t)p & (4 * sizeof(T) - 1)) == 0) &&
+                 s0 % 4 == 0 && s1 % 4 == 0 && s2 % 4 == 0 && N % 4 == 0);
+  };
+  const int nc = (S + L - 1) / L;
+  const ArgsT<T> a{x, dt, A, Bm, Cm, y, hT, states, acum, cb, S, H, G, N, L,
+                   nc, (L + kBT - 1) / kBT, (L + kBS - 1) / kBS, P, P / kP,
+                   Bsz * G * nc,
+                   vec(Bm, sbb, sbs, sbg), vec(Cm, scb, scs, scg),
+                   sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, sbg, scb, scs,
+                   scg};
+  return (int)(N <= 64 ? launch<T, 64>(a, Bsz * H, stream)
+                       : launch<T, 128>(a, Bsz * H, stream));
 }
 
 }  // namespace
 
 // Scratch, fp32, nchunks = ceil(S / L): states (B H nchunks, P, N); acum
 // (B H nchunks, L); cb (B G nchunks, ceil(L / 64), ceil(L / 32), 2048).
+// ssd_forward takes fp32 x, B, C and y; ssd_forward_bf16 bf16 ones.
 extern "C" int ssd_forward(const float* x, const float* dt, const float* A,
                            const float* Bm, const float* Cm, float* y,
                            float* hT, float* states, float* acum, float* cb,
@@ -868,23 +932,22 @@ extern "C" int ssd_forward(const float* x, const float* dt, const float* A,
                            int64_t sds, int64_t sdh, int64_t sbb, int64_t sbs,
                            int64_t sbg, int64_t scb, int64_t scs, int64_t scg,
                            cudaStream_t stream) {
-  if ((P != kP && P != 2 * kP) || N < 1 || N > kMaxN || L < 1 ||
-      L > kMaxL || G < 1 || H % G != 0)
-    return (int)cudaErrorInvalidValue;
-  if (Bsz <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-  // B and C rows as float4: 16-byte aligned bases and strides, N % 4 == 0
-  auto vec = [&](const float* p, int64_t s0, int64_t s1, int64_t s2) {
-    return (int)((((uintptr_t)p & 15) == 0) && s0 % 4 == 0 && s1 % 4 == 0 &&
-                 s2 % 4 == 0 && N % 4 == 0);
-  };
-  const int nc = (S + L - 1) / L;
-  const Args a{x, dt, A, Bm, Cm, y, hT, states, acum, cb, S, H, G, N, L,
-               nc, (L + kBT - 1) / kBT, (L + kBS - 1) / kBS, P, P / kP,
-               Bsz * G * nc,
-               vec(Bm, sbb, sbs, sbg), vec(Cm, scb, scs, scg),
-               sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, sbg, scb, scs, scg};
-  return (int)(N <= 64 ? launch<64>(a, Bsz * H, stream)
-                       : launch<128>(a, Bsz * H, stream));
+  return forward<float>(x, dt, A, Bm, Cm, y, hT, states, acum, cb, Bsz, S, H,
+                        G, N, P, L, sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs,
+                        sbg, scb, scs, scg, stream);
+}
+
+extern "C" int ssd_forward_bf16(
+    const __nv_bfloat16* x, const float* dt, const float* A,
+    const __nv_bfloat16* Bm, const __nv_bfloat16* Cm, __nv_bfloat16* y,
+    float* hT, float* states, float* acum, float* cb, int Bsz, int S, int H,
+    int G, int N, int P, int L, int64_t sxb, int64_t sxs, int64_t sxh,
+    int64_t sdb, int64_t sds, int64_t sdh, int64_t sbb, int64_t sbs,
+    int64_t sbg, int64_t scb, int64_t scs, int64_t scg, cudaStream_t stream) {
+  return forward<__nv_bfloat16>(x, dt, A, Bm, Cm, y, hT, states, acum, cb,
+                                Bsz, S, H, G, N, P, L, sxb, sxs, sxh, sdb,
+                                sds, sdh, sbb, sbs, sbg, scb, scs, scg,
+                                stream);
 }
 
 // The device kernels one ssd_forward call launches.

@@ -25,8 +25,12 @@ G)).  Besides y, it writes the final state: the JAX prefill takes
 ``h_final`` from ``ssd_chunked`` for the decode cache (the Pallas kernel
 writes y only).  Like both, it starts from a zero state.  No backward: a
 tensor that requires a gradient is refused (SSM-family training is a
-ROADMAP item).  P = 64 or 128, N <= 128, chunk <= 256, fp32 (bf16
-inputs: ROADMAP Queue 2 row 12).
+ROADMAP item).  P = 64 or 128, N <= 128, chunk <= 256.  x, B and C are
+fp32 or bf16 (one dtype; y in it too), dt and A fp32, as JAX's
+``mamba_block`` hands them over at either dtype (dt is the softplus of an
+fp32 sum); h_final is fp32.  A bf16 input is converted to fp32 as it is
+loaded and the scan computes as at fp32, as JAX's kernel upcasts its
+inputs (``repro/kernels/ssd_scan/kernel.py``).
 
 The design (``csrc/ssd_scan.cu`` has it in full): SSD's chunk-parallel
 algorithm in two device kernels a call, every product 3xTF32 on the
@@ -47,7 +51,8 @@ Bound at the serving prefill of mamba2-780m (B 8, 48 heads, one group, S
 1024, P 64, N 128, chunk 256, one layer): 19.9 GFLOP with C B^T taken
 once for the group, bound by operations: 0.123 ms as the kernel computes
 it (3xTF32 products at the H100's 495 TFLOP/s, the rest at fp32's 67),
-0.297 ms in fp32.  ``PERF.md`` holds the measured time.
+0.297 ms in fp32.  At bf16 the bound stays, with half the bytes of x, B,
+C and y.  ``PERF.md`` holds the measured time.
 :func:`ssd_cost` declares that work for any call, which the wrapper given
 fake tensors charges under the cost counter
 (:func:`repro_torch.kernels._cuda.traced`) instead of launching.
@@ -65,6 +70,7 @@ from repro_torch.kernels._cuda import (CudaLibrary, KernelCost, charge,
 from repro_torch.kernels.ssd_scan import ref as R
 
 HEAD_DIMS = (64, 128)
+DTYPES = (torch.float32, torch.bfloat16)      # x, B, C (and y)
 MAX_STATE = 128
 MAX_CHUNK = 256
 
@@ -74,8 +80,9 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.ssd_forward.argtypes = ([P] * 10 + [I] * 7 + [I64] * 12 + [P])
-    lib.ssd_forward.restype = ctypes.c_int
+    for fn in (lib.ssd_forward, lib.ssd_forward_bf16):
+        fn.argtypes = [P] * 10 + [I] * 7 + [I64] * 12 + [P]
+        fn.restype = ctypes.c_int
     lib.ssd_kernels_per_call.argtypes = []
     lib.ssd_kernels_per_call.restype = ctypes.c_int
 
@@ -87,7 +94,8 @@ build = LIB.build
 def ssd_cost(B: int, H: int, S: int, P: int, N: int, chunk: int,
              G=None, nbytes: int = 4) -> KernelCost:
     """One call at chunk L = min(chunk, S): x, dt, a, B and C read once, y
-    written once.  Per head and chunk: the causal half of C.B^T and of
+    written once; x, B, C and y at ``nbytes`` an element (4 or 2), dt,
+    a and h_final at 4.  Per head and chunk: the causal half of C.B^T and of
     M.(x dt) (2N + 2P + 3 a pair), the carried state's term (2NP + N a
     position) and the state update (2NP + N a position, NP a chunk).  The
     matrix products (C.B^T and M.(x dt) over the causal half, C.h and the
@@ -106,14 +114,15 @@ def ssd_cost(B: int, H: int, S: int, P: int, N: int, chunk: int,
                          + (G or H) * pairs * 2 * N)
     if G is None:
         ops = B * H * nc * (per_head + pairs * 2 * N)
-        written = B * H * S * P
-        read = B * H * S * (P + 2 + 2 * N)
+        written = B * H * S * P * nbytes
+        read = B * H * S * ((P + 2 * N) * nbytes + 2 * 4)
     else:
         ops = B * nc * (H * per_head + G * pairs * 2 * N)
-        written = B * H * S * P + B * H * N * P
-        read = B * H * S * (P + 2) + B * G * S * 2 * N
-    return KernelCost(float(ops - products), 3.0 * products,
-                      float(read * nbytes), float(written * nbytes))
+        written = B * H * S * P * nbytes + B * H * N * P * 4
+        read = (B * H * S * (P * nbytes + 2 * 4)
+                + B * G * S * 2 * N * nbytes)
+    return KernelCost(float(ops - products), 3.0 * products, float(read),
+                      float(written))
 
 
 def _check_form(x, dt, A, Bm, Cm, P: int, N: int, L: int) -> None:
@@ -130,9 +139,14 @@ def _check_form(x, dt, A, Bm, Cm, P: int, N: int, L: int) -> None:
 
 def _check(x, dt, A, Bm, Cm, chunk) -> Tuple[int, ...]:
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected torch.float32, got {t.dtype} "
-                            "(bf16 inputs: ROADMAP Queue 2 row 12)")
+        want = DTYPES if name in ("x", "Bm", "Cm") else (torch.float32,)
+        if t.dtype not in want or (name in ("Bm", "Cm")
+                                   and t.dtype != x.dtype):
+            raise TypeError(
+                f"{name}: x, Bm and Cm of one dtype among {DTYPES}, dt and "
+                f"A float32, got x {x.dtype}, dt {dt.dtype}, A {A.dtype}, "
+                f"Bm {Bm.dtype}, Cm {Cm.dtype} (the kernel of ROADMAP Queue "
+                "2 row 12)")
         if t.requires_grad:
             raise RuntimeError(
                 f"{name} requires grad: the SSD-scan kernel has no "
@@ -160,8 +174,9 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, H, P); dt: (B, S, H) (softplus'ed, >= 0); A: (H,) < 0;
-    Bm, Cm: (B, S, G, N) with G dividing H (G = H: broadcast already).
-    Returns (y (B, S, H, P) contiguous, h_final (B, H, N, P) fp32).
+    Bm, Cm: (B, S, G, N) with G dividing H (G = H: broadcast already); x,
+    Bm and Cm fp32 or bf16, dt and A fp32.  Returns (y (B, S, H, P)
+    contiguous in x's dtype, h_final (B, H, N, P) fp32).
 
     Replaces ``repro/kernels/ssd_scan/kernel.py::ssd_scan_fwd``."""
     B, S, H, P, G, N = _check(x, dt, A, Bm, Cm, chunk)
@@ -169,14 +184,15 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     L = min(int(chunk), S)
     if traced(x, dt, A, Bm, Cm):
         _check_form(x, dt, A, Bm, Cm, P, N, L)
-        charge(ssd_scan_fwd, ssd_cost(B, H, S, P, N, int(chunk), G=G))
+        charge(ssd_scan_fwd, ssd_cost(B, H, S, P, N, int(chunk), G=G,
+                                      nbytes=x.element_size()))
         return x.new_empty((B, S, H, P)), x.new_empty((B, H, N, P))
     if dev.type == "cpu":
         return R.ssd_chunked_ref(x, dt, A, Bm, Cm, int(chunk))
     _check_form(x, dt, A, Bm, Cm, P, N, L)
     lib = LIB.load()
     nc = -(-S // L)
-    y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     hT = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
     # scratch: the state entering each chunk (transposed, P x N), each
     # chunk's cumsum of a, and C B^T of each (b, group, chunk) in 64 x 32
@@ -186,7 +202,9 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cb = torch.empty((B * G * nc, -(-L // 64), -(-L // 32), 64 * 32),
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.ssd_forward(
+        fwd = (lib.ssd_forward if x.dtype == torch.float32
+               else lib.ssd_forward_bf16)
+        code = fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(),
             acum.data_ptr(), cb.data_ptr(), B, S, H, G, N, P, L,

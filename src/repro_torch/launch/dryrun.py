@@ -7,7 +7,12 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh 2x1] [--out artifacts/dryrun_torch]
 
 :func:`run_one` builds the model at full width on fake ``cuda`` tensors in
-the port's fp32, then traces one call with the cost counter
+the config's dtype (``cfg.dtype``, bfloat16 for every config), as JAX's
+dry run builds it: each parameter in the dtype the model's init gives it
+(the norms, the router and the mamba block's ``A_log`` / ``D`` /
+``dt_bias`` stay fp32), the encoder inputs and the decode cache in the
+config's dtype, the round's client weights fp32; the server's flat
+buffers are fp32 per dtype group (``core/flat.py``).  It then traces one call with the cost counter
 (:func:`repro_torch.roofline.cost.trace_cost`): the federated round for a
 ``train`` shape, ``model.prefill`` for ``prefill`` and ``model.decode``
 over a cache of ``seq_len`` for ``decode``.  Each hand-written kernel
@@ -30,10 +35,13 @@ rows of the batch (``simple_batch_shardings``) and its part of the cache
 (``cache_shardings``).  The per-device memory is the port's placement,
 which the record states under ``placement``: parameters split over
 ``model`` and kept whole over the batch axes (``param_spec``'s FSDP
-entries are ROADMAP Queue 1 item 7d), the residual stream replicated over
-``model`` (``--act-spec on``, JAX's ``set_activation_spec``, raises
-naming item 7d), the experts over ``model`` (``--expert-axis model``, the
-one axis the port splits them over; another raises).  ``fits`` says
+entries are ROADMAP Queue 1 item 7d), each client's residual stream
+split over ``model`` by its batch rows between sublayers (``--act-spec
+on``, the default, JAX's ``set_activation_spec``: a local step's rows in
+``ceil(b / M)`` a process, zero rows padding the last; ``off`` keeps it
+replicated; the record's ``placement["activations"]`` states the rows),
+the experts over ``model`` (``--expert-axis model``, the one axis the
+port splits them over; another raises).  ``fits`` says
 whether that placement fits one card; no pair is skipped for not
 fitting.
 
@@ -98,7 +106,6 @@ PLACEMENT = {
              "simple_batch_shardings (prefill, decode)",
     "cache": "rank 0's part, as cache_shardings places it",
     "experts": "split over model (models/moe.py::_experts)",
-    "activations": f"replicated over model (--act-spec off; {ITEM_7D})",
 }
 META_BATCH = 64                # the JAX dry run's D_meta sequences
 SHORTCUT_COHORTS = (1, 2)      # the scan cohorts the shortcut traces
@@ -145,8 +152,9 @@ def parse_mesh(mesh: str) -> Tuple[int, ...]:
 
 def check_hints(expert_axis: Optional[str], act_spec: str) -> None:
     """JAX's two placement hints: the experts' axis is the model axis
-    (PR 28's placement, the one the port runs), and the activation
-    spec's eager meaning is not ported."""
+    (the placement the port runs), and the activation spec
+    on or off (:func:`repro_torch.sharding.tensor_parallel.
+    set_activation_spec`)."""
     if expert_axis not in (None, "model"):
         raise ValueError(
             f"--expert-axis {expert_axis}: the port splits the experts "
@@ -156,26 +164,59 @@ def check_hints(expert_axis: Optional[str], act_spec: str) -> None:
             f"the port does not run ({ITEM_7D})")
     if act_spec not in ("on", "off"):
         raise ValueError(f"--act-spec {act_spec!r}: on or off")
-    if act_spec == "on":
-        raise NotImplementedError(
-            "--act-spec on: JAX's set_activation_spec (the client's batch "
-            "or the residual stream split over model between the split "
-            f"products) is not yet ported to repro_torch ({ITEM_7D}); the "
-            "port keeps the residual stream replicated (--act-spec off)")
 
 
-def _param_stand_ins(cfg, dev):
-    """Every parameter leaf at full width as an empty tensor (fake inside
-    the caller's fake mode), shapes from the module on the meta device."""
+def activations_placement(shape, fed, model: int, act_spec: str) -> str:
+    """The record's ``placement["activations"]``: where a client's
+    residual stream lives on a mesh whose model axis is ``model``."""
+    if shape.kind != "train":
+        return "replicated over model (serving runs the stream whole)"
+    if act_spec == "off" or model == 1:
+        return "replicated over model (--act-spec off)"
+
+    def split(b):
+        r = -(-b // model)
+        return (f"{b} rows as {r} a process ({r * model - b} zero rows "
+                "padding)")
+    step = shape.global_batch // fed.cohort // fed.local_steps
+    return (f"split over model by batch rows between sublayers "
+            f"(--act-spec on): a local step's {split(step)}, the meta "
+            f"batch's {split(META_BATCH)}; each sublayer's input gathered "
+            "whole, its output reduce-scattered to the rows")
+
+
+def model_dtype(cfg) -> torch.dtype:
+    """The config's dtype (``cfg.dtype``) as a torch dtype."""
+    return getattr(torch, cfg.dtype)
+
+
+def param_dtypes(cfg) -> Dict[str, torch.dtype]:
+    """Each parameter's dtype in a model built at ``cfg.dtype``: what
+    ``init_transformer`` gives it, read off an init on fake tensors (no
+    value is drawn, nothing is allocated)."""
+    from repro_torch.models.transformer import init_transformer
+    with FakeTensorMode():
+        params = init_transformer(cfg, torch.Generator(), model_dtype(cfg))
+    return {k: v.dtype for k, v in params.items()}
+
+
+def _param_stand_ins(cfg, dev, shapes=None):
+    """Every parameter leaf (or its part ``shapes[name]``) as an empty
+    tensor in its dtype (fake inside the caller's fake mode), shapes from
+    the module on the meta device."""
     from repro_torch.models.transformer import Transformer
-    return {k: torch.empty(tuple(v.shape), dtype=torch.float32, device=dev)
-            for k, v in Transformer(cfg).named_parameters()}
+    dts = param_dtypes(cfg)
+    if shapes is None:
+        shapes = {k: tuple(v.shape)
+                  for k, v in Transformer(cfg).named_parameters()}
+    return {k: torch.empty(s, dtype=dts[k], device=dev)
+            for k, s in shapes.items()}
 
 
 def _enc(cfg, lead, dev):
     e = cfg.encoder
     return torch.empty(tuple(lead) + (e.enc_len, e.enc_dim),
-                       dtype=torch.float32, device=dev)
+                       dtype=model_dtype(cfg), device=dev)
 
 
 def _serve_args(cfg, dev, mesh, batch: int, cache_len: int):
@@ -185,9 +226,9 @@ def _serve_args(cfg, dev, mesh, batch: int, cache_len: int):
     from repro_torch.sharding.tensor_parallel import serve_axis
     shapes = dict(Transformer(cfg).named_parameters())
     tp = serve_axis(mesh, shapes, batch=batch, cache_len=cache_len)
-    params = {k: torch.empty(tuple(s.stop - s.start for s in tp.slices(
-        k, v.shape)), dtype=torch.float32, device=dev)
-        for k, v in shapes.items()}
+    params = _param_stand_ins(cfg, dev, {
+        k: tuple(s.stop - s.start for s in tp.slices(k, v.shape))
+        for k, v in shapes.items()})
     rows = tp.serving.batch_rows()
     return tp, params, rows.stop - rows.start
 
@@ -199,7 +240,7 @@ def _train_call(cfg, shape, fed, mesh, dev, loss_chunk, per_client=None):
     from repro_torch.core.round import (init_server_state,
                                         make_federated_round)
     from repro_torch.models.model import build_model
-    model = build_model(cfg, dtype=torch.float32, loss_chunk=loss_chunk)
+    model = build_model(cfg, dtype=model_dtype(cfg), loss_chunk=loss_chunk)
     cohort, seq = fed.cohort, shape.seq_len
     if per_client is None:
         per_client = shape.global_batch // cohort
@@ -245,6 +286,7 @@ def extrapolate_cost(c1: Cost, c2: Cost, cohort: int) -> Cost:
     return Cost(
         flops=_line(c1.flops, c2.flops, cohort),
         tc_flops=_line(c1.tc_flops, c2.tc_flops, cohort),
+        bf16_flops=_line(c1.bf16_flops, c2.bf16_flops, cohort),
         bytes_read=_line(c1.bytes_read, c2.bytes_read, cohort),
         bytes_written=_line(c1.bytes_written, c2.bytes_written, cohort),
         collective_bytes=_line(c1.collective_bytes, c2.collective_bytes,
@@ -262,7 +304,7 @@ def extrapolate_cost(c1: Cost, c2: Cost, cohort: int) -> Cost:
 def _prefill_call(cfg, shape, dev, mesh=None):
     """``model.prefill`` and its stand-ins: rank 0's on ``mesh``."""
     from repro_torch.models.model import build_model
-    model = build_model(cfg, dtype=torch.float32)
+    model = build_model(cfg, dtype=model_dtype(cfg))
     B = shape.global_batch
     if mesh is None:
         fn, params = model.prefill, _param_stand_ins(cfg, dev)
@@ -280,7 +322,7 @@ def _decode_call(cfg, shape, dev, window, mesh=None):
     """``model.decode`` and its stand-ins over a cache of the shape's
     length: rank 0's on ``mesh``."""
     from repro_torch.models.model import build_model
-    model = build_model(cfg, dtype=torch.float32, decode_window=window)
+    model = build_model(cfg, dtype=model_dtype(cfg), decode_window=window)
     B = shape.global_batch
     cache = model.make_cache(B, shape.seq_len, device=dev, mesh=mesh)
     if mesh is None:
@@ -297,13 +339,14 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
             algorithm: str = "uga", strategy: Optional[str] = None,
             local_steps: int = 2, agg_dtype: str = "float32",
             loss_chunk: int = 2048, moe_impl: str = "einsum",
-            expert_axis: Optional[str] = None, act_spec: str = "off",
+            expert_axis: Optional[str] = None, act_spec: str = "on",
             extrapolate: bool = True, verbose: bool = True
             ) -> Dict[str, Any]:
     """One pair's record (module docstring); ``extrapolate`` takes a scan
     cohort's train pair by the shortcut."""
     from repro_torch.launch.mesh import fake_mesh
     from repro_torch.models import moe as moe_lib
+    from repro_torch.sharding import tensor_parallel as TP
     check_hints(expert_axis, act_spec)
     arch_cfg = get_arch(arch_name)
     shape = get_shape(shape_name)
@@ -313,14 +356,16 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
     device = torch.device("cuda")
     rec: Dict[str, Any] = {"arch": arch_name, "shape": shape_name,
                            "mesh": "x".join(map(str, sizes)),
-                           "chips": chips, "algorithm": algorithm}
+                           "chips": chips, "algorithm": algorithm,
+                           "dtype": arch_cfg.dtype}
     if chips > 1:
         rec["placement"] = dict(PLACEMENT)
         rec["expert_axis"] = expert_axis
         rec["act_spec"] = act_spec
     fed = None
-    prev_impl = moe_lib.MOE_IMPL
+    prev_impl, prev_rows = moe_lib.MOE_IMPL, TP.ACT_ROWS
     moe_lib.set_moe_impl(moe_impl)
+    TP.set_activation_spec(act_spec == "on")
     fmode = FakeTensorMode(allow_non_fake_inputs=False)
     dev = trace_device(device)
     mesh_obj = None
@@ -365,11 +410,16 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
                                    "rule": "c1 + (cohort - 1) * (c2 - c1)"}
     finally:
         moe_lib.set_moe_impl(prev_impl)
+        TP.set_activation_spec(prev_rows)
         if mesh_obj is not None:
             torch.distributed.destroy_process_group()
+    if chips > 1:
+        rec["placement"]["activations"] = activations_placement(
+            shape, fed, sizes[-1], act_spec)
     rec["trace_s"] = round(cost.trace_s, 2)
     rec["memory"] = dict(cost.memory)
     rec["cost"] = {"flops": cost.flops, "tc_flops": cost.tc_flops,
+                   "bf16_flops": cost.bf16_flops,
                    "bytes accessed": cost.bytes,
                    "bytes read": cost.bytes_read,
                    "bytes written": cost.bytes_written,
@@ -379,7 +429,8 @@ def run_one(arch_name: str, shape_name: str, *, mesh: str = "1x1",
     mf = model_flops_per_round(arch_cfg, shape, fed)
     rl = roofline_terms(cost.flops, cost.bytes, cost.collective_bytes,
                         model_flops_global=mf, chips=chips,
-                        tc_flops_per_chip=cost.tc_flops)
+                        tc_flops_per_chip=cost.tc_flops,
+                        bf16_flops_per_chip=cost.bf16_flops)
     rec["roofline_raw"] = rl.to_dict()
     rec["roofline"] = rl.to_dict()
     rec["hlo_cost"] = {"flops": cost.flops,
@@ -434,9 +485,10 @@ def main(argv=None) -> int:
     ap.add_argument("--expert-axis", default=None,
                     help="the experts' axis: model (the port's placement) "
                          "or none")
-    ap.add_argument("--act-spec", default="off", choices=["on", "off"],
-                    help="JAX's activation-sharding hint (on: not yet "
-                         "ported)")
+    ap.add_argument("--act-spec", default="on", choices=["on", "off"],
+                    help="JAX's activation-sharding hint: on splits each "
+                         "client's residual stream over model by its "
+                         "batch rows; off keeps it replicated")
     ap.add_argument("--algorithm", default="uga",
                     choices=["uga", "fedavg", "fedprox"])
     ap.add_argument("--strategy", default=None, choices=[None, "vmap", "scan"])
@@ -488,6 +540,8 @@ def main(argv=None) -> int:
                 continue
             todo.append((tag, a, s, path, {**kw, "mesh": m}))
     if args.jobs > 1:
+        # the train pairs' traces are the long ones: they start first
+        todo.sort(key=lambda t: t[2] != "train_4k")
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
         with ProcessPoolExecutor(

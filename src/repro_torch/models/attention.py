@@ -115,7 +115,7 @@ def gqa_attention(x: torch.Tensor, p, *, num_heads: int, num_kv_heads: int,
         q = (xs @ p["wq"]).reshape(B, S, -1, head_dim)
         k = (ss @ p["wk"]).reshape(B, L, -1, head_dim)
         v = (ss @ p["wv"]).reshape(B, L, -1, head_dim)
-        out_proj = lambda a: tp.reduce(a @ p["wo"])
+        out_proj = lambda a: tp.leave(a @ p["wo"])
     else:
         if kv_x is None:
             q, k, v = gqa_project_qkv(x, p["wq"], p["wk"], p["wv"],
@@ -347,7 +347,7 @@ def mla_attention(x: torch.Tensor, p, positions: torch.Tensor, *,
     k = torch.cat([k_nope, krope[:, :, None, :].expand(
         B, S, h_loc, rd)], dim=-1)
     out = (attn_fn or attend)(q, k, v).reshape(B, S, h_loc * hd)
-    y = tp.reduce(out @ p["wo"]) if heads else row_parallel(out, p["wo"], tp)
+    y = tp.leave(out @ p["wo"]) if heads else row_parallel(out, p["wo"], tp)
     return y, ckv, krope
 
 

@@ -113,8 +113,9 @@ def swiglu_parallel(x: torch.Tensor, w_gate: torch.Tensor,
     (:class:`repro_torch.sharding.tensor_parallel.ModelAxis`): ``w_gate``
     and ``w_up`` column-split, ``w_down`` row-split, so each process
     computes its columns of the hidden layer whole and its partial sum of
-    the output; x enters replicated, the sum leaves replicated."""
-    return tp.reduce(swiglu(tp.copy(x), w_gate, w_up, w_down))
+    the output; x enters replicated, the sum leaves through ``tp.leave``
+    (replicated, or a row-split stream's rows)."""
+    return tp.leave(swiglu(tp.copy(x), w_gate, w_up, w_down))
 
 
 def column_products(x: torch.Tensor, ws, fulls, tp=None, xs=None) -> list:
@@ -146,10 +147,10 @@ def column_products(x: torch.Tensor, ws, fulls, tp=None, xs=None) -> list:
 def row_parallel(a: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     """``a @ w`` for a replicated ``a``; where ``tp`` splits ``w``'s rows,
     each process multiplies its part of ``a``'s columns and the partial
-    sums are added over the axis."""
+    sums are added over the axis (``tp.leave``: a sublayer's exit)."""
     if tp is None or not tp.is_split(w.shape[0], a.shape[-1]):
         return a @ w
-    return tp.reduce(tp.split(a, -1) @ w)
+    return tp.leave(tp.split(a, -1) @ w)
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, *, lead=(),
@@ -174,7 +175,7 @@ def gelu_mlp(x: torch.Tensor, p, tp=None) -> torch.Tensor:
         return h @ p["w_out"] + p["b_out"]
     h = F.gelu(tp.copy(x) @ p["w_in"] + tp.split(p["b_in"], -1),
                approximate="tanh")
-    return tp.reduce(h @ p["w_out"]) + p["b_out"]
+    return tp.leave(h @ p["w_out"]) + p["b_out"]
 
 
 # ---------------------------------------------------------------------------

@@ -44,13 +44,15 @@ its own experts' slots and the partial outputs are summed over the axis
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import dense_init, swiglu
+from repro_torch.sharding.tensor_parallel import (all_gather_cat,
+                                                  all_reduce_copy)
 
 LEAVES = ("router", "w_down", "w_gate", "w_up")
 
@@ -100,14 +102,10 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
-def _route(xg: torch.Tensor, p, cfg: MoEConfig):
-    """Routing of grouped tokens xg (G, S, d).  Returns (gate_vals,
-    expert_idx, pos_in_e, keep, probs, C): the renormalized top-k gates
-    and experts (G, S, K), each (token, k)'s place in its expert's queue
-    (k = 0 of every token first) and whether it fits the capacity C."""
-    G, S, _ = xg.shape
-    E, K = cfg.num_experts, cfg.top_k
-    logits = xg.to(torch.float32) @ p["router"]               # (G, S, E)
+def _top_k(xg: torch.Tensor, router: torch.Tensor, K: int):
+    """The router on grouped tokens xg (G, S, d): (the renormalized top-k
+    gates (G, S, K), their experts, the probabilities (G, S, E))."""
+    logits = xg.to(torch.float32) @ router                    # (G, S, E)
     probs = torch.softmax(logits, dim=-1)
     # top-k with ties to the lower expert, as lax.top_k breaks them: the
     # zero rows that pad the last group tie everywhere, and their k = 0
@@ -117,14 +115,75 @@ def _route(xg: torch.Tensor, p, cfg: MoEConfig):
     gate_vals, expert_idx = gate_vals[..., :K], expert_idx[..., :K]
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    return gate_vals, expert_idx, probs
+
+
+def _slots(expert_idx: torch.Tensor, cfg: MoEConfig):
+    """Each (token, k)'s place in its expert's queue within its group
+    (k = 0 of every token first) and whether it fits the capacity C of a
+    group of S tokens.  Returns (pos_in_e, keep, C)."""
+    G, S, K = expert_idx.shape
+    E = cfg.num_experts
     C = max(int(math.ceil(K * S / E * cfg.capacity_factor)), 1)
     onehot = _one_hot(expert_idx, E)                          # (G,S,K,E)
     oh_flat = onehot.permute(0, 2, 1, 3).reshape(G, K * S, E)
     pos_flat = torch.cumsum(oh_flat, dim=1) - oh_flat
     pos = pos_flat.reshape(G, K, S, E).permute(0, 2, 1, 3)    # (G,S,K,E)
     pos_in_e = (pos * onehot).sum(dim=-1)                     # (G, S, K)
-    keep = pos_in_e < C
+    return pos_in_e, pos_in_e < C, C
+
+
+def _route(xg: torch.Tensor, p, cfg: MoEConfig):
+    """Routing of grouped tokens xg (G, S, d).  Returns (gate_vals,
+    expert_idx, pos_in_e, keep, probs, C): the renormalized top-k gates
+    and experts (G, S, K), each (token, k)'s place in its expert's queue
+    (k = 0 of every token first) and whether it fits the capacity C."""
+    gate_vals, expert_idx, probs = _top_k(xg, p["router"], cfg.top_k)
+    pos_in_e, keep, C = _slots(expert_idx, cfg)
     return gate_vals, expert_idx, pos_in_e, keep, probs, C
+
+
+class _Spread(NamedTuple):
+    """This process's tokens among the groups of a batch whose rows split
+    over processes (serving on a mesh): ``T`` of the batch's ``T_all``,
+    from global token ``off``; the groups it touches start at global
+    group ``g0``, its first token at place ``lo`` of it.  ``group`` is
+    the process group the rows split over."""
+    group: Any
+    T: int
+    T_all: int
+    g0: int
+    lo: int
+
+
+def _route_spread(xg: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
+                  sp: _Spread):
+    """:func:`_route` of this process's tokens inside the batch's groups
+    (xg: the groups it touches, zero where another process's tokens or the
+    pad sit).  The gates come from its own tokens; the capacity slots
+    from every token of those groups, whose experts are all-gathered over
+    ``sp.group`` (a (T, K) integer tensor each), the pad's (zero rows,
+    the lower experts) appended.  Another process's entries are not kept
+    here: their process dispatches them.  Also returns a pad row's
+    probabilities and top-1 expert, and whether each place is this
+    process's."""
+    G, S, d = xg.shape
+    K = cfg.top_k
+    gate_vals, expert_idx, probs = _top_k(xg, router, K)
+    own_idx = expert_idx.reshape(-1, K)[sp.lo:sp.lo + sp.T]
+    every = all_gather_cat(own_idx, 0, sp.group)              # (T_all, K)
+    _, pad_idx, pad_probs = _top_k(xg.new_zeros((1, 1, d)), router, K)
+    pad = (-sp.T_all) % S
+    if pad:
+        every = torch.cat([every, pad_idx.reshape(1, K).expand(pad, K)])
+    expert_idx = every[sp.g0 * S:(sp.g0 + G) * S].reshape(G, S, K)
+    pos_in_e, keep, C = _slots(expert_idx, cfg)
+    own = torch.zeros(G * S, dtype=torch.bool, device=xg.device)
+    own[sp.lo:sp.lo + sp.T] = True
+    own = own.reshape(G, S)
+    route = (gate_vals, expert_idx, pos_in_e, keep & own[..., None], probs,
+             C)
+    return route, (pad_probs.reshape(-1), pad_idx.reshape(-1)[0]), own
 
 
 def _aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
@@ -134,6 +193,31 @@ def _aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
     E = cfg.num_experts
     me = probs.mean(dim=1)                                    # (G, E)
     ce = _one_hot(expert_idx[..., 0], E).to(torch.float32).mean(dim=1)
+    return cfg.aux_loss_coef * E * (me * ce).sum(dim=-1).mean()
+
+
+def _spread_aux(probs: torch.Tensor, expert_idx: torch.Tensor,
+                own: torch.Tensor, pad_row, sp: _Spread, cfg: MoEConfig
+                ) -> torch.Tensor:
+    """:func:`_aux_loss` over the batch's groups from this process's part
+    of them: each group's sums of the probabilities and of the top-1
+    counts over its own tokens, summed over ``sp.group``, the pad's rows
+    added to the last group."""
+    G, S, E = probs.shape
+    ownf = own[..., None].to(torch.float32)
+    part = torch.stack([(probs * ownf).sum(1),
+                        (_one_hot(expert_idx[..., 0], E).to(torch.float32)
+                         * ownf).sum(1)])                       # (2, G, E)
+    n_groups = -(-sp.T_all // S)
+    tot = part.new_zeros((2, n_groups, E))
+    tot[:, sp.g0:sp.g0 + G] = part
+    tot = all_reduce_copy(tot, sp.group)
+    pad = n_groups * S - sp.T_all
+    if pad:
+        pad_probs, pad_top1 = pad_row
+        tot[0, -1] += pad * pad_probs
+        tot[1, -1] += pad * _one_hot(pad_top1, E).to(torch.float32)
+    me, ce = tot[0] / S, tot[1] / S
     return cfg.aux_loss_coef * E * (me * ce).sum(dim=-1).mean()
 
 
@@ -150,11 +234,43 @@ def _group(x: torch.Tensor, cfg: MoEConfig):
     return tokens.reshape(-1, gs, d), T, pad
 
 
-def _experts(xg: torch.Tensor, p, cfg: MoEConfig, tp):
+def _group_batch(x: torch.Tensor, cfg: MoEConfig, tp=None):
+    """:func:`_group`, returning (groups, token count T, spread).
+
+    Serving on a mesh whose processes split the batch's rows (``tp`` a
+    ``serve_axis`` whose rows are a part of the batch; not a decode step),
+    the groups are the whole batch's, as JAX groups the batch it is given:
+    ``gs = min(group_size, T_all)`` of the batch's token count, this
+    process's tokens at their global offset in the flattened (B S) order,
+    the pad in the last group of the batch.  Then the groups are those
+    this process's tokens touch, zero elsewhere, and ``spread`` says where
+    its tokens lie (:class:`_Spread`); else ``spread`` is None."""
+    split = (None if tp is None or tp.serving is None
+             or (x.dim() > 1 and x.shape[-2] == 1)
+             else tp.serving.batch_split())
+    if split is None:
+        xg, T, _ = _group(x, cfg)
+        return xg, T, None
+    group, n, coord = split
+    d = x.shape[-1]
+    tokens = x.reshape(-1, d)
+    T = tokens.shape[0]
+    T_all = T * n
+    gs = min(cfg.group_size, T_all)
+    g0, lo = divmod(coord * T, gs)
+    ng = -(-(lo + T) // gs)
+    tokens = F.pad(tokens, (0, 0, lo, ng * gs - lo - T))
+    return tokens.reshape(ng, gs, d), T, _Spread(group, T, T_all, g0, lo)
+
+
+def _experts(xg: torch.Tensor, p, cfg: MoEConfig, tp,
+             sp: Optional[_Spread] = None):
     """The routing, replicated, and this process's share of the experts.
     Returns (route (gate_vals, expert_idx, pos_in_e, keep, probs, C), the
     first expert this process holds, how many, the tokens and the gates
-    as its experts take them, whether the experts are split).
+    as its experts take them, whether the experts are split, the aux
+    loss).  ``sp``: this process's tokens among the batch's groups
+    (:func:`_group_batch`), routed by :func:`_route_spread`.
 
     Over the model axis ``tp`` where it splits the experts (``router``'s
     E columns and the ``(E, ., .)`` stacks), the router WEIGHT is gathered
@@ -169,11 +285,16 @@ def _experts(xg: torch.Tensor, p, cfg: MoEConfig, tp):
     e_loc = p["w_gate"].shape[-3]
     split = tp is not None and tp.is_split(e_loc, E)
     router = tp.gather(p["router"], -1) if split else p["router"]
-    route = _route(xg, {"router": router}, cfg)
+    if sp is None:
+        route = _route(xg, {"router": router}, cfg)
+        aux = _aux_loss(route[4], route[1], cfg)
+    else:
+        route, pad_row, own = _route_spread(xg, router, cfg, sp)
+        aux = _spread_aux(route[4], route[1], own, pad_row, sp, cfg)
     if not split:
-        return route, 0, E, xg, route[0], False
-    return route, tp.coord * e_loc, e_loc, tp.copy(xg), tp.copy(route[0]), \
-        True
+        return route, 0, E, xg, route[0], False, aux
+    return (route, tp.coord * e_loc, e_loc, tp.copy(xg), tp.copy(route[0]),
+            True, aux)
 
 
 def _finish(y: torch.Tensor, xg: torch.Tensor, xs: torch.Tensor, p,
@@ -199,9 +320,10 @@ def _finish(y: torch.Tensor, xg: torch.Tensor, xs: torch.Tensor, p,
     return y
 
 
-def _ungroup(y: torch.Tensor, T: int, pad: int, shape) -> torch.Tensor:
-    y = y.reshape(-1, y.shape[-1])
-    return (y[:T] if pad else y).reshape(shape)
+def _ungroup(y: torch.Tensor, T: int, sp: Optional[_Spread], shape
+             ) -> torch.Tensor:
+    lo = 0 if sp is None else sp.lo
+    return y.reshape(-1, y.shape[-1])[lo:lo + T].reshape(shape)
 
 
 def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig, tp=None
@@ -219,10 +341,11 @@ def moe_ffn_gather(x: torch.Tensor, p, cfg: MoEConfig, tp=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather dispatch.  x: (..., S, d) -> (same shape, aux loss).  ``p``
     is one layer's MoE tree."""
-    xg, T, pad = _group(x, cfg)
+    xg, T, sp = _group_batch(x, cfg, tp)
     G, S, d = xg.shape
     K = cfg.top_k
-    route, lo, E, xe_in, gate_vals, split = _experts(xg, p, cfg, tp)
+    route, lo, E, xe_in, gate_vals, split, aux = _experts(xg, p, cfg, tp,
+                                                          sp)
     _, expert_idx, pos_in_e, keep, probs, C = route
     # this process's experts [lo, lo + E): the others' entries are dropped
     # here (gate 0, dispatched to the scratch slot) and summed in by their
@@ -254,15 +377,16 @@ def moe_ffn_gather(x: torch.Tensor, p, cfg: MoEConfig, tp=None
     yk = torch.gather(ye, 1, flat_slot[..., None].expand(G, S * K, d))
     y = (yk.reshape(G, S, K, d) * gate_vals[..., None].to(yk.dtype)).sum(2)
     y = _finish(y, xg, xe_in, p, cfg, tp, split)
-    return _ungroup(y, T, pad, x.shape), _aux_loss(probs, expert_idx, cfg)
+    return _ungroup(y, T, sp, x.shape), aux
 
 
 def moe_ffn_einsum(x: torch.Tensor, p, cfg: MoEConfig, tp=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense one-hot einsum dispatch: the oracle :func:`moe_ffn_gather`
     is held to."""
-    xg, T, pad = _group(x, cfg)
-    route, lo, E, xe_in, gate_vals, split = _experts(xg, p, cfg, tp)
+    xg, T, sp = _group_batch(x, cfg, tp)
+    route, lo, E, xe_in, gate_vals, split, aux = _experts(xg, p, cfg, tp,
+                                                          sp)
     _, expert_idx, pos_in_e, keep, probs, C = route
     gate_vals = gate_vals * keep.to(gate_vals.dtype)
     # this process's experts [lo, lo + E): another's index one-hots to 0
@@ -279,4 +403,4 @@ def moe_ffn_einsum(x: torch.Tensor, p, cfg: MoEConfig, tp=None
     ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
     y = torch.einsum("gsec,gecd->gsd", combine.to(ye.dtype), ye)
     y = _finish(y, xg, xe_in, p, cfg, tp, split)
-    return _ungroup(y, T, pad, x.shape), _aux_loss(probs, expert_idx, cfg)
+    return _ungroup(y, T, sp, x.shape), aux

@@ -247,7 +247,7 @@ def mamba_block(u: torch.Tensor, p: Dict[str, torch.Tensor], cfg: SSMConfig,
         y = tp.gather(y, -1) if heads else y
         out = y @ _whole(p["out_proj"], 0, y.shape[-1], tp)
     elif heads:
-        out = tp.reduce(y @ p["out_proj"])
+        out = tp.leave(y @ p["out_proj"])
     else:
         out = row_parallel(y, p["out_proj"], tp)
     if not collect_cache:

@@ -312,21 +312,42 @@ def encode(get, enc_embeds: torch.Tensor, cfg: ArchConfig, attn_fn,
     return h
 
 
-def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int, tp=None):
+def _ffn(h: torch.Tensor, lp, cfg: ArchConfig, j: int, tp=None,
+         rows: Optional[int] = None):
     """The layer's MLP or MoE on the residual stream; returns (h, aux).
     ``tp``: the model axis the MLP's or the MoE's weights are split over,
-    or None."""
+    or None; ``rows``: the client's batch rows where ``h`` is this
+    process's rows of them (:func:`_sublayer`)."""
     if "mlp" not in lp:
         return h, None
-    x2 = rmsnorm(h, lp["norm2"], cfg.norm_eps)
-    if _has_moe(cfg, j):
-        y2, aux = moe_lib.moe_ffn(x2, lp["mlp"], cfg.moe, tp)
-        return h + y2, aux
-    m = lp["mlp"]
-    if tp is not None and tp.is_split(m["w_gate"].shape[-1], cfg.d_ff):
-        return h + swiglu_parallel(x2, m["w_gate"], m["w_up"], m["w_down"],
-                                   tp), None
-    return h + swiglu(x2, m["w_gate"], m["w_up"], m["w_down"]), None
+    m, aux = lp["mlp"], []
+
+    def ffn(x2):
+        if _has_moe(cfg, j):
+            y2, a = moe_lib.moe_ffn(x2, m, cfg.moe, tp)
+            aux.append(a)
+            return y2
+        if tp is not None and tp.is_split(m["w_gate"].shape[-1], cfg.d_ff):
+            return swiglu_parallel(x2, m["w_gate"], m["w_up"], m["w_down"],
+                                   tp)
+        return swiglu(x2, m["w_gate"], m["w_up"], m["w_down"])
+    y2 = _sublayer(h, lp["norm2"], cfg, ffn, tp, rows)
+    return h + y2, (aux[0] if aux else None)
+
+
+def _sublayer(h: torch.Tensor, scale: torch.Tensor, cfg: ArchConfig, fn,
+              tp=None, rows: Optional[int] = None) -> torch.Tensor:
+    """``fn(rmsnorm(h))``, the sublayer's output.  Where the residual
+    stream is row-split over the model axis (``rows``: the batch rows of
+    the client, ``h`` this process's of them), the norm runs on the rows
+    (its whole scale entering through ``tp.copy``, so its gradient sums
+    every process's rows), the sublayer's input is gathered whole and its
+    output comes back as this process's rows
+    (:meth:`repro_torch.sharding.tensor_parallel.ModelAxis.row_sublayer`)."""
+    if rows is None:
+        return fn(rmsnorm(h, scale, cfg.norm_eps))
+    return tp.row_sublayer(rmsnorm(h, tp.copy(scale), cfg.norm_eps), rows,
+                           fn)
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int
@@ -388,30 +409,34 @@ def place_entry(ce: Dict[str, torch.Tensor], cfg: ArchConfig, j: int, tp
 
 def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
                  positions: torch.Tensor, enc_out: Optional[torch.Tensor],
-                 collect_cache: bool, tp=None):
+                 collect_cache: bool, tp=None, rows: Optional[int] = None):
     """One layer over the full sequence.  Returns (h, aux, cache_entry).
     ``tp``: the model axis (:class:`repro_torch.sharding.tensor_parallel.
     ModelAxis`) whose shards ``lp`` holds; in the prefill the one
     ``serve_axis`` builds, and the entry is this process's part of the
-    cache (:func:`place_entry`)."""
-    x = rmsnorm(h, lp["norm1"], cfg.norm_eps)
-    ce = None
+    cache (:func:`place_entry`).  ``rows``: the residual stream ``h`` is
+    this process's rows of the client's ``rows`` (:func:`_sublayer`)."""
     hd = cfg.resolved_head_dim
     kind = cfg.layer_kinds()[j]
     attn_fn = flash_attention if collect_cache else attend
-    if kind == MAMBA:
-        y = ssm.mamba_block(x, lp["mamba"], cfg.ssm,
-                            collect_cache=collect_cache, tp=tp)
-        if collect_cache:
-            y, ce = y
-    elif _is_mla(cfg, kind):
-        y, ckv, krope = mla_attention(
-            x, lp["attn"], positions, num_heads=cfg.num_heads, head_dim=hd,
-            rope_head_dim=cfg.mla.rope_head_dim, rope_theta=cfg.rope_theta,
-            attn_fn=partial(attn_fn, causal=True), tp=tp)
-        if collect_cache:
-            ce = {"ckv": ckv, "krope": krope}
-    else:
+    cache = []
+
+    def mixer(x):
+        if kind == MAMBA:
+            y = ssm.mamba_block(x, lp["mamba"], cfg.ssm,
+                                collect_cache=collect_cache, tp=tp)
+            if collect_cache:
+                y, ce = y
+                cache.append(ce)
+            return y
+        if _is_mla(cfg, kind):
+            y, ckv, krope = mla_attention(
+                x, lp["attn"], positions, num_heads=cfg.num_heads,
+                head_dim=hd, rope_head_dim=cfg.mla.rope_head_dim,
+                rope_theta=cfg.rope_theta,
+                attn_fn=partial(attn_fn, causal=True), tp=tp)
+            cache.append({"ckv": ckv, "krope": krope})
+            return y
         cross = kind == CROSS
         y, k, v = gqa_attention(
             x, lp["attn"], num_heads=cfg.num_heads,
@@ -419,11 +444,13 @@ def _apply_layer(h: torch.Tensor, lp, cfg: ArchConfig, j: int,
             attn_fn=attn_fn, positions=None if cross else positions,
             rope_theta=cfg.rope_theta, kv_x=enc_out if cross else None,
             tp=tp)
-        if collect_cache:
-            ce = {"k": k, "v": v}
+        cache.append({"k": k, "v": v})
+        return y
+    y = _sublayer(h, lp["norm1"], cfg, mixer, tp, rows)
+    ce = cache[0] if collect_cache else None
     if collect_cache and tp is not None:
         ce = place_entry(ce, cfg, j, tp)
-    h, aux = _ffn(h + y, lp, cfg, j, tp)
+    h, aux = _ffn(h + y, lp, cfg, j, tp, rows)
     return h, aux, ce
 
 
@@ -450,9 +477,14 @@ class Transformer(nn.Module):
         the model axis whose shards the parameters are (tensor-parallel
         client compute, :mod:`repro_torch.sharding.tensor_parallel`); the
         hidden state comes back whole on every process, and the prefill's
-        cache is this process's part (the module docstring)."""
+        cache is this process's part (the module docstring).  Where the
+        axis's ``act_rows`` is set (and not in the prefill), the residual
+        stream between sublayers is each process's batch rows, gathered
+        whole before the final norm (:func:`_sublayer`)."""
         cfg = self.cfg
         B, S = tokens.shape
+        rows = (B if tp is not None and tp.act_rows and not collect_cache
+                else None)
         P = period_of(cfg)
         if tp is not None and tp.is_split(self.embed.shape[0],
                                           cfg.vocab_size):
@@ -473,13 +505,17 @@ class Transformer(nn.Module):
                              flash_attention if collect_cache else attend, tp)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         entries = [[] for _ in range(P)]
+        if rows is not None:
+            h = tp.rows(h, rows)
         for i, lp in enumerate(_layers(
                 lambda path: attrgetter(path)(self.blocks), cfg)):
             h, a, ce = _apply_layer(h, lp, cfg, i % P, positions, enc_out,
-                                    collect_cache, tp)
+                                    collect_cache, tp, rows)
             if a is not None:
                 aux = aux + a
             entries[i % P].append(ce)
+        if rows is not None:
+            h = tp.gather_rows(h, rows)
         h = rmsnorm(h, self.final_norm, cfg.norm_eps)
         if not collect_cache:
             return h, aux

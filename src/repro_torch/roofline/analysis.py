@@ -5,6 +5,7 @@ The cost of a round comes from a trace of the program one card runs
 (:mod:`repro_torch.roofline.cost`), so its quantities are per device:
 
     compute term    = fp32_flops / FP32_FLOPS + tc_flops / TF32_FLOPS
+                      + bf16_flops / BF16_FLOPS
     memory term     = bytes / HBM_BW
     collective term = collective_bytes / LINK_BW
 
@@ -13,8 +14,11 @@ bounds do: the port's products are fp32 outside the tensor cores
 (:func:`repro_torch.device.strict_fp32` turns TF32 off), while the
 hand-written flash-attention and SSD-scan kernels compute theirs as three
 TF32 tensor-core products each (3xTF32), which they declare as tensor-core
-operations.  Constants from the H100 SXM data sheet: 67 TFLOP/s fp32,
-495 TFLOP/s dense TF32, 3.35 TB/s HBM3, 450 GB/s NVLink a direction.
+operations.  A product of bf16 operands (a model built at bf16: the
+library's products on the tensor cores, the flash kernel's bf16 form)
+counts at the bf16 tensor-core rate.  Constants from the H100 SXM data
+sheet: 67 TFLOP/s fp32, 495 TFLOP/s dense TF32, 989 TFLOP/s dense bf16,
+3.35 TB/s HBM3, 450 GB/s NVLink a direction.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 
 FP32_FLOPS = 67e12           # fp32 FLOP/s outside the tensor cores
 TF32_FLOPS = 495e12          # TF32 tensor-core FLOP/s, dense
+BF16_FLOPS = 989e12          # bf16 tensor-core FLOP/s, dense
 HBM_BW = 3.35e12             # bytes/s
 LINK_BW = 450e9              # bytes/s, NVLink, one direction
 
@@ -48,6 +53,7 @@ class Roofline:
     model_flops: Optional[float] = None
     flops_ratio: Optional[float] = None   # MODEL_FLOPS / (flops * chips)
     tc_flops_per_chip: float = 0.0        # of flops_per_chip, on the TCs
+    bf16_flops_per_chip: float = 0.0      # of flops_per_chip, bf16 TCs
 
     def to_dict(self):
         return dataclasses.asdict(self)
@@ -56,12 +62,14 @@ class Roofline:
 def roofline_terms(flops_per_chip: float, bytes_per_chip: float,
                    coll_bytes_per_chip: float,
                    model_flops_global: Optional[float] = None,
-                   chips: int = 1, tc_flops_per_chip: float = 0.0
-                   ) -> Roofline:
+                   chips: int = 1, tc_flops_per_chip: float = 0.0,
+                   bf16_flops_per_chip: float = 0.0) -> Roofline:
     """``flops_per_chip`` is every operation, ``tc_flops_per_chip`` the
-    part of them done on the tensor cores (3xTF32)."""
-    fp32 = flops_per_chip - tc_flops_per_chip
-    c = fp32 / FP32_FLOPS + tc_flops_per_chip / TF32_FLOPS
+    part of them done on the tensor cores as TF32 (3xTF32) and
+    ``bf16_flops_per_chip`` the part done on them at bf16."""
+    fp32 = flops_per_chip - tc_flops_per_chip - bf16_flops_per_chip
+    c = (fp32 / FP32_FLOPS + tc_flops_per_chip / TF32_FLOPS
+         + bf16_flops_per_chip / BF16_FLOPS)
     m = bytes_per_chip / HBM_BW
     n = coll_bytes_per_chip / LINK_BW
     terms = {"compute": c, "memory": m, "collective": n}
@@ -74,16 +82,20 @@ def roofline_terms(flops_per_chip: float, bytes_per_chip: float,
                     bytes_per_chip=bytes_per_chip,
                     coll_bytes_per_chip=coll_bytes_per_chip,
                     bottleneck=bottleneck, model_flops=model_flops_global,
-                    flops_ratio=ratio, tc_flops_per_chip=tc_flops_per_chip)
+                    flops_ratio=ratio, tc_flops_per_chip=tc_flops_per_chip,
+                    bf16_flops_per_chip=bf16_flops_per_chip)
 
 
-def bound_s(nbytes: float, flops: float, tc_flops: float = 0.0) -> tuple:
+def bound_s(nbytes: float, flops: float, tc_flops: float = 0.0,
+            bf16_flops: float = 0.0) -> tuple:
     """One kernel's bound: the larger of its bytes over the memory rate
     and its operations over their rates (``flops`` at fp32's,
-    ``tc_flops`` at the TF32 tensor cores'; both kinds are done, so their
-    times add).  Returns (seconds, "bytes" | "operations")."""
+    ``tc_flops`` at the TF32 tensor cores', ``bf16_flops`` at their bf16
+    rate; the kinds are all done, so their times add).  Returns (seconds,
+    "bytes" | "operations")."""
     t_bytes = nbytes / HBM_BW
-    t_ops = flops / FP32_FLOPS + tc_flops / TF32_FLOPS
+    t_ops = (flops / FP32_FLOPS + tc_flops / TF32_FLOPS
+             + bf16_flops / BF16_FLOPS)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

@@ -13,8 +13,10 @@ dispatches:
     host values stay as they are.
   * **FLOPs.** Only products count — matmul, convolution and SDPA, through
     ``torch.utils.flop_counter``'s formulas, as JAX's walker counts only
-    ``dot`` and ``convolution``.  They are fp32 operations: the port runs
-    no product on the tensor cores (``device.strict_fp32``).
+    ``dot`` and ``convolution``.  A product of fp32 operands is an fp32
+    operation (the port runs no fp32 product on the tensor cores,
+    ``device.strict_fp32``); one of bf16 operands (a model built at bf16)
+    runs on the tensor cores at bf16 and counts under ``bf16_flops``.
   * **Bytes.** For every aten op that is neither a view nor metadata,
     bytes read are its tensor inputs' bytes and bytes written its
     outputs'.  Eager code does not fuse, so this is each launch's own
@@ -26,7 +28,7 @@ dispatches:
     package's convention.
   * **The hand-written kernels.** Each wrapper of ``kernels/*/kernel.py``
     declares its cost as a function of its shapes (fp32 operations, 3xTF32
-    tensor-core operations, bytes read and written; the counts
+    and bf16 tensor-core operations, bytes read and written; the counts
     ``chip_smoke.py``'s bounds print).  Given fake tensors while a counter
     that charges kernels is active, it runs its shape, dtype and form
     checks, charges that cost, adds one to the counter's launch count for
@@ -112,7 +114,8 @@ class TensorSpec(NamedTuple):
 class Cost:
     """One traced call: ``flops`` every operation (counted products and
     the kernels' declared operations), ``tc_flops`` the part of them on
-    the tensor cores; bytes, collectives, kernel launches and memory."""
+    the tensor cores as TF32, ``bf16_flops`` the part on them at bf16;
+    bytes, collectives, kernel launches and memory."""
     flops: float = 0.0
     bytes_written: float = 0.0
     collective_bytes: float = 0.0
@@ -126,6 +129,7 @@ class Cost:
     n_ops: int = 0
     memory: Dict[str, int] = dataclasses.field(default_factory=dict)
     trace_s: float = 0.0
+    bf16_flops: float = 0.0
 
     @property
     def bytes(self) -> float:
@@ -159,6 +163,7 @@ def _op_tensors(*groups):
     return out
 
 
+_HALF = (torch.bfloat16, torch.float16)   # products on the tensor cores
 _DECOMPOSE: Dict[Any, bool] = {}
 
 
@@ -213,8 +218,9 @@ class CostCounter(TorchDispatchMode):
     # ---- the kernels' declared costs ---------------------------------
     def charge(self, name: str, kc: "_cuda.KernelCost") -> None:
         c = self.cost
-        c.flops += kc.flops + kc.tc_flops
+        c.flops += kc.flops + kc.tc_flops + kc.bf16_flops
         c.tc_flops += kc.tc_flops
+        c.bf16_flops += kc.bf16_flops
         c.bytes_read += kc.bytes_read
         c.bytes_written += kc.bytes_written
         c.launches[name] = c.launches.get(name, 0) + 1
@@ -254,7 +260,10 @@ class CostCounter(TorchDispatchMode):
         c.bytes_written += sum(_nbytes(t) for t in outs)
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
-            c.flops += float(count(*args, **kwargs, out_val=out))
+            f = float(count(*args, **kwargs, out_val=out))
+            c.flops += f
+            if any(t.dtype in _HALF for t in _op_tensors(args)):
+                c.bf16_flops += f
         return out
 
     def __enter__(self):

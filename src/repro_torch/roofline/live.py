@@ -38,6 +38,7 @@ def round_cost_summary(fn, args, *, device) -> Dict[str, Any]:
     return {
         "flops": c.flops,
         "tc_flops": c.tc_flops,
+        "bf16_flops": c.bf16_flops,
         "bytes_read": c.bytes_read,
         "bytes_written": c.bytes_written,
         "bytes": c.bytes,
@@ -56,7 +57,8 @@ def roofline_event(s: Dict[str, Any], *, rounds_per_call: int,
     """The ``roofline`` event payload of a K-round call's summary
     (:func:`round_cost_summary`): per-round costs and terms."""
     rl = roofline_terms(s["flops"], s["bytes"], s["collective_bytes"],
-                        tc_flops_per_chip=s["tc_flops"])
+                        tc_flops_per_chip=s["tc_flops"],
+                        bf16_flops_per_chip=s.get("bf16_flops", 0.0))
     k = max(int(rounds_per_call), 1)
     t_round = max(rl.compute_s, rl.memory_s, rl.collective_s) / k
     return {

@@ -252,6 +252,129 @@ class SplitToModel(torch.autograd.Function):
         return out, (None if bdim is None else 0)
 
 
+# The row split of a client's residual stream (the eager meaning of JAX's
+# ``set_activation_spec``): dim 0 (the client's batch rows) of ``b`` rows
+# in ``size`` parts of ``r = ceil(b / size)`` rows, this process's part
+# rows [coord r, coord r + r); the last parts pad with zero rows past b.
+def _rows_of(b: int, n: int) -> int:
+    return -(-b // n)
+
+
+def _pad_rows(x: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+    extra = rows - x.shape[dim]
+    if extra == 0:
+        return x
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, extra]
+    return F.pad(x, pad)
+
+
+def _own_rows(x: torch.Tensor, dim: int, b: int, axis) -> torch.Tensor:
+    r = _rows_of(b, axis.size)
+    return _pad_rows(x, dim, r * axis.size).narrow(
+        dim, axis.coord * r, r).contiguous()
+
+
+def _gather_rows(x: torch.Tensor, dim: int, b: int, axis) -> torch.Tensor:
+    return all_gather_cat(x, dim, axis.group).narrow(dim, 0, b)
+
+
+def _reduce_scatter_rows(x: torch.Tensor, dim: int, b: int, axis
+                         ) -> torch.Tensor:
+    r = _rows_of(b, axis.size)
+    full = _pad_rows(x, dim, r * axis.size).movedim(dim, 0).contiguous()
+    out = full.new_empty((r,) + tuple(full.shape[1:]))
+    dist.reduce_scatter(out, list(full.split(r)), group=axis.group)
+    return out.movedim(0, dim)
+
+
+class GatherRows(torch.autograd.Function):
+    """A row-split tensor (this process's ``r`` rows along ``dim``, of
+    ``b`` in all) whole on every process: all-gather forward; this
+    process's rows of the (complete) cotangent backward.  A row-split
+    sublayer's entry."""
+
+    @staticmethod
+    def forward(x, dim, b, axis):
+        return _gather_rows(x, dim, b, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.b, ctx.axis = inputs[1], inputs[2], inputs[3]
+
+    @staticmethod
+    def backward(ctx, g):
+        return SplitRows.apply(g, ctx.dim, ctx.b, ctx.axis), None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, *_):
+        return GatherRows.apply(x_t, ctx.dim, ctx.b, ctx.axis)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, b, axis):
+        bdim = in_dims[0]
+        d = _shifted(dim, x.dim() - (bdim is not None), bdim)
+        out = GatherRows.apply(_bdim_front(x, bdim), d, b, axis)
+        return out, (None if bdim is None else 0)
+
+
+class SplitRows(torch.autograd.Function):
+    """A whole tensor's rows of this process (zero rows past ``b``):
+    this process's part forward; all-gather backward."""
+
+    @staticmethod
+    def forward(x, dim, b, axis):
+        return _own_rows(x, dim, b, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.b, ctx.axis = inputs[1], inputs[2], inputs[3]
+
+    @staticmethod
+    def backward(ctx, g):
+        return GatherRows.apply(g, ctx.dim, ctx.b, ctx.axis), None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, *_):
+        return SplitRows.apply(x_t, ctx.dim, ctx.b, ctx.axis)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, b, axis):
+        bdim = in_dims[0]
+        d = _shifted(dim, x.dim() - (bdim is not None), bdim)
+        out = SplitRows.apply(_bdim_front(x, bdim), d, b, axis)
+        return out, (None if bdim is None else 0)
+
+
+class ReduceScatterRows(torch.autograd.Function):
+    """Partial sums of a whole tensor summed over the axis, this
+    process's rows of the sum kept: reduce-scatter forward; all-gather of
+    the rows' cotangents backward (the complete cotangent of every
+    process's partial sum).  A row-split sublayer's exit."""
+
+    @staticmethod
+    def forward(x, dim, b, axis):
+        return _reduce_scatter_rows(x, dim, b, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.b, ctx.axis = inputs[1], inputs[2], inputs[3]
+
+    @staticmethod
+    def backward(ctx, g):
+        return GatherRows.apply(g, ctx.dim, ctx.b, ctx.axis), None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, *_):
+        return ReduceScatterRows.apply(x_t, ctx.dim, ctx.b, ctx.axis)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, b, axis):
+        bdim = in_dims[0]
+        d = _shifted(dim, x.dim() - (bdim is not None), bdim)
+        out = ReduceScatterRows.apply(_bdim_front(x, bdim), d, b, axis)
+        return out, (None if bdim is None else 0)
+
+
 class _ReduceConstant(torch.autograd.Function):
     """All-reduce by ``op`` (MAX, MIN) of a value with no derivative
     (the logsumexp's shift, the argmax)."""
@@ -290,6 +413,11 @@ class ModelAxis:
     coord: int
     placements: Dict[str, tuple] = dataclasses.field(default_factory=dict)
     serving: Optional["Serving"] = None      # set by :func:`serve_axis`
+    # the residual stream of a client held as this process's rows between
+    # sublayers (set_activation_spec; the module docstring)
+    act_rows: bool = False
+    _rows_b: Optional[int] = dataclasses.field(default=None, repr=False)
+    _left: bool = dataclasses.field(default=False, repr=False)
 
     # -- collectives (differentiable) -----------------------------------
     def copy(self, x):
@@ -306,6 +434,38 @@ class ModelAxis:
 
     def max(self, x):
         return _ReduceConstant.apply(x, dist.ReduceOp.MAX, self)
+
+    # -- the row split of the residual stream (act_rows) ------------------
+    def rows(self, x, b: int):
+        """This process's rows of the whole (b, ...) ``x``."""
+        return SplitRows.apply(x, 0, b, self)
+
+    def gather_rows(self, x, b: int):
+        """The whole (b, ...) tensor from every process's rows."""
+        return GatherRows.apply(x, 0, b, self)
+
+    def leave(self, x):
+        """A sublayer's partial output summed over the axis: all-reduced
+        (the replicated residual stream), or inside :meth:`row_sublayer`
+        reduce-scattered to this process's rows."""
+        if self._rows_b is None:
+            return self.reduce(x)
+        self._left = True
+        return ReduceScatterRows.apply(x, 0, self._rows_b, self)
+
+    def row_sublayer(self, x_rows, b: int, sublayer):
+        """``sublayer(x)`` of a row-split residual stream: its input
+        gathered whole (the entry), its output this process's rows (the
+        exit): reduce-scattered where the sublayer ends in :meth:`leave`,
+        else (an output computed whole) its rows taken."""
+        self._rows_b, self._left = b, False
+        try:
+            y = sublayer(self.gather_rows(x_rows, b))
+        finally:
+            self._rows_b = None
+        out = y if self._left else self.rows(y, b)
+        self._left = False
+        return out
 
     def min(self, x):
         return _ReduceConstant.apply(x, dist.ReduceOp.MIN, self)
@@ -402,15 +562,30 @@ def _axis_mesh(axis: ModelAxis) -> Mesh:
                 {"model": axis.group}, torch.device("cpu"))
 
 
+# JAX's ``set_activation_spec`` hint, a property of the launch: whether a
+# client's residual stream is split over the model axis (True: this
+# process's batch rows between sublayers) or replicated on it
+ACT_ROWS = False
+
+
+def set_activation_spec(on: bool) -> None:
+    """The model axis's activation placement for the axes
+    :func:`model_axis` builds from now on (the dry run's ``--act-spec``)."""
+    global ACT_ROWS
+    ACT_ROWS = bool(on)
+
+
 def model_axis(mesh: Optional[Mesh], params_shape) -> Optional[ModelAxis]:
     """The :class:`ModelAxis` of this process on ``mesh`` for parameters
     shaped as ``params_shape`` (a name -> tensor dict), or None without a
     model axis above 1.  The cohort strategy moves only the FSDP entries
-    of a placement, which the model axis drops."""
+    of a placement, which the model axis drops.  Its ``act_rows`` is the
+    :func:`set_activation_spec` hint's."""
     if model_size(mesh) <= 1:
         return None
     return ModelAxis(mesh.groups["model"], mesh.shape["model"],
-                     mesh.coords["model"], _placements(mesh, params_shape))
+                     mesh.coords["model"], _placements(mesh, params_shape),
+                     act_rows=ACT_ROWS)
 
 
 def _placements(mesh: Mesh, params_shape) -> Dict[str, Placement]:
@@ -542,6 +717,19 @@ class Serving:
         pl = simple_batch_shardings({"t": _Leaf((self.batch,))},
                                     self.mesh)["t"]
         return local_slices(pl, (self.batch,), self.mesh)[0]
+
+    def batch_split(self):
+        """(the process group the batch's rows split over, its size, this
+        process's coordinate on it), in row order; None where this
+        process holds the whole batch."""
+        pl = simple_batch_shardings({"t": _Leaf((self.batch,))},
+                                    self.mesh)["t"]
+        if pl[0] is None:
+            return None
+        rows = self.batch_rows()
+        local = rows.stop - rows.start
+        return (axis_group(self.mesh, pl[0]), self.batch // local,
+                rows.start // local)
 
     def placement(self, key: str, shape) -> Placement:
         """The placement of a cache leaf ``key`` (``k``, ``v``, ``ckv``,

@@ -15,7 +15,8 @@ every leaf a process slices to its part (``A_log``, ``D``, ``dt_bias``,
 dispatch form of ``forms``), the shards' shapes, and whether
 ``gather_params`` of the shards is the parameters bitwise.  Then
 ``ROUNDS`` chained sharded rounds of the trainer for each (name, chunk)
-of ``rounds``.
+of ``rounds``, or (name, chunk, act spec, client batch): the residual
+stream split over the model axis by rows (``"on"``) or replicated.
 """
 import os
 
@@ -31,9 +32,9 @@ DATA = dict(num_clients=8, examples=64, seq=SEQ, iid=False, seed=0)
 SLICED = ("mamba.A_log", "mamba.D", "mamba.dt_bias", "mlp.b_in")
 
 
-def run_rounds(name, p0, chunk, mesh=None):
-    """ROUNDS rounds of the trainer on ``name`` from ``p0``; returns
-    (state, history)."""
+def run_rounds(name, p0, chunk, mesh=None, batch=BATCH):
+    """ROUNDS rounds of the trainer on ``name`` from ``p0``, ``batch``
+    rows a client; returns (state, history)."""
     from repro_torch.configs import FedConfig, get_arch
     from repro_torch.core.trainer import FederatedTrainer
     from repro_torch.launch.train import build_synthetic_fed_data
@@ -42,8 +43,8 @@ def run_rounds(name, p0, chunk, mesh=None):
                           FedConfig(**FED, cohort_chunk=chunk),
                           device="cpu", params=p0, mesh=mesh)
     hist = tt.run(build_synthetic_fed_data(get_arch(name), **DATA),
-                  rounds=ROUNDS, cohort=COHORT, batch=BATCH,
-                  meta_batch=2 * BATCH)
+                  rounds=ROUNDS, cohort=COHORT, batch=batch,
+                  meta_batch=2 * batch)
     return tt.state, hist
 
 
@@ -120,9 +121,18 @@ def main(rank: int, world: int, model_size: int, port: int,
     res = {"mesh": (dict(mesh.shape), dict(mesh.coords))}
     for arch in inputs["archs"]:
         res[arch["name"]] = model(arch, mesh)
-    for name, chunk in inputs.get("rounds", []):
-        res[f"rounds:{name}:{chunk}"] = run_rounds(
-            name, inputs["p0"][name], chunk, mesh)
+    from repro_torch.sharding.tensor_parallel import set_activation_spec
+    for name, chunk, *opt in inputs.get("rounds", []):
+        # opt: (act spec "on" / "off", client batch), or none: off, BATCH
+        act, batch = opt or ("off", BATCH)
+        set_activation_spec(act == "on")
+        key = f"rounds:{name}:{chunk}" + ("" if not opt else
+                                          f":{act}:{batch}")
+        try:
+            res[key] = run_rounds(name, inputs["p0"][name], chunk, mesh,
+                                  batch)
+        finally:
+            set_activation_spec(False)
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()

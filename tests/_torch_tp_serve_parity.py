@@ -30,11 +30,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def request(name, seed, *, batch, prompt, cache_len, steps, window=0):
+def request(name, seed, *, batch, prompt, cache_len, steps, window=0,
+            change=None):
     """JAX's parameters (bridged) and a request made with numpy from
     ``seed``: prompts (``batch``, ``prompt``) and, for an encoder config,
-    ``enc_embeds``."""
+    ``enc_embeds``.  ``change(cfg)`` returns the config to serve in place
+    of the named one (applied to JAX's and to the port's)."""
     cfg = jax_get_arch(name)
+    port_cfg = get_arch(name)
+    if change is not None:
+        cfg, port_cfg = change(cfg), change(port_cfg)
     jm = jax_build_model(cfg, dtype=jnp.float32, decode_window=window)
     jp = jax.jit(jm.init)(jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
@@ -47,7 +52,7 @@ def request(name, seed, *, batch, prompt, cache_len, steps, window=0):
     tb["tokens"] = tb["tokens"].long()
     return dict(name=name, jm=jm, jp=jp, jb=b, batch=tb, window=window,
                 p0=jax_params_to_torch(jp), cache_len=cache_len,
-                steps=steps)
+                steps=steps, cfg=port_cfg)
 
 
 def jax_serve(req):
@@ -75,7 +80,7 @@ def jax_serve(req):
 def port_serve(req, feed):
     """The port's world of one (no mesh) fed ``feed``: prefill logits,
     cache, each step's logits."""
-    m = build_model(get_arch(req["name"]), decode_window=req["window"])
+    m = build_model(req["cfg"], decode_window=req["window"])
     logits, cache = m.prefill(req["p0"], req["batch"], req["cache_len"])
     out = {"prefill": logits, "cache": W._copy(cache), "steps": []}
     for i in range(req["steps"]):
@@ -87,7 +92,8 @@ def port_serve(req, feed):
 
 
 def serve_job(tag, req, feed=None):
-    return dict(kind="serve", tag=tag, name=req["name"], p0=req["p0"],
+    return dict(kind="serve", tag=tag, name=req["name"], cfg=req["cfg"],
+                p0=req["p0"],
                 batch=req["batch"], cache_len=req["cache_len"],
                 steps=req["steps"], window=req["window"],
                 feed=None if feed is None else torch.from_numpy(

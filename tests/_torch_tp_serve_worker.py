@@ -9,9 +9,14 @@ job's world, one request: this rank's shards of the parameters
 (:func:`repro_torch.sharding.tensor_parallel.serve_axis`), its rows of
 the batch, ``model.prefill`` into a cache of ``cache_len``, then
 ``steps`` decode steps fed ``feed`` (the teacher's tokens, one column a
-step) or, without it, the greedy tokens.  It records the prefill's
+step) or, without it, the greedy tokens; ``cfg`` (a config in place of
+the named one's) is optional.  It records the prefill's
 logits, this rank's cache after the prefill and after the last step,
 every step's logits and the tokens it fed.
+
+A MoE job (``kind`` "moe") runs one MoE FFN on this rank's rows of a
+batch under the serving axis of the whole batch, and records its
+tokens' routing, the output and the aux loss.
 
 A partials job (``kind`` "partials") holds the sequence-split decode of
 ``models/attention.py`` on the model axis: q against this rank's half of
@@ -27,7 +32,7 @@ def _serve(job, mesh):
     from repro_torch.configs import get_arch
     from repro_torch.models.model import build_model
     from repro_torch.sharding.tensor_parallel import serve_axis
-    cfg = get_arch(job["name"])
+    cfg = job.get("cfg") or get_arch(job["name"])
     model = build_model(cfg, decode_window=job.get("window", 0))
     p0, batch = job["p0"], job["batch"]
     B = batch["tokens"].shape[0]
@@ -59,6 +64,33 @@ def _copy(tree):
     return tree.clone()
 
 
+def _moe(job, mesh):
+    """One MoE FFN on this rank's rows of ``x`` (B, S, d) under a serving
+    axis of the whole batch: the routing of its tokens (experts and the
+    kept mask, (T, K) in token order), the output and the aux loss of
+    both dispatch forms."""
+    from repro_torch.models import moe as M
+    from repro_torch.sharding.tensor_parallel import serve_axis
+    cfg, p, x = job["cfg"], job["p"], job["x"]
+    tp = serve_axis(mesh, {}, batch=x.shape[0], cache_len=x.shape[1])
+    rows = tp.serving.batch_rows()
+    xr = x[rows]
+    xg, T, sp = M._group_batch(xr, cfg, tp)
+    route = M._experts(xg, p, cfg, tp, sp)[0]
+    lo = 0 if sp is None else sp.lo
+    own = lambda t: t.reshape(-1, cfg.top_k)[lo:lo + T]
+    out = {"rows": (rows.start, rows.stop), "expert_idx": own(route[1]),
+           "keep": own(route[3])}
+    prev = M.MOE_IMPL
+    try:
+        for impl in ("gather", "einsum"):
+            M.set_moe_impl(impl)
+            out[impl] = M.moe_ffn(xr, p, cfg, tp)
+    finally:
+        M.set_moe_impl(prev)
+    return out
+
+
 def _partials(job, mesh):
     from repro_torch.sharding.longctx import sharded_flash_decode
     from repro_torch.sharding.specs import cache_shardings
@@ -86,7 +118,7 @@ def main(rank: int, world: int, port: int, out: str) -> None:
     mesh = make_debug_mesh(data, model, device="cpu")
     res = {"coords": dict(mesh.coords)}
     for job in inputs["jobs"]:
-        fn = _serve if job["kind"] == "serve" else _partials
+        fn = {"serve": _serve, "moe": _moe}.get(job["kind"], _partials)
         res[job["tag"]] = fn(job, mesh)
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     dist.barrier()

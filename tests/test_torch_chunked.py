@@ -24,7 +24,7 @@ accumulation order is exact, so:
     weight-gradient product under vmap is ``torch.bmm``, whose kernel at
     a reduction length of 4 (a local step's microbatch of 4 rows) gives
     other last bits than the unbatched ``torch.mm`` (ROADMAP Queue 3 item
-    4; ``test_vmap_width_changes_only_bmm_bits`` pins the op); the
+    6; ``test_vmap_width_changes_only_bmm_bits`` pins the op); the
     hypergradient metrics amplify that (``ctrl_lr_grad`` 1.7e-6 apart);
   * chunk = cohort against the vmap executor 1e-5, as the JAX suite holds
     it (the aggregate kernel sums in another order).

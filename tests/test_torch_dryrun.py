@@ -73,14 +73,16 @@ def test_moe_impl_selector_matches_jax(impl):
         TM.set_moe_impl("dense")
 
 
+# a train pair at bf16 runs each server pass once for each of its two flat
+# dtype groups (the bf16 leaves, the fp32 norms and router)
 @pytest.mark.parametrize("arch,shape,want", [
-    ("smollm-360m-smoke", "train_4k", {"aggregate_pass": 1,
-                                       "update_pass": 1}),
+    ("smollm-360m-smoke", "train_4k", {"aggregate_pass": 2,
+                                       "update_pass": 2}),
     ("smollm-360m-smoke", "prefill_32k", {"flash_attention_fwd": 2}),
     ("mamba2-780m-smoke", "prefill_32k", {"ssd_scan_fwd": 2}),
     # MoE routing in a traced round: no host read (moe.py::_one_hot)
-    ("llama4-scout-17b-a16e-smoke", "train_4k", {"aggregate_pass": 1,
-                                                 "update_pass": 1}),
+    ("llama4-scout-17b-a16e-smoke", "train_4k", {"aggregate_pass": 2,
+                                                 "update_pass": 2}),
     ("smollm-360m-smoke", "decode_32k", {}),
     ("deepseek-v2-lite-16b-smoke", "decode_32k", {}),
 ])
@@ -119,7 +121,9 @@ def test_cli_full_width_decode_record(tmp_path):
     assert rec["roofline"]["bottleneck"] in ("compute", "memory",
                                              "collective")
     # the 32k cache of 128 sequences: 32 layers x 2 x (128, 32768, 5, 64)
-    cache = 32 * 2 * 128 * 32768 * 5 * 64 * 4
+    # at bf16, the config's dtype
+    cache = 32 * 2 * 128 * 32768 * 5 * 64 * 2
+    assert rec["dtype"] == "bfloat16"
     assert rec["memory"]["argument_size_in_bytes"] > cache
     assert rec["fits"] is False and rec["chips"] == 1
 
@@ -130,24 +134,30 @@ def test_two_card_mesh_counts_collectives():
     assert rec["chips"] == 2 and rec["cohort"] == 2
     assert rec["hlo_cost"]["collective_bytes"] > 0
     assert rec["collectives"]["_counts"]["allreduce_"] >= 1
-    assert rec["launches"] == {"accumulate_pass": 1, "update_pass": 1}
+    # each pass once for each of the two flat dtype groups at bf16
+    assert rec["launches"] == {"accumulate_pass": 2, "update_pass": 2}
     assert not torch.distributed.is_initialized()
 
 
 def test_model_axis_raises_naming_item_7b(tmp_path):
     """The dry run of a model axis traces rank 0 of the mesh (the round's
     client update on its shards, the model axis's collectives counted);
-    what still refuses there, JAX's activation-sharding hint, names item
-    7d, from run_one and from the CLI."""
+    JAX's activation-sharding hint is on by default (the residual stream
+    split over model by batch rows); what still refuses there, the
+    experts over another axis than model, names item 7d, from run_one and
+    from the CLI."""
     rec = run_one("smollm-360m-smoke", "train_4k", mesh="1x2",
                   verbose=False)
     assert rec["chips"] == 2 and rec["mesh"] == "1x2"
-    assert rec["launches"] == {"accumulate_pass": 1, "update_pass": 1}
+    # each pass once for each of the two flat dtype groups at bf16
+    assert rec["launches"] == {"accumulate_pass": 2, "update_pass": 2}
     assert rec["collectives"]["_counts"]["allgather_"] >= 1
+    assert rec["act_spec"] == "on"
+    assert "split over model" in rec["placement"]["activations"]
     assert not torch.distributed.is_initialized()
-    with pytest.raises(NotImplementedError, match="item 7d"):
+    with pytest.raises(ValueError, match="item 7d"):
         run_one("smollm-360m-smoke", "train_4k", mesh="1x2",
-                act_spec="on", verbose=False)
+                expert_axis="data", verbose=False)
     p = _cli(tmp_path, "--arch", "smollm-360m", "--shape", "train_4k",
-             "--mesh", "1x2", "--act-spec", "on")
+             "--mesh", "1x2", "--expert-axis", "data")
     assert p.returncode != 0 and "item 7d" in p.stderr

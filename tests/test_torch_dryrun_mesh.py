@@ -13,8 +13,9 @@ parameter shards, rows of the batch and part of the cache.
   * the train shape on the production meshes: the sharded executor's
     cohort over the batch axes, (pod, data) on the multi-pod mesh;
   * ``--multi-pod``, ``--both-meshes`` and ``--expert-axis model`` parse;
-    ``--act-spec on`` and ``--expert-axis data`` raise, naming their
-    reasons.
+    ``--act-spec on`` (the default) records a serving pair's stream
+    whole; ``--expert-axis data`` and an ``--act-spec`` other than on or
+    off raise, naming their reasons.
 """
 import json
 import math
@@ -27,7 +28,8 @@ import torch
 
 import _torch_parity  # noqa: F401  (one torch thread)
 from repro_torch.configs import get_arch, get_shape
-from repro_torch.launch.dryrun import main, parse_mesh, run_one
+from repro_torch.launch.dryrun import (main, param_dtypes, parse_mesh,
+                                       run_one)
 from repro_torch.models import transformer as TT
 from repro_torch.sharding.specs import (Mesh, cache_shardings, local_slices,
                                         model_axis_placement, param_spec,
@@ -53,23 +55,28 @@ def _rank0(sizes):
                 torch.device("cpu"))
 
 
-def _nbytes(placement, shape, mesh):
-    return 4 * math.prod(s.stop - s.start for s in local_slices(
+def _nbytes(placement, shape, mesh, itemsize):
+    return itemsize * math.prod(s.stop - s.start for s in local_slices(
         placement, shape, mesh))
 
 
 def _expected_arguments(arch, shape_name, sizes):
-    """Rank 0's parameter shards, tokens and cache part, in bytes."""
+    """Rank 0's parameter shards, tokens and cache part, in bytes, in the
+    config's dtype (bf16; the norms fp32)."""
     cfg, shape = get_arch(arch), get_shape(shape_name)
     mesh = _rank0(sizes)
     params = dict(TT.Transformer(cfg).named_parameters())
+    size = {k: torch.empty((), dtype=d).element_size()
+            for k, d in param_dtypes(cfg).items()}
     p = sum(_nbytes(model_axis_placement(param_spec(path, tuple(
-        leaf.shape), mesh)), tuple(leaf.shape), mesh)
+        leaf.shape), mesh)), tuple(leaf.shape), mesh,
+        size[path.replace("/", ".")])
         for path, leaf in tree_paths(params))
     cache = TT.make_cache(cfg, shape.global_batch, shape.seq_len,
-                          device="meta")
+                          torch.bfloat16, device="meta")
     pl = cache_shardings(cache, mesh)
-    c = sum(_nbytes(pl["layers"][j][k], tuple(t.shape), mesh)
+    c = sum(_nbytes(pl["layers"][j][k], tuple(t.shape), mesh,
+                    t.element_size())
             for j, e in enumerate(cache["layers"]) for k, t in e.items())
     b = shape.global_batch // math.prod(sizes[:-1])
     return p, c, 8 * b + 4                  # int64 tokens, the int32 index
@@ -89,9 +96,10 @@ def test_decode_32k_on_a_production_mesh(tmp_path, flag, tag, sizes):
     assert rec["mesh"] == tag and rec["chips"] == math.prod(sizes)
     params, cache, rest = _expected_arguments("smollm-360m", "decode_32k",
                                               sizes)
-    # 32 layers x k, v of (128 / batch axes, 32768 / 16, 5, 64) fp32
+    # 32 layers x k, v of (128 / batch axes, 32768 / 16, 5, 64) bf16
     assert cache == 32 * 2 * (128 // math.prod(sizes[:-1])) * 2048 * 5 \
-        * 64 * 4
+        * 64 * 2
+    assert rec["dtype"] == "bfloat16"
     assert rec["memory"]["argument_size_in_bytes"] == params + cache + rest
     assert rec["launches"] == {} and rec["fits"] is True
     assert rec["collectives"]["_counts"]["allgather_"] >= 32
@@ -122,13 +130,15 @@ def test_smoke_prefill_charges_the_kernels_at_the_rank_heads(
 
 def test_train_on_the_production_meshes():
     """The round's cohort over the batch axes: 16 clients on (16, 16), 32
-    on (2, 16, 16), rank 0 running one of them through its shards (one
-    accumulate pass, one update pass on its rows)."""
+    on (2, 16, 16), rank 0 running one of them through its shards (an
+    accumulate pass and an update pass on its rows for each flat dtype
+    group)."""
     for mesh, cohort in (("16x16", 16), ("2x16x16", 32)):
         rec = run_one("smollm-360m-smoke", "train_4k", mesh=mesh,
                       verbose=False)
         assert rec["cohort"] == cohort and rec["chips"] == cohort * 16
-        assert rec["launches"] == {"accumulate_pass": 1, "update_pass": 1}
+        # each pass once for each of the two flat dtype groups at bf16
+        assert rec["launches"] == {"accumulate_pass": 2, "update_pass": 2}
         assert rec["collectives"]["_counts"]["allgather_"] >= 1
         assert not torch.distributed.is_initialized()
 
@@ -153,13 +163,17 @@ def test_the_mesh_flags_parse(tmp_path):
 
 
 def test_what_still_refuses_names_its_reason():
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        run_one("smollm-360m-smoke", "decode_32k", mesh="16x16",
-                act_spec="on", verbose=False)
-    with pytest.raises(ValueError, match="model axis only"):
+    rec = run_one("smollm-360m-smoke", "decode_32k", mesh="16x16",
+                  act_spec="on", verbose=False)
+    assert rec["act_spec"] == "on"
+    assert rec["placement"]["activations"].startswith("replicated")
+    with pytest.raises(ValueError, match="model axis only.*item 7d"):
         run_one("deepseek-v2-lite-16b-smoke", "decode_32k", mesh="16x16",
                 expert_axis="data", verbose=False)
-    with pytest.raises(NotImplementedError, match="item 7d"):
+    with pytest.raises(ValueError, match="on or off"):
+        run_one("smollm-360m-smoke", "decode_32k", mesh="16x16",
+                act_spec="rows", verbose=False)
+    with pytest.raises(ValueError, match="item 7d"):
         main(["--arch", "smollm-360m-smoke", "--shape", "decode_32k",
-              "--mesh", "16x16", "--act-spec", "on"])
+              "--mesh", "16x16", "--expert-axis", "data"])
     assert not torch.distributed.is_initialized()

@@ -629,3 +629,100 @@ def test_all_failed_round_launches_no_update_pass(cuda_device):
             for k, v in before.items():
                 assert np.array_equal(new["params"][k].cpu().numpy().view(
                     np.uint32), v.cpu().numpy().view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forms of both prefill kernels against their plain versions at
+# bf16, max |a-b| over max |b| <= 1e-2: both compute in fp32 from the same
+# bf16 inputs and round their outputs to bf16 (a step is 2^-8 of a value);
+# flash also rounds its exponentials to bf16, the kernel relative to each
+# key tile's running max and the plain version to the row's max.  JAX's
+# own bf16 kernel tests hold 3e-2 (flash) and 6e-2 / 3e-2 (SSD).
+# ---------------------------------------------------------------------------
+BF16_TOL = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dk,Dv", FK.FORMS)
+@pytest.mark.parametrize("S,causal,window,G", [
+    (1, True, 0, 1), (63, False, 0, 3), (128, True, 0, 3),
+    (1000, True, 256, 1), (1025, False, 256, 3), (1025, True, 0, 1)])
+def test_flash_attention_bf16_kernel_matches_plain(cuda_device, Dk, Dv, S,
+                                                   causal, window, G):
+    gen = torch.Generator(device=cuda_device).manual_seed(S + Dk + G)
+    q = torch.randn((2 * 2 * G, S, Dk), generator=gen, device=cuda_device)
+    k = torch.randn((2 * 2, S, Dk), generator=gen, device=cuda_device)
+    v = torch.randn((2 * 2, S, Dv), generator=gen, device=cuda_device)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    n0 = FK.flash_attention_fwd.launches
+    out = FK.flash_attention_fwd(q[None], k[None], v[None], causal=causal,
+                                 window=window)[0]
+    ref = FR.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_fwd.launches == n0 + 1
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert rel_err(out.float(), ref.float()) <= BF16_TOL
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_kernel_on_prefill_views(cuda_device):
+    """smollm-360m's prefill at bf16 on the model's (B, S, H, D) views,
+    and non-causal queries against 1500 encoder keys (whisper's cross)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    for (H, Hkv, Sq, Skv, causal) in ((15, 5, 1024, 1024, True),
+                                      (20, 20, 416, 1500, False)):
+        q = torch.randn((8, Sq, H, 64), generator=gen, device=cuda_device)
+        k, v = torch.randn((2, 8, Skv, Hkv, 64), generator=gen,
+                           device=cuda_device)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        out = flash_attention(q, k, v, causal=causal)
+        fold = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1], 64)
+        ref = FR.attention_ref(fold(q), fold(k), fold(v), causal=causal)
+        torch.cuda.synchronize()
+        assert out.shape == (8, Sq, H, 64) and out.is_contiguous()
+        assert rel_err(fold(out).float(), ref.float()) <= BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["init", "slow"])
+@pytest.mark.parametrize("S,chunk,G,N,P", [
+    (128, 256, 2, 128, 64), (1000, 64, 1, 128, 64), (1025, 256, 2, 64, 128),
+    (100, 32, 1, 16, 64)])
+def test_ssd_scan_bf16_kernel_matches_plain(cuda_device, S, chunk, G, N, P,
+                                            regime):
+    import torch.nn.functional as F
+    gen = torch.Generator(device=cuda_device).manual_seed(S + N + P)
+    B, H = 2, 4
+    x = torch.randn((B, S, H, P), generator=gen, device=cuda_device)
+    dt = F.softplus(torch.randn((B, S, H), generator=gen,
+                                device=cuda_device))
+    if regime == "init":
+        A = -torch.linspace(1.0, 16.0, H, device=cuda_device)
+    else:
+        A = -torch.exp(0.3 * torch.randn(H, generator=gen,
+                                         device=cuda_device))
+        dt = dt * 0.01
+    Bm, Cm = torch.randn((2, B, S, G, N), generator=gen, device=cuda_device)
+    x, Bm, Cm = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+    n0 = SK.ssd_scan_fwd.launches
+    y, h = SK.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    ry, rh = SR.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert SK.ssd_scan_fwd.launches == n0 + 1
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert rel_err(y.float(), ry.float()) <= BF16_TOL
+    assert rel_err(h, rh) <= BF16_TOL
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_mixed_dtypes(cuda_device):
+    bf = dict(dtype=torch.bfloat16, device=cuda_device)
+    q = torch.randn((1, 2, 8, 64), **bf)
+    with pytest.raises(TypeError, match="row 11"):
+        FK.flash_attention_fwd(q, q.float(), q)
+    x, Bm = torch.randn((1, 8, 2, 64), **bf), torch.randn((1, 8, 1, 16), **bf)
+    dt = torch.rand((1, 8, 2), device=cuda_device)
+    A = -torch.ones(2, device=cuda_device)
+    with pytest.raises(TypeError, match="row 12"):
+        SK.ssd_scan_fwd(x, dt, A, Bm.float(), Bm, chunk=4)

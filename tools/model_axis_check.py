@@ -13,10 +13,12 @@ Run on one card from the repo's root::
 
     python3 tools/model_axis_check.py [--arch A --layers N] [--cohort C]
         [--chunk K] [--lr LR]
-        [--mode {post,through_aggregation,int8,sign1bit,topk,legacy_tree}
-         [--error-feedback]]
+        [--mode {post,post+rows,through_aggregation,int8,sign1bit,topk,
+                 legacy_tree} [--error-feedback]]
 
-With no arguments it runs every run of ``chip_smoke.MODEL_AXIS_RUNS``.
+With no arguments it runs every run of ``chip_smoke.MODEL_AXIS_RUNS``
+(``post+rows``: the residual stream split over the axis by batch rows,
+each rank's peak printed beside the replicated run's).
 ``--arch A --layers N`` or ``--mode M`` runs one: architecture A at full
 width cut to N layers (by default 6z's smollm-360m at 2 layers) in mode M
 (by default post; ``--error-feedback`` with a codec), cohort 4 in chunks
@@ -37,8 +39,8 @@ sys.path.insert(0, ROOT)
 # as chip_smoke.py sets it, before torch first touches the card
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-MODES = ("post", "through_aggregation", "int8", "sign1bit", "topk",
-         "legacy_tree")
+MODES = ("post", "post+rows", "through_aggregation", "int8", "sign1bit",
+         "topk", "legacy_tree")
 
 
 def main() -> int:

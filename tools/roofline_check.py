@@ -10,7 +10,8 @@ table: per pair the per-device FLOPs, bytes, peak (arguments + temp),
 bottleneck and ``fits``, and the failures by cause.  ``--sweep-only DIR``
 runs the sweep alone; ``--table DIR`` prints the table of the records a
 sweep (or single ``dryrun`` runs) left in DIR, with the pairs of
-``configs.matrix()`` that have none, on any host.  With
+``configs.matrix()`` that have none, on any host (``--against DIR0``:
+each record's temp a device beside the same pair's in DIR0).  With
 ``--shortcut-check`` the sweep gives one core to a whole trace of
 llama4-scout-17b-a16e x train_4k (``--no-extrapolate``, into
 ``DIR/whole``) and holds the sweep's record of that pair, made by the
@@ -18,7 +19,8 @@ scan cohort's shortcut (cohorts 1 and 2), to it: FLOPs, bytes and op
 counts to 1e-9 relative, launches and every memory size exactly.
 
     python3 tools/roofline_check.py [--sweep DIR | --sweep-only DIR |
-                                     --table DIR] [--shortcut-check]
+                                     --table DIR [--against DIR0]]
+                                    [--shortcut-check]
 
 About 3-5 minutes on one H100 without the sweep; exits non-zero without a
 card.
@@ -120,14 +122,18 @@ def check_shortcut(cs, out_dir: str) -> int:
     return 1 if bad else 0
 
 
-def table(out_dir: str) -> None:
+def table(out_dir: str, against: str = None) -> None:
     """The records in ``out_dir`` as a markdown table, then the pairs of
-    the matrix without one."""
+    the matrix without one.  ``against``: a directory of earlier records
+    of the same pairs and meshes, whose temp a device each row shows
+    beside its own (and the change)."""
     sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
     from repro_torch.configs import matrix
-    print("| arch | shape | FLOP/dev | bytes/dev | args + temp GiB | "
-          "bottleneck | fits | trace s | launches | traced |")
-    print("|---|---|---|---|---|---|---|---|---|---|")
+    extra = " temp GiB | against | change |" if against else ""
+    print("| arch | shape | mesh | dtype | FLOP/dev | bytes/dev | args + "
+          "temp GiB | bottleneck | fits | trace s | launches | traced |"
+          + extra)
+    print("|---" * (12 + 3 * bool(against)) + "|")
     seen = set()
     for path in sorted(glob.glob(os.path.join(out_dir, "*.json"))):
         with open(path) as f:
@@ -135,12 +141,23 @@ def table(out_dir: str) -> None:
         seen.add((r["arch"], r["shape"]))
         m = r["memory"]
         peak = (m["argument_size_in_bytes"] + m["temp_size_in_bytes"]) / 2**30
-        print(f"| {r['arch']} | {r['shape']} | {r['cost']['flops']:.4e} | "
-              f"{r['cost']['bytes accessed']:.4e} | {peak:.2f} | "
-              f"{r['roofline']['bottleneck']} | {r['fits']} | "
-              f"{r['trace_s']} | {r['launches']} | "
-              f"{'cohorts 1, 2' if r.get('extrapolated') else 'whole'} |",
-              flush=True)
+        row = (f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+               f"{r.get('dtype', 'float32')} | {r['cost']['flops']:.4e} | "
+               f"{r['cost']['bytes accessed']:.4e} | {peak:.2f} | "
+               f"{r['roofline']['bottleneck']} | {r['fits']} | "
+               f"{r['trace_s']} | {r['launches']} | "
+               f"{'cohorts 1, 2' if r.get('extrapolated') else 'whole'} |")
+        if against:
+            temp = m["temp_size_in_bytes"] / 2**30
+            other = os.path.join(against, os.path.basename(path))
+            if os.path.exists(other):
+                with open(other) as f:
+                    t0 = json.load(f)["memory"]["temp_size_in_bytes"] / 2**30
+                row += (f" {temp:.2f} | {t0:.2f} | "
+                        f"{100 * (temp / t0 - 1) if t0 else 0:+.1f}% |")
+            else:
+                row += f" {temp:.2f} | none | |"
+        print(row, flush=True)
     missing = [p for p in matrix() if p not in seen]
     print(f"{len(seen)} pairs recorded; without a record: {missing}",
           flush=True)
@@ -148,7 +165,9 @@ def table(out_dir: str) -> None:
 
 def main() -> int:
     if "--table" in sys.argv:
-        table(sys.argv[sys.argv.index("--table") + 1])
+        table(sys.argv[sys.argv.index("--table") + 1],
+              sys.argv[sys.argv.index("--against") + 1]
+              if "--against" in sys.argv else None)
         return 0
     import torch
     if not torch.cuda.is_available():
